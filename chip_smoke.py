@@ -8,15 +8,29 @@ Phases, each printing its lines before the last line:
 1. Device: the card's name and power limit, as nvidia-smi reports them.
 2. Build: compile ``nans_clip_tpu_torch/csrc/*.cu`` for sm_90a.
 3. Kernels: each ported kernel and each hand kernel against its plain-torch
-   twin in bf16 at the main path's shapes (ViT-B/16 S=197 and RoBERTa-base
+   twin in bf16 at the batch path's shapes (ViT-B/16 S=197 and RoBERTa-base
    S=52, W=768, 12 heads, batch 256): max abs error against its bound, and
-   CUDA-event times of kernel and twin.
-4. Slice: ViT-B-16@RoBERTa-wwm-ext-base-chinese at full depth and width,
-   random init from a seeded generator, saved as a reference-layout .pt and
-   reloaded through ``load_from_name``; ``get_similarity`` on 256 image/text
-   pairs in bf16, with launch counts showing that all 12 layers of each
-   tower ran through the kernels, checked against the same model on the
-   plain-torch path, and against an fp32 plain run on a small input.
+   CUDA-event times of kernel, twin and, where one PyTorch call computes the
+   same function, that call (a yardstick only: the port never calls it),
+   beside the least time the card could take (its bound).
+4. Tower kernels: the whole-tower kernel, bf16 and int8, in the text form
+   (S=52, masked, post-LN) and the image form (S=197, pre-LN), 12 layers,
+   W=768, batch 1, 8 and 32, against its twin, with its time, the twin's, its
+   bound and the per-layer route's time at the same batch (the evidence of
+   ``ops/gates.py::TOWER_MAX_BATCH``).
+5. Batch path: ViT-B-16@RoBERTa-wwm-ext-base-chinese at full depth and
+   width, random init from a seeded generator, saved as a reference-layout
+   .pt and reloaded through ``load_from_name``; ``get_similarity`` on 256
+   image/text pairs in bf16, with launch counts showing that all 12 layers
+   of each tower ran through the per-layer kernels, checked against the same
+   model on the plain-torch path, and against an fp32 plain run.
+6. Serving path: the same checkpoint through ``load_from_name`` with the
+   default device, then ``CLIPModel.quantize("int8", towers=("text",))``;
+   batch-1 ``encode_text`` and ``encode_image`` on both, with launch counts
+   showing one tower launch and no per-layer launch each (int8 for the
+   quantized text tower); ``speed_benchmark``'s latency at batch 1, 8 and 32
+   for both towers in bf16 and int8-text; and the HTTP daemon on 127.0.0.1
+   answering 8 concurrent one-text ``/encode_text`` requests.
 
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
@@ -26,16 +40,23 @@ not 0 and no result is printed. Needs CUDA; imports no JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 256
 TEXTS = ["杰尼龟", "妙蛙种子", "小火龙", "皮卡丘", "西湖美景，三月天", "一只可爱的小猫在草地上玩耍"]
+VISION, TEXT = "ViT-B-16", "RoBERTa-wwm-ext-base-chinese"
+# H100 SXM data sheet: HBM bandwidth and dense bf16 tensor-core peak
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 
 
 def _nvidia_smi() -> str:
@@ -62,14 +83,29 @@ def _ulps(ref, n: int) -> float:
     """n bf16 ulps at the largest magnitude of ``ref``: bf16 keeps 8
     significant bits, so one rounding flip anywhere in a chain moves an
     output by about one ulp of its magnitude."""
-    import math
-
     top = float(ref.float().abs().max())
     return n * 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
+def _bound(nbytes: float, flops: float):
+    """(ms, what bounds it): the larger of the bytes over the HBM rate and
+    the operations over the bf16 tensor-core peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _layer_cost(b, s, w, inter, weight_bytes=2.0):
+    """Bytes of one layer's weights (and vectors), and its operations: the
+    four products and attention's two."""
+    nbytes = (4 * w * w + 2 * w * inter) * weight_bytes + (9 * w + inter) * 2
+    flops = 2 * b * s * (4 * w * w + 2 * w * inter) + 4 * b * s * s * w
+    return nbytes, flops
+
+
 def phase_kernels(torch, dev):
-    """Every kernel against its twin, bf16, at the slice's shapes."""
+    """Every kernel of the batch path against its twin, bf16, at its shapes."""
+    import torch.nn.functional as F
+
     from nans_clip_tpu_torch.ops import fused_block as fb
     from nans_clip_tpu_torch.ops import layer_kernel as lk
     from nans_clip_tpu_torch.ops.attention import attention, attention_plain
@@ -108,38 +144,60 @@ def phase_kernels(torch, dev):
     qkv = linear(row_layer_norm(xi2, pi["ln1_w"], pi["ln1_b"], 1e-5), pi["w_qkv"], pi["b_qkv"])
     qkv_t = linear(xt.reshape(-1, w), pt["w_qkv"], pt["b_qkv"])
 
-    # (entry name, kernel call, twin call, bf16-ulp bound, JSON fields or None)
+    def sdpa(q3, bias, s):
+        """F.scaled_dot_product_attention on the packed buffer's heads, with
+        the same additive key bias."""
+        q, k, v = q3.view(BATCH, s, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+        mask = None if bias is None else bias.view(BATCH, 1, 1, s).to(bf)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    mi, mt = BATCH * 197, BATCH * 52
+    attn_cost = lambda m, s: (m * 4 * w * 2 + 4 * w * w * 2, 2 * m * 4 * w * w + 4 * m * s * w)
+    mlp_cost = lambda m: (m * 2 * w * 2 + 2 * w * inter * 2, 4 * m * w * inter)
+    # (entry name, kernel call, twin call, bf16-ulp bound, JSON fields or None,
+    #  library call or None, (bytes, operations))
     cases = [
         ("fused_attention_block", lambda: fb.fused_attention_block(xi, *attn_args(pi), heads),
          lambda: fb._reference_block(xi, *attn_args(pi), heads, 1e-5), 4,
-         ("nans_clip_tpu_torch/ops/fused_block.py", "nans_clip_tpu/ops/fused_block.py:103")),
+         ("nans_clip_tpu_torch/ops/fused_block.py", "nans_clip_tpu/ops/fused_block.py:103"),
+         None, attn_cost(mi, 197)),
         ("fused_bert_attention_block",
          lambda: fb.fused_bert_attention_block(xt, *attn_args(pt), kb, heads),
-         lambda: fb._reference_block(xt, *attn_args(pt), heads, 1e-12, kb, True), 4, None),
+         lambda: fb._reference_block(xt, *attn_args(pt), heads, 1e-12, kb, True), 4, None,
+         None, attn_cost(mt, 52)),
         ("fused_mlp_block", lambda: fb.fused_mlp_block(xi, *mlp_args(pi)),
          lambda: fb._reference_mlp(xi, *mlp_args(pi), "quick_gelu", 1e-5, False), 4,
-         ("nans_clip_tpu_torch/ops/fused_block.py", "nans_clip_tpu/ops/fused_block.py:797")),
+         ("nans_clip_tpu_torch/ops/fused_block.py", "nans_clip_tpu/ops/fused_block.py:797"),
+         None, mlp_cost(mi)),
         ("fused_mlp_block[post-LN, S=52]",
          lambda: fb.fused_mlp_block(xt, *mlp_args(pt), "gelu", 1e-12, True),
-         lambda: fb._reference_mlp(xt, *mlp_args(pt), "gelu", 1e-12, True), 4, None),
+         lambda: fb._reference_mlp(xt, *mlp_args(pt), "gelu", 1e-12, True), 4, None,
+         None, mlp_cost(mt)),
         ("fused_layer_block",
          lambda: lk.fused_layer_block(xt, *layer_args(pt), heads, 1e-12, "gelu", True, kb),
          lambda: lk.encoder_layer_math(xt, *layer_args(pt), heads, 1e-12, "gelu", True, kb), 4,
-         ("nans_clip_tpu_torch/ops/layer_kernel.py", "nans_clip_tpu/ops/layer_kernel.py:116")),
+         ("nans_clip_tpu_torch/ops/layer_kernel.py", "nans_clip_tpu/ops/layer_kernel.py:116"),
+         None, tuple(a + b for a, b in zip(attn_cost(mt, 52), mlp_cost(mt)))),
         ("layernorm", lambda: row_layer_norm(xi2, pi["ln1_w"], pi["ln1_b"], 1e-5),
          lambda: layer_norm(xi2, pi["ln1_w"], pi["ln1_b"], 1e-5), 1,
-         ("nans_clip_tpu_torch/csrc/layernorm.cu", "nans_clip_tpu/ops/fused_block.py:96")),
+         ("nans_clip_tpu_torch/csrc/layernorm.cu", "nans_clip_tpu/ops/fused_block.py:96"),
+         lambda: F.layer_norm(xi2, (w,), pi["ln1_w"], pi["ln1_b"], 1e-5),
+         (mi * w * 4 + 2 * w * 2, 8 * mi * w)),
         ("gemm", lambda: linear(xi2, pi["w1"], pi["b1"], "quick_gelu"),
          lambda: linear_plain(xi2, pi["w1"], pi["b1"], "quick_gelu"), 1,
-         ("nans_clip_tpu_torch/csrc/gemm.cu", "nans_clip_tpu/ops/fused_block.py:809")),
+         ("nans_clip_tpu_torch/csrc/gemm.cu", "nans_clip_tpu/ops/fused_block.py:809"),
+         lambda: F.linear(xi2, pi["w1"], pi["b1"]),
+         ((mi * w + inter * w + inter + mi * inter) * 2, 2 * mi * inter * w)),
         ("attention", lambda: attention(qkv, None, BATCH, heads),
          lambda: attention_plain(qkv, None, BATCH, heads), 1,
-         ("nans_clip_tpu_torch/csrc/attention.cu", "nans_clip_tpu/ops/fused_block.py:164")),
+         ("nans_clip_tpu_torch/csrc/attention.cu", "nans_clip_tpu/ops/fused_block.py:164"),
+         lambda: sdpa(qkv, None, 197), (mi * 4 * w * 2, 4 * BATCH * 197 * 197 * w)),
         ("attention[masked, S=52]", lambda: attention(qkv_t, kb, BATCH, heads),
-         lambda: attention_plain(qkv_t, kb, BATCH, heads), 1, None),
+         lambda: attention_plain(qkv_t, kb, BATCH, heads), 1, None,
+         lambda: sdpa(qkv_t, kb, 52), (mt * 4 * w * 2 + mt * 4, 4 * BATCH * 52 * 52 * w)),
     ]
     results = {}
-    for name, kern, twin, n_ulps, meta in cases:
+    for name, kern, twin, n_ulps, meta, library, cost in cases:
         got, want = kern(), twin()
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
@@ -147,56 +205,172 @@ def phase_kernels(torch, dev):
         if not (torch.isfinite(got).all() and err <= bound):
             raise AssertionError(f"{name}: max abs err {err} exceeds bound {bound}")
         ms, plain_ms = _time_ms(kern, 10), _time_ms(twin, 3)
+        library_ms = None if library is None else _time_ms(library, 10)
+        bound_ms, bound_by = _bound(*cost)
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         print(f"kernel {name}: max_abs_err {err:.6g} <= bound {bound:.6g} ({n_ulps} bf16 ulp "
               f"of max|twin| {float(want.float().abs().max()):.4g}); {ms:.4f} ms, "
-              f"twin {plain_ms:.4f} ms", flush=True)
-        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, meta=meta)
+              f"twin {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, meta=meta, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
     return results
 
 
-def phase_slice(torch, dev):
-    import nans_clip_tpu_torch as nct
-    from nans_clip_tpu_torch.models.clip import build_clip
+# Bound of the tower kernel against its twin over 12 layers: each layer's
+# rounding flips (bf16 roundings of q/k/v, P, ctx, a, h and x at another fp32
+# sum order) move an output by about one ulp, and the flips of independent
+# layers add like a random walk, sqrt(12) ~ 3.5 ulps; 8 ulps allows twice
+# that. The twin's own distance from an fp32 run of the same weights is
+# printed beside it for scale.
+TOWER_ULPS = 8
+
+
+def phase_towers(torch, dev):
+    """The whole-tower kernel (bf16 and int8) against its twin, both forms,
+    batch 1, 8, 32; the per-layer route's time beside it."""
+    from nans_clip_tpu_torch.ops import fused_block as fb
+    from nans_clip_tpu_torch.ops import layer_kernel as lk
+    from nans_clip_tpu_torch.ops import tower_kernel as tk
+    from nans_clip_tpu_torch.utils.quantize import dequantize_weight, quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    n_layers, w, inter, heads = 12, 768, 3072, 12
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std + mean).to(bf)
+
+    def layers(std):
+        return [(rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(3 * w, w, std=std),
+                 rnd(3 * w, std=0.1), rnd(w, w, std=std), rnd(w, std=0.1),
+                 rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(inter, w, std=std),
+                 rnd(inter, std=0.1), rnd(w, inter, std=std / 2), rnd(w, std=0.1))
+                for _ in range(n_layers)]
+
+    def quantized(ls):
+        return [tuple(quantize_weight(t) if i in (2, 4, 8, 10) else t for i, t in enumerate(p))
+                for p in ls]
+
+    forms = {"text": (layers(0.02), 52, True), "image": (layers(w ** -0.5), 197, False)}
+    results = {}
+    for form, (bf_layers, s, post_ln) in forms.items():
+        eps, act = (1e-12, "gelu") if post_ln else (1e-5, "quick_gelu")
+        for quant in (False, True):
+            ls = quantized(bf_layers) if quant else bf_layers
+            for b in (1, 8, 32):
+                x = rnd(b, s, w)
+                kb = None
+                if post_ln:
+                    lengths = torch.randint(2, s + 1, (b,), generator=g, device=dev)
+                    keep = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+                    kb = ((1.0 - keep.float()) * -10000.0).contiguous()
+                args = (x, kb, ls, heads, eps, act, post_ln)
+                table = tk.TowerTable()
+                got = tk.fused_tower(*args, table=table)
+                want = tk.tower_math(*args)
+                f32 = [tuple(t.float() if torch.is_tensor(t) else dequantize_weight(t, torch.float32)
+                             for t in p) for p in ls]
+                ref32 = tk.tower_math(x.float(), kb, f32, heads, eps, act, post_ln)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                err32 = float((want.float() - ref32).abs().max())
+                bound = _ulps(want, TOWER_ULPS)
+                name = f"fused_tower{'_int8' if quant else ''}[{form}, b={b}]"
+                if not (got.shape == x.shape and torch.isfinite(got).all() and err <= bound):
+                    raise AssertionError(f"{name}: max abs err {err} exceeds bound {bound}")
+
+                def per_layer():
+                    """Today's route at this batch: int8 weights dequantized on
+                    entry, then the per-layer kernels."""
+                    y = x
+                    for p in ls:
+                        p = tuple(t if torch.is_tensor(t) else dequantize_weight(t, bf) for t in p)
+                        if post_ln:
+                            y = lk.fused_layer_block(y, *p, heads, eps, act, True, kb)
+                        else:
+                            y = fb.fused_mlp_block(fb.fused_attention_block(y, *p[:6], heads),
+                                                   *p[6:])
+                    return y
+
+                ms = _time_ms(lambda: tk.fused_tower(*args, table=table), 20)
+                plain_ms = _time_ms(lambda: tk.tower_math(*args), 2)
+                layer_ms = _time_ms(per_layer, 10)
+                nbytes, flops = _layer_cost(b, s, w, inter, 1.0 if quant else 2.0)
+                if quant:
+                    nbytes += (4 * w + 2 * inter) * 4       # the fp32 scales
+                bound_ms, bound_by = _bound(n_layers * nbytes + 2 * b * s * w * 2,
+                                            n_layers * flops)
+                print(f"tower {name}: max_abs_err {err:.6g} <= bound {bound:.6g} ({TOWER_ULPS} "
+                      f"bf16 ulp of max|twin| {float(want.float().abs().max()):.4g}; twin vs "
+                      f"fp32 {err32:.4g}); {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({bound_by}), per-layer route {layer_ms:.4f} ms; "
+                      f"grid {tk.max_grid(dev.index, quant, s)} blocks", flush=True)
+                results[(form, quant, b)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                                 bound_ms=bound_ms, bound_by=bound_by,
+                                                 layer_ms=layer_ms)
+    # the gate's evidence: the largest measured batch with the tower no slower
+    for form in forms:
+        for quant in (False, True):
+            ok = [b for b in (1, 8, 32) if results[(form, quant, b)]["ms"]
+                  <= results[(form, quant, b)]["layer_ms"]]
+            print(f"tower gate evidence [{form}{', int8' if quant else ''}]: tower no slower "
+                  f"than the per-layer route at batch {ok or 'none'}", flush=True)
+    return results
+
+
+def _counted():
     from nans_clip_tpu_torch.ops import fused_block as fb
     from nans_clip_tpu_torch.ops import layer_kernel as lk
     from nans_clip_tpu_torch.ops.attention import attention
     from nans_clip_tpu_torch.ops.gemm import linear
     from nans_clip_tpu_torch.ops.layernorm import row_layer_norm
 
-    vision, text = "ViT-B-16", "RoBERTa-wwm-ext-base-chinese"
-    cfg = nct.load_config(f"{vision}@{text}")
+    return {"fused_attention_block": fb.fused_attention_block,
+            "fused_bert_attention_block": fb.fused_bert_attention_block,
+            "fused_mlp_block": fb.fused_mlp_block, "fused_layer_block": lk.fused_layer_block,
+            "layernorm": row_layer_norm, "gemm": linear, "attention": attention}
+
+
+def _tower_counts():
+    from nans_clip_tpu_torch.ops.tower_kernel import fused_tower
+
+    return {"fused_tower": fused_tower.launches, "fused_tower_int8": fused_tower.launches_int8}
+
+
+def _reset_counts():
+    from nans_clip_tpu_torch.ops.tower_kernel import fused_tower
+
+    for fn in _counted().values():
+        fn.launches = 0
+    fused_tower.launches = fused_tower.launches_int8 = 0
+
+
+def phase_slice(torch, dev, ckpt):
+    import nans_clip_tpu_torch as nct
+
+    cfg = nct.load_config(f"{VISION}@{TEXT}")
     layers = cfg.vision.layers
     assert layers == cfg.text.num_hidden_layers == 12
-    t0 = time.time()
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "clip_cn_vit-b-16_random.pt")
-        module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0))
-        torch.save({"state_dict": module.state_dict()}, ckpt)
-        del module
-        load = lambda **kw: nct.load_from_name(
-            ckpt, vision_model_name=vision, text_model_name=text, input_resolution=224,
-            device=dev, options=nct.ModelOptions(**kw))[0]
-        model = load(compute_dtype="bfloat16")
-        plain = load(compute_dtype="bfloat16", attn_impl="plain")
-        ref32 = load(attn_impl="plain")
-    print(f"slice: {cfg.name} built, saved and reloaded in {time.time() - t0:.1f} s", flush=True)
+    load = lambda **kw: nct.load_from_name(
+        ckpt, vision_model_name=VISION, text_model_name=TEXT, input_resolution=224,
+        device=dev, options=nct.ModelOptions(**kw))[0]
+    model = load(compute_dtype="bfloat16")
+    plain = load(compute_dtype="bfloat16", attn_impl="plain")
+    ref32 = load(attn_impl="plain")
 
     gen = torch.Generator().manual_seed(1)
     images = torch.randn(BATCH, 224, 224, 3, generator=gen).to(dev)
     ids = torch.from_numpy(nct.tokenize((TEXTS * BATCH)[:BATCH])).to(dev)
 
-    counted = {"fused_attention_block": fb.fused_attention_block,
-               "fused_bert_attention_block": fb.fused_bert_attention_block,
-               "fused_mlp_block": fb.fused_mlp_block, "fused_layer_block": lk.fused_layer_block,
-               "layernorm": row_layer_norm, "gemm": linear, "attention": attention}
-    for fn in counted.values():
-        fn.launches = 0
+    _reset_counts()
     li, lt = model.get_similarity(images, ids)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counted.items()}
+    launches = {name: fn.launches for name, fn in _counted().items()}
+    launches.update(_tower_counts())
     expected = {"fused_attention_block": layers, "fused_bert_attention_block": 0,
                 "fused_mlp_block": layers, "fused_layer_block": layers,
-                "layernorm": 4 * layers, "gemm": 8 * layers, "attention": 2 * layers}
+                "layernorm": 4 * layers, "gemm": 8 * layers, "attention": 2 * layers,
+                "fused_tower": 0, "fused_tower_int8": 0}
     print(f"slice: launches {json.dumps(launches)}", flush=True)
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != expected {expected}")
@@ -233,6 +407,115 @@ def phase_slice(torch, dev):
     return launches
 
 
+def phase_serving(torch, ckpt):
+    """The serving path at batch 1-32 through the entry points users call."""
+    import numpy as np
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.deploy import speed_benchmark
+    from nans_clip_tpu_torch.deploy.server import ClipService, make_server
+
+    model, _ = nct.load_from_name(ckpt, vision_model_name=VISION, text_model_name=TEXT,
+                                  input_resolution=224,
+                                  options=nct.ModelOptions(compute_dtype="bfloat16"))
+    if model.device.type != "cuda":
+        raise AssertionError(f"load_from_name's default device is {model.device}, not the card")
+    q_text = model.quantize("int8", towers=("text",))
+    gen = torch.Generator().manual_seed(3)
+    image = torch.randn(1, 224, 224, 3, generator=gen)
+    ids = torch.from_numpy(nct.tokenize(TEXTS[:1]))
+
+    # the main path: batch-1 encodes, counted from 0
+    _reset_counts()
+    feats = {"bf16": (model.encode_text(ids), model.encode_image(image)),
+             "int8-text": (q_text.encode_text(ids), q_text.encode_image(image))}
+    torch.cuda.synchronize()
+    per_layer = {name: fn.launches for name, fn in _counted().items()}
+    towers = _tower_counts()
+    print(f"serving: batch-1 launches {json.dumps(towers)}, per-layer {json.dumps(per_layer)}",
+          flush=True)
+    if towers != {"fused_tower": 3, "fused_tower_int8": 1} or any(per_layer.values()):
+        raise AssertionError("each batch-1 encode must be one tower launch (int8 for the "
+                             f"quantized text tower) and no per-layer launch: {towers}, "
+                             f"{per_layer}")
+    for mode, (txt, img) in feats.items():
+        if txt.shape != (1, 512) or img.shape != (1, 512) or not (
+                torch.isfinite(txt).all() and torch.isfinite(img).all()):
+            raise AssertionError(f"{mode}: features {tuple(txt.shape)}, {tuple(img.shape)}")
+    # int8-text against bf16: the same model up to weight rounding (<= half a
+    # step of 1/127 of each channel's largest weight); cosine >= 0.99
+    cos = float(torch.nn.functional.cosine_similarity(feats["bf16"][0].float(),
+                                                      feats["int8-text"][0].float()))
+    same_img = torch.equal(feats["bf16"][1], feats["int8-text"][1])
+    print(f"serving: int8-text vs bf16 text-feature cosine {cos:.6f} >= 0.99; image features "
+          f"equal: {same_img}", flush=True)
+    if cos < 0.99 or not same_img:
+        raise AssertionError("the int8 text tower drifted, or the image tower changed")
+
+    # latency through speed_benchmark's own functions
+    latency = {}
+    for label, m in (("bf16", model), ("int8-text", q_text)):
+        latency[label] = speed_benchmark.bench_model(m, [1, 8, 32], n=30, warmup=3,
+                                                     label=f"{VISION} {label}")
+
+    # the HTTP daemon: 8 concurrent one-text requests
+    service = ClipService(model, max_batch=32)
+    srv = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    texts = [f"{t}{i}" for i, t in enumerate((TEXTS * 2)[:8])]
+    results, errors = {}, []
+
+    def post(i):
+        try:
+            req = urllib.request.Request(url + "/encode_text",
+                                         json.dumps({"texts": [texts[i]]}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                results[i] = np.asarray(json.loads(r.read())["features"], np.float32)
+        except Exception as e:  # collected and raised below
+            errors.append(e)
+
+    try:
+        posts = [threading.Thread(target=post, args=(i,)) for i in range(8)]
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join(180)
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(60)
+    if errors or len(results) != 8:
+        raise AssertionError(f"HTTP requests failed: {errors}")
+    direct = model.encode_text(torch.from_numpy(nct.tokenize(texts))).float()
+    direct = (direct / torch.linalg.vector_norm(direct, dim=-1, keepdim=True)).cpu().numpy()
+    got = np.concatenate([results[i] for i in range(8)])
+    err = float(np.abs(got - direct).max())
+    norm_err = float(np.abs(np.linalg.norm(got, axis=-1) - 1.0).max())
+    # The daemon pads to a power-of-two bucket and coalesces, so a text goes
+    # through another batch than the direct call: another route or K-split,
+    # other fp32 sum orders and bf16 flips over 12 layers. Unit features of
+    # 512 components are ~0.044 each; 0.01 is a quarter of that.
+    bound = 0.01
+    print(f"serving: HTTP /encode_text x8 concurrent vs direct encode_text max abs err {err:.6g} "
+          f"<= bound {bound}; |norm - 1| {norm_err:.3g}; stats {json.dumps(stats)}; "
+          f"health {json.dumps(health)}", flush=True)
+    if err > bound or norm_err > 1e-4:
+        raise AssertionError("daemon features differ from direct encode_text")
+    if stats["requests"]["text"] != 8 or stats["samples"]["text"] != 8 \
+            or stats["device_dispatches"] < 1 or stats["errors"] != 0:
+        raise AssertionError(f"unexpected /stats {stats}")
+    if health.get("status") != "ok" or not health.get("device", "").startswith("cuda"):
+        raise AssertionError(f"unexpected /health {health}")
+    return towers, latency
+
+
 def main() -> int:
     if not (ROOT / "nans_clip_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -259,7 +542,22 @@ def main() -> int:
           + " | ".join(regs), flush=True)
 
     results = phase_kernels(torch, dev)
-    launches = phase_slice(torch, dev)
+    towers = phase_towers(torch, dev)
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.models.clip import build_clip
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "clip_cn_vit-b-16_random.pt")
+        module = build_clip(nct.load_config(f"{VISION}@{TEXT}"), "cpu",
+                            torch.Generator().manual_seed(0))
+        torch.save({"state_dict": module.state_dict()}, ckpt)
+        del module
+        print(f"checkpoint: {VISION}@{TEXT} random (seed 0) saved in {time.time() - t0:.1f} s",
+              flush=True)
+        launches = phase_slice(torch, dev, ckpt)
+        serving_launches, _ = phase_serving(torch, ckpt)
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")
@@ -270,7 +568,16 @@ def main() -> int:
         source, replaces = r["meta"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name, quant, replaces in (
+            ("fused_tower", False, "nans_clip_tpu/ops/tower_kernel.py:36"),
+            ("fused_tower_int8", True, "nans_clip_tpu/ops/tower_kernel.py:67")):
+        r = towers[("text", quant, 1)]   # the serving path's batch-1 text request
+        kernels.append({"name": name, "route": "cuda", "source": "nans_clip_tpu_torch/csrc/tower.cu",
+                        "replaces": replaces, "launches": serving_launches[name],
+                        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

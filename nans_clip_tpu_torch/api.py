@@ -4,7 +4,9 @@
 surface (clip/utils.py:14-216; clip/model.py:390-431).
 
 Published checkpoints are looked up under ``~/.cache/clip`` (or
-``download_root``); nothing is downloaded.
+``download_root``); nothing is downloaded. Models are built on the card
+(``device="cuda"``) unless the caller names another device; without a card
+that default raises.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from nans_clip_tpu_torch.utils.torch_interop import load_torch_state_dict
 from nans_clip_tpu_torch.utils.transform import image_transform
 
 __all__ = ["load_from_name", "load", "tokenize", "image_transform",
-           "available_models", "CLIPModel", "create_model"]
+           "available_models", "CLIPModel", "create_model", "model_from_config"]
 
 
 class CLIPModel:
@@ -48,6 +50,16 @@ class CLIPModel:
 
     def _texts(self, texts) -> torch.Tensor:
         return torch.as_tensor(texts, device=self.device).long()
+
+    def quantize(self, mode: str = "int8", towers=("text", "image")) -> "CLIPModel":
+        """Weight-only int8 serving copy (``utils/quantize.py``): the
+        whole-tower kernel then streams half the weight bytes a call; routes
+        other than the tower kernel dequantize on entry. Returns a NEW model
+        that shares every tensor it did not quantize; ``self`` is unchanged."""
+        if mode != "int8":
+            raise ValueError(f"unsupported quantize mode: {mode!r}")
+        from nans_clip_tpu_torch.utils.quantize import quantize_for_serving
+        return CLIPModel(self.cfg, quantize_for_serving(self.module, towers), self.options)
 
     @torch.inference_mode()
     def encode_image(self, images) -> torch.Tensor:
@@ -78,15 +90,31 @@ def _load_weights(module: CLIP, state_dict: dict) -> None:
                        f"e.g. {result.missing_keys[:5]}")
 
 
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by default; pass "
+                           "device='cpu' to run the plain-torch path on the CPU")
+    return device
+
+
 def create_model(model_name: str, checkpoint_path: Optional[str] = None,
                  input_resolution: Optional[int] = None,
                  options: ModelOptions = ModelOptions(), seed: int = 0,
-                 device="cpu") -> CLIPModel:
+                 device="cuda") -> CLIPModel:
     """Build a model from a ``Vision@Text`` struct: weights from a reference
     ``.pt`` when given, else random init from a generator seeded by ``seed``."""
     cfg = load_config(model_name)
     if input_resolution:
         cfg = with_resolution(cfg, input_resolution)
+    return model_from_config(cfg, checkpoint_path, options, seed, device)
+
+
+def model_from_config(cfg: CLIPConfig, checkpoint_path: Optional[str] = None,
+                      options: ModelOptions = ModelOptions(), seed: int = 0,
+                      device="cuda") -> CLIPModel:
+    """:func:`create_model` for a :class:`CLIPConfig` in hand."""
+    device = _device(device)
     if checkpoint_path:
         module = build_clip(cfg, device)
         _load_weights(module, load_torch_state_dict(checkpoint_path))
@@ -99,7 +127,7 @@ def load_from_name(name: str, download_root: Optional[str] = None,
                    vision_model_name: Optional[str] = None,
                    text_model_name: Optional[str] = None,
                    input_resolution: Optional[int] = None,
-                   options: ModelOptions = ModelOptions(), device="cpu"):
+                   options: ModelOptions = ModelOptions(), device="cuda"):
     """Reference clip/utils.py:106-127. ``name`` is a published model name
     (its ``.pt`` must already be in ``download_root``, default
     ``~/.cache/clip``) or a reference ``.pt`` path together with the tower

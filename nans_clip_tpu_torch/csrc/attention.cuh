@@ -1,0 +1,127 @@
+// The attention core shared by attention.cu and tower.cu: one warp's 16
+// query rows of one (sample, head) against all of that head's keys, head
+// dim 64, with Q, K, V and the key bias already staged in shared memory.
+//
+// fp32 scores, fp32 softmax statistics, a max-subtracted exp and a row-sum
+// divide; P is rounded to bf16 before the PV product and ctx is stored as
+// bf16 (the rounding points of nans_clip_tpu/ops/fused_block.py:164-182 and
+// layer_kernel.py:68-86). Two passes over the keys with mma.sync: the first
+// finds the row max and sum, the second recomputes the scores, normalises P
+// exactly as the TPU kernel did (p = exp(s - m) / l, then the bf16 cast) and
+// accumulates P V. Recomputing Q K^T once costs less than holding S scores a
+// row in registers.
+#pragma once
+
+#include "common.cuh"
+
+namespace attn {
+
+constexpr int DH = 64;
+constexpr int LDK = DH + 8;  // padded row stride (bf16), 144 bytes: ldmatrix conflict-free
+
+// Scaled and biased scores of this warp's 16 rows against keys j0..j0+15:
+// s[t][e] is key j0 + 8t + 2(lane%4) + (e&1), row lane/4 + 8(e>>1).
+NANS_DEVICE void score_tile(float (&s)[2][4], const uint32_t (&qf)[4][4],
+                            const __nv_bfloat16* sK, const float* sKB, int j0, int lane,
+                            float scale) {
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    uint32_t kf[4];
+    const int r = j0 + (lane & 7) + ((lane >> 4) << 3);
+    ldmatrix_x4(kf, sK + r * LDK + kk * 16 + ((lane >> 3) & 1) * 8);
+    mma_bf16_16816(s[0], qf[kk], kf[0], kf[1]);
+    mma_bf16_16816(s[1], qf[kk], kf[2], kf[3]);
+  }
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[t][e] = s[t][e] * scale + sKB[j0 + 8 * t + 2 * (lane & 3) + (e & 1)];
+}
+
+// sQ: this warp's 16 query rows (row stride LDK); sK, sV: s_pad keys; sKB:
+// s_pad biases (-inf past the sequence). Writes query rows row0.. (< S) of
+// ctx, where `out` points at the head's column in ctx row 0 of the sample
+// and `width` is ctx's row stride.
+NANS_DEVICE void attend_rows(const __nv_bfloat16* sQ, const __nv_bfloat16* sK,
+                             const __nv_bfloat16* sV, const float* sKB, int s_pad, int lane,
+                             float scale, __nv_bfloat16* out, int width, int row0, int S) {
+  uint32_t qf[DH / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ldmatrix_x4(qf[kk], sQ + (lane & 15) * LDK + kk * 16 + (lane >> 4) * 8);
+
+  // Pass 1: row max m and row sum l = sum exp(s - m), per lane, then merged
+  // across the four lanes that share a row.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int j0 = 0; j0 < s_pad; j0 += 16) {
+    float s[2][4];
+    score_tile(s, qf, sK, sKB, j0, lane, scale);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float tmax = fmaxf(fmaxf(s[0][2 * hr], s[0][2 * hr + 1]),
+                               fmaxf(s[1][2 * hr], s[1][2 * hr + 1]));
+      const float m_new = fmaxf(m[hr], tmax);
+      if (m_new == -INFINITY) continue;
+      float acc = l[hr] * expf(m[hr] - m_new);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+        acc += expf(s[t][2 * hr] - m_new) + expf(s[t][2 * hr + 1] - m_new);
+      l[hr] = acc;
+      m[hr] = m_new;
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, m[hr], o);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l[hr], o);
+      const float m_new = fmaxf(m[hr], m_o);
+      if (m_new == -INFINITY) continue;
+      l[hr] = l[hr] * expf(m[hr] - m_new) + l_o * expf(m_o - m_new);
+      m[hr] = m_new;
+    }
+  }
+
+  // Pass 2: P = exp(s - m) / l rounded to bf16, O += P V.
+  float o[DH / 8][4];
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  for (int j0 = 0; j0 < s_pad; j0 += 16) {
+    float s[2][4];
+    score_tile(s, qf, sK, sKB, j0, lane, scale);
+    uint32_t pa[4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      pa[2 * t] = pack_bf16(expf(s[t][0] - m[0]) / l[0], expf(s[t][1] - m[0]) / l[0]);
+      pa[2 * t + 1] = pack_bf16(expf(s[t][2] - m[1]) / l[1], expf(s[t][3] - m[1]) / l[1]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < DH / 16; ++dp) {
+      uint32_t vf[4];
+      const int r = j0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4_trans(vf, sV + r * LDK + dp * 16 + (lane >> 4) * 8);
+      mma_bf16_16816(o[2 * dp], pa, vf[0], vf[1]);
+      mma_bf16_16816(o[2 * dp + 1], pa, vf[2], vf[3]);
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int q = row0 + (lane >> 2) + 8 * hr;
+    if (q >= S) continue;
+    __nv_bfloat16* dst = out + static_cast<size_t>(q) * width + 2 * (lane & 3);
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d)
+      *reinterpret_cast<uint32_t*>(dst + d * 8) = pack_bf16(o[d][2 * hr], o[d][2 * hr + 1]);
+  }
+}
+
+}  // namespace attn

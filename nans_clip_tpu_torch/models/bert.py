@@ -6,10 +6,14 @@ Modules are named after the reference HF-lineage encoder
 word + position + token-type-0 embeddings with LayerNorm eps 1e-12,
 post-LN self-attention and MLP sub-blocks with erf-GELU, the additive
 ``(1 - mask) * -10000`` key bias in fp32 (bert.py:82-84), and no pooler.
-Each layer runs through the ported whole-layer kernel
-(``ops/layer_kernel.py``) or its twin, as ``ops/gates.py`` routes. The
-q/k/v weights are packed into the ``[3H, H]`` layout the kernels read once,
-and packed again only when the weights change.
+The layers run as ``ops/gates.py`` routes them: at serving batches all of
+them in one launch of the whole-tower kernel (``ops/tower_kernel.py``),
+otherwise each through the whole-layer kernel (``ops/layer_kernel.py``), or
+through the twins for CPU tensors. The tower's int8 weights
+(``utils/quantize.py``) stream as they are into the tower kernel and are
+dequantized on entry everywhere else. The q/k/v weights are packed into
+the ``[3H, H]`` layout the kernels read once, and packed again only when
+the weights change.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from nans_clip_tpu_torch.models.common import ModelOptions
 from nans_clip_tpu_torch.ops import gates
 from nans_clip_tpu_torch.ops.layer_kernel import encoder_layer_math, fused_layer_block
 from nans_clip_tpu_torch.ops.layernorm import layer_norm
+from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
+from nans_clip_tpu_torch.utils.quantize import Int8Weight, dequantize_weight, is_quantized
 
 
 class BertEmbeddings(nn.Module):
@@ -44,23 +50,34 @@ class BertSelfAttention(nn.Module):
         self.value = nn.Linear(h, h)
         self._packed = None
 
-    def packed(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """q|k|v as the kernels read them: weight [3H, H], bias [3H].
+    def reset_caches(self) -> None:
+        self._packed = None
+
+    def packed(self) -> Tuple[object, torch.Tensor]:
+        """q|k|v as the kernels read them: weight [3H, H] (an ``Int8Weight``
+        when the three are quantized), bias [3H].
 
         Without autograd the packed pair is cached and rebuilt only when a
         source changes. The cache key is each source's address and version
         counter: a ``load_state_dict`` copies in place and bumps the version,
         a cast or a move gives a new address (the cache holds the old
         sources, so their addresses are not reused meanwhile)."""
-        srcs = (self.query.weight, self.key.weight, self.value.weight,
-                self.query.bias, self.key.bias, self.value.bias)
+        ws = (self.query.weight, self.key.weight, self.value.weight)
+        srcs = tuple(t for w in ws for t in ((w.int8, w.scale) if is_quantized(w) else (w,)))
+        srcs += (self.query.bias, self.key.bias, self.value.bias)
         if torch.is_grad_enabled():
-            return torch.cat(srcs[:3]), torch.cat(srcs[3:])
+            return _cat_weights(ws), torch.cat(srcs[-3:])
         key = tuple((t.data_ptr(), t._version) for t in srcs)
         if self._packed is None or self._packed[0] != key:
-            self._packed = (key, tuple(t.detach() for t in srcs),
-                            torch.cat(srcs[:3]), torch.cat(srcs[3:]))
+            self._packed = (key, tuple(t.detach() for t in srcs), _cat_weights(ws),
+                            torch.cat(srcs[-3:]))
         return self._packed[2], self._packed[3]
+
+
+def _cat_weights(ws):
+    if is_quantized(ws[0]):
+        return Int8Weight(torch.cat([w.int8 for w in ws]), torch.cat([w.scale for w in ws]))
+    return torch.cat(ws)
 
 
 class BertDenseLN(nn.Module):
@@ -94,22 +111,22 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg)
         self.output = BertDenseLN(cfg.intermediate_size, cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor, key_bias: torch.Tensor, use_kernel: bool) -> torch.Tensor:
-        cfg = self.cfg
+    def weights(self) -> tuple:
+        """The layer in ``encoder_layer_math``'s order; the four big weights
+        are tensors or ``Int8Weight``s."""
         ao, out = self.attention.output, self.output
         w_qkv, b_qkv = self.attention.self.packed()
-        layer = fused_layer_block if use_kernel else encoder_layer_math
-        return layer(x, ao.LayerNorm.weight, ao.LayerNorm.bias, w_qkv, b_qkv,
-                     ao.dense.weight, ao.dense.bias, out.LayerNorm.weight, out.LayerNorm.bias,
-                     self.intermediate.dense.weight, self.intermediate.dense.bias,
-                     out.dense.weight, out.dense.bias, cfg.num_attention_heads,
-                     cfg.layer_norm_eps, cfg.hidden_act, True, key_bias)
+        return (ao.LayerNorm.weight, ao.LayerNorm.bias, w_qkv, b_qkv, ao.dense.weight,
+                ao.dense.bias, out.LayerNorm.weight, out.LayerNorm.bias,
+                self.intermediate.dense.weight, self.intermediate.dense.bias, out.dense.weight,
+                out.dense.bias)
 
 
 class BertEncoder(nn.Module):
     def __init__(self, cfg: TextConfig):
         super().__init__()
         self.layer = nn.ModuleList([BertLayer(cfg) for _ in range(cfg.num_hidden_layers)])
+        self.tower_table = TowerTable()
 
 
 class BertModel(nn.Module):
@@ -145,7 +162,14 @@ class BertModel(nn.Module):
         key_bias = None
         if attention_mask is not None:
             key_bias = ((1.0 - attention_mask.float()) * -10000.0).contiguous()
-        use_kernel = gates.use_kernel(x, options.attn_impl)
-        for layer in self.encoder.layer:
-            x = layer(x, key_bias, use_kernel)
+        cfg, enc = self.cfg, self.encoder
+        heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
+        layers = [layer.weights() for layer in enc.layer]
+        if gates.tower_route(x, options.attn_impl, "text", heads, cfg.intermediate_size,
+                             is_quantized(layers[0][2])):
+            return fused_tower(x, key_bias, layers, heads, eps, act, True, enc.tower_table)
+        layer_fn = fused_layer_block if gates.use_kernel(x, options.attn_impl) else encoder_layer_math
+        for p in layers:
+            p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+            x = layer_fn(x, *p, heads, eps, act, True, key_bias)
         return x

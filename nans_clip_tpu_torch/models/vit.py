@@ -11,8 +11,12 @@ computation follows the JAX tower:
 * CLS and positional embeddings, ``ln_pre``, the pre-LN layers with
   QuickGELU, ``ln_post`` on the CLS token and ``proj``.
 
-Each layer runs through the ported kernels (``ops/fused_block.py``) or
-their twins, as ``ops/gates.py`` routes. Images are NHWC ``[B, R, R, 3]``.
+The layers run as ``ops/gates.py`` routes them: at serving batches all of
+them in one launch of the whole-tower kernel (``ops/tower_kernel.py``),
+otherwise each through the sub-block kernels (``ops/fused_block.py``), or
+through the twins for CPU tensors. The tower's int8 weights
+(``utils/quantize.py``) stream as they are into the tower kernel and are
+dequantized on entry everywhere else. Images are NHWC ``[B, R, R, 3]``.
 FLIP random masking waits for the training port.
 """
 
@@ -27,6 +31,8 @@ from nans_clip_tpu_torch.ops import gates
 from nans_clip_tpu_torch.ops.fused_block import (_reference_block, _reference_mlp,
                                                  fused_attention_block, fused_mlp_block)
 from nans_clip_tpu_torch.ops.layernorm import layer_norm
+from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
+from nans_clip_tpu_torch.utils.quantize import dequantize_weight, is_quantized
 
 
 class PatchEmbed(nn.Module):
@@ -71,14 +77,20 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = nn.LayerNorm(width)
         self.mlp = Mlp(width)
 
-    def forward(self, x: torch.Tensor, heads: int, use_kernel: bool) -> torch.Tensor:
+    def weights(self) -> tuple:
+        """The layer in ``encoder_layer_math``'s order; the four big weights
+        are tensors or ``Int8Weight``s."""
         attn, mlp = self.attn, self.mlp
-        attn_fn = fused_attention_block if use_kernel else _reference_block
-        mlp_fn = fused_mlp_block if use_kernel else _reference_mlp
-        x = attn_fn(x, self.ln_1.weight, self.ln_1.bias, attn.in_proj_weight, attn.in_proj_bias,
-                    attn.out_proj.weight, attn.out_proj.bias, heads, 1e-5)
-        return mlp_fn(x, self.ln_2.weight, self.ln_2.bias, mlp.c_fc.weight, mlp.c_fc.bias,
-                      mlp.c_proj.weight, mlp.c_proj.bias, "quick_gelu", 1e-5, False)
+        return (self.ln_1.weight, self.ln_1.bias, attn.in_proj_weight, attn.in_proj_bias,
+                attn.out_proj.weight, attn.out_proj.bias, self.ln_2.weight, self.ln_2.bias,
+                mlp.c_fc.weight, mlp.c_fc.bias, mlp.c_proj.weight, mlp.c_proj.bias)
+
+
+def _layer(x: torch.Tensor, p: tuple, heads: int, use_kernel: bool) -> torch.Tensor:
+    attn_fn = fused_attention_block if use_kernel else _reference_block
+    mlp_fn = fused_mlp_block if use_kernel else _reference_mlp
+    x = attn_fn(x, *p[:6], heads, 1e-5)
+    return mlp_fn(x, *p[6:], "quick_gelu", 1e-5, False)
 
 
 class Transformer(nn.Module):
@@ -99,6 +111,7 @@ class VisualTransformer(nn.Module):
         self.transformer = Transformer(w, cfg.layers)
         self.ln_post = nn.LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim))
+        self.tower_table = TowerTable()
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -130,8 +143,15 @@ class VisualTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1)
         x = x + self.positional_embedding.to(x.dtype)
         x = layer_norm(x, self.ln_pre.weight, self.ln_pre.bias, 1e-5)
-        use_kernel = gates.use_kernel(x, options.attn_impl)
-        for blk in self.transformer.resblocks:
-            x = blk(x, self.cfg.heads, use_kernel)
+        heads = self.cfg.heads
+        layers = [blk.weights() for blk in self.transformer.resblocks]
+        if gates.tower_route(x, options.attn_impl, "image", heads, 4 * w,
+                             is_quantized(layers[0][2])):
+            x = fused_tower(x, None, layers, heads, 1e-5, "quick_gelu", False, self.tower_table)
+        else:
+            use_kernel = gates.use_kernel(x, options.attn_impl)
+            for p in layers:
+                p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+                x = _layer(x, p, heads, use_kernel)
         x = layer_norm(x[:, 0, :], self.ln_post.weight, self.ln_post.bias, 1e-5)
         return x @ self.proj

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 LIB_PATH = BUILD_DIR / "libnans_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -37,6 +37,12 @@ _SIGNATURES = {
     "nans_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qkv, key_bias, ctx, B, S, width, scale, stream
     "nans_attention": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # quant, S, out: the largest co-resident grid
+    "nans_tower_grid": [_I, _I, ctypes.POINTER(_I)],
+    # x, key_bias, table, work, sum, part, sem, clock, B, S, W, I, L, eps,
+    # act, post_ln, quant, ks_qkv, ks_o, ks_1, ks_2, grid, stream
+    "nans_tower": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                   _I, _I, _I, _P],
 }
 
 
@@ -63,20 +69,29 @@ def _stale() -> bool:
 
 
 def build() -> str:
-    """Compile the library if it is missing or stale; returns nvcc's
-    report (registers, shared memory, spills), or '' when up to date."""
+    """Compile the library if it is missing or stale: one nvcc a source, all
+    started together, then one link. Returns nvcc's report (registers,
+    shared memory, spills), or '' when up to date."""
     if not _stale():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources(), objs)]
+        reports = [(src, proc, proc.communicate()[1]) for src, proc in zip(sources(), procs)]
+        for src, proc, err in reports:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+        lib = os.path.join(tmp, LIB_PATH.name)
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, LIB_PATH)
+    return "".join(err for _, _, err in reports)
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,7 +108,15 @@ def library() -> ctypes.CDLL:
 
 def check(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        raise RuntimeError(f"{name}: CUDA error {err} ({_ERRORS.get(err, 'see cudaError_t')}) "
+                           "at launch")
+
+
+# cudaError_t values a launch here can return (driver_types.h)
+_ERRORS = {1: "cudaErrorInvalidValue", 2: "cudaErrorMemoryAllocation",
+           9: "cudaErrorInvalidConfiguration", 98: "cudaErrorInvalidDeviceFunction",
+           209: "cudaErrorNoKernelImageForDevice",
+           720: "cudaErrorCooperativeLaunchTooLarge"}
 
 
 def stream_ptr(device) -> int:

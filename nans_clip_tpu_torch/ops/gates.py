@@ -43,6 +43,38 @@ LN_WIDTH_MULTIPLE = 32
 GEMM_N_MULTIPLE = 128
 GEMM_K_MULTIPLE = 32
 
+# tower.cu (the whole-tower kernel, batch 1-32): heads of 64 (attention.cuh),
+# S <= 640 (a head's K and V in shared memory, as attention.cu), W a
+# multiple of 64 and at most 1024 (its row stages hold a row in one block of
+# 128 threads, at most 8 values a thread), and I a multiple of its 64-wide K
+# step (N is cut in 32-wide tiles). Set by the kernel's design. Whether a
+# grid can be co-resident at all is asked of the card at launch
+# (``tower_kernel.max_grid``).
+TOWER_WIDTH_MULTIPLE = 64
+TOWER_MAX_WIDTH = 1024
+TOWER_TILE = 32
+TOWER_KSTEP = 64
+
+# Routing: the batches that take the tower kernel, per tower and weight
+# type (the JAX gate, fits_tower, also takes the weights' quantization).
+# Batch 1 always does (as in the JAX package); a larger batch does only up
+# to the largest batch at which chip_smoke.py measured the tower kernel no
+# slower than the per-layer route (int8 weights dequantized on entry, as
+# that route runs them), at ViT-B/16 (S = 197) and RoBERTa-base (S = 52), 12
+# layers, W = 768. Measured at batch 1, 8 and 32 only, so each gate is one
+# of those values. Provenance: chip_smoke.py phase 4 on an NVIDIA H100 80GB
+# HBM3 at a 700.00 W power limit, CUDA events, ms of the tower kernel vs the
+# per-layer route at batch 1 / 8 / 32:
+#   text  bf16  0.7738 vs 4.4544 / 1.3974 vs 3.6630 /  3.6656 vs 3.1964
+#   text  int8  0.6984 vs 5.0874 / 1.3833 vs 4.9771 /  4.0418 vs 6.4699
+#   image bf16  0.9956 vs 2.5305 / 3.8150 vs 3.4416 / 12.9265 vs 7.2877
+#   image int8  1.1118 vs 5.4307 / 4.0895 vs 4.2375 / 13.3744 vs 8.3606
+# The per-layer route at these batches waits on the host (84 launches a
+# text tower), so its times spread by ~20% between runs; image int8 at
+# batch 8 is within that spread.
+TOWER_MAX_BATCH = {("text", "bf16"): 8, ("text", "int8"): 32,
+                   ("image", "bf16"): 1, ("image", "int8"): 8}
+
 IMPLS = ("auto", "plain", "kernel")
 
 
@@ -61,6 +93,23 @@ def use_kernel(x: torch.Tensor, impl: str) -> bool:
                          "ModelOptions(compute_dtype='bfloat16'), or attn_impl='plain' "
                          "for the plain-torch path")
     return True
+
+
+def fits_tower(seq: int, width: int, heads: int, inter: int) -> bool:
+    """The shapes tower.cu admits."""
+    return (width % TOWER_WIDTH_MULTIPLE == 0 and width <= TOWER_MAX_WIDTH
+            and width == heads * HEAD_DIM and seq <= MAX_SEQ and inter % TOWER_KSTEP == 0)
+
+
+def tower_route(x: torch.Tensor, impl: str, tower: str, heads: int, inter: int,
+                quant: bool) -> bool:
+    """THE whole-tower predicate of each tower (JAX ``_tower_route``): it
+    decides both whether int8 weights stream as they are and whether the
+    tower kernel runs. ``x``: the tower's input [B, S, W]; ``quant``: the
+    tower holds int8 weights."""
+    b, s, w = x.shape
+    return (use_kernel(x, impl) and fits_tower(s, w, heads, inter)
+            and (b == 1 or b <= TOWER_MAX_BATCH[(tower, "int8" if quant else "bf16")]))
 
 
 def admit(ok: bool, what: str) -> None:

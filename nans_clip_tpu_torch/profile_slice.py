@@ -4,6 +4,8 @@
 
 Builds ViT-B-16@RoBERTa-wwm-ext-base-chinese at random init (seed 0) in
 bf16 on ``cuda:0`` and runs ``get_similarity`` on seeded images and texts.
+At serving batches (``--batch 1``) the towers run the whole-tower kernel,
+whose device time is grouped as ``tower_kernel``.
 It reports, all from one run:
 
 * CUDA-event times of ``encode_image``, ``encode_text`` and
@@ -27,7 +29,7 @@ from collections import defaultdict
 import torch
 
 TEXTS = ["杰尼龟", "妙蛙种子", "小火龙", "皮卡丘", "西湖美景，三月天", "一只可爱的小猫在草地上玩耍"]
-HAND_KERNEL = re.compile(r"(gemm|attention|layernorm)_kernel(<[^>]*>)?")
+HAND_KERNEL = re.compile(r"(gemm|attention|layernorm|tower)_kernel(<[^>]*>)?")
 
 
 def _event_ms(fn, iters: int) -> float:

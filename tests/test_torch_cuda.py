@@ -123,12 +123,123 @@ def test_tiny_model_kernels_match_plain(dev):
     models = [CLIPModel(cfg, build_clip(cfg, "cpu", torch.Generator().manual_seed(0)).to(dev),
                         ModelOptions(attn_impl=impl, compute_dtype="bfloat16"))
               for impl in ("kernel", "plain")]
+    # a batch above every tower gate, so each layer takes the per-layer kernels
+    b = max(gates.TOWER_MAX_BATCH.values()) + 1
     g = torch.Generator().manual_seed(0)
-    images = torch.randn(3, 32, 32, 3, generator=g)
-    ids = torch.zeros(3, 52, dtype=torch.long)
-    ids[:, :5] = torch.randint(1, 1000, (3, 5), generator=g)
+    images = torch.randn(b, 32, 32, 3, generator=g)
+    ids = torch.zeros(b, 52, dtype=torch.long)
+    ids[:, :5] = torch.randint(1, 1000, (b, 5), generator=g)
     fb.fused_attention_block.launches = lk.fused_layer_block.launches = 0
     li, _ = models[0].get_similarity(images, ids)
     assert fb.fused_attention_block.launches == 2 and lk.fused_layer_block.launches == 2
     pli, _ = models[1].get_similarity(images, ids)
     assert float((li - pli).abs().max()) <= 0.05
+
+
+# -- the whole-tower kernel (tower.cu) -----------------------------------------
+
+def _tower_layers(dev, n_layers, w, seed, quantize):
+    from nans_clip_tpu_torch.utils.quantize import quantize_weight
+    layers = []
+    for layer in range(n_layers):
+        p, _ = _params(dev, w, 4 * w, seed + layer)
+        layers.append(tuple(quantize_weight(t) if quantize and i in (2, 4, 8, 10) else t
+                            for i, t in enumerate(p)))
+    return layers
+
+
+def _tower_case(dev, b, s, w, post_ln, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, s, w, generator=g, device=dev).to(torch.bfloat16)
+    kb = None
+    if post_ln:
+        lengths = torch.randint(2, s + 1, (b,), generator=g, device=dev)
+        keep = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+        kb = ((1.0 - keep.float()) * -10000.0).contiguous()
+    return x, kb
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("post_ln", [False, True])
+@pytest.mark.parametrize("n_layers,b,s,w", [(2, 3, 37, 128), (2, 1, 197, 768), (2, 2, 52, 768)])
+def test_tower_matches_twin(dev, n_layers, b, s, w, post_ln, quantize):
+    """Both forms, bf16 and int8, small and full width. Bound: 4 bf16 ulps
+    (two layers, each a chain whose rounding flips move an output by about
+    one ulp)."""
+    from nans_clip_tpu_torch.ops import tower_kernel as tk
+    layers = _tower_layers(dev, n_layers, w, 3, quantize)
+    x, kb = _tower_case(dev, b, s, w, post_ln)
+    args = (x, kb, layers, w // 64, 1e-12 if post_ln else 1e-5,
+            "gelu" if post_ln else "quick_gelu", post_ln)
+    before = (tk.fused_tower.launches, tk.fused_tower.launches_int8)
+    got = tk.fused_tower(*args)
+    want = tk.tower_math(*args)
+    torch.cuda.synchronize()
+    _close(got, want, 4)
+    assert (tk.fused_tower.launches - before[0], tk.fused_tower.launches_int8 - before[1]) == \
+        ((0, 1) if quantize else (1, 0))
+
+
+def test_tower_admission_raises(dev):
+    from nans_clip_tpu_torch.ops import tower_kernel as tk
+    layers = _tower_layers(dev, 1, 128, 0, False)
+    x = torch.zeros(1, 641, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="S=641"):
+        tk.fused_tower(x, None, layers, 2, 1e-5, "quick_gelu", False)
+    p, _ = _params(dev, 96, 384, 0)   # W = 96: not a multiple of 64
+    with pytest.raises(ValueError, match="W=96"):
+        tk.fused_tower(torch.zeros(1, 8, 96, device=dev, dtype=torch.bfloat16), None, [tuple(p)],
+                       1, 1e-5, "quick_gelu", False)
+    with pytest.raises(ValueError, match="dtype"):
+        tk.fused_tower(torch.zeros(1, 8, 128, device=dev), None, layers, 2, 1e-5, "quick_gelu",
+                       False)
+
+
+def test_tower_oversized_grid_raises(dev):
+    """A grid beyond co-residency is refused by the cooperative launch and
+    raises; it never runs (its barrier would wait forever)."""
+    from nans_clip_tpu_torch.ops import tower_kernel as tk
+    layers = _tower_layers(dev, 1, 128, 0, False)
+    x, _ = _tower_case(dev, 1, 52, 128, False)
+    grid = tk.max_grid(torch.cuda.current_device(), False, 52)
+    with pytest.raises(RuntimeError, match="CooperativeLaunchTooLarge"):
+        tk.fused_tower(x, None, layers, 2, 1e-5, "quick_gelu", False, grid=grid + 1)
+    torch.cuda.synchronize()
+    _close(tk.fused_tower(x, None, layers, 2, 1e-5, "quick_gelu", False, grid=grid),
+           tk.tower_math(x, None, layers, 2, 1e-5, "quick_gelu", False), 4)
+
+
+def test_batch_1_encodes_route_one_tower_launch(dev):
+    """A tiny-width model (heads of 64) at batch 1: each encode is one tower
+    launch and no per-layer launch; its int8 copy makes int8 launches."""
+    import dataclasses
+
+    from nans_clip_tpu_torch import configs
+    from nans_clip_tpu_torch.api import model_from_config
+    from nans_clip_tpu_torch.models.common import ModelOptions
+    from nans_clip_tpu_torch.ops import tower_kernel as tk
+
+    tiny = configs.tiny_config()
+    cfg = dataclasses.replace(
+        tiny, vision=dataclasses.replace(tiny.vision, width=128, head_width=64),
+        text=dataclasses.replace(tiny.text, hidden_size=128, num_attention_heads=2,
+                                 intermediate_size=512))
+    model = model_from_config(cfg, device=dev, options=ModelOptions(compute_dtype="bfloat16"))
+    plain = model_from_config(cfg, device=dev, options=ModelOptions(attn_impl="plain",
+                                                                  compute_dtype="bfloat16"))
+    g = torch.Generator().manual_seed(0)
+    images = torch.randn(1, 32, 32, 3, generator=g)
+    ids = torch.zeros(1, 52, dtype=torch.long)
+    ids[:, :5] = torch.randint(1, 1000, (1, 5), generator=g)
+    counted = (fb.fused_attention_block, fb.fused_mlp_block, lk.fused_layer_block, linear,
+               attention, row_layer_norm)
+    for quantized in (False, True):
+        m, p = (model.quantize(), plain.quantize()) if quantized else (model, plain)
+        for fn in counted:
+            fn.launches = 0
+        tk.fused_tower.launches = tk.fused_tower.launches_int8 = 0
+        img, txt = m.encode_image(images), m.encode_text(ids)
+        towers = tk.fused_tower.launches_int8 if quantized else tk.fused_tower.launches
+        assert towers == 2 and sum(fn.launches for fn in counted) == 0
+        assert float((img - p.encode_image(images)).abs().max()) <= 0.05
+        assert float((txt - p.encode_text(ids)).abs().max()) <= 0.05

@@ -97,8 +97,37 @@ def test_normalize_state_dict_splits_flash_layout():
     assert not any("pooler" in k or "Wqkv" in k or k.startswith("module.") for k in out)
 
 
+def test_preprocess_text_matches_jax():
+    from nans_clip_tpu.data.dataset import preprocess_text as jpreprocess
+    from nans_clip_tpu_torch.data.dataset import preprocess_text
+
+    for t in ["“西湖”美景", "ABC “引号” Def", "", "皮卡丘"]:
+        assert preprocess_text(t) == jpreprocess(t)
+
+
+def test_load_eval_model(tmp_path):
+    from nans_clip_tpu_torch.eval.model_io import load_eval_model
+
+    m = load_eval_model("ViT-B-16", "RoBERTa-wwm-ext-base-chinese", None, "fp32",
+                        cfg=tconfigs.tiny_config(), device="cpu")
+    assert m.cfg.name == "tiny" and m.device.type == "cpu" and m.options.compute_dtype is None
+    ckpt = tmp_path / "tiny.pt"
+    torch.save({"state_dict": m.module.state_dict()}, ckpt)
+    back = load_eval_model("", "", str(ckpt), "bf16", cfg=tconfigs.tiny_config(), device="cpu")
+    assert back.options.compute_dtype == "bfloat16"
+    assert torch.equal(back.module.visual.proj, m.module.visual.proj.bfloat16())
+    with pytest.raises(NotImplementedError, match="training port"):
+        load_eval_model("", "", str(tmp_path), cfg=tconfigs.tiny_config(), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        load_eval_model("", "", str(tmp_path / "missing.pt"), cfg=tconfigs.tiny_config(),
+                        device="cpu")
+
+
 def test_import_leaves_jax_out():
-    code = ("import sys, nans_clip_tpu_torch, nans_clip_tpu_torch.ops.layer_kernel; "
+    code = ("import sys, nans_clip_tpu_torch, nans_clip_tpu_torch.ops.layer_kernel, "
+            "nans_clip_tpu_torch.ops.tower_kernel, nans_clip_tpu_torch.deploy.server, "
+            "nans_clip_tpu_torch.deploy.speed_benchmark, nans_clip_tpu_torch.eval.model_io, "
+            "nans_clip_tpu_torch.utils.quantize, nans_clip_tpu_torch.data.dataset; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nans_clip_tpu.'))"
             " or m == 'nans_clip_tpu'); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -133,7 +133,7 @@ def test_reference_pt_round_trip(tmp_path, monkeypatch):
     save_torch_checkpoint(str(ckpt), state_dict_from_params(jax.tree.map(np.asarray, params), jcfg))
     model, preprocess = load_from_name(str(ckpt), vision_model_name="Tiny-ViT",
                                        text_model_name="Tiny-BERT",
-                                       input_resolution=v.image_resolution)
+                                       input_resolution=v.image_resolution, device="cpu")
     assert model.cfg.vision == tconfigs.VisionConfig(**dataclasses.asdict(v))
     rs = np.random.RandomState(4)
     images = rs.randn(2, v.image_resolution, v.image_resolution, 3).astype(np.float32)

@@ -1,0 +1,276 @@
+"""The port's whole-tower twin (``ops/tower_kernel.py::tower_math``) and its
+int8 serving mode (``utils/quantize.py``, ``CLIPModel.quantize``) against
+the JAX package on the CPU.
+
+Inputs come from numpy seeds. fp32 on both sides:
+- the twins against the JAX tower kernel in interpret mode: atol = rtol =
+  2e-5, the tolerance of ``tests/test_tower_kernel.py`` (three layers of fp32
+  sum-order differences);
+- the quantizer: exact (atol 0), int8 values and scales;
+- whole quantized models: 2e-4 on features, as ``tests/test_torch_slice.py``
+  (two layers a tower and the final projections)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nans_clip_tpu.ops.tower_kernel import fused_tower as jfused_tower
+from nans_clip_tpu.utils import quantize as jq
+from nans_clip_tpu_torch.models.common import ModelOptions, cast_module
+from nans_clip_tpu_torch.ops import gates
+from nans_clip_tpu_torch.ops import tower_kernel as tk
+from nans_clip_tpu_torch.utils import quantize as tq
+
+torch.set_num_threads(2)
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+ORDER = ("ln1_s", "ln1_b", "wqkv", "bqkv", "wo", "bo", "ln2_s", "ln2_b", "w1", "b1", "w2", "b2")
+LINEAR = ("wqkv", "wo", "w1", "w2")
+
+
+def _stacked(L, W, I, seed):
+    """The JAX test's stacked layer params ([L, in, out] weights)."""
+    rs = np.random.RandomState(seed)
+    f = lambda *sh: (0.1 * rs.randn(*sh)).astype(np.float32)
+    return dict(ln1_s=(1.0 + 0.1 * rs.randn(L, W)).astype(np.float32), ln1_b=f(L, W),
+                wqkv=f(L, W, 3 * W), bqkv=f(L, 3 * W), wo=f(L, W, W), bo=f(L, W),
+                ln2_s=(1.0 + 0.1 * rs.randn(L, W)).astype(np.float32), ln2_b=f(L, W),
+                w1=f(L, W, I), b1=f(L, I), w2=f(L, I, W), b2=f(L, W))
+
+
+def _port_layers(p, quantize=False):
+    """The same params as the port's per-layer tuples ([out, in] weights)."""
+    layers = []
+    for l in range(p["wqkv"].shape[0]):
+        layer = []
+        for k in ORDER:
+            t = torch.from_numpy(np.ascontiguousarray(p[k][l].T if k in LINEAR else p[k][l]))
+            layer.append(tq.quantize_weight(t) if quantize and k in LINEAR else t)
+        layers.append(tuple(layer))
+    return layers
+
+
+def _case(post_ln, B, S, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(B, S, 128).astype(np.float32)
+    kb = None
+    if post_ln:
+        mask = np.ones((B, S), np.float32)
+        mask[:, S - 3:] = 0.0
+        mask[0, 4:] = 0.0
+        kb = (1.0 - mask) * -10000.0
+    return x, kb
+
+
+# (post_ln, act, B, S): the shapes of tests/test_tower_kernel.py:38-41
+CASES = [(False, "quick_gelu", 2, 12), (True, "gelu", 3, 10)]
+
+
+@pytest.mark.parametrize("post_ln,act,B,S", CASES)
+def test_tower_twin_matches_pallas(post_ln, act, B, S):
+    p = _stacked(3, 128, 512, seed=0)
+    x, kb = _case(post_ln, B, S, 7)
+    ref = jfused_tower(jnp.asarray(x), None if kb is None else jnp.asarray(kb).reshape(B, 1, S),
+                       *(jnp.asarray(p[k]) for k in ORDER), 4, 1e-5, act, post_ln,
+                       interpret=True)
+    out = tk.fused_tower(torch.from_numpy(x), None if kb is None else torch.from_numpy(kb),
+                         _port_layers(p), 4, 1e-5, act, post_ln)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("post_ln,act,B,S", CASES)
+def test_int8_tower_twin_matches_pallas(post_ln, act, B, S):
+    """JAX's quantized tower kernel (_tower_kernel_q) on its quantized leaves
+    against the port's twin on the port's own quantization of the same
+    weights."""
+    p = _stacked(3, 128, 512, seed=5)
+    x, kb = _case(post_ln, B, S, 11)
+    qp = {k: (jq.quantize_weight(jnp.asarray(p[k])) if k in LINEAR else jnp.asarray(p[k]))
+          for k in ORDER}
+    ref = jfused_tower(jnp.asarray(x), None if kb is None else jnp.asarray(kb).reshape(B, 1, S),
+                       *(qp[k] for k in ORDER), 4, 1e-5, act, post_ln, interpret=True)
+    layers = _port_layers(p, quantize=True)
+    assert all(tq.is_quantized(layer[i]) for layer in layers for i in (2, 4, 8, 10))
+    out = tk.fused_tower(torch.from_numpy(x), None if kb is None else torch.from_numpy(kb),
+                         layers, 4, 1e-5, act, post_ln)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("shape", [(96, 160), (3 * 64, 64), (7, 33)])
+def test_quantize_weight_equals_jax(shape):
+    """Bit for bit: the port quantizes [out, in] over in, JAX [in, out] over
+    in. Includes a zero row (the 1e-12 floor) and exact .5 ties."""
+    rs = np.random.RandomState(shape[0])
+    w = rs.randn(*shape).astype(np.float32)      # port layout [out, in]
+    w[0] = 0.0
+    w[1, :4] = [127.0, 0.5, -0.5, 1.5]           # scale 1: ties round to even
+    jw = jq.quantize_weight(jnp.asarray(w.T))
+    q = tq.quantize_weight(torch.from_numpy(w))
+    assert q.int8.dtype == torch.int8 and q.scale.dtype == torch.float32
+    assert q.scale.shape == (shape[0], 1)
+    np.testing.assert_array_equal(q.int8.numpy(), np.asarray(jw["int8"]).T)
+    np.testing.assert_array_equal(q.scale.numpy(), np.asarray(jw["scale"]).T)
+    np.testing.assert_array_equal(tq.dequantize_weight(q, torch.float32).numpy(),
+                                  np.asarray(jq.dequantize_weight(jw, jnp.float32)).T)
+
+
+def test_gate_predicate():
+    assert gates.fits_tower(52, 768, 12, 3072) and gates.fits_tower(197, 768, 12, 3072)
+    assert gates.fits_tower(640, 1024, 16, 4096)
+    assert not gates.fits_tower(641, 768, 12, 3072)     # S: a head's K and V in shared memory
+    assert not gates.fits_tower(52, 800, 12, 3200)      # W % 64
+    assert not gates.fits_tower(197, 1280, 16, 5120)    # W > 1024 (ViT-H: heads of 80 too)
+    assert not gates.fits_tower(52, 128, 4, 512)        # heads of 32
+    assert not gates.fits_tower(52, 768, 12, 3040)      # I % 64
+    assert set(gates.TOWER_MAX_BATCH) == {(t, q) for t in ("text", "image")
+                                          for q in ("bf16", "int8")}
+    assert all(b in (1, 8, 32) for b in gates.TOWER_MAX_BATCH.values())
+    # CPU tensors never take the kernel route: they run the twins
+    x = torch.zeros(1, 52, 768)
+    for quant in (False, True):
+        assert not gates.tower_route(x, "auto", "text", 12, 3072, quant)
+        assert not gates.tower_route(x, "plain", "text", 12, 3072, quant)
+    with pytest.raises(ValueError, match="CUDA"):
+        gates.tower_route(x, "kernel", "text", 12, 3072, False)
+
+
+def test_tower_k_splits():
+    """Batch 1 splits K so every block streams weights; batch 32 needs no
+    split; never a second round of units, never more than 8 splits."""
+    assert tk.k_splits(52, 2304, 768, 396) == 5          # 72 tiles x 5 = 360 <= 396
+    assert tk.k_splits(52, 768, 3072, 396) == 8          # capped
+    assert tk.k_splits(52, 768, 768, 396) == 6           # 768 = 6 splits of 2 x 64
+    assert tk.k_splits(52 * 32, 2304, 768, 396) == 1
+    for m, n, k in ((197, 768, 768), (52, 3072, 768), (6304, 768, 3072)):
+        ks = tk.k_splits(m, n, k, 396)
+        assert 1 <= ks <= tk.MAX_SPLITS and k // 64 // ks >= tk.MIN_KSTEPS_PER_SPLIT
+        assert ks == 1 or -(-m // 64) * (n // 32) * ks <= 396
+
+
+def _tiny128():
+    from nans_clip_tpu import configs as C
+    return C.CLIPConfig(
+        embed_dim=64,
+        vision=C.VisionConfig(embed_dim=64, image_resolution=32, layers=2, width=128,
+                              patch_size=16, head_width=32),
+        text=C.TextConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=4,
+                          intermediate_size=512),
+        name="tiny128")
+
+
+def _models(seed=1):
+    """The same random weights in a JAX CLIPModel and the port's."""
+    import dataclasses
+
+    from nans_clip_tpu.api import CLIPModel as JModel
+    from nans_clip_tpu.models import ModelOptions as JOptions
+    from nans_clip_tpu.models.clip import init_clip
+    from nans_clip_tpu_torch import configs as tconfigs
+    from nans_clip_tpu_torch.api import CLIPModel
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.utils.torch_interop import state_dict_from_jax_params
+
+    jcfg = _tiny128()
+    params, stats = init_clip(jax.random.PRNGKey(seed), jcfg)
+    cfg = tconfigs.CLIPConfig(embed_dim=jcfg.embed_dim,
+                              vision=tconfigs.VisionConfig(**dataclasses.asdict(jcfg.vision)),
+                              text=tconfigs.TextConfig(**dataclasses.asdict(jcfg.text)),
+                              name=jcfg.name)
+    module = build_clip(cfg)
+    module.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params), cfg))
+    return (JModel(jcfg, params, stats, JOptions(attn_impl="fused")),
+            CLIPModel(cfg, module, ModelOptions()))
+
+
+def _inputs(b=3):
+    rs = np.random.RandomState(0)
+    images = rs.randn(b, 32, 32, 3).astype(np.float32)
+    texts = np.zeros((b, 52), np.int32)
+    texts[:, 0] = 101
+    texts[:, 1:12] = rs.randint(1000, 20000, (b, 11))
+    texts[:, 12] = 102
+    texts[0, 6:12] = 0
+    return images, texts
+
+
+def test_clipmodel_quantize_matches_jax():
+    """CLIPModel.quantize("int8") equals the JAX quantized CLIPModel (which
+    routes its int8 tower kernel at this width) on the same weights, and
+    leaves the original model unchanged."""
+    jm, tm = _models()
+    images, texts = _inputs()
+    before_img, before_txt = tm.encode_image(images), tm.encode_text(texts)
+    jq_model, tq_model = jm.quantize(), tm.quantize()
+    assert tq.tower_quantized(tq_model.module, "text") and tq.tower_quantized(tq_model.module,
+                                                                              "image")
+    np.testing.assert_allclose(tq_model.encode_image(images).numpy(),
+                               np.asarray(jq_model.encode_image(images)), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(tq_model.encode_text(texts).numpy(),
+                               np.asarray(jq_model.encode_text(texts)), atol=2e-4, rtol=2e-4)
+    # the original: not quantized, same features, sharing what was not quantized
+    assert not tq.tower_quantized(tm.module, "text")
+    assert not tq.tower_quantized(tm.module, "image")
+    assert torch.equal(tm.encode_image(images), before_img)
+    assert torch.equal(tm.encode_text(texts), before_txt)
+    assert tq_model.module.text_projection is tm.module.text_projection
+    assert tq_model.module.bert.encoder.layer[0].attention.output.LayerNorm.weight is \
+        tm.module.bert.encoder.layer[0].attention.output.LayerNorm.weight
+    with pytest.raises(ValueError, match="unsupported"):
+        tm.quantize("int4")
+
+
+def test_quantize_errors_modes_and_scales():
+    _, tm = _models(seed=2)
+    text_only = tm.quantize("int8", towers=("text",))
+    assert tq.tower_quantized(text_only.module, "text")
+    assert not tq.tower_quantized(text_only.module, "image")
+    with pytest.raises(ValueError, match="already int8-quantized"):
+        text_only.quantize("int8", towers=("text",))
+    with pytest.raises(ValueError, match="unknown towers"):
+        tm.quantize("int8", towers=("vision",))
+    assert tq.towers_for_mode("int8") == ("text", "image")
+    assert tq.towers_for_mode("int8-text") == ("text",)
+    with pytest.raises(ValueError, match="unknown quantize mode"):
+        tq.towers_for_mode("int4")
+    # cast_module casts parameters; the int8 values and fp32 scales are buffers
+    q = tm.quantize().module
+    cast_module(q, ModelOptions(compute_dtype="bfloat16"))
+    w = q.bert.encoder.layer[0].output.dense.weight
+    assert w.int8.dtype == torch.int8 and w.scale.dtype == torch.float32
+    assert q.visual.transformer.resblocks[0].attn.in_proj_weight.scale.dtype == torch.float32
+    assert q.bert.encoder.layer[0].output.dense.bias.dtype == torch.bfloat16
+    assert q.text_projection.dtype == torch.bfloat16
+    # and back: dequantize_params gives dense weights within half a step
+    dq = tq.dequantize_params(tm.quantize().module)
+    assert not tq.tower_quantized(dq, "text") and not tq.tower_quantized(dq, "image")
+    ref = tm.module.bert.encoder.layer[0].intermediate.dense.weight
+    got = dq.bert.encoder.layer[0].intermediate.dense.weight
+    assert float((got - ref).detach().abs().max()) <= float(ref.detach().abs().max()) / 127
+
+
+def test_quantized_model_dequantizes_on_entry_off_the_tower_route():
+    """Off the tower route (CPU here) the int8 towers equal the same model
+    with the dequantized weights, exactly."""
+    _, tm = _models(seed=3)
+    q = tm.quantize()
+    from nans_clip_tpu_torch.api import CLIPModel
+    dq = CLIPModel(q.cfg, tq.dequantize_params(q.module), q.options)
+    images, texts = _inputs(2)
+    assert torch.equal(q.encode_image(images), dq.encode_image(images))
+    assert torch.equal(q.encode_text(texts), dq.encode_text(texts))
+
+
+def test_create_model_needs_a_card_by_default(monkeypatch):
+    """The port runs on the card unless the caller names another device:
+    without CUDA, the default raises instead of quietly using the CPU."""
+    from nans_clip_tpu_torch import api, configs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.model_from_config(configs.tiny_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.create_model("ViT-B-16@RBT3-chinese")
+    m = api.model_from_config(configs.tiny_config(), device="cpu")
+    assert m.device.type == "cpu"
