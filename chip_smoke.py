@@ -31,6 +31,20 @@ Phases, each printing its lines before the last line:
    quantized text tower); ``speed_benchmark``'s latency at batch 1, 8 and 32
    for both towers in bf16 and int8-text; and the HTTP daemon on 127.0.0.1
    answering 8 concurrent one-text ``/encode_text`` requests.
+7. Training: the backward kernels (#14, #16 with attention and hidden
+   dropout at 0.1, #18 in both forms) against their twins at the train
+   step's shapes (batch 128; image S=197, text S=52), with their times, the
+   twin's, the bound and a yardstick (``torch.autograd`` through the same
+   sub-block written with ``F.layer_norm``/``F.linear``/SDPA; the port never
+   calls it); #1/#2 with dropout against their twins, and the keep masks
+   that the kernels draw, read back and held against the twin's. Then
+   ViT-B-16@RoBERTa-wwm-ext-base-chinese from a seeded generator takes one
+   train step on the plain route and the same step on the kernel route
+   (loss and gradient cosines compared), then 7 more on one fixed batch of
+   128 pairs through ``make_train_step`` in bf16: the loss of every step,
+   step time, pairs/s, peak memory and the launch counts of a step. The
+   trained model is saved as a ``.pt``, reloaded through ``load_from_name``
+   and its features compared with the trained module's.
 
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
@@ -516,6 +530,305 @@ def phase_serving(torch, ckpt):
     return towers, latency
 
 
+TRAIN_BATCH = 128
+# Bound of a backward chain against its twin, for each of its outputs: 2e-2 of
+# the twin's largest magnitude. The chain rounds the recomputed activations,
+# dqkv, dS, P_d, dproj and dh_pre to bf16 as the twin does, but at other fp32
+# sum orders; a rounding flip moves a term by one bf16 ulp (2^-8 relative),
+# and the flips of the 25,216 rows of a weight gradient add like a random
+# walk. The same bound holds the chains in tests/test_torch_cuda.py.
+BWD_REL = 2e-2
+# Kernel route against the plain route after one train step of the whole
+# model: the loss within 1e-2 (the forwards differ by bf16 rounding flips
+# through 12 layers; the loss is ~4.85), and every gradient tensor at cosine
+# >= 0.99 with its plain twin, except the key-projection biases, whose
+# gradient is 0 in exact arithmetic (softmax ignores a shift shared by all
+# keys) and so is rounding noise on both routes.
+STEP_LOSS_BOUND, GRAD_COS_BOUND = 1e-2, 0.99
+
+
+def _bwd_cost(b, s, mat: int, vec: int, flops: float, extra_bytes: float = 0.0):
+    """(bytes, operations) of one backward chain: x and g read and dx
+    written in bf16, ``mat`` + ``vec`` weights read in bf16 and their
+    gradients written in fp32."""
+    return 3 * b * s * 768 * 2 + (mat + vec) * (2 + 4) + extra_bytes, flops
+
+
+def phase_training(torch, dev, tmp):
+    """Phase 7: the backward kernels, then the one-GPU train step."""
+    import copy
+
+    import torch.nn.functional as F
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops import fused_block as fb
+    from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+    from nans_clip_tpu_torch.ops.attention import attention
+    from nans_clip_tpu_torch.ops.gemm import linear
+    from nans_clip_tpu_torch.training import TrainConfig, create_train_state, make_train_step
+    from nans_clip_tpu_torch.utils.checkpoint import save_torch_checkpoint
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    b, w, inter, heads = TRAIN_BATCH, 768, 3072, 12
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std + mean).to(bf)
+
+    def params(std):
+        return (rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(3 * w, w, std=std),
+                rnd(3 * w, std=0.1), rnd(w, w, std=std), rnd(w, std=0.1),
+                rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(inter, w, std=std),
+                rnd(inter, std=0.1), rnd(w, inter, std=std / 2), rnd(w, std=0.1))
+
+    pi, pt = params(w ** -0.5), params(0.02)
+    xi, gi = rnd(b, 197, w), rnd(b, 197, w)
+    xt, gt = rnd(b, 52, w), rnd(b, 52, w)
+    lengths = torch.randint(2, 53, (b,), generator=g, device=dev)
+    kb = ((1.0 - (torch.arange(52, device=dev)[None, :] < lengths[:, None]).float())
+          * -10000.0).contiguous()
+    rate = 0.1
+
+    def yardstick(x, gout, p, s, post_ln, mlp, act=None):
+        """torch.autograd through the sub-block written with F.layer_norm,
+        F.linear and SDPA, forward and backward (a yardstick of speed only)."""
+        xr = x.detach().requires_grad_()
+        ps = [t.detach().requires_grad_() for t in p]
+        eps = 1e-12 if post_ln else 1e-5
+        mask = None if not post_ln else kb.view(b, 1, 1, s).to(bf)
+
+        def run():
+            ln = lambda t: F.layer_norm(t, (w,), ps[0], ps[1], eps)
+            xn = xr if post_ln else ln(xr)
+            if mlp:
+                h = F.linear(xn, ps[2], ps[3])
+                h = h * torch.sigmoid(1.702 * h) if act == "quick_gelu" else F.gelu(h)
+                y = F.linear(h, ps[4], ps[5])
+            else:
+                q, k, v = F.linear(xn, ps[2], ps[3]).view(b, s, 3, heads, 64).permute(
+                    2, 0, 3, 1, 4).unbind(0)
+                ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                     dropout_p=rate if post_ln else 0.0)
+                y = F.linear(ctx.transpose(1, 2).reshape(b, s, w), ps[4], ps[5])
+            out = ln(xr + F.dropout(y, rate)) if post_ln else xr + y
+            return torch.autograd.grad(out, [xr, *ps], gout)
+        return run
+
+    zero_bo = torch.zeros(w, device=dev, dtype=bf)
+    bs_i, bs_t = b * 197, b * 52
+    attn_flops = lambda bs, s, n: n * bs * w * w + 12 * bs * s * w
+    # (name, kernel call, twin call, yardstick, (bytes, operations), JSON meta)
+    cases = [
+        ("fused_attention_block_bwd_fullgrad",
+         lambda: fbb.fused_attention_block_bwd_fullgrad(xi, *pi[:5], gi, heads, 1e-5),
+         lambda: fbb._attn_bwd_math(xi, *pi[:5], gi, heads, 1e-5),
+         yardstick(xi, gi, pi[:4] + (pi[4], zero_bo), 197, False, False),
+         _bwd_cost(b, 197, 4 * w * w, 6 * w, attn_flops(bs_i, 197, 22)),
+         "nans_clip_tpu/ops/fused_block_bwd.py:229"),
+        ("fused_bert_attention_block_bwd_fullgrad",
+         lambda: fbb.fused_bert_attention_block_bwd_fullgrad(xt, *pt[:6], kb, 1234, gt, heads,
+                                                             1e-12, rate, rate),
+         lambda: fbb._bert_bwd_math(xt, *pt[:6], kb, 1234, gt, heads, 1e-12, rate, rate),
+         yardstick(xt, gt, pt[:6], 52, True, False),
+         _bwd_cost(b, 52, 4 * w * w, 6 * w, attn_flops(bs_t, 52, 24), b * 52 * 4),
+         "nans_clip_tpu/ops/fused_block_bwd.py:404"),
+        ("fused_mlp_block_bwd_fullgrad",
+         lambda: fbb.fused_mlp_block_bwd_fullgrad(xi, *pi[6:], None, gi, "quick_gelu", 1e-5,
+                                                  False, 0.0),
+         lambda: fbb._mlp_bwd_math(xi, *pi[6:], None, gi, "quick_gelu", 1e-5, False, 0.0),
+         yardstick(xi, gi, pi[6:], 197, False, True, "quick_gelu"),
+         _bwd_cost(b, 197, 2 * w * inter, 4 * w + inter, 10 * bs_i * w * inter),
+         "nans_clip_tpu/ops/fused_block_bwd.py:894"),
+        ("fused_mlp_block_bwd_fullgrad[post-LN, S=52]",
+         lambda: fbb.fused_mlp_block_bwd_fullgrad(xt, *pt[6:], 99, gt, "gelu", 1e-12, True,
+                                                  rate),
+         lambda: fbb._mlp_bwd_math(xt, *pt[6:], 99, gt, "gelu", 1e-12, True, rate),
+         yardstick(xt, gt, pt[6:], 52, True, True, "gelu"),
+         _bwd_cost(b, 52, 2 * w * inter, 4 * w + inter, 12 * bs_t * w * inter), None),
+    ]
+    results = {}
+    for name, kern, twin, yard, cost, replaces in cases:
+        got, want = kern(), twin()
+        torch.cuda.synchronize()
+        errs = []
+        for i, (a, r) in enumerate(zip(got, want)):
+            err, top = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+            if a.shape != r.shape or not torch.isfinite(a).all() or err > BWD_REL * top:
+                raise AssertionError(f"{name} output {i}: max abs err {err} exceeds "
+                                     f"{BWD_REL} x {top}")
+            errs.append(err / max(top, 1e-30))
+        if not all(torch.equal(a, r) for a, r in zip(got, kern())):
+            raise AssertionError(f"{name}: two calls gave different bits")
+        err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, want))
+        ms, plain_ms, yard_ms = _time_ms(kern, 5), _time_ms(twin, 2), _time_ms(yard, 5)
+        bound_ms, bound_by = _bound(*cost)
+        print(f"training kernel {name}: max_abs_err {err:.6g}, largest error over max|twin| "
+              f"{max(errs):.4g} <= {BWD_REL} on each of 7 outputs; {ms:.4f} ms, twin "
+              f"{plain_ms:.4f} ms, yardstick {yard_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {cost[1] / 1e9:.1f} GFLOP, {cost[0] / 1e6:.1f} MB)", flush=True)
+        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, yard_ms=yard_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, replaces=replaces)
+
+    # #1/#2 with dropout against their twins, and the kernels' keep masks
+    args_a = (xt, *pt[:6], kb, heads, 1e-12, 1234, rate, rate)
+    got = fb.fused_bert_attention_block(*args_a)
+    want = fb._reference_block(xt, *pt[:6], heads, 1e-12, kb, True, 1234, rate, rate)
+    got_m = fb.fused_mlp_block(xt, *pt[6:], "gelu", 1e-12, True, 99, rate)
+    want_m = fb._reference_mlp(xt, *pt[6:], "gelu", 1e-12, True, 99, rate)
+    for name, a, r in (("fused_bert_attention_block", got, want),
+                       ("fused_mlp_block[post-LN]", got_m, want_m)):
+        err, bound = float((a.float() - r.float()).abs().max()), _ulps(r, 4)
+        print(f"training kernel {name} with dropout {rate}: max_abs_err {err:.6g} <= bound "
+              f"{bound:.6g} (4 bf16 ulp)", flush=True)
+        if not (torch.isfinite(a).all() and err <= bound):
+            raise AssertionError(f"{name} with dropout: max abs err {err} exceeds {bound}")
+    spec_h = drop.Dropout(77, rate, drop.STREAM_HIDDEN, 52)
+    mult = linear(torch.zeros(bs_t, w, device=dev, dtype=bf), pt[4],
+                  torch.ones(w, device=dev, dtype=bf), out_dtype=torch.float32, dropout=spec_h)
+    same_h = torch.equal(mult, drop.hidden_multiplier(spec_h, bs_t, w, dev))
+    # attention: Q = K = 0 and V one-hot over the keys, so ctx[q, d] > 0
+    # exactly where the kernel kept P[q, key d]
+    spec_a = drop.Dropout(78, rate, drop.STREAM_ATTN)
+    qkv = torch.zeros(b, 52, 3, heads, 64, device=dev, dtype=bf)
+    qkv[:, :, 2, :, :52] = torch.eye(52, device=dev, dtype=bf)[None, :, None, :]
+    kept = attention(qkv.view(bs_t, 3 * w), None, b, heads, spec_a).view(b, 52, heads, 64)
+    kept = kept[..., :52].permute(0, 2, 1, 3) > 0
+    same_a = torch.equal(kept, drop.attention_multiplier(spec_a, b, heads, 52, dev) > 0)
+    keep_h, keep_a = float((mult > 0).float().mean()), float(kept.float().mean())
+    print(f"training dropout: keep fraction hidden {keep_h:.5f} ({mult.numel()} draws, gemm.cu), "
+          f"attention {keep_a:.5f} ({kept.numel()} draws, attention.cu), against {1 - rate}; "
+          f"kernel masks equal the twin's: {same_h and same_a}", flush=True)
+    if not (same_h and same_a and abs(keep_h - 0.9) < 2e-3 and abs(keep_a - 0.9) < 2e-3):
+        raise AssertionError("the kernels' dropout masks differ from the twin's or keep "
+                             "another fraction than 0.9")
+    del xi, gi, xt, gt, pi, pt, qkv, mult, kept
+
+    # the train step
+    cfg = nct.load_config(f"{VISION}@{TEXT}")
+    assert (cfg.text.hidden_dropout_prob, cfg.text.attention_probs_dropout_prob) == (rate, rate)
+    gen = torch.Generator().manual_seed(5)
+    images = torch.randn(b, 224, 224, 3, generator=gen).to(dev)
+    ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}" for i in range(b)]))
+    ids = ids.to(dev)
+    tcfg = TrainConfig(lr=1e-3, warmup=2, max_steps=100)
+    t0 = time.time()
+    state = create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)), tcfg,
+                               device=dev)
+    plain_state = create_train_state(copy.deepcopy(state.module), tcfg, device=dev)
+    print(f"training: {VISION}@{TEXT} random (seed 0), "
+          f"{sum(p.numel() for p in state.module.parameters())} fp32 parameters, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    kernel_step = make_train_step(cfg, tcfg, nct.ModelOptions(compute_dtype="bfloat16",
+                                                              deterministic=False))
+    plain_step = make_train_step(cfg, tcfg, nct.ModelOptions(
+        compute_dtype="bfloat16", attn_impl="plain", deterministic=False))
+
+    # the plain route's first step, from the same weights and dropout seeds
+    t0 = time.time()
+    plain_state, plain_metrics = plain_step(plain_state, images, ids, 7)
+    plain_loss = float(plain_metrics["loss"])
+    plain_grads = {n: p.grad for n, p in plain_state.module.named_parameters()}
+    plain_s = time.time() - t0
+    del plain_state
+
+    counted = {"fused_attention_block": fb.fused_attention_block,
+               "fused_bert_attention_block": fb.fused_bert_attention_block,
+               "fused_mlp_block": fb.fused_mlp_block,
+               "fused_attention_block_bwd_fullgrad": fbb.fused_attention_block_bwd_fullgrad,
+               "fused_bert_attention_block_bwd_fullgrad":
+                   fbb.fused_bert_attention_block_bwd_fullgrad,
+               "fused_mlp_block_bwd_fullgrad": fbb.fused_mlp_block_bwd_fullgrad}
+    counted.update(_counted())
+    from nans_clip_tpu_torch.ops.attention import attention_bwd
+    from nans_clip_tpu_torch.ops.gemm import linear_dgrad, linear_wgrad
+    from nans_clip_tpu_torch.ops.layernorm import layer_norm_bwd
+    from nans_clip_tpu_torch.ops.reduce import column_sum
+    for fn in (attention_bwd, linear_dgrad, linear_wgrad, layer_norm_bwd, column_sum):
+        counted[fn.__name__] = fn
+    n_img, n_txt = cfg.vision.layers, cfg.text.num_hidden_layers
+    expected = {"fused_attention_block": n_img, "fused_bert_attention_block": n_txt,
+                "fused_mlp_block": n_img + n_txt, "fused_attention_block_bwd_fullgrad": n_img,
+                "fused_bert_attention_block_bwd_fullgrad": n_txt,
+                "fused_mlp_block_bwd_fullgrad": n_img + n_txt,
+                "fused_layer_block": 0, "fused_tower": 0, "fused_tower_int8": 0}
+
+    def counts():
+        out = {name: fn.launches for name, fn in counted.items()}
+        out.update(_tower_counts())
+        return out
+
+    def reset():
+        _reset_counts()
+        for fn in counted.values():
+            fn.launches = 0
+
+    steps = 8
+    losses, events = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    for i in range(steps):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, metrics = kernel_step(state, images, ids, 7 if i == 0 else 100 + i)
+        ev[1].record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+        if i == 0:
+            torch.cuda.synchronize()
+            per_step = counts()
+            print(f"training: launches of one step {json.dumps(per_step)}", flush=True)
+            if any(per_step[k] != v for k, v in expected.items()):
+                raise AssertionError(f"launches of one step {per_step}, expected {expected}")
+            loss0 = float(metrics["loss"])
+            cos = {}
+            for n, p in state.module.named_parameters():
+                if not n.endswith("key.bias"):
+                    cos[n] = float(F.cosine_similarity(p.grad.flatten().double(),
+                                                       plain_grads[n].flatten().double(), dim=0))
+            worst = min(cos, key=cos.get)
+            print(f"training: kernel vs plain route after one step: loss {loss0:.6f} vs "
+                  f"{plain_loss:.6f} (|diff| {abs(loss0 - plain_loss):.3g} <= {STEP_LOSS_BOUND}); "
+                  f"gradient cosine >= {cos[worst]:.6f} ({worst}) over {len(cos)} tensors, "
+                  f"bound {GRAD_COS_BOUND}; plain step {plain_s:.1f} s", flush=True)
+            if abs(loss0 - plain_loss) > STEP_LOSS_BOUND or cos[worst] < GRAD_COS_BOUND:
+                raise AssertionError("the kernel route's step differs from the plain route's")
+            del plain_grads
+    torch.cuda.synchronize()
+    total = counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(x) for x in losses]
+    ms = sum(step_ms[1:]) / (steps - 1)
+    print(f"training: batch {b}, {steps} steps, loss {' '.join(f'{x:.5f}' for x in losses)}; "
+          f"step ms {' '.join(f'{x:.2f}' for x in step_ms)}; steps 2-{steps} {ms:.2f} ms a step, "
+          f"{b / ms * 1e3:.1f} pairs/s; peak memory {peak / 2 ** 30:.3f} GiB; "
+          f"logit_scale {float(state.module.logit_scale.detach()):.6f}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over {steps} steps: {losses}")
+    if any(total[k] != steps * v for k, v in per_step.items()):
+        raise AssertionError(f"launches over {steps} steps {total} are not {steps} x {per_step}")
+
+    # the .pt round trip
+    path = os.path.join(tmp, "trained.pt")
+    save_torch_checkpoint(path, state.module)
+    loaded, _ = nct.load_from_name(path, vision_model_name=VISION, text_model_name=TEXT,
+                                   input_resolution=224, device=dev,
+                                   options=nct.ModelOptions(compute_dtype="bfloat16"))
+    opts = nct.ModelOptions(compute_dtype="bfloat16")
+    with torch.inference_mode():
+        mine = (state.module.encode_image(images[:8], opts), state.module.encode_text(ids[:8], opts))
+    theirs = (loaded.encode_image(images[:8]), loaded.encode_text(ids[:8]))
+    same = all(torch.equal(a, r) for a, r in zip(mine, theirs))
+    print(f"training: trained model saved as .pt ({os.path.getsize(path) / 2 ** 20:.1f} MiB) and "
+          f"reloaded with load_from_name: features equal {same}", flush=True)
+    if not same:
+        raise AssertionError("the reloaded model's features differ from the trained module's")
+    return results, per_step
+
+
 def main() -> int:
     if not (ROOT / "nans_clip_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -558,6 +871,8 @@ def main() -> int:
               flush=True)
         launches = phase_slice(torch, dev, ckpt)
         serving_launches, _ = phase_serving(torch, ckpt)
+        os.remove(ckpt)
+        train_results, train_launches = phase_training(torch, dev, tmp)
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")
@@ -578,6 +893,16 @@ def main() -> int:
                         "replaces": replaces, "launches": serving_launches[name],
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+    for name, r in train_results.items():
+        if r["replaces"] is None:
+            continue
+        # launches: one train step, the main path's run for these kernels
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "nans_clip_tpu_torch/ops/fused_block_bwd.py",
+                        "replaces": r["replaces"], "launches": train_launches[name],
+                        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                        "yardstick_ms": r["yard_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

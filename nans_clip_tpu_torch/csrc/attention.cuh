@@ -9,10 +9,13 @@
 // finds the row max and sum, the second recomputes the scores, normalises P
 // exactly as the TPU kernel did (p = exp(s - m) / l, then the bf16 cast) and
 // accumulates P V. Recomputing Q K^T once costs less than holding S scores a
-// row in registers.
+// row in registers. With a dropout spec on, P is multiplied by its keep
+// multiplier (dropout.cuh, counter (sample, head, query, key)) in fp32
+// before the bf16 cast (fused_block.py:146-149).
 #pragma once
 
 #include "common.cuh"
+#include "dropout.cuh"
 
 namespace attn {
 
@@ -43,13 +46,56 @@ NANS_DEVICE void score_tile(float (&s)[2][4], const uint32_t (&qf)[4][4],
       s[t][e] = s[t][e] * scale + sKB[j0 + 8 * t + 2 * (lane & 3) + (e & 1)];
 }
 
+// Raw products of 16 A rows (fragments af, loaded as attend_rows loads Q)
+// with rows j0..j0+15 of sB (row stride LDK): d[t][e] pairs A row
+// lane/4 + 8(e>>1) with B row j0 + 8t + 2(lane%4) + (e&1).
+NANS_DEVICE void dot_tile(float (&d)[2][4], const uint32_t (&af)[4][4],
+                          const __nv_bfloat16* sB, int j0, int lane) {
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[t][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    uint32_t bf[4];
+    const int r = j0 + (lane & 7) + ((lane >> 4) << 3);
+    ldmatrix_x4(bf, sB + r * LDK + kk * 16 + ((lane >> 3) & 1) * 8);
+    mma_bf16_16816(d[0], af[kk], bf[0], bf[1]);
+    mma_bf16_16816(d[1], af[kk], bf[2], bf[3]);
+  }
+}
+
+// A fragments of 16 rows (row stride LDK, head dim DH) for dot_tile.
+NANS_DEVICE void row_frags(uint32_t (&f)[DH / 16][4], const __nv_bfloat16* s, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ldmatrix_x4(f[kk], s + (lane & 15) * LDK + kk * 16 + (lane >> 4) * 8);
+}
+
+// o[0..7] += a (16 x 16, bf16 A fragment) . rows j0..j0+15 of sB (the
+// contraction runs over those rows, DH columns out).
+NANS_DEVICE void accumulate_rows(float (&o)[DH / 8][4], const uint32_t (&a)[4],
+                                 const __nv_bfloat16* sB, int j0, int lane) {
+#pragma unroll
+  for (int dp = 0; dp < DH / 16; ++dp) {
+    uint32_t f[4];
+    const int r = j0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    ldmatrix_x4_trans(f, sB + r * LDK + dp * 16 + (lane >> 4) * 8);
+    mma_bf16_16816(o[2 * dp], a, f[0], f[1]);
+    mma_bf16_16816(o[2 * dp + 1], a, f[2], f[3]);
+  }
+}
+
 // sQ: this warp's 16 query rows (row stride LDK); sK, sV: s_pad keys; sKB:
 // s_pad biases (-inf past the sequence). Writes query rows row0.. (< S) of
 // ctx, where `out` points at the head's column in ctx row 0 of the sample
-// and `width` is ctx's row stride.
+// and `width` is ctx's row stride. `drop` (with the sample and head of the
+// rows) is the attention-probability dropout, compiled in only with kDrop.
+template <bool kDrop>
 NANS_DEVICE void attend_rows(const __nv_bfloat16* sQ, const __nv_bfloat16* sK,
                              const __nv_bfloat16* sV, const float* sKB, int s_pad, int lane,
-                             float scale, __nv_bfloat16* out, int width, int row0, int S) {
+                             float scale, __nv_bfloat16* out, int width, int row0, int S,
+                             const drop::Spec& drop, int sample, int head) {
   uint32_t qf[DH / 16][4];
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk)
@@ -100,8 +146,16 @@ NANS_DEVICE void attend_rows(const __nv_bfloat16* sQ, const __nv_bfloat16* sK,
     uint32_t pa[4];
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      pa[2 * t] = pack_bf16(expf(s[t][0] - m[0]) / l[0], expf(s[t][1] - m[0]) / l[0]);
-      pa[2 * t + 1] = pack_bf16(expf(s[t][2] - m[1]) / l[1], expf(s[t][3] - m[1]) / l[1]);
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(s[t][e] - m[e >> 1]) / l[e >> 1];
+        if (kDrop)
+          p[e] *= drop::mult(drop, sample, head, row0 + (lane >> 2) + 8 * (e >> 1),
+                             j0 + 8 * t + 2 * (lane & 3) + (e & 1));
+      }
+      pa[2 * t] = pack_bf16(p[0], p[1]);
+      pa[2 * t + 1] = pack_bf16(p[2], p[3]);
     }
 #pragma unroll
     for (int dp = 0; dp < DH / 16; ++dp) {

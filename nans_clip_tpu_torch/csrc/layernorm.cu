@@ -1,4 +1,5 @@
-// Row LayerNorm with fp32 statistics: y = (x - mean) * rsqrt(var + eps) * g + b.
+// Row LayerNorm with fp32 statistics: y = (x - mean) * rsqrt(var + eps) * g + b,
+// and its backward.
 //
 // Replaces the LayerNorm stages inside nans_clip_tpu/ops/fused_block.py::_kernel
 // and ::_mlp_kernel (their `_ln`, fused_block.py:96): the pre-LN prologue
@@ -12,15 +13,33 @@
 // registers (W <= 1024, so at most 32 values a lane), two-pass mean and
 // variance in fp32 (the JAX package's order: mean, then mean of squared
 // deviations), warp-shuffle reductions, no shared memory.
+//
+// The backward (nans_layernorm_bwd) replaces the LayerNorm backward stages
+// of nans_clip_tpu/ops/fused_block_bwd.py (_ln_bwd :101-105 and the dx_ln
+// of _attn_bwd_math :208-212 and _mlp_bwd_math :773-777) and their dgamma /
+// dbeta accumulation: it recomputes x-hat and rstd from the LN's input,
+// forms dx = rstd * (gh - mean(gh) - xhat * mean(gh * xhat)) with gh =
+// g * gamma, adds an optional residual gradient, and for a post-LN
+// sub-block also writes dproj = dx * keep (the hidden dropout multiplier,
+// dropout.cuh) as bf16. Column sums (sum g * xhat, sum g, sum dproj) are
+// taken per block of 32 rows, the warps adding into shared memory one after
+// another in a fixed order; reduce.cu sums the blocks in order. Bound:
+// memory, as the forward; one warp a row, the row in registers.
 #include "common.cuh"
+#include "dropout.cuh"
 
 namespace {
 
 constexpr int kMaxPerLane = 32;  // W <= 1024
 constexpr int kWarps = 8;        // rows per block
+constexpr int kBwdRows = 32;     // rows per block of the backward
 
 NANS_DEVICE float load_f32(const float* p, int i) { return p[i]; }
 NANS_DEVICE float load_f32(const __nv_bfloat16* p, int i) { return __bfloat162float(p[i]); }
+NANS_DEVICE float load_any(const void* p, int f32, size_t i) {
+  return f32 ? static_cast<const float*>(p)[i]
+             : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+}
 
 NANS_DEVICE float warp_sum(float v) {
 #pragma unroll
@@ -69,7 +88,120 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// One block: rows [blockIdx.x * kBwdRows, +kBwdRows), warp w taking rows
+// w, w + 8, ... . part: [3][gridDim.x][width] fp32 column partials.
+__global__ void __launch_bounds__(kWarps * 32)
+    layernorm_bwd_kernel(const void* __restrict__ gin, int g_f32, const void* __restrict__ x,
+                         int x_f32, const __nv_bfloat16* __restrict__ gamma,
+                         const void* __restrict__ res, int res_f32, void* __restrict__ dx,
+                         int dx_f32, __nv_bfloat16* __restrict__ dmul, drop::Spec drop, int seq,
+                         float* __restrict__ part, int rows, int width, float eps) {
+  __shared__ float acc[3 * kMaxPerLane * 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_lane = width >> 5;
+  for (int c = threadIdx.x; c < 3 * width; c += kWarps * 32) acc[c] = 0.f;
+  __syncthreads();
+
+  for (int it = 0; it < kBwdRows / kWarps; ++it) {
+    const int row = blockIdx.x * kBwdRows + it * kWarps + warp;
+    const bool live = row < rows;
+    float xh[kMaxPerLane], gr[kMaxPerLane], dm[kMaxPerLane];
+    if (live) {
+      const size_t base = static_cast<size_t>(row) * width;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxPerLane; ++i) {
+        if (i < per_lane) {
+          xh[i] = load_any(x, x_f32, base + i * 32 + lane);
+          s += xh[i];
+        }
+      }
+      const float mean = warp_sum(s) / width;
+      float sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxPerLane; ++i) {
+        if (i < per_lane) {
+          const float d = xh[i] - mean;
+          sq += d * d;
+        }
+      }
+      const float rstd = rsqrtf(warp_sum(sq) / width + eps);
+      float sg = 0.f, sgx = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxPerLane; ++i) {
+        if (i < per_lane) {
+          const int c = i * 32 + lane;
+          xh[i] = (xh[i] - mean) * rstd;
+          gr[i] = load_any(gin, g_f32, base + c);
+          const float gh = gr[i] * __bfloat162float(gamma[c]);
+          sg += gh;
+          sgx += gh * xh[i];
+        }
+      }
+      const float mg = warp_sum(sg) / width, mgx = warp_sum(sgx) / width;
+      const int sample = row / seq, srow = row - sample * seq;
+#pragma unroll
+      for (int i = 0; i < kMaxPerLane; ++i) {
+        if (i < per_lane) {
+          const int c = i * 32 + lane;
+          float d = rstd * (gr[i] * __bfloat162float(gamma[c]) - mg - xh[i] * mgx);
+          if (dmul) {
+            dm[i] = d * drop::mult(drop, sample, 0, srow, c);
+            dmul[base + c] = __float2bfloat16_rn(dm[i]);
+          }
+          if (res) d += load_any(res, res_f32, base + c);
+          if (dx_f32) {
+            static_cast<float*>(dx)[base + c] = d;
+          } else {
+            static_cast<__nv_bfloat16*>(dx)[base + c] = __float2bfloat16_rn(d);
+          }
+        }
+      }
+    }
+    // The warps add their rows' terms one after another: a fixed order.
+    for (int w = 0; w < kWarps; ++w) {
+      if (live && warp == w) {
+#pragma unroll
+        for (int i = 0; i < kMaxPerLane; ++i) {
+          if (i < per_lane) {
+            const int c = i * 32 + lane;
+            acc[c] += gr[i] * xh[i];
+            acc[width + c] += gr[i];
+            if (dmul) acc[2 * width + c] += dm[i];
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int c = threadIdx.x; c < 3 * width; c += kWarps * 32) {
+    const int q = c / width, col = c - q * width;
+    part[(static_cast<size_t>(q) * gridDim.x + blockIdx.x) * width + col] = acc[c];
+  }
+}
+
 }  // namespace
+
+// gin: [rows, width] the LN output's gradient, fp32 (g_f32) or bf16; x:
+// [rows, width] the LN's input, fp32 (x_f32) or bf16; gamma: [width] bf16;
+// res: [rows, width] fp32 (res_f32) or bf16, or null; dx: [rows, width] fp32
+// (dx_f32) or bf16; dmul: [rows, width] bf16 or null (then no dropout);
+// part: [3, ceil(rows / 32), width] fp32. width % 32 == 0, width <= 1024
+// (checked by the Python wrapper). Returns cudaGetLastError().
+extern "C" int nans_layernorm_bwd(const void* gin, int g_f32, const void* x, int x_f32,
+                                  const void* gamma, const void* res, int res_f32, void* dx,
+                                  int dx_f32, void* dmul, unsigned drop_seed,
+                                  unsigned drop_stream, unsigned drop_threshold,
+                                  float drop_scale, int drop_on, int seq, void* part, int rows,
+                                  int width, float eps, void* stream) {
+  const dim3 grid((rows + kBwdRows - 1) / kBwdRows);
+  layernorm_bwd_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      gin, g_f32, x, x_f32, static_cast<const __nv_bfloat16*>(gamma), res, res_f32, dx, dx_f32,
+      static_cast<__nv_bfloat16*>(dmul),
+      drop::Spec{drop_seed, drop_stream, drop_threshold, drop_scale, drop_on},
+      seq > 0 ? seq : 1, static_cast<float*>(part), rows, width, eps);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x: [rows, width] fp32 (x_is_fp32 != 0) or bf16; gamma, beta: [width] bf16;
 // y: [rows, width] bf16. width % 32 == 0 and width <= 1024 (checked by the

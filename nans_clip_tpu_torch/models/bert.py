@@ -14,6 +14,16 @@ through the twins for CPU tensors. The tower's int8 weights
 dequantized on entry everywhere else. The q/k/v weights are packed into
 the ``[3H, H]`` layout the kernels read once, and packed again only when
 the weights change.
+
+A training forward (``options.deterministic`` False) runs every layer
+through the sub-block autograd Functions (#1 post-LN then #2 post-LN
+forward, #16 and #18 backward). With a ``torch.Generator`` it drops out as
+the JAX tower does (bert.py:77-80, :226-258): the embedding output in plain
+torch, then per layer two int32 seeds drawn from the generator, one for the
+attention sub-block (probability and hidden dropout) and one for the MLP
+(hidden dropout); the kernels draw their masks from those seeds
+(``ops/dropout.py``). The parameters are cast to the compute dtype on each
+forward (``ModelOptions.cast``).
 """
 
 from __future__ import annotations
@@ -25,7 +35,9 @@ from torch import nn
 
 from nans_clip_tpu_torch.configs import TextConfig
 from nans_clip_tpu_torch.models.common import ModelOptions
+from nans_clip_tpu_torch.ops import dropout as drop
 from nans_clip_tpu_torch.ops import gates
+from nans_clip_tpu_torch.ops.fused_block import attention_block_train, mlp_block_train
 from nans_clip_tpu_torch.ops.layer_kernel import encoder_layer_math, fused_layer_block
 from nans_clip_tpu_torch.ops.layernorm import layer_norm
 from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
@@ -53,9 +65,9 @@ class BertSelfAttention(nn.Module):
     def reset_caches(self) -> None:
         self._packed = None
 
-    def packed(self) -> Tuple[object, torch.Tensor]:
+    def packed(self, dtype: Optional[torch.dtype] = None) -> Tuple[object, torch.Tensor]:
         """q|k|v as the kernels read them: weight [3H, H] (an ``Int8Weight``
-        when the three are quantized), bias [3H].
+        when the three are quantized), bias [3H]; in ``dtype`` when given.
 
         Without autograd the packed pair is cached and rebuilt only when a
         source changes. The cache key is each source's address and version
@@ -66,12 +78,16 @@ class BertSelfAttention(nn.Module):
         srcs = tuple(t for w in ws for t in ((w.int8, w.scale) if is_quantized(w) else (w,)))
         srcs += (self.query.bias, self.key.bias, self.value.bias)
         if torch.is_grad_enabled():
-            return _cat_weights(ws), torch.cat(srcs[-3:])
-        key = tuple((t.data_ptr(), t._version) for t in srcs)
+            return _cast(_cat_weights(ws), dtype), _cast(torch.cat(srcs[-3:]), dtype)
+        key = tuple((t.data_ptr(), t._version) for t in srcs) + (dtype,)
         if self._packed is None or self._packed[0] != key:
-            self._packed = (key, tuple(t.detach() for t in srcs), _cat_weights(ws),
-                            torch.cat(srcs[-3:]))
+            self._packed = (key, tuple(t.detach() for t in srcs), _cast(_cat_weights(ws), dtype),
+                            _cast(torch.cat(srcs[-3:]), dtype))
         return self._packed[2], self._packed[3]
+
+
+def _cast(t, dtype):
+    return t if dtype is None or not torch.is_tensor(t) else t.to(dtype)
 
 
 def _cat_weights(ws):
@@ -111,15 +127,16 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg)
         self.output = BertDenseLN(cfg.intermediate_size, cfg.hidden_size, cfg.layer_norm_eps)
 
-    def weights(self) -> tuple:
-        """The layer in ``encoder_layer_math``'s order; the four big weights
-        are tensors or ``Int8Weight``s."""
-        ao, out = self.attention.output, self.output
-        w_qkv, b_qkv = self.attention.self.packed()
-        return (ao.LayerNorm.weight, ao.LayerNorm.bias, w_qkv, b_qkv, ao.dense.weight,
-                ao.dense.bias, out.LayerNorm.weight, out.LayerNorm.bias,
-                self.intermediate.dense.weight, self.intermediate.dense.bias, out.dense.weight,
-                out.dense.bias)
+    def weights(self, options: ModelOptions = ModelOptions()) -> tuple:
+        """The layer in ``encoder_layer_math``'s order, in the compute dtype;
+        the four big weights are tensors or ``Int8Weight``s."""
+        ao, out, cast = self.attention.output, self.output, options.cast
+        w_qkv, b_qkv = self.attention.self.packed(options.dtype)
+        return (cast(ao.LayerNorm.weight), cast(ao.LayerNorm.bias), w_qkv, b_qkv,
+                cast(ao.dense.weight), cast(ao.dense.bias), cast(out.LayerNorm.weight),
+                cast(out.LayerNorm.bias), cast(self.intermediate.dense.weight),
+                cast(self.intermediate.dense.bias), cast(out.dense.weight),
+                cast(out.dense.bias))
 
 
 class BertEncoder(nn.Module):
@@ -151,20 +168,25 @@ class BertModel(nn.Module):
                     m.bias.zero_()
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor],
-                options: ModelOptions = ModelOptions()) -> torch.Tensor:
-        """Sequence output [B, S, H]. ``attention_mask``: [B, S] 1=keep, 0=pad."""
-        emb = self.embeddings
-        s = input_ids.shape[1]
-        x = emb.word_embeddings.weight[input_ids]
-        x = x + emb.position_embeddings.weight[:s][None, :, :]
-        x = x + emb.token_type_embeddings.weight[0][None, None, :]
-        x = layer_norm(x, emb.LayerNorm.weight, emb.LayerNorm.bias, self.cfg.layer_norm_eps)
+                options: ModelOptions = ModelOptions(),
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Sequence output [B, S, H]. ``attention_mask``: [B, S] 1=keep, 0=pad.
+        ``generator`` draws the dropout seeds of a training forward."""
+        emb, cast = self.embeddings, options.cast
+        b, s = input_ids.shape
+        x = cast(emb.word_embeddings.weight[input_ids])
+        x = x + cast(emb.position_embeddings.weight[:s])[None, :, :]
+        x = x + cast(emb.token_type_embeddings.weight[0])[None, None, :]
+        x = layer_norm(x, cast(emb.LayerNorm.weight), cast(emb.LayerNorm.bias),
+                       self.cfg.layer_norm_eps)
         key_bias = None
         if attention_mask is not None:
             key_bias = ((1.0 - attention_mask.float()) * -10000.0).contiguous()
         cfg, enc = self.cfg, self.encoder
         heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
-        layers = [layer.weights() for layer in enc.layer]
+        layers = [layer.weights(options) for layer in enc.layer]
+        if not options.deterministic:
+            return self._train_layers(x, key_bias, layers, options, generator)
         if gates.tower_route(x, options.attn_impl, "text", heads, cfg.intermediate_size,
                              is_quantized(layers[0][2])):
             return fused_tower(x, key_bias, layers, heads, eps, act, True, enc.tower_table)
@@ -172,4 +194,26 @@ class BertModel(nn.Module):
         for p in layers:
             p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
             x = layer_fn(x, *p, heads, eps, act, True, key_bias)
+        return x
+
+    def _train_layers(self, x, key_bias, layers, options: ModelOptions,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The training forward of the layers, with dropout when a generator
+        is given (bert.py:77-80, :233-258)."""
+        cfg = self.cfg
+        heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
+        hd = ad = 0.0
+        if generator is not None:
+            hd, ad = cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob
+            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+            x = drop.apply(x, drop.Dropout(seed, hd, drop.STREAM_EMBED, x.shape[1]))
+        use_kernel = gates.use_kernel(x, options.attn_impl)
+        for p in layers:
+            p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+            seed_a = seed_m = None
+            if generator is not None:
+                seed_a, seed_m = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator).tolist()
+            x = attention_block_train(x, *p[:6], key_bias, heads, eps, True, seed_a, ad, hd,
+                                      use_kernel)
+            x = mlp_block_train(x, *p[6:], act, eps, True, seed_m, hd, use_kernel)
         return x

@@ -5,7 +5,9 @@ the ViT tower; ``encode_text`` builds the padding mask from ``PAD_ID``,
 runs BERT and projects the [CLS] state through ``text_projection``;
 ``forward`` returns L2-normalised features and ``exp(logit_scale)``;
 ``get_similarity`` returns both-way scaled logits in fp32.
-``logit_scale`` initialises to ``ln(1/0.07)``.
+``logit_scale`` initialises to ``ln(1/0.07)``. A training forward passes
+``ModelOptions(deterministic=False)`` and a ``torch.Generator`` for the text
+tower's dropout (the vision tower has none).
 """
 
 from __future__ import annotations
@@ -47,23 +49,25 @@ class CLIP(nn.Module):
         """images: [B, R, R, 3] NHWC. Unnormalised features [B, E]."""
         return self.visual(images, options)
 
-    def encode_text(self, text_ids: torch.Tensor,
-                    options: ModelOptions = ModelOptions()) -> torch.Tensor:
-        """text_ids: [B, S] int. Unnormalised features [B, E]."""
+    def encode_text(self, text_ids: torch.Tensor, options: ModelOptions = ModelOptions(),
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """text_ids: [B, S] int. Unnormalised features [B, E]. ``generator``
+        draws the dropout of a training forward."""
         attn_mask = (text_ids != PAD_ID).float()
-        seq = self.bert(text_ids, attn_mask, options)
+        seq = self.bert(text_ids, attn_mask, options, generator)
         return seq[:, 0, :] @ self.text_projection.to(seq.dtype)
 
     def forward(self, images: Optional[torch.Tensor], texts: Optional[torch.Tensor],
-                options: ModelOptions = ModelOptions()):
+                options: ModelOptions = ModelOptions(),
+                generator: Optional[torch.Generator] = None):
         if images is None and texts is None:
             raise ValueError("forward needs images, texts or both")
         if images is None:
-            return self.encode_text(texts, options)
+            return self.encode_text(texts, options, generator)
         if texts is None:
             return self.encode_image(images, options)
         img = normalize(self.encode_image(images, options))
-        txt = normalize(self.encode_text(texts, options))
+        txt = normalize(self.encode_text(texts, options, generator))
         return img, txt, self.logit_scale.float().exp()
 
     def get_similarity(self, images: torch.Tensor, texts: torch.Tensor,

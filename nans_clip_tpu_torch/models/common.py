@@ -22,11 +22,17 @@ class ModelOptions:
     ``compute_dtype``: None keeps the parameter dtype; "bfloat16" casts the
     parameters (all but ``logit_scale``) and the inputs. The kernels take
     bf16, so a model on the card needs "bfloat16" unless ``attn_impl`` is
-    "plain".
+    "plain". For inference ``cast_module`` casts the parameters once, in
+    place; for training the parameters stay fp32 masters and each forward
+    casts them (:meth:`cast`, as ``cast_tree`` runs inside the JAX towers),
+    so gradients reach the fp32 parameters through the cast.
+    ``deterministic``: False is the training forward: dropout where the
+    tower has it, and every layer through the sub-block autograd Functions.
     """
 
     attn_impl: str = "auto"
     compute_dtype: Optional[str] = None
+    deterministic: bool = True
 
     def __post_init__(self):
         if self.attn_impl not in gates.IMPLS:
@@ -37,6 +43,14 @@ class ModelOptions:
     @property
     def dtype(self) -> Optional[torch.dtype]:
         return None if self.compute_dtype is None else getattr(torch, self.compute_dtype)
+
+    def cast(self, t):
+        """``t`` in the compute dtype when it is a floating tensor (a no-op
+        for parameters already cast in place, and for int8 weights)."""
+        dtype = self.dtype
+        if dtype is None or not torch.is_tensor(t) or not t.is_floating_point():
+            return t
+        return t.to(dtype)
 
 
 def cast_module(module: nn.Module, options: ModelOptions) -> nn.Module:

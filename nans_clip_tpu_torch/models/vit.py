@@ -16,8 +16,13 @@ them in one launch of the whole-tower kernel (``ops/tower_kernel.py``),
 otherwise each through the sub-block kernels (``ops/fused_block.py``), or
 through the twins for CPU tensors. The tower's int8 weights
 (``utils/quantize.py``) stream as they are into the tower kernel and are
-dequantized on entry everywhere else. Images are NHWC ``[B, R, R, 3]``.
-FLIP random masking waits for the training port.
+dequantized on entry everywhere else. A training forward
+(``options.deterministic`` False) runs every layer through the sub-block
+autograd Functions (kernels #1 and #2 forward, #14 and #18 backward), never
+the tower kernel (as ``vit.py:258-271`` with the whole-layer backward off).
+The parameters are cast to the compute dtype on each forward
+(``ModelOptions.cast``). Images are NHWC ``[B, R, R, 3]``. FLIP random
+masking is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from nans_clip_tpu_torch.configs import VisionConfig
 from nans_clip_tpu_torch.models.common import ModelOptions
 from nans_clip_tpu_torch.ops import gates
 from nans_clip_tpu_torch.ops.fused_block import (_reference_block, _reference_mlp,
-                                                 fused_attention_block, fused_mlp_block)
+                                                 attention_block_train, fused_attention_block,
+                                                 fused_mlp_block, mlp_block_train)
 from nans_clip_tpu_torch.ops.layernorm import layer_norm
 from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
 from nans_clip_tpu_torch.utils.quantize import dequantize_weight, is_quantized
@@ -42,13 +48,14 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(width, 3, patch, patch))
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """[B, R, R, 3] NHWC -> [B, g*g, W]."""
-        w, _, p, _ = self.weight.shape
+    def forward(self, images: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """[B, R, R, 3] NHWC -> [B, g*g, W]; ``weight`` is ``self.weight`` in
+        the compute dtype."""
+        w, _, p, _ = weight.shape
         b, r = images.shape[0], images.shape[1]
         g = r // p
         x = images.reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3)
-        return x @ self.weight.permute(2, 3, 1, 0).reshape(p * p * 3, w)
+        return x @ weight.permute(2, 3, 1, 0).reshape(p * p * 3, w)
 
 
 class MultiheadAttentionParams(nn.Module):
@@ -136,22 +143,29 @@ class VisualTransformer(nn.Module):
 
     def forward(self, images: torch.Tensor, options: ModelOptions = ModelOptions()) -> torch.Tensor:
         """images: [B, R, R, 3] NHWC. Returns [B, embed_dim]."""
-        images = images.to(self.proj.dtype)
+        cast = options.cast
+        images = images.to(options.dtype or self.proj.dtype)
         b, w = images.shape[0], self.cfg.width
-        x = self.conv1(images)
-        cls = self.class_embedding.to(x.dtype).expand(b, 1, w)
+        x = self.conv1(images, cast(self.conv1.weight))
+        cls = cast(self.class_embedding).to(x.dtype).expand(b, 1, w)
         x = torch.cat([cls, x], dim=1)
-        x = x + self.positional_embedding.to(x.dtype)
-        x = layer_norm(x, self.ln_pre.weight, self.ln_pre.bias, 1e-5)
+        x = x + cast(self.positional_embedding).to(x.dtype)
+        x = layer_norm(x, cast(self.ln_pre.weight), cast(self.ln_pre.bias), 1e-5)
         heads = self.cfg.heads
-        layers = [blk.weights() for blk in self.transformer.resblocks]
-        if gates.tower_route(x, options.attn_impl, "image", heads, 4 * w,
-                             is_quantized(layers[0][2])):
+        layers = [tuple(cast(t) for t in blk.weights()) for blk in self.transformer.resblocks]
+        if options.deterministic and gates.tower_route(x, options.attn_impl, "image", heads,
+                                                       4 * w, is_quantized(layers[0][2])):
             x = fused_tower(x, None, layers, heads, 1e-5, "quick_gelu", False, self.tower_table)
         else:
             use_kernel = gates.use_kernel(x, options.attn_impl)
             for p in layers:
                 p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-                x = _layer(x, p, heads, use_kernel)
-        x = layer_norm(x[:, 0, :], self.ln_post.weight, self.ln_post.bias, 1e-5)
-        return x @ self.proj
+                if options.deterministic:
+                    x = _layer(x, p, heads, use_kernel)
+                else:
+                    x = attention_block_train(x, *p[:6], None, heads, 1e-5, False,
+                                              use_kernel=use_kernel)
+                    x = mlp_block_train(x, *p[6:], "quick_gelu", 1e-5, False,
+                                        use_kernel=use_kernel)
+        x = layer_norm(x[:, 0, :], cast(self.ln_post.weight), cast(self.ln_post.bias), 1e-5)
+        return x @ cast(self.proj)

@@ -29,14 +29,27 @@ LIB_PATH = BUILD_DIR / "libnans_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+_DROP = [_U, _U, _U, _F, _I]   # seed, stream, threshold, scale, on (ops/dropout.py)
 _SIGNATURES = {
     # x, x_is_fp32, gamma, beta, y, rows, width, eps, stream
     "nans_layernorm": [_P, _I, _P, _P, _P, _I, _I, _F, _P],
-    # A, W, bias, residual, C, out_fp32, M, N, K, act, stream
-    "nans_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # qkv, key_bias, ctx, B, S, width, scale, stream
-    "nans_attention": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # gin, g_f32, x, x_f32, gamma, res, res_f32, dx, dx_f32, dmul, drop..., seq,
+    # part, rows, width, eps, stream
+    "nans_layernorm_bwd": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, *_DROP, _I, _P, _I, _I, _F,
+                           _P],
+    # A, W, w_trans, bias, act, dact, aux, drop..., drop_seq, residual, res_f32,
+    # C, c_f32, c_pre, c2, M, N, K, stream
+    "nans_gemm": [_P, _P, _I, _P, _I, _I, _P, *_DROP, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                  _P],
+    # dY, X, partials, M, N, K, splits, ktiles_per_split, stream
+    "nans_gemm_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, x_f32, rows, cols, rows_per_chunk, out, stream
+    "nans_colsum": [_P, _I, _I, _I, _I, _P, _P],
+    # qkv, key_bias, ctx, B, S, width, scale, drop..., stream
+    "nans_attention": [_P, _P, _P, _I, _I, _I, _F, *_DROP, _P],
+    # qkv, dctx, key_bias, dqkv32, dqkv16, B, S, width, scale, drop..., stream
+    "nans_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, *_DROP, _P],
     # quant, S, out: the largest co-resident grid
     "nans_tower_grid": [_I, _I, ctypes.POINTER(_I)],
     # x, key_bias, table, work, sum, part, sem, clock, B, S, W, I, L, eps,

@@ -15,6 +15,11 @@ Under ``auto`` and ``kernel`` a CUDA tensor in another dtype than
 ``KERNEL_DTYPE`` raises: the plain path on the card is reached only by
 asking for ``plain``.
 
+Training routes by ``ModelOptions.deterministic`` alone: a forward with
+``deterministic=False`` runs every layer through the sub-block autograd
+Functions (``ops/fused_block.py``: kernels #1/#2 forward, #14/#16/#18
+backward), never the whole-layer or whole-tower kernel.
+
 Admission (what a kernel takes) is checked by each wrapper before it
 launches; a CUDA tensor that the kernel does not admit raises. No path
 turns a failed build or launch into the plain path.
@@ -34,12 +39,25 @@ KERNEL_DTYPE = torch.bfloat16
 HEAD_DIM = 64
 MAX_SEQ = 640
 
-# layernorm.cu: one warp a row, 32 values a lane at most. Set by the design.
+# attention.cu's backward: Q, K, V and dctx of a head sit in shared memory,
+# 144 bytes a row each, plus 16 bytes of row statistics: S <= 320 keeps the
+# block at 189 KB of the card's 227 KB. A kernel limit, not a measured
+# routing gate; the training shapes (S = 197, 52) qualify.
+ATTN_BWD_MAX_SEQ = 320
+
+# layernorm.cu: one warp a row, 32 values a lane at most, forward and
+# backward. Set by the design.
 MAX_LN_WIDTH = 1024
 LN_WIDTH_MULTIPLE = 32
 
 # gemm.cu: 128x128x32 block tiles with no N or K tail. Set by the design;
-# the slice's N (768, 2304, 3072) and K (768, 3072) all qualify.
+# the slice's N (768, 2304, 3072) and K (768, 3072) all qualify. The
+# backward forms take the same tiles: the input gradient's output width
+# (the forward's K) is a multiple of GEMM_N_MULTIPLE and its contraction
+# (the forward's N) of GEMM_K_MULTIPLE; the weight gradient's [N, K] output
+# is cut into 128x128 tiles (both multiples of GEMM_N_MULTIPLE) and its
+# contraction over B*S rows has a masked tail. Kernel limits, not measured
+# routing gates.
 GEMM_N_MULTIPLE = 128
 GEMM_K_MULTIPLE = 32
 

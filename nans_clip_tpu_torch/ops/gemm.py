@@ -1,13 +1,21 @@
-"""Linear layer with a fused epilogue, and its kernel ``csrc/gemm.cu``.
+"""Linear layers with fused epilogues and their backward products, and their
+kernel ``csrc/gemm.cu``.
 
 ``linear`` computes ``A . W^T`` with bf16 inputs and fp32 accumulation,
-then, in fp32, ``+ bias``, an optional activation and an optional
-``+ residual``, and stores bf16 (or fp32 where a post-LN follows). These
-are the matrix products inside ``nans_clip_tpu/ops/fused_block.py::_kernel``
-(QKV :120, out-projection :185) and ``::_mlp_kernel`` (fc1 :809, fc2 :816),
-with their rounding points. ``W`` is the torch Linear layout ``[out, in]``.
+then, in fp32, ``+ bias``, an optional activation, an optional hidden
+dropout and an optional ``+ residual``, and stores bf16 (or fp32 where a
+post-LN follows). These are the matrix products inside
+``nans_clip_tpu/ops/fused_block.py::_kernel`` (QKV :120, out-projection
+:185-191) and ``::_mlp_kernel`` (fc1 :809, fc2 :816-828), with their
+rounding points. ``W`` is the torch Linear layout ``[out, in]``.
 
-``linear_plain`` is the twin; CPU tensors take it.
+The backward products of ``nans_clip_tpu/ops/fused_block_bwd.py``:
+``linear_dgrad`` is ``dY . W`` (the input gradient, optionally times
+``act'(h_pre)``, plus a residual gradient) and ``linear_wgrad`` is ``dY^T .
+X`` (the weight gradient, fp32, ``[out, in]``), K-split with its slices
+summed in a fixed order (``ops/reduce.py``).
+
+The ``*_plain`` functions are the twins; CPU tensors take them.
 """
 
 from __future__ import annotations
@@ -17,51 +25,166 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from nans_clip_tpu_torch.ops import _build, gates
-from nans_clip_tpu_torch.ops.activations import ACT2FN
+from nans_clip_tpu_torch.ops import _build, dropout as drop, gates
+from nans_clip_tpu_torch.ops.activations import ACT2FN, ACT_GRAD, plain_dtype, upcast
+from nans_clip_tpu_torch.ops.reduce import column_sum
 
 _ACT_CODES = {None: 0, "quick_gelu": 1, "gelu": 2}
 
 
 def linear_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                  act: Optional[str] = None, residual: Optional[torch.Tensor] = None,
-                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 out_dtype: Optional[torch.dtype] = None,
+                 dropout: Optional[drop.Dropout] = None, pre_out: bool = False):
     """Twin of the kernel: the product of the (possibly bf16) operands in
-    fp32, the epilogue in fp32, one cast at the end."""
-    y = F.linear(a.float(), w.float(), bias.float())
+    fp32, the epilogue in fp32, one cast at the end. ``pre_out`` also
+    returns the fp32 value before the activation."""
+    y = F.linear(upcast(a), upcast(w), upcast(bias))
+    pre = y
     if act is not None:
         y = ACT2FN[act](y)
+    if drop.active(dropout):
+        y = y * drop.hidden_multiplier(dropout, y.numel() // y.shape[-1], y.shape[-1],
+                                       y.device).view(y.shape).to(y.dtype)
     if residual is not None:
-        y = y + residual.float()
-    return y.to(out_dtype or a.dtype)
+        y = y + upcast(residual)
+    out = y.to(plain_dtype(out_dtype, a) or a.dtype)
+    return (out, pre) if pre_out else out
+
+
+def _launch(a, w, w_trans, bias, act, dact, aux, dropout, residual, out, c_pre, c2, n, k):
+    seed, stream, thresh, scale, on = drop.kernel_args(dropout)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _build.library().nans_gemm(
+        a.data_ptr(), w.data_ptr(), int(w_trans), ptr(bias), _ACT_CODES[act], _ACT_CODES[dact],
+        ptr(aux), seed, stream, thresh, scale, on, dropout.seq if on else 0, ptr(residual),
+        int(residual is not None and residual.dtype == torch.float32), out.data_ptr(),
+        int(out.dtype == torch.float32), ptr(c_pre), ptr(c2), a.numel() // k, n, k,
+        _build.stream_ptr(a.device))
+    _build.check(err, "nans_gemm")
+
+
+def _admit_epilogue(name, m, n, residual=None, aux=None):
+    if residual is not None:
+        gates.admit(residual.is_cuda and residual.is_contiguous()
+                    and residual.dtype in (gates.KERNEL_DTYPE, torch.float32)
+                    and residual.numel() == m * n,
+                    f"{name}: residual must be contiguous bf16 or fp32 [M, N] on CUDA")
+    if aux is not None:
+        gates.admit(aux.is_cuda and aux.is_contiguous() and aux.dtype == torch.float32
+                    and aux.numel() == m * n, f"{name}: aux must be contiguous fp32 [M, N]")
 
 
 def linear(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
            act: Optional[str] = None, residual: Optional[torch.Tensor] = None,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``a``: [..., K]; ``w``: [N, K]; ``bias``: [N]; ``residual``: [..., N].
-    CPU tensors take :func:`linear_plain`; CUDA tensors launch the kernel
-    (bf16 operands; output bf16 or fp32)."""
+           out_dtype: Optional[torch.dtype] = None,
+           dropout: Optional[drop.Dropout] = None, pre_out: bool = False):
+    """``a``: [..., K]; ``w``: [N, K]; ``bias``: [N]; ``residual``: [..., N]
+    (bf16 or fp32). CPU tensors take :func:`linear_plain`; CUDA tensors
+    launch the kernel (bf16 operands; output bf16 or fp32)."""
     if not a.is_cuda:
-        return linear_plain(a, w, bias, act, residual, out_dtype)
+        return linear_plain(a, w, bias, act, residual, out_dtype, dropout, pre_out)
     n, k = w.shape
     gates.admit(a.shape[-1] == k, f"gemm: a {tuple(a.shape)} vs w {tuple(w.shape)}")
     gates.admit(n % gates.GEMM_N_MULTIPLE == 0 and k % gates.GEMM_K_MULTIPLE == 0,
                 f"gemm: N={n} K={k}")
     out_dtype = out_dtype or a.dtype
     gates.admit(out_dtype in (gates.KERNEL_DTYPE, torch.float32), f"gemm: output {out_dtype}")
-    operands = (a, w, bias) if residual is None else (a, w, bias, residual)
-    gates.admit_cuda("gemm", *operands)
+    gates.admit_cuda("gemm", a, w, bias)
     m = a.numel() // k
+    _admit_epilogue("gemm", m, n, residual)
+    if drop.active(dropout):
+        gates.admit(dropout.seq > 0 and m % dropout.seq == 0, "gemm: dropout needs seq | M")
     out = torch.empty((*a.shape[:-1], n), dtype=out_dtype, device=a.device)
-    err = _build.library().nans_gemm(
-        a.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        None if residual is None else residual.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.float32), m, n, k, _ACT_CODES[act],
-        _build.stream_ptr(a.device))
-    _build.check(err, "nans_gemm")
+    pre = torch.empty(out.shape, dtype=torch.float32, device=a.device) if pre_out else None
+    _launch(a, w, False, bias, act, None, None, dropout, residual, out, pre, None, n, k)
     linear.launches += 1
-    return out
+    return (out, pre) if pre_out else out
+
+
+def linear_dgrad_plain(dy: torch.Tensor, w: torch.Tensor, act: Optional[str] = None,
+                       aux: Optional[torch.Tensor] = None,
+                       residual: Optional[torch.Tensor] = None,
+                       out_dtype: Optional[torch.dtype] = None, copy: bool = False):
+    """Twin of the input-gradient product: ``dY . W`` in fp32, times
+    ``act'(aux)`` when ``aux`` (the fp32 pre-activation) is given, plus
+    ``residual``; stored in ``out_dtype`` (default dY's). ``copy`` also
+    returns the result in dY's dtype (the operand of the next products)."""
+    y = upcast(dy) @ upcast(w)
+    if aux is not None:
+        y = y * ACT_GRAD[act](aux)
+    if residual is not None:
+        y = y + upcast(residual)
+    out = y.to(plain_dtype(out_dtype, dy) or dy.dtype)
+    return (out, y.to(dy.dtype)) if copy else out
+
+
+def linear_dgrad(dy: torch.Tensor, w: torch.Tensor, act: Optional[str] = None,
+                 aux: Optional[torch.Tensor] = None, residual: Optional[torch.Tensor] = None,
+                 out_dtype: Optional[torch.dtype] = None, copy: bool = False):
+    """``dy``: [M, N]; ``w``: [N, K] (the forward's ``[out, in]`` weight);
+    returns [M, K]. CPU tensors take :func:`linear_dgrad_plain`; CUDA
+    tensors launch the kernel with ``w`` read transposed in place."""
+    if not dy.is_cuda:
+        return linear_dgrad_plain(dy, w, act, aux, residual, out_dtype, copy)
+    n, k = w.shape
+    gates.admit(dy.dim() == 2 and dy.shape[1] == n, f"gemm dgrad: dy {tuple(dy.shape)} vs w "
+                f"{tuple(w.shape)}")
+    gates.admit(k % gates.GEMM_N_MULTIPLE == 0 and n % gates.GEMM_K_MULTIPLE == 0,
+                f"gemm dgrad: N={k} K={n}")
+    out_dtype = out_dtype or dy.dtype
+    gates.admit(out_dtype in (gates.KERNEL_DTYPE, torch.float32),
+                f"gemm dgrad: output {out_dtype}")
+    gates.admit_cuda("gemm dgrad", dy, w)
+    m = dy.shape[0]
+    _admit_epilogue("gemm dgrad", m, k, residual, aux)
+    gates.admit((aux is None) == (act is None), "gemm dgrad: act and aux go together")
+    out = torch.empty((m, k), dtype=out_dtype, device=dy.device)
+    c2 = torch.empty((m, k), dtype=gates.KERNEL_DTYPE, device=dy.device) if copy else None
+    _launch(dy, w, True, None, None, act, aux, None, residual, out, None, c2, k, n)
+    linear_dgrad.launches += 1
+    return (out, c2) if copy else out
+
+
+def linear_wgrad_plain(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Twin of the weight-gradient product: ``dY^T . X`` in fp32."""
+    return upcast(dy).T @ upcast(x)
+
+
+def wgrad_splits(m: int, n: int, k: int) -> int:
+    """K-split of the weight gradient: about two waves of 128x128 tiles on
+    the card's 132 SMs, each slice at least 16 k-tiles (512 rows) deep. A
+    function of the shape alone, so the summation order is fixed."""
+    tiles = (n // 128) * (k // 128)
+    ktiles = -(-m // 32)
+    return max(1, min(-(-264 // tiles), ktiles // 16))
+
+
+def linear_wgrad(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``dy``: [M, N]; ``x``: [M, K]; returns fp32 [N, K] = dy^T . x (the
+    ``[out, in]`` weight gradient). CPU tensors take
+    :func:`linear_wgrad_plain`; CUDA tensors launch the kernel, then sum its
+    K-split slices in order."""
+    if not dy.is_cuda:
+        return linear_wgrad_plain(dy, x)
+    m, n = dy.shape
+    k = x.shape[-1]
+    gates.admit(x.dim() == 2 and x.shape[0] == m, f"gemm wgrad: dy {tuple(dy.shape)} vs x "
+                f"{tuple(x.shape)}")
+    gates.admit(n % gates.GEMM_N_MULTIPLE == 0 and k % gates.GEMM_N_MULTIPLE == 0,
+                f"gemm wgrad: N={n} K={k}")
+    gates.admit_cuda("gemm wgrad", dy, x)
+    ktiles = -(-m // 32)
+    per = -(-ktiles // wgrad_splits(m, n, k))   # k-tiles a slice
+    splits = -(-ktiles // per)
+    part = torch.empty((splits, n, k), dtype=torch.float32, device=dy.device)
+    err = _build.library().nans_gemm_wgrad(dy.data_ptr(), x.data_ptr(), part.data_ptr(), m, n,
+                                           k, splits, per, _build.stream_ptr(dy.device))
+    _build.check(err, "nans_gemm_wgrad")
+    linear_wgrad.launches += 1
+    return part[0] if splits == 1 else column_sum(part.view(splits, n * k)).view(n, k)
 
 
 linear.launches = 0
+linear_dgrad.launches = 0
+linear_wgrad.launches = 0

@@ -9,6 +9,11 @@ embedding LN), and it is the twin of the kernel.
 stages inside the ported sub-block kernels (pre-LN prologue, post-LN
 epilogue on the fp32 residual sum). It replaces the ``_ln`` stages of
 ``nans_clip_tpu/ops/fused_block.py::_kernel`` and ``::_mlp_kernel``.
+
+``layer_norm_bwd`` (twin ``layer_norm_bwd_plain``) is the LayerNorm
+backward of ``nans_clip_tpu/ops/fused_block_bwd.py`` (``_ln_bwd`` :101 and
+the pre-LN dx of :208-212, :773-777) with its dgamma/dbeta sums, launching
+the backward kernel of ``layernorm.cu`` for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -17,18 +22,20 @@ from typing import Optional
 
 import torch
 
-from nans_clip_tpu_torch.ops import _build, gates
+from nans_clip_tpu_torch.ops import _build, dropout as drop, gates
+from nans_clip_tpu_torch.ops.activations import plain_dtype, upcast
+from nans_clip_tpu_torch.ops.reduce import column_sum
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Mean, then mean of squared deviations, both in fp32; the result is
     cast to ``out_dtype`` (default: the dtype of ``x``)."""
-    xf = x.float()
+    xf = upcast(x)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * weight.float() + bias.float()
+    y = y * upcast(weight) + upcast(bias)
     return y.to(out_dtype or x.dtype)
 
 
@@ -57,4 +64,88 @@ def row_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def layer_norm_bwd_plain(gin: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: float,
+                         residual: Optional[torch.Tensor] = None,
+                         out_dtype: Optional[torch.dtype] = None, emit_dproj: bool = False,
+                         dropout: Optional[drop.Dropout] = None):
+    """Backward of ``layer_norm`` with respect to its input ``x`` for the
+    output gradient ``gin``, in fp32 with x-hat and rstd recomputed as the
+    forward forms them: ``dx = rstd (gh - mean(gh) - xhat mean(gh xhat))``,
+    ``gh = gin * weight``, plus ``residual``. Returns ``(dx, dweight,
+    dbias, dproj, dproj_sum)``: ``dweight = sum gin * xhat`` and ``dbias =
+    sum gin`` over the rows, fp32; with ``emit_dproj``, ``dproj`` is ``dx *
+    keep`` (before the residual; keep the hidden dropout multiplier, or 1)
+    in gin's dtype and ``dproj_sum`` its fp32 column sum, else both None."""
+    w = x.shape[-1]
+    xf, g = upcast(x).reshape(-1, w), upcast(gin).reshape(-1, w)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * rstd
+    gh = g * upcast(weight)
+    d = rstd * (gh - gh.mean(dim=-1, keepdim=True)
+                - xhat * (gh * xhat).mean(dim=-1, keepdim=True))
+    dproj = dproj_sum = None
+    if emit_dproj:
+        dm = d
+        if drop.active(dropout):
+            dm = d * drop.hidden_multiplier(dropout, d.shape[0], w, d.device).to(d.dtype)
+        dproj, dproj_sum = dm.to(gin.dtype), dm.sum(dim=0)
+    if residual is not None:
+        d = d + upcast(residual).reshape(-1, w)
+    dx = d.to(plain_dtype(out_dtype, gin) or gin.dtype).view(gin.shape)
+    return dx, (g * xhat).sum(dim=0), g.sum(dim=0), dproj, dproj_sum
+
+
+def layer_norm_bwd(gin: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: float,
+                   residual: Optional[torch.Tensor] = None,
+                   out_dtype: Optional[torch.dtype] = None, emit_dproj: bool = False,
+                   dropout: Optional[drop.Dropout] = None):
+    """As :func:`layer_norm_bwd_plain`. CPU tensors take the twin; CUDA
+    tensors launch the kernel (``gin``, ``x``, ``residual`` and ``dx`` bf16
+    or fp32, ``weight`` and ``dproj`` bf16), then sum its per-block column
+    partials in order."""
+    if not gin.is_cuda:
+        return layer_norm_bwd_plain(gin, x, weight, eps, residual, out_dtype, emit_dproj,
+                                    dropout)
+    w = x.shape[-1]
+    rows = x.numel() // w
+    ok_type = (torch.float32, gates.KERNEL_DTYPE)
+    for name, t in (("gin", gin), ("x", x), ("residual", residual)):
+        gates.admit(t is None or (t.is_cuda and t.is_contiguous() and t.dtype in ok_type
+                                  and t.numel() == rows * w),
+                    f"layernorm bwd: {name} must be contiguous bf16 or fp32 [rows, {w}] on CUDA")
+    gates.admit(w % gates.LN_WIDTH_MULTIPLE == 0 and w <= gates.MAX_LN_WIDTH,
+                f"layernorm bwd: width {w}")
+    out_dtype = out_dtype or gin.dtype
+    gates.admit(out_dtype in ok_type, f"layernorm bwd: output {out_dtype}")
+    gates.admit(not emit_dproj or gin.dtype == gates.KERNEL_DTYPE,
+                "layernorm bwd: dproj is written in the kernel dtype")
+    gates.admit_cuda("layernorm bwd", weight)
+    if drop.active(dropout):
+        gates.admit(dropout.seq > 0 and rows % dropout.seq == 0,
+                    "layernorm bwd: dropout needs seq | rows")
+    dx = torch.empty(gin.shape, dtype=out_dtype, device=gin.device)
+    dproj = torch.empty(gin.shape, dtype=gates.KERNEL_DTYPE, device=gin.device) \
+        if emit_dproj else None
+    blocks = -(-rows // LN_BWD_ROWS)
+    part = torch.empty((3, blocks, w), dtype=torch.float32, device=gin.device)
+    seed, stream, thresh, scale, on = drop.kernel_args(dropout)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    f32 = lambda t: int(t is not None and t.dtype == torch.float32)
+    err = _build.library().nans_layernorm_bwd(
+        gin.data_ptr(), f32(gin), x.data_ptr(), f32(x), weight.data_ptr(), ptr(residual),
+        f32(residual), dx.data_ptr(), f32(dx), ptr(dproj), seed, stream, thresh, scale, on,
+        dropout.seq if on else 0, part.data_ptr(), rows, w, float(eps),
+        _build.stream_ptr(gin.device))
+    _build.check(err, "nans_layernorm_bwd")
+    layer_norm_bwd.launches += 1
+    dproj_sum = column_sum(part[2]) if emit_dproj else None
+    return dx, column_sum(part[0]), column_sum(part[1]), dproj, dproj_sum
+
+
+# Rows a block of the backward kernel sums (layernorm.cu kBwdRows).
+LN_BWD_ROWS = 32
+
 row_layer_norm.launches = 0
+layer_norm_bwd.launches = 0

@@ -1,15 +1,19 @@
-"""Where the device time of ``get_similarity`` goes, on one GPU.
+"""Where the device time of ``get_similarity``, or of a train step, goes,
+on one GPU.
 
     python3 -m nans_clip_tpu_torch.profile_slice [--batch 256] [--iters 5] [--out FILE]
+    python3 -m nans_clip_tpu_torch.profile_slice --train [--batch 128] [--iters 3]
 
 Builds ViT-B-16@RoBERTa-wwm-ext-base-chinese at random init (seed 0) in
 bf16 on ``cuda:0`` and runs ``get_similarity`` on seeded images and texts.
 At serving batches (``--batch 1``) the towers run the whole-tower kernel,
-whose device time is grouped as ``tower_kernel``.
+whose device time is grouped as ``tower_kernel``. With ``--train`` the fp32
+model takes train steps (``training.make_train_step``, bf16 compute, the
+text tower's dropout on) on one fixed seeded batch instead.
 It reports, all from one run:
 
 * CUDA-event times of ``encode_image``, ``encode_text`` and
-  ``get_similarity``;
+  ``get_similarity`` (with ``--train``: of a train step);
 * one ``torch.profiler`` window of ``--iters`` iterations: the host-clock
   time of the window, the device kernels grouped by name (calls and ms per
   iteration, share of device time), the device busy time (the union of the
@@ -29,7 +33,8 @@ from collections import defaultdict
 import torch
 
 TEXTS = ["杰尼龟", "妙蛙种子", "小火龙", "皮卡丘", "西湖美景，三月天", "一只可爱的小猫在草地上玩耍"]
-HAND_KERNEL = re.compile(r"(gemm|attention|layernorm|tower)_kernel(<[^>]*>)?")
+HAND_KERNEL = re.compile(
+    r"(gemm|wgrad|attention(_bwd)?|layernorm(_bwd)?|colsum|tower)_kernel(<[^>]*>)?")
 
 
 def _event_ms(fn, iters: int) -> float:
@@ -51,10 +56,37 @@ def _union_us(intervals) -> float:
     return busy
 
 
+MODEL = "ViT-B-16@RoBERTa-wwm-ext-base-chinese"
+
+
+def _train_step(nct, dev, images, b: int):
+    """One train step as a closure: the fp32 model at random init (seed 0),
+    AdamW, bf16 compute with the text tower's dropout (seeds from a fixed
+    generator per step), on one fixed batch of ``b`` pairs."""
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.training import TrainConfig, create_train_state, make_train_step
+
+    cfg = nct.load_config(MODEL)
+    tcfg = TrainConfig(lr=1e-3, warmup=2, max_steps=100)
+    holder = [create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)), tcfg,
+                                 device=dev)]
+    train = make_train_step(cfg, tcfg, nct.ModelOptions(compute_dtype="bfloat16",
+                                                       deterministic=False))
+    ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}" for i in range(b)]))
+    ids = ids.to(dev)
+
+    def step():
+        holder[0], metrics = train(holder[0], images, ids, holder[0].step)
+        return metrics
+    return step
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 256, or 128 with --train")
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--train", action="store_true", help="profile train steps")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -66,19 +98,27 @@ def main(argv=None) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev, b, n = torch.device("cuda", 0), args.batch, args.iters
-    model = nct.create_model("ViT-B-16@RoBERTa-wwm-ext-base-chinese", seed=0, device=dev,
-                             options=nct.ModelOptions(compute_dtype="bfloat16"))
+    dev, n = torch.device("cuda", 0), args.iters
+    b = args.batch or (128 if args.train else 256)
     gen = torch.Generator().manual_seed(1)
     images = torch.randn(b, 224, 224, 3, generator=gen).to(dev)
-    ids = torch.from_numpy(nct.tokenize((TEXTS * b)[:b])).to(dev)
-    step = lambda: model.get_similarity(images, ids)
+    if args.train:
+        step = _train_step(nct, dev, images, b)
+    else:
+        model = nct.create_model(MODEL, seed=0, device=dev,
+                                 options=nct.ModelOptions(compute_dtype="bfloat16"))
+        ids = torch.from_numpy(nct.tokenize((TEXTS * b)[:b])).to(dev)
+        step = lambda: model.get_similarity(images, ids)
     for _ in range(2):
         step()
     torch.cuda.synchronize()
-    ev = {"encode_image": _event_ms(lambda: model.encode_image(images), n),
-          "encode_text": _event_ms(lambda: model.encode_text(ids), n),
-          "get_similarity": _event_ms(step, n)}
+    torch.cuda.reset_peak_memory_stats()
+    if args.train:
+        ev = {"train_step": _event_ms(step, n)}
+    else:
+        ev = {"encode_image": _event_ms(lambda: model.encode_image(images), n),
+              "encode_text": _event_ms(lambda: model.encode_text(ids), n),
+              "get_similarity": _event_ms(step, n)}
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -100,13 +140,16 @@ def main(argv=None) -> dict:
     for name, (calls, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         ms = us / 1e3 / n
         lines.append(f"{ms:10.4f} ms {100 * ms / sum_ms:6.2f}% {calls // n:5d} calls  {name}")
-        # a hand kernel keeps its template arguments: gemm_kernel<true> writes fp32
+        # a hand kernel keeps its template arguments: gemm_kernel<true, ...>
+        # reads W transposed (the input gradient), gemm_kernel<false, ...> is a
+        # forward product; the second argument is the training epilogue
         hand = HAND_KERNEL.search(name)
         group = hand.group(0) if hand else "plain torch"
         groups[group][0] += calls // n
         groups[group][1] += ms
     result = {
-        "device": torch.cuda.get_device_name(0), "batch": b, "iters": n,
+        "device": torch.cuda.get_device_name(0), "batch": b, "iters": n, "train": args.train,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "cuda_event_ms": ev, "profiled_host_ms": host_ms, "kernel_sum_ms": sum_ms,
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / host_ms,
         "groups": {k: {"calls": c, "ms": ms, "share": ms / sum_ms}

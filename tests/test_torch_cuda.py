@@ -243,3 +243,178 @@ def test_batch_1_encodes_route_one_tower_launch(dev):
         assert towers == 2 and sum(fn.launches for fn in counted) == 0
         assert float((img - p.encode_image(images)).abs().max()) <= 0.05
         assert float((txt - p.encode_text(ids)).abs().max()) <= 0.05
+
+
+# -- training: the backward kernels and dropout --------------------------------
+
+def _rel_err(got, want):
+    """Max abs difference over the largest magnitude of ``want``."""
+    top = max(float(want.float().abs().max()), 1e-30)
+    assert torch.isfinite(got).all()
+    return float((got.float() - want.float()).abs().max()) / top
+
+
+def _rnd(dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return lambda *s, std=1.0: (torch.randn(*s, generator=g, device=dev) * std).to(torch.bfloat16)
+
+
+def test_gemm_forms_match_twins(dev):
+    """Forward epilogues (pre-activation copy, fp32 residual, dropout), the
+    input gradient (act' epilogue, bf16 copy) and the K-split weight
+    gradient against their twins. Bounds: 2 bf16 ulps for bf16 outputs, 1e-5
+    of the largest magnitude for fp32 ones (fp32 sums in another order)."""
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops.gemm import (linear_dgrad, linear_dgrad_plain, linear_plain,
+                                              linear_wgrad, linear_wgrad_plain)
+    r = _rnd(dev, 5)
+    a, w, bias = r(300, 256), r(384, 256, std=0.1), r(384)
+    res32 = torch.randn(300, 384, device=dev)
+    spec = drop.Dropout(11, 0.1, drop.STREAM_HIDDEN, 100)
+    got, pre = linear(a, w, bias, act="quick_gelu", pre_out=True)
+    want, want_pre = linear_plain(a, w, bias, act="quick_gelu", pre_out=True)
+    _close(got, want, 2)
+    assert _rel_err(pre, want_pre) <= 1e-5
+    kw = dict(act="gelu", residual=res32, out_dtype=torch.float32, dropout=spec)
+    assert _rel_err(linear(a, w, bias, **kw), linear_plain(a, w, bias, **kw)) <= 1e-5
+    # the kernel's keep multipliers are the twin's, bit for bit
+    ones = torch.ones(384, device=dev, dtype=torch.bfloat16)
+    mult = linear(torch.zeros_like(a), w, ones, out_dtype=torch.float32, dropout=spec)
+    assert torch.equal(mult, drop.hidden_multiplier(spec, 300, 384, dev))
+    dy, h_pre = r(300, 384), torch.randn(300, 256, device=dev)
+    got, got16 = linear_dgrad(dy, w, "gelu", h_pre, out_dtype=torch.float32, copy=True)
+    want, want16 = linear_dgrad_plain(dy, w, "gelu", h_pre, out_dtype=torch.float32, copy=True)
+    assert _rel_err(got, want) <= 1e-5
+    _close(got16, want16, 2)
+    res = torch.randn(300, 256, device=dev)
+    _close(linear_dgrad(dy, w, residual=res), linear_dgrad_plain(dy, w, residual=res), 2)
+    for m, n, k in ((300, 384, 256), (6656, 768, 768)):
+        dy, x = r(m, n), r(m, k)
+        got = linear_wgrad(dy, x)
+        assert got.shape == (n, k) and _rel_err(got, linear_wgrad_plain(dy, x)) <= 1e-5
+        assert torch.equal(got, linear_wgrad(dy, x))   # fixed summation order
+
+
+def test_layernorm_bwd_and_colsum_match_twins(dev):
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops.layernorm import layer_norm_bwd, layer_norm_bwd_plain
+    from nans_clip_tpu_torch.ops.reduce import column_sum, column_sum_plain
+    r = _rnd(dev, 6)
+    rows, w = 2 * 197, 768
+    x, g, gamma = r(rows, w), r(rows, w), r(w, std=0.1) + 1
+    dxn = torch.randn(rows, w, device=dev)
+    got = layer_norm_bwd(dxn, x, gamma, 1e-5, residual=g, out_dtype=torch.bfloat16)
+    want = layer_norm_bwd_plain(dxn, x, gamma, 1e-5, residual=g, out_dtype=torch.bfloat16)
+    _close(got[0], want[0], 2)
+    for a, b in zip(got[1:3], want[1:3]):
+        assert _rel_err(a, b) <= 1e-5
+    u = torch.randn(rows, w, device=dev)
+    spec = drop.Dropout(3, 0.1, drop.STREAM_HIDDEN, 197)
+    kw = dict(out_dtype=torch.float32, emit_dproj=True, dropout=spec)
+    got, want = layer_norm_bwd(g, u, gamma, 1e-12, **kw), layer_norm_bwd_plain(g, u, gamma,
+                                                                               1e-12, **kw)
+    for i in (0, 1, 2, 4):
+        assert _rel_err(got[i], want[i]) <= 1e-5
+    _close(got[3], want[3], 2)
+    big = torch.randn(25216, 2304, device=dev)
+    assert _rel_err(column_sum(big), column_sum_plain(big)) <= 1e-5
+    assert torch.equal(column_sum(big), column_sum(big))
+
+
+@pytest.mark.parametrize("b,s,masked,rate", [(3, 52, True, 0.1), (2, 197, False, 0.0),
+                                             (2, 7, True, 0.0)])
+def test_attention_bwd_matches_twin(dev, b, s, masked, rate):
+    """The forward with probability dropout and the backward against their
+    twins. Bounds: 2 bf16 ulps for ctx; dqkv within 1e-2 of its largest
+    magnitude (a bf16 rounding flip of dS or P_d moves a sum by one bf16
+    ulp of a term)."""
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops.attention import attention_bwd, attention_bwd_plain, \
+        attention_plain
+    r = _rnd(dev, 7)
+    heads = 12
+    qkv, dctx = r(b * s, 3 * 768), r(b * s, 768)
+    kb = None
+    if masked:
+        kb = torch.zeros(b, s, device=dev)
+        kb[0, s // 2:] = -10000.0
+    spec = drop.Dropout(5, rate, drop.STREAM_ATTN)
+    _close(attention(qkv, kb, b, heads, spec), attention_plain(qkv, kb, b, heads, spec), 2)
+    got, got16 = attention_bwd(qkv, dctx, kb, b, heads, spec)
+    want, _ = attention_bwd_plain(qkv, dctx, kb, b, heads, spec)
+    assert _rel_err(got, want) <= 1e-2
+    assert torch.equal(got16, got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("b,s,w", [(3, 52, 128), (2, 197, 768)])
+def test_bwd_chains_match_twins(dev, b, s, w):
+    """#14, #16 (dropout 0.1) and #18 (both forms) against their twins; each
+    gradient within 2e-2 of its largest magnitude (bf16 rounding flips of
+    the recomputed activations, dqkv, dS, dproj and dh_pre), and the same
+    bits on a second call."""
+    from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+    p, r = _params(dev, w, 4 * w, 8)
+    x, g = r(b, s, w, std=1.0), r(b, s, w, std=1.0)
+    kb = torch.zeros(b, s, device=dev)
+    kb[0, s // 2:] = -10000.0
+    heads = w // 64
+    cases = [
+        (fbb.fused_attention_block_bwd_fullgrad, fbb._attn_bwd_math,
+         (x, *p[:5], g, heads, 1e-5)),
+        (fbb.fused_bert_attention_block_bwd_fullgrad, fbb._bert_bwd_math,
+         (x, *p[:6], kb, 1234, g, heads, 1e-12, 0.1, 0.1)),
+        (fbb.fused_mlp_block_bwd_fullgrad, fbb._mlp_bwd_math,
+         (x, *p[6:], None, g, "quick_gelu", 1e-5, False, 0.0)),
+        (fbb.fused_mlp_block_bwd_fullgrad, fbb._mlp_bwd_math,
+         (x, *p[6:], 99, g, "gelu", 1e-12, True, 0.1)),
+    ]
+    for kernel, twin, args in cases:
+        got, want = kernel(*args), twin(*args)
+        assert [t.shape for t in got] == [t.shape for t in want]
+        for a, bb in zip(got, want):
+            assert _rel_err(a, bb) <= 2e-2, (kernel.__name__, a.shape)
+        assert all(torch.equal(a, bb) for a, bb in zip(got, kernel(*args)))
+
+
+def test_train_step_kernel_matches_plain(dev):
+    """A tiny-width model (W=128, heads of 64) takes one train step on the
+    kernel route and one on the plain route from the same weights: the
+    losses agree and every gradient points the same way. Gradients that are
+    zero in exact arithmetic (the key biases: softmax ignores a shift shared
+    by all keys) are bf16 noise on both routes; a tensor whose plain
+    gradient stays below 1e-4 of the largest gradient is not compared."""
+    import dataclasses
+
+    from nans_clip_tpu_torch import configs
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.models.common import ModelOptions
+    from nans_clip_tpu_torch.training import TrainConfig, create_train_state, make_train_step
+
+    tiny = configs.tiny_config()
+    cfg = dataclasses.replace(
+        tiny, vision=dataclasses.replace(tiny.vision, width=128, head_width=64),
+        text=dataclasses.replace(tiny.text, hidden_size=128, num_attention_heads=2,
+                                 intermediate_size=512))
+    tcfg = TrainConfig(lr=1e-3, warmup=1, max_steps=10)
+    g = torch.Generator().manual_seed(0)
+    images = torch.randn(8, 32, 32, 3, generator=g)
+    ids = torch.zeros(8, 52, dtype=torch.long)
+    ids[:, :9] = torch.randint(1, 1000, (8, 9), generator=g)
+    out = {}
+    for impl in ("kernel", "plain"):
+        state = create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)),
+                                   tcfg, device=dev)
+        step = make_train_step(cfg, tcfg, ModelOptions(attn_impl=impl, compute_dtype="bfloat16",
+                                                       deterministic=False))
+        state, metrics = step(state, images, ids, 7)
+        grads = {n: p.grad.clone() for n, p in state.module.named_parameters()}
+        out[impl] = (float(metrics["loss"]), grads)
+    assert abs(out["kernel"][0] - out["plain"][0]) <= 1e-2
+    top = max(float(g.abs().max()) for g in out["plain"][1].values())
+    for n, gk in out["kernel"][1].items():
+        gp = out["plain"][1][n]
+        if float(gp.abs().max()) < 1e-4 * top:
+            continue
+        cos = torch.nn.functional.cosine_similarity(gk.flatten().double(),
+                                                    gp.flatten().double(), dim=0)
+        assert float(cos) >= 0.99, (n, float(cos))

@@ -1,0 +1,232 @@
+"""The port's train step (nans_clip_tpu_torch/training/trainer.py) against
+the JAX package's make_train_step on the CPU, fp32, with the text tower's
+dropout rates set to 0 in both configurations (the two draw different random
+bits), at tiny_config and at ViT-B-16 / RoBERTa-base widths cut to 2 layers,
+for 2 steps. Identical weights are carried across by
+state_dict_from_jax_params, which also maps the JAX gradient tree (it has
+the parameters' structure) so that gradients compare name by name. Each
+step's gradients are compared at the same parameters: the JAX gradient is
+taken at the port's parameters of that step (params_from_state_dict),
+since near-zero gradients let the two trajectories part by up to 2 * lr an
+element (below).
+
+Tolerances: the loss within 1e-5; each gradient tensor within 1e-4 of its
+largest magnitude (fp32 sums in another order through 2 layers a tower),
+except BERT's key biases, whose gradient is 0 in exact arithmetic (softmax
+ignores a shift shared by all keys) and is held to below 1e-8 on both sides;
+parameters within 1e-6 plus what the gradients' own differences allow a
+step: 2 * lr on elements whose gradient is below 1e-6 in magnitude (Adam's
+first step moves an element by lr * g / (|g| + eps), close to lr * sign(g),
+so a gradient near 0 whose sign the sum order decides moves it by up to
+2 * lr either way), else lr * min(2, 4 * r) with r the element's relative
+difference between the gradients the two updates took (Adam's update
+m_hat / (sqrt(v_hat) + eps) changes by about 2 r for a relative change r
+of its gradients; 4 r allows twice that). The bounds add up over the
+steps, as the moments carry them."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nans_clip_tpu import configs as jconfigs
+from nans_clip_tpu.models import ModelOptions as JOptions
+from nans_clip_tpu.models import clip as jclip
+from nans_clip_tpu.parallel import clip_loss as jclip_loss
+from nans_clip_tpu.training import trainer as jtrainer
+from nans_clip_tpu.utils.torch_interop import params_from_state_dict
+from nans_clip_tpu_torch import configs as tconfigs
+from nans_clip_tpu_torch.models.clip import build_clip
+from nans_clip_tpu_torch.models.common import ModelOptions
+from nans_clip_tpu_torch.parallel.loss import clip_loss
+from nans_clip_tpu_torch.training import trainer
+from nans_clip_tpu_torch.utils.torch_interop import state_dict_from_jax_params
+
+torch.set_num_threads(2)
+
+LR = 1e-3
+
+
+def _no_dropout(cfg):
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+
+
+def _port_cfg(jcfg):
+    v, t = jcfg.vision, jcfg.text
+    return tconfigs.CLIPConfig(embed_dim=jcfg.embed_dim,
+                               vision=tconfigs.VisionConfig(**dataclasses.asdict(v)),
+                               text=tconfigs.TextConfig(**dataclasses.asdict(t)), name=jcfg.name)
+
+
+def _batch(jcfg, b, seed):
+    rs = np.random.RandomState(seed)
+    r = jcfg.vision.image_resolution
+    images = rs.randn(b, r, r, 3).astype(np.float32)
+    texts = np.zeros((b, 52), np.int32)
+    texts[:, 0] = 101
+    texts[:, 1:12] = rs.randint(1000, 20000, (b, 11))
+    texts[:, 12] = 102
+    texts[0, 6:12] = 0                     # one shorter text: the key bias matters
+    return images, texts
+
+
+def _as_port(tree, cfg):
+    return state_dict_from_jax_params(jax.tree.map(np.asarray, tree), cfg)
+
+
+def _jax_grads(params, jcfg, options, images, texts, rng):
+    """The gradient make_train_step takes (its loss_fn without a teacher)."""
+    def loss_fn(p):
+        img_rng, txt_rng = jax.random.split(rng)
+        img = jclip.encode_image(p, jcfg, images, options, rng=img_rng)
+        txt = jclip.encode_text(p, jcfg, texts, options, rng=txt_rng)
+        scale = jnp.exp(p["logit_scale"].astype(jnp.float32))
+        return jclip_loss(jclip.normalize(img), jclip.normalize(txt), scale,
+                          constrain=False)[0]
+    return jax.grad(loss_fn)(params)
+
+
+CASES = {
+    "tiny": lambda: jconfigs.tiny_config(),
+    "base-width-2-layers": lambda: dataclasses.replace(
+        jconfigs.load_config("ViT-B-16@RoBERTa-wwm-ext-base-chinese"),
+        vision=dataclasses.replace(jconfigs.load_config(
+            "ViT-B-16@RoBERTa-wwm-ext-base-chinese").vision, layers=2),
+        text=dataclasses.replace(jconfigs.load_config(
+            "ViT-B-16@RoBERTa-wwm-ext-base-chinese").text, num_hidden_layers=2)),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_train_steps_match_jax(case):
+    jcfg = _no_dropout(CASES[case]())
+    cfg = _port_cfg(jcfg)
+    batch = 4 if case == "tiny" else 2
+    tcfg_j = jtrainer.TrainConfig(lr=LR, warmup=2, max_steps=10, wd=0.1)
+    tcfg = trainer.TrainConfig(lr=LR, warmup=2, max_steps=10, wd=0.1)
+    options_j = JOptions(deterministic=False)
+    params, _ = jclip.init_clip(jax.random.PRNGKey(3), jcfg)
+    module = build_clip(cfg)
+    module.load_state_dict(_as_port(params, cfg))
+    state_t = trainer.create_train_state(module, tcfg, device="cpu")
+    step_t = trainer.make_train_step(cfg, tcfg, ModelOptions(deterministic=False))
+    state_j = jtrainer.create_train_state(jax.tree.map(jnp.copy, params), {}, tcfg_j)
+    step_j = jtrainer.make_train_step(jcfg, tcfg_j, options_j, constrain=False)
+
+    slack = {}
+    for i in range(2):
+        images, texts = _batch(jcfg, batch, i)
+        rng = jax.random.PRNGKey(100 + i)
+        at = params_from_state_dict({k: v.detach().numpy()
+                                     for k, v in state_t.module.state_dict().items()}, jcfg)[0]
+        grads_j = _as_port(_jax_grads(at, jcfg, options_j, images, texts, rng), cfg)
+        taken_j = grads_j if i == 0 else _as_port(
+            _jax_grads(state_j.params, jcfg, options_j, images, texts, rng), cfg)
+        state_j, metrics_j = step_j(state_j, jnp.asarray(images), jnp.asarray(texts), rng)
+        state_t, metrics_t = step_t(state_t, torch.from_numpy(images),
+                                    torch.from_numpy(texts), torch.Generator().manual_seed(i))
+        assert abs(float(metrics_t["loss"]) - float(metrics_j["loss"])) <= 1e-5, i
+        for key in ("i2t_acc", "t2i_acc", "logit_scale"):
+            assert abs(float(metrics_t[key]) - float(metrics_j[key])) <= 1e-6, key
+        params_j = _as_port(state_j.params, cfg)
+        for name, p in state_t.module.named_parameters():
+            g, gj = p.grad, grads_j[name]
+            if name.endswith("self.key.bias"):
+                assert max(float(g.abs().max()), float(gj.abs().max())) <= 1e-8, (i, name)
+            else:
+                assert float((g - gj).abs().max()) <= 1e-4 * float(gj.abs().max()), (i, name)
+            gt = taken_j[name]
+            r = (g - gt).abs() / gt.abs().clamp_min(1e-30)
+            slack[name] = slack.get(name, 0.0) + torch.where(
+                gt.abs() < 1e-6, 2 * LR, LR * torch.clamp(4 * r, max=2.0))
+            assert bool(((p.detach() - params_j[name]).abs() <= 1e-6 + slack[name]).all()), \
+                (i, name)
+    assert state_t.step == int(state_j.step) == 2
+
+
+def test_decay_mask_matches_jax():
+    jcfg = jconfigs.tiny_config()
+    params, _ = jclip.init_clip(jax.random.PRNGKey(0), jcfg)
+    mask = jtrainer.no_decay_mask(params)
+    full = jax.tree.map(lambda m, p: np.full(np.shape(p), float(m), np.float32), mask, params)
+    want = {k: bool(v.flatten()[0]) for k, v in _as_port(full, _port_cfg(jcfg)).items()}
+    got = trainer.no_decay_mask(build_clip(_port_cfg(jcfg)))
+    assert got == want
+    assert sum(got.values()) and not all(got.values())
+
+
+def test_schedule_and_loss_match_jax():
+    sched_j = jtrainer.cosine_with_warmup(1e-3, 5, 50)
+    sched_t = trainer.cosine_with_warmup(1e-3, 5, 50)
+    for s in (0, 3, 5, 20, 49, 60):
+        assert abs(sched_t(s) - float(sched_j(s))) <= 1e-9
+    assert trainer.cosine_with_warmup(1e-3, 5, 50, skip_decay=True)(30) == 1e-3
+    rs = np.random.RandomState(0)
+    a, b = rs.randn(6, 16).astype(np.float32), rs.randn(6, 16).astype(np.float32)
+    a /= np.linalg.norm(a, axis=1, keepdims=True)
+    b /= np.linalg.norm(b, axis=1, keepdims=True)
+    for smooth in (0.0, 0.1):
+        lj, mj = jclip_loss(jnp.asarray(a), jnp.asarray(b), jnp.asarray(14.3), smooth,
+                            constrain=False)
+        lt, mt = clip_loss(torch.from_numpy(a), torch.from_numpy(b), torch.tensor(14.3), smooth)
+        assert abs(float(lt) - float(lj)) <= 1e-5
+        assert float(mt["i2t_acc"]) == float(mj["i2t_acc"])
+
+
+def test_unported_options_raise_and_eval_step_runs():
+    cfg = tconfigs.tiny_config()
+    for kw in (dict(accum_freq=2), dict(mask_ratio=0.5), dict(distillation=True),
+               dict(adam_state_dtype="bfloat16")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trainer.make_train_step(cfg, trainer.TrainConfig(**kw), ModelOptions())
+    module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0))
+    state = trainer.create_train_state(module, trainer.TrainConfig(freeze_vision=True,
+                                                                   grad_norm_clip=1.0), "cpu")
+    before = {n: p.detach().clone() for n, p in module.named_parameters()}
+    images, texts = _batch(jconfigs.tiny_config(), 4, 0)
+    step = trainer.make_train_step(cfg, trainer.TrainConfig(freeze_vision=True,
+                                                            grad_norm_clip=1.0),
+                                   ModelOptions(deterministic=False))
+    state, metrics = step(state, images, texts, 0)
+    after = dict(module.named_parameters())
+    assert all(torch.equal(before[n], after[n]) for n in before if n.startswith("visual."))
+    assert not torch.equal(before["text_projection"], after["text_projection"])
+    out = trainer.make_eval_step(cfg, ModelOptions())(module, images, texts)
+    assert set(out) == {"loss", "i2t_acc", "t2i_acc"} and bool(torch.isfinite(out["loss"]))
+
+
+def test_trained_checkpoint_round_trips(tmp_path):
+    """A trained module saved by save_torch_checkpoint reloads through the
+    API's .pt path (model_from_config, as load_from_name) with the same
+    features, bit for bit."""
+    from nans_clip_tpu_torch.api import model_from_config
+    from nans_clip_tpu_torch.utils.checkpoint import save_torch_checkpoint
+
+    cfg = tconfigs.tiny_config()
+    tcfg = trainer.TrainConfig(lr=1e-3, warmup=1)
+    state = trainer.create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)),
+                                       tcfg, "cpu")
+    images, texts = _batch(jconfigs.tiny_config(), 4, 0)
+    state, _ = trainer.make_train_step(cfg, tcfg, ModelOptions(deterministic=False))(
+        state, images, texts, 0)
+    path = str(tmp_path / "trained.pt")
+    save_torch_checkpoint(path, state.module)
+    loaded = model_from_config(cfg, path, device="cpu")
+    with torch.no_grad():
+        mine = (state.module.encode_image(torch.from_numpy(images)),
+                state.module.encode_text(torch.from_numpy(texts).long()))
+    theirs = (loaded.encode_image(images), loaded.encode_text(texts))
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+
+
+def test_trainer_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cfg = tconfigs.tiny_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)),
+                                   trainer.TrainConfig())
