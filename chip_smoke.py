@@ -46,6 +46,24 @@ Phases, each printing its lines before the last line:
    trained model is saved as a ``.pt``, reloaded through ``load_from_name``
    and its features compared with the trained module's.
 
+8. LoRA finetuning and the rest of the train step: the emitting backward
+   kernels (#13, #15 with dropout 0.1, #17 in both forms) against their
+   twins at batch 128 and at the LoRA microbatch 32, with a frozen-weight
+   autograd yardstick and, beside each, the time of the emitting kernel plus
+   library weight gradients against the full-gradient chain (the evidence of
+   ``ops/gates.py::BWD_ROUTE``); the whole-layer backward #21 against #18
+   then #14 (bit-equal); one full train step at batch 128 on each
+   ``bwd_impl`` route (fullgrad, emit, layer, auto), times and agreement; the LoRA
+   step through ``make_lora_step`` (batch 32 x accum 4, rank 4, dropout on):
+   merged-at-init features, kernel against plain route, the loss over 8
+   steps, the base weights bit-equal, launch counts, ``save_lora`` ->
+   ``load_lora``; then the full step with ``accum_freq=2``, with
+   ``mask_ratio=0.5``, with a ViT-B teacher and with bf16 Adam moments.
+
+An early line says what the card's machine has for the data path (g++,
+jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
+nothing branches on them.
+
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 not 0 and no result is printed. Needs CUDA; imports no JAX.
@@ -77,6 +95,28 @@ def _nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _data_path_facts() -> str:
+    """What the data path's native decoder would need on this machine."""
+    import importlib.util
+    import shutil
+
+    gxx = shutil.which("g++")
+    header = link = False
+    if gxx:
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "probe.cpp")
+            with open(src, "w") as f:
+                f.write("#include <cstdio>\n#include <jpeglib.h>\nint main() { "
+                        "jpeg_error_mgr e; jpeg_std_error(&e); return 0; }\n")
+            run = lambda *args: subprocess.run([gxx, *args], capture_output=True,
+                                               timeout=120).returncode == 0
+            header = run("-fsyntax-only", src)
+            link = header and run(src, "-ljpeg", "-o", os.path.join(tmp, "probe"))
+    pil = importlib.util.find_spec("PIL") is not None
+    return (f"data path facts: g++ {gxx or 'missing'}; jpeglib.h {'found' if header else 'missing'}; "
+            f"libjpeg links: {link}; PIL importable: {pil}")
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -720,10 +760,11 @@ def phase_training(torch, dev, tmp):
     print(f"training: {VISION}@{TEXT} random (seed 0), "
           f"{sum(p.numel() for p in state.module.parameters())} fp32 parameters, built in "
           f"{time.time() - t0:.1f} s", flush=True)
-    kernel_step = make_train_step(cfg, tcfg, nct.ModelOptions(compute_dtype="bfloat16",
-                                                              deterministic=False))
+    # bwd_impl="fullgrad": this phase holds #14/#16/#18; phase 8 measures the routes
+    kernel_step = make_train_step(cfg, tcfg, nct.ModelOptions(
+        compute_dtype="bfloat16", deterministic=False, bwd_impl="fullgrad"))
     plain_step = make_train_step(cfg, tcfg, nct.ModelOptions(
-        compute_dtype="bfloat16", attn_impl="plain", deterministic=False))
+        compute_dtype="bfloat16", attn_impl="plain", deterministic=False, bwd_impl="fullgrad"))
 
     # the plain route's first step, from the same weights and dropout seeds
     t0 = time.time()
@@ -829,6 +870,459 @@ def phase_training(torch, dev, tmp):
     return results, per_step
 
 
+LORA_MICRO, LORA_ACCUM = 32, 4
+
+
+def _cos(a, b) -> float:
+    import torch.nn.functional as F
+
+    return float(F.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0))
+
+
+def phase_lora(torch, dev, tmp):
+    """Phase 8: #13, #15, #17, #21, the backward routes, the LoRA step and
+    the rest of the train step (accumulation, FLIP, distillation, bf16 Adam
+    moments)."""
+    import copy
+
+    import torch.nn.functional as F
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.models import lora
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.ops import fused_block as fb
+    from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+    from nans_clip_tpu_torch.ops import layer_bwd as lb
+    from nans_clip_tpu_torch.ops.gemm import linear_wgrad
+    from nans_clip_tpu_torch.training import TrainConfig, create_train_state, make_train_step
+    from nans_clip_tpu_torch.training import train_lora
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    bf = torch.bfloat16
+    w, inter, heads, rate = 768, 3072, 12, 0.1
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std + mean).to(bf)
+
+    def params(std):
+        return (rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(3 * w, w, std=std),
+                rnd(3 * w, std=0.1), rnd(w, w, std=std), rnd(w, std=0.1),
+                rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(inter, w, std=std),
+                rnd(inter, std=0.1), rnd(w, inter, std=std / 2), rnd(w, std=0.1))
+
+    pi, pt = params(w ** -0.5), params(0.02)
+    all6 = (True,) * 6
+    results = {}
+
+    # 1. the emitting kernels at batch 128 and at the LoRA microbatch
+    for b in (TRAIN_BATCH, LORA_MICRO):
+        xi, gi = rnd(b, 197, w), rnd(b, 197, w)
+        xt, gt = rnd(b, 52, w), rnd(b, 52, w)
+        lengths = torch.randint(2, 53, (b,), generator=g, device=dev)
+        kb = ((1.0 - (torch.arange(52, device=dev)[None, :] < lengths[:, None]).float())
+              * -10000.0).contiguous()
+
+        def yardstick(x, gout, p, s, post_ln, mlp, act=None):
+            """torch.autograd through the sub-block written with library
+            calls, weights frozen: the forward and dx alone."""
+            xr = x.detach().requires_grad_()
+            eps = 1e-12 if post_ln else 1e-5
+            mask = None if not post_ln else kb.view(b, 1, 1, s).to(bf)
+
+            def run():
+                ln = lambda t: F.layer_norm(t, (w,), p[0], p[1], eps)
+                xn = xr if post_ln else ln(xr)
+                if mlp:
+                    h = F.linear(xn, p[2], p[3])
+                    h = h * torch.sigmoid(1.702 * h) if act == "quick_gelu" else F.gelu(h)
+                    y = F.linear(h, p[4], p[5])
+                else:
+                    q, k, v = F.linear(xn, p[2], p[3]).view(b, s, 3, heads, 64).permute(
+                        2, 0, 3, 1, 4).unbind(0)
+                    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                         dropout_p=rate if post_ln else 0.0)
+                    y = F.linear(ctx.transpose(1, 2).reshape(b, s, w), p[4], p[5])
+                out = ln(xr + F.dropout(y, rate)) if post_ln else xr + y
+                return torch.autograd.grad(out, [xr], gout)
+            return run
+
+        bs_i, bs_t = b * 197, b * 52
+        attn_cost = lambda bs, s, n, extra=0.0: (
+            bs * w * 2 * 8 + 4 * w * w * 2 + extra, n * bs * w * w + 12 * bs * s * w)
+        mlp_cost = lambda bs, n: (bs * (6 * w + 2 * inter) * 2 + 2 * w * inter * 2,
+                                  n * bs * w * inter)
+        a13 = (xi, *pi[:5], gi, heads, 1e-5)
+        a15 = (xt, *pt[:6], kb, 1234, gt, heads, 1e-12, rate, rate)
+        a17i = (xi, *pi[6:], None, gi, "quick_gelu", 1e-5, False, 0.0)
+        a17t = (xt, *pt[6:], 99, gt, "gelu", 1e-12, True, rate)
+        zero_bo = torch.zeros(w, device=dev, dtype=bf)
+        # (name, emitting kernel, full-gradient kernel, twin, args, the caller's weight
+        #  gradients from what was emitted, yardstick, (bytes, operations), replaces)
+        cases = [
+            ("fused_attention_block_bwd", fbb.fused_attention_block_bwd,
+             fbb.fused_attention_block_bwd_fullgrad, fbb._attn_bwd_math, a13,
+             lambda out: fb.attention_weight_grads(all6, False, xi, pi[0], pi[2], gi, out, 1e-5),
+             yardstick(xi, gi, pi[:4] + (pi[4], zero_bo), 197, False, False),
+             attn_cost(bs_i, 197, 14), "nans_clip_tpu/ops/fused_block_bwd.py:216"),
+            ("fused_bert_attention_block_bwd", fbb.fused_bert_attention_block_bwd,
+             fbb.fused_bert_attention_block_bwd_fullgrad, fbb._bert_bwd_math, a15,
+             lambda out: fb.attention_weight_grads(all6, True, xt, pt[0], pt[2], gt, out, 1e-12),
+             yardstick(xt, gt, pt[:6], 52, True, False),
+             attn_cost(bs_t, 52, 16, b * 52 * 4), "nans_clip_tpu/ops/fused_block_bwd.py:386"),
+            ("fused_mlp_block_bwd", fbb.fused_mlp_block_bwd, fbb.fused_mlp_block_bwd_fullgrad,
+             fbb._mlp_bwd_math, a17i, lambda out: fb.mlp_weight_grads(all6, False, gi, out),
+             yardstick(xi, gi, pi[6:], 197, False, True, "quick_gelu"),
+             mlp_cost(bs_i, 6), "nans_clip_tpu/ops/fused_block_bwd.py:781"),
+            ("fused_mlp_block_bwd[post-LN, S=52]", fbb.fused_mlp_block_bwd,
+             fbb.fused_mlp_block_bwd_fullgrad, fbb._mlp_bwd_math, a17t,
+             lambda out: fb.mlp_weight_grads(all6, True, gt, out),
+             yardstick(xt, gt, pt[6:], 52, True, True, "gelu"), mlp_cost(bs_t, 8), None),
+        ]
+        for name, kern, full, twin, args, wgrads, yard, cost, replaces in cases:
+            got, want = kern(*args), twin(*args, full=False)
+            torch.cuda.synchronize()
+            errs, err = [], 0.0
+            for i, (a, r) in enumerate(zip(got, want)):
+                e, top = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+                if a.shape != r.shape or a.dtype != bf or not torch.isfinite(a).all() \
+                        or e > BWD_REL * top:
+                    raise AssertionError(f"{name} b={b} output {i}: max abs err {e} exceeds "
+                                         f"{BWD_REL} x {top}")
+                errs.append(e / max(top, 1e-30))
+                err = max(err, e)
+            if not all(torch.equal(a, r) for a, r in zip(got, kern(*args))):
+                raise AssertionError(f"{name}: two calls gave different bits")
+            del want
+            ms = _time_ms(lambda: kern(*args), 5)
+            plain_ms = _time_ms(lambda: twin(*args, full=False), 2)
+            yard_ms = _time_ms(yard, 5)
+            # the route's evidence: emitting kernel + library weight gradients
+            # against the full-gradient chain, every weight needing its gradient
+            emit_ms = _time_ms(lambda: wgrads(kern(*args)), 5)
+            full_ms = _time_ms(lambda: full(*args), 5)
+            bound_ms, bound_by = _bound(*cost)
+            print(f"lora kernel {name} b={b}: max_abs_err {err:.6g}, largest error over "
+                  f"max|twin| {max(errs):.4g} <= {BWD_REL} on each of {len(got)} outputs; "
+                  f"{ms:.4f} ms, twin {plain_ms:.4f} ms, yardstick (frozen weights) "
+                  f"{yard_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{cost[1] / 1e9:.1f} GFLOP, {cost[0] / 1e6:.1f} MB); with every weight "
+                  f"gradient: emit + library products {emit_ms:.4f} ms vs full-gradient chain "
+                  f"{full_ms:.4f} ms", flush=True)
+            results[(name, b)] = dict(err=err, ms=ms, plain_ms=plain_ms, yard_ms=yard_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by, replaces=replaces,
+                                      emit_ms=emit_ms, full_ms=full_ms)
+            del got
+
+        # 2. the whole-layer backward against #18 then #14
+        if b == TRAIN_BATCH:
+            xm = fb.fused_attention_block(xi, *pi[:6], heads, 1e-5)
+            largs = (xi, *pi[:5], xm, *pi[6:], gi, heads, "quick_gelu", 1e-5)
+
+            def two_calls():
+                mlp = fbb.fused_mlp_block_bwd_fullgrad(xm, *pi[6:], None, gi, "quick_gelu", 1e-5,
+                                                       False)
+                attn = fbb.fused_attention_block_bwd_fullgrad(xi, *pi[:5], mlp[0], heads, 1e-5)
+                return attn + mlp[1:]
+
+            got, pair = lb.fused_layer_block_bwd_fullgrad(*largs), two_calls()
+            want = lb._layer_bwd_math(*largs)
+            torch.cuda.synchronize()
+            if len(got) != 13 or not all(torch.equal(a, r) for a, r in zip(got, pair)):
+                raise AssertionError("#21 is not bit-equal to #18 followed by #14")
+            err, rel = 0.0, 0.0
+            for a, r in zip(got, want):
+                e, top = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+                if e > BWD_REL * top:
+                    raise AssertionError(f"#21: max abs err {e} exceeds {BWD_REL} x {top}")
+                err, rel = max(err, e), max(rel, e / max(top, 1e-30))
+            del want, pair, got
+            ms = _time_ms(lambda: lb.fused_layer_block_bwd_fullgrad(*largs), 5)
+            pair_ms = _time_ms(two_calls, 5)
+            plain_ms = _time_ms(lambda: lb._layer_bwd_math(*largs), 2)
+            cost = (4 * bs_i * w * 2 + (4 * w * w + 2 * w * inter + 10 * w + inter) * 6,
+                    22 * bs_i * w * w + 12 * bs_i * 197 * w + 10 * bs_i * w * inter)
+            bound_ms, bound_by = _bound(*cost)
+            print(f"lora kernel fused_layer_block_bwd_fullgrad b={b}: bit-equal to #18 then #14 "
+                  f"on 13 outputs; max_abs_err {err:.6g}, largest error over max|twin| "
+                  f"{rel:.4g} <= {BWD_REL}; {ms:.4f} ms, the two calls {pair_ms:.4f} ms, twin "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+            results[("fused_layer_block_bwd_fullgrad", b)] = dict(
+                err=err, ms=ms, plain_ms=plain_ms, yard_ms=pair_ms, bound_ms=bound_ms,
+                bound_by=bound_by, replaces="nans_clip_tpu/ops/layer_bwd.py:74")
+            del xm
+        del xi, gi, xt, gt
+    del pi, pt
+    torch.cuda.empty_cache()
+
+    # the model, once on the CPU, copied to the card for each run
+    cfg = nct.load_config(f"{VISION}@{TEXT}")
+    b = TRAIN_BATCH
+    gen = torch.Generator().manual_seed(5)
+    images = torch.randn(b, 224, 224, 3, generator=gen).to(dev)
+    ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}" for i in range(b)]))
+    ids = ids.to(dev)
+    base = build_clip(cfg, "cpu", torch.Generator().manual_seed(0)).to(dev)
+    opts = lambda **kw: nct.ModelOptions(compute_dtype="bfloat16", deterministic=False, **kw)
+    counted = {"fused_attention_block": fb.fused_attention_block,
+               "fused_bert_attention_block": fb.fused_bert_attention_block,
+               "fused_mlp_block": fb.fused_mlp_block,
+               "fused_attention_block_bwd": fbb.fused_attention_block_bwd,
+               "fused_bert_attention_block_bwd": fbb.fused_bert_attention_block_bwd,
+               "fused_mlp_block_bwd": fbb.fused_mlp_block_bwd,
+               "fused_attention_block_bwd_fullgrad": fbb.fused_attention_block_bwd_fullgrad,
+               "fused_bert_attention_block_bwd_fullgrad":
+                   fbb.fused_bert_attention_block_bwd_fullgrad,
+               "fused_mlp_block_bwd_fullgrad": fbb.fused_mlp_block_bwd_fullgrad,
+               "fused_layer_block_bwd_fullgrad": lb.fused_layer_block_bwd_fullgrad,
+               "wgrad_kernel": linear_wgrad}
+    counted.update(_counted())
+
+    def reset():
+        _reset_counts()
+        for fn in counted.values():
+            fn.launches = 0
+
+    def counts():
+        out = {name: fn.launches for name, fn in counted.items()}
+        out.update(_tower_counts())
+        return out
+
+    def timed_steps(step, state, n, *args):
+        evs = []
+        for _ in range(n):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step(state, *args)
+            ev[1].record()
+            evs.append(ev)
+        torch.cuda.synchronize()
+        return out, [s.elapsed_time(e) for s, e in evs]
+
+    # 3. the route question: one full step on each bwd_impl route
+    tcfg = TrainConfig(lr=1e-3, warmup=2, max_steps=100)
+    routes, first = ("fullgrad", "emit", "layer", "auto"), {}
+    states, steps, layer_launches = {}, {}, None
+    for route in routes:
+        states[route] = create_train_state(copy.deepcopy(base), tcfg, device=dev)
+        steps[route] = make_train_step(cfg, tcfg, opts(bwd_impl=route))
+        reset()
+        states[route], metrics = steps[route](states[route], images, ids, 7)
+        torch.cuda.synchronize()
+        c = counts()
+        first[route] = (float(metrics["loss"]),
+                        {n: p.grad.clone() for n, p in states[route].module.named_parameters()}
+                        if route == "fullgrad" else None, c)
+        if route != "fullgrad":
+            cos = {n: _cos(p.grad, first["fullgrad"][1][n])
+                   for n, p in states[route].module.named_parameters()
+                   if not n.endswith("key.bias")}
+            worst = min(cos, key=cos.get)
+            diff = abs(first[route][0] - first["fullgrad"][0])
+            print(f"route {route} vs fullgrad after one step from the same weights and seeds: "
+                  f"loss {first[route][0]:.6f} vs {first['fullgrad'][0]:.6f} (|diff| {diff:.3g} "
+                  f"<= {STEP_LOSS_BOUND}); gradient cosine >= {cos[worst]:.6f} ({worst}), bound "
+                  f"{GRAD_COS_BOUND}", flush=True)
+            if diff > STEP_LOSS_BOUND or cos[worst] < GRAD_COS_BOUND:
+                raise AssertionError(f"route {route} differs from route fullgrad")
+    n_img, n_txt = cfg.vision.layers, cfg.text.num_hidden_layers
+    from nans_clip_tpu_torch.ops import gates
+
+    def expected_launches(route):
+        """Backward launches of one step, from the route's block kinds."""
+        layer = route == "layer" or (route == "auto" and gates.LAYER_BWD_ROUTE)
+        full = {k: gates.bwd_route(k, route) == "fullgrad" for k in gates.BWD_ROUTE}
+        img = 0 if layer else n_img
+        return {"fused_layer_block_bwd_fullgrad": n_img - img,
+                "fused_attention_block_bwd_fullgrad": img * full["attn_pre"],
+                "fused_attention_block_bwd": img * (not full["attn_pre"]),
+                "fused_bert_attention_block_bwd_fullgrad": n_txt * full["attn_post"],
+                "fused_bert_attention_block_bwd": n_txt * (not full["attn_post"]),
+                "fused_mlp_block_bwd_fullgrad": img * full["mlp_pre"] + n_txt * full["mlp_post"],
+                "fused_mlp_block_bwd": img * (not full["mlp_pre"])
+                + n_txt * (not full["mlp_post"])}
+
+    for route in routes:
+        c, want = first[route][2], expected_launches(route)
+        if any(c[k] != v for k, v in want.items()) or (route == "emit" and c["wgrad_kernel"]):
+            raise AssertionError(f"route {route}: launches {c}, expected {want}")
+    layer_launches = first["layer"][2]["fused_layer_block_bwd_fullgrad"]
+    del first
+    times = {r: [] for r in routes}
+    for order in (routes, routes[::-1]):        # in turns, both orders
+        for route in order:
+            _, ms = timed_steps(steps[route], states[route], 3, images, ids, 100)
+            times[route] += ms
+    route_ms = {r: sorted(v)[len(v) // 2] for r, v in times.items()}
+    print("route question, one train step at batch 128, ms (upper median of 6, in turns): "
+          + "; ".join(f"{r} {route_ms[r]:.2f} [{' '.join(f'{x:.1f}' for x in times[r])}]"
+                      for r in routes), flush=True)
+    best = min(routes, key=route_ms.get)
+    print(f"route gate evidence: the fastest full step is {best}; auto is gates.BWD_ROUTE = "
+          f"{json.dumps(gates.BWD_ROUTE)} with gates.LAYER_BWD_ROUTE = {gates.LAYER_BWD_ROUTE}",
+          flush=True)
+    del states, steps
+    torch.cuda.empty_cache()
+
+    # 4. the LoRA step: batch 32 x accum 4, rank 4, alpha 16, smoothing 0.05
+    alpha, rank = 16.0, 4
+    module = copy.deepcopy(base)
+    adapters = lora.init_lora(torch.Generator().manual_seed(1), module, rank, device=dev)
+    state = train_lora.create_lora_state(module, adapters, lr=1e-3, wd=0.01, device=dev)
+    n_lora = lora.count_lora_params(adapters)
+    before = {n: p.detach().clone() for n, p in module.named_parameters()}
+    eval_opts = nct.ModelOptions(compute_dtype="bfloat16")
+
+    def features(ad):
+        merged = lora.merge_lora(module, ad, alpha)
+        with torch.no_grad():
+            return (torch.func.functional_call(module, merged, (images[:8], None, eval_opts)),
+                    torch.func.functional_call(module, merged, (None, ids[:8], eval_opts)))
+
+    with torch.no_grad():
+        plain_feats = (module.encode_image(images[:8], eval_opts),
+                       module.encode_text(ids[:8], eval_opts))
+    same0 = all(torch.equal(a, r) for a, r in zip(features(adapters), plain_feats))
+    print(f"lora: {n_lora} adapter parameters (rank {rank}) over "
+          f"{sum(p.numel() for p in module.parameters())} frozen; merged-at-init features equal "
+          f"the base model's: {same0}", flush=True)
+    if not same0:
+        raise AssertionError("the model merged at init differs from the base model")
+    k_step, _ = train_lora.make_lora_step(cfg, nct.ModelOptions(compute_dtype="bfloat16"), alpha,
+                                          0.05, LORA_ACCUM)
+    p_step, _ = train_lora.make_lora_step(
+        cfg, nct.ModelOptions(compute_dtype="bfloat16", attn_impl="plain"), alpha, 0.05,
+        LORA_ACCUM)
+    blocks = n_img + n_txt
+    expected = {"fused_attention_block_bwd": n_img * LORA_ACCUM,
+                "fused_bert_attention_block_bwd": n_txt * LORA_ACCUM,
+                "fused_mlp_block_bwd": blocks * LORA_ACCUM,
+                "fused_attention_block": 2 * LORA_ACCUM * n_img,
+                "fused_bert_attention_block": 2 * LORA_ACCUM * n_txt,
+                "fused_mlp_block": 2 * LORA_ACCUM * blocks,
+                "fused_attention_block_bwd_fullgrad": 0,
+                "fused_bert_attention_block_bwd_fullgrad": 0,
+                "fused_mlp_block_bwd_fullgrad": 0, "fused_layer_block_bwd_fullgrad": 0,
+                "wgrad_kernel": 0, "fused_layer_block": 0, "fused_tower": 0,
+                "fused_tower_int8": 0}
+    n_steps, losses, step_ms = 8, [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    for i in range(n_steps):
+        if i == 2:
+            # B has left zero: the plain route's step from the same adapters and seeds
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            twin_ad = {t: {m: {n: v.detach().clone().requires_grad_() for n, v in d.items()}
+                           for m, d in mods.items()} for t, mods in state.adapters.items()}
+            twin = train_lora.create_lora_state(module, twin_ad, lr=1e-3, wd=0.01, device=dev)
+            t0 = time.time()
+            twin, plain_loss, _ = p_step(twin, images, ids, 100 + i)
+            plain_loss = float(plain_loss)
+            plain_s = time.time() - t0
+            plain_grads = {k: t.grad for k, t in lora._leaves(twin_ad)}
+        (state, loss, _), ms = timed_steps(k_step, state, 1, images, ids, 100 + i)
+        losses.append(float(loss))
+        step_ms += ms
+        if i == 0:
+            per_step = counts()
+            print(f"lora: launches of one step {json.dumps(per_step)}", flush=True)
+            if any(per_step[k] != v for k, v in expected.items()):
+                raise AssertionError(f"launches of one LoRA step {per_step}, expected {expected}")
+        if i == 2:
+            cos = {k: _cos(t.grad, plain_grads[k]) for k, t in lora._leaves(state.adapters)}
+            worst = min(cos, key=cos.get)
+            print(f"lora: kernel vs plain route at step 3 (B nonzero), same adapters and seeds: "
+                  f"loss {losses[-1]:.6f} vs {plain_loss:.6f} (|diff| "
+                  f"{abs(losses[-1] - plain_loss):.3g} <= {STEP_LOSS_BOUND}); adapter gradient "
+                  f"cosine >= {cos[worst]:.6f} ({worst}) over {len(cos)} tensors, bound "
+                  f"{GRAD_COS_BOUND}; plain step {plain_s:.1f} s", flush=True)
+            if abs(losses[-1] - plain_loss) > STEP_LOSS_BOUND or cos[worst] < GRAD_COS_BOUND:
+                raise AssertionError("the LoRA step's kernel route differs from the plain route")
+            del twin, twin_ad, plain_grads
+    total = counts()
+    # the plain route's step launched no kernel, so the totals are the kernel route's
+    if any(total[k] != n_steps * v for k, v in per_step.items()):
+        raise AssertionError(f"launches over {n_steps} LoRA steps {total} are not {n_steps} x "
+                             f"{per_step}")
+    frozen = all(torch.equal(p.detach(), before[n]) and p.grad is None
+                 for n, p in module.named_parameters())
+    pairs = LORA_MICRO * LORA_ACCUM
+    ms = sum(step_ms[3:]) / len(step_ms[3:])
+    print(f"lora: batch {LORA_MICRO} x accum {LORA_ACCUM}, {n_steps} steps, loss "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; step ms "
+          f"{' '.join(f'{x:.2f}' for x in step_ms)}; steps 4-{n_steps} {ms:.2f} ms a step, "
+          f"{pairs / ms * 1e3:.1f} pairs/s; peak memory {peak / 2 ** 30:.3f} GiB (steps 1-2); "
+          f"base weights and logit_scale bit-equal after the steps: {frozen}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] or not frozen:
+        raise AssertionError(f"the LoRA loss did not fall over {n_steps} steps ({losses}), or a "
+                             "frozen weight moved")
+    path = os.path.join(tmp, "last_lora.npz")
+    lora.save_lora(path, state.adapters, {"rank": rank, "alpha": alpha})
+    template = lora.init_lora(torch.Generator().manual_seed(2), module, rank, device=dev)
+    loaded, meta = lora.load_lora(path, template)
+    same = all(torch.equal(a, r) for a, r in zip(features(state.adapters), features(loaded)))
+    moved = not torch.equal(features(state.adapters)[0], plain_feats[0])
+    print(f"lora: save_lora ({os.path.getsize(path)} bytes, meta {json.dumps(meta)}) -> "
+          f"load_lora: features equal {same}; trained features differ from the base's: {moved}",
+          flush=True)
+    if not (same and moved):
+        raise AssertionError("reloaded adapters give other features, or training moved nothing")
+    lora_step = dict(ms=ms, pairs_s=pairs / ms * 1e3, peak=peak, per_step=per_step)
+    del state, module, adapters, before
+    torch.cuda.empty_cache()
+
+    # 5. the rest of the step: accumulation, FLIP, a teacher, bf16 Adam moments
+    def run(tcfg, n, seed, teacher=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st = create_train_state(copy.deepcopy(base), tcfg, device=dev)
+        step = make_train_step(cfg, tcfg, opts(), teacher)
+        out = []
+        for _ in range(n):
+            (st, metrics), ms = timed_steps(step, st, 1, images, ids, seed)
+            out.append(({k: float(v) for k, v in metrics.items()}, ms[0]))
+        grads = {n_: p.grad for n_, p in st.module.named_parameters()}
+        return out, grads, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    base_cfg = dict(lr=1e-3, warmup=2, max_steps=100)
+    one, g1, peak1 = run(TrainConfig(**base_cfg), 2, None)
+    two, g2, peak2 = run(TrainConfig(accum_freq=2, **base_cfg), 2, None)
+    cos = {n: _cos(g2[n], g1[n]) for n in g1 if not n.endswith("key.bias")}
+    worst = min(cos, key=cos.get)
+    diff = abs(one[0][0]["loss"] - two[0][0]["loss"])
+    print(f"accum: accum_freq 2 vs 1 at batch {b}, no dropout: loss {two[0][0]['loss']:.6f} vs "
+          f"{one[0][0]['loss']:.6f} (|diff| {diff:.3g} <= {STEP_LOSS_BOUND}); second-step "
+          f"gradient cosine >= {cos[worst]:.6f} ({worst}), bound {GRAD_COS_BOUND}; step "
+          f"{two[1][1]:.2f} vs {one[1][1]:.2f} ms; peak {peak2:.3f} vs {peak1:.3f} GiB",
+          flush=True)
+    if diff > STEP_LOSS_BOUND or cos[worst] < GRAD_COS_BOUND:
+        raise AssertionError("the accumulated step differs from the unaccumulated one")
+    del g1, g2
+    flip, _, peak_f = run(TrainConfig(mask_ratio=0.5, **base_cfg), 2, 7)
+    print(f"flip: mask_ratio 0.5 (S = 99): loss {flip[0][0]['loss']:.6f}, step {flip[1][1]:.2f} "
+          f"ms, peak {peak_f:.3f} GiB", flush=True)
+    teacher = nct.CLIPModel(cfg, build_clip(cfg, "cpu", torch.Generator().manual_seed(9)).to(dev),
+                            nct.ModelOptions(compute_dtype="bfloat16"))
+    kd, _, peak_k = run(TrainConfig(distillation=True, **base_cfg), 4, 7, teacher)
+    kds = [m["kd_loss"] for m, _ in kd]
+    print(f"distillation: ViT-B teacher (seed 9), kd_loss {' '.join(f'{x:.5f}' for x in kds)}; "
+          f"step {kd[-1][1]:.2f} ms, peak {peak_k:.3f} GiB", flush=True)
+    del teacher
+    adam, _, peak_a = run(TrainConfig(adam_state_dtype="bfloat16", **base_cfg), 2, 7)
+    ref, _, peak_r = run(TrainConfig(**base_cfg), 2, 7)
+    print(f"adam_state_dtype bfloat16: loss {adam[0][0]['loss']:.6f} then {adam[1][0]['loss']:.6f} "
+          f"(fp32 moments {ref[0][0]['loss']:.6f} then {ref[1][0]['loss']:.6f}); step "
+          f"{adam[1][1]:.2f} vs {ref[1][1]:.2f} ms; peak {peak_a:.3f} vs {peak_r:.3f} GiB",
+          flush=True)
+    finite = all(math.isfinite(m["loss"]) for m, _ in flip + kd + adam)
+    if not finite or not all(math.isfinite(x) for x in kds) or not kds[-1] < kds[0] \
+            or not peak_a < peak_r:
+        raise AssertionError("FLIP, distillation or bf16 Adam moments: a loss is not finite, "
+                             "kd_loss did not fall, or bf16 moments saved no memory")
+    return results, lora_step, layer_launches, route_ms
+
+
 def main() -> int:
     if not (ROOT / "nans_clip_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -845,6 +1339,7 @@ def main() -> int:
     print(_nvidia_smi(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    print(_data_path_facts(), flush=True)
 
     from nans_clip_tpu_torch.ops import _build
     t0 = time.time()
@@ -873,6 +1368,7 @@ def main() -> int:
         serving_launches, _ = phase_serving(torch, ckpt)
         os.remove(ckpt)
         train_results, train_launches = phase_training(torch, dev, tmp)
+        lora_results, lora_step, layer_launches, _ = phase_lora(torch, dev, tmp)
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")
@@ -903,6 +1399,28 @@ def main() -> int:
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
                         "yardstick_ms": r["yard_ms"]})
+    # #13, #15, #17 at the LoRA microbatch, launches of one LoRA step; #21 at
+    # batch 128, launches of one train step with bwd_impl="layer"
+    for (name, b), r in lora_results.items():
+        if r["replaces"] is None or (b != LORA_MICRO and "layer" not in name):
+            continue
+        layer = "layer" in name
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "nans_clip_tpu_torch/ops/"
+                                  + ("layer_bwd.py" if layer else "fused_block_bwd.py"),
+                        "replaces": r["replaces"],
+                        "launches": layer_launches if layer else lora_step["per_step"][name],
+                        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                        "yardstick_ms": r["yard_ms"]})
+    ported = {"fused_attention_block", "fused_mlp_block", "fused_layer_block", "fused_tower",
+              "fused_tower_int8", "fused_attention_block_bwd", "fused_bert_attention_block_bwd",
+              "fused_mlp_block_bwd", "fused_attention_block_bwd_fullgrad",
+              "fused_bert_attention_block_bwd_fullgrad", "fused_mlp_block_bwd_fullgrad",
+              "fused_layer_block_bwd_fullgrad"}
+    if not ported <= {k["name"] for k in kernels} or any(k["launches"] < 1 for k in kernels):
+        raise AssertionError(f"the twelve ported TPU kernels, each launched on its main path: "
+                             f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

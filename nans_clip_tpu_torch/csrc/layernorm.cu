@@ -23,8 +23,11 @@
 // sub-block also writes dproj = dx * keep (the hidden dropout multiplier,
 // dropout.cuh) as bf16. Column sums (sum g * xhat, sum g, sum dproj) are
 // taken per block of 32 rows, the warps adding into shared memory one after
-// another in a fixed order; reduce.cu sums the blocks in order. Bound:
-// memory, as the forward; one warp a row, the row in registers.
+// another in a fixed order; reduce.cu sums the blocks in order. For the
+// backward kernels that emit their activations (fused_block_bwd.py
+// _bert_bwd_kernel :401 uhat, _mlp_bwd_kernel :797 lnstat) it also writes
+// x-hat as bf16, and leaves the column sums out when no partials buffer is
+// given. Bound: memory, as the forward; one warp a row, the row in registers.
 #include "common.cuh"
 #include "dropout.cuh"
 
@@ -89,12 +92,16 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // One block: rows [blockIdx.x * kBwdRows, +kBwdRows), warp w taking rows
-// w, w + 8, ... . part: [3][gridDim.x][width] fp32 column partials.
+// w, w + 8, ... . part: [3][gridDim.x][width] fp32 column partials. kEmit
+// compiles in what only the emitting backward kernels ask for (x-hat out,
+// no partials), so that the full-gradient chains keep their code.
+template <bool kEmit>
 __global__ void __launch_bounds__(kWarps * 32)
     layernorm_bwd_kernel(const void* __restrict__ gin, int g_f32, const void* __restrict__ x,
                          int x_f32, const __nv_bfloat16* __restrict__ gamma,
                          const void* __restrict__ res, int res_f32, void* __restrict__ dx,
-                         int dx_f32, __nv_bfloat16* __restrict__ dmul, drop::Spec drop, int seq,
+                         int dx_f32, __nv_bfloat16* __restrict__ dmul,
+                         __nv_bfloat16* __restrict__ xhat_out, drop::Spec drop, int seq,
                          float* __restrict__ part, int rows, int width, float eps) {
   __shared__ float acc[3 * kMaxPerLane * 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -132,6 +139,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         if (i < per_lane) {
           const int c = i * 32 + lane;
           xh[i] = (xh[i] - mean) * rstd;
+          if (kEmit && xhat_out) xhat_out[base + c] = __float2bfloat16_rn(xh[i]);
           gr[i] = load_any(gin, g_f32, base + c);
           const float gh = gr[i] * __bfloat162float(gamma[c]);
           sg += gh;
@@ -158,6 +166,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         }
       }
     }
+    if (kEmit && !part) continue;  // uniform over the block: no sums asked for
     // The warps add their rows' terms one after another: a fixed order.
     for (int w = 0; w < kWarps; ++w) {
       if (live && warp == w) {
@@ -174,6 +183,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       __syncthreads();
     }
   }
+  if (kEmit && !part) return;
   for (int c = threadIdx.x; c < 3 * width; c += kWarps * 32) {
     const int q = c / width, col = c - q * width;
     part[(static_cast<size_t>(q) * gridDim.x + blockIdx.x) * width + col] = acc[c];
@@ -186,18 +196,20 @@ __global__ void __launch_bounds__(kWarps * 32)
 // [rows, width] the LN's input, fp32 (x_f32) or bf16; gamma: [width] bf16;
 // res: [rows, width] fp32 (res_f32) or bf16, or null; dx: [rows, width] fp32
 // (dx_f32) or bf16; dmul: [rows, width] bf16 or null (then no dropout);
-// part: [3, ceil(rows / 32), width] fp32. width % 32 == 0, width <= 1024
+// xhat: [rows, width] bf16 or null; part: [3, ceil(rows / 32), width] fp32,
+// or null for no column sums. width % 32 == 0, width <= 1024
 // (checked by the Python wrapper). Returns cudaGetLastError().
 extern "C" int nans_layernorm_bwd(const void* gin, int g_f32, const void* x, int x_f32,
                                   const void* gamma, const void* res, int res_f32, void* dx,
-                                  int dx_f32, void* dmul, unsigned drop_seed,
+                                  int dx_f32, void* dmul, void* xhat, unsigned drop_seed,
                                   unsigned drop_stream, unsigned drop_threshold,
                                   float drop_scale, int drop_on, int seq, void* part, int rows,
                                   int width, float eps, void* stream) {
   const dim3 grid((rows + kBwdRows - 1) / kBwdRows);
-  layernorm_bwd_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = (xhat || !part) ? layernorm_bwd_kernel<true> : layernorm_bwd_kernel<false>;
+  kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       gin, g_f32, x, x_f32, static_cast<const __nv_bfloat16*>(gamma), res, res_f32, dx, dx_f32,
-      static_cast<__nv_bfloat16*>(dmul),
+      static_cast<__nv_bfloat16*>(dmul), static_cast<__nv_bfloat16*>(xhat),
       drop::Spec{drop_seed, drop_stream, drop_threshold, drop_scale, drop_on},
       seq > 0 ? seq : 1, static_cast<float*>(part), rows, width, eps);
   return static_cast<int>(cudaGetLastError());

@@ -17,7 +17,8 @@ the weights change.
 
 A training forward (``options.deterministic`` False) runs every layer
 through the sub-block autograd Functions (#1 post-LN then #2 post-LN
-forward, #16 and #18 backward). With a ``torch.Generator`` it drops out as
+forward; backward #16 and #18, or #15 and #17 where a weight is frozen or
+``options.bwd_impl`` routes there). With a ``torch.Generator`` it drops out as
 the JAX tower does (bert.py:77-80, :226-258): the embedding output in plain
 torch, then per layer two int32 seeds drawn from the generator, one for the
 attention sub-block (probability and hidden dropout) and one for the MLP
@@ -208,12 +209,14 @@ class BertModel(nn.Module):
             seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
             x = drop.apply(x, drop.Dropout(seed, hd, drop.STREAM_EMBED, x.shape[1]))
         use_kernel = gates.use_kernel(x, options.attn_impl)
+        route_a = gates.bwd_route("attn_post", options.bwd_impl)
+        route_m = gates.bwd_route("mlp_post", options.bwd_impl)
         for p in layers:
             p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
             seed_a = seed_m = None
             if generator is not None:
                 seed_a, seed_m = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator).tolist()
             x = attention_block_train(x, *p[:6], key_bias, heads, eps, True, seed_a, ad, hd,
-                                      use_kernel)
-            x = mlp_block_train(x, *p[6:], act, eps, True, seed_m, hd, use_kernel)
+                                      use_kernel, route_a)
+            x = mlp_block_train(x, *p[6:], act, eps, True, seed_m, hd, use_kernel, route_m)
         return x

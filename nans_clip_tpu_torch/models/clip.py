@@ -44,10 +44,12 @@ class CLIP(nn.Module):
         self.text_projection.normal_(0.0, self.cfg.text.hidden_size ** -0.5, generator=generator)
         self.logit_scale.fill_(math.log(1.0 / 0.07))
 
-    def encode_image(self, images: torch.Tensor,
-                     options: ModelOptions = ModelOptions()) -> torch.Tensor:
-        """images: [B, R, R, 3] NHWC. Unnormalised features [B, E]."""
-        return self.visual(images, options)
+    def encode_image(self, images: torch.Tensor, options: ModelOptions = ModelOptions(),
+                     mask_ratio: float = 0.0, generator: Optional[torch.Generator] = None,
+                     ids_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """images: [B, R, R, 3] NHWC. Unnormalised features [B, E]. FLIP
+        masking as :meth:`VisualTransformer.forward`."""
+        return self.visual(images, options, mask_ratio, generator, ids_keep)
 
     def encode_text(self, text_ids: torch.Tensor, options: ModelOptions = ModelOptions(),
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -27,16 +27,26 @@ class ModelOptions:
     casts them (:meth:`cast`, as ``cast_tree`` runs inside the JAX towers),
     so gradients reach the fp32 parameters through the cast.
     ``deterministic``: False is the training forward: dropout where the
-    tower has it, and every layer through the sub-block autograd Functions.
+    tower has it, and every layer through the autograd Functions.
+    ``bwd_impl``: the backward of a block whose weights all need gradients:
+    "fullgrad" (kernels #14/#16/#18), "emit" (#13/#15/#17 and library
+    products for the weight gradients), "layer" (#21 for the image tower's
+    layers, "fullgrad" elsewhere) or "auto", the routes measured on the
+    card (``ops/gates.py``). A block with a frozen weight takes the
+    emitting kernels whatever this says.
     """
 
     attn_impl: str = "auto"
     compute_dtype: Optional[str] = None
     deterministic: bool = True
+    bwd_impl: str = "auto"
 
     def __post_init__(self):
         if self.attn_impl not in gates.IMPLS:
             raise ValueError(f"attn_impl must be one of {gates.IMPLS}, got {self.attn_impl!r}")
+        if self.bwd_impl not in gates.BWD_IMPLS:
+            raise ValueError(f"bwd_impl must be one of {gates.BWD_IMPLS}, got "
+                             f"{self.bwd_impl!r}")
         if self.compute_dtype not in (None, "bfloat16"):
             raise ValueError(f"unsupported compute_dtype {self.compute_dtype!r}")
 

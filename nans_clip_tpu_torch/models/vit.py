@@ -17,15 +17,20 @@ otherwise each through the sub-block kernels (``ops/fused_block.py``), or
 through the twins for CPU tensors. The tower's int8 weights
 (``utils/quantize.py``) stream as they are into the tower kernel and are
 dequantized on entry everywhere else. A training forward
-(``options.deterministic`` False) runs every layer through the sub-block
-autograd Functions (kernels #1 and #2 forward, #14 and #18 backward), never
-the tower kernel (as ``vit.py:258-271`` with the whole-layer backward off).
-The parameters are cast to the compute dtype on each forward
-(``ModelOptions.cast``). Images are NHWC ``[B, R, R, 3]``. FLIP random
-masking is not ported yet.
+(``options.deterministic`` False) runs every layer through the autograd
+Functions (kernels #1 and #2 forward; backward #14 and #18, #13 and #17
+where a weight is frozen or ``options.bwd_impl`` routes there, or the
+whole-layer #21 of ``ops/layer_bwd.py``), never the tower kernel
+(``vit.py:258-271``). The parameters are cast to the compute dtype on each
+forward (``ModelOptions.cast``). Images are NHWC ``[B, R, R, 3]``. FLIP
+random masking (``vit.py:74-81``) is split in two so that a caller can feed
+the kept tokens: :func:`draw_ids_keep` draws them from a ``torch.Generator``,
+:func:`gather_kept` gathers them after the positional embedding.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -36,6 +41,7 @@ from nans_clip_tpu_torch.ops import gates
 from nans_clip_tpu_torch.ops.fused_block import (_reference_block, _reference_mlp,
                                                  attention_block_train, fused_attention_block,
                                                  fused_mlp_block, mlp_block_train)
+from nans_clip_tpu_torch.ops.layer_bwd import fused_layer_train
 from nans_clip_tpu_torch.ops.layernorm import layer_norm
 from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
 from nans_clip_tpu_torch.utils.quantize import dequantize_weight, is_quantized
@@ -100,6 +106,22 @@ def _layer(x: torch.Tensor, p: tuple, heads: int, use_kernel: bool) -> torch.Ten
     return mlp_fn(x, *p[6:], "quick_gelu", 1e-5, False)
 
 
+def draw_ids_keep(batch: int, seq_len: int, mask_ratio: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """The FLIP tokens to keep, [B, int((L - 1) (1 - mask_ratio))] int64
+    positions in 1..L-1 (0 is CLS, always kept), on the generator's device:
+    the first positions of a stable argsort of uniform noise (vit.py:77-79)."""
+    len_keep = int((seq_len - 1) * (1 - mask_ratio))
+    noise = torch.rand(batch, seq_len - 1, generator=generator, device=generator.device)
+    return torch.argsort(noise, dim=1, stable=True)[:, :len_keep] + 1
+
+
+def gather_kept(x: torch.Tensor, ids_keep: torch.Tensor) -> torch.Tensor:
+    """CLS and the kept tokens of ``x`` [B, L, W] (vit.py:80-81)."""
+    idx = ids_keep.to(x.device)[:, :, None].expand(-1, -1, x.shape[-1])
+    return torch.cat([x[:, :1, :], torch.gather(x, 1, idx)], dim=1)
+
+
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int):
         super().__init__()
@@ -141,8 +163,12 @@ class VisualTransformer(nn.Module):
                          blk.mlp.c_proj.bias):
                 bias.zero_()
 
-    def forward(self, images: torch.Tensor, options: ModelOptions = ModelOptions()) -> torch.Tensor:
-        """images: [B, R, R, 3] NHWC. Returns [B, embed_dim]."""
+    def forward(self, images: torch.Tensor, options: ModelOptions = ModelOptions(),
+                mask_ratio: float = 0.0, generator: Optional[torch.Generator] = None,
+                ids_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """images: [B, R, R, 3] NHWC. Returns [B, embed_dim]. FLIP masking:
+        ``ids_keep`` (from :func:`draw_ids_keep`) when given, else drawn from
+        ``generator`` when ``mask_ratio`` > 0."""
         cast = options.cast
         images = images.to(options.dtype or self.proj.dtype)
         b, w = images.shape[0], self.cfg.width
@@ -150,6 +176,12 @@ class VisualTransformer(nn.Module):
         cls = cast(self.class_embedding).to(x.dtype).expand(b, 1, w)
         x = torch.cat([cls, x], dim=1)
         x = x + cast(self.positional_embedding).to(x.dtype)
+        if ids_keep is None and mask_ratio > 0:
+            if generator is None:
+                raise ValueError("mask_ratio > 0 requires a generator")
+            ids_keep = draw_ids_keep(b, x.shape[1], mask_ratio, generator)
+        if ids_keep is not None:
+            x = gather_kept(x, ids_keep)
         x = layer_norm(x, cast(self.ln_pre.weight), cast(self.ln_pre.bias), 1e-5)
         heads = self.cfg.heads
         layers = [tuple(cast(t) for t in blk.weights()) for blk in self.transformer.resblocks]
@@ -158,14 +190,18 @@ class VisualTransformer(nn.Module):
             x = fused_tower(x, None, layers, heads, 1e-5, "quick_gelu", False, self.tower_table)
         else:
             use_kernel = gates.use_kernel(x, options.attn_impl)
+            route_a = gates.bwd_route("attn_pre", options.bwd_impl)
+            route_m = gates.bwd_route("mlp_pre", options.bwd_impl)
             for p in layers:
                 p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
                 if options.deterministic:
                     x = _layer(x, p, heads, use_kernel)
+                elif gates.layer_bwd_route(options.bwd_impl, p):
+                    x = fused_layer_train(x, *p, heads, "quick_gelu", 1e-5, use_kernel)
                 else:
                     x = attention_block_train(x, *p[:6], None, heads, 1e-5, False,
-                                              use_kernel=use_kernel)
+                                              use_kernel=use_kernel, route=route_a)
                     x = mlp_block_train(x, *p[6:], "quick_gelu", 1e-5, False,
-                                        use_kernel=use_kernel)
+                                        use_kernel=use_kernel, route=route_m)
         x = layer_norm(x[:, 0, :], cast(self.ln_post.weight), cast(self.ln_post.bias), 1e-5)
         return x @ cast(self.proj)

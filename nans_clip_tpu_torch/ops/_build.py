@@ -34,10 +34,10 @@ _DROP = [_U, _U, _U, _F, _I]   # seed, stream, threshold, scale, on (ops/dropout
 _SIGNATURES = {
     # x, x_is_fp32, gamma, beta, y, rows, width, eps, stream
     "nans_layernorm": [_P, _I, _P, _P, _P, _I, _I, _F, _P],
-    # gin, g_f32, x, x_f32, gamma, res, res_f32, dx, dx_f32, dmul, drop..., seq,
-    # part, rows, width, eps, stream
-    "nans_layernorm_bwd": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, *_DROP, _I, _P, _I, _I, _F,
-                           _P],
+    # gin, g_f32, x, x_f32, gamma, res, res_f32, dx, dx_f32, dmul, xhat, drop...,
+    # seq, part, rows, width, eps, stream
+    "nans_layernorm_bwd": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, *_DROP, _I, _P, _I, _I,
+                           _F, _P],
     # A, W, w_trans, bias, act, dact, aux, drop..., drop_seq, residual, res_f32,
     # C, c_f32, c_pre, c2, M, N, K, stream
     "nans_gemm": [_P, _P, _I, _P, _I, _I, _P, *_DROP, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,

@@ -97,10 +97,10 @@ def attention(qkv: torch.Tensor, key_bias: Optional[torch.Tensor],
 
 def attention_bwd_plain(qkv: torch.Tensor, dctx: torch.Tensor,
                         key_bias: Optional[torch.Tensor], batch: int, heads: int,
-                        dropout: Optional[drop.Dropout] = None):
+                        dropout: Optional[drop.Dropout] = None, need32: bool = True):
     """Twin of the backward, step by step as ``_bert_bwd_math``
     (fused_block_bwd.py:356-373): returns (dqkv in fp32, dqkv in the io
-    dtype)."""
+    dtype); the first is None where ``need32`` is False."""
     rows, w3 = qkv.shape
     seq, w = rows // batch, w3 // 3
     dh = w // heads
@@ -120,26 +120,28 @@ def attention_bwd_plain(qkv: torch.Tensor, dctx: torch.Tensor,
     dq = torch.matmul(ds, k) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
     dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(rows, w3)
-    return dqkv, dqkv.to(qkv.dtype)
+    return (dqkv if need32 else None), dqkv.to(qkv.dtype)
 
 
 def attention_bwd(qkv: torch.Tensor, dctx: torch.Tensor, key_bias: Optional[torch.Tensor],
-                  batch: int, heads: int, dropout: Optional[drop.Dropout] = None):
+                  batch: int, heads: int, dropout: Optional[drop.Dropout] = None,
+                  need32: bool = True):
     """``dctx``: [B*S, W] in the io dtype. CPU tensors take
     :func:`attention_bwd_plain`; CUDA tensors launch the kernel (bf16, head
     dim 64, S <= ``gates.ATTN_BWD_MAX_SEQ``). ``dropout`` must be the
-    forward's."""
+    forward's. ``need32`` False leaves the fp32 form unwritten (None)."""
     if not qkv.is_cuda:
-        return attention_bwd_plain(qkv, dctx, key_bias, batch, heads, dropout)
+        return attention_bwd_plain(qkv, dctx, key_bias, batch, heads, dropout, need32)
     seq, w = _admit("attention bwd", qkv, key_bias, batch, heads, gates.ATTN_BWD_MAX_SEQ)
     gates.admit_cuda("attention bwd", dctx)
     gates.admit(dctx.shape == (qkv.shape[0], w), f"attention bwd: dctx {tuple(dctx.shape)}")
-    d32 = torch.empty(qkv.shape, dtype=torch.float32, device=qkv.device)
+    d32 = torch.empty(qkv.shape, dtype=torch.float32, device=qkv.device) if need32 else None
     d16 = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
     err = _build.library().nans_attention_bwd(
         qkv.data_ptr(), dctx.data_ptr(), None if key_bias is None else key_bias.data_ptr(),
-        d32.data_ptr(), d16.data_ptr(), batch, seq, w, 1.0 / math.sqrt(gates.HEAD_DIM),
-        *drop.kernel_args(dropout), _build.stream_ptr(qkv.device))
+        None if d32 is None else d32.data_ptr(), d16.data_ptr(), batch, seq, w,
+        1.0 / math.sqrt(gates.HEAD_DIM), *drop.kernel_args(dropout),
+        _build.stream_ptr(qkv.device))
     _build.check(err, "nans_attention_bwd")
     attention_bwd.launches += 1
     return d32, d16

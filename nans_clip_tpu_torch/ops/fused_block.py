@@ -31,8 +31,20 @@ Training: :func:`attention_block_train` and :func:`mlp_block_train` are
 ``torch.autograd.Function``s (the JAX ``custom_vjp``s, fused_block.py:268
 and :1134). The forward runs the chains above and saves only the block
 inputs, the weights, the key bias and the seed (the JAX residuals,
-fused_block.py:282, :1147); the backward is #14, #16 or #18
-(``ops/fused_block_bwd.py``).
+fused_block.py:282, :1147). The backward reads ``ctx.needs_input_grad``:
+
+* every weight of the block needs its gradient and the route is
+  ``fullgrad``: #14, #16 or #18 (``ops/fused_block_bwd.py``), the weight
+  gradients formed inside the chain by ``wgrad_kernel``;
+* otherwise (a frozen weight, as under LoRA, or the route ``emit``): #13,
+  #15 or #17 for dx and the recomputed activations, then only the products
+  and sums that a needed gradient asks for (:func:`attention_weight_grads`,
+  :func:`mlp_weight_grads`; the JAX package forms them outside its kernels
+  too, fused_block.py:285-307, :404-413, :1195-1204). A gradient that is
+  not needed is ``None`` and never computed.
+
+The route of a block whose weights all need gradients comes from
+``ModelOptions.bwd_impl`` through ``ops/gates.py::bwd_route``.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ import torch
 
 from nans_clip_tpu_torch.ops import dropout as drop
 from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+from nans_clip_tpu_torch.ops.activations import upcast
 from nans_clip_tpu_torch.ops.attention import attention, attention_plain
 from nans_clip_tpu_torch.ops.gemm import linear, linear_plain
 from nans_clip_tpu_torch.ops.layernorm import layer_norm, row_layer_norm
@@ -145,13 +158,85 @@ def fused_mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, act: str = "quick_gelu",
     return out
 
 
+def mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a . b`` in fp32 from operands in the io dtype: the
+    ``preferred_element_type=float32`` contractions the JAX package leaves
+    to XLA. One library product with bf16 operands and an fp32 result on
+    the card; in fp32 after an exact upcast elsewhere."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return upcast(a) @ upcast(b)
+
+
+def _sum32(t: torch.Tensor) -> torch.Tensor:
+    """Column sum over the rows in fp32 (``sum(t.astype(float32), (0, 1))``)."""
+    acc = torch.float64 if t.dtype == torch.float64 else torch.float32
+    return _flat(t).sum(dim=0, dtype=acc)
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1])
+
+
+def attention_weight_grads(needs, post_ln: bool, x, ln_w, w_qkv, g, emitted, eps: float):
+    """The weight gradients of an attention sub-block from what #13 or #15
+    emitted, each formed only where ``needs`` (ln_w, ln_b, w_qkv, b_qkv,
+    w_o, b_o) asks: fp32, ``[out, in]``. Returns them in that order, None
+    where not needed (fused_block.py:285-307 pre-LN, :404-413 post-LN)."""
+    n_lw, n_lb, n_wqkv, n_bqkv, n_wo, n_bo = needs
+    if post_ln:
+        _, dqkv, ctx, dproj, uhat = emitted
+        a_in, d_out = x, dproj
+    else:
+        _, xn, ctx, dqkv = emitted
+        a_in, d_out = xn, g
+    dwqkv = mm32(_flat(dqkv).T, _flat(a_in)) if n_wqkv else None
+    dbqkv = _sum32(dqkv) if n_bqkv else None
+    dwo = mm32(_flat(d_out).T, _flat(ctx)) if n_wo else None
+    dbo = _sum32(d_out) if n_bo else None
+    d_lw = d_lb = None
+    if post_ln:
+        if n_lw:
+            d_lw = (upcast(_flat(g)) * upcast(_flat(uhat))).sum(dim=0)
+        if n_lb:
+            d_lb = _sum32(g)
+    elif n_lw or n_lb:
+        # dxn recomputed for the LayerNorm parameters alone (:299-306)
+        dxn = mm32(_flat(dqkv), w_qkv)
+        if n_lw:
+            xf = upcast(_flat(x))
+            mean = xf.mean(dim=-1, keepdim=True)
+            var = (xf - mean).square().mean(dim=-1, keepdim=True)
+            d_lw = (dxn * ((xf - mean) * torch.rsqrt(var + eps))).sum(dim=0)
+        if n_lb:
+            d_lb = dxn.sum(dim=0)
+    return d_lw, d_lb, dwqkv, dbqkv, dwo, dbo
+
+
+def mlp_weight_grads(needs, post_ln: bool, g, emitted):
+    """The weight gradients of an MLP sub-block from what #17 emitted, each
+    formed only where ``needs`` (ln_w, ln_b, w1, b1, w2, b2) asks
+    (fused_block.py:1195-1204)."""
+    n_lw, n_lb, n_w1, n_b1, n_w2, n_b2 = needs
+    _, xn, h, dh_pre, dproj, lnstat, dxn = emitted
+    dw1 = mm32(_flat(dh_pre).T, _flat(xn)) if n_w1 else None
+    db1 = _sum32(dh_pre) if n_b1 else None
+    dw2 = mm32(_flat(dproj).T, _flat(h)) if n_w2 else None
+    db2 = _sum32(dproj) if n_b2 else None
+    gsrc = g if post_ln else dxn
+    d_lw = (upcast(_flat(gsrc)) * upcast(_flat(lnstat))).sum(dim=0) if n_lw else None
+    d_lb = _sum32(gsrc) if n_lb else None
+    return d_lw, d_lb, dw1, db1, dw2, db2
+
+
 class _AttentionBlock(torch.autograd.Function):
-    """The attention sub-block under autograd: forward #1, backward #14
-    (pre-LN) or #16 (post-LN); the twins where ``use_kernel`` is False."""
+    """The attention sub-block under autograd: forward #1; backward #14
+    (pre-LN) or #16 (post-LN), or #13 / #15 with the caller's weight
+    gradients; the twins where ``use_kernel`` is False."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, heads, eps, post_ln,
-                seed, attn_drop, hid_drop, use_kernel):
+                seed, attn_drop, hid_drop, use_kernel, route):
         weights = (ln_w, ln_b, w_qkv, b_qkv, w_o, b_o)
         if not use_kernel:
             out = _reference_block(x, *weights, heads, eps, key_bias, post_ln, seed, attn_drop,
@@ -162,65 +247,96 @@ class _AttentionBlock(torch.autograd.Function):
         else:
             out = fused_attention_block(x, *weights, heads, eps)
         ctx.save_for_backward(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias)
-        ctx.config = (heads, eps, post_ln, seed, attn_drop, hid_drop, use_kernel)
+        ctx.config = (heads, eps, post_ln, seed, attn_drop, hid_drop, use_kernel, route)
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias = ctx.saved_tensors
-        heads, eps, post_ln, seed, attn_drop, hid_drop, use_kernel = ctx.config
+        heads, eps, post_ln, seed, attn_drop, hid_drop, use_kernel, route = ctx.config
         g = g.contiguous()
+        needs = ctx.needs_input_grad[1:7]
+        full = all(needs) and route == "fullgrad"
         if post_ln:
-            bwd = (fbb.fused_bert_attention_block_bwd_fullgrad if use_kernel
-                   else fbb._bert_bwd_math)
-            grads = bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, seed, g, heads, eps,
-                        attn_drop, hid_drop)
+            args = (x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, seed, g, heads, eps,
+                    attn_drop, hid_drop)
+            if use_kernel:
+                bwd = (fbb.fused_bert_attention_block_bwd_fullgrad if full
+                       else fbb.fused_bert_attention_block_bwd)
+                out = bwd(*args)
+            else:
+                out = fbb._bert_bwd_math(*args, full=full)
         else:
-            bwd = fbb.fused_attention_block_bwd_fullgrad if use_kernel else fbb._attn_bwd_math
-            grads = bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads, eps)
-        dx, dwqkv, dbqkv, dwo, dbo, d_ln_w, d_ln_b = grads
-        return (dx, d_ln_w, d_ln_b, dwqkv, dbqkv, dwo, dbo) + (None,) * 8
+            args = (x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads, eps)
+            if use_kernel:
+                bwd = (fbb.fused_attention_block_bwd_fullgrad if full
+                       else fbb.fused_attention_block_bwd)
+                out = bwd(*args)
+            else:
+                out = fbb._attn_bwd_math(*args, full=full)
+        if full:
+            dx, dwqkv, dbqkv, dwo, dbo, d_ln_w, d_ln_b = out
+            grads = (d_ln_w, d_ln_b, dwqkv, dbqkv, dwo, dbo)
+        else:
+            dx = out[0]
+            grads = attention_weight_grads(needs, post_ln, x, ln_w, w_qkv, g, out, eps)
+        return (dx, *grads) + (None,) * 9
 
 
 class _MlpBlock(torch.autograd.Function):
-    """The MLP sub-block under autograd: forward #2, backward #18; the twins
-    where ``use_kernel`` is False."""
+    """The MLP sub-block under autograd: forward #2; backward #18, or #17
+    with the caller's weight gradients; the twins where ``use_kernel`` is
+    False."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln, seed, hid_drop,
-                use_kernel):
+                use_kernel, route):
         fwd = fused_mlp_block if use_kernel else _reference_mlp
         out = fwd(x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln, seed, hid_drop)
         ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
-        ctx.config = (act, eps, post_ln, seed, hid_drop, use_kernel)
+        ctx.config = (act, eps, post_ln, seed, hid_drop, use_kernel, route)
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, ln_w, ln_b, w1, b1, w2, b2 = ctx.saved_tensors
-        act, eps, post_ln, seed, hid_drop, use_kernel = ctx.config
-        bwd = fbb.fused_mlp_block_bwd_fullgrad if use_kernel else fbb._mlp_bwd_math
-        dx, dw1, db1, dw2, db2, d_ln_w, d_ln_b = bwd(x, ln_w, ln_b, w1, b1, w2, b2, seed,
-                                                     g.contiguous(), act, eps, post_ln,
-                                                     hid_drop)
-        return (dx, d_ln_w, d_ln_b, dw1, db1, dw2, db2) + (None,) * 6
+        act, eps, post_ln, seed, hid_drop, use_kernel, route = ctx.config
+        g = g.contiguous()
+        needs = ctx.needs_input_grad[1:7]
+        full = all(needs) and route == "fullgrad"
+        args = (x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act, eps, post_ln, hid_drop)
+        if use_kernel:
+            out = (fbb.fused_mlp_block_bwd_fullgrad if full else fbb.fused_mlp_block_bwd)(*args)
+        else:
+            out = fbb._mlp_bwd_math(*args, full=full)
+        if full:
+            dx, dw1, db1, dw2, db2, d_ln_w, d_ln_b = out
+            grads = (d_ln_w, d_ln_b, dw1, db1, dw2, db2)
+        else:
+            dx = out[0]
+            grads = mlp_weight_grads(needs, post_ln, g, out)
+        return (dx, *grads) + (None,) * 7
 
 
 def attention_block_train(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, heads: int,
                           eps: float, post_ln: bool, seed=None, attn_drop: float = 0.0,
-                          hid_drop: float = 0.0, use_kernel: bool = True):
+                          hid_drop: float = 0.0, use_kernel: bool = True,
+                          route: str = "fullgrad"):
     """The attention sub-block with its backward: pre-LN (ViT, no mask or
     dropout) or post-LN (BERT). ``use_kernel``: the kernels (CUDA tensors)
-    or the twins."""
+    or the twins. ``route``: "fullgrad" or "emit", the backward of a block
+    whose weights all need gradients (``gates.bwd_route``)."""
     return _AttentionBlock.apply(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, heads, eps,
-                                 post_ln, seed, attn_drop, hid_drop, use_kernel)
+                                 post_ln, seed, attn_drop, hid_drop, use_kernel, route)
 
 
 def mlp_block_train(x, ln_w, ln_b, w1, b1, w2, b2, act: str, eps: float, post_ln: bool,
-                    seed=None, hid_drop: float = 0.0, use_kernel: bool = True):
-    """The MLP sub-block with its backward."""
+                    seed=None, hid_drop: float = 0.0, use_kernel: bool = True,
+                    route: str = "fullgrad"):
+    """The MLP sub-block with its backward (``route`` as
+    :func:`attention_block_train`)."""
     return _MlpBlock.apply(x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln, seed, hid_drop,
-                           use_kernel)
+                           use_kernel, route)
 
 
 fused_attention_block.launches = 0

@@ -4,13 +4,22 @@ hand-written Hopper kernels.
 Ports of ``nans_clip_tpu/ops/fused_block_bwd.py``:
 
 * ``_bwd_fullgrad_kernel`` (:229; math ``_attn_bwd_math`` :134) ->
-  :func:`fused_attention_block_bwd_fullgrad` (pre-LN, ViT), #14;
+  :func:`fused_attention_block_bwd_fullgrad` (pre-LN, ViT), #14, and
+  ``_bwd_kernel`` (:216) -> :func:`fused_attention_block_bwd`, #13;
 * ``_bert_bwd_fullgrad_kernel`` (:404; math ``_bert_bwd_math`` :273) ->
   :func:`fused_bert_attention_block_bwd_fullgrad` (post-LN, key-masked,
-  attention and hidden dropout, BERT), #16;
+  attention and hidden dropout, BERT), #16, and ``_bert_bwd_kernel`` (:386)
+  -> :func:`fused_bert_attention_block_bwd`, #15;
 * ``_mlp_bwd_fullgrad_kernel`` (:894; math ``_mlp_bwd_math`` :709) ->
   :func:`fused_mlp_block_bwd_fullgrad` (pre-LN quick-GELU or post-LN
-  erf-GELU with hidden dropout), #18.
+  erf-GELU with hidden dropout), #18, and ``_mlp_bwd_kernel`` (:781) ->
+  :func:`fused_mlp_block_bwd`, #17.
+
+#13, #15 and #17 are the emitting forms: the same chain bodies with ``full``
+False, which leaves out the weight-gradient products and every column sum
+and returns dx with the recomputed activations, in the io dtype and in the
+JAX wrappers' order, for a caller that forms only the weight gradients it
+needs (``ops/fused_block.py``).
 
 Each TPU kernel recomputed its sub-block's forward in VMEM, formed dx and
 accumulated fp32 weight gradients across a batch grid run in order. On the
@@ -24,9 +33,13 @@ before the products that read them, weight gradients are fp32. Dropout
 masks are redrawn from the forward's seed (``ops/dropout.py``), nothing is
 stored.
 
-Outputs have the JAX signature and order: ``(dx, dW_a, db_a, dW_b, db_b,
-d_ln_weight, d_ln_bias)``, dx in the io dtype, weight gradients fp32 in the
-port's ``[out, in]`` layout, vectors fp32 ``[N]``.
+Outputs of the full-gradient forms have the JAX signature and order: ``(dx,
+dW_a, db_a, dW_b, db_b, d_ln_weight, d_ln_bias)``, dx in the io dtype,
+weight gradients fp32 in the port's ``[out, in]`` layout, vectors fp32
+``[N]``. The emitting forms return ``(dx, xn, ctx, dqkv)`` (#13), ``(dx,
+dqkv, ctx, dproj, uhat)`` (#15) and ``(dx, xn, h, dh_pre, dproj, lnstat,
+dxn)`` (#17; ``lnstat`` is x-hat pre-LN and u-hat post-LN, ``xn`` is x
+post-LN, ``dproj`` is g pre-LN), every tensor ``[B, S, .]`` in the io dtype.
 
 ``_attn_bwd_math``, ``_bert_bwd_math`` and ``_mlp_bwd_math`` are the plain
 twins: the same chains through the kernels' plain versions, step by step as
@@ -69,10 +82,15 @@ PLAIN_OPS = BwdOps(layer_norm, linear_plain, attention_plain, linear_dgrad_plain
                    attention_bwd_plain)
 
 
+def _pair(out):
+    """(value, copy) of a dgrad call made with or without ``copy``."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
 def attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads: int, eps: float,
-                        ops: BwdOps):
-    """#14: pre-LN attention sub-block backward (``_attn_bwd_math``).
-    x, g: [B, S, W] in the io dtype."""
+                        ops: BwdOps, full: bool = True):
+    """#14 (``full``) or #13: pre-LN attention sub-block backward
+    (``_attn_bwd_math``). x, g: [B, S, W] in the io dtype."""
     b, s, w = x.shape
     x2, g2 = x.reshape(b * s, w), g.reshape(b * s, w)
     # forward recompute
@@ -81,21 +99,24 @@ def attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads: int, eps: fl
     ctx = ops.attn(qkv, None, b, heads)                      # io dtype (:246)
     # backward
     dctx = ops.dgrad(g2, w_o)                                # g . Wo, io dtype (:161, :181)
-    dqkv32, dqkv = ops.attn_bwd(qkv, dctx, None, b, heads)   # fp32 and io dtype (:201, :205)
+    dqkv32, dqkv = ops.attn_bwd(qkv, dctx, None, b, heads,
+                                need32=full)                 # fp32 and io dtype (:201, :205)
     dxn = ops.dgrad(dqkv, w_qkv, out_dtype=torch.float32)    # (:205)
-    dx, d_scale, d_bias, _, _ = ops.ln_bwd(dxn, x2, ln_w, eps, residual=g2,
-                                           out_dtype=x.dtype)  # g + dx_ln (:209-213, :251-252)
+    dx, d_scale, d_bias = ops.ln_bwd(dxn, x2, ln_w, eps, residual=g2, out_dtype=x.dtype,
+                                     sums=full)[:3]          # g + dx_ln (:209-213, :251-252)
+    dx = dx.reshape(b, s, w)
+    if not full:
+        return dx, xn.view(b, s, w), ctx.view(b, s, w), dqkv.view(b, s, 3 * w)   # (:223-226)
     dwqkv = ops.wgrad(dqkv, xn)                              # (:243)
     dwo = ops.wgrad(g2, ctx)                                 # (:246)
-    return (dx.reshape(b, s, w), dwqkv, ops.colsum(dqkv32), dwo, ops.colsum(g2), d_scale,
-            d_bias)
+    return dx, dwqkv, ops.colsum(dqkv32), dwo, ops.colsum(g2), d_scale, d_bias
 
 
 def bert_attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, seed, g,
                              heads: int, eps: float, attn_drop: float, hid_drop: float,
-                             ops: BwdOps):
-    """#16: post-LN, key-masked attention sub-block backward with attention
-    and hidden dropout (``_bert_bwd_math``)."""
+                             ops: BwdOps, full: bool = True):
+    """#16 (``full``) or #15: post-LN, key-masked attention sub-block
+    backward with attention and hidden dropout (``_bert_bwd_math``)."""
     b, s, w = x.shape
     x2, g2 = x.reshape(b * s, w), g.reshape(b * s, w)
     a_drop, h_drop = drop.sub_block(seed, attn_drop, hid_drop, s)
@@ -105,20 +126,26 @@ def bert_attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, se
     u = ops.lin(ctx, w_o, b_o, residual=x2, out_dtype=torch.float32,
                 dropout=h_drop)                                         # (:331-336)
     # backward
-    du, d_scale, d_bias, dproj, dbo = ops.ln_bwd(g2, u, ln_w, eps, out_dtype=torch.float32,
-                                                 emit_dproj=True, dropout=h_drop)  # (:340-343)
+    du, d_scale, d_bias, dproj, dbo, *uhat = ops.ln_bwd(
+        g2, u, ln_w, eps, out_dtype=torch.float32, emit_dproj=True, dropout=h_drop,
+        emit_xhat=not full, sums=full)                                  # (:340-343)
     dctx = ops.dgrad(dproj, w_o)                                        # (:344-346)
-    dqkv32, dqkv = ops.attn_bwd(qkv, dctx, key_bias, b, heads, a_drop)  # (:348-378)
+    dqkv32, dqkv = ops.attn_bwd(qkv, dctx, key_bias, b, heads, a_drop,
+                                need32=full)                            # (:348-378)
     dx = ops.dgrad(dqkv, w_qkv, residual=du, out_dtype=x.dtype)         # du + dx_qkv (:380-383)
+    dx = dx.reshape(b, s, w)
+    if not full:
+        return (dx, dqkv.view(b, s, 3 * w), ctx.view(b, s, w), dproj.view(b, s, w),
+                uhat[0].view(b, s, w))                                  # (:397-401)
     dwqkv = ops.wgrad(dqkv, x2)                                         # (:420)
     dwo = ops.wgrad(dproj, ctx)                                         # (:423)
-    return dx.reshape(b, s, w), dwqkv, ops.colsum(dqkv32), dwo, dbo, d_scale, d_bias
+    return dx, dwqkv, ops.colsum(dqkv32), dwo, dbo, d_scale, d_bias
 
 
 def mlp_bwd_chain(x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act: str, eps: float,
-                  post_ln: bool, hid_drop: float, ops: BwdOps):
-    """#18: MLP sub-block backward, pre-LN or post-LN with hidden dropout
-    (``_mlp_bwd_math``)."""
+                  post_ln: bool, hid_drop: float, ops: BwdOps, full: bool = True):
+    """#18 (``full``) or #17: MLP sub-block backward, pre-LN or post-LN with
+    hidden dropout (``_mlp_bwd_math``)."""
     b, s, w = x.shape
     x2, g2 = x.reshape(b * s, w), g.reshape(b * s, w)
     _, h_drop = drop.sub_block(seed, 0.0, hid_drop, s)
@@ -128,51 +155,78 @@ def mlp_bwd_chain(x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act: str, eps: float,
     # backward
     if post_ln:
         u = ops.lin(h, w2, b2, residual=x2, out_dtype=torch.float32, dropout=h_drop)
-        du, d_scale, d_bias, dproj, db2 = ops.ln_bwd(
-            g2, u, ln_w, eps, out_dtype=torch.float32, emit_dproj=True,
-            dropout=h_drop)                                             # (:750-761)
+        du, d_scale, d_bias, dproj, db2, *lnstat = ops.ln_bwd(
+            g2, u, ln_w, eps, out_dtype=torch.float32, emit_dproj=True, dropout=h_drop,
+            emit_xhat=not full, sums=full)                              # (:750-761)
     else:
-        du, dproj, db2 = g2, g2, ops.colsum(g2)                         # (:756-759)
-    dh32, dh = ops.dgrad(dproj, w2, act=act, aux=h_pre, out_dtype=torch.float32,
-                         copy=True)                                     # (:763-766)
+        du, dproj, db2 = g2, g2, ops.colsum(g2) if full else None       # (:756-759)
+    dh32, dh = _pair(ops.dgrad(dproj, w2, act=act, aux=h_pre, copy=full,
+                               out_dtype=torch.float32 if full else x.dtype))  # (:763-766)
+    dh = dh32 if dh is None else dh
+    # the emitting form also takes dxn in the io dtype, rounded from the
+    # fp32 value that dx is formed from (:767-777, :798)
     if post_ln:
-        dx = ops.dgrad(dh, w1, residual=du, out_dtype=x.dtype)          # du + dxn (:767-771)
+        dx, dxn = _pair(ops.dgrad(dh, w1, residual=du, out_dtype=x.dtype,
+                                  copy=not full))                       # du + dxn (:767-771)
     else:
-        dxn = ops.dgrad(dh, w1, out_dtype=torch.float32)                # (:767-769)
-        dx, d_scale, d_bias, _, _ = ops.ln_bwd(dxn, x2, ln_w, eps, residual=g2,
-                                               out_dtype=x.dtype)       # (:773-777, :917-920)
+        dxn32, dxn = _pair(ops.dgrad(dh, w1, out_dtype=torch.float32,
+                                     copy=not full))                    # (:767-769)
+        dx, d_scale, d_bias, _, _, *lnstat = ops.ln_bwd(
+            dxn32, x2, ln_w, eps, residual=g2, out_dtype=x.dtype, emit_xhat=not full,
+            sums=full)                                                  # (:773-777, :917-920)
+    dx = dx.reshape(b, s, w)
+    if not full:
+        r3 = lambda t: t.view(b, s, -1)
+        return dx, r3(xn), r3(h), r3(dh), r3(dproj), r3(lnstat[0]), r3(dxn)  # (:792-798)
     dw1 = ops.wgrad(dh, xn)                                             # (:909)
     dw2 = ops.wgrad(dproj, h)                                           # (:912)
-    return dx.reshape(b, s, w), dw1, ops.colsum(dh32), dw2, db2, d_scale, d_bias
+    return dx, dw1, ops.colsum(dh32), dw2, db2, d_scale, d_bias
 
 
-def _attn_bwd_math(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads: int, eps: float):
-    """Plain twin of #14."""
-    return attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads, eps, PLAIN_OPS)
+def _attn_bwd_math(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads: int, eps: float,
+                   full: bool = True):
+    """Plain twin of #14, and of #13 with ``full`` False."""
+    return attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads, eps, PLAIN_OPS, full)
 
 
 def _bert_bwd_math(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, seed, g, heads: int,
-                   eps: float, attn_drop: float = 0.0, hid_drop: float = 0.0):
-    """Plain twin of #16."""
+                   eps: float, attn_drop: float = 0.0, hid_drop: float = 0.0,
+                   full: bool = True):
+    """Plain twin of #16, and of #15 with ``full`` False."""
     return bert_attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, seed, g,
-                                    heads, eps, attn_drop, hid_drop, PLAIN_OPS)
+                                    heads, eps, attn_drop, hid_drop, PLAIN_OPS, full)
 
 
 def _mlp_bwd_math(x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act: str, eps: float, post_ln: bool,
-                  hid_drop: float = 0.0):
-    """Plain twin of #18."""
+                  hid_drop: float = 0.0, full: bool = True):
+    """Plain twin of #18, and of #17 with ``full`` False."""
     return mlp_bwd_chain(x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act, eps, post_ln, hid_drop,
-                         PLAIN_OPS)
+                         PLAIN_OPS, full)
+
+
+def _run(wrapper, chain, math, full, x, *args):
+    """One public wrapper's call: the twin for CPU tensors, else the kernels
+    (or they raise), with one launch counted."""
+    if not x.is_cuda:
+        return math(x, *args, full=full)
+    out = chain(x, *args, KERNEL_OPS, full)
+    wrapper.launches += 1
+    return out
 
 
 def fused_attention_block_bwd_fullgrad(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads: int,
                                        eps: float = 1e-5):
     """#14: returns (dx, dwqkv, dbqkv, dwo, dbo, d_ln_w, d_ln_b)."""
-    if not x.is_cuda:
-        return _attn_bwd_math(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads, eps)
-    out = attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads, eps, KERNEL_OPS)
-    fused_attention_block_bwd_fullgrad.launches += 1
-    return out
+    return _run(fused_attention_block_bwd_fullgrad, attention_bwd_chain, _attn_bwd_math, True,
+                x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads, eps)
+
+
+def fused_attention_block_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads: int,
+                              eps: float = 1e-5):
+    """#13: returns (dx, xn, ctx, dqkv); the caller forms the weight
+    gradients it needs (``dwqkv = dqkv^T xn``, ``dwo = g^T ctx``, ...)."""
+    return _run(fused_attention_block_bwd, attention_bwd_chain, _attn_bwd_math, False,
+                x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads, eps)
 
 
 def fused_bert_attention_block_bwd_fullgrad(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o,
@@ -181,28 +235,41 @@ def fused_bert_attention_block_bwd_fullgrad(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_
                                             attn_drop: float = 0.0, hid_drop: float = 0.0):
     """#16: returns (dx, dwqkv, dbqkv, dwo, dbo, d_ln_w, d_ln_b); ``seed``
     and the rates must be the forward's."""
-    if not x.is_cuda:
-        return _bert_bwd_math(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, seed, g, heads,
-                              eps, attn_drop, hid_drop)
-    out = bert_attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, seed, g,
-                                   heads, eps, attn_drop, hid_drop, KERNEL_OPS)
-    fused_bert_attention_block_bwd_fullgrad.launches += 1
-    return out
+    return _run(fused_bert_attention_block_bwd_fullgrad, bert_attention_bwd_chain,
+                _bert_bwd_math, True, x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, seed, g,
+                heads, eps, attn_drop, hid_drop)
+
+
+def fused_bert_attention_block_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o,
+                                   key_bias: Optional[torch.Tensor], seed, g, heads: int,
+                                   eps: float = 1e-12, attn_drop: float = 0.0,
+                                   hid_drop: float = 0.0):
+    """#15: returns (dx, dqkv, ctx, dproj, uhat); ``seed`` and the rates
+    must be the forward's. The caller's weight gradients: ``dwqkv = dqkv^T
+    x``, ``dwo = dproj^T ctx``, ``d_ln_w = sum g uhat``, ..."""
+    return _run(fused_bert_attention_block_bwd, bert_attention_bwd_chain, _bert_bwd_math, False,
+                x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, seed, g, heads, eps, attn_drop,
+                hid_drop)
 
 
 def fused_mlp_block_bwd_fullgrad(x, ln_w, ln_b, w1, b1, w2, b2, seed, g,
                                  act: str = "quick_gelu", eps: float = 1e-5,
                                  post_ln: bool = False, hid_drop: float = 0.0):
     """#18: returns (dx, dw1, db1, dw2, db2, d_ln_w, d_ln_b)."""
-    if not x.is_cuda:
-        return _mlp_bwd_math(x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act, eps, post_ln,
-                             hid_drop)
-    out = mlp_bwd_chain(x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act, eps, post_ln, hid_drop,
-                        KERNEL_OPS)
-    fused_mlp_block_bwd_fullgrad.launches += 1
-    return out
+    return _run(fused_mlp_block_bwd_fullgrad, mlp_bwd_chain, _mlp_bwd_math, True,
+                x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act, eps, post_ln, hid_drop)
 
 
-fused_attention_block_bwd_fullgrad.launches = 0
-fused_bert_attention_block_bwd_fullgrad.launches = 0
-fused_mlp_block_bwd_fullgrad.launches = 0
+def fused_mlp_block_bwd(x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act: str = "quick_gelu",
+                        eps: float = 1e-5, post_ln: bool = False, hid_drop: float = 0.0):
+    """#17: returns (dx, xn, h, dh_pre, dproj, lnstat, dxn). The caller's
+    weight gradients: ``dw1 = dh_pre^T xn``, ``dw2 = dproj^T h``, ``d_ln_w
+    = sum dxn lnstat`` (pre-LN) or ``sum g lnstat`` (post-LN), ..."""
+    return _run(fused_mlp_block_bwd, mlp_bwd_chain, _mlp_bwd_math, False,
+                x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act, eps, post_ln, hid_drop)
+
+
+for _fn in (fused_attention_block_bwd_fullgrad, fused_attention_block_bwd,
+            fused_bert_attention_block_bwd_fullgrad, fused_bert_attention_block_bwd,
+            fused_mlp_block_bwd_fullgrad, fused_mlp_block_bwd):
+    _fn.launches = 0

@@ -15,10 +15,13 @@ Under ``auto`` and ``kernel`` a CUDA tensor in another dtype than
 ``KERNEL_DTYPE`` raises: the plain path on the card is reached only by
 asking for ``plain``.
 
-Training routes by ``ModelOptions.deterministic`` alone: a forward with
-``deterministic=False`` runs every layer through the sub-block autograd
-Functions (``ops/fused_block.py``: kernels #1/#2 forward, #14/#16/#18
-backward), never the whole-layer or whole-tower kernel.
+Training: a forward with ``deterministic=False`` runs every layer through
+the autograd Functions (``ops/fused_block.py``, ``ops/layer_bwd.py``:
+kernels #1/#2 forward), never the whole-layer forward or whole-tower kernel.
+Which backward a Function runs is decided by what needs a gradient and by
+``ModelOptions.bwd_impl`` (:func:`bwd_route`, :func:`layer_bwd_route`): a
+block with a frozen weight always takes the emitting kernels (#13/#15/#17)
+and forms only the weight gradients that are needed.
 
 Admission (what a kernel takes) is checked by each wrapper before it
 launches; a CUDA tensor that the kernel does not admit raises. No path
@@ -94,6 +97,58 @@ TOWER_MAX_BATCH = {("text", "bf16"): 8, ("text", "int8"): 32,
                    ("image", "bf16"): 1, ("image", "int8"): 8}
 
 IMPLS = ("auto", "plain", "kernel")
+
+# Routing of the training backward when every weight of a block needs its
+# gradient, per block kind: "fullgrad" (#14/#16/#18: the chain forms the
+# weight gradients with wgrad_kernel and its own column sums) or "emit"
+# (#13/#15/#17, then the weight gradients as library products of the emitted
+# activations, ops/fused_block.py). Provenance: chip_smoke.py phase 8 on an
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit, CUDA events,
+# ViT-B/16 + RoBERTa-base at full depth, bf16. One block's backward with
+# every weight gradient, ms, emit vs fullgrad at batch 128 / 32:
+#   attn_pre  (S=197)  4.4514 vs 4.2179 / 1.3442 vs 1.3438
+#   attn_post (S=52)   1.4182 vs 1.5123 / 0.7618 vs 0.6667
+#   mlp_pre   (S=197)  4.7205 vs 5.5542 / 1.4084 vs 1.6752
+#   mlp_post  (S=52)   1.7387 vs 1.9651 / 0.9081 vs 0.7893
+# (at batch 32 the S=52 blocks are host-bound and swap sides between runs;
+# the pre-LN attention block loses on "emit" because the recompute of dxn
+# for its LayerNorm gradients eats what the library products gain). One
+# train step at batch 128, 6 steps a route taken in turns, upper median:
+#   fullgrad 219.07 ms   emit 206.97 ms   layer 220.23 ms   this table 204.48 ms
+BWD_ROUTE = {"attn_pre": "fullgrad", "attn_post": "emit", "mlp_pre": "emit",
+             "mlp_post": "emit"}
+
+# Whether ``bwd_impl="auto"`` sends a pre-LN layer whose weights all need
+# gradients through the whole-layer Function (#21, ops/layer_bwd.py). On the
+# card #21 is #18 then #14 in one call, the gradient between them passing
+# through L2/HBM as before: 9.8822 ms against 9.8788 ms for the two calls at
+# (128, 197), and the step above 220.23 ms against 219.07 ms (same run, same
+# card). No gain, and the table's route is faster than both: off.
+LAYER_BWD_ROUTE = False
+
+BWD_IMPLS = ("auto", "fullgrad", "emit", "layer")
+
+
+def bwd_route(kind: str, bwd_impl: str) -> str:
+    """"fullgrad" or "emit" for a sub-block of ``kind`` (a key of
+    ``BWD_ROUTE``) whose weights all need gradients. ``auto`` reads the
+    measured table; ``layer`` concerns the image tower's layers alone and
+    leaves the sub-blocks on "fullgrad"."""
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
+    if bwd_impl == "auto":
+        return BWD_ROUTE[kind]
+    return "emit" if bwd_impl == "emit" else "fullgrad"
+
+
+def layer_bwd_route(bwd_impl: str, weights) -> bool:
+    """True when a pre-LN layer takes the whole-layer Function: asked for
+    (``layer``) or measured no slower (``auto`` and ``LAYER_BWD_ROUTE``),
+    and every one of its ``weights`` needs a gradient."""
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
+    asked = bwd_impl == "layer" or (bwd_impl == "auto" and LAYER_BWD_ROUTE)
+    return asked and all(torch.is_tensor(t) and t.requires_grad for t in weights)
 
 
 def use_kernel(x: torch.Tensor, impl: str) -> bool:

@@ -109,14 +109,16 @@ def linear_dgrad_plain(dy: torch.Tensor, w: torch.Tensor, act: Optional[str] = N
     """Twin of the input-gradient product: ``dY . W`` in fp32, times
     ``act'(aux)`` when ``aux`` (the fp32 pre-activation) is given, plus
     ``residual``; stored in ``out_dtype`` (default dY's). ``copy`` also
-    returns the result in dY's dtype (the operand of the next products)."""
+    returns the value before the residual in dY's dtype (the operand of the
+    next products, or an emitted gradient)."""
     y = upcast(dy) @ upcast(w)
     if aux is not None:
         y = y * ACT_GRAD[act](aux)
+    y2 = y.to(dy.dtype) if copy else None
     if residual is not None:
         y = y + upcast(residual)
     out = y.to(plain_dtype(out_dtype, dy) or dy.dtype)
-    return (out, y.to(dy.dtype)) if copy else out
+    return (out, y2) if copy else out
 
 
 def linear_dgrad(dy: torch.Tensor, w: torch.Tensor, act: Optional[str] = None,

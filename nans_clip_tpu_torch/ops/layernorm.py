@@ -13,7 +13,9 @@ epilogue on the fp32 residual sum). It replaces the ``_ln`` stages of
 ``layer_norm_bwd`` (twin ``layer_norm_bwd_plain``) is the LayerNorm
 backward of ``nans_clip_tpu/ops/fused_block_bwd.py`` (``_ln_bwd`` :101 and
 the pre-LN dx of :208-212, :773-777) with its dgamma/dbeta sums, launching
-the backward kernel of ``layernorm.cu`` for CUDA tensors.
+the backward kernel of ``layernorm.cu`` for CUDA tensors. For the backward
+kernels that emit their activations it can also return x-hat in the io
+dtype (``emit_xhat``) and leave the sums out (``sums=False``).
 """
 
 from __future__ import annotations
@@ -67,7 +69,8 @@ def row_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def layer_norm_bwd_plain(gin: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: float,
                          residual: Optional[torch.Tensor] = None,
                          out_dtype: Optional[torch.dtype] = None, emit_dproj: bool = False,
-                         dropout: Optional[drop.Dropout] = None):
+                         dropout: Optional[drop.Dropout] = None, emit_xhat: bool = False,
+                         sums: bool = True):
     """Backward of ``layer_norm`` with respect to its input ``x`` for the
     output gradient ``gin``, in fp32 with x-hat and rstd recomputed as the
     forward forms them: ``dx = rstd (gh - mean(gh) - xhat mean(gh xhat))``,
@@ -75,7 +78,9 @@ def layer_norm_bwd_plain(gin: torch.Tensor, x: torch.Tensor, weight: torch.Tenso
     dbias, dproj, dproj_sum)``: ``dweight = sum gin * xhat`` and ``dbias =
     sum gin`` over the rows, fp32; with ``emit_dproj``, ``dproj`` is ``dx *
     keep`` (before the residual; keep the hidden dropout multiplier, or 1)
-    in gin's dtype and ``dproj_sum`` its fp32 column sum, else both None."""
+    in gin's dtype and ``dproj_sum`` its fp32 column sum, else both None.
+    ``sums=False`` returns None for the three sums; ``emit_xhat`` appends
+    x-hat (in the dtype of ``dproj``: the io dtype) as a sixth value."""
     w = x.shape[-1]
     xf, g = upcast(x).reshape(-1, w), upcast(gin).reshape(-1, w)
     mean = xf.mean(dim=-1, keepdim=True)
@@ -94,20 +99,33 @@ def layer_norm_bwd_plain(gin: torch.Tensor, x: torch.Tensor, weight: torch.Tenso
     if residual is not None:
         d = d + upcast(residual).reshape(-1, w)
     dx = d.to(plain_dtype(out_dtype, gin) or gin.dtype).view(gin.shape)
-    return dx, (g * xhat).sum(dim=0), g.sum(dim=0), dproj, dproj_sum
+    out = (dx, (g * xhat).sum(dim=0), g.sum(dim=0), dproj, dproj_sum) if sums \
+        else (dx, None, None, dproj, None)
+    return out + (xhat.to(_io_dtype(gin, x, residual)).view(gin.shape),) if emit_xhat else out
+
+
+def _io_dtype(*tensors):
+    """The io dtype of a chain: that of its first tensor which is not an fp32
+    intermediate (all fp32 in an fp32 twin run)."""
+    for t in tensors:
+        if t is not None and t.dtype != torch.float32:
+            return t.dtype
+    return torch.float32
 
 
 def layer_norm_bwd(gin: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: float,
                    residual: Optional[torch.Tensor] = None,
                    out_dtype: Optional[torch.dtype] = None, emit_dproj: bool = False,
-                   dropout: Optional[drop.Dropout] = None):
+                   dropout: Optional[drop.Dropout] = None, emit_xhat: bool = False,
+                   sums: bool = True):
     """As :func:`layer_norm_bwd_plain`. CPU tensors take the twin; CUDA
     tensors launch the kernel (``gin``, ``x``, ``residual`` and ``dx`` bf16
-    or fp32, ``weight`` and ``dproj`` bf16), then sum its per-block column
-    partials in order."""
+    or fp32, ``weight``, ``dproj`` and x-hat bf16), then sum its per-block
+    column partials in order (unless ``sums`` is False: then the kernel
+    takes no partials either)."""
     if not gin.is_cuda:
         return layer_norm_bwd_plain(gin, x, weight, eps, residual, out_dtype, emit_dproj,
-                                    dropout)
+                                    dropout, emit_xhat, sums)
     w = x.shape[-1]
     rows = x.numel() // w
     ok_type = (torch.float32, gates.KERNEL_DTYPE)
@@ -128,20 +146,27 @@ def layer_norm_bwd(gin: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps
     dx = torch.empty(gin.shape, dtype=out_dtype, device=gin.device)
     dproj = torch.empty(gin.shape, dtype=gates.KERNEL_DTYPE, device=gin.device) \
         if emit_dproj else None
+    xhat = torch.empty(gin.shape, dtype=gates.KERNEL_DTYPE, device=gin.device) \
+        if emit_xhat else None
     blocks = -(-rows // LN_BWD_ROWS)
-    part = torch.empty((3, blocks, w), dtype=torch.float32, device=gin.device)
+    part = torch.empty((3, blocks, w), dtype=torch.float32, device=gin.device) \
+        if sums else None
     seed, stream, thresh, scale, on = drop.kernel_args(dropout)
     ptr = lambda t: None if t is None else t.data_ptr()
     f32 = lambda t: int(t is not None and t.dtype == torch.float32)
     err = _build.library().nans_layernorm_bwd(
         gin.data_ptr(), f32(gin), x.data_ptr(), f32(x), weight.data_ptr(), ptr(residual),
-        f32(residual), dx.data_ptr(), f32(dx), ptr(dproj), seed, stream, thresh, scale, on,
-        dropout.seq if on else 0, part.data_ptr(), rows, w, float(eps),
+        f32(residual), dx.data_ptr(), f32(dx), ptr(dproj), ptr(xhat), seed, stream, thresh,
+        scale, on, dropout.seq if on else 0, ptr(part), rows, w, float(eps),
         _build.stream_ptr(gin.device))
     _build.check(err, "nans_layernorm_bwd")
     layer_norm_bwd.launches += 1
-    dproj_sum = column_sum(part[2]) if emit_dproj else None
-    return dx, column_sum(part[0]), column_sum(part[1]), dproj, dproj_sum
+    if sums:
+        out = (dx, column_sum(part[0]), column_sum(part[1]), dproj,
+               column_sum(part[2]) if emit_dproj else None)
+    else:
+        out = (dx, None, None, dproj, None)
+    return out + (xhat,) if emit_xhat else out
 
 
 # Rows a block of the backward kernel sums (layernorm.cu kBwdRows).

@@ -1,3 +1,3 @@
-from nans_clip_tpu_torch.parallel.loss import clip_loss
+from nans_clip_tpu_torch.parallel.loss import clip_loss, kd_cosine_loss
 
-__all__ = ["clip_loss"]
+__all__ = ["clip_loss", "kd_cosine_loss"]

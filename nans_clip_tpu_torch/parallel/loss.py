@@ -6,8 +6,8 @@ features across the mesh. The port runs on one card, so the batch is the
 global batch and nothing is gathered; the arithmetic is the JAX package's:
 fp32 logits, mean cross entropy both ways with optional label smoothing (as
 the LoRA trainer's loss, train_lora.py:96-110), and the in-batch i2t/t2i
-accuracies (reference training/train.py:109-124). The distillation loss is
-not ported yet (ROADMAP queue 1).
+accuracies (reference training/train.py:109-124), and the distillation
+loss ``kd_cosine_loss`` (:68).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def _ce(logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.0) -> torch.Tensor:
@@ -41,3 +42,19 @@ def clip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
         "t2i_acc": (logits_per_text.argmax(dim=-1) == labels).float().mean(),
     }
     return loss, metrics
+
+
+def kd_cosine_loss(teacher_features: torch.Tensor,
+                   student_features: torch.Tensor) -> torch.Tensor:
+    """1 - mean cosine similarity in fp32. Where the dimensions differ the
+    STUDENT is resized bilinearly (half-pixel centres, no antialiasing) to
+    the teacher's shape and the cosine is taken in the teacher's dimension,
+    as the reference's cosineSimilarityLoss (training/train.py:406-419);
+    gradients flow through the student's interpolation."""
+    t, s = teacher_features.float(), student_features.float()
+    if t.shape != s.shape:
+        s = F.interpolate(s[None, None], size=tuple(t.shape), mode="bilinear",
+                          align_corners=False)[0, 0]
+    cos = (t * s).sum(dim=1) / (torch.linalg.vector_norm(t, dim=1)
+                                * torch.linalg.vector_norm(s, dim=1) + 1e-8)
+    return 1.0 - cos.mean()

@@ -3,14 +3,16 @@ on one GPU.
 
     python3 -m nans_clip_tpu_torch.profile_slice [--batch 256] [--iters 5] [--out FILE]
     python3 -m nans_clip_tpu_torch.profile_slice --train [--batch 128] [--iters 3]
+    python3 -m nans_clip_tpu_torch.profile_slice --lora [--batch 128] [--accum 4] [--iters 3]
 
 Builds ViT-B-16@RoBERTa-wwm-ext-base-chinese at random init (seed 0) in
 bf16 on ``cuda:0`` and runs ``get_similarity`` on seeded images and texts.
 At serving batches (``--batch 1``) the towers run the whole-tower kernel,
 whose device time is grouped as ``tower_kernel``. With ``--train`` the fp32
 model takes train steps (``training.make_train_step``, bf16 compute, the
-text tower's dropout on) on one fixed seeded batch instead.
-It reports, all from one run:
+text tower's dropout on) on one fixed seeded batch instead; with ``--lora``
+the frozen model takes LoRA steps (``training.train_lora.make_lora_step``:
+rank 4, ``--batch`` pairs in ``--accum`` microbatches, dropout on). It reports, all from one run:
 
 * CUDA-event times of ``encode_image``, ``encode_text`` and
   ``get_similarity`` (with ``--train``: of a train step);
@@ -81,12 +83,38 @@ def _train_step(nct, dev, images, b: int):
     return step
 
 
+def _lora_step(nct, dev, images, b: int, accum: int):
+    """One LoRA step as a closure: the frozen model at random init (seed 0),
+    rank-4 adapters (B leaves zero in the warm-up steps), AdamW over the adapters, bf16
+    compute with the text tower's dropout, ``b`` pairs in ``accum``
+    microbatches."""
+    from nans_clip_tpu_torch.models import lora
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.training import train_lora
+
+    cfg = nct.load_config(MODEL)
+    module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0)).to(dev)
+    adapters = lora.init_lora(torch.Generator().manual_seed(1), module, 4, device=dev)
+    holder = [train_lora.create_lora_state(module, adapters, 1e-3, 0.01, device=dev)]
+    train, _ = train_lora.make_lora_step(cfg, nct.ModelOptions(compute_dtype="bfloat16"), 16.0,
+                                         0.05, accum)
+    ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}" for i in range(b)]))
+    ids = ids.to(dev)
+
+    def step():
+        holder[0], loss, _ = train(holder[0], images, ids, holder[0].step)
+        return loss
+    return step
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=None,
-                    help="default 256, or 128 with --train")
+                    help="default 256, or 128 with --train or --lora")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--train", action="store_true", help="profile train steps")
+    ap.add_argument("--lora", action="store_true", help="profile LoRA steps")
+    ap.add_argument("--accum", type=int, default=4, help="microbatches of a LoRA step")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -99,10 +127,13 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev, n = torch.device("cuda", 0), args.iters
-    b = args.batch or (128 if args.train else 256)
+    training = args.train or args.lora
+    b = args.batch or (128 if training else 256)
     gen = torch.Generator().manual_seed(1)
     images = torch.randn(b, 224, 224, 3, generator=gen).to(dev)
-    if args.train:
+    if args.lora:
+        step = _lora_step(nct, dev, images, b, args.accum)
+    elif args.train:
         step = _train_step(nct, dev, images, b)
     else:
         model = nct.create_model(MODEL, seed=0, device=dev,
@@ -113,8 +144,8 @@ def main(argv=None) -> dict:
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    if args.train:
-        ev = {"train_step": _event_ms(step, n)}
+    if training:
+        ev = {"lora_step" if args.lora else "train_step": _event_ms(step, n)}
     else:
         ev = {"encode_image": _event_ms(lambda: model.encode_image(images), n),
               "encode_text": _event_ms(lambda: model.encode_text(ids), n),
@@ -149,6 +180,7 @@ def main(argv=None) -> dict:
         groups[group][1] += ms
     result = {
         "device": torch.cuda.get_device_name(0), "batch": b, "iters": n, "train": args.train,
+        "lora": args.lora, "accum": args.accum if args.lora else 1,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "cuda_event_ms": ev, "profiled_host_ms": host_ms, "kernel_sum_ms": sum_ms,
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / host_ms,

@@ -1,0 +1,180 @@
+"""LoRA finetuning (counterpart of ``nans_clip_tpu/training/train_lora.py``).
+
+* the base model and ``logit_scale`` are frozen; only the adapter tree
+  (``models/lora.py``) is optimized, AdamW with decay on every adapter
+  (train_lora.py:144-152, :172);
+* InfoNCE with label smoothing (train_lora.py:96-110);
+* gradient accumulation keeps the full negatives: the two-pass protocol of
+  ``training/trainer.py::accumulate_backward``, the gradient of the JAX
+  scan (train_lora.py:82-99);
+* the train forward has BERT's dropout on (the reference trains in
+  ``model.train()``), ``eval_step`` is deterministic.
+
+The adapted weights reach the towers through
+``torch.func.functional_call``; the frozen weights need no gradient, so the
+sub-block Functions run the emitting backward kernels (#13, #15, #17) and
+form only the two weight gradients the adapters ask for (the image tower's
+``dwo``, the text tower's ``dwqkv``).
+
+:func:`parse_args` takes the JAX CLI's flags. :func:`main`'s loop over the
+pair dataset waits for the port of the data path (``data/dataset.py``'s
+``PairDataset`` and ``DataLoader``, ``data/npack.py``) and raises until
+then.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Callable, Optional, Union
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from nans_clip_tpu_torch.api import _device
+from nans_clip_tpu_torch.models.clip import normalize
+from nans_clip_tpu_torch.models.common import ModelOptions
+from nans_clip_tpu_torch.models.lora import adapter_leaves, merge_lora
+from nans_clip_tpu_torch.parallel.loss import clip_loss
+from nans_clip_tpu_torch.training.trainer import (accumulate_backward, draw_microbatches,
+                                                  seeded)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--train-data", required=True)
+    p.add_argument("--val-data", default=None)
+    p.add_argument("--resume", default=None,
+                   help="base model checkpoint (.pt); required unless --tiny-model")
+    p.add_argument("--tiny-model", action="store_true",
+                   help="2-layer 64-wide debug config (configs.tiny_config); --resume optional")
+    p.add_argument("--vision-model", default="ViT-B-16")
+    p.add_argument("--text-model", default="RoBERTa-wwm-ext-base-chinese")
+    p.add_argument("--output-dir", default="./lora_output")
+    p.add_argument("--lora-rank", type=int, default=4)
+    p.add_argument("--lora-alpha", type=float, default=16.0)
+    p.add_argument("--text-only", action="store_true")
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--accum-freq", type=int, default=4)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--wd", type=float, default=0.01)
+    p.add_argument("--warmup-ratio", type=float, default=0.1)
+    p.add_argument("--label-smoothing", type=float, default=0.05)
+    p.add_argument("--context-length", type=int, default=52)
+    p.add_argument("--seed", type=int, default=123)
+    p.add_argument("--num-threads", type=int, default=8)
+    p.add_argument("--precision", default="bf16")
+    return p.parse_args(argv)
+
+
+@dataclasses.dataclass
+class LoraState:
+    """What a LoRA run carries: the frozen base ``module``, the adapter
+    tree and its optimizer (the JAX step threads ``base_params, adapters,
+    opt_state``)."""
+
+    step: int
+    module: nn.Module
+    adapters: dict
+    optimizer: torch.optim.Optimizer
+
+
+def create_lora_state(module: nn.Module, adapters: dict, lr: float = 1e-4, wd: float = 0.01,
+                      device="cuda") -> LoraState:
+    """Freeze the fp32 ``module`` (every parameter, ``logit_scale``
+    included) on ``device`` (the card unless the caller names another) and
+    build AdamW over the adapters, decay on all of them (optax.adamw's
+    defaults: betas 0.9/0.999, eps 1e-8)."""
+    device = _device(device)
+    module = module.to(device).float().requires_grad_(False)
+    for t in adapter_leaves(adapters):
+        if t.device != device:
+            raise ValueError(f"adapters on {t.device}, the model on {device}: pass "
+                             "init_lora the same device")
+    opt = torch.optim.AdamW(adapter_leaves(adapters), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=wd)
+    return LoraState(step=0, module=module, adapters=adapters, optimizer=opt)
+
+
+def make_lora_step(cfg, options: ModelOptions, alpha: float, label_smoothing: float, accum: int,
+                   schedule: Optional[Callable[[int], float]] = None):
+    """``(train_step, eval_step)``. ``train_step(state, images, texts,
+    generator=None) -> (state, loss, metrics)`` updates ``state.adapters``
+    in place; ``generator`` (a ``torch.Generator`` or an int seed) draws
+    the text tower's dropout, None for none. ``eval_step(state, images,
+    texts) -> loss`` is deterministic and takes no gradient. ``schedule``:
+    the learning rate of a step (counted from 0), else the optimizer's."""
+    del cfg  # the module carries its configuration
+    train_opts = dataclasses.replace(options, deterministic=False)
+    eval_opts = dataclasses.replace(options, deterministic=True)
+    accum = max(accum, 1)
+
+    def closures(module, weights, seeds, opts):
+        """(encode, loss_fn) over ``weights`` ({parameter name: tensor}
+        standing in for the module's own) for accumulate_backward."""
+
+        def encode(j, im, tx):
+            return (functional_call(module, weights, (im, None, opts)),
+                    functional_call(module, weights, (None, tx, opts, seeded(seeds[j]))))
+
+        def loss_fn(img_f, txt_f):
+            return clip_loss(normalize(img_f), normalize(txt_f),
+                             module.logit_scale.float().exp(), label_smoothing)
+
+        return encode, loss_fn
+
+    def train_step(state: LoraState, images, texts,
+                   generator: Union[torch.Generator, int, None] = None):
+        module, opt = state.module, state.optimizer
+        dev = module.logit_scale.device
+        if isinstance(generator, int):
+            generator = torch.Generator().manual_seed(generator)
+        images = torch.as_tensor(images, device=dev)
+        texts = torch.as_tensor(texts, device=dev).long()
+        b = images.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} not divisible by accum_freq {accum}")
+        seeds = [seed for seed, _ in draw_microbatches(accum, b // accum, 0, 0.0, generator,
+                                                       generator is not None)]
+        if schedule is not None:
+            for group in opt.param_groups:
+                group["lr"] = schedule(state.step)
+        opt.zero_grad(set_to_none=True)
+        # The merged weights enter the towers as leaves: the microbatches'
+        # gradients add up in them, then one backward carries the sums
+        # through W + (alpha / r) B A into the adapters.
+        merged = merge_lora(module, state.adapters, alpha)
+        leaves = {k: v.detach().requires_grad_() for k, v in merged.items()}
+        encode, loss_fn = closures(module, leaves, seeds, train_opts)
+        loss, metrics = accumulate_backward(encode, images, texts, accum, loss_fn)
+        names = [k for k in merged if leaves[k].grad is not None]
+        torch.autograd.backward([merged[k] for k in names], [leaves[k].grad for k in names])
+        opt.step()
+        state.step += 1
+        return state, loss, metrics
+
+    @torch.no_grad()
+    def eval_step(state: LoraState, images, texts):
+        dev = state.module.logit_scale.device
+        images = torch.as_tensor(images, device=dev)
+        texts = torch.as_tensor(texts, device=dev).long()
+        merged = merge_lora(state.module, state.adapters, alpha)
+        encode, loss_fn = closures(state.module, merged, [None], eval_opts)
+        return loss_fn(*encode(0, images, texts))[0]
+
+    return train_step, eval_step
+
+
+def main(argv=None):
+    parse_args(argv)
+    raise NotImplementedError(
+        "the LoRA CLI's loop reads pairs through PairDataset and DataLoader "
+        "(nans_clip_tpu/data/dataset.py, data/npack.py), which the port does not have yet "
+        "(ROADMAP.md queue 1, item 9: the data path). Drive create_lora_state and "
+        "make_lora_step with batches of your own meanwhile")
+
+
+if __name__ == "__main__":
+    main()

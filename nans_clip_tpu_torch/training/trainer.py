@@ -15,7 +15,26 @@ What the JAX trainer does, on one card:
 * one step: both towers' features with ``ModelOptions(deterministic=
   False)`` (dropout in the text tower when a generator is given), the
   contrastive loss (``parallel/loss.py``), the backward through the
-  sub-block Functions (kernels #14, #16, #18), the optimizer update.
+  autograd Functions (kernels #14, #16, #18, or as
+  ``ModelOptions.bwd_impl`` routes), the optimizer update;
+* gradient accumulation with the full global negatives
+  (``accum_freq > 1``, :func:`accumulate_backward`): the reference's
+  two-pass protocol (training/train.py:206-253), whose gradient the JAX
+  scan with ``jax.checkpoint`` equals (trainer.py:7-13, :249-291). Pass 1
+  encodes each microbatch without a graph; the global loss on the
+  concatenated features gives their gradients and ``logit_scale``'s; pass
+  2 encodes each microbatch again with a graph and backpropagates its
+  slice. Each microbatch's dropout seed and FLIP tokens are drawn once and
+  used in both passes, as ``fold_in(rng, j)`` gives the JAX scan one stream
+  a microbatch;
+* FLIP masking (``mask_ratio > 0``; ``models/vit.py``), drawn from the
+  step's generator;
+* distillation: a frozen teacher :class:`~nans_clip_tpu_torch.api.CLIPModel`
+  encodes the images without a graph, microbatched like the student, and
+  ``kd_loss_weight * kd_cosine_loss`` joins the loss (:328-347);
+* ``adam_state_dtype``: both Adam moments stored in that dtype, their EMAs
+  computed in fp32 (:class:`CompactAdamW`, ``_scale_by_adam_compact``
+  :134-168 in the chain order of :178-182).
 
 ``torch.optim.AdamW`` computes optax's ``adamw``: decoupled decay
 (``p -= lr * wd * p``), bias-corrected moments and ``eps`` added outside
@@ -25,18 +44,13 @@ parameters are fp32 masters; each forward casts them to the compute dtype
 (``ModelOptions.cast``). The state is updated in place (torch's optimizer
 owns its moments) and returned, so a caller writes
 ``state, metrics = step(state, images, texts, generator)`` as with JAX.
-
-Not ported yet (each raises ``NotImplementedError``; ROADMAP.md queue 1,
-item 9): gradient accumulation (``accum_freq > 1``), FLIP masking
-(``mask_ratio > 0``), distillation, and Adam moments in another dtype
-(``adam_state_dtype``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -45,7 +59,8 @@ from nans_clip_tpu_torch.api import _device
 from nans_clip_tpu_torch.configs import CLIPConfig
 from nans_clip_tpu_torch.models.clip import normalize
 from nans_clip_tpu_torch.models.common import ModelOptions
-from nans_clip_tpu_torch.parallel.loss import clip_loss
+from nans_clip_tpu_torch.models.vit import draw_ids_keep
+from nans_clip_tpu_torch.parallel.loss import clip_loss, kd_cosine_loss
 
 LOGIT_SCALE_MAX = math.log(100.0)
 # Substrings of a reference parameter name that exempt it from weight decay
@@ -80,15 +95,6 @@ class TrainState:
     optimizer: torch.optim.Optimizer
 
 
-def _check_supported(tcfg: TrainConfig) -> None:
-    todo = {"accum_freq > 1": tcfg.accum_freq > 1, "mask_ratio > 0": tcfg.mask_ratio > 0,
-            "distillation": tcfg.distillation, "adam_state_dtype": tcfg.adam_state_dtype}
-    for what, asked in todo.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported to the GPU trainer yet "
-                                      "(ROADMAP.md queue 1, item 9)")
-
-
 def no_decay_mask(module: nn.Module) -> Dict[str, bool]:
     """{parameter name: True where weight decay must NOT apply}, by the
     reference's case-sensitive substring rule on its names (the JAX
@@ -112,14 +118,90 @@ def cosine_with_warmup(base_lr: float, warmup: int, total_steps: int,
     return schedule
 
 
-def make_optimizer(tcfg: TrainConfig, module: nn.Module) -> torch.optim.AdamW:
+class CompactAdamW(torch.optim.Optimizer):
+    """AdamW with both moments stored in ``state_dtype`` (JAX
+    ``_scale_by_adam_compact`` followed by ``add_decayed_weights`` and the
+    learning rate): each step reads the moments up to fp32, forms the EMAs
+    and the bias-corrected update ``m_hat / (sqrt(v_hat) + eps)`` in fp32,
+    applies ``p -= lr * (update + weight_decay * p)`` and stores the moments
+    rounded back. Halves (bf16) the optimizer's memory. The parameters are
+    the fp32 masters. Tensors go through each operation together
+    (``torch._foreach_*``), ``CHUNK`` elements' worth at a time, so that the
+    two fp32 temporaries a chunk stay far below what the moments save."""
+
+    CHUNK = 1 << 24
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, state_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.state_dtype = state_dtype
+
+    def _chunks(self, params):
+        chunk, size = [], 0
+        for p in params:
+            if chunk and size + p.numel() > self.CHUNK:
+                yield chunk
+                chunk, size = [], 0
+            chunk.append(p)
+            size += p.numel()
+        if chunk:
+            yield chunk
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("CompactAdamW.step takes no closure")
+        for group in self.param_groups:
+            live = [p for p in group["params"] if p.grad is not None]
+            if any(p.dtype != torch.float32 for p in live):
+                raise TypeError("CompactAdamW updates fp32 parameters")
+            for params in self._chunks(live):
+                self._update(group, params)
+
+    def _update(self, group, params):
+        b1, b2 = group["betas"]
+        for p in params:
+            st = self.state[p]
+            if not st:
+                st["step"] = 0
+                st["mu"] = torch.zeros_like(p, dtype=self.state_dtype)
+                st["nu"] = torch.zeros_like(p, dtype=self.state_dtype)
+            st["step"] += 1
+        states = [self.state[p] for p in params]
+        mus, nus = [st["mu"] for st in states], [st["nu"] for st in states]
+        grads = [p.grad.float() for p in params]
+        mu, nu = ([torch.empty_like(p) for p in params] for _ in range(2))
+        torch._foreach_copy_(mu, mus)
+        torch._foreach_copy_(nu, nus)
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+        torch._foreach_copy_(mus, mu)
+        torch._foreach_copy_(nus, nu)
+        # in place from here: nu becomes the denominator, mu the update
+        torch._foreach_div_(nu, [1 - b2 ** st["step"] for st in states])
+        torch._foreach_sqrt_(nu)
+        torch._foreach_add_(nu, group["eps"])
+        torch._foreach_div_(mu, [1 - b1 ** st["step"] for st in states])
+        torch._foreach_div_(mu, nu)
+        if group["weight_decay"]:
+            torch._foreach_add_(mu, params, alpha=group["weight_decay"])
+        torch._foreach_add_(params, mu, alpha=-group["lr"])
+
+
+def make_optimizer(tcfg: TrainConfig, module: nn.Module) -> torch.optim.Optimizer:
     """AdamW over the parameters that take gradients, in two groups: decayed
-    and not (:func:`no_decay_mask`)."""
+    and not (:func:`no_decay_mask`); :class:`CompactAdamW` where
+    ``adam_state_dtype`` is set."""
     mask = no_decay_mask(module)
     named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
     groups = [{"params": [p for n, p in named if not mask[n]], "weight_decay": tcfg.wd},
               {"params": [p for n, p in named if mask[n]], "weight_decay": 0.0}]
-    return torch.optim.AdamW(groups, lr=tcfg.lr, betas=(tcfg.beta1, tcfg.beta2), eps=tcfg.eps)
+    kw = dict(lr=tcfg.lr, betas=(tcfg.beta1, tcfg.beta2), eps=tcfg.eps)
+    if tcfg.adam_state_dtype:
+        return CompactAdamW(groups, state_dtype=getattr(torch, tcfg.adam_state_dtype), **kw)
+    return torch.optim.AdamW(groups, **kw)
 
 
 def create_train_state(module: nn.Module, tcfg: TrainConfig, device="cuda") -> TrainState:
@@ -127,7 +209,6 @@ def create_train_state(module: nn.Module, tcfg: TrainConfig, device="cuda") -> T
     names another; without a card that default raises) and build its
     optimizer. ``freeze_vision`` takes the vision tower out of the
     gradient and the update."""
-    _check_supported(tcfg)
     module = module.to(_device(device)).float().train()
     if tcfg.freeze_vision:
         module.visual.requires_grad_(False)
@@ -144,17 +225,89 @@ def _clip_by_global_norm(params, max_norm: float) -> None:
         g.mul_(scale.to(g.dtype))
 
 
-def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions) -> Callable:
+def draw_microbatches(n_micro: int, micro: int, seq_len: int, mask_ratio: float,
+                      generator: Optional[torch.Generator],
+                      dropout: bool) -> List[Tuple[Optional[int], Optional[torch.Tensor]]]:
+    """What each microbatch of a step draws, once: ``(seed of its text
+    dropout or None, its FLIP ids_keep or None)``. Both passes of an
+    accumulated step encode microbatch j from the same pair."""
+    if mask_ratio > 0 and generator is None:
+        raise ValueError("mask_ratio > 0 requires a generator")
+    draws = []
+    for _ in range(n_micro):
+        ids_keep = draw_ids_keep(micro, seq_len, mask_ratio, generator) if mask_ratio > 0 \
+            else None
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                                 device=generator.device)) if dropout else None
+        draws.append((seed, ids_keep))
+    return draws
+
+
+def seeded(seed: Optional[int]) -> Optional[torch.Generator]:
+    return None if seed is None else torch.Generator().manual_seed(seed)
+
+
+def accumulate_backward(encode: Callable, images: torch.Tensor, texts: torch.Tensor,
+                        accum: int, loss_fn: Callable):
+    """Backpropagate ``loss_fn(image features, text features) -> (loss,
+    metrics)`` of the whole batch into whatever ``encode(j, images_j,
+    texts_j) -> (image features, text features)`` (unnormalised) and
+    ``loss_fn`` depend on, ``accum`` microbatches at a time. ``accum`` <= 1
+    is one forward and one backward. Otherwise the two-pass protocol: the
+    features of every microbatch without a graph, one loss on their
+    concatenation (full global negatives), then each microbatch encoded
+    again with a graph and its slice of the feature gradients
+    backpropagated; gradients add up in ``.grad``. ``encode`` must give
+    microbatch j the same dropout and masking on both calls. Returns the
+    detached loss and the metrics."""
+    if accum <= 1:
+        loss, metrics = loss_fn(*encode(0, images, texts))
+        loss.backward()
+        return loss.detach(), metrics
+    b = images.shape[0]
+    micro = b // accum
+    if micro * accum != b:
+        raise ValueError(f"batch {b} not divisible by accum_freq {accum}")
+    chunks = [(images[j * micro:(j + 1) * micro], texts[j * micro:(j + 1) * micro])
+              for j in range(accum)]
+    with torch.no_grad():
+        feats = [encode(j, *chunk) for j, chunk in enumerate(chunks)]
+    img_f = torch.cat([f[0] for f in feats]).requires_grad_()
+    txt_f = torch.cat([f[1] for f in feats]).requires_grad_()
+    del feats
+    loss, metrics = loss_fn(img_f, txt_f)
+    loss.backward()
+    for j, chunk in enumerate(chunks):
+        sl = slice(j * micro, (j + 1) * micro)
+        pairs = [(f, g[sl]) for f, g in zip(encode(j, *chunk), (img_f.grad, txt_f.grad))
+                 if f.requires_grad]
+        if pairs:
+            torch.autograd.backward([f for f, _ in pairs], [g for _, g in pairs])
+    return loss.detach(), metrics
+
+
+def teacher_features(teacher, images: torch.Tensor, accum: int) -> torch.Tensor:
+    """The frozen teacher's image features without a graph, microbatched
+    like the student (trainer.py:328-344). ``teacher``: a ``CLIPModel``."""
+    with torch.no_grad():
+        chunks = images.chunk(max(accum, 1)) if accum > 1 else (images,)
+        return torch.cat([teacher.module.encode_image(c, teacher.options) for c in chunks])
+
+
+def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
+                    teacher=None) -> Callable:
     """Build the train step ``step(state, images, texts, generator=None) ->
-    (state, {"loss", "i2t_acc", "t2i_acc", "logit_scale"})``. ``images``:
-    [B, R, R, 3] NHWC, ``texts``: [B, S] ids (tensors or arrays, moved to the
-    module's device); ``generator``: a ``torch.Generator`` (or an int seed)
-    drawing the text tower's dropout, None for none. The metrics are 0-d
-    tensors on the device; ``logit_scale`` is its value before the update."""
-    _check_supported(tcfg)
+    (state, {"loss", "i2t_acc", "t2i_acc", "logit_scale"[, "kd_loss"]})``.
+    ``images``: [B, R, R, 3] NHWC, ``texts``: [B, S] ids (tensors or arrays,
+    moved to the module's device); ``generator``: a ``torch.Generator`` (or
+    an int seed) drawing the text tower's dropout and the FLIP tokens, None
+    for none. ``teacher``: a frozen ``CLIPModel`` for ``tcfg.distillation``
+    (the JAX ``(teacher_cfg, teacher_params)``). The metrics are 0-d tensors
+    on the device; ``logit_scale`` is its value before the update."""
     del cfg  # the module carries its configuration
     train_options = dataclasses.replace(options, deterministic=False)
     schedule = cosine_with_warmup(tcfg.lr, tcfg.warmup, tcfg.max_steps, tcfg.skip_scheduler)
+    accum = max(tcfg.accum_freq, 1)
 
     def step(state: TrainState, images, texts,
              generator: Union[torch.Generator, int, None] = None):
@@ -162,26 +315,44 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions) -
         dev = module.logit_scale.device
         if isinstance(generator, int):
             generator = torch.Generator().manual_seed(generator)
-        if options.deterministic:
-            generator = None          # no dropout, as the JAX deterministic forward
         images = torch.as_tensor(images, device=dev)
         texts = torch.as_tensor(texts, device=dev).long()
+        b = images.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} not divisible by accum_freq {accum}")
+        # no dropout from a deterministic forward, as in JAX; FLIP still draws
+        draws = draw_microbatches(accum, b // accum, module.cfg.vision.seq_len, tcfg.mask_ratio,
+                                  generator,
+                                  generator is not None and not options.deterministic)
         for group in opt.param_groups:
             group["lr"] = schedule(state.step)
         opt.zero_grad(set_to_none=True)
-        img = normalize(module.encode_image(images, train_options))
-        txt = normalize(module.encode_text(texts, train_options, generator))
         logit_scale = module.logit_scale.detach().clone()
-        loss, metrics = clip_loss(img, txt, module.logit_scale.float().exp(),
-                                  tcfg.label_smoothing)
-        loss.backward()
+        t_feats = teacher_features(teacher, images, accum) \
+            if tcfg.distillation and teacher is not None else None
+
+        def encode(j, im, tx):
+            seed, ids_keep = draws[j]
+            return (module.encode_image(im, train_options, ids_keep=ids_keep),
+                    module.encode_text(tx, train_options, seeded(seed)))
+
+        def loss_fn(img_f, txt_f):
+            loss, metrics = clip_loss(normalize(img_f), normalize(txt_f),
+                                      module.logit_scale.float().exp(), tcfg.label_smoothing)
+            if t_feats is not None:
+                kd = kd_cosine_loss(t_feats, img_f)
+                loss = loss + tcfg.kd_loss_weight * kd
+                metrics = {**metrics, "kd_loss": kd.detach()}
+            return loss, metrics
+
+        loss, metrics = accumulate_backward(encode, images, texts, accum, loss_fn)
         if tcfg.grad_norm_clip:
             _clip_by_global_norm(module.parameters(), tcfg.grad_norm_clip)
         opt.step()
         with torch.no_grad():
             module.logit_scale.clamp_(0.0, LOGIT_SCALE_MAX)
         state.step += 1
-        return state, {"loss": loss.detach(), **metrics, "logit_scale": logit_scale}
+        return state, {"loss": loss, **metrics, "logit_scale": logit_scale}
 
     return step
 

@@ -12,6 +12,8 @@ normalized reference state dict loads with ``load_state_dict`` as it is.
   given as nested dicts of numpy arrays, into the same layout (counterpart
   of ``nans_clip_tpu/utils/torch_interop.py:333-411``), so tests can load
   identical weights into both packages.
+* :func:`lora_from_jax` turns the JAX package's LoRA adapter tree into the
+  port's (``models/lora.py``).
 """
 
 from __future__ import annotations
@@ -131,3 +133,16 @@ def state_dict_from_jax_params(params_np: dict, cfg: CLIPConfig) -> Dict[str, to
     put("text_projection", params_np["text_projection"])
     put("logit_scale", np.asarray(params_np["logit_scale"]).reshape(()))
     return sd
+
+
+def lora_from_jax(adapters_np: dict, device="cpu") -> dict:
+    """The JAX adapter tree (``nans_clip_tpu/models/lora.py``: nested dicts
+    of numpy arrays, ``[L, r, W]`` / ``[L, W, r]`` and ``[L, 2, r, H]`` /
+    ``[L, 2, H, r]`` stacks) as the port's: the same tree and shapes, fp32
+    leaves on ``device`` that require gradients. The port's ``merge_lora``
+    applies ``B A`` in ``[out, in]``, the transpose of the JAX delta."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, dtype=np.float32)).to(device).requires_grad_()
+    return conv(adapters_np)

@@ -288,6 +288,10 @@ def test_gemm_forms_match_twins(dev):
     _close(got16, want16, 2)
     res = torch.randn(300, 256, device=dev)
     _close(linear_dgrad(dy, w, residual=res), linear_dgrad_plain(dy, w, residual=res), 2)
+    # the bf16 copy is the value before the residual
+    got, got16 = linear_dgrad(dy, w, residual=res, copy=True)
+    _close(got, linear_dgrad_plain(dy, w, residual=res), 2)
+    assert torch.equal(got16, linear_dgrad(dy, w))
     for m, n, k in ((300, 384, 256), (6656, 768, 768)):
         dy, x = r(m, n), r(m, k)
         got = linear_wgrad(dy, x)
@@ -316,6 +320,14 @@ def test_layernorm_bwd_and_colsum_match_twins(dev):
     for i in (0, 1, 2, 4):
         assert _rel_err(got[i], want[i]) <= 1e-5
     _close(got[3], want[3], 2)
+    # the emitting form: x-hat in bf16, no sums, the same dx and dproj bits
+    kw.update(emit_xhat=True, sums=False)
+    emit, want = layer_norm_bwd(g, u, gamma, 1e-12, **kw), layer_norm_bwd_plain(g, u, gamma,
+                                                                                1e-12, **kw)
+    assert len(emit) == 6 and emit[1] is emit[2] is emit[4] is None
+    assert torch.equal(emit[0], got[0]) and torch.equal(emit[3], got[3])
+    assert emit[5].dtype == torch.bfloat16
+    _close(emit[5], want[5], 2)
     big = torch.randn(25216, 2304, device=dev)
     assert _rel_err(column_sum(big), column_sum_plain(big)) <= 1e-5
     assert torch.equal(column_sum(big), column_sum(big))
@@ -418,3 +430,113 @@ def test_train_step_kernel_matches_plain(dev):
         cos = torch.nn.functional.cosine_similarity(gk.flatten().double(),
                                                     gp.flatten().double(), dim=0)
         assert float(cos) >= 0.99, (n, float(cos))
+
+
+@pytest.mark.parametrize("b,s,w", [(3, 52, 128), (2, 197, 768), (2, 99, 128)])
+def test_emitting_bwd_chains_match_twins(dev, b, s, w):
+    """#13, #15 (dropout 0.1) and #17 (both forms) against their twins:
+    every emitted tensor in bf16 within 2e-2 of its largest magnitude (the
+    bound of the full-gradient chains), the same bits on a second call, and
+    dx bit-equal to the full-gradient chain's (the same kernels in the same
+    order form it). S = 99 is the FLIP sequence at mask_ratio 0.5."""
+    from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+    p, r = _params(dev, w, 4 * w, 9)
+    x, g = r(b, s, w, std=1.0), r(b, s, w, std=1.0)
+    kb = torch.zeros(b, s, device=dev)
+    kb[0, s // 2:] = -10000.0
+    heads = w // 64
+    cases = [
+        (fbb.fused_attention_block_bwd, fbb.fused_attention_block_bwd_fullgrad,
+         fbb._attn_bwd_math, (x, *p[:5], g, heads, 1e-5), 4),
+        (fbb.fused_bert_attention_block_bwd, fbb.fused_bert_attention_block_bwd_fullgrad,
+         fbb._bert_bwd_math, (x, *p[:6], kb, 1234, g, heads, 1e-12, 0.1, 0.1), 5),
+        (fbb.fused_mlp_block_bwd, fbb.fused_mlp_block_bwd_fullgrad, fbb._mlp_bwd_math,
+         (x, *p[6:], None, g, "quick_gelu", 1e-5, False, 0.0), 7),
+        (fbb.fused_mlp_block_bwd, fbb.fused_mlp_block_bwd_fullgrad, fbb._mlp_bwd_math,
+         (x, *p[6:], 99, g, "gelu", 1e-12, True, 0.1), 7),
+    ]
+    for kernel, full, twin, args, n_out in cases:
+        before = kernel.launches
+        got, want = kernel(*args), twin(*args, full=False)
+        assert kernel.launches == before + 1 and len(got) == n_out
+        for a, bb in zip(got, want):
+            assert a.shape == bb.shape and a.dtype == torch.bfloat16
+            assert _rel_err(a, bb) <= 2e-2, (kernel.__name__, a.shape)
+        assert all(torch.equal(a, bb) for a, bb in zip(got, kernel(*args)))
+        assert torch.equal(got[0], full(*args)[0])
+
+
+def test_layer_bwd_equals_the_two_chains(dev):
+    """#21 is bit-equal to #18 followed by #14, and within 2e-2 of its
+    twin on each of its 13 outputs."""
+    from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+    from nans_clip_tpu_torch.ops import layer_bwd as lb
+    b, s, w = 2, 197, 768
+    p, r = _params(dev, w, 4 * w, 10)
+    x, g = r(b, s, w, std=1.0), r(b, s, w, std=1.0)
+    xm = fb.fused_attention_block(x, *p[:6], w // 64, 1e-5)
+    args = (x, *p[:5], xm, *p[6:], g, w // 64, "quick_gelu", 1e-5)
+    before = lb.fused_layer_block_bwd_fullgrad.launches
+    got = lb.fused_layer_block_bwd_fullgrad(*args)
+    assert lb.fused_layer_block_bwd_fullgrad.launches == before + 1 and len(got) == 13
+    mlp = fbb.fused_mlp_block_bwd_fullgrad(xm, *p[6:], None, g, "quick_gelu", 1e-5, False)
+    attn = fbb.fused_attention_block_bwd_fullgrad(x, *p[:5], mlp[0], w // 64, 1e-5)
+    assert all(torch.equal(a, bb) for a, bb in zip(got, attn + mlp[1:]))
+    for a, bb in zip(got, lb._layer_bwd_math(*args)):
+        assert _rel_err(a, bb) <= 2e-2
+
+
+def test_lora_step_kernel_matches_plain(dev):
+    """A W=128 model takes LoRA steps (accum 2, dropout on) on the kernel
+    route and on the plain route from the same adapters and seeds: the
+    losses agree within 1e-2 and each adapter gradient at cosine >= 0.99
+    (B away from zero); the kernel route launches #13/#15/#17 and no
+    weight-gradient kernel; the base weights stay bit-equal."""
+    import dataclasses
+
+    from nans_clip_tpu_torch import configs
+    from nans_clip_tpu_torch.models import lora
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.models.common import ModelOptions
+    from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+    from nans_clip_tpu_torch.ops.gemm import linear_wgrad
+    from nans_clip_tpu_torch.training import train_lora
+
+    tiny = configs.tiny_config()
+    cfg = dataclasses.replace(
+        tiny, vision=dataclasses.replace(tiny.vision, width=128, head_width=64),
+        text=dataclasses.replace(tiny.text, hidden_size=128, num_attention_heads=2,
+                                 intermediate_size=512))
+    g = torch.Generator().manual_seed(0)
+    images = torch.randn(8, 32, 32, 3, generator=g)
+    ids = torch.zeros(8, 52, dtype=torch.long)
+    ids[:, :9] = torch.randint(1, 1000, (8, 9), generator=g)
+    out = {}
+    for impl in ("kernel", "plain"):
+        module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0))
+        ad = lora.init_lora(torch.Generator().manual_seed(1), module, 4, device=dev)
+        with torch.no_grad():
+            for k, t in lora._leaves(ad):
+                if k.endswith("['b']"):     # B away from zero, the same on both routes
+                    t.copy_(0.05 * torch.randn(t.shape,
+                                               generator=torch.Generator().manual_seed(2)))
+        state = train_lora.create_lora_state(module, ad, 1e-3, 0.01, device=dev)
+        before = {n: p.detach().clone() for n, p in module.named_parameters()}
+        step, _ = train_lora.make_lora_step(cfg, ModelOptions(attn_impl=impl,
+                                                              compute_dtype="bfloat16"),
+                                            16.0, 0.05, 2)
+        counts = [fn.launches for fn in (fbb.fused_attention_block_bwd,
+                                         fbb.fused_bert_attention_block_bwd,
+                                         fbb.fused_mlp_block_bwd, linear_wgrad)]
+        state, loss, _ = step(state, images, ids, 7)
+        delta = [fn.launches - c for fn, c in zip(
+            (fbb.fused_attention_block_bwd, fbb.fused_bert_attention_block_bwd,
+             fbb.fused_mlp_block_bwd, linear_wgrad), counts)]
+        assert delta == ([4, 4, 8, 0] if impl == "kernel" else [0, 0, 0, 0])
+        assert all(torch.equal(p.detach(), before[n]) for n, p in module.named_parameters())
+        out[impl] = (float(loss), {k: t.grad.clone() for k, t in lora._leaves(ad)})
+    assert abs(out["kernel"][0] - out["plain"][0]) <= 1e-2
+    for k, gk in out["kernel"][1].items():
+        cos = torch.nn.functional.cosine_similarity(gk.flatten().double(),
+                                                    out["plain"][1][k].flatten().double(), dim=0)
+        assert float(cos) >= 0.99, (k, float(cos))

@@ -161,3 +161,201 @@ def test_philox_known_answers():
     assert int(drop.philox_word0(t(f), t(f), t(f), t(f), f, f)) == 0x408F276D
     assert int(drop.philox_word0(t(0x243F6A88), t(0x85A308D3), t(0x13198A2E), t(0x03707344),
                                  0xA4093822, 0x299F31D0)) == 0xD16CFE09
+
+
+# --- the emitting forms (#13, #15, #17), the whole-layer backward (#21) and
+# the routing by needs_input_grad ---------------------------------------------
+
+def _compare_emitted(names, ours, ref, rel):
+    """Every emitted tensor, same shape on both sides, within rel *
+    max(|ref|, 1)."""
+    assert len(ours) == len(ref) == len(names)
+    for name, a, b in zip(names, ours, ref):
+        b = np.asarray(b)
+        assert tuple(a.shape) == b.shape, (name, a.shape, b.shape)
+        err = float(np.abs(a.numpy() - b).max())
+        assert err < rel * max(float(np.abs(b).max()), 1.0), (name, err)
+
+
+@pytest.mark.parametrize("s", [52, 24])
+def test_attention_bwd_emit_twin_matches_pallas(s):
+    """#13 twin against _bwd_kernel: (dx, xn, ctx, dqkv)."""
+    a = _args(3, 4, s, 64, 256)
+    ref = jbwd.fused_attention_block_bwd(
+        jnp.asarray(a["x"]), a["ln_s"], a["ln_b"], a["wqkv"], a["bqkv"], a["wo"],
+        jnp.asarray(a["g"]), 4, 1e-5, INTERPRET)
+    ours = tbwd.fused_attention_block_bwd(
+        _t(a["x"]), _t(a["ln_s"]), _t(a["ln_b"]), _t(a["wqkv"], True), _t(a["bqkv"]),
+        _t(a["wo"], True), _t(a["g"]), 4, 1e-5)
+    _compare_emitted(("dx", "xn", "ctx", "dqkv"), ours, ref, 1e-3)
+
+
+@pytest.mark.parametrize("s", [52, 24])
+def test_bert_attention_bwd_emit_twin_matches_pallas(s):
+    """#15 twin against _bert_bwd_kernel: (dx, dqkv, ctx, dproj, uhat)."""
+    a = _args(4, 4, s, 64, 256)
+    ref = jbwd.fused_bert_attention_block_bwd(
+        jnp.asarray(a["x"]), a["ln_s"], a["ln_b"], a["wqkv"], a["bqkv"], a["wo"], a["bo"],
+        jnp.asarray(a["kb"]), None, jnp.asarray(a["g"]), 4, 1e-12, 0.0, 0.0, INTERPRET)
+    ours = tbwd.fused_bert_attention_block_bwd(
+        _t(a["x"]), _t(a["ln_s"]), _t(a["ln_b"]), _t(a["wqkv"], True), _t(a["bqkv"]),
+        _t(a["wo"], True), _t(a["bo"]), _t(a["kb"]), None, _t(a["g"]), 4, 1e-12)
+    _compare_emitted(("dx", "dqkv", "ctx", "dproj", "uhat"), ours, ref, 1e-3)
+
+
+@pytest.mark.parametrize("s", [52, 24])
+@pytest.mark.parametrize("act,post_ln", [("quick_gelu", False), ("gelu", True)])
+def test_mlp_bwd_emit_twin_matches_pallas(s, act, post_ln):
+    """#17 twin, both forms, against _mlp_bwd_kernel: (dx, xn, h, dh_pre,
+    dproj, lnstat, dxn); lnstat is x-hat pre-LN and u-hat post-LN."""
+    a = _args(5, 4, s, 64, 256)
+    ref = jbwd.fused_mlp_block_bwd(
+        jnp.asarray(a["x"]), a["ln_s"], a["ln_b"], a["w1"], a["b1"], a["w2"], a["b2"], None,
+        jnp.asarray(a["g"]), act, 1e-5, post_ln, 0.0, INTERPRET)
+    ours = tbwd.fused_mlp_block_bwd(
+        _t(a["x"]), _t(a["ln_s"]), _t(a["ln_b"]), _t(a["w1"], True), _t(a["b1"]),
+        _t(a["w2"], True), _t(a["b2"]), None, _t(a["g"]), act, 1e-5, post_ln)
+    _compare_emitted(("dx", "xn", "h", "dh_pre", "dproj", "lnstat", "dxn"), ours, ref, 2e-3)
+
+
+def test_layer_bwd_twin_matches_pallas():
+    """#21 twin against fused_layer_block_bwd_fullgrad in interpret mode (13
+    outputs, 2e-3 * max(|ref|, 1) as tests/test_layer_bwd.py), and bit-equal
+    to the twins of #18 then #14."""
+    from nans_clip_tpu.ops import fused_block as jfb
+    from nans_clip_tpu.ops import layer_bwd as jlb
+    from nans_clip_tpu_torch.ops import layer_bwd as tlb
+
+    a = _args(6, 4, 24, 128, 512)
+    xm = np.array(jfb._reference_block(jnp.asarray(a["x"]), a["ln_s"], a["ln_b"], a["wqkv"],
+                                         a["bqkv"], a["wo"], a["bo"], heads=4, eps=1e-5))
+    rs = np.random.RandomState(60)
+    ln2_s, ln2_b = (1.0 + 0.1 * rs.randn(128)).astype(np.float32), \
+        (0.1 * rs.randn(128)).astype(np.float32)
+    ref = jlb.fused_layer_block_bwd_fullgrad(
+        jnp.asarray(a["x"]), a["ln_s"], a["ln_b"], a["wqkv"], a["bqkv"], a["wo"],
+        jnp.asarray(xm), ln2_s, ln2_b, a["w1"], a["b1"], a["w2"], a["b2"], jnp.asarray(a["g"]),
+        4, "quick_gelu", 1e-5, INTERPRET)
+    t_attn = (_t(a["ln_s"]), _t(a["ln_b"]), _t(a["wqkv"], True), _t(a["bqkv"]), _t(a["wo"], True))
+    t_mlp = (_t(ln2_s), _t(ln2_b), _t(a["w1"], True), _t(a["b1"]), _t(a["w2"], True),
+             _t(a["b2"]))
+    ours = tlb.fused_layer_block_bwd_fullgrad(_t(a["x"]), *t_attn, _t(xm), *t_mlp, _t(a["g"]), 4,
+                                              "quick_gelu", 1e-5)
+    names = ("dx", "dW_qkv", "db_qkv", "dW_o", "db_o", "d_ln1_w", "d_ln1_b", "dW_1", "db_1",
+             "dW_2", "db_2", "d_ln2_w", "d_ln2_b")
+    assert len(ours) == len(ref) == 13
+    for name, o, r in zip(names, ours, ref):
+        r = np.asarray(r)
+        r = r.T if name.startswith("dW") else r.reshape(o.shape)
+        err = float(np.abs(o.numpy() - r).max())
+        assert err < 2e-3 * max(float(np.abs(r).max()), 1.0), (name, err)
+    mlp = tbwd.fused_mlp_block_bwd_fullgrad(_t(xm), *t_mlp, None, _t(a["g"]), "quick_gelu", 1e-5,
+                                            False)
+    attn = tbwd.fused_attention_block_bwd_fullgrad(_t(a["x"]), *t_attn, mlp[0], 4, 1e-5)
+    for o, r in zip(ours, attn + mlp[1:]):
+        assert torch.equal(o, r)
+
+
+def test_layer_train_function_matches_sub_block_functions():
+    """fused_layer_train (forward #1 then #2, backward #21) gives the output
+    and every gradient of the two sub-block Functions, bit for bit, and
+    raises when a weight of the layer is frozen."""
+    from nans_clip_tpu_torch.ops import layer_bwd as tlb
+
+    a = _args(7, 2, 24, 64, 256)
+    mk = lambda: [t.clone().requires_grad_() for t in (
+        _t(a["x"]), _t(a["ln_s"]), _t(a["ln_b"]), _t(a["wqkv"], True), _t(a["bqkv"]),
+        _t(a["wo"], True), _t(a["bo"]), _t(a["ln_s"]) * 0.9, _t(a["ln_b"]) + 0.1,
+        _t(a["w1"], True), _t(a["b1"]), _t(a["w2"], True), _t(a["b2"]))]
+    p1, p2 = mk(), mk()
+    y1 = tlb.fused_layer_train(*p1, 4, "quick_gelu", 1e-5, use_kernel=False)
+    xm = tfb.attention_block_train(*p2[:7], None, 4, 1e-5, False, use_kernel=False)
+    y2 = tfb.mlp_block_train(xm, *p2[7:], "quick_gelu", 1e-5, False, use_kernel=False)
+    assert torch.equal(y1, y2)
+    g = _t(a["g"])
+    y1.backward(g)
+    y2.backward(g)
+    for u, v in zip(p1, p2):
+        assert torch.equal(u.grad, v.grad)
+    p3 = mk()
+    p3[5].requires_grad_(False)
+    with pytest.raises(RuntimeError, match="frozen"):
+        tlb.fused_layer_train(*p3, 4, "quick_gelu", 1e-5, use_kernel=False).backward(g)
+
+
+@pytest.mark.parametrize("post_ln", [False, True])
+def test_frozen_weights_take_the_emitting_backward(post_ln, monkeypatch):
+    """needs_input_grad routing: with every weight frozen but one the
+    Functions run the emitting chains (full=False), launch no
+    weight-gradient stage and no column sum, return None for every frozen
+    weight, and give dx and the one needed gradient of the full route
+    (1e-5 of the largest magnitude: the same fp32 terms in another order).
+    With every weight needing its gradient, route "emit" matches route
+    "fullgrad" the same way."""
+    a = _args(8, 2, 24, 64, 256)
+    kb = _t(a["kb"]) if post_ln else None
+    eps, act = (1e-12, "gelu") if post_ln else (1e-5, "quick_gelu")
+    attn_w = lambda: [_t(a["ln_s"]), _t(a["ln_b"]), _t(a["wqkv"], True), _t(a["bqkv"]),
+                      _t(a["wo"], True), _t(a["bo"])]
+    mlp_w = lambda: [_t(a["ln_s"]), _t(a["ln_b"]), _t(a["w1"], True), _t(a["b1"]),
+                     _t(a["w2"], True), _t(a["b2"])]
+    g = _t(a["g"])
+
+    calls = []
+    plain = tbwd.PLAIN_OPS
+    spy = lambda name, fn: (lambda *args, **kw: (calls.append(name), fn(*args, **kw))[1])
+    monkeypatch.setattr(tbwd, "PLAIN_OPS", plain._replace(
+        wgrad=spy("wgrad", plain.wgrad), colsum=spy("colsum", plain.colsum)))
+
+    def run(block, weights, needed, route):
+        x = _t(a["x"]).requires_grad_()
+        ws = [w.clone().requires_grad_(i in needed) for i, w in enumerate(weights())]
+        if block == "attn":
+            y = tfb.attention_block_train(x, *ws, kb, 4, eps, post_ln, use_kernel=False,
+                                          route=route)
+        else:
+            y = tfb.mlp_block_train(x, *ws, act, eps, post_ln, use_kernel=False, route=route)
+        y.backward(g)
+        return x.grad, [w.grad for w in ws]
+
+    close = lambda u, v: float((u - v).abs().max()) <= 1e-5 * max(float(v.abs().max()), 1.0)
+    everything = range(6)
+    for block, weights, one in (("attn", attn_w, 4 if not post_ln else 2), ("mlp", mlp_w, 2)):
+        calls.clear()
+        dx_full, grads_full = run(block, weights, everything, "fullgrad")
+        assert "wgrad" in calls
+        calls.clear()
+        dx_emit, grads_emit = run(block, weights, everything, "emit")
+        assert not calls, calls
+        assert close(dx_emit, dx_full)
+        for u, v in zip(grads_emit, grads_full):
+            assert close(u, v)
+        calls.clear()
+        dx_one, grads_one = run(block, weights, (one,), "fullgrad")
+        assert not calls, calls
+        assert torch.equal(dx_one, dx_emit)
+        assert [gr is None for gr in grads_one] == [i != one for i in range(6)]
+        assert torch.equal(grads_one[one], grads_emit[one])
+        calls.clear()
+        dx_none, grads_none = run(block, weights, (), "fullgrad")
+        assert not calls and torch.equal(dx_none, dx_emit) and all(gr is None for gr in grads_none)
+
+
+def test_emitting_functions_pass_gradcheck():
+    """Route "emit" in fp64: the caller's weight gradients with #13/#15/#17's
+    dx match finite differences, dropout on in the post-LN forms."""
+    x, ln_w, ln_b, attn, mlp = _gradcheck_inputs(3, 16)
+    kb = torch.zeros(2, 5)
+    kb[1, 4:] = -10000.0
+    fns = [
+        lambda *a: tfb.attention_block_train(a[0], a[1], a[2], *a[3:], None, 2, 1e-5, False,
+                                             use_kernel=False, route="emit"),
+        lambda *a: tfb.attention_block_train(a[0], a[1], a[2], *a[3:], kb, 2, 1e-5, True, 1234,
+                                             0.1, 0.1, use_kernel=False, route="emit"),
+    ]
+    for fn in fns:
+        assert torch.autograd.gradcheck(fn, (x, ln_w, ln_b, *attn))
+    for act, post_ln, seed, rate in (("quick_gelu", False, None, 0.0), ("gelu", True, 99, 0.1)):
+        fn = lambda *a: tfb.mlp_block_train(a[0], a[1], a[2], *a[3:], act, 1e-5, post_ln, seed,
+                                            rate, use_kernel=False, route="emit")
+        assert torch.autograd.gradcheck(fn, (x, ln_w, ln_b, *mlp))

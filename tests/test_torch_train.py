@@ -178,11 +178,17 @@ def test_schedule_and_loss_match_jax():
 
 
 def test_unported_options_raise_and_eval_step_runs():
+    """Accumulation, FLIP, distillation and adam_state_dtype are ported
+    (tests/test_torch_accum.py holds them against JAX): nothing in the
+    trainer refuses them any more. Then freeze_vision, clipping and the
+    eval step."""
     cfg = tconfigs.tiny_config()
     for kw in (dict(accum_freq=2), dict(mask_ratio=0.5), dict(distillation=True),
                dict(adam_state_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer.make_train_step(cfg, trainer.TrainConfig(**kw), ModelOptions())
+        tcfg = trainer.TrainConfig(**kw)
+        assert callable(trainer.make_train_step(cfg, tcfg, ModelOptions()))
+        trainer.create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)),
+                                   tcfg, "cpu")
     module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0))
     state = trainer.create_train_state(module, trainer.TrainConfig(freeze_vision=True,
                                                                    grad_norm_clip=1.0), "cpu")
