@@ -58,7 +58,19 @@ Phases, each printing its lines before the last line:
    merged-at-init features, kernel against plain route, the loss over 8
    steps, the base weights bit-equal, launch counts, ``save_lora`` ->
    ``load_lora``; then the full step with ``accum_freq=2``, with
-   ``mask_ratio=0.5``, with a ViT-B teacher and with bf16 Adam moments.
+   ``mask_ratio=0.5``, with the ViT-H-14@RoBERTa-wwm-ext-large-chinese
+   teacher of the repository's distillation preset (full depth, seeded
+   weights) and with bf16 Adam moments.
+9. The wide towers: #7/#8 (ViT-H widths at S=577, heads of 80), #9/#10
+   (ViT-H at S=257 and ViT-L at S=577), #19, #20 (ViT-L-14-336 and ViT-H
+   widths at S=577) and #1, #13, #14 at heads of 80, against their twins at
+   full width, with a library yardstick; tower.cu at RoBERTa-large's width
+   (24 layers, batch 1 and 8); ViT-H-14@RoBERTa-wwm-ext-large-chinese and
+   ViT-L-14-336@RoBERTa-wwm-ext-base-chinese at full depth, batch 32: one
+   step on the plain and the kernel route compared, then 6 steps (loss,
+   step ms, pairs/s, peak memory, launches a step); a ViT-H-width tower at
+   336 px cut to 4 layers (#7 forward, #20 at heads of 80 backward);
+   ``get_similarity`` of ViT-H-14 at batch 1 and 64 against the plain path.
 
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
@@ -71,6 +83,7 @@ not 0 and no result is printed. Needs CUDA; imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1302,13 +1315,17 @@ def phase_lora(torch, dev, tmp):
     flip, _, peak_f = run(TrainConfig(mask_ratio=0.5, **base_cfg), 2, 7)
     print(f"flip: mask_ratio 0.5 (S = 99): loss {flip[0][0]['loss']:.6f}, step {flip[1][1]:.2f} "
           f"ms, peak {peak_f:.3f} GiB", flush=True)
-    teacher = nct.CLIPModel(cfg, build_clip(cfg, "cpu", torch.Generator().manual_seed(9)).to(dev),
-                            nct.ModelOptions(compute_dtype="bfloat16"))
+    # the teacher that the repository's distillation preset names
+    # (run_scripts/muge_finetune_vit-b-16_rbt-base_distillation.sh:10), full depth
+    cfg_t = nct.load_config(WIDE_H)
+    t_module = build_clip(cfg_t, "cpu", torch.Generator().manual_seed(9)).to(dev)
+    teacher = nct.CLIPModel(cfg_t, t_module, nct.ModelOptions(compute_dtype="bfloat16"))
     kd, _, peak_k = run(TrainConfig(distillation=True, **base_cfg), 4, 7, teacher)
     kds = [m["kd_loss"] for m, _ in kd]
-    print(f"distillation: ViT-B teacher (seed 9), kd_loss {' '.join(f'{x:.5f}' for x in kds)}; "
+    print(f"distillation: {WIDE_H} teacher (seed 9, {cfg_t.vision.layers} + "
+          f"{cfg_t.text.num_hidden_layers} layers), kd_loss {' '.join(f'{x:.5f}' for x in kds)}; "
           f"step {kd[-1][1]:.2f} ms, peak {peak_k:.3f} GiB", flush=True)
-    del teacher
+    del teacher, t_module
     adam, _, peak_a = run(TrainConfig(adam_state_dtype="bfloat16", **base_cfg), 2, 7)
     ref, _, peak_r = run(TrainConfig(**base_cfg), 2, 7)
     print(f"adam_state_dtype bfloat16: loss {adam[0][0]['loss']:.6f} then {adam[1][0]['loss']:.6f} "
@@ -1321,6 +1338,457 @@ def phase_lora(torch, dev, tmp):
         raise AssertionError("FLIP, distillation or bf16 Adam moments: a loss is not finite, "
                              "kd_loss did not fall, or bf16 moments saved no memory")
     return results, lora_step, layer_launches, route_ms
+
+
+WIDE_H = "ViT-H-14@RoBERTa-wwm-ext-large-chinese"
+WIDE_L336 = "ViT-L-14-336@RoBERTa-wwm-ext-base-chinese"
+WIDE_BATCH = 32
+# Bound of the whole-tower kernel against its twin over RoBERTa-large's 24
+# layers: the 12-layer bound's random walk, sqrt(24) ~ 4.9 ulps, twice that.
+TOWER24_ULPS = 10
+# get_similarity of ViT-H-14 (32 + 24 layers) on the kernel route against the
+# plain route, both bf16: the 12-layer bound of phase 5 (0.05) grown by the
+# random walk of the deeper towers, sqrt(32 / 12) ~ 1.6x, to 0.1.
+WIDE_LOGIT_BOUND = 0.1
+
+
+def _wide_counted():
+    """The wrappers whose launches a wide train step or forward counts."""
+    from nans_clip_tpu_torch.ops import fused_block as fb
+    from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+
+    out = {"fused_attention_block_wide": fb.fused_attention_block_wide,
+           "_fused_mlp_tiled_call": fb._fused_mlp_tiled_call,
+           "_fused_mlp_batched_call": fb._fused_mlp_batched_call}
+    for name in ("fused_attention_block_bwd", "fused_attention_block_bwd_fullgrad",
+                 "fused_attention_block_bwd_chunked", "fused_bert_attention_block_bwd",
+                 "fused_bert_attention_block_bwd_fullgrad", "fused_mlp_block_bwd",
+                 "fused_mlp_block_bwd_fullgrad", "fused_mlp_block_bwd_chunked"):
+        out[name] = getattr(fbb, name)
+    out.update(_counted())
+    return out
+
+
+def _wide_counts():
+    from nans_clip_tpu_torch.ops import fused_block as fb
+
+    out = {name: fn.launches for name, fn in _wide_counted().items()}
+    out["fused_attention_block_wide[batch_tile>1]"] = \
+        fb.fused_attention_block_wide.launches_batched
+    out.update(_tower_counts())
+    return out
+
+
+def _wide_reset():
+    from nans_clip_tpu_torch.ops import fused_block as fb
+
+    _reset_counts()
+    for fn in _wide_counted().values():
+        fn.launches = 0
+    fb.fused_attention_block_wide.launches_batched = 0
+
+
+def _check_launches(what, got, want):
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def phase_wide(torch, dev):
+    """Phase 9: the wide towers. The kernels of #7-#10, #19, #20 and #1, #13,
+    #14 at heads of 80 against their twins at full width; one train step on
+    the plain and the kernel route; 6 steps of ViT-H-14 and of ViT-L-14-336
+    at batch 32, full depth; a ViT-H-width tower at 336 px; get_similarity
+    of ViT-H-14 at batch 1 and 64; tower.cu at RoBERTa-large's width."""
+    import copy
+
+    import torch.nn.functional as F
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.configs import with_resolution
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.ops import fused_block as fb
+    from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+    from nans_clip_tpu_torch.ops import gates
+    from nans_clip_tpu_torch.ops import layer_kernel as lk
+    from nans_clip_tpu_torch.ops import tower_kernel as tk
+    from nans_clip_tpu_torch.training import TrainConfig, create_train_state, make_train_step
+
+    t_phase = time.time()
+    g = torch.Generator(device=dev).manual_seed(10)
+    bf = torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std + mean).to(bf)
+
+    def params(w, inter):
+        std = w ** -0.5
+        return (rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(3 * w, w, std=std),
+                rnd(3 * w, std=0.1), rnd(w, w, std=std), rnd(w, std=0.1),
+                rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(inter, w, std=std),
+                rnd(inter, std=0.1), rnd(w, inter, std=std / 2), rnd(w, std=0.1))
+
+    def yard_attn(x, gout, p, heads):
+        """The pre-LN attention sub-block in library calls (F.layer_norm,
+        F.linear, SDPA): the forward alone, or with ``gout`` the forward and
+        dx with the weights frozen. A yardstick of speed only."""
+        b, s, w = x.shape
+
+        def fwd(xr):
+            xn = F.layer_norm(xr, (w,), p[0], p[1], 1e-5)
+            q, k, v = F.linear(xn, p[2], p[3]).view(b, s, 3, heads, w // heads).permute(
+                2, 0, 3, 1, 4).unbind(0)
+            ctx = F.scaled_dot_product_attention(q, k, v)
+            return xr + F.linear(ctx.transpose(1, 2).reshape(b, s, w), p[4], p[5])
+        if gout is None:
+            return lambda: fwd(x)
+        xr = x.detach().requires_grad_()
+        return lambda: torch.autograd.grad(fwd(xr), [xr], gout)
+
+    def yard_mlp(x, gout, p):
+        w = x.shape[-1]
+
+        def fwd(xr):
+            h = F.linear(F.layer_norm(xr, (w,), p[0], p[1], 1e-5), p[2], p[3])
+            return xr + F.linear(h * torch.sigmoid(1.702 * h), p[4], p[5])
+        if gout is None:
+            return lambda: fwd(x)
+        xr = x.detach().requires_grad_()
+        return lambda: torch.autograd.grad(fwd(xr), [xr], gout)
+
+    pH, pL = params(1280, 5120), params(1024, 4096)
+    xH, gH = rnd(WIDE_BATCH, 257, 1280), rnd(WIDE_BATCH, 257, 1280)
+    xH5, gH5 = rnd(16, 577, 1280), rnd(16, 577, 1280)
+    xL, gL = rnd(WIDE_BATCH, 577, 1024), rnd(WIDE_BATCH, 577, 1024)
+    zero_bo = torch.zeros(1280, device=dev, dtype=bf)
+    hpc_l = gates.attn_bwd_head_chunk(577, 1024, 16)
+    hpc_h = gates.attn_bwd_head_chunk(577, 1280, 16) or 1
+    chunk_h, chunk_l = gates.mlp_chunk_size(1280, 5120), gates.mlp_chunk_size(1024, 4096)
+
+    def attn_cost(x, w):
+        m, s = x.shape[0] * x.shape[1], x.shape[1]
+        return m * 2 * w * 2 + (4 * w * w + 6 * w) * 2, 8 * m * w * w + 4 * m * s * w
+
+    def mlp_cost(x, w, inter):
+        m = x.shape[0] * x.shape[1]
+        return m * 2 * w * 2 + (2 * w * inter + 4 * w + inter) * 2, 4 * m * w * inter
+
+    def attn_bwd_cost(x, w, full):
+        """x and g read, dx and what is emitted written (xn, ctx, dqkv: 5W a
+        row), the weights read (and their fp32 gradients written, ``full``);
+        the recomputed forward, dctx, dxn (and dW) products and attention's
+        four products of the backward and two of the recompute."""
+        m, s = x.shape[0] * x.shape[1], x.shape[1]
+        io = m * w * 2 * (3 + (0 if full else 5))
+        wb = (4 * w * w + 6 * w) * (2 + (4 if full else 0))
+        return io + wb, (22 if full else 14) * m * w * w + 12 * m * s * w
+
+    def mlp_bwd_cost(x, w, inter):
+        m = x.shape[0] * x.shape[1]
+        return (m * (7 * w + 2 * inter) * 2 + (2 * w * inter + 2 * w + inter) * 2,
+                6 * m * w * inter)
+
+    sub = lambda out, idx: [t for i, t in enumerate(out) if i in idx]
+    # (name, kernel call, twin call, yardstick, (bytes, operations), replaces or
+    #  None, backward)
+    cases = [
+        ("fused_attention_block_wide",
+         lambda: fb.fused_attention_block_wide(xH5, *pH[:6], 16, 1e-5, 4, False, 1),
+         lambda: fb._reference_block(xH5, *pH[:6], 16, 1e-5), yard_attn(xH5, None, pH, 16),
+         attn_cost(xH5, 1280), "nans_clip_tpu/ops/fused_block.py:491", False),
+        ("fused_attention_block_wide[batch_tile=2]",
+         lambda: fb.fused_attention_block_wide(xH5, *pH[:6], 16, 1e-5, 4, False, 2),
+         lambda: fb._reference_block(xH5, *pH[:6], 16, 1e-5), yard_attn(xH5, None, pH, 16),
+         attn_cost(xH5, 1280), "nans_clip_tpu/ops/fused_block.py:568", False),
+        ("_fused_mlp_tiled_call",
+         lambda: fb._fused_mlp_tiled_call(xH, *pH[6:], "quick_gelu", 1e-5, False, False,
+                                          chunk_h),
+         lambda: fb._reference_mlp(xH, *pH[6:], "quick_gelu", 1e-5, False),
+         yard_mlp(xH, None, pH[6:]), mlp_cost(xH, 1280, 5120),
+         "nans_clip_tpu/ops/fused_block.py:899", False),
+        ("_fused_mlp_tiled_call[S=577, W=1024]",
+         lambda: fb._fused_mlp_tiled_call(xL, *pL[6:], "quick_gelu", 1e-5, False, False,
+                                          chunk_l),
+         lambda: fb._reference_mlp(xL, *pL[6:], "quick_gelu", 1e-5, False),
+         yard_mlp(xL, None, pL[6:]), mlp_cost(xL, 1024, 4096), None, False),
+        ("_fused_mlp_batched_call",
+         lambda: fb._fused_mlp_batched_call(xH, *pH[6:], "quick_gelu", 1e-5, False, False,
+                                            chunk_h, 2),
+         lambda: fb._reference_mlp(xH, *pH[6:], "quick_gelu", 1e-5, False),
+         yard_mlp(xH, None, pH[6:]), mlp_cost(xH, 1280, 5120),
+         "nans_clip_tpu/ops/fused_block.py:1005", False),
+        ("_fused_mlp_batched_call[S=577, W=1024]",
+         lambda: fb._fused_mlp_batched_call(xL, *pL[6:], "quick_gelu", 1e-5, False, False,
+                                            chunk_l, 2),
+         lambda: fb._reference_mlp(xL, *pL[6:], "quick_gelu", 1e-5, False),
+         yard_mlp(xL, None, pL[6:]), mlp_cost(xL, 1024, 4096), None, False),
+        ("fused_attention_block[dh=80]",
+         lambda: fb.fused_attention_block(xH, *pH[:6], 16, 1e-5),
+         lambda: fb._reference_block(xH, *pH[:6], 16, 1e-5), yard_attn(xH, None, pH, 16),
+         attn_cost(xH, 1280), None, False),
+        ("fused_mlp_block_bwd_chunked",
+         lambda: fbb.fused_mlp_block_bwd_chunked(xH, *pH[6:11], gH, "quick_gelu", 1e-5, chunk_h,
+                                                 2),
+         lambda: sub(fbb._mlp_bwd_math(xH, *pH[6:], None, gH, "quick_gelu", 1e-5, False,
+                                       full=False), (0, 1, 2, 3, 6)),
+         yard_mlp(xH, gH, pH[6:]), mlp_bwd_cost(xH, 1280, 5120),
+         "nans_clip_tpu/ops/fused_block_bwd.py:1015", True),
+        ("fused_mlp_block_bwd_chunked[S=577, W=1024]",
+         lambda: fbb.fused_mlp_block_bwd_chunked(xL, *pL[6:11], gL, "quick_gelu", 1e-5, chunk_l,
+                                                 2),
+         lambda: sub(fbb._mlp_bwd_math(xL, *pL[6:], None, gL, "quick_gelu", 1e-5, False,
+                                       full=False), (0, 1, 2, 3, 6)),
+         yard_mlp(xL, gL, pL[6:]), mlp_bwd_cost(xL, 1024, 4096), None, True),
+        ("fused_attention_block_bwd_chunked",
+         lambda: fbb.fused_attention_block_bwd_chunked(xL, *pL[:5], gL, 16, hpc_l),
+         lambda: fbb.per_chunk(fbb._attn_bwd_math(xL, *pL[:5], gL, 16, 1e-5, full=False), 16,
+                               hpc_l),
+         yard_attn(xL, gL, pL, 16), attn_bwd_cost(xL, 1024, False),
+         "nans_clip_tpu/ops/fused_block_bwd.py:1144", True),
+        ("fused_attention_block_bwd_chunked[dh=80]",
+         lambda: fbb.fused_attention_block_bwd_chunked(xH5, *pH[:5], gH5, 16, hpc_h),
+         lambda: fbb.per_chunk(fbb._attn_bwd_math(xH5, *pH[:5], gH5, 16, 1e-5, full=False), 16,
+                               hpc_h),
+         yard_attn(xH5, gH5, pH, 16), attn_bwd_cost(xH5, 1280, False), None, True),
+        ("fused_attention_block_bwd[dh=80]",
+         lambda: fbb.fused_attention_block_bwd(xH, *pH[:5], gH, 16),
+         lambda: fbb._attn_bwd_math(xH, *pH[:5], gH, 16, 1e-5, full=False),
+         yard_attn(xH, gH, pH, 16), attn_bwd_cost(xH, 1280, False), None, True),
+        ("fused_attention_block_bwd_fullgrad[dh=80]",
+         lambda: fbb.fused_attention_block_bwd_fullgrad(xH, *pH[:5], gH, 16),
+         lambda: fbb._attn_bwd_math(xH, *pH[:5], gH, 16, 1e-5),
+         yard_attn(xH, gH, pH[:4] + (pH[4], zero_bo), 16), attn_bwd_cost(xH, 1280, True), None,
+         True),
+    ]
+    results = {}
+    _wide_reset()
+    for name, kern, twin, yard, cost, replaces, bwd in cases:
+        got, want = kern(), twin()
+        torch.cuda.synchronize()
+        if bwd:
+            err, rel = 0.0, 0.0
+            for i, (a, r) in enumerate(zip(got, want)):
+                e, top = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+                if a.shape != r.shape or not torch.isfinite(a).all() or e > BWD_REL * top:
+                    raise AssertionError(f"{name} output {i}: max abs err {e} exceeds "
+                                         f"{BWD_REL} x {top}")
+                err, rel = max(err, e), max(rel, e / max(top, 1e-30))
+            if not all(torch.equal(a, r) for a, r in zip(got, kern())):
+                raise AssertionError(f"{name}: two calls gave different bits")
+            agree = f"largest error over max|twin| {rel:.4g} <= {BWD_REL} on {len(got)} outputs"
+        else:
+            err, bound = float((got.float() - want.float()).abs().max()), _ulps(want, 4)
+            if got.shape != want.shape or not torch.isfinite(got).all() or err > bound:
+                raise AssertionError(f"{name}: max abs err {err} exceeds bound {bound}")
+            agree = f"<= bound {bound:.6g} (4 bf16 ulp)"
+        del got, want
+        ms, plain_ms, yard_ms = _time_ms(kern, 5), _time_ms(twin, 2), _time_ms(yard, 5)
+        bound_ms, bound_by = _bound(*cost)
+        print(f"wide kernel {name}: max_abs_err {err:.6g} {agree}; {ms:.4f} ms, twin "
+              f"{plain_ms:.4f} ms, yardstick {yard_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {cost[1] / 1e9:.1f} GFLOP, {cost[0] / 1e6:.1f} MB)", flush=True)
+        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, yard_ms=yard_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, replaces=replaces)
+    direct = _wide_counts()
+    del xH, gH, xH5, gH5, xL, gL, pH, pL
+    torch.cuda.empty_cache()
+    print(f"wide: kernels against their twins took {time.time() - t_phase:.1f} s", flush=True)
+
+    # tower.cu at RoBERTa-large's width: 24 layers, batch 1 and 8
+    w, inter, s = 1024, 4096, 52
+    std = 0.02
+    layers = [(rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(3 * w, w, std=std),
+               rnd(3 * w, std=0.1), rnd(w, w, std=std), rnd(w, std=0.1),
+               rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(inter, w, std=std),
+               rnd(inter, std=0.1), rnd(w, inter, std=std / 2), rnd(w, std=0.1))
+              for _ in range(24)]
+    for b in (1, 8):
+        x = rnd(b, s, w)
+        lengths = torch.randint(2, s + 1, (b,), generator=g, device=dev)
+        kb = ((1.0 - (torch.arange(s, device=dev)[None, :] < lengths[:, None]).float())
+              * -10000.0).contiguous()
+        args = (x, kb, layers, 16, 1e-12, "gelu", True)
+        table = tk.TowerTable()
+        got, want = tk.fused_tower(*args, table=table), tk.tower_math(*args)
+        torch.cuda.synchronize()
+        err, bound = float((got.float() - want.float()).abs().max()), _ulps(want, TOWER24_ULPS)
+        if not (torch.isfinite(got).all() and err <= bound):
+            raise AssertionError(f"tower at W=1024, b={b}: max abs err {err} exceeds {bound}")
+        def per_layer():
+            y = x
+            for p in layers:
+                y = lk.fused_layer_block(y, *p, 16, 1e-12, "gelu", True, kb)
+            return y
+
+        ms = _time_ms(lambda: tk.fused_tower(*args, table=table), 10)
+        layer_ms = _time_ms(per_layer, 5)
+        print(f"wide tower fused_tower[RoBERTa-large, b={b}]: max_abs_err {err:.6g} <= bound "
+              f"{bound:.6g} ({TOWER24_ULPS} bf16 ulp); {ms:.4f} ms, per-layer route "
+              f"{layer_ms:.4f} ms", flush=True)
+    del layers
+
+    # the train steps
+    def build(struct, resolution=None, layers=None):
+        cfg = nct.load_config(struct)
+        if resolution:
+            cfg = with_resolution(cfg, resolution)
+        if layers:
+            cfg = dataclasses.replace(
+                cfg, vision=dataclasses.replace(cfg.vision, layers=layers),
+                text=dataclasses.replace(cfg.text, num_hidden_layers=layers))
+        return cfg, build_clip(cfg, "cpu", torch.Generator().manual_seed(0))
+
+    def batch_for(cfg, b):
+        gen = torch.Generator().manual_seed(11)
+        r = cfg.vision.image_resolution
+        images = torch.randn(b, r, r, 3, generator=gen).to(dev)
+        ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}" for i in range(b)]))
+        return images, ids.to(dev)
+
+    opts = lambda **kw: nct.ModelOptions(compute_dtype="bfloat16", deterministic=False, **kw)
+    # a small rate and the same dropout seed on every step: on one fixed batch
+    # the loss then falls step by step (Adam moves every weight by about the
+    # rate, coherently, through 24-32 layers)
+    tcfg = TrainConfig(lr=2e-5, warmup=2, max_steps=100)
+
+    def expected_step(cfg):
+        """Launches of one train step on the auto routes, from the shapes."""
+        n_img, n_txt = cfg.vision.layers, cfg.text.num_hidden_layers
+        s, w = cfg.vision.seq_len, cfg.vision.width
+        wide_attn = not gates.fits_fused(s, w) and gates.fits_fused_wide(s, w)
+        plan = fb.mlp_plan(WIDE_BATCH, s, w, 4 * w, 2)
+        long_bwd = s > gates.ATTN_BWD_MAX_SEQ
+        full_a = gates.BWD_ROUTE["attn_pre"] == "fullgrad" and not long_bwd
+        mlp_emit = gates.BWD_ROUTE["mlp_pre"] == "emit"
+        txt_full = {k: gates.BWD_ROUTE[k] == "fullgrad" for k in ("attn_post", "mlp_post")}
+        return {"fused_attention_block": n_img * (not wide_attn),
+                "fused_attention_block_wide": n_img * wide_attn,
+                "fused_bert_attention_block": n_txt,
+                "fused_mlp_block": n_txt + n_img * (plan is None),
+                "_fused_mlp_batched_call": n_img * (plan is not None and plan[1] > 1),
+                "_fused_mlp_tiled_call": n_img * (plan is not None and plan[1] == 1),
+                "fused_attention_block_bwd_chunked": n_img * long_bwd,
+                "fused_attention_block_bwd_fullgrad": n_img * full_a,
+                "fused_attention_block_bwd": n_img * (not long_bwd and not full_a),
+                "fused_bert_attention_block_bwd_fullgrad": n_txt * txt_full["attn_post"],
+                "fused_bert_attention_block_bwd": n_txt * (not txt_full["attn_post"]),
+                "fused_mlp_block_bwd_chunked": n_img * (plan is not None and mlp_emit),
+                "fused_mlp_block_bwd": n_txt * (not txt_full["mlp_post"])
+                + n_img * (plan is None and mlp_emit),
+                "fused_mlp_block_bwd_fullgrad": n_txt * txt_full["mlp_post"]
+                + n_img * (not mlp_emit),
+                "fused_layer_block": 0, "fused_tower": 0, "fused_tower_int8": 0}
+
+    def train(label, cfg, module, b, n_steps):
+        """One step on the plain and on the kernel route from the same
+        weights and seeds, compared; then ``n_steps`` kernel steps."""
+        images, ids = batch_for(cfg, b)
+        t0 = time.time()
+        plain_state = create_train_state(copy.deepcopy(module).to(dev), tcfg, device=dev)
+        plain_state, m = make_train_step(cfg, tcfg, opts(attn_impl="plain"))(
+            plain_state, images, ids, 7)
+        plain_loss = float(m["loss"])
+        plain_grads = {n: p.grad for n, p in plain_state.module.named_parameters()}
+        plain_s = time.time() - t0
+        del plain_state
+        torch.cuda.empty_cache()
+        state = create_train_state(module.to(dev), tcfg, device=dev)
+        step = make_train_step(cfg, tcfg, opts())
+        want = expected_step(cfg)
+        losses, events = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _wide_reset()
+        for i in range(n_steps):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            state, metrics = step(state, images, ids, 7)
+            ev[1].record()
+            events.append(ev)
+            losses.append(metrics["loss"])
+            if i == 0:
+                torch.cuda.synchronize()
+                per_step = _wide_counts()
+                _check_launches(f"{label}: one step", per_step, want)
+                cos = {n: _cos(p.grad, plain_grads[n])
+                       for n, p in state.module.named_parameters() if not n.endswith("key.bias")}
+                worst = min(cos, key=cos.get)
+                diff = abs(float(metrics["loss"]) - plain_loss)
+                print(f"{label}: kernel vs plain route after one step: loss "
+                      f"{float(metrics['loss']):.6f} vs {plain_loss:.6f} (|diff| {diff:.3g} <= "
+                      f"{STEP_LOSS_BOUND}); gradient cosine >= {cos[worst]:.6f} ({worst}) over "
+                      f"{len(cos)} tensors, bound {GRAD_COS_BOUND}; plain step {plain_s:.1f} s",
+                      flush=True)
+                if diff > STEP_LOSS_BOUND or cos[worst] < GRAD_COS_BOUND:
+                    raise AssertionError(f"{label}: the kernel route's step differs from the "
+                                         "plain route's")
+                del plain_grads
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        total, peak = _wide_counts(), torch.cuda.max_memory_allocated()
+        step_ms = [a.elapsed_time(e) for a, e in events]
+        losses = [float(x) for x in losses]
+        ms = sum(step_ms[1:]) / (n_steps - 1)
+        nonzero = {k: v for k, v in per_step.items() if v}
+        print(f"{label}: batch {b}, {n_steps} steps, loss {' '.join(f'{x:.5f}' for x in losses)}; "
+              f"step ms {' '.join(f'{x:.2f}' for x in step_ms)}; steps 2-{n_steps} {ms:.2f} ms a "
+              f"step, {b / ms * 1e3:.2f} pairs/s; peak memory (steps 2-{n_steps}) "
+              f"{peak / 2 ** 30:.3f} GiB; launches "
+              f"a step {json.dumps(nonzero)}", flush=True)
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: the loss did not fall over {n_steps} steps: {losses}")
+        if any(total[k] != n_steps * v for k, v in per_step.items()):
+            raise AssertionError(f"{label}: launches over {n_steps} steps {total} are not "
+                                 f"{n_steps} x {per_step}")
+        del state
+        torch.cuda.empty_cache()
+        return dict(ms=ms, pairs_s=b / ms * 1e3, peak=peak, per_step=per_step, losses=losses)
+
+    steps = {}
+    t0 = time.time()
+    cfg_h, module_h = build(WIDE_H)
+    n_params = sum(p.numel() for p in module_h.parameters())
+    print(f"wide: {WIDE_H} random (seed 0), {n_params} fp32 parameters, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    eval_h = copy.deepcopy(module_h)
+    steps["ViT-H-14"] = train("train ViT-H-14", cfg_h, module_h, WIDE_BATCH, 6)
+    del module_h
+    cfg_l, module_l = build(WIDE_L336)
+    steps["ViT-L-14-336"] = train("train ViT-L-14-336", cfg_l, module_l, WIDE_BATCH, 6)
+    del module_l
+    cfg_t, module_t = build(WIDE_H, resolution=336, layers=4)
+    steps["ViT-H-width@336px"] = train("train ViT-H-width@336px (4 + 4 layers)", cfg_t,
+                                       module_t, WIDE_BATCH, 3)
+    del module_t
+    torch.cuda.empty_cache()
+
+    # get_similarity of ViT-H-14 at batch 1 and 64 against the plain path
+    model = nct.CLIPModel(cfg_h, eval_h.to(dev), nct.ModelOptions(compute_dtype="bfloat16"))
+    plain = nct.CLIPModel(cfg_h, model.module, nct.ModelOptions(compute_dtype="bfloat16",
+                                                                attn_impl="plain"))
+    forward = {}
+    for b in (1, 64):
+        images, ids = batch_for(cfg_h, b)
+        _wide_reset()
+        li, lt = model.get_similarity(images, ids)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _wide_counts().items() if v}
+        pli = plain.get_similarity(images, ids)[0]
+        err = float((li - pli).abs().max())
+        ms = _time_ms(lambda: model.get_similarity(images, ids), 5)
+        plain_ms = _time_ms(lambda: plain.get_similarity(images, ids), 2)
+        print(f"wide get_similarity ViT-H-14 batch {b}: kernel vs plain bf16 max abs err "
+              f"{err:.6g} <= bound {WIDE_LOGIT_BOUND}; {ms:.2f} ms ({b / ms * 1e3:.1f} pairs/s), "
+              f"plain path {plain_ms:.2f} ms; launches {json.dumps(counts)}", flush=True)
+        if li.shape != (b, b) or not torch.isfinite(li).all() or not torch.equal(lt, li.T) \
+                or err > WIDE_LOGIT_BOUND:
+            raise AssertionError(f"ViT-H-14 get_similarity at batch {b}: shape "
+                                 f"{tuple(li.shape)}, error {err}")
+        forward[b] = counts
+    del model, plain, eval_h
+    torch.cuda.empty_cache()
+    print(f"wide: phase 9 took {time.time() - t_phase:.1f} s", flush=True)
+    return results, steps, forward, direct
 
 
 def main() -> int:
@@ -1369,6 +1837,7 @@ def main() -> int:
         os.remove(ckpt)
         train_results, train_launches = phase_training(torch, dev, tmp)
         lora_results, lora_step, layer_launches, _ = phase_lora(torch, dev, tmp)
+    wide_results, wide_steps, wide_forward, wide_direct = phase_wide(torch, dev)
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")
@@ -1413,13 +1882,41 @@ def main() -> int:
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
                         "yardstick_ms": r["yard_ms"]})
+    # #7 from the ViT-H-width tower at 336 px (its main path), #8 from its direct
+    # calls (no JAX entry point routes it), #9 from get_similarity at batch 1,
+    # #10 and #19 from a ViT-H-14 step, #20 from a ViT-L-14-336 step
+    wide_launches = {
+        "fused_attention_block_wide": (wide_steps["ViT-H-width@336px"]["per_step"][
+            "fused_attention_block_wide"], "train step, ViT-H width at 336 px"),
+        "fused_attention_block_wide[batch_tile=2]": (
+            wide_direct["fused_attention_block_wide[batch_tile>1]"], "direct"),
+        "_fused_mlp_tiled_call": (wide_forward[1]["_fused_mlp_tiled_call"],
+                                  "get_similarity ViT-H-14, batch 1"),
+        "_fused_mlp_batched_call": (wide_steps["ViT-H-14"]["per_step"]["_fused_mlp_batched_call"],
+                                    "train step, ViT-H-14"),
+        "fused_mlp_block_bwd_chunked": (wide_steps["ViT-H-14"]["per_step"][
+            "fused_mlp_block_bwd_chunked"], "train step, ViT-H-14"),
+        "fused_attention_block_bwd_chunked": (wide_steps["ViT-L-14-336"]["per_step"][
+            "fused_attention_block_bwd_chunked"], "train step, ViT-L-14-336"),
+    }
+    for name, r in wide_results.items():
+        if r["replaces"] is None:
+            continue
+        launches, path = wide_launches[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "nans_clip_tpu_torch/ops/"
+                                  + ("fused_block_bwd.py" if "bwd" in name else "fused_block.py"),
+                        "replaces": r["replaces"], "launches": launches, "path": path,
+                        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                        "yardstick_ms": r["yard_ms"]})
     ported = {"fused_attention_block", "fused_mlp_block", "fused_layer_block", "fused_tower",
               "fused_tower_int8", "fused_attention_block_bwd", "fused_bert_attention_block_bwd",
               "fused_mlp_block_bwd", "fused_attention_block_bwd_fullgrad",
               "fused_bert_attention_block_bwd_fullgrad", "fused_mlp_block_bwd_fullgrad",
-              "fused_layer_block_bwd_fullgrad"}
+              "fused_layer_block_bwd_fullgrad", *wide_launches}
     if not ported <= {k["name"] for k in kernels} or any(k["launches"] < 1 for k in kernels):
-        raise AssertionError(f"the twelve ported TPU kernels, each launched on its main path: "
+        raise AssertionError(f"the eighteen ported TPU kernels, each launched on its main path: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

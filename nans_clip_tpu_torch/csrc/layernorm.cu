@@ -28,6 +28,17 @@
 // _bert_bwd_kernel :401 uhat, _mlp_bwd_kernel :797 lnstat) it also writes
 // x-hat as bf16, and leaves the column sums out when no partials buffer is
 // given. Bound: memory, as the forward; one warp a row, the row in registers.
+//
+// Rows wider than 1024 (ViT-H's 1280, up to the JAX package's 2048: the LN
+// stages of fused_block.py::_wide_kernel :497, _mlp_tiled_kernel :911,
+// _mlp_batched_kernel :1010 and fused_block_bwd.py::_mlp_bwd_chunked_kernel
+// :1023, _attn_bwd_chunked_kernel :1153) would take 64 values a lane and
+// spill. They take the *_wide kernels: one block of 256 threads a row, at
+// most 8 values a thread, the same two-pass fp32 statistics with the warp
+// sums added in a fixed order through shared memory. The backward keeps one
+// block on 32 rows, one row after another, so each thread owns the same
+// columns on every row and sums them in registers in row order. Rows of
+// 1024 and less keep the one-warp kernels.
 #include "common.cuh"
 #include "dropout.cuh"
 
@@ -190,6 +201,146 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+constexpr int kWideThreads = 256;
+constexpr int kWidePerThread = 8;  // W <= 2048
+
+// The sum of v over the block in a fixed order: each warp's shuffle sum,
+// then the warps' sums in order. Every thread returns the same value.
+NANS_DEVICE float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();  // the previous call's reads of red are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWideThreads / 32; ++w) s += red[w];
+  return s;
+}
+
+template <typename TIn>
+__global__ void __launch_bounds__(kWideThreads)
+    layernorm_wide_kernel(const TIn* __restrict__ x, const __nv_bfloat16* __restrict__ gamma,
+                          const __nv_bfloat16* __restrict__ beta, __nv_bfloat16* __restrict__ y,
+                          int width, float eps) {
+  __shared__ float red[kWideThreads / 32];
+  const size_t base = static_cast<size_t>(blockIdx.x) * width;
+  float v[kWidePerThread];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int c = i * kWideThreads + threadIdx.x;
+    v[i] = c < width ? load_f32(x + base, c) : 0.f;
+    s += v[i];
+  }
+  const float mean = block_sum(s, red) / width;
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int c = i * kWideThreads + threadIdx.x;
+    const float d = v[i] - mean;
+    if (c < width) sq += d * d;
+  }
+  const float rstd = rsqrtf(block_sum(sq, red) / width + eps);
+#pragma unroll
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int c = i * kWideThreads + threadIdx.x;
+    if (c < width)
+      y[base + c] = __float2bfloat16_rn((v[i] - mean) * rstd * __bfloat162float(gamma[c]) +
+                                        __bfloat162float(beta[c]));
+  }
+}
+
+// layernorm_bwd_kernel for rows wider than 1024: one block of kWideThreads
+// on rows [blockIdx.x * kBwdRows, +kBwdRows), one row after another; thread
+// t owns columns t, t + 256, ... and sums their column terms in registers.
+template <bool kEmit>
+__global__ void __launch_bounds__(kWideThreads)
+    layernorm_bwd_wide_kernel(const void* __restrict__ gin, int g_f32,
+                              const void* __restrict__ x, int x_f32,
+                              const __nv_bfloat16* __restrict__ gamma,
+                              const void* __restrict__ res, int res_f32, void* __restrict__ dx,
+                              int dx_f32, __nv_bfloat16* __restrict__ dmul,
+                              __nv_bfloat16* __restrict__ xhat_out, drop::Spec drop, int seq,
+                              float* __restrict__ part, int rows, int width, float eps) {
+  __shared__ float red[kWideThreads / 32];
+  float gm[kWidePerThread], acc[3][kWidePerThread];
+#pragma unroll
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int c = i * kWideThreads + threadIdx.x;
+    gm[i] = c < width ? __bfloat162float(gamma[c]) : 0.f;
+    acc[0][i] = acc[1][i] = acc[2][i] = 0.f;
+  }
+  for (int it = 0; it < kBwdRows; ++it) {
+    const int row = blockIdx.x * kBwdRows + it;
+    if (row >= rows) break;  // uniform over the block
+    const size_t base = static_cast<size_t>(row) * width;
+    float xh[kWidePerThread], gr[kWidePerThread];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWidePerThread; ++i) {
+      const int c = i * kWideThreads + threadIdx.x;
+      xh[i] = c < width ? load_any(x, x_f32, base + c) : 0.f;
+      s += xh[i];
+    }
+    const float mean = block_sum(s, red) / width;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWidePerThread; ++i) {
+      const int c = i * kWideThreads + threadIdx.x;
+      const float d = xh[i] - mean;
+      if (c < width) sq += d * d;
+    }
+    const float rstd = rsqrtf(block_sum(sq, red) / width + eps);
+    float sg = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWidePerThread; ++i) {
+      const int c = i * kWideThreads + threadIdx.x;
+      xh[i] = (xh[i] - mean) * rstd;
+      gr[i] = 0.f;
+      if (c < width) {
+        if (kEmit && xhat_out) xhat_out[base + c] = __float2bfloat16_rn(xh[i]);
+        gr[i] = load_any(gin, g_f32, base + c);
+        const float gh = gr[i] * gm[i];
+        sg += gh;
+        sgx += gh * xh[i];
+      }
+    }
+    const float mg = block_sum(sg, red) / width, mgx = block_sum(sgx, red) / width;
+    const int sample = row / seq, srow = row - sample * seq;
+#pragma unroll
+    for (int i = 0; i < kWidePerThread; ++i) {
+      const int c = i * kWideThreads + threadIdx.x;
+      if (c >= width) continue;
+      float d = rstd * (gr[i] * gm[i] - mg - xh[i] * mgx);
+      float dm = 0.f;
+      if (dmul) {
+        dm = d * drop::mult(drop, sample, 0, srow, c);
+        dmul[base + c] = __float2bfloat16_rn(dm);
+      }
+      if (res) d += load_any(res, res_f32, base + c);
+      if (dx_f32) {
+        static_cast<float*>(dx)[base + c] = d;
+      } else {
+        static_cast<__nv_bfloat16*>(dx)[base + c] = __float2bfloat16_rn(d);
+      }
+      if (!kEmit || part) {
+        acc[0][i] += gr[i] * xh[i];
+        acc[1][i] += gr[i];
+        acc[2][i] += dm;
+      }
+    }
+  }
+  if (kEmit && !part) return;
+#pragma unroll
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int c = i * kWideThreads + threadIdx.x;
+    if (c >= width) continue;
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      part[(static_cast<size_t>(q) * gridDim.x + blockIdx.x) * width + c] = acc[q][i];
+  }
+}
+
 }  // namespace
 
 // gin: [rows, width] the LN output's gradient, fp32 (g_f32) or bf16; x:
@@ -197,8 +348,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 // res: [rows, width] fp32 (res_f32) or bf16, or null; dx: [rows, width] fp32
 // (dx_f32) or bf16; dmul: [rows, width] bf16 or null (then no dropout);
 // xhat: [rows, width] bf16 or null; part: [3, ceil(rows / 32), width] fp32,
-// or null for no column sums. width % 32 == 0, width <= 1024
-// (checked by the Python wrapper). Returns cudaGetLastError().
+// or null for no column sums. width % 32 == 0, width <= 2048 (checked by
+// the Python wrapper). Returns cudaGetLastError().
 extern "C" int nans_layernorm_bwd(const void* gin, int g_f32, const void* x, int x_f32,
                                   const void* gamma, const void* res, int res_f32, void* dx,
                                   int dx_f32, void* dmul, void* xhat, unsigned drop_seed,
@@ -206,8 +357,10 @@ extern "C" int nans_layernorm_bwd(const void* gin, int g_f32, const void* x, int
                                   float drop_scale, int drop_on, int seq, void* part, int rows,
                                   int width, float eps, void* stream) {
   const dim3 grid((rows + kBwdRows - 1) / kBwdRows);
-  auto* kernel = (xhat || !part) ? layernorm_bwd_kernel<true> : layernorm_bwd_kernel<false>;
-  kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool emit = xhat || !part, wide = width > kMaxPerLane * 32;
+  auto* kernel = wide ? (emit ? layernorm_bwd_wide_kernel<true> : layernorm_bwd_wide_kernel<false>)
+                      : (emit ? layernorm_bwd_kernel<true> : layernorm_bwd_kernel<false>);
+  kernel<<<grid, wide ? kWideThreads : kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       gin, g_f32, x, x_f32, static_cast<const __nv_bfloat16*>(gamma), res, res_f32, dx, dx_f32,
       static_cast<__nv_bfloat16*>(dmul), static_cast<__nv_bfloat16*>(xhat),
       drop::Spec{drop_seed, drop_stream, drop_threshold, drop_scale, drop_on},
@@ -216,7 +369,7 @@ extern "C" int nans_layernorm_bwd(const void* gin, int g_f32, const void* x, int
 }
 
 // x: [rows, width] fp32 (x_is_fp32 != 0) or bf16; gamma, beta: [width] bf16;
-// y: [rows, width] bf16. width % 32 == 0 and width <= 1024 (checked by the
+// y: [rows, width] bf16. width % 32 == 0 and width <= 2048 (checked by the
 // Python wrapper). Returns cudaGetLastError() after the launch.
 extern "C" int nans_layernorm(const void* x, int x_is_fp32, const void* gamma, const void* beta,
                               void* y, int rows, int width, float eps, void* stream) {
@@ -226,7 +379,15 @@ extern "C" int nans_layernorm(const void* x, int x_is_fp32, const void* gamma, c
   const auto* g = static_cast<const __nv_bfloat16*>(gamma);
   const auto* b = static_cast<const __nv_bfloat16*>(beta);
   auto* out = static_cast<__nv_bfloat16*>(y);
-  if (x_is_fp32) {
+  if (width > kMaxPerLane * 32) {
+    if (x_is_fp32) {
+      layernorm_wide_kernel<float><<<rows, kWideThreads, 0, s>>>(static_cast<const float*>(x), g,
+                                                                 b, out, width, eps);
+    } else {
+      layernorm_wide_kernel<__nv_bfloat16><<<rows, kWideThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x), g, b, out, width, eps);
+    }
+  } else if (x_is_fp32) {
     layernorm_kernel<float><<<grid, block, 0, s>>>(static_cast<const float*>(x), g, b, out, rows,
                                                    width, eps);
   } else {

@@ -14,12 +14,18 @@ computation follows the JAX tower:
 The layers run as ``ops/gates.py`` routes them: at serving batches all of
 them in one launch of the whole-tower kernel (``ops/tower_kernel.py``),
 otherwise each through the sub-block kernels (``ops/fused_block.py``), or
-through the twins for CPU tensors. The tower's int8 weights
+through the twins for CPU tensors. The sub-block kernels are those the JAX
+tower names (``vit.py:190-338``): attention #1 where ``gates.fits_fused``
+holds and #7 where only ``gates.fits_fused_wide`` does (ViT-H widths at
+S = 577), the MLP by ``_mlp_dispatch`` (#2, or #10 / #9 at W > 768). The
+JAX tower routes its inference forwards at the wide widths through XLA;
+the card has no such route and runs the kernels there too. The tower's int8 weights
 (``utils/quantize.py``) stream as they are into the tower kernel and are
 dequantized on entry everywhere else. A training forward
 (``options.deterministic`` False) runs every layer through the autograd
-Functions (kernels #1 and #2 forward; backward #14 and #18, #13 and #17
-where a weight is frozen or ``options.bwd_impl`` routes there, or the
+Functions (kernels #1 / #7 and #2 / #10 / #9 forward; backward #14 and
+#18, #13 and #17 where a weight is frozen or ``options.bwd_impl`` routes
+there, #20 above ``gates.ATTN_BWD_MAX_SEQ`` and #19 after #9 / #10, or the
 whole-layer #21 of ``ops/layer_bwd.py``), never the tower kernel
 (``vit.py:258-271``). The parameters are cast to the compute dtype on each
 forward (``ModelOptions.cast``). Images are NHWC ``[B, R, R, 3]``. FLIP
@@ -38,9 +44,10 @@ from torch import nn
 from nans_clip_tpu_torch.configs import VisionConfig
 from nans_clip_tpu_torch.models.common import ModelOptions
 from nans_clip_tpu_torch.ops import gates
-from nans_clip_tpu_torch.ops.fused_block import (_reference_block, _reference_mlp,
-                                                 attention_block_train, fused_attention_block,
-                                                 fused_mlp_block, mlp_block_train)
+from nans_clip_tpu_torch.ops.fused_block import (_mlp_dispatch, _reference_block,
+                                                 _reference_mlp, attention_block_train,
+                                                 fused_attention_block,
+                                                 fused_attention_block_wide, mlp_block_train)
 from nans_clip_tpu_torch.ops.layer_bwd import fused_layer_train
 from nans_clip_tpu_torch.ops.layernorm import layer_norm
 from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
@@ -99,11 +106,25 @@ class ResidualAttentionBlock(nn.Module):
                 mlp.c_fc.weight, mlp.c_fc.bias, mlp.c_proj.weight, mlp.c_proj.bias)
 
 
+# Heads a chunk of #7 in the JAX tower (vit.py:313-317).
+WIDE_HEADS_PER_CHUNK = 4
+
+
+def wide_tile(seq: int, width: int) -> int:
+    """1 where the JAX tower runs #7 (only ``fits_fused_wide`` holds), else
+    0 (#1)."""
+    return int(not gates.fits_fused(seq, width) and gates.fits_fused_wide(seq, width))
+
+
 def _layer(x: torch.Tensor, p: tuple, heads: int, use_kernel: bool) -> torch.Tensor:
-    attn_fn = fused_attention_block if use_kernel else _reference_block
-    mlp_fn = fused_mlp_block if use_kernel else _reference_mlp
-    x = attn_fn(x, *p[:6], heads, 1e-5)
-    return mlp_fn(x, *p[6:], "quick_gelu", 1e-5, False)
+    if not use_kernel:
+        x = _reference_block(x, *p[:6], heads, 1e-5)
+        return _reference_mlp(x, *p[6:], "quick_gelu", 1e-5, False)
+    if wide_tile(x.shape[1], x.shape[2]):
+        x = fused_attention_block_wide(x, *p[:6], heads, 1e-5, WIDE_HEADS_PER_CHUNK)
+    else:
+        x = fused_attention_block(x, *p[:6], heads, 1e-5)
+    return _mlp_dispatch(x, *p[6:], None, "quick_gelu", 1e-5, False, False, 0.0)
 
 
 def draw_ids_keep(batch: int, seq_len: int, mask_ratio: float,
@@ -200,7 +221,8 @@ class VisualTransformer(nn.Module):
                     x = fused_layer_train(x, *p, heads, "quick_gelu", 1e-5, use_kernel)
                 else:
                     x = attention_block_train(x, *p[:6], None, heads, 1e-5, False,
-                                              use_kernel=use_kernel, route=route_a)
+                                              use_kernel=use_kernel, route=route_a,
+                                              wide_tile=wide_tile(x.shape[1], w))
                     x = mlp_block_train(x, *p[6:], "quick_gelu", 1e-5, False,
                                         use_kernel=use_kernel, route=route_m)
         x = layer_norm(x[:, 0, :], cast(self.ln_post.weight), cast(self.ln_post.bias), 1e-5)

@@ -46,10 +46,12 @@ _SIGNATURES = {
     "nans_gemm_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, x_f32, rows, cols, rows_per_chunk, out, stream
     "nans_colsum": [_P, _I, _I, _I, _I, _P, _P],
-    # qkv, key_bias, ctx, B, S, width, scale, drop..., stream
-    "nans_attention": [_P, _P, _P, _I, _I, _I, _F, *_DROP, _P],
-    # qkv, dctx, key_bias, dqkv32, dqkv16, B, S, width, scale, drop..., stream
-    "nans_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, *_DROP, _P],
+    # qkv, key_bias, ctx, B, S, width, dh, scale, drop..., stream
+    "nans_attention": [_P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
+    # qkv, dctx, key_bias, dqkv32, dqkv16, B, S, width, dh, scale, drop..., stream
+    "nans_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
+    # qkv, dctx, dqkv32, dqkv16, stats, B, S, width, dh, scale, stream
+    "nans_attention_bwd_long": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # quant, S, out: the largest co-resident grid
     "nans_tower_grid": [_I, _I, ctypes.POINTER(_I)],
     # x, key_bias, table, work, sum, part, sem, clock, B, S, W, I, L, eps,

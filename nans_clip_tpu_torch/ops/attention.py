@@ -11,7 +11,14 @@ dtype, the rounding points of the attention loop in
 
 ``attention_bwd`` recomputes P and returns ``dqkv`` ``[B*S, 3W]`` in fp32
 and in the io dtype, as the backward kernels of
-``nans_clip_tpu/ops/fused_block_bwd.py`` form it (:165-202, :348-378).
+``nans_clip_tpu/ops/fused_block_bwd.py`` form it (:165-202, :348-378). On
+the card it launches the one-shot backward kernel up to
+``gates.ATTN_BWD_MAX_SEQ`` and the long-sequence pair of kernels above it
+(no key bias and no dropout there: the pre-LN blocks of
+``_attn_bwd_chunked_kernel``, :1163-1192).
+
+Heads are 64 or 80 wide (``gates.HEAD_DIMS``): every ViT-B/L and RoBERTa
+tower, and ViT-H.
 
 ``attention_plain`` and ``attention_bwd_plain`` are the twins; CPU tensors
 take them.
@@ -68,7 +75,8 @@ def _admit(name, qkv, key_bias, batch, heads, max_seq):
     rows, w3 = qkv.shape
     seq, w = rows // batch, w3 // 3
     gates.admit(rows == batch * seq and w3 == 3 * w, f"{name}: qkv {tuple(qkv.shape)}")
-    gates.admit(w == heads * gates.HEAD_DIM, f"{name}: head dim {w // heads}")
+    gates.admit(w % heads == 0 and w // heads in gates.HEAD_DIMS,
+                f"{name}: head dim {w / heads}")
     gates.admit(seq <= max_seq, f"{name}: S={seq}")
     gates.admit_cuda(name, qkv)
     if key_bias is not None:
@@ -81,14 +89,15 @@ def _admit(name, qkv, key_bias, batch, heads, max_seq):
 def attention(qkv: torch.Tensor, key_bias: Optional[torch.Tensor],
               batch: int, heads: int, dropout: Optional[drop.Dropout] = None) -> torch.Tensor:
     """CPU tensors take :func:`attention_plain`; CUDA tensors launch the
-    kernel (bf16 qkv, head dim 64, S <= 640)."""
+    kernel (bf16 qkv, head dim 64 or 80, S <= ``gates.MAX_SEQ``)."""
     if not qkv.is_cuda:
         return attention_plain(qkv, key_bias, batch, heads, dropout)
     seq, w = _admit("attention", qkv, key_bias, batch, heads, gates.MAX_SEQ)
+    dh = w // heads
     ctx = torch.empty((qkv.shape[0], w), dtype=qkv.dtype, device=qkv.device)
     err = _build.library().nans_attention(
         qkv.data_ptr(), None if key_bias is None else key_bias.data_ptr(), ctx.data_ptr(),
-        batch, seq, w, 1.0 / math.sqrt(gates.HEAD_DIM), *drop.kernel_args(dropout),
+        batch, seq, w, dh, 1.0 / math.sqrt(dh), *drop.kernel_args(dropout),
         _build.stream_ptr(qkv.device))
     _build.check(err, "nans_attention")
     attention.launches += 1
@@ -127,22 +136,39 @@ def attention_bwd(qkv: torch.Tensor, dctx: torch.Tensor, key_bias: Optional[torc
                   batch: int, heads: int, dropout: Optional[drop.Dropout] = None,
                   need32: bool = True):
     """``dctx``: [B*S, W] in the io dtype. CPU tensors take
-    :func:`attention_bwd_plain`; CUDA tensors launch the kernel (bf16, head
-    dim 64, S <= ``gates.ATTN_BWD_MAX_SEQ``). ``dropout`` must be the
-    forward's. ``need32`` False leaves the fp32 form unwritten (None)."""
+    :func:`attention_bwd_plain`; CUDA tensors launch the one-shot kernel
+    (bf16, head dim 64 or 80, S <= ``gates.ATTN_BWD_MAX_SEQ``) or, for a
+    longer sequence without key bias or dropout (S <=
+    ``gates.ATTN_BWD_LONG_MAX_SEQ``), the long-sequence pair. ``dropout``
+    must be the forward's. ``need32`` False leaves the fp32 form unwritten
+    (None)."""
     if not qkv.is_cuda:
         return attention_bwd_plain(qkv, dctx, key_bias, batch, heads, dropout, need32)
-    seq, w = _admit("attention bwd", qkv, key_bias, batch, heads, gates.ATTN_BWD_MAX_SEQ)
+    seq = qkv.shape[0] // batch
+    long_seq = seq > gates.ATTN_BWD_MAX_SEQ
+    seq, w = _admit("attention bwd", qkv, key_bias, batch, heads,
+                    gates.ATTN_BWD_LONG_MAX_SEQ if long_seq else gates.ATTN_BWD_MAX_SEQ)
+    gates.admit(not long_seq or (key_bias is None and not drop.active(dropout)),
+                f"attention bwd: S={seq} takes no key bias and no dropout")
     gates.admit_cuda("attention bwd", dctx)
     gates.admit(dctx.shape == (qkv.shape[0], w), f"attention bwd: dctx {tuple(dctx.shape)}")
+    dh = w // heads
     d32 = torch.empty(qkv.shape, dtype=torch.float32, device=qkv.device) if need32 else None
     d16 = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
-    err = _build.library().nans_attention_bwd(
-        qkv.data_ptr(), dctx.data_ptr(), None if key_bias is None else key_bias.data_ptr(),
-        None if d32 is None else d32.data_ptr(), d16.data_ptr(), batch, seq, w,
-        1.0 / math.sqrt(gates.HEAD_DIM), *drop.kernel_args(dropout),
-        _build.stream_ptr(qkv.device))
-    _build.check(err, "nans_attention_bwd")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.library()
+    if long_seq:
+        stats = torch.empty((3, batch, heads, seq), dtype=torch.float32, device=qkv.device)
+        err = lib.nans_attention_bwd_long(
+            qkv.data_ptr(), dctx.data_ptr(), ptr(d32), d16.data_ptr(), stats.data_ptr(), batch,
+            seq, w, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(qkv.device))
+        _build.check(err, "nans_attention_bwd_long")
+    else:
+        err = lib.nans_attention_bwd(
+            qkv.data_ptr(), dctx.data_ptr(), ptr(key_bias), ptr(d32), d16.data_ptr(), batch,
+            seq, w, dh, 1.0 / math.sqrt(dh), *drop.kernel_args(dropout),
+            _build.stream_ptr(qkv.device))
+        _build.check(err, "nans_attention_bwd")
     attention_bwd.launches += 1
     return d32, d16
 

@@ -6,7 +6,19 @@ Ports of ``nans_clip_tpu/ops/fused_block.py``:
   ViT) and :func:`fused_bert_attention_block` (post-LN, key-masked, with
   attention-probability and hidden dropout, BERT);
 * ``_mlp_kernel`` (fused_block.py:797) -> :func:`fused_mlp_block` (with
-  hidden dropout).
+  hidden dropout);
+* ``_wide_kernel`` (:491) and ``_wide_batched_kernel`` (:568), #7 and #8 ->
+  :func:`fused_attention_block_wide` (``batch_tile`` 1 and above);
+* ``_mlp_tiled_kernel`` (:899) and ``_mlp_batched_kernel`` (:1005), #9 and
+  #10 -> :func:`_fused_mlp_tiled_call` and :func:`_fused_mlp_batched_call`,
+  reached through :func:`_mlp_dispatch` as in the JAX package (:1104).
+
+The wide forms are the same chains at W in (768, 2048] with heads of 64 or
+80: on the TPU they streamed weights in chunks of heads or of the MLP's
+intermediate width because VMEM could not hold them; on the card the GEMM's
+K loop plays the role of the chunk and the kernels hold one head at a time
+anyway, so ``heads_per_chunk``, ``chunk`` and ``batch_tile`` change no
+arithmetic. The wrappers check them as the JAX package asserts them.
 
 On the TPU each sub-block was one kernel, because 64-110 MB of VMEM held a
 whole weight set. A Hopper SM has 227 KB of shared memory, so each becomes a
@@ -44,7 +56,12 @@ fused_block.py:282, :1147). The backward reads ``ctx.needs_input_grad``:
   not needed is ``None`` and never computed.
 
 The route of a block whose weights all need gradients comes from
-``ModelOptions.bwd_impl`` through ``ops/gates.py::bwd_route``.
+``ModelOptions.bwd_impl`` through ``ops/gates.py::bwd_route``. Wide blocks
+(JAX ``_wide_bwd``, fused_block.py:687, and the MLP vjp, :1150): a pre-LN
+attention block above ``gates.ATTN_BWD_MAX_SEQ`` always takes #20, the
+head-chunked backward (``ops/fused_block_bwd.py``), then only the needed
+weight gradients; a pre-LN MLP block that ran #9/#10 takes #19 where the
+route is ``emit`` or a weight is frozen.
 """
 
 from __future__ import annotations
@@ -55,6 +72,7 @@ import torch
 
 from nans_clip_tpu_torch.ops import dropout as drop
 from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+from nans_clip_tpu_torch.ops import gates
 from nans_clip_tpu_torch.ops.activations import upcast
 from nans_clip_tpu_torch.ops.attention import attention, attention_plain
 from nans_clip_tpu_torch.ops.gemm import linear, linear_plain
@@ -158,6 +176,105 @@ def fused_mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, act: str = "quick_gelu",
     return out
 
 
+def _wide_forward(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, eps: float,
+                  batch_tile: int):
+    """#7 (``batch_tile`` 1) or #8: the pre-LN attention chain, counted in
+    ``fused_attention_block_wide.launches`` or ``.launches_batched``."""
+    if not x.is_cuda:
+        return _reference_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, heads, eps)
+    out = attention_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, heads, eps, None, False,
+                          KERNEL_OPS)
+    if batch_tile > 1:
+        fused_attention_block_wide.launches_batched += 1
+    else:
+        fused_attention_block_wide.launches += 1
+    return out
+
+
+def fused_attention_block_wide(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int,
+                               eps: float = 1e-5, heads_per_chunk: int = 4,
+                               interpret: bool = False, batch_tile: int = 1):
+    """#7 / #8, ViT pre-LN: x + out_proj(MHA(LN(x))) for W in (1024, 2048]
+    (JAX ``fused_attention_block_wide``, fused_block.py:659), under autograd
+    with the backward of JAX ``_wide_bwd`` (:687): the one-shot chain up to
+    ``gates.ATTN_BWD_MAX_SEQ``, #20 above it. ``heads_per_chunk`` must divide
+    ``heads`` and ``batch_tile`` the batch (the JAX asserts, :533 and :615);
+    neither changes the arithmetic on the card, and ``interpret`` (Pallas'
+    interpret mode) has no counterpart. CPU tensors take the twins."""
+    if heads % heads_per_chunk or x.shape[0] % batch_tile:
+        raise ValueError(f"heads_per_chunk {heads_per_chunk} must divide heads {heads} and "
+                         f"batch_tile {batch_tile} the batch {x.shape[0]}")
+    return attention_block_train(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, None, heads, eps, False,
+                                 use_kernel=x.is_cuda, route=gates.BWD_ROUTE["attn_pre"],
+                                 wide_tile=batch_tile)
+
+
+def _mlp_chunked(wrapper, x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln, chunk: int,
+                 tile: int):
+    """The MLP chain of #9 / #10, counted in ``wrapper.launches``; the twin
+    for CPU tensors."""
+    if w1.shape[0] % chunk or x.shape[0] % tile:
+        raise ValueError(f"chunk {chunk} must divide the intermediate width {w1.shape[0]} "
+                         f"and tile {tile} the batch {x.shape[0]}")
+    if not x.is_cuda:
+        return _reference_mlp(x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln)
+    out = mlp_chain(x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln, KERNEL_OPS)
+    wrapper.launches += 1
+    return out
+
+
+def _fused_mlp_tiled_call(x, ln_w, ln_b, w1, b1, w2, b2, act: str, eps: float, post_ln: bool,
+                          interpret: bool, chunk: int):
+    """#9: the MLP sub-block with the intermediate width in chunks of
+    ``chunk`` (JAX ``_fused_mlp_tiled_call``, fused_block.py:931), which
+    must divide it (:935). On the card the GEMM's K loop runs over the
+    chunks; the result is the one-shot chain's."""
+    return _mlp_chunked(_fused_mlp_tiled_call, x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln,
+                        chunk, 1)
+
+
+def _fused_mlp_batched_call(x, ln_w, ln_b, w1, b1, w2, b2, act: str, eps: float,
+                            post_ln: bool, interpret: bool, chunk: int, tile: int):
+    """#10: #9 with ``tile`` samples a cell (JAX ``_fused_mlp_batched_call``,
+    fused_block.py:1041; ``chunk`` divides the intermediate width and
+    ``tile`` the batch, :1045). The card's GEMM tiles run over all B*S rows
+    at once, so the tile changes no arithmetic."""
+    return _mlp_chunked(_fused_mlp_batched_call, x, ln_w, ln_b, w1, b1, w2, b2, act, eps,
+                        post_ln, chunk, tile)
+
+
+def mlp_plan(batch: int, seq: int, width: int, inter: int, esize: int):
+    """(chunk, tile) where the JAX dispatch takes #9 (tile 1) or #10, else
+    None (#2): ``_mlp_dispatch``'s question (fused_block.py:1109-1119)."""
+    if (gates.fits_fused_mlp_oneshot(seq, width) or gates.mlp_oneshot_direct_ok(seq, width)
+            or not gates.fits_fused_mlp_tiled(seq, width)):
+        return None
+    chunk = gates.mlp_chunk_size(width, inter, esize)
+    if chunk is None:
+        return None
+    return chunk, gates.mlp_batch_tile(batch, seq, width, inter, chunk, esize)
+
+
+def _mlp_dispatch(x, ln_w, ln_b, w1, b1, w2, b2, seed, act: str, eps: float, post_ln: bool,
+                  interpret: bool, hid_drop: float):
+    """The MLP sub-block's kernel by width (JAX ``_mlp_dispatch``,
+    fused_block.py:1104): #2 at one-shot shapes, else #10 where the batch
+    tile exceeds 1 and #9 where it is 1. The chunked kernels take no
+    dropout (:1113). Where the JAX package has no kernel (S > 640 or W >
+    2048) the card runs #2's chain."""
+    plan = mlp_plan(x.shape[0], x.shape[1], x.shape[2], w1.shape[0], x.element_size())
+    if plan is None:
+        return fused_mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln, seed, hid_drop)
+    if hid_drop > 0.0:
+        raise ValueError("the chunked MLP kernels (#9, #10) take no dropout")
+    chunk, tile = plan
+    if tile > 1:
+        return _fused_mlp_batched_call(x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln,
+                                       interpret, chunk, tile)
+    return _fused_mlp_tiled_call(x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln, interpret,
+                                 chunk)
+
+
 def mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a . b`` in fp32 from operands in the io dtype: the
     ``preferred_element_type=float32`` contractions the JAX package leaves
@@ -229,14 +346,33 @@ def mlp_weight_grads(needs, post_ln: bool, g, emitted):
     return d_lw, d_lb, dw1, db1, dw2, db2
 
 
+def assemble_chunked_attn_weight_grads(x, xn, ctx_h, dqkv_h, g, heads: int, hpc: int,
+                                       ln_w, ln_b, w_qkv, eps: float):
+    """The weight and LayerNorm gradients from #20's outputs in the per-chunk
+    layout (JAX ``assemble_chunked_attn_weight_grads``, fused_block_bwd.py
+    :1301, which forms them in XLA): returns (d_ln_w, d_ln_b, dwqkv, dbqkv,
+    dwo, dbo), fp32, the weights in the port's ``[out, in]`` layout. Plain
+    torch: the chunks are laid back as ``[B*S, 3W]`` and ``[B*S, W]`` and
+    the products are those of :func:`attention_weight_grads`."""
+    b, n_chunks, s, _ = ctx_h.shape
+    w = x.shape[-1]
+    chunk = hpc * (w // heads)
+    ctx = ctx_h.permute(0, 2, 1, 3).reshape(b * s, w)
+    dqkv = dqkv_h.reshape(b, n_chunks, s, 3, chunk).permute(0, 2, 3, 1, 4).reshape(b * s, 3 * w)
+    return attention_weight_grads((True,) * 6, False, x, ln_w, w_qkv, g, (None, xn, ctx, dqkv),
+                                  eps)
+
+
 class _AttentionBlock(torch.autograd.Function):
-    """The attention sub-block under autograd: forward #1; backward #14
-    (pre-LN) or #16 (post-LN), or #13 / #15 with the caller's weight
-    gradients; the twins where ``use_kernel`` is False."""
+    """The attention sub-block under autograd: forward #1 (#7 / #8 where
+    ``wide_tile`` is 1 / above 1); backward #14 (pre-LN) or #16 (post-LN), or
+    #13 / #15 with the caller's weight gradients, and #20 for a pre-LN block
+    longer than ``gates.ATTN_BWD_MAX_SEQ``; the twins where ``use_kernel``
+    is False."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, heads, eps, post_ln,
-                seed, attn_drop, hid_drop, use_kernel, route):
+                seed, attn_drop, hid_drop, use_kernel, route, wide_tile):
         weights = (ln_w, ln_b, w_qkv, b_qkv, w_o, b_o)
         if not use_kernel:
             out = _reference_block(x, *weights, heads, eps, key_bias, post_ln, seed, attn_drop,
@@ -244,6 +380,8 @@ class _AttentionBlock(torch.autograd.Function):
         elif post_ln:
             out = fused_bert_attention_block(x, *weights, key_bias, heads, eps, seed, attn_drop,
                                              hid_drop)
+        elif wide_tile:
+            out = _wide_forward(x, *weights, heads, eps, wide_tile)
         else:
             out = fused_attention_block(x, *weights, heads, eps)
         ctx.save_for_backward(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias)
@@ -268,44 +406,54 @@ class _AttentionBlock(torch.autograd.Function):
                 out = fbb._bert_bwd_math(*args, full=full)
         else:
             args = (x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads, eps)
-            if use_kernel:
+            if x.shape[1] > gates.ATTN_BWD_MAX_SEQ:
+                full = False   # #20, then the needed weight gradients
+                bwd = fbb.attention_bwd_long
+            else:
                 bwd = (fbb.fused_attention_block_bwd_fullgrad if full
                        else fbb.fused_attention_block_bwd)
-                out = bwd(*args)
-            else:
-                out = fbb._attn_bwd_math(*args, full=full)
+            out = bwd(*args) if use_kernel else fbb._attn_bwd_math(*args, full=full)
         if full:
             dx, dwqkv, dbqkv, dwo, dbo, d_ln_w, d_ln_b = out
             grads = (d_ln_w, d_ln_b, dwqkv, dbqkv, dwo, dbo)
         else:
             dx = out[0]
             grads = attention_weight_grads(needs, post_ln, x, ln_w, w_qkv, g, out, eps)
-        return (dx, *grads) + (None,) * 9
+        return (dx, *grads) + (None,) * 10
 
 
 class _MlpBlock(torch.autograd.Function):
-    """The MLP sub-block under autograd: forward #2; backward #18, or #17
-    with the caller's weight gradients; the twins where ``use_kernel`` is
-    False."""
+    """The MLP sub-block under autograd: forward #2, or #9 / #10 at the
+    widths where ``_mlp_dispatch`` takes them; backward #18, or #17 with the
+    caller's weight gradients (#19 for a pre-LN block that ran #9 / #10);
+    the twins where ``use_kernel`` is False."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln, seed, hid_drop,
                 use_kernel, route):
-        fwd = fused_mlp_block if use_kernel else _reference_mlp
-        out = fwd(x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln, seed, hid_drop)
+        if use_kernel:
+            out = _mlp_dispatch(x, ln_w, ln_b, w1, b1, w2, b2, seed, act, eps, post_ln, False,
+                                hid_drop)
+        else:
+            out = _reference_mlp(x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln, seed,
+                                 hid_drop)
+        wide = not post_ln and mlp_plan(x.shape[0], x.shape[1], x.shape[2], w1.shape[0],
+                                        x.element_size()) is not None
         ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
-        ctx.config = (act, eps, post_ln, seed, hid_drop, use_kernel, route)
+        ctx.config = (act, eps, post_ln, seed, hid_drop, use_kernel, route, wide)
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, ln_w, ln_b, w1, b1, w2, b2 = ctx.saved_tensors
-        act, eps, post_ln, seed, hid_drop, use_kernel, route = ctx.config
+        act, eps, post_ln, seed, hid_drop, use_kernel, route, wide = ctx.config
         g = g.contiguous()
         needs = ctx.needs_input_grad[1:7]
         full = all(needs) and route == "fullgrad"
         args = (x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act, eps, post_ln, hid_drop)
-        if use_kernel:
+        if use_kernel and wide and not full:
+            out = fbb.mlp_bwd_wide(x, ln_w, ln_b, w1, b1, w2, g, act, eps)
+        elif use_kernel:
             out = (fbb.fused_mlp_block_bwd_fullgrad if full else fbb.fused_mlp_block_bwd)(*args)
         else:
             out = fbb._mlp_bwd_math(*args, full=full)
@@ -321,13 +469,14 @@ class _MlpBlock(torch.autograd.Function):
 def attention_block_train(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, heads: int,
                           eps: float, post_ln: bool, seed=None, attn_drop: float = 0.0,
                           hid_drop: float = 0.0, use_kernel: bool = True,
-                          route: str = "fullgrad"):
+                          route: str = "fullgrad", wide_tile: int = 0):
     """The attention sub-block with its backward: pre-LN (ViT, no mask or
     dropout) or post-LN (BERT). ``use_kernel``: the kernels (CUDA tensors)
     or the twins. ``route``: "fullgrad" or "emit", the backward of a block
-    whose weights all need gradients (``gates.bwd_route``)."""
+    whose weights all need gradients (``gates.bwd_route``). ``wide_tile``:
+    0 runs #1 forward, 1 #7, above 1 #8 (pre-LN only)."""
     return _AttentionBlock.apply(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, heads, eps,
-                                 post_ln, seed, attn_drop, hid_drop, use_kernel, route)
+                                 post_ln, seed, attn_drop, hid_drop, use_kernel, route, wide_tile)
 
 
 def mlp_block_train(x, ln_w, ln_b, w1, b1, w2, b2, act: str, eps: float, post_ln: bool,
@@ -342,3 +491,7 @@ def mlp_block_train(x, ln_w, ln_b, w1, b1, w2, b2, act: str, eps: float, post_ln
 fused_attention_block.launches = 0
 fused_bert_attention_block.launches = 0
 fused_mlp_block.launches = 0
+fused_attention_block_wide.launches = 0
+fused_attention_block_wide.launches_batched = 0
+_fused_mlp_tiled_call.launches = 0
+_fused_mlp_batched_call.launches = 0

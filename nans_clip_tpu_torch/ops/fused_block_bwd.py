@@ -15,7 +15,14 @@ Ports of ``nans_clip_tpu/ops/fused_block_bwd.py``:
   erf-GELU with hidden dropout), #18, and ``_mlp_bwd_kernel`` (:781) ->
   :func:`fused_mlp_block_bwd`, #17.
 
-#13, #15 and #17 are the emitting forms: the same chain bodies with ``full``
+* ``_mlp_bwd_chunked_kernel`` (:1015) -> :func:`fused_mlp_block_bwd_chunked`,
+  #19: the pre-LN emitting MLP chain at the wide widths, no dropout;
+* ``_attn_bwd_chunked_kernel`` (:1144) -> :func:`fused_attention_block_bwd_chunked`,
+  #20: the pre-LN emitting attention chain with the long-sequence attention
+  backward of ``attention.cu`` (S up to 640, heads of 64 or 80), its outputs
+  laid out by head chunks as JAX returns them.
+
+#13, #15, #17, #19 and #20 are the emitting forms: the same chain bodies with ``full``
 False, which leaves out the weight-gradient products and every column sum
 and returns dx with the recomputed activations, in the io dtype and in the
 JAX wrappers' order, for a caller that forms only the weight gradients it
@@ -269,7 +276,68 @@ def fused_mlp_block_bwd(x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act: str = "quic
                 x, ln_w, ln_b, w1, b1, w2, b2, seed, g, act, eps, post_ln, hid_drop)
 
 
+def mlp_bwd_wide(x, ln_w, ln_b, w1, b1, w2, g, act: str, eps: float):
+    """#19 inside a tower: the pre-LN emitting MLP chain, counted in
+    ``fused_mlp_block_bwd_chunked.launches``, returning #17's tuple (dx, xn,
+    h, dh_pre, dproj, lnstat, dxn) for the caller's weight gradients."""
+    return _run(fused_mlp_block_bwd_chunked, mlp_bwd_chain, _mlp_bwd_math, False,
+                x, ln_w, ln_b, w1, b1, w2, None, None, g, act, eps, False, 0.0)
+
+
+def fused_mlp_block_bwd_chunked(x, ln_w, ln_b, w1, b1, w2, g, act: str, eps: float,
+                                chunk: int, tile: int, interpret: bool = False):
+    """#19: the pre-LN MLP backward without dropout at the wide widths (JAX
+    ``fused_mlp_block_bwd_chunked``, fused_block_bwd.py:1089). ``chunk`` must
+    divide the intermediate width and ``tile`` the batch (:1097); neither
+    changes the arithmetic on the card. Returns (dx, xn, h, dh_pre, dxn);
+    the caller's weight gradients: ``dw1 = dh_pre^T xn``, ``db1 = sum
+    dh_pre``, ``dw2 = g^T h``, ``db2 = sum g``, ``d_ln_w = sum dxn xhat``,
+    ``d_ln_b = sum dxn``."""
+    if w1.shape[0] % chunk or x.shape[0] % tile:
+        raise ValueError(f"chunk {chunk} must divide the intermediate width {w1.shape[0]} "
+                         f"and tile {tile} the batch {x.shape[0]}")
+    dx, xn, h, dh_pre, _, _, dxn = mlp_bwd_wide(x, ln_w, ln_b, w1, b1, w2, g, act, eps)
+    return dx, xn, h, dh_pre, dxn
+
+
+def attention_bwd_long(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads: int, eps: float):
+    """#20 inside a tower: the pre-LN emitting attention chain, counted in
+    ``fused_attention_block_bwd_chunked.launches``, returning #13's tuple
+    (dx, xn, ctx, dqkv) in the chain's own layout."""
+    return _run(fused_attention_block_bwd_chunked, attention_bwd_chain, _attn_bwd_math, False,
+                x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads, eps)
+
+
+def fused_attention_block_bwd_chunked(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads: int,
+                                      hpc: int, eps: float = 1e-5, interpret: bool = False):
+    """#20: the pre-LN attention backward by chunks of ``hpc`` heads (JAX
+    ``fused_attention_block_bwd_chunked``, fused_block_bwd.py:1252), for a
+    sequence the one-shot backward does not take. Returns (dx, xn, ctx_h,
+    dqkv_h): ctx_h ``[B, C, S, hpc*dh]`` and dqkv_h ``[B, C, S,
+    3*hpc*dh]`` (q, k, v of the chunk's heads) as JAX lays them out;
+    ``ops/fused_block.py::assemble_chunked_attn_weight_grads`` forms the
+    weight gradients. ``hpc`` must divide ``heads``; on the card it changes
+    no arithmetic."""
+    if heads % hpc:
+        raise ValueError(f"hpc {hpc} must divide heads {heads}")
+    return per_chunk(attention_bwd_long(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads, eps), heads,
+                     hpc)
+
+
+def per_chunk(emitted, heads: int, hpc: int):
+    """#13's tuple (dx, xn, ctx, dqkv) as #20 returns it: ctx and dqkv laid
+    out by chunks of ``hpc`` heads (``[B, C, S, hpc*dh]``, ``[B, C, S,
+    3*hpc*dh]``)."""
+    dx, xn, ctx, dqkv = emitted
+    b, s, w = ctx.shape
+    n_chunks, chunk = heads // hpc, hpc * (w // heads)
+    ctx_h = ctx.reshape(b, s, n_chunks, chunk).permute(0, 2, 1, 3)
+    dqkv_h = dqkv.reshape(b, s, 3, n_chunks, chunk).permute(0, 3, 1, 2, 4)
+    return dx, xn, ctx_h.reshape(b, n_chunks, s, chunk), dqkv_h.reshape(b, n_chunks, s, 3 * chunk)
+
+
 for _fn in (fused_attention_block_bwd_fullgrad, fused_attention_block_bwd,
             fused_bert_attention_block_bwd_fullgrad, fused_bert_attention_block_bwd,
-            fused_mlp_block_bwd_fullgrad, fused_mlp_block_bwd):
+            fused_mlp_block_bwd_fullgrad, fused_mlp_block_bwd, fused_mlp_block_bwd_chunked,
+            fused_attention_block_bwd_chunked):
     _fn.launches = 0

@@ -25,7 +25,16 @@ and forms only the weight gradients that are needed.
 
 Admission (what a kernel takes) is checked by each wrapper before it
 launches; a CUDA tensor that the kernel does not admit raises. No path
-turns a failed build or launch into the plain path.
+turns a failed build or launch into the plain path. The kernels' limits
+(head dims 64 and 80, S <= 640, the one-shot backward's S <= 320, LayerNorm
+rows up to 2048, the GEMM tiles) are constants below, each with what in the
+kernel sets it.
+
+Which TPU kernel's counterpart a wide block runs (#1 or #7, #2 or #9/#10)
+follows the JAX towers: the last section answers the JAX package's routing
+questions (``fits_fused``, ``fused_mlp_routable``, ``mlp_batch_tile``, ...)
+as it answers them, for that choice and for the tests; no kernel is
+admitted or refused by a TPU VMEM budget.
 """
 
 from __future__ import annotations
@@ -36,25 +45,40 @@ import torch
 # (bench and serving are bf16 inference); not yet measured on H100.
 KERNEL_DTYPE = torch.bfloat16
 
-# attention.cu: one head is 64 wide (every ViT-B/L and RoBERTa tower) and a
-# head's K and V sit in shared memory, 144 bytes a key each: S <= 640 keeps
-# the block inside the card's 227 KB. Set by the kernel's design.
-HEAD_DIM = 64
+# attention.cu and attention.cuh: the kernels are templates over the head
+# dim's 16-wide k-steps, instanced for heads of 64 (every ViT-B/L and
+# RoBERTa tower) and 80 (ViT-H: five k-steps, ten n-tiles of 8). A head's K
+# and V sit in shared memory, dh + 8 bf16 a row each (144 bytes at dh 64, 176
+# at dh 80), and each warp reads its query rows straight into registers:
+# S <= 640 keeps the forward's block at 186,880 bytes (dh 64) or 227,840
+# bytes (dh 80) of the card's 232,448. Set by the kernel's design.
+HEAD_DIMS = (64, 80)
 MAX_SEQ = 640
 
-# attention.cu's backward: Q, K, V and dctx of a head sit in shared memory,
-# 144 bytes a row each, plus 16 bytes of row statistics: S <= 320 keeps the
-# block at 189 KB of the card's 227 KB. A kernel limit, not a measured
-# routing gate; the training shapes (S = 197, 52) qualify.
+# attention.cu's one-shot backward: Q, K, V and dctx of a head sit in shared
+# memory (4 rows of dh + 8 bf16) plus 16 bytes of row statistics a row: S <=
+# 320 keeps the block at 189 KB (dh 64) or 230,400 bytes (dh 80). A kernel
+# limit, not a measured routing gate; the training shapes S = 52, 197, 257
+# qualify.
 ATTN_BWD_MAX_SEQ = 320
+# attention.cu's long-sequence backward (the core of #20): a block holds
+# either K and V or Q and dctx of a head, so S <= 640 as the forward. Pre-LN
+# only: no key bias and no dropout (as _attn_bwd_chunked_kernel). Above
+# ATTN_BWD_MAX_SEQ every backward chain takes it (ViT-L-14-336, S = 577).
+ATTN_BWD_LONG_MAX_SEQ = 640
 
 # layernorm.cu: one warp a row, 32 values a lane at most, forward and
-# backward. Set by the design.
-MAX_LN_WIDTH = 1024
+# backward, up to W = 1024 (ViT-B/L, RoBERTa: these keep the kernels of the
+# first port); wider rows up to MAX_LN_WIDTH take one block of 256 threads a
+# row, at most 8 values a thread (ViT-H's 1280). 2048 is the JAX package's
+# widest kernel width (MAX_WIDE_WIDTH, MAX_TILED_MLP_WIDTH). Set by the
+# design.
+MAX_LN_WIDTH = 2048
 LN_WIDTH_MULTIPLE = 32
 
 # gemm.cu: 128x128x32 block tiles with no N or K tail. Set by the design;
-# the slice's N (768, 2304, 3072) and K (768, 3072) all qualify. The
+# the slice's N (768, 2304, 3072; 1024, 3072, 4096; 1280, 3840, 5120) and K
+# (768, 3072; 1024, 4096; 1280, 5120) all qualify. The
 # backward forms take the same tiles: the input gradient's output width
 # (the forward's K) is a multiple of GEMM_N_MULTIPLE and its contraction
 # (the forward's N) of GEMM_K_MULTIPLE; the weight gradient's [N, K] output
@@ -64,13 +88,15 @@ LN_WIDTH_MULTIPLE = 32
 GEMM_N_MULTIPLE = 128
 GEMM_K_MULTIPLE = 32
 
-# tower.cu (the whole-tower kernel, batch 1-32): heads of 64 (attention.cuh),
+# tower.cu (the whole-tower kernel, batch 1-32): heads of 64 (attention.cuh's
+# dh-64 instance),
 # S <= 640 (a head's K and V in shared memory, as attention.cu), W a
 # multiple of 64 and at most 1024 (its row stages hold a row in one block of
 # 128 threads, at most 8 values a thread), and I a multiple of its 64-wide K
 # step (N is cut in 32-wide tiles). Set by the kernel's design. Whether a
 # grid can be co-resident at all is asked of the card at launch
 # (``tower_kernel.max_grid``).
+TOWER_HEAD_DIM = 64
 TOWER_WIDTH_MULTIPLE = 64
 TOWER_MAX_WIDTH = 1024
 TOWER_TILE = 32
@@ -171,7 +197,8 @@ def use_kernel(x: torch.Tensor, impl: str) -> bool:
 def fits_tower(seq: int, width: int, heads: int, inter: int) -> bool:
     """The shapes tower.cu admits."""
     return (width % TOWER_WIDTH_MULTIPLE == 0 and width <= TOWER_MAX_WIDTH
-            and width == heads * HEAD_DIM and seq <= MAX_SEQ and inter % TOWER_KSTEP == 0)
+            and width == heads * TOWER_HEAD_DIM and seq <= MAX_SEQ
+            and inter % TOWER_KSTEP == 0)
 
 
 def tower_route(x: torch.Tensor, impl: str, tower: str, heads: int, inter: int,
@@ -197,3 +224,145 @@ def admit_cuda(name: str, *tensors: torch.Tensor) -> None:
         admit(t.is_cuda and t.is_contiguous(), f"{name}: tensors must be contiguous on CUDA")
         admit(t.dtype == KERNEL_DTYPE, f"{name}: dtype {t.dtype}, kernels take {KERNEL_DTYPE}")
         admit(t.data_ptr() % 16 == 0, f"{name}: tensor not 16-byte aligned")
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's routing questions, answered as it answers them
+# (nans_clip_tpu/ops/fused_block.py:460-488, :738-773, :960-1102 and
+# fused_block_bwd.py:1063-1087, :1234-1249). Their constants are TPU VMEM
+# budgets and Mosaic tiling rules, copied here as the JAX package sets them
+# (nans_clip_tpu/ops/gates.py). They decide only WHICH TPU kernel's
+# counterpart a block runs (#1 or #7, #9 or #10), as the JAX towers choose:
+# on the card those counterparts are chains of the same kernels, and
+# ``heads_per_chunk``, ``chunk`` and ``batch_tile`` change no arithmetic.
+# Whether a kernel admits a shape is decided by the port's own limits above.
+# ---------------------------------------------------------------------------
+
+_MIB = 1024 * 1024
+JAX_MAX_FUSED_WIDTH = 1024
+JAX_MAX_FUSED_SEQ = 640
+JAX_ONESHOT_ATTN_WIDE_WIDTH = 1280
+JAX_ONESHOT_ATTN_WIDE_SEQ = 320
+JAX_MAX_WIDE_WIDTH = 2048
+JAX_MAX_FUSED_MLP_WIDTH = 768
+JAX_MLP_ONESHOT_WIDE_SEQ = 64
+JAX_MLP_ONESHOT_WIDE_WIDTH = 1024
+JAX_MAX_TILED_MLP_WIDTH = 2048
+JAX_MLP_CHUNK_WEIGHT_BYTES = 2 * _MIB
+JAX_MLP_REGRID_BUDGET = 26 * _MIB
+JAX_MLP_REGRID_TILE_CAP = 2
+JAX_HEAD_CHUNK_BUDGET = 24 * _MIB
+JAX_MLP_BWD_CHUNK_BUDGET = 10 * _MIB
+
+
+def _rup(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def fits_fused(seq: int, width: int) -> bool:
+    """#1's shapes in the JAX towers (fused_block.py:460)."""
+    if width % 128:
+        return False
+    if width <= JAX_MAX_FUSED_WIDTH and seq <= JAX_MAX_FUSED_SEQ:
+        return True
+    return width <= JAX_ONESHOT_ATTN_WIDE_WIDTH and seq <= JAX_ONESHOT_ATTN_WIDE_SEQ
+
+
+def fits_fused_wide(seq: int, width: int) -> bool:
+    """#7's shapes (fused_block.py:484): 1024 < W <= 2048, S <= 640."""
+    return (width % 128 == 0 and JAX_MAX_FUSED_WIDTH < width <= JAX_MAX_WIDE_WIDTH
+            and seq <= JAX_MAX_FUSED_SEQ)
+
+
+def fits_fused_mlp(seq: int, width: int) -> bool:
+    """#2's classic shapes (fused_block.py:738)."""
+    return width % 128 == 0 and width <= JAX_MAX_FUSED_MLP_WIDTH and seq <= JAX_MAX_FUSED_SEQ
+
+
+def fits_fused_mlp_oneshot(seq: int, width: int) -> bool:
+    """#2's shapes, with the wide short-sequence tier of RoBERTa-large
+    (fused_block.py:744)."""
+    if fits_fused_mlp(seq, width):
+        return True
+    return (width % 128 == 0 and seq <= JAX_MLP_ONESHOT_WIDE_SEQ
+            and width <= JAX_MLP_ONESHOT_WIDE_WIDTH)
+
+
+def mlp_oneshot_direct_ok(seq: int, width: int) -> bool:
+    """#2 at sub-lane widths on a direct call (fused_block.py:756)."""
+    if width % 128 == 0:
+        return False
+    return ((width <= JAX_MAX_FUSED_MLP_WIDTH and seq <= JAX_MAX_FUSED_SEQ)
+            or (width <= JAX_MLP_ONESHOT_WIDE_WIDTH and seq <= JAX_MLP_ONESHOT_WIDE_SEQ))
+
+
+def fits_fused_mlp_tiled(seq: int, width: int) -> bool:
+    """#9/#10's shapes (fused_block.py:960): 768 < W <= 2048, S <= 640."""
+    return (width % 128 == 0 and JAX_MAX_FUSED_MLP_WIDTH < width <= JAX_MAX_TILED_MLP_WIDTH
+            and seq <= JAX_MAX_FUSED_SEQ)
+
+
+def mlp_chunk_size(width: int, inter: int, esize: int = 2):
+    """The intermediate chunk of #9/#10 (fused_block.py:966): the largest
+    divisor of ``inter`` that is a multiple of 256 with a weight tile of at
+    most 2 MiB; None where there is none."""
+    for k in range(inter // 256, 0, -1):
+        c = k * 256
+        if inter % c == 0 and width * c * esize <= JAX_MLP_CHUNK_WEIGHT_BYTES:
+            return c
+    return None
+
+
+def mlp_batch_tile(b: int, seq: int, width: int, inter: int, chunk: int,
+                   esize: int = 2) -> int:
+    """The batch tile of #10 (fused_block.py:1079); 1 means #9."""
+    weights = 2 * width * chunk * esize
+    per_sample = seq * width * (2 * esize + 4) + seq * chunk * 4
+    t = max(1, (JAX_MLP_REGRID_BUDGET - weights) // per_sample)
+    t = min(t, JAX_MLP_REGRID_TILE_CAP)
+    while t > 1 and b % t:
+        t -= 1
+    return int(t)
+
+
+def fused_mlp_routable(b: int, seq: int, width: int, inter: int, esize: int = 2) -> bool:
+    """Whether the JAX towers route a fused MLP kernel at this shape
+    (fused_block.py:977): one-shot widths always, wider ones where #10's
+    tile exceeds 1."""
+    if fits_fused_mlp(seq, width):
+        return True
+    if not fits_fused_mlp_tiled(seq, width):
+        return False
+    chunk = mlp_chunk_size(width, inter, esize)
+    return chunk is not None and mlp_batch_tile(b, seq, width, inter, chunk, esize) > 1
+
+
+def attn_bwd_head_chunk(seq: int, width: int, heads: int):
+    """#20's heads a chunk (fused_block_bwd.py:1234), or None."""
+    dh = width // heads
+    for hpc in (8, 4, 2, 1):
+        if heads % hpc:
+            continue
+        weights = hpc * width * 3 * dh * 2 + hpc * dh * width * 2
+        probs = 2 * _rup(seq, 8) * seq * 4 * max(1, hpc // 2)
+        acts = _rup(seq, 8) * (width * 16 + 3 * hpc * dh * 8)
+        if weights + probs + acts < JAX_HEAD_CHUNK_BUDGET:
+            return hpc
+    return None
+
+
+def mlp_bwd_chunk_tile(b: int, seq: int, width: int, inter: int):
+    """#19's (chunk, batch tile) (fused_block_bwd.py:1063), or None."""
+    if width % 128:
+        return None
+    for c in (1024, 512, 256):
+        if inter % c:
+            continue
+        weights = 4 * width * c * 2
+        per_sample = seq * (width * 12 + c * (4 + 12))
+        t = (JAX_MLP_BWD_CHUNK_BUDGET - weights) // per_sample
+        while t > 1 and b % t:
+            t -= 1
+        if t >= 2:
+            return c, int(t)
+    return None

@@ -8,7 +8,9 @@ embedding LN), and it is the twin of the kernel.
 ``row_layer_norm`` launches ``layernorm.cu`` for CUDA tensors: the LN
 stages inside the ported sub-block kernels (pre-LN prologue, post-LN
 epilogue on the fp32 residual sum). It replaces the ``_ln`` stages of
-``nans_clip_tpu/ops/fused_block.py::_kernel`` and ``::_mlp_kernel``.
+``nans_clip_tpu/ops/fused_block.py::_kernel`` and ``::_mlp_kernel`` (and of
+the wide kernels, rows up to ``gates.MAX_LN_WIDTH`` = 2048: above 1024 each
+row takes a block of its own).
 
 ``layer_norm_bwd`` (twin ``layer_norm_bwd_plain``) is the LayerNorm
 backward of ``nans_clip_tpu/ops/fused_block_bwd.py`` (``_ln_bwd`` :101 and

@@ -4,9 +4,12 @@ on one GPU.
     python3 -m nans_clip_tpu_torch.profile_slice [--batch 256] [--iters 5] [--out FILE]
     python3 -m nans_clip_tpu_torch.profile_slice --train [--batch 128] [--iters 3]
     python3 -m nans_clip_tpu_torch.profile_slice --lora [--batch 128] [--accum 4] [--iters 3]
+    python3 -m nans_clip_tpu_torch.profile_slice --model ViT-H-14 --train --batch 32 --iters 2
 
-Builds ViT-B-16@RoBERTa-wwm-ext-base-chinese at random init (seed 0) in
-bf16 on ``cuda:0`` and runs ``get_similarity`` on seeded images and texts.
+Builds ``--model`` (a published name such as ``ViT-H-14`` or a
+``Vision@Text`` struct; default ViT-B-16@RoBERTa-wwm-ext-base-chinese) at
+random init (seed 0) in bf16 on ``cuda:0`` and runs ``get_similarity`` on
+seeded images (at the model's resolution) and texts.
 At serving batches (``--batch 1``) the towers run the whole-tower kernel,
 whose device time is grouped as ``tower_kernel``. With ``--train`` the fp32
 model takes train steps (``training.make_train_step``, bf16 compute, the
@@ -36,7 +39,8 @@ import torch
 
 TEXTS = ["杰尼龟", "妙蛙种子", "小火龙", "皮卡丘", "西湖美景，三月天", "一只可爱的小猫在草地上玩耍"]
 HAND_KERNEL = re.compile(
-    r"(gemm|wgrad|attention(_bwd)?|layernorm(_bwd)?|colsum|tower)_kernel(<[^>]*>)?")
+    r"(gemm|wgrad|attention(_bwd(_dq|_dkv)?)?|layernorm(_bwd)?(_wide)?|colsum|tower)_kernel"
+    r"(<[^>]*>)?")
 
 
 def _event_ms(fn, iters: int) -> float:
@@ -61,14 +65,24 @@ def _union_us(intervals) -> float:
 MODEL = "ViT-B-16@RoBERTa-wwm-ext-base-chinese"
 
 
-def _train_step(nct, dev, images, b: int):
+def _config(nct, model: str):
+    """(struct, config) of a published name or a ``Vision@Text`` struct."""
+    from nans_clip_tpu_torch.configs import MODEL_INFO, config_for_name
+
+    if model in MODEL_INFO:
+        vision, text, _ = MODEL_INFO[model]
+        return f"{vision}@{text}", config_for_name(model)[0]
+    return model, nct.load_config(model)
+
+
+def _train_step(nct, dev, images, b: int, model: str):
     """One train step as a closure: the fp32 model at random init (seed 0),
     AdamW, bf16 compute with the text tower's dropout (seeds from a fixed
     generator per step), on one fixed batch of ``b`` pairs."""
     from nans_clip_tpu_torch.models.clip import build_clip
     from nans_clip_tpu_torch.training import TrainConfig, create_train_state, make_train_step
 
-    cfg = nct.load_config(MODEL)
+    cfg = _config(nct, model)[1]
     tcfg = TrainConfig(lr=1e-3, warmup=2, max_steps=100)
     holder = [create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)), tcfg,
                                  device=dev)]
@@ -83,7 +97,7 @@ def _train_step(nct, dev, images, b: int):
     return step
 
 
-def _lora_step(nct, dev, images, b: int, accum: int):
+def _lora_step(nct, dev, images, b: int, accum: int, model: str):
     """One LoRA step as a closure: the frozen model at random init (seed 0),
     rank-4 adapters (B leaves zero in the warm-up steps), AdamW over the adapters, bf16
     compute with the text tower's dropout, ``b`` pairs in ``accum``
@@ -92,7 +106,7 @@ def _lora_step(nct, dev, images, b: int, accum: int):
     from nans_clip_tpu_torch.models.clip import build_clip
     from nans_clip_tpu_torch.training import train_lora
 
-    cfg = nct.load_config(MODEL)
+    cfg = _config(nct, model)[1]
     module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0)).to(dev)
     adapters = lora.init_lora(torch.Generator().manual_seed(1), module, 4, device=dev)
     holder = [train_lora.create_lora_state(module, adapters, 1e-3, 0.01, device=dev)]
@@ -115,6 +129,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--train", action="store_true", help="profile train steps")
     ap.add_argument("--lora", action="store_true", help="profile LoRA steps")
     ap.add_argument("--accum", type=int, default=4, help="microbatches of a LoRA step")
+    ap.add_argument("--model", default=MODEL,
+                    help="a published name (ViT-H-14, ...) or a Vision@Text struct")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -129,14 +145,16 @@ def main(argv=None) -> dict:
     dev, n = torch.device("cuda", 0), args.iters
     training = args.train or args.lora
     b = args.batch or (128 if training else 256)
+    struct, cfg = _config(nct, args.model)
     gen = torch.Generator().manual_seed(1)
-    images = torch.randn(b, 224, 224, 3, generator=gen).to(dev)
+    r = cfg.vision.image_resolution
+    images = torch.randn(b, r, r, 3, generator=gen).to(dev)
     if args.lora:
-        step = _lora_step(nct, dev, images, b, args.accum)
+        step = _lora_step(nct, dev, images, b, args.accum, args.model)
     elif args.train:
-        step = _train_step(nct, dev, images, b)
+        step = _train_step(nct, dev, images, b, args.model)
     else:
-        model = nct.create_model(MODEL, seed=0, device=dev,
+        model = nct.create_model(struct, input_resolution=r, seed=0, device=dev,
                                  options=nct.ModelOptions(compute_dtype="bfloat16"))
         ids = torch.from_numpy(nct.tokenize((TEXTS * b)[:b])).to(dev)
         step = lambda: model.get_similarity(images, ids)
@@ -179,7 +197,8 @@ def main(argv=None) -> dict:
         groups[group][0] += calls // n
         groups[group][1] += ms
     result = {
-        "device": torch.cuda.get_device_name(0), "batch": b, "iters": n, "train": args.train,
+        "device": torch.cuda.get_device_name(0), "model": struct, "batch": b, "iters": n,
+        "train": args.train,
         "lora": args.lora, "accum": args.accum if args.lora else 1,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "cuda_event_ms": ev, "profiled_host_ms": host_ms, "kernel_sum_ms": sum_ms,

@@ -88,9 +88,9 @@ def test_unadmitted_inputs_raise(dev):
         linear(x[:, :64].bfloat16().contiguous(), torch.zeros(192, 64, device=dev).bfloat16(),
                torch.zeros(192, device=dev).bfloat16())
     with pytest.raises(ValueError, match="width"):
-        row_layer_norm(torch.randn(4, 2048, device=dev).bfloat16(),
-                       torch.ones(2048, device=dev).bfloat16(),
-                       torch.zeros(2048, device=dev).bfloat16(), 1e-5)
+        row_layer_norm(torch.randn(4, 4096, device=dev).bfloat16(),
+                       torch.ones(4096, device=dev).bfloat16(),
+                       torch.zeros(4096, device=dev).bfloat16(), 1e-5)
     qkv = torch.randn(8, 3 * 96, device=dev).bfloat16()
     with pytest.raises(ValueError, match="head dim"):
         attention(qkv, None, 2, 1)
@@ -540,3 +540,109 @@ def test_lora_step_kernel_matches_plain(dev):
         cos = torch.nn.functional.cosine_similarity(gk.flatten().double(),
                                                     out["plain"][1][k].flatten().double(), dim=0)
         assert float(cos) >= 0.99, (k, float(cos))
+
+
+@pytest.mark.parametrize("w", [1280, 2048])
+def test_wide_layernorm_matches_twin(dev, w):
+    """Rows above 1024 (one block a row): the forward from bf16 and fp32,
+    the backward in every form, against the twins."""
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd, layer_norm_bwd_plain
+    r = _rnd(dev, 11)
+    rows = 2 * 257
+    x, g, gamma, beta = r(rows, w), r(rows, w), r(w, std=0.1) + 1, r(w, std=0.1)
+    _close(row_layer_norm(x, gamma, beta, 1e-5), layer_norm(x, gamma, beta, 1e-5), 1)
+    u = torch.randn(rows, w, device=dev)
+    _close(row_layer_norm(u, gamma, beta, 1e-12),
+           layer_norm(u, gamma, beta, 1e-12, out_dtype=torch.bfloat16), 1)
+    dxn = torch.randn(rows, w, device=dev)
+    got = layer_norm_bwd(dxn, x, gamma, 1e-5, residual=g, out_dtype=torch.bfloat16)
+    want = layer_norm_bwd_plain(dxn, x, gamma, 1e-5, residual=g, out_dtype=torch.bfloat16)
+    _close(got[0], want[0], 2)
+    for a, b in zip(got[1:3], want[1:3]):
+        assert _rel_err(a, b) <= 1e-5
+    spec = drop.Dropout(3, 0.1, drop.STREAM_HIDDEN, 257)
+    kw = dict(out_dtype=torch.float32, emit_dproj=True, dropout=spec)
+    got = layer_norm_bwd(g, u, gamma, 1e-12, **kw)
+    want = layer_norm_bwd_plain(g, u, gamma, 1e-12, **kw)
+    for i in (0, 1, 2, 4):
+        assert _rel_err(got[i], want[i]) <= 1e-5
+    _close(got[3], want[3], 2)
+    kw.update(emit_xhat=True, sums=False)
+    emit = layer_norm_bwd(g, u, gamma, 1e-12, **kw)
+    assert torch.equal(emit[0], got[0]) and torch.equal(emit[3], got[3])
+    _close(emit[5], layer_norm_bwd_plain(g, u, gamma, 1e-12, **kw)[5], 2)
+
+
+@pytest.mark.parametrize("s,w,heads", [(257, 1280, 16), (577, 1280, 16), (577, 1024, 16),
+                                       (640, 1280, 16), (330, 128, 2)])
+def test_wide_attention_matches_twin(dev, s, w, heads):
+    """Heads of 80 and sequences above the one-shot backward's 320: the
+    forward, and the backward (one-shot up to S = 320, the long-sequence
+    pair above) within 1e-2 of dqkv's largest magnitude, the same bits on a
+    second call."""
+    from nans_clip_tpu_torch.ops.attention import attention_bwd, attention_bwd_plain, \
+        attention_plain
+    r = _rnd(dev, 12)
+    b = 2
+    qkv, dctx = r(b * s, 3 * w), r(b * s, w)
+    _close(attention(qkv, None, b, heads), attention_plain(qkv, None, b, heads), 2)
+    got, got16 = attention_bwd(qkv, dctx, None, b, heads)
+    want, _ = attention_bwd_plain(qkv, dctx, None, b, heads)
+    assert _rel_err(got, want) <= 1e-2
+    assert torch.equal(got16, got.to(torch.bfloat16))
+    assert torch.equal(attention_bwd(qkv, dctx, None, b, heads)[0], got)
+    if s > gates.ATTN_BWD_MAX_SEQ:
+        kb = torch.zeros(b, s, device=dev)
+        with pytest.raises(ValueError, match="no key bias"):
+            attention_bwd(qkv, dctx, kb, b, heads)
+
+
+def test_wide_chains_match_twins(dev):
+    """#7, #8, #9, #10, #19 and #20 at ViT-H widths (W 1280, heads of 80,
+    I 5120) and S = 577, batch 2, against their twins; each backward output
+    within 2e-2 of its largest magnitude and the same bits on a second
+    call."""
+    from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+    w, s, b, heads = 1280, 577, 2, 16
+    p, r = _params(dev, w, 4 * w, 13)
+    x, g = r(b, s, w, std=1.0), r(b, s, w, std=1.0)
+    for tile in (1, 2):
+        _close(fb.fused_attention_block_wide(x, *p[:6], heads, 1e-5, 4, False, tile),
+               fb._reference_block(x, *p[:6], heads, 1e-5))
+    mlp_ref = fb._reference_mlp(x, *p[6:], "quick_gelu", 1e-5, False)
+    _close(fb._fused_mlp_tiled_call(x, *p[6:], "quick_gelu", 1e-5, False, False, 512), mlp_ref)
+    _close(fb._fused_mlp_batched_call(x, *p[6:], "quick_gelu", 1e-5, False, False, 512, 2),
+           mlp_ref)
+    mlp = (x, *p[6:11], g, "quick_gelu", 1e-5)
+    attn = (x, *p[:5], g, heads, 1e-5)
+    cases = [(lambda: fbb.fused_mlp_block_bwd_chunked(*mlp, 512, 2),
+              lambda: [t for i, t in enumerate(fbb._mlp_bwd_math(
+                  x, *p[6:], None, g, "quick_gelu", 1e-5, False, 0.0, full=False))
+                  if i in (0, 1, 2, 3, 6)]),
+             (lambda: fbb.attention_bwd_long(*attn),
+              lambda: fbb._attn_bwd_math(*attn, full=False))]
+    for kernel, twin in cases:
+        got, want = kernel(), twin()
+        for a, bb in zip(got, want):
+            assert a.shape == bb.shape and _rel_err(a, bb) <= 2e-2
+        assert all(torch.equal(a, bb) for a, bb in zip(got, kernel()))
+    _, _, ctx_h, dqkv_h = fbb.fused_attention_block_bwd_chunked(x, *p[:5], g, heads, 4)
+    _, _, ctx, dqkv = got
+    assert torch.equal(ctx_h[:, 1], ctx[:, :, 320:640])
+    assert torch.equal(dqkv_h[:, 1, :, 320:640], dqkv[:, :, 1280 + 320:1280 + 640])
+
+
+def test_wide_text_tower_matches_twin(dev):
+    """tower.cu at RoBERTa-large's width (W 1024, 16 heads of 64, I 4096,
+    S 52, post-LN, masked), 2 layers, batch 1 and 8, against its twin."""
+    from nans_clip_tpu_torch.ops import tower_kernel as tk
+    w, s = 1024, 52
+    layers = [_params(dev, w, 4 * w, 20 + i)[0] for i in range(2)]
+    r = _rnd(dev, 14)
+    for b in (1, 8):
+        x = r(b, s, w, std=1.0)
+        kb = torch.zeros(b, s, device=dev)
+        kb[0, s // 2:] = -10000.0
+        args = (x, kb, layers, 16, 1e-12, "gelu", True)
+        _close(tk.fused_tower(*args), tk.tower_math(*args), 4)

@@ -1,7 +1,10 @@
 """The port's train step (nans_clip_tpu_torch/training/trainer.py) against
 the JAX package's make_train_step on the CPU, fp32, with the text tower's
 dropout rates set to 0 in both configurations (the two draw different random
-bits), at tiny_config and at ViT-B-16 / RoBERTa-base widths cut to 2 layers,
+bits), at tiny_config, at ViT-B-16 / RoBERTa-base widths cut to 2 layers,
+and at two tiny configurations of the wide towers' shapes (an image tower of
+W 160 with two heads of 80, as ViT-H's; and one at 336 pixels, patch 14, W
+128: S = 577, where the attention backward takes #20's long-sequence route),
 for 2 steps. Identical weights are carried across by
 state_dict_from_jax_params, which also maps the JAX gradient tree (it has
 the parameters' structure) so that gradients compare name by name. Each
@@ -11,7 +14,10 @@ since near-zero gradients let the two trajectories part by up to 2 * lr an
 element (below).
 
 Tolerances: the loss within 1e-5; each gradient tensor within 1e-4 of its
-largest magnitude (fp32 sums in another order through 2 layers a tower),
+largest magnitude (fp32 sums in another order through 2 layers a tower;
+3e-4 at S = 577, whose attention rows and LayerNorm-gradient columns sum
+2.9 times as many terms as at S = 197, and whose smallest gradients, 1e-4
+in magnitude at init, are such sums that nearly cancel),
 except BERT's key biases, whose gradient is 0 in exact arithmetic (softmax
 ignores a shift shared by all keys) and is held to below 1e-8 on both sides;
 parameters within 1e-6 plus what the gradients' own differences allow a
@@ -90,6 +96,11 @@ def _jax_grads(params, jcfg, options, images, texts, rng):
     return jax.grad(loss_fn)(params)
 
 
+def _tiny_vision(**vision):
+    cfg = jconfigs.tiny_config()
+    return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, **vision))
+
+
 CASES = {
     "tiny": lambda: jconfigs.tiny_config(),
     "base-width-2-layers": lambda: dataclasses.replace(
@@ -101,11 +112,20 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(CASES))
+# The wide towers' shapes at tiny sizes (heads of 80; S = 577).
+WIDE_CASES = {
+    "tiny-heads-of-80": lambda: _tiny_vision(width=160, head_width=80),
+    "tiny-336px-S577": lambda: _tiny_vision(width=128, head_width=64, image_resolution=336,
+                                             patch_size=14),
+}
+GRAD_REL = {"tiny-336px-S577": 3e-4}
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(WIDE_CASES))
 def test_train_steps_match_jax(case):
-    jcfg = _no_dropout(CASES[case]())
+    jcfg = _no_dropout({**CASES, **WIDE_CASES}[case]())
     cfg = _port_cfg(jcfg)
-    batch = 4 if case == "tiny" else 2
+    batch = 4 if case.startswith("tiny") else 2
     tcfg_j = jtrainer.TrainConfig(lr=LR, warmup=2, max_steps=10, wd=0.1)
     tcfg = trainer.TrainConfig(lr=LR, warmup=2, max_steps=10, wd=0.1)
     options_j = JOptions(deterministic=False)
@@ -138,7 +158,8 @@ def test_train_steps_match_jax(case):
             if name.endswith("self.key.bias"):
                 assert max(float(g.abs().max()), float(gj.abs().max())) <= 1e-8, (i, name)
             else:
-                assert float((g - gj).abs().max()) <= 1e-4 * float(gj.abs().max()), (i, name)
+                assert float((g - gj).abs().max()) <= GRAD_REL.get(case, 1e-4) * float(
+                    gj.abs().max()), (i, name)
             gt = taken_j[name]
             r = (g - gt).abs() / gt.abs().clamp_min(1e-30)
             slack[name] = slack.get(name, 0.0) + torch.where(
