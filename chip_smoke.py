@@ -72,6 +72,21 @@ Phases, each printing its lines before the last line:
    336 px cut to 4 layers (#7 forward, #20 at heads of 80 backward);
    ``get_similarity`` of ViT-H-14 at batch 1 and 64 against the plain path.
 
+10. The ``attn_impl="pallas"`` route: the flash attention #22 and its
+   backward #23 against their twins at (256, 12, 197, 64), (256, 12, 52, 64)
+   with a key bias, (32, 16, 257, 80), (32, 16, 577, 64) and (4, 16, 1024,
+   64), with SDPA (forward, and autograd through it) as the yardstick;
+   ``flash_attention_block`` (forward and its 7 gradients) at (32, 577,
+   1024, 16 heads) and ``pallas_layer_norm`` (#24) at [50,432, 768] and
+   [9,232, 1280] against their twins (direct calls); ``get_similarity`` of
+   ViT-B-16 at batch 256 from a ``.pt`` through ``load_from_name`` on the
+   route against the ``fused`` route (24 launches of #22, none of the fused
+   kernels); ViT-L-14-336@RoBERTa-wwm-ext-base-chinese at batch 32, full
+   depth, text dropout 0.1: one step on the route against one on the
+   ``fused`` route, then 5 steps (loss, step ms, pairs/s, peak memory, 24
+   launches each of #22 and #23 a step: the text tower's attention is the
+   plain one under dropout, as in JAX).
+
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
 nothing branches on them.
@@ -1791,6 +1806,333 @@ def phase_wide(torch, dev):
     return results, steps, forward, direct
 
 
+# Phase 10, the ``attn_impl="pallas"`` route. #22's output against its twin:
+# 2 bf16 ulps of max|twin| (one for o's own rounding, one for P, which the
+# card rounds to bf16 before P V and the twin, as the JAX kernel, keeps in
+# fp32); its lse (fp32 sums of exact bf16 products in another order): 1e-4 of
+# max(1, max|lse|). #23's dq, dk, dv: BWD_REL of max|twin|, as every backward
+# chain (P and dS are rounded to bf16 as mma inputs).
+FLASH_ULPS, LSE_REL = 2, 1e-4
+# (B, H, S, dh, masked): the ViT-B batch path, RoBERTa-base (key bias from
+# tokenized lengths), ViT-H, ViT-L-14-336 and MAX_PALLAS_SEQ.
+FLASH_SHAPES = [(256, 12, 197, 64, False), (256, 12, 52, 64, True), (32, 16, 257, 80, False),
+                (32, 16, 577, 64, False), (4, 16, 1024, 64, False)]
+# flash_attention_block at ViT-L-14-336's layer (B, S, W, heads); #24's rows.
+FLASH_BLOCK_SHAPE = (32, 577, 1024, 16)
+PALLAS_LN_SHAPES = [(50432, 768), (16 * 577, 1280)]
+PALLAS_L336 = "ViT-L-14-336@RoBERTa-wwm-ext-base-chinese"
+# get_similarity on the pallas route against the fused (kernel) route, both
+# bf16, the same weights and inputs: the kernel-vs-plain bound of phase 5.
+PALLAS_LOGIT_BOUND = 0.05
+
+
+def _flash_counts():
+    from nans_clip_tpu_torch.ops.attention import flash_bwd, flash_fwd
+    from nans_clip_tpu_torch.ops.layernorm import pallas_layer_norm
+
+    return {"attention_pallas": flash_fwd.launches, "attention_pallas_bwd": flash_bwd.launches,
+            "pallas_layer_norm": pallas_layer_norm.launches}
+
+
+def _flash_reset():
+    from nans_clip_tpu_torch.ops.attention import flash_bwd, flash_fwd
+    from nans_clip_tpu_torch.ops.layernorm import pallas_layer_norm
+
+    flash_fwd.launches = flash_bwd.launches = pallas_layer_norm.launches = 0
+    _wide_reset()
+
+
+def phase_pallas(torch, dev):
+    """Phase 10: the ``attn_impl="pallas"`` route. #22 and #23 against their
+    twins at five shapes up to S = 1024, ``flash_attention_block`` and
+    ``pallas_layer_norm`` (#24) against theirs (direct calls), then
+    ``get_similarity`` of ViT-B-16 at batch 256 on the route against the
+    ``fused`` route, and ViT-L-14-336 train steps on the route (one against
+    the ``fused`` route, then 4)."""
+    import copy
+
+    import torch.nn.functional as F
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.ops import attention as A
+    from nans_clip_tpu_torch.ops.layernorm import layer_norm, pallas_layer_norm
+    from nans_clip_tpu_torch.training import TrainConfig, create_train_state, make_train_step
+
+    t_phase = time.time()
+    g = torch.Generator(device=dev).manual_seed(20)
+    bf = torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std + mean).to(bf)
+
+    def check(name, got, want, bound):
+        err = float((got.float() - want.float()).abs().max())
+        if got.shape != want.shape or not torch.isfinite(got).all() or err > bound:
+            raise AssertionError(f"{name}: max abs err {err} exceeds bound {bound}")
+        return err
+
+    results = {}
+    _flash_reset()
+    for b, h, s, dh, masked in FLASH_SHAPES:
+        tag = f"({b}, {h}, {s}, {dh}){', masked' if masked else ''}"
+        # q, k, v as the tower gives them: views of one packed projection
+        q, k, v = rnd(b, s, 3, h, dh).permute(2, 0, 3, 1, 4).unbind(0)
+        kb = None
+        if masked:
+            lengths = torch.randint(2, s + 1, (b,), generator=g, device=dev)
+            kb = ((torch.arange(s, device=dev)[None, :] >= lengths[:, None]).float()
+                  * -10000.0).contiguous()
+        do = rnd(b, h, s, dh)
+        o, lse = A.flash_fwd(q, k, v, kb)
+        o_t, lse_t = A.attention_pallas_plain(q, k, v, kb)
+        grads = A.flash_bwd(q, k, v, kb, o, do, lse)
+        grads_t = A.attention_pallas_bwd_plain(q, k, v, kb, o, do, lse)
+        torch.cuda.synchronize()
+        err_o = check(f"#22 {tag} o", o, o_t, _ulps(o_t, FLASH_ULPS))
+        err_l = check(f"#22 {tag} lse", lse, lse_t,
+                      LSE_REL * max(1.0, float(lse_t.abs().max())))
+        err_g = max(check(f"#23 {tag} {n}", a, r, BWD_REL * float(r.float().abs().max()))
+                    for n, a, r in zip(("dq", "dk", "dv"), grads, grads_t))
+        if not all(torch.equal(x, y) for x, y in zip(grads, A.flash_bwd(q, k, v, kb, o, do,
+                                                                         lse))):
+            raise AssertionError(f"#23 {tag}: two calls gave different bits")
+        del o_t, lse_t, grads, grads_t
+        mask = None if kb is None else kb.view(b, 1, 1, s).to(bf)
+        sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask)
+        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+        lout = sdpa(lq, lk, lv)
+        io = b * h * s * dh * 2
+        fwd_cost = (4 * io + b * h * s * 4 + (b * s * 4 if masked else 0), 4 * b * h * s * s * dh)
+        bwd_cost = (8 * io + b * h * s * 4 + (b * s * 4 if masked else 0), 10 * b * h * s * s * dh)
+        timing = {
+            "fwd": (_time_ms(lambda: A.flash_fwd(q, k, v, kb), 10),
+                    _time_ms(lambda: A.attention_pallas_plain(q, k, v, kb), 2),
+                    _time_ms(lambda: sdpa(q, k, v), 10), _bound(*fwd_cost)),
+            "bwd": (_time_ms(lambda: A.flash_bwd(q, k, v, kb, o, do, lse), 10),
+                    _time_ms(lambda: A.attention_pallas_bwd_plain(q, k, v, kb, o, do, lse), 2),
+                    _time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), do,
+                                                         retain_graph=True), 10),
+                    _bound(*bwd_cost))}
+        for part, err, what in (("fwd", err_o, f"o {err_o:.6g} <= {FLASH_ULPS} bf16 ulp, lse "
+                                                f"{err_l:.3g}"),
+                                ("bwd", err_g, f"dq/dk/dv {err_g:.6g} <= {BWD_REL} x max|twin|, "
+                                               "the same bits twice")):
+            ms, plain_ms, lib_ms, (bound_ms, bound_by) = timing[part]
+            name = "attention_pallas" if part == "fwd" else "attention_pallas_bwd"
+            cost = fwd_cost if part == "fwd" else bwd_cost
+            lib = "SDPA" if part == "fwd" else "SDPA backward"
+            print(f"pallas kernel {name} {tag}: max_abs_err {what}; {ms:.4f} ms, twin "
+                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms ({lib}), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}; {cost[1] / 1e9:.1f} GFLOP, "
+                  f"{cost[0] / 1e6:.1f} MB)", flush=True)
+            results[(name, (b, h, s, dh))] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                                  library_ms=lib_ms, bound_ms=bound_ms,
+                                                  bound_by=bound_by)
+        del q, k, v, do, o, lse, lq, lk, lv, lout
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase10": "flash kernels", "results": [
+        dict(name=n, shape=list(shape), **r) for (n, shape), r in results.items()]}), flush=True)
+
+    # flash_attention_block (direct calls) at ViT-L-14-336's layer shape
+    bb, s, w, heads = FLASH_BLOCK_SHAPE
+    x, gout = rnd(bb, s, w), rnd(bb, s, w)
+    p = (rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(3 * w, w, std=w ** -0.5),
+         rnd(3 * w, std=0.1), rnd(w, w, std=w ** -0.5), rnd(w, std=0.1))
+
+    def twin_block(xr, lw, lb, wqkv, bqkv, wo, bo):
+        xn = layer_norm(xr, lw, lb, 1e-5)
+        qq, kk, vv = (A.split_heads(t, heads) for t in F.linear(xn, wqkv, bqkv).chunk(3, -1))
+        return xr + F.linear(A.merge_heads(A.attention_pallas_plain(qq, kk, vv)[0]), wo, bo)
+
+    def yard_block(xr, lw, lb, wqkv, bqkv, wo, bo):
+        xn = F.layer_norm(xr, (w,), lw, lb, 1e-5)
+        qq, kk, vv = (A.split_heads(t, heads) for t in F.linear(xn, wqkv, bqkv).chunk(3, -1))
+        return xr + F.linear(A.merge_heads(F.scaled_dot_product_attention(qq, kk, vv)), wo, bo)
+
+    def fwd_bwd(fn):
+        args = [t.detach().requires_grad_() for t in (x, *p)]
+        return lambda: (lambda out: (out,) + torch.autograd.grad(out, args, gout))(fn(*args))
+
+    kern = fwd_bwd(lambda *a: A.flash_attention_block(*a, heads, 1e-5))
+    twin, yard = fwd_bwd(twin_block), fwd_bwd(yard_block)
+    got, want = kern(), twin()
+    torch.cuda.synchronize()
+    err_f = check("flash_attention_block out", got[0], want[0], _ulps(want[0], 4))
+    err_g = max(check(f"flash_attention_block d{n}", a, r, BWD_REL * float(r.float().abs().max()))
+                for n, a, r in zip(("x", "ln_w", "ln_b", "wqkv", "bqkv", "wo", "bo"),
+                                   got[1:], want[1:]))
+    del got, want
+    m = bb * s
+    cost = (m * w * 2 * 5 + (4 * w * w + 6 * w) * 2 * 2 + bb * heads * s * 4,
+            30 * m * w * w + 14 * bb * s * s * w)
+    ms, plain_ms, yard_ms = _time_ms(kern, 5), _time_ms(twin, 2), _time_ms(yard, 5)
+    bound_ms, bound_by = _bound(*cost)
+    print(f"pallas flash_attention_block ({bb}, {s}, {w}, {heads} heads), forward and the 7 "
+          f"gradients: max_abs_err out {err_f:.6g} <= 4 bf16 ulp, gradients {err_g:.6g} <= "
+          f"{BWD_REL} x max|twin|; {ms:.4f} ms, twin {plain_ms:.4f} ms, library {yard_ms:.4f} "
+          f"ms (F.layer_norm/F.linear/SDPA autograd), bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    print(json.dumps({"phase10": "flash_attention_block", "shape": [bb, s, w, heads],
+                      "err_out": err_f, "err_grads": err_g, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": yard_ms, "bound_ms": bound_ms, "bound_by": bound_by}),
+          flush=True)
+    del x, gout, p
+    torch.cuda.empty_cache()
+
+    # pallas_layer_norm (#24, direct calls)
+    for rows, w in PALLAS_LN_SHAPES:
+        x = rnd(rows, w)
+        lw, lb = rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1)
+        err = check(f"pallas_layer_norm [{rows}, {w}]", pallas_layer_norm(x, lw, lb),
+                    layer_norm(x, lw, lb), _ulps(layer_norm(x, lw, lb), 1))
+        ms = _time_ms(lambda: pallas_layer_norm(x, lw, lb), 10)
+        plain_ms = _time_ms(lambda: layer_norm(x, lw, lb), 3)
+        lib_ms = _time_ms(lambda: F.layer_norm(x, (w,), lw, lb, 1e-5), 10)
+        bound_ms, bound_by = _bound(2 * rows * w * 2 + 2 * w * 2, 8 * rows * w)
+        print(f"pallas kernel pallas_layer_norm [{rows}, {w}]: max_abs_err {err:.6g} <= 1 bf16 "
+              f"ulp; {ms:.4f} ms, twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+              f"(F.layer_norm), bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        results[("pallas_layer_norm", (rows, w))] = dict(
+            err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by)
+    direct = _flash_counts()
+    print(json.dumps({"phase10": "pallas_layer_norm", "results": [
+        dict(shape=list(shape), **r) for (n, shape), r in results.items()
+        if n == "pallas_layer_norm"]}), flush=True)
+    print(f"pallas: direct-call launches {json.dumps(direct)}; kernels took "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+
+    # get_similarity of ViT-B-16 at batch 256 on the route, from a .pt through
+    # load_from_name, against the fused route on the same weights and inputs
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "clip_cn_vit-b-16_random.pt")
+        cfg = nct.load_config(f"{VISION}@{TEXT}")
+        torch.save({"state_dict": build_clip(cfg, "cpu", torch.Generator().manual_seed(0))
+                    .state_dict()}, ckpt)
+        load = lambda impl: nct.load_from_name(
+            ckpt, vision_model_name=VISION, text_model_name=TEXT, input_resolution=224,
+            device=dev, options=nct.ModelOptions(compute_dtype="bfloat16", attn_impl=impl))[0]
+        model, fused = load("pallas"), load("fused")
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(BATCH, 224, 224, 3, generator=gen).to(dev)
+    ids = torch.from_numpy(nct.tokenize((TEXTS * BATCH)[:BATCH])).to(dev)
+    _flash_reset()
+    li, lt = model.get_similarity(images, ids)
+    torch.cuda.synchronize()
+    flash, others = _flash_counts(), {k: v for k, v in _wide_counts().items() if v}
+    n_layers = cfg.vision.layers + cfg.text.num_hidden_layers
+    if flash["attention_pallas"] != n_layers or flash["attention_pallas_bwd"] or others:
+        raise AssertionError(f"pallas get_similarity: launches {flash}, {others}; expected "
+                             f"{n_layers} of #22 and none of the fused kernels")
+    fli = fused.get_similarity(images, ids)[0]
+    feats = [(model.encode_image(images), fused.encode_image(images)),
+             (model.encode_text(ids), fused.encode_text(ids))]
+    feat_err = [float((a.float() - r.float()).abs().max()) for a, r in feats]
+    err = float((li - fli).abs().max())
+    if li.shape != (BATCH, BATCH) or not torch.isfinite(li).all() or not torch.equal(lt, li.T) \
+            or err > PALLAS_LOGIT_BOUND:
+        raise AssertionError(f"pallas get_similarity: shape {tuple(li.shape)}, logits {err} "
+                             f"from the fused route")
+    ms = _time_ms(lambda: model.get_similarity(images, ids), 5)
+    fused_ms = _time_ms(lambda: fused.get_similarity(images, ids), 5)
+    print(f"pallas get_similarity ViT-B-16 batch {BATCH}: {ms:.2f} ms, {BATCH / ms * 1e3:.1f} "
+          f"pairs/s (fused route {fused_ms:.2f} ms, {BATCH / fused_ms * 1e3:.1f} pairs/s); "
+          f"vs fused: logits max abs diff {err:.6g} <= {PALLAS_LOGIT_BOUND}, image features "
+          f"{feat_err[0]:.6g}, text features {feat_err[1]:.6g}; launches {json.dumps(flash)}",
+          flush=True)
+    print(json.dumps({"phase10": "get_similarity", "batch": BATCH, "ms": ms,
+                      "pairs_s": BATCH / ms * 1e3, "fused_ms": fused_ms, "logits_diff": err,
+                      "image_feature_diff": feat_err[0], "text_feature_diff": feat_err[1],
+                      "launches": flash}), flush=True)
+    forward = dict(flash)
+    del model, fused, images, ids, li, lt, fli, feats
+    torch.cuda.empty_cache()
+
+    # ViT-L-14-336 train steps on the route, the preset's text dropout 0.1
+    cfg = nct.load_config(PALLAS_L336)
+    module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(11)
+    r = cfg.vision.image_resolution
+    images = torch.randn(WIDE_BATCH, r, r, 3, generator=gen).to(dev)
+    ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}"
+                                         for i in range(WIDE_BATCH)])).to(dev)
+    tcfg = TrainConfig(lr=2e-5, warmup=2, max_steps=100)
+    opts = lambda impl: nct.ModelOptions(compute_dtype="bfloat16", deterministic=False,
+                                         attn_impl=impl)
+    t0 = time.time()
+    fused_state = create_train_state(copy.deepcopy(module).to(dev), tcfg, device=dev)
+    fused_state, m = make_train_step(cfg, tcfg, opts("fused"))(fused_state, images, ids, 7)
+    fused_loss = float(m["loss"])
+    fused_grads = {n: p.grad for n, p in fused_state.module.named_parameters()}
+    fused_s = time.time() - t0
+    del fused_state
+    torch.cuda.empty_cache()
+    state = create_train_state(module.to(dev), tcfg, device=dev)
+    step = make_train_step(cfg, tcfg, opts("pallas"))
+    n_steps, losses, events = 5, [], []
+    torch.cuda.synchronize()
+    _flash_reset()
+    for i in range(n_steps):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, metrics = step(state, images, ids, 7)
+        ev[1].record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+        if i == 0:
+            torch.cuda.synchronize()
+            per_step = _flash_counts()
+            others = {k: v for k, v in _wide_counts().items() if v}
+            n_img = cfg.vision.layers
+            if (per_step["attention_pallas"] != n_img or per_step["attention_pallas_bwd"] != n_img
+                    or others):
+                raise AssertionError(f"pallas step: launches {per_step}, {others}; expected "
+                                     f"{n_img} of #22 and #23 (the text tower's attention is "
+                                     "the plain one under dropout) and none of the fused kernels")
+            cos = {n: _cos(p.grad, fused_grads[n]) for n, p in state.module.named_parameters()
+                   if not n.endswith("key.bias")}
+            worst = min(cos, key=cos.get)
+            diff = abs(float(metrics["loss"]) - fused_loss)
+            print(f"pallas train ViT-L-14-336: pallas vs fused route after one step: loss "
+                  f"{float(metrics['loss']):.6f} vs {fused_loss:.6f} (|diff| {diff:.3g} <= "
+                  f"{STEP_LOSS_BOUND}); gradient cosine >= {cos[worst]:.6f} ({worst}) over "
+                  f"{len(cos)} tensors, bound {GRAD_COS_BOUND}; fused step {fused_s:.1f} s",
+                  flush=True)
+            if diff > STEP_LOSS_BOUND or cos[worst] < GRAD_COS_BOUND:
+                raise AssertionError("pallas train: the pallas route's step differs from the "
+                                     "fused route's")
+            # the allocator keeps its blocks: emptying it here made step 2
+            # pay for cudaMalloc again (852-1751 ms against ~420)
+            del fused_grads
+            torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    total, peak = _flash_counts(), torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(e) for a, e in events]
+    losses = [float(x) for x in losses]
+    ms = sum(step_ms[1:]) / (n_steps - 1)
+    median = sorted(step_ms[1:])[(n_steps - 1) // 2]   # the upper median of steps 2-n
+    print(f"pallas train ViT-L-14-336: batch {WIDE_BATCH}, {n_steps} steps, loss "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; step ms {' '.join(f'{x:.2f}' for x in step_ms)};"
+          f" steps 2-{n_steps} {ms:.2f} ms a step (upper median {median:.2f}), "
+          f"{WIDE_BATCH / ms * 1e3:.2f} pairs/s; peak "
+          f"memory (steps 2-{n_steps}) {peak / 2 ** 30:.3f} GiB ({peak} bytes); launches a step "
+          f"{json.dumps(per_step)}", flush=True)
+    print(json.dumps({"phase10": "train ViT-L-14-336", "batch": WIDE_BATCH, "losses": losses,
+                      "step_ms": step_ms, "mean_ms": ms, "upper_median_ms": median,
+                      "pairs_s": WIDE_BATCH / ms * 1e3, "peak_bytes": peak,
+                      "loss_diff_vs_fused": diff, "min_grad_cos_vs_fused": cos[worst],
+                      "launches": per_step}), flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"pallas train: the loss did not fall over {n_steps} steps: {losses}")
+    if any(total[k] != n_steps * v for k, v in per_step.items()):
+        raise AssertionError(f"pallas train: launches {total} are not {n_steps} x {per_step}")
+    del state, module, images, ids
+    torch.cuda.empty_cache()
+    print(f"pallas: phase 10 took {time.time() - t_phase:.1f} s", flush=True)
+    return results, direct, forward, per_step
+
+
 def main() -> int:
     if not (ROOT / "nans_clip_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -1838,6 +2180,7 @@ def main() -> int:
         train_results, train_launches = phase_training(torch, dev, tmp)
         lora_results, lora_step, layer_launches, _ = phase_lora(torch, dev, tmp)
     wide_results, wide_steps, wide_forward, wide_direct = phase_wide(torch, dev)
+    pallas_results, pallas_direct, pallas_forward, pallas_step = phase_pallas(torch, dev)
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")
@@ -1910,13 +2253,31 @@ def main() -> int:
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
                         "yardstick_ms": r["yard_ms"]})
+    # #22 from get_similarity of ViT-B-16 at batch 256 (the batch path's shape),
+    # #23 from a ViT-L-14-336 step (the training path's), #24 from its direct calls
+    pallas_entries = (
+        ("attention_pallas", (256, 12, 197, 64), "nans_clip_tpu_torch/csrc/flash.cu",
+         "nans_clip_tpu/ops/attention.py:81", pallas_forward["attention_pallas"],
+         "get_similarity ViT-B-16, batch 256, attn_impl=pallas"),
+        ("attention_pallas_bwd", (32, 16, 577, 64), "nans_clip_tpu_torch/csrc/flash.cu",
+         "nans_clip_tpu/ops/attention.py:96", pallas_step["attention_pallas_bwd"],
+         "train step, ViT-L-14-336, attn_impl=pallas"),
+        ("pallas_layer_norm", (50432, 768), "nans_clip_tpu_torch/csrc/layernorm.cu",
+         "nans_clip_tpu/ops/layernorm.py:32", pallas_direct["pallas_layer_norm"], "direct"))
+    for name, shape, source, replaces, launches, path in pallas_entries:
+        r = pallas_results[(name, shape)]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches, "path": path, "max_abs_err": r["err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     ported = {"fused_attention_block", "fused_mlp_block", "fused_layer_block", "fused_tower",
               "fused_tower_int8", "fused_attention_block_bwd", "fused_bert_attention_block_bwd",
               "fused_mlp_block_bwd", "fused_attention_block_bwd_fullgrad",
               "fused_bert_attention_block_bwd_fullgrad", "fused_mlp_block_bwd_fullgrad",
-              "fused_layer_block_bwd_fullgrad", *wide_launches}
+              "fused_layer_block_bwd_fullgrad", *wide_launches,
+              *(name for name, *_ in pallas_entries)}
     if not ported <= {k["name"] for k in kernels} or any(k["launches"] < 1 for k in kernels):
-        raise AssertionError(f"the eighteen ported TPU kernels, each launched on its main path: "
+        raise AssertionError(f"the twenty-one ported TPU kernels, each launched on its main path: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

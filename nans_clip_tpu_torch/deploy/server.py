@@ -43,6 +43,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from nans_clip_tpu_torch.models.common import PRECISIONS
+from nans_clip_tpu_torch.ops import gates
+
 logger = logging.getLogger(__name__)
 
 
@@ -287,15 +290,17 @@ def make_server(service: ClipService, host: str = "127.0.0.1", port: int = 8000,
     return ThreadingHTTPServer((host, port), make_handler(service, max_body_bytes))
 
 
-def main(argv=None):
+def parse_args(argv=None):
     import argparse
 
     p = argparse.ArgumentParser(prog="nans_clip_tpu_torch.deploy.server")
     p.add_argument("--vision-model", default="ViT-B-16")
     p.add_argument("--text-model", default="RoBERTa-wwm-ext-base-chinese")
     p.add_argument("--resume", default=None)
-    p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
-    p.add_argument("--attn-impl", default="auto")
+    p.add_argument("--precision", default="bf16", choices=PRECISIONS,
+                   help="every value but fp32 runs in bf16, as in the JAX package")
+    p.add_argument("--attn-impl", default="auto", choices=gates.IMPLS,
+                   help="the JAX choices auto|xla|pallas|fused, plus the port's plain|kernel")
     p.add_argument("--quantize", default=None, choices=[None, "int8", "int8-text"])
     p.add_argument("--max-batch", type=int, default=32)
     p.add_argument("--no-dynamic-batching", action="store_true",
@@ -309,8 +314,11 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny-model", action="store_true",
                    help="2-layer debug config (configs.tiny_config)")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
     from nans_clip_tpu_torch.eval.model_io import load_eval_model
     cfg = None
     if args.tiny_model:

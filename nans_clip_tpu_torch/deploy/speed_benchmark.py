@@ -27,6 +27,9 @@ import time
 import numpy as np
 import torch
 
+from nans_clip_tpu_torch.models.common import PRECISIONS
+from nans_clip_tpu_torch.ops import gates
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="nans_clip_tpu_torch.deploy.speed_benchmark")
@@ -37,8 +40,10 @@ def parse_args(argv=None):
     p.add_argument("--n", type=int, default=50)
     p.add_argument("--warmup", type=int, default=5)
     p.add_argument("--context-length", type=int, default=52)
-    p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
-    p.add_argument("--attn-impl", default="auto")
+    p.add_argument("--precision", default="bf16", choices=PRECISIONS,
+                   help="every value but fp32 runs in bf16, as in the JAX package")
+    p.add_argument("--attn-impl", default="auto", choices=gates.IMPLS,
+                   help="the JAX choices auto|xla|pallas|fused, plus the port's plain|kernel")
     p.add_argument("--json-output", default=None)
     p.add_argument("--quantize", default=None, choices=[None, "int8", "int8-text"],
                    help="weight-only int8 serving (utils/quantize.py): the whole-tower "
@@ -121,7 +126,7 @@ def main(argv=None):
         from nans_clip_tpu_torch.utils.quantize import towers_for_mode
         model = model.quantize("int8", towers_for_mode(args.quantize))
     batch_sizes = [int(b) for b in args.batch_sizes.split(",")]
-    label = f"{args.vision_model} {args.quantize or args.precision}"
+    label = f"{args.vision_model} {args.quantize or args.precision} attn_impl={args.attn_impl}"
     results = bench_model(model, batch_sizes, args.n, args.warmup, args.context_length, label)
     if args.json_output:
         with open(args.json_output, "w") as f:

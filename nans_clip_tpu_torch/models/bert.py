@@ -15,7 +15,12 @@ dequantized on entry everywhere else. The q/k/v weights are packed into
 the ``[3H, H]`` layout the kernels read once, and packed again only when
 the weights change.
 
-A training forward (``options.deterministic`` False) runs every layer
+Under ``attn_impl="pallas"`` each layer is the JAX tower's unfused post-LN
+branch (bert.py:246-262), in inference and training: LayerNorm, the
+projections, the MLP and dropout in plain torch around the flash attention
+of ``ops/attention.py`` (#22/#23; the plain attention under attention
+dropout, as in JAX): :func:`_pallas_layer`. Otherwise a training forward
+(``options.deterministic`` False) runs every layer
 through the sub-block autograd Functions (#1 post-LN then #2 post-LN
 forward; backward #16 and #18, or #15 and #17 where a weight is frozen or
 ``options.bwd_impl`` routes there). With a ``torch.Generator`` it drops out as
@@ -32,17 +37,43 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from nans_clip_tpu_torch.configs import TextConfig
 from nans_clip_tpu_torch.models.common import ModelOptions
 from nans_clip_tpu_torch.ops import dropout as drop
 from nans_clip_tpu_torch.ops import gates
+from nans_clip_tpu_torch.ops.activations import ACT2FN
+from nans_clip_tpu_torch.ops.attention import mha
 from nans_clip_tpu_torch.ops.fused_block import attention_block_train, mlp_block_train
 from nans_clip_tpu_torch.ops.layer_kernel import encoder_layer_math, fused_layer_block
 from nans_clip_tpu_torch.ops.layernorm import layer_norm
 from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
 from nans_clip_tpu_torch.utils.quantize import Int8Weight, dequantize_weight, is_quantized
+
+
+def _pallas_layer(x, p, key_bias, heads: int, eps: float, act: str, seed_a=None, seed_m=None,
+                  attn_drop: float = 0.0, hid_drop: float = 0.0) -> torch.Tensor:
+    """The JAX tower's unfused post-LN layer (bert.py:246-262), the layer of
+    ``attn_impl="pallas"``: ``LN(x + drop(mha(x)))`` with the flash attention
+    (#22/#23) where ``gates.pallas_attention_route`` holds and the plain
+    attention under attention-probability dropout, then ``LN(x +
+    drop(fc2(act(fc1(x)))))``. LayerNorm, products and dropout in plain
+    torch (XLA in JAX) with the port's keep masks drawn from ``seed_a``
+    (attention probabilities and hidden) and ``seed_m`` (hidden); autograd
+    differentiates all of it."""
+    s = x.shape[1]
+    a_drop, h_drop = drop.sub_block(seed_a, attn_drop, hid_drop, s)
+    a = mha(x, *p[2:6], heads, key_bias, "pallas", a_drop)
+    if drop.active(h_drop):
+        a = drop.apply(a, h_drop)
+    x = layer_norm(x + a, p[0], p[1], eps)
+    h = F.linear(ACT2FN[act](F.linear(x, p[8], p[9])), p[10], p[11])
+    _, m_drop = drop.sub_block(seed_m, 0.0, hid_drop, s)
+    if drop.active(m_drop):
+        h = drop.apply(h, m_drop)
+    return layer_norm(x + h, p[6], p[7], eps)
 
 
 class BertEmbeddings(nn.Module):
@@ -188,6 +219,11 @@ class BertModel(nn.Module):
         layers = [layer.weights(options) for layer in enc.layer]
         if not options.deterministic:
             return self._train_layers(x, key_bias, layers, options, generator)
+        if gates.pallas_route(options.attn_impl):
+            for p in layers:
+                p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+                x = _pallas_layer(x, p, key_bias, heads, eps, act)
+            return x
         if gates.tower_route(x, options.attn_impl, "text", heads, cfg.intermediate_size,
                              is_quantized(layers[0][2])):
             return fused_tower(x, key_bias, layers, heads, eps, act, True, enc.tower_table)
@@ -209,6 +245,7 @@ class BertModel(nn.Module):
             seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
             x = drop.apply(x, drop.Dropout(seed, hd, drop.STREAM_EMBED, x.shape[1]))
         use_kernel = gates.use_kernel(x, options.attn_impl)
+        pallas = gates.pallas_route(options.attn_impl)
         route_a = gates.bwd_route("attn_post", options.bwd_impl)
         route_m = gates.bwd_route("mlp_post", options.bwd_impl)
         for p in layers:
@@ -216,6 +253,9 @@ class BertModel(nn.Module):
             seed_a = seed_m = None
             if generator is not None:
                 seed_a, seed_m = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator).tolist()
+            if pallas:
+                x = _pallas_layer(x, p, key_bias, heads, eps, act, seed_a, seed_m, ad, hd)
+                continue
             x = attention_block_train(x, *p[:6], key_bias, heads, eps, True, seed_a, ad, hd,
                                       use_kernel, route_a)
             x = mlp_block_train(x, *p[6:], act, eps, True, seed_m, hd, use_kernel, route_m)

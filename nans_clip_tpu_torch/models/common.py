@@ -12,20 +12,42 @@ from torch import nn
 from nans_clip_tpu_torch.ops import gates
 
 
+# The JAX CLIs' --precision values (training/params.py:79-80,
+# deploy/server.py, eval/model_io.py:44).
+PRECISIONS = ("amp", "fp16", "bf16", "fp32")
+
+
+def compute_dtype_for(precision: str) -> Optional[str]:
+    """``ModelOptions.compute_dtype`` for a --precision value: every value
+    but ``fp32`` runs in bf16, as ``nans_clip_tpu/eval/model_io.py:44``
+    maps them (``amp`` and ``fp16`` too: the TPU has no fp16 path, and the
+    card's kernels take bf16)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    return None if precision == "fp32" else "bfloat16"
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
     """Knobs threaded through the towers.
 
     ``attn_impl``: "auto" runs the hand kernels for CUDA tensors and the
     plain-torch twins for CPU tensors; "plain" always runs the twins;
-    "kernel" always runs the kernels (CUDA only). See ``ops/gates.py``.
+    "kernel" always runs the kernels (CUDA only). The JAX package's values
+    are taken too: "fused" runs what "auto" runs, "xla" what "plain" runs,
+    and "pallas" its flash-attention route: each layer is LayerNorm, the
+    projections and the MLP in plain torch around the flash attention
+    (kernels #22/#23 on CUDA tensors, their twins on CPU tensors; the plain
+    attention above ``gates.MAX_PALLAS_SEQ`` or under attention dropout, as
+    in JAX), and no sub-block, whole-layer or whole-tower kernel. See
+    ``ops/gates.py``.
     ``compute_dtype``: None keeps the parameter dtype; "bfloat16" casts the
     parameters (all but ``logit_scale``) and the inputs. The kernels take
     bf16, so a model on the card needs "bfloat16" unless ``attn_impl`` is
-    "plain". For inference ``cast_module`` casts the parameters once, in
-    place; for training the parameters stay fp32 masters and each forward
-    casts them (:meth:`cast`, as ``cast_tree`` runs inside the JAX towers),
-    so gradients reach the fp32 parameters through the cast.
+    "plain" or "xla". For inference ``cast_module`` casts the parameters
+    once, in place; for training the parameters stay fp32 masters and each
+    forward casts them (:meth:`cast`, as ``cast_tree`` runs inside the JAX
+    towers), so gradients reach the fp32 parameters through the cast.
     ``deterministic``: False is the training forward: dropout where the
     tower has it, and every layer through the autograd Functions.
     ``bwd_impl``: the backward of a block whose weights all need gradients:

@@ -11,7 +11,11 @@ computation follows the JAX tower:
 * CLS and positional embeddings, ``ln_pre``, the pre-LN layers with
   QuickGELU, ``ln_post`` on the CLS token and ``proj``.
 
-The layers run as ``ops/gates.py`` routes them: at serving batches all of
+The layers run as ``ops/gates.py`` routes them. Under ``attn_impl="pallas"``
+each layer is the JAX tower's unfused branch (vit.py:327-338), LayerNorm,
+projections and MLP in plain torch around the flash attention of
+``ops/attention.py`` (#22, and #23 in training): :func:`_pallas_layer`.
+Otherwise: at serving batches all of
 them in one launch of the whole-tower kernel (``ops/tower_kernel.py``),
 otherwise each through the sub-block kernels (``ops/fused_block.py``), or
 through the twins for CPU tensors. The sub-block kernels are those the JAX
@@ -39,11 +43,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from nans_clip_tpu_torch.configs import VisionConfig
 from nans_clip_tpu_torch.models.common import ModelOptions
 from nans_clip_tpu_torch.ops import gates
+from nans_clip_tpu_torch.ops.activations import quick_gelu
+from nans_clip_tpu_torch.ops.attention import mha
 from nans_clip_tpu_torch.ops.fused_block import (_mlp_dispatch, _reference_block,
                                                  _reference_mlp, attention_block_train,
                                                  fused_attention_block,
@@ -114,6 +121,17 @@ def wide_tile(seq: int, width: int) -> int:
     """1 where the JAX tower runs #7 (only ``fits_fused_wide`` holds), else
     0 (#1)."""
     return int(not gates.fits_fused(seq, width) and gates.fits_fused_wide(seq, width))
+
+
+def _pallas_layer(x: torch.Tensor, p: tuple, heads: int) -> torch.Tensor:
+    """The JAX tower's layer under ``attn_impl="pallas"`` (vit.py:327-338):
+    ``x + mha(LN(x))`` with the flash attention (#22/#23, their twins on
+    CPU tensors), then the plain quick-GELU MLP; LayerNorm and the products
+    in plain torch, as XLA runs them in JAX, and autograd through all of it
+    in training."""
+    x = x + mha(layer_norm(x, p[0], p[1], 1e-5), *p[2:6], heads, impl="pallas")
+    h = quick_gelu(F.linear(layer_norm(x, p[6], p[7], 1e-5), p[8], p[9]))
+    return x + F.linear(h, p[10], p[11])
 
 
 def _layer(x: torch.Tensor, p: tuple, heads: int, use_kernel: bool) -> torch.Tensor:
@@ -211,13 +229,16 @@ class VisualTransformer(nn.Module):
             x = fused_tower(x, None, layers, heads, 1e-5, "quick_gelu", False, self.tower_table)
         else:
             use_kernel = gates.use_kernel(x, options.attn_impl)
+            pallas = gates.pallas_route(options.attn_impl)
             route_a = gates.bwd_route("attn_pre", options.bwd_impl)
             route_m = gates.bwd_route("mlp_pre", options.bwd_impl)
             for p in layers:
                 p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-                if options.deterministic:
+                if pallas:
+                    x = _pallas_layer(x, p, heads)
+                elif options.deterministic:
                     x = _layer(x, p, heads, use_kernel)
-                elif gates.layer_bwd_route(options.bwd_impl, p):
+                elif gates.layer_bwd_route(options.bwd_impl, p, x.shape[1], w, heads, 4 * w):
                     x = fused_layer_train(x, *p, heads, "quick_gelu", 1e-5, use_kernel)
                 else:
                     x = attention_block_train(x, *p[:6], None, heads, 1e-5, False,

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+_LL = ctypes.POINTER(ctypes.c_longlong)
 _DROP = [_U, _U, _U, _F, _I]   # seed, stream, threshold, scale, on (ops/dropout.py)
 _SIGNATURES = {
     # x, x_is_fp32, gamma, beta, y, rows, width, eps, stream
@@ -52,6 +53,11 @@ _SIGNATURES = {
     "nans_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
     # qkv, dctx, dqkv32, dqkv16, stats, B, S, width, dh, scale, stream
     "nans_attention_bwd_long": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, bias, o, lse, strides (int64 [4][3]), B, H, S, dh, scale, stream
+    "nans_flash_fwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
+    # q, k, v, bias, o, dout, lse, delta, dq, dk, dv, strides (int64 [8][3]), B, H, S,
+    # dh, scale, stream
+    "nans_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
     # quant, S, out: the largest co-resident grid
     "nans_tower_grid": [_I, _I, ctypes.POINTER(_I)],
     # x, key_bias, table, work, sum, part, sem, clock, B, S, W, I, L, eps,

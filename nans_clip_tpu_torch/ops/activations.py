@@ -47,3 +47,13 @@ def plain_dtype(dtype, like: torch.Tensor):
     """The dtype a twin stores for a requested ``dtype``: fp32 (the
     kernels' fp32 intermediates) widens to fp64 for fp64 inputs."""
     return torch.float64 if dtype == torch.float32 and like.dtype == torch.float64 else dtype
+
+
+def mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a . b`` in fp32 from operands in the io dtype: the
+    ``preferred_element_type=float32`` contractions the JAX package leaves
+    to XLA. One library product with bf16 operands and an fp32 result on
+    the card; in fp32 after an exact upcast elsewhere."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return upcast(a) @ upcast(b)

@@ -22,6 +22,17 @@ tower, and ViT-H.
 
 ``attention_plain`` and ``attention_bwd_plain`` are the twins; CPU tensors
 take them.
+
+The second half ports ``nans_clip_tpu/ops/attention.py`` itself: the flash
+attention on ``[B, H, S, dh]`` tensors with an additive fp32 ``[B, S]`` key
+bias, #22 (``_fwd_kernel``: o and the row logsumexp) and #23
+(``_bwd_kernel``: dq, dk, dv from the saved o and logsumexp), both in
+``csrc/flash.cu``, wrapped by :func:`flash_fwd` and :func:`flash_bwd`, with
+``attention_pallas_plain`` and ``attention_pallas_bwd_plain`` as their
+twins; the autograd Function that joins them (the JAX ``custom_vjp``,
+:177-194), ``attention_pallas``, ``fused_attention``, ``split_heads``,
+``merge_heads`` and ``mha`` (the JAX ``pallas`` and ``xla`` routes), and
+``flash_attention_block`` (:246-317).
 """
 
 from __future__ import annotations
@@ -29,10 +40,14 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import ctypes
+
 import torch
+import torch.nn.functional as F
 
 from nans_clip_tpu_torch.ops import _build, dropout as drop, gates
-from nans_clip_tpu_torch.ops.activations import upcast
+from nans_clip_tpu_torch.ops.activations import mm32, upcast
+from nans_clip_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd_plain
 
 
 def _heads(qkv: torch.Tensor, batch: int, heads: int):
@@ -61,14 +76,9 @@ def attention_plain(qkv: torch.Tensor, key_bias: Optional[torch.Tensor],
                     batch: int, heads: int,
                     dropout: Optional[drop.Dropout] = None) -> torch.Tensor:
     rows, w3 = qkv.shape
-    seq, w = rows // batch, w3 // 3
-    q, k, v = _heads(qkv, batch, heads)
-    p = _probs(q, k, key_bias, batch, seq)
-    keep = _keep(dropout, batch, heads, seq, p)
-    if keep is not None:
-        p = p * keep
-    ctx = torch.matmul(upcast(p.to(qkv.dtype)), v)
-    return ctx.to(qkv.dtype).permute(0, 2, 1, 3).reshape(rows, w)
+    q, k, v = qkv.view(batch, rows // batch, 3, heads, w3 // 3 // heads).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    return merge_heads(attention_xla(q, k, v, key_bias, dropout)).reshape(rows, w3 // 3)
 
 
 def _admit(name, qkv, key_bias, batch, heads, max_seq):
@@ -175,3 +185,296 @@ def attention_bwd(qkv: torch.Tensor, dctx: torch.Tensor, key_bias: Optional[torc
 
 attention.launches = 0
 attention_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Flash attention on [B, H, S, dh] tensors: #22 and #23
+# (nans_clip_tpu/ops/attention.py:81-194), and the JAX routes around it.
+# ---------------------------------------------------------------------------
+
+def attention_pallas_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           key_bias: Optional[torch.Tensor] = None):
+    """Twin of #22, step by step as ``_fwd_kernel`` (:81-93) in fp32:
+    returns (o in q's dtype, lse fp32 ``[B, H, S]``). The JAX kernel's
+    padding of S to its query block (keys past S biased by -1e30) adds
+    exact zeros to every sum, so the twin does not pad."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf = upcast(q), upcast(k), upcast(v)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if key_bias is not None:
+        s = s + upcast(key_bias)[:, None, None, :]
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p, vf) / l
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def attention_pallas_bwd_plain(q, k, v, key_bias, o, do, lse):
+    """Twin of #23, step by step as ``_bwd_kernel`` (:96-122) in fp32, from
+    the saved o and lse (not autograd through the forward's twin): returns
+    (dq, dk, dv) in q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, of, gf = (upcast(t) for t in (q, k, v, o, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if key_bias is not None:
+        s = s + upcast(key_bias)[:, None, None, :]
+    p = torch.exp(s - upcast(lse)[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    delta = (gf * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _strided_ok(t: torch.Tensor) -> bool:
+    """What flash.cu reads and writes through strides: the last dim
+    contiguous, the other strides whole 16-byte chunks, 16-byte aligned."""
+    return (t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def _admit_flash(name: str, q, k, v, key_bias, *more):
+    gates.admit(q.dim() == 4 and k.shape == q.shape and v.shape == q.shape,
+                f"{name}: q/k/v must share one [B, H, S, dh] shape, got "
+                f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    gates.admit(q.shape[-1] in gates.HEAD_DIMS, f"{name}: head dim {q.shape[-1]}")
+    for t in (q, k, v, *more):
+        gates.admit(t.is_cuda and t.dtype == gates.KERNEL_DTYPE,
+                    f"{name}: tensors must be {gates.KERNEL_DTYPE} on CUDA, got {t.dtype}")
+        gates.admit(t.shape == q.shape and _strided_ok(t),
+                    f"{name}: a [B, H, S, dh] view with a contiguous last dim, the other "
+                    "strides multiples of 8 and 16-byte alignment")
+    b, _, s, _ = q.shape
+    if key_bias is not None:
+        gates.admit(key_bias.is_cuda and key_bias.dtype == torch.float32
+                    and key_bias.is_contiguous() and tuple(key_bias.shape) == (b, s),
+                    f"{name}: key_bias must be contiguous fp32 [B, S] on CUDA")
+
+
+def _heads_like(q: torch.Tensor, n: int = 1):
+    """``n`` empty [B, H, S, dh] views of one [B, S, n, H, dh] buffer:
+    ``merge_heads`` reads each without a copy."""
+    b, h, s, dh = q.shape
+    buf = torch.empty((b, s, n, h, dh), dtype=q.dtype, device=q.device)
+    return [buf[:, :, i].permute(0, 2, 1, 3) for i in range(n)]
+
+
+def _strides(*tensors) -> ctypes.Array:
+    return (ctypes.c_longlong * (3 * len(tensors)))(*[st for t in tensors
+                                                      for st in t.stride()[:3]])
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              key_bias: Optional[torch.Tensor] = None):
+    """#22: (o, lse) for q/k/v ``[B, H, S, dh]`` and an additive fp32
+    ``key_bias`` ``[B, S]`` or None. CPU tensors take
+    :func:`attention_pallas_plain`; CUDA tensors launch ``nans_flash_fwd``
+    (bf16, head dim 64 or 80, any S; read through strides). o comes back
+    as a [B, H, S, dh] view of a [B, S, H, dh] buffer, lse fp32 [B, H, S]."""
+    if not q.is_cuda:
+        return attention_pallas_plain(q, k, v, key_bias)
+    _admit_flash("flash fwd", q, k, v, key_bias)
+    b, h, s, dh = q.shape
+    (o,) = _heads_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    err = _build.library().nans_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if key_bias is None else key_bias.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        _strides(q, k, v, o), b, h, s, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(q.device))
+    _build.check(err, "nans_flash_fwd")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_bwd(q, k, v, key_bias, o, do, lse):
+    """#23: (dq, dk, dv) from the forward's inputs, its o and lse, and
+    ``do``, the gradient of o. CPU tensors take
+    :func:`attention_pallas_bwd_plain`; CUDA tensors launch
+    ``nans_flash_bwd``: the dQ kernel (which stores delta = rowsum(do * o),
+    fp32) then the dK/dV kernel. dq, dk and dv come back as views of one
+    [B, S, 3, H, dh] buffer."""
+    if not q.is_cuda:
+        return attention_pallas_bwd_plain(q, k, v, key_bias, o, do, lse)
+    _admit_flash("flash bwd", q, k, v, key_bias, o, do)
+    b, h, s, dh = q.shape
+    gates.admit(lse.is_cuda and lse.dtype == torch.float32 and lse.is_contiguous()
+                and tuple(lse.shape) == (b, h, s), "flash bwd: lse must be contiguous fp32 "
+                "[B, H, S] on CUDA")
+    dq, dk, dv = _heads_like(q, 3)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    err = _build.library().nans_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if key_bias is None else key_bias.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(q, k, v, o, do, dq, dk, dv), b, h, s, dh, 1.0 / math.sqrt(dh),
+        _build.stream_ptr(q.device))
+    _build.check(err, "nans_flash_bwd")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_fwd.launches = 0
+flash_bwd.launches = 0
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as flash.cu reads it: as it is where its strides allow, else a
+    contiguous copy (an incoming gradient's layout is autograd's choice)."""
+    return t if not t.is_cuda or _strided_ok(t) else t.contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """#22 forward, #23 backward (the JAX ``custom_vjp``,
+    attention.py:177-194): saves q, k, v, the key bias, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias):
+        o, lse = flash_fwd(q, k, v, key_bias)
+        ctx.save_for_backward(q, k, v, key_bias, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_bias, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, key_bias, o, _kernel_layout(g), lse)
+        return dq, dk, dv, None
+
+
+def attention_pallas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_bias: Optional[torch.Tensor] = None,
+                     block_q: int = 128) -> torch.Tensor:
+    """The flash attention (JAX ``attention_pallas``, :197): q/k/v ``[B, H,
+    S, dh]``, key_bias ``[B, S]`` additive or None. Differentiable through
+    #23 where a gradient is needed. ``block_q`` is the JAX kernel's query
+    block; on the card, whose kernels tile by ``gates.FLASH_BLOCK_Q`` and
+    mask the tail instead of padding, it changes no arithmetic."""
+    if block_q <= 0:
+        raise ValueError(f"block_q must be positive, got {block_q}")
+    if key_bias is not None:
+        key_bias = key_bias.float().contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, key_bias)
+    return flash_fwd(q, k, v, key_bias)[0]
+
+
+def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  key_bias: Optional[torch.Tensor] = None,
+                  dropout: Optional[drop.Dropout] = None) -> torch.Tensor:
+    """The plain attention on [B, H, S, dh] (JAX ``attention_xla``, :59):
+    fp32 scores and softmax, the probability dropout of ``dropout`` (the
+    port's keep masks), P in the io dtype times v. Autograd differentiates
+    it."""
+    b, h, s, _ = q.shape
+    p = _probs(upcast(q), upcast(k), key_bias, b, s)
+    keep = _keep(dropout, b, h, s, p)
+    if keep is not None:
+        p = p * keep
+    return torch.matmul(upcast(p.to(v.dtype)), upcast(v)).to(v.dtype)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_bias: Optional[torch.Tensor] = None, impl: str = "auto",
+                    dropout: Optional[drop.Dropout] = None) -> torch.Tensor:
+    """Multi-head self-attention on [B, H, S, dh] (JAX ``fused_attention``,
+    :324): the flash attention where ``gates.pallas_attention_route`` holds
+    (``impl == "pallas"``, no active ``dropout``, S <= 1024), else
+    :func:`attention_xla`."""
+    if gates.pallas_attention_route(q, impl, q.shape[2], drop.active(dropout)):
+        return attention_pallas(q, k, v, key_bias)
+    return attention_xla(q, k, v, key_bias, dropout)
+
+
+def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, S, D] -> [B, H, S, dh] (a view)."""
+    b, s, d = x.shape
+    return x.view(b, s, heads, d // heads).permute(0, 2, 1, 3)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, dh] -> [B, S, D]."""
+    b, h, s, dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, s, h * dh)
+
+
+def mha(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor, w_o: torch.Tensor,
+        b_o: torch.Tensor, heads: int, key_bias: Optional[torch.Tensor] = None,
+        impl: str = "auto", dropout: Optional[drop.Dropout] = None) -> torch.Tensor:
+    """The MHA block (JAX ``mha``, :356): the fused QKV projection and the
+    out projection in plain torch (XLA in JAX), :func:`fused_attention`
+    between them. Weights in the torch Linear layout: ``w_qkv`` [3W, W]
+    (q rows, then k, then v), ``w_o`` [W, W]; the JAX ``params`` hold their
+    transposes."""
+    q, k, v = F.linear(x, w_qkv, b_qkv).chunk(3, dim=-1)
+    out = fused_attention(split_heads(q, heads), split_heads(k, heads), split_heads(v, heads),
+                          key_bias, impl, dropout)
+    return F.linear(merge_heads(out), w_o, b_o)
+
+
+def _flash_block_parts(x, ln_w, ln_b, w_qkv, b_qkv, heads: int, eps: float):
+    """LN -> QKV -> per-head views (JAX ``_flash_block_parts``, :226, without
+    its padding): (xn, q, k, v)."""
+    xn = layer_norm(x, ln_w, ln_b, eps)
+    q, k, v = F.linear(xn, w_qkv, b_qkv).chunk(3, dim=-1)
+    return (xn, *(split_heads(t, heads) for t in (q, k, v)))
+
+
+class _FlashAttentionBlock(torch.autograd.Function):
+    """The JAX ``flash_attention_block`` custom_vjp (:246-317): saves x, the
+    merged ctx and the lse; the backward recomputes LN + QKV, forms the out
+    projection's gradients, runs #23, then the QKV projection's gradients
+    and the LayerNorm backward in fp32. The products and the LN backward are
+    plain torch, as XLA einsums are in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, heads, eps):
+        _, q, k, v = _flash_block_parts(x, ln_w, ln_b, w_qkv, b_qkv, heads, eps)
+        o, lse = flash_fwd(q, k, v, None)
+        ctx_m = merge_heads(o)
+        ctx.save_for_backward(x, ln_w, ln_b, w_qkv, b_qkv, w_o, ctx_m, lse)
+        ctx.heads, ctx.eps = heads, eps
+        return x + F.linear(ctx_m, w_o, b_o)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_w, ln_b, w_qkv, b_qkv, w_o, ctx_m, lse = ctx.saved_tensors
+        heads, eps = ctx.heads, ctx.eps
+        b, s, w = x.shape
+        xn, q, k, v = _flash_block_parts(x, ln_w, ln_b, w_qkv, b_qkv, heads, eps)
+        g = g.contiguous()
+        g2, gf = g.view(b * s, w), upcast(g)
+        flat = lambda t: t.reshape(b * s, t.shape[-1])
+        # the out projection's gradients
+        dwo = mm32(g2.T, flat(ctx_m)).to(w_o.dtype)
+        dbo = gf.sum(dim=(0, 1)).to(w_o.dtype)
+        dctx_m = mm32(g2, w_o).to(x.dtype).view(b, s, w)
+        # the attention backward, #23
+        dq, dk, dv = flash_bwd(q, k, v, None, split_heads(ctx_m, heads),
+                               _kernel_layout(split_heads(dctx_m, heads)), lse)
+        dqkv = torch.cat([merge_heads(t) for t in (dq, dk, dv)], dim=-1)
+        # the QKV projection's gradients
+        dwqkv = mm32(flat(dqkv).T, flat(xn)).to(w_qkv.dtype)
+        dqkv_f = upcast(dqkv)
+        dbqkv = dqkv_f.sum(dim=(0, 1)).to(b_qkv.dtype)
+        dxn = (flat(dqkv_f) @ upcast(w_qkv)).view(b, s, w)
+        # the LayerNorm backward in fp32 (its statistics recomputed), plus g
+        dx, d_scale, d_bias, _, _ = layer_norm_bwd_plain(dxn, x, ln_w, eps, residual=g,
+                                                         out_dtype=x.dtype)
+        return (dx, d_scale.to(ln_w.dtype), d_bias.to(ln_b.dtype), dwqkv, dbqkv, dwo, dbo,
+                None, None)
+
+
+def flash_attention_block(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int,
+                          eps: float = 1e-5, block_q: int = 128) -> torch.Tensor:
+    """Pre-LN ViT attention block through the flash kernels (JAX
+    ``flash_attention_block``, :247): ``x + out_proj(flash_mha(LN(x)))``, x
+    ``[B, S, W]``, no key mask, weights in the torch Linear layout (``wqkv``
+    [3W, W], ``wo`` [W, W]). Its backward recomputes LN + QKV and runs #23.
+    ``block_q`` changes no arithmetic, as in :func:`attention_pallas`. No
+    tower routes it (the JAX towers route it only where no published shape
+    goes, ``vit.py:248-256``): a direct call."""
+    if block_q <= 0:
+        raise ValueError(f"block_q must be positive, got {block_q}")
+    return _FlashAttentionBlock.apply(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads, eps)

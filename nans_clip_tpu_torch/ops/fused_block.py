@@ -73,7 +73,7 @@ import torch
 from nans_clip_tpu_torch.ops import dropout as drop
 from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
 from nans_clip_tpu_torch.ops import gates
-from nans_clip_tpu_torch.ops.activations import upcast
+from nans_clip_tpu_torch.ops.activations import mm32, upcast
 from nans_clip_tpu_torch.ops.attention import attention, attention_plain
 from nans_clip_tpu_torch.ops.gemm import linear, linear_plain
 from nans_clip_tpu_torch.ops.layernorm import layer_norm, row_layer_norm
@@ -273,16 +273,6 @@ def _mlp_dispatch(x, ln_w, ln_b, w1, b1, w2, b2, seed, act: str, eps: float, pos
                                        interpret, chunk, tile)
     return _fused_mlp_tiled_call(x, ln_w, ln_b, w1, b1, w2, b2, act, eps, post_ln, interpret,
                                  chunk)
-
-
-def mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a . b`` in fp32 from operands in the io dtype: the
-    ``preferred_element_type=float32`` contractions the JAX package leaves
-    to XLA. One library product with bf16 operands and an fp32 result on
-    the card; in fp32 after an exact upcast elsewhere."""
-    if a.is_cuda and a.dtype != torch.float32:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return upcast(a) @ upcast(b)
 
 
 def _sum32(t: torch.Tensor) -> torch.Tensor:

@@ -7,13 +7,22 @@ carry over: each entry here is the port's own and says how it was settled.
 Routing (which function a tower calls) is decided on the host from the
 tensor's device, its dtype and the model's ``attn_impl``:
 
-* ``plain`` always runs the plain-torch twins;
+* ``plain`` always runs the plain-torch twins; ``xla`` (the JAX package's
+  name for its plain route) means the same;
 * ``kernel`` runs the kernels and raises for a tensor off the card;
-* ``auto`` runs the kernels on CUDA tensors and the twins on CPU tensors.
+* ``auto`` runs the kernels on CUDA tensors and the twins on CPU tensors;
+  ``fused`` (the JAX name of the fused-kernel route) means the same: on
+  CPU tensors the twins stand where the JAX package's interpret mode
+  stands off the TPU (``nans_clip_tpu/models/vit.py:117-119``);
+* ``pallas`` is the JAX package's flash-attention route: each layer is
+  LayerNorm, the QKV and out projections and the MLP in plain torch around
+  the flash attention (#22 forward, #23 backward, ``ops/attention.py``),
+  which :func:`pallas_attention_route` admits; no sub-block, whole-layer or
+  whole-tower kernel runs.
 
-Under ``auto`` and ``kernel`` a CUDA tensor in another dtype than
-``KERNEL_DTYPE`` raises: the plain path on the card is reached only by
-asking for ``plain``.
+Under ``auto``, ``fused``, ``kernel`` and ``pallas`` a CUDA tensor in
+another dtype than ``KERNEL_DTYPE`` raises: the plain path on the card is
+reached only by asking for ``plain`` (or ``xla``).
 
 Training: a forward with ``deterministic=False`` runs every layer through
 the autograd Functions (``ops/fused_block.py``, ``ops/layer_bwd.py``:
@@ -122,7 +131,24 @@ TOWER_KSTEP = 64
 TOWER_MAX_BATCH = {("text", "bf16"): 8, ("text", "int8"): 32,
                    ("image", "bf16"): 1, ("image", "int8"): 8}
 
-IMPLS = ("auto", "plain", "kernel")
+IMPLS = ("auto", "plain", "kernel", "xla", "pallas", "fused")
+# The values that run the sub-block, whole-layer and whole-tower kernels.
+_KERNEL_IMPLS = ("auto", "kernel", "fused")
+
+# The JAX route's sequence limit for its flash kernel, copied as
+# nans_clip_tpu/ops/gates.py:192 sets it (fused_attention sends longer
+# sequences to XLA, nans_clip_tpu/ops/attention.py:339). Under ``pallas``
+# the port routes as JAX does: above it the attention is the plain one.
+MAX_PALLAS_SEQ = 1024
+
+# flash.cu (#22, #23): 64 query rows a block of 4 warps (16 rows a warp, one
+# mma.sync m16 tile), keys (and, in the dK/dV kernel, queries) streamed
+# through shared memory in tiles of 64 rows, two tiles in flight: at dh 80
+# 2 x 2 x 64 x 88 bf16 = 45,056 bytes a block, whatever S is. Head dims as
+# HEAD_DIMS (attention.cuh's k-step instances). Set by the kernel's design;
+# S itself is not limited by it.
+FLASH_BLOCK_Q = 64
+FLASH_BLOCK_K = 64
 
 # Routing of the training backward when every weight of a block needs its
 # gradient, per block kind: "fullgrad" (#14/#16/#18: the chain forms the
@@ -167,31 +193,75 @@ def bwd_route(kind: str, bwd_impl: str) -> str:
     return "emit" if bwd_impl == "emit" else "fullgrad"
 
 
-def layer_bwd_route(bwd_impl: str, weights) -> bool:
-    """True when a pre-LN layer takes the whole-layer Function: asked for
-    (``layer``) or measured no slower (``auto`` and ``LAYER_BWD_ROUTE``),
-    and every one of its ``weights`` needs a gradient."""
+def layer_bwd_route(bwd_impl: str, weights, seq: int, width: int, heads: int,
+                    inter: int) -> bool:
+    """True when a pre-LN layer of shape (``seq``, ``width``, ``heads``,
+    ``inter``) takes the whole-layer Function: asked for (``layer``) or
+    measured no slower (``auto`` and ``LAYER_BWD_ROUTE``), every one of its
+    ``weights`` needs a gradient, and the JAX tower would take #21 there:
+    #1 (``fits_fused``), the one-shot MLP #2 (``fits_fused_mlp``) and
+    ``fits_layer_bwd_fullgrad`` (``nans_clip_tpu/models/vit.py:266-271``),
+    with the one-shot attention backward that #21's chain runs (S <=
+    ``ATTN_BWD_MAX_SEQ``). Elsewhere the layer takes the sub-block
+    Functions."""
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
     asked = bwd_impl == "layer" or (bwd_impl == "auto" and LAYER_BWD_ROUTE)
-    return asked and all(torch.is_tensor(t) and t.requires_grad for t in weights)
+    return (asked and all(torch.is_tensor(t) and t.requires_grad for t in weights)
+            and seq <= ATTN_BWD_MAX_SEQ and fits_fused(seq, width)
+            and fits_fused_mlp(seq, width)
+            and fits_layer_bwd_fullgrad(seq, width, heads, inter))
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"attn_impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _check_dtype(x: torch.Tensor) -> None:
+    if x.dtype != KERNEL_DTYPE:
+        raise ValueError(f"the kernels take {KERNEL_DTYPE} on CUDA, got {x.dtype}: pass "
+                         "ModelOptions(compute_dtype='bfloat16'), or attn_impl='plain' "
+                         "for the plain-torch path")
 
 
 def use_kernel(x: torch.Tensor, impl: str) -> bool:
-    """True when a tower should call the kernel wrappers for ``x``."""
-    if impl not in IMPLS:
-        raise ValueError(f"attn_impl must be one of {IMPLS}, got {impl!r}")
-    if impl == "plain":
+    """True when a tower should call the sub-block, whole-layer or
+    whole-tower kernel wrappers for ``x``: never under ``plain``, ``xla``
+    or ``pallas``."""
+    _check_impl(impl)
+    if impl not in _KERNEL_IMPLS:
         return False
     if not x.is_cuda:
         if impl == "kernel":
             raise ValueError("attn_impl='kernel' needs CUDA tensors")
         return False
-    if x.dtype != KERNEL_DTYPE:
-        raise ValueError(f"the kernels take {KERNEL_DTYPE} on CUDA, got {x.dtype}: pass "
-                         "ModelOptions(compute_dtype='bfloat16'), or attn_impl='plain' "
-                         "for the plain-torch path")
+    _check_dtype(x)
     return True
+
+
+def pallas_route(impl: str) -> bool:
+    """True when the towers take the JAX ``pallas`` layer structure (the
+    unfused branch of ``nans_clip_tpu/models/vit.py:327-338`` and
+    ``bert.py:246-262``)."""
+    _check_impl(impl)
+    return impl == "pallas"
+
+
+def pallas_attention_route(q_or_x: torch.Tensor, impl: str, seq: int,
+                           dropout_active: bool) -> bool:
+    """True when an attention runs the flash attention (#22/#23 on CUDA
+    tensors, their twins on CPU tensors): ``fused_attention``'s condition
+    (``nans_clip_tpu/ops/attention.py:337-341``), ``impl == "pallas"``, no
+    active attention-probability dropout and ``seq <= MAX_PALLAS_SEQ``.
+    Else the attention is the plain one, as in JAX: a route decided on the
+    host from the shape, not a fallback. A CUDA tensor under ``pallas`` in
+    another dtype than ``KERNEL_DTYPE`` raises."""
+    if not pallas_route(impl):
+        return False
+    if q_or_x.is_cuda:
+        _check_dtype(q_or_x)
+    return not dropout_active and seq <= MAX_PALLAS_SEQ
 
 
 def fits_tower(seq: int, width: int, heads: int, inter: int) -> bool:
@@ -335,6 +405,26 @@ def fused_mlp_routable(b: int, seq: int, width: int, inter: int, esize: int = 2)
         return False
     chunk = mlp_chunk_size(width, inter, esize)
     return chunk is not None and mlp_batch_tile(b, seq, width, inter, chunk, esize) > 1
+
+
+# #21's VMEM estimate in the JAX package (nans_clip_tpu/ops/layer_bwd.py:45-
+# 60, fused_block_bwd.py:600-608 and :868-874) against its budget,
+# LAYER_FULLGRAD_BUDGET (nans_clip_tpu/ops/gates.py:162), copied: it decides
+# where the JAX tower may take the whole-layer backward.
+JAX_LAYER_FULLGRAD_BUDGET = 96 * _MIB
+
+
+def fits_layer_bwd_fullgrad(seq: int, width: int, heads: int, inter: int,
+                            esize: int = 2) -> bool:
+    """#21's shapes in the JAX package (layer_bwd.py:56)."""
+    sp = _rup(seq, 8)
+    attn = ((4 * width * width) * (esize + 4) + sp * 3 * width * 8 + heads * sp * seq * 4
+            + sp * width * 24 + sp * width * 2 * esize * 2)
+    mlp_resident = 2 * width * inter * esize + 2 * width * inter * 4
+    mlp_per = (sp * inter * 4 * 3 + sp * width * 4 * 4
+               + sp * (5 * width + 2 * inter) * esize * 2)
+    shared_io = sp * width * 2 * esize
+    return attn + mlp_resident + mlp_per - shared_io < JAX_LAYER_FULLGRAD_BUDGET
 
 
 def attn_bwd_head_chunk(seq: int, width: int, heads: int):

@@ -12,6 +12,12 @@ epilogue on the fp32 residual sum). It replaces the ``_ln`` stages of
 the wide kernels, rows up to ``gates.MAX_LN_WIDTH`` = 2048: above 1024 each
 row takes a block of its own).
 
+``pallas_layer_norm`` is the counterpart of
+``nans_clip_tpu/ops/layernorm.py::pallas_layer_norm`` (#24, ``_ln_kernel``
+:32, ``pallas_call`` :53), the forward-only fused LayerNorm that the JAX
+package calls directly (no tower routes it): the same ``layernorm.cu``
+forward on CUDA tensors, ``layer_norm`` on CPU tensors.
+
 ``layer_norm_bwd`` (twin ``layer_norm_bwd_plain``) is the LayerNorm
 backward of ``nans_clip_tpu/ops/fused_block_bwd.py`` (``_ln_bwd`` :101 and
 the pre-LN dx of :208-212, :773-777) with its dgamma/dbeta sums, launching
@@ -65,6 +71,32 @@ def row_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         y.data_ptr(), rows, width, float(eps), _build.stream_ptr(x.device))
     _build.check(err, "nans_layernorm")
     row_layer_norm.launches += 1
+    return y
+
+
+def pallas_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      eps: float = 1e-5, block_rows: int = 256) -> torch.Tensor:
+    """#24: LayerNorm over the last axis with fp32 statistics, in x's dtype.
+    CPU tensors take :func:`layer_norm`; CUDA tensors launch
+    ``layernorm.cu``'s forward (bf16 x, scale and bias; rows of width <=
+    ``gates.MAX_LN_WIDTH``, a multiple of ``gates.LN_WIDTH_MULTIPLE``; a
+    warp a row up to 1024, a block a row above) and raise on anything
+    else. ``block_rows`` is the JAX kernel's rows a grid cell; the card's
+    kernel takes a row a warp or a block, so it changes no arithmetic."""
+    if block_rows <= 0:
+        raise ValueError(f"block_rows must be positive, got {block_rows}")
+    if not x.is_cuda:
+        return layer_norm(x, scale, bias, eps)
+    width = x.shape[-1]
+    gates.admit(width % gates.LN_WIDTH_MULTIPLE == 0 and width <= gates.MAX_LN_WIDTH,
+                f"pallas_layer_norm: width {width}")
+    gates.admit_cuda("pallas_layer_norm", x, scale, bias)
+    y = torch.empty_like(x)
+    err = _build.library().nans_layernorm(
+        x.data_ptr(), 0, scale.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // width,
+        width, float(eps), _build.stream_ptr(x.device))
+    _build.check(err, "nans_layernorm")
+    pallas_layer_norm.launches += 1
     return y
 
 
@@ -175,4 +207,5 @@ def layer_norm_bwd(gin: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps
 LN_BWD_ROWS = 32
 
 row_layer_norm.launches = 0
+pallas_layer_norm.launches = 0
 layer_norm_bwd.launches = 0

@@ -5,6 +5,8 @@ on one GPU.
     python3 -m nans_clip_tpu_torch.profile_slice --train [--batch 128] [--iters 3]
     python3 -m nans_clip_tpu_torch.profile_slice --lora [--batch 128] [--accum 4] [--iters 3]
     python3 -m nans_clip_tpu_torch.profile_slice --model ViT-H-14 --train --batch 32 --iters 2
+    python3 -m nans_clip_tpu_torch.profile_slice --model ViT-L-14-336 --train --batch 32 \
+        --attn-impl pallas
 
 Builds ``--model`` (a published name such as ``ViT-H-14`` or a
 ``Vision@Text`` struct; default ViT-B-16@RoBERTa-wwm-ext-base-chinese) at
@@ -15,7 +17,9 @@ whose device time is grouped as ``tower_kernel``. With ``--train`` the fp32
 model takes train steps (``training.make_train_step``, bf16 compute, the
 text tower's dropout on) on one fixed seeded batch instead; with ``--lora``
 the frozen model takes LoRA steps (``training.train_lora.make_lora_step``:
-rank 4, ``--batch`` pairs in ``--accum`` microbatches, dropout on). It reports, all from one run:
+rank 4, ``--batch`` pairs in ``--accum`` microbatches, dropout on).
+``--attn-impl`` picks the route (``ModelOptions.attn_impl``; ``pallas``: the
+flash attention #22/#23 inside plain-torch layers). It reports, all from one run:
 
 * CUDA-event times of ``encode_image``, ``encode_text`` and
   ``get_similarity`` (with ``--train``: of a train step);
@@ -37,10 +41,34 @@ from collections import defaultdict
 
 import torch
 
+from nans_clip_tpu_torch.ops import gates
+
 TEXTS = ["杰尼龟", "妙蛙种子", "小火龙", "皮卡丘", "西湖美景，三月天", "一只可爱的小猫在草地上玩耍"]
 HAND_KERNEL = re.compile(
-    r"(gemm|wgrad|attention(_bwd(_dq|_dkv)?)?|layernorm(_bwd)?(_wide)?|colsum|tower)_kernel"
+    r"(gemm|wgrad|attention(_bwd(_dq|_dkv)?)?|layernorm(_bwd)?(_wide)?|colsum|tower"
+    r"|flash_(fwd|bwd_dq|bwd_dkv))_kernel"
     r"(<[^>]*>)?")
+# The library's kernels (the plain-torch glue), by what they do; the first
+# pattern that matches names the group.
+LIBRARY_GROUPS = (
+    ("cuBLAS products", re.compile(r"nvjet|gemm|cutlass|xmma|cublas", re.I)),
+    ("int64 elementwise", re.compile(r"\blong\b")),   # the twins' Philox masks
+    ("reductions", re.compile(r"reduce_kernel")),
+    ("AdamW _foreach", re.compile(r"multi_tensor_apply")),
+    ("copies and casts", re.compile(r"copy|Memcpy|CatArray", re.I)),
+)
+
+
+def kernel_group(name: str) -> str:
+    """The group a device kernel's time is reported under: a hand kernel
+    keeps its template arguments (gemm_kernel<true, ...> reads W transposed,
+    the input gradient; gemm_kernel<false, ...> is a forward product; the
+    second argument is the training epilogue); a library kernel falls in
+    the first of ``LIBRARY_GROUPS`` that matches, else "plain torch, other"."""
+    hand = HAND_KERNEL.search(name)
+    if hand:
+        return hand.group(0)
+    return next((g for g, pat in LIBRARY_GROUPS if pat.search(name)), "plain torch, other")
 
 
 def _event_ms(fn, iters: int) -> float:
@@ -75,7 +103,7 @@ def _config(nct, model: str):
     return model, nct.load_config(model)
 
 
-def _train_step(nct, dev, images, b: int, model: str):
+def _train_step(nct, dev, images, b: int, model: str, attn_impl: str):
     """One train step as a closure: the fp32 model at random init (seed 0),
     AdamW, bf16 compute with the text tower's dropout (seeds from a fixed
     generator per step), on one fixed batch of ``b`` pairs."""
@@ -87,7 +115,7 @@ def _train_step(nct, dev, images, b: int, model: str):
     holder = [create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)), tcfg,
                                  device=dev)]
     train = make_train_step(cfg, tcfg, nct.ModelOptions(compute_dtype="bfloat16",
-                                                       deterministic=False))
+                                                       deterministic=False, attn_impl=attn_impl))
     ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}" for i in range(b)]))
     ids = ids.to(dev)
 
@@ -97,7 +125,7 @@ def _train_step(nct, dev, images, b: int, model: str):
     return step
 
 
-def _lora_step(nct, dev, images, b: int, accum: int, model: str):
+def _lora_step(nct, dev, images, b: int, accum: int, model: str, attn_impl: str):
     """One LoRA step as a closure: the frozen model at random init (seed 0),
     rank-4 adapters (B leaves zero in the warm-up steps), AdamW over the adapters, bf16
     compute with the text tower's dropout, ``b`` pairs in ``accum``
@@ -110,8 +138,8 @@ def _lora_step(nct, dev, images, b: int, accum: int, model: str):
     module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0)).to(dev)
     adapters = lora.init_lora(torch.Generator().manual_seed(1), module, 4, device=dev)
     holder = [train_lora.create_lora_state(module, adapters, 1e-3, 0.01, device=dev)]
-    train, _ = train_lora.make_lora_step(cfg, nct.ModelOptions(compute_dtype="bfloat16"), 16.0,
-                                         0.05, accum)
+    train, _ = train_lora.make_lora_step(
+        cfg, nct.ModelOptions(compute_dtype="bfloat16", attn_impl=attn_impl), 16.0, 0.05, accum)
     ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}" for i in range(b)]))
     ids = ids.to(dev)
 
@@ -131,6 +159,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--accum", type=int, default=4, help="microbatches of a LoRA step")
     ap.add_argument("--model", default=MODEL,
                     help="a published name (ViT-H-14, ...) or a Vision@Text struct")
+    ap.add_argument("--attn-impl", default="auto", choices=gates.IMPLS,
+                    help="the route, as ModelOptions.attn_impl")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -150,12 +180,13 @@ def main(argv=None) -> dict:
     r = cfg.vision.image_resolution
     images = torch.randn(b, r, r, 3, generator=gen).to(dev)
     if args.lora:
-        step = _lora_step(nct, dev, images, b, args.accum, args.model)
+        step = _lora_step(nct, dev, images, b, args.accum, args.model, args.attn_impl)
     elif args.train:
-        step = _train_step(nct, dev, images, b, args.model)
+        step = _train_step(nct, dev, images, b, args.model, args.attn_impl)
     else:
         model = nct.create_model(struct, input_resolution=r, seed=0, device=dev,
-                                 options=nct.ModelOptions(compute_dtype="bfloat16"))
+                                 options=nct.ModelOptions(compute_dtype="bfloat16",
+                                                          attn_impl=args.attn_impl))
         ids = torch.from_numpy(nct.tokenize((TEXTS * b)[:b])).to(dev)
         step = lambda: model.get_similarity(images, ids)
     for _ in range(2):
@@ -175,7 +206,9 @@ def main(argv=None) -> dict:
             step()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / n
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # user annotations (Optimizer.step, ...) span kernels already counted
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise SystemExit("profile_slice: the profiler recorded no device activity")
     by_name = defaultdict(lambda: [0, 0.0])
@@ -189,16 +222,12 @@ def main(argv=None) -> dict:
     for name, (calls, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         ms = us / 1e3 / n
         lines.append(f"{ms:10.4f} ms {100 * ms / sum_ms:6.2f}% {calls // n:5d} calls  {name}")
-        # a hand kernel keeps its template arguments: gemm_kernel<true, ...>
-        # reads W transposed (the input gradient), gemm_kernel<false, ...> is a
-        # forward product; the second argument is the training epilogue
-        hand = HAND_KERNEL.search(name)
-        group = hand.group(0) if hand else "plain torch"
+        group = kernel_group(name)
         groups[group][0] += calls // n
         groups[group][1] += ms
     result = {
         "device": torch.cuda.get_device_name(0), "model": struct, "batch": b, "iters": n,
-        "train": args.train,
+        "train": args.train, "attn_impl": args.attn_impl,
         "lora": args.lora, "accum": args.accum if args.lora else 1,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "cuda_event_ms": ev, "profiled_host_ms": host_ms, "kernel_sum_ms": sum_ms,

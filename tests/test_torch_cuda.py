@@ -646,3 +646,106 @@ def test_wide_text_tower_matches_twin(dev):
         kb[0, s // 2:] = -10000.0
         args = (x, kb, layers, 16, 1e-12, "gelu", True)
         _close(tk.fused_tower(*args), tk.tower_math(*args), 4)
+
+
+# The attn_impl="pallas" route: #22 (o within 2 bf16 ulps of max|twin|: P is
+# rounded to bf16 before P V on the card, kept fp32 by the twin; lse within
+# 1e-4 of max(1, max|lse|)) and #23 (dq, dk, dv within 2e-2 of max|twin|, the
+# same bits twice), the bounds of chip_smoke.py phase 10.
+@pytest.mark.parametrize("b,h,s,dh,masked", [(3, 2, 52, 64, True), (2, 2, 197, 64, False),
+                                             (2, 2, 257, 80, True), (1, 4, 577, 64, False),
+                                             (1, 2, 1024, 64, True), (1, 2, 577, 80, False)])
+def test_flash_attention_matches_twins(dev, b, h, s, dh, masked):
+    from nans_clip_tpu_torch.ops import attention as A
+    r = _rnd(dev, 30)
+    q, k, v = r(b, s, 3, h, dh, std=1.0).permute(2, 0, 3, 1, 4).unbind(0)
+    kb = None
+    if masked:
+        kb = torch.zeros(b, s, device=dev)
+        kb[0, s // 3:] = -10000.0
+    o, lse = A.flash_fwd(q, k, v, kb)
+    o_t, lse_t = A.attention_pallas_plain(q, k, v, kb)
+    _close(o, o_t, 2)
+    assert float((lse - lse_t).abs().max()) <= 1e-4 * max(1.0, float(lse_t.abs().max()))
+    do = r(b, h, s, dh, std=1.0)
+    got = A.flash_bwd(q, k, v, kb, o, do, lse)
+    for a, t in zip(got, A.attention_pallas_bwd_plain(q, k, v, kb, o, do, lse)):
+        assert a.shape == t.shape and _rel_err(a, t) <= 2e-2
+    assert all(torch.equal(a, t) for a, t in zip(got, A.flash_bwd(q, k, v, kb, o, do, lse)))
+    # the Function: autograd through attention_pallas takes #23
+    qs = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = A.attention_pallas(*qs, kb)
+    assert torch.equal(out, o)
+    out.backward(do)
+    assert all(torch.equal(t.grad, a) for t, a in zip(qs, got))
+
+
+def test_flash_attention_block_matches_twin(dev):
+    """flash_attention_block, forward and the 7 gradients, against autograd
+    through the same block with the flash twin (4 bf16 ulps; 2e-2 of
+    max|twin| for the gradients)."""
+    import torch.nn.functional as F
+
+    from nans_clip_tpu_torch.ops import attention as A
+    from nans_clip_tpu_torch.ops.layernorm import layer_norm
+    b, s, w, heads = 2, 130, 128, 2
+    p, r = _params(dev, w, 4 * w, 31)
+    x, g = r(b, s, w, std=1.0), r(b, s, w, std=1.0)
+
+    def twin(xr, lw, lb, wqkv, bqkv, wo, bo):
+        qq, kk, vv = (A.split_heads(t, heads) for t in
+                      F.linear(layer_norm(xr, lw, lb, 1e-5), wqkv, bqkv).chunk(3, -1))
+        return xr + F.linear(A.merge_heads(A.attention_pallas_plain(qq, kk, vv)[0]), wo, bo)
+
+    outs = []
+    for fn in (lambda *a: A.flash_attention_block(*a, heads), twin):
+        args = [t.detach().requires_grad_() for t in (x, *p[:6])]
+        out = fn(*args)
+        outs.append((out, *torch.autograd.grad(out, args, g)))
+    _close(outs[0][0], outs[1][0], 4)
+    for a, t in zip(outs[0][1:], outs[1][1:]):
+        assert a.shape == t.shape and _rel_err(a, t) <= 2e-2
+
+
+@pytest.mark.parametrize("rows,w", [(300, 768), (77, 1280), (5, 2048)])
+def test_pallas_layer_norm_matches_twin(dev, rows, w):
+    from nans_clip_tpu_torch.ops.layernorm import layer_norm, pallas_layer_norm
+    r = _rnd(dev, 32)
+    x, lw, lb = r(rows, w, std=1.0), (r(w, std=0.1) + 1.0).to(torch.bfloat16), r(w, std=0.1)
+    before = pallas_layer_norm.launches
+    _close(pallas_layer_norm(x, lw, lb), layer_norm(x, lw, lb), 1)
+    assert pallas_layer_norm.launches == before + 1
+    with pytest.raises(ValueError):
+        pallas_layer_norm(x.float(), lw, lb)
+
+
+def test_pallas_route_on_the_card(dev):
+    """Under attn_impl="pallas" a bf16 model runs #22 in every layer of both
+    towers and no fused kernel, within bf16 noise of the fused route; an
+    fp32 CUDA tensor raises."""
+    import dataclasses
+
+    from nans_clip_tpu_torch import configs
+    from nans_clip_tpu_torch.api import CLIPModel
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.models.common import ModelOptions
+    from nans_clip_tpu_torch.ops import attention as A
+
+    with pytest.raises(ValueError, match="compute_dtype='bfloat16'"):
+        gates.pallas_attention_route(torch.zeros(1, device=dev), "pallas", 52, False)
+    tiny = configs.tiny_config()
+    cfg = dataclasses.replace(
+        tiny, vision=dataclasses.replace(tiny.vision, width=128, head_width=64),
+        text=dataclasses.replace(tiny.text, hidden_size=128, num_attention_heads=2,
+                                 intermediate_size=512))
+    module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0)).to(dev)
+    models = {impl: CLIPModel(cfg, module, ModelOptions(attn_impl=impl, compute_dtype="bfloat16"))
+              for impl in ("pallas", "fused")}
+    g = torch.Generator().manual_seed(0)
+    images = torch.randn(4, 32, 32, 3, generator=g)
+    ids = torch.zeros(4, 52, dtype=torch.long)
+    ids[:, :9] = torch.randint(1000, 2000, (4, 9), generator=g)
+    before = A.flash_fwd.launches
+    li = models["pallas"].get_similarity(images, ids)[0]
+    assert A.flash_fwd.launches - before == cfg.vision.layers + cfg.text.num_hidden_layers
+    assert float((li - models["fused"].get_similarity(images, ids)[0]).abs().max()) <= 0.05

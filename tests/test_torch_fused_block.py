@@ -99,6 +99,10 @@ def test_routing_gate():
     assert not gates.use_kernel(x, "plain")
     with pytest.raises(ValueError):
         gates.use_kernel(x, "kernel")
+    # the JAX values: "fused" runs what "auto" runs (the twins on CPU
+    # tensors), "xla" and "pallas" never the sub-block kernels
+    for impl in ("fused", "xla", "pallas"):
+        assert not gates.use_kernel(x, impl)
     with pytest.raises(ValueError):
-        gates.use_kernel(x, "fused")
+        gates.use_kernel(x, "flash")
 

@@ -5,7 +5,9 @@ bits), at tiny_config, at ViT-B-16 / RoBERTa-base widths cut to 2 layers,
 and at two tiny configurations of the wide towers' shapes (an image tower of
 W 160 with two heads of 80, as ViT-H's; and one at 336 pixels, patch 14, W
 128: S = 577, where the attention backward takes #20's long-sequence route),
-for 2 steps. Identical weights are carried across by
+for 2 steps; tiny_config and the S = 577 case also on the
+``attn_impl="pallas"`` route (the flash attention, #22/#23's twins against
+the JAX kernels in interpret mode). Identical weights are carried across by
 state_dict_from_jax_params, which also maps the JAX gradient tree (it has
 the parameters' structure) so that gradients compare name by name. Each
 step's gradients are compared at the same parameters: the JAX gradient is
@@ -15,9 +17,10 @@ element (below).
 
 Tolerances: the loss within 1e-5; each gradient tensor within 1e-4 of its
 largest magnitude (fp32 sums in another order through 2 layers a tower;
-3e-4 at S = 577, whose attention rows and LayerNorm-gradient columns sum
-2.9 times as many terms as at S = 197, and whose smallest gradients, 1e-4
-in magnitude at init, are such sums that nearly cancel),
+3e-4 at S = 577 (5e-4 on its pallas case, GRAD_REL), whose attention rows
+and LayerNorm-gradient columns sum 2.9 times as many terms as at S = 197,
+and whose smallest gradients, 1e-4 in magnitude at init, are such sums
+that nearly cancel),
 except BERT's key biases, whose gradient is 0 in exact arithmetic (softmax
 ignores a shift shared by all keys) and is held to below 1e-8 on both sides;
 parameters within 1e-6 plus what the gradients' own differences allow a
@@ -118,22 +121,38 @@ WIDE_CASES = {
     "tiny-336px-S577": lambda: _tiny_vision(width=128, head_width=64, image_resolution=336,
                                              patch_size=14),
 }
-GRAD_REL = {"tiny-336px-S577": 3e-4}
+# The attn_impl="pallas" route (the flash attention #22/#23, the JAX towers'
+# unfused layers) on both sides, JAX's kernels in interpret mode.
+PALLAS_CASES = {"tiny-pallas": CASES["tiny"],
+                "tiny-336px-S577-pallas": WIDE_CASES["tiny-336px-S577"]}
+# On the pallas route at S = 577 the gradient of the last layer's c_proj
+# bias (4.1e-5 in magnitude at init: a sum over 2,308 rows that nearly
+# cancels) differs from JAX's by 3.7e-4 of its magnitude (this test's
+# report at 3e-4); the JAX package's own xla and pallas routes differ on it
+# at the same order: 5e-4 for that case.
+GRAD_REL = {"tiny-336px-S577": 3e-4, "tiny-336px-S577-pallas": 5e-4}
 
 
-@pytest.mark.parametrize("case", list(CASES) + list(WIDE_CASES))
-def test_train_steps_match_jax(case):
-    jcfg = _no_dropout({**CASES, **WIDE_CASES}[case]())
+@pytest.mark.parametrize("case", list(CASES) + list(WIDE_CASES) + list(PALLAS_CASES))
+def test_train_steps_match_jax(case, monkeypatch):
+    jcfg = _no_dropout({**CASES, **WIDE_CASES, **PALLAS_CASES}[case]())
     cfg = _port_cfg(jcfg)
     batch = 4 if case.startswith("tiny") else 2
+    impl = "pallas" if case in PALLAS_CASES else "auto"
+    if impl == "pallas":
+        from nans_clip_tpu.ops import attention as jattn
+        orig = jattn.attention_pallas
+        monkeypatch.setattr(jattn, "attention_pallas",
+                            lambda q, k, v, key_bias=None, block_q=128, interpret=False:
+                            orig(q, k, v, key_bias, block_q, interpret=True))
     tcfg_j = jtrainer.TrainConfig(lr=LR, warmup=2, max_steps=10, wd=0.1)
     tcfg = trainer.TrainConfig(lr=LR, warmup=2, max_steps=10, wd=0.1)
-    options_j = JOptions(deterministic=False)
+    options_j = JOptions(deterministic=False, attn_impl=impl)
     params, _ = jclip.init_clip(jax.random.PRNGKey(3), jcfg)
     module = build_clip(cfg)
     module.load_state_dict(_as_port(params, cfg))
     state_t = trainer.create_train_state(module, tcfg, device="cpu")
-    step_t = trainer.make_train_step(cfg, tcfg, ModelOptions(deterministic=False))
+    step_t = trainer.make_train_step(cfg, tcfg, ModelOptions(deterministic=False, attn_impl=impl))
     state_j = jtrainer.create_train_state(jax.tree.map(jnp.copy, params), {}, tcfg_j)
     step_j = jtrainer.make_train_step(jcfg, tcfg_j, options_j, constrain=False)
 
