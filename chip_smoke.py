@@ -87,6 +87,22 @@ Phases, each printing its lines before the last line:
    launches each of #22 and #23 a step: the text tower's attention is the
    plain one under dropout, as in JAX).
 
+11. Tensor parallelism (``ModelOptions.tp``): the partial kernels #11 and
+   #12 against their twins at a rank's shapes (ViT-B-16 at tp 2 and 4,
+   batch 256; RoBERTa-base post-LN, masked, tp 2, batch 256; ViT-H-14 tp 2,
+   batch 32: 8 local heads of 80), with the library chain (``F.linear`` +
+   SDPA + ``F.linear``, ``F.linear`` + act + ``F.linear``) beside them; the
+   tp ranks' partials summed with the residual and bias in one process
+   against the unsharded #1 / #2 (tp 2 and 4); then the real path in 2
+   spawned ranks on ``cuda:0`` joined by gloo: ``get_similarity`` of
+   ViT-B-16@RoBERTa-base at batch 256 with ``tp=2`` against ``tp=1`` on the
+   kernel route, the ranks' logits bit-equal, per-rank launch counts (24 of
+   #11 and of #12, none of #1/#2/#3), then 4 deterministic train steps at
+   batch 128 (the first against one step at tp 1 from the same weights:
+   loss and gradient cosines; the loss falls; every rank's parameters
+   equal after each step). Times through gloo on one card say nothing of
+   TP scaling.
+
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
 nothing branches on them.
@@ -2133,6 +2149,305 @@ def phase_pallas(torch, dev):
     return results, direct, forward, per_step
 
 
+# Phase 11, tensor parallelism. (label, tp, batch, S, W, heads, I, post-LN,
+# act): a rank's shapes of the slice's towers and of ViT-H-14.
+TP_CASES = [("ViT-B-16 tp 2", 2, 256, 197, 768, 12, 3072, False, "quick_gelu"),
+            ("ViT-B-16 tp 4", 4, 256, 197, 768, 12, 3072, False, "quick_gelu"),
+            ("RoBERTa-base tp 2", 2, 256, 52, 768, 12, 3072, True, "gelu"),
+            ("ViT-H-14 tp 2", 2, 32, 257, 1280, 16, 5120, False, "quick_gelu")]
+# #11 / #12 against their twins: 4 bf16 ulps of max|twin|, as #1 / #2 (the
+# same chains). The tp ranks' partials summed as the TP path sums them (bf16
+# adds of the partials, then + x, then + bias) against the unsharded #1 / #2,
+# which sum in fp32 and round once: each partial's rounding and each bf16 add
+# moves the result by up to half an ulp, 5 at tp 4; 8 ulps.
+PARTIAL_ULPS, TP_SUM_ULPS = 4, 8
+# get_similarity at tp 2 against tp 1 on the kernel route, the same weights
+# and inputs: phase 5's kernel-vs-plain bound (0.05) doubled, since each of
+# the 24 layers rounds its reduced sum and the residual sums in bf16 (the
+# fused route keeps them in fp32) and the post-LN runs on the bf16 sum.
+TP_LOGIT_BOUND = 0.1
+TP_TRAIN_STEPS = 4
+
+
+def _tp_counted():
+    from nans_clip_tpu_torch.ops import fused_block as fb
+
+    return {"fused_attention_block_partial": fb.fused_attention_block_partial,
+            "fused_mlp_block_partial": fb.fused_mlp_block_partial, **_counted()}
+
+
+def _tp_counts():
+    out = {name: fn.launches for name, fn in _tp_counted().items()}
+    out.update(_tower_counts())
+    return out
+
+
+def _tp_reset():
+    _reset_counts()
+    for fn in _tp_counted().values():
+        fn.launches = 0
+
+
+def _tp_rank(rank: int, ckpt: str) -> dict:
+    """One rank of phase 11's real path: ``get_similarity`` at ``tp=2`` and
+    at ``tp=1``, then the TP train steps."""
+    import torch
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.training import TrainConfig, create_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    load = lambda tp: nct.load_from_name(
+        ckpt, vision_model_name=VISION, text_model_name=TEXT, input_resolution=224, device=dev,
+        options=nct.ModelOptions(compute_dtype="bfloat16", tp=tp))[0]
+    model = load(2)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(BATCH, 224, 224, 3, generator=gen).to(dev)
+    ids = torch.from_numpy(nct.tokenize((TEXTS * BATCH)[:BATCH])).to(dev)
+    _tp_reset()
+    li, lt = model.get_similarity(images, ids)
+    torch.cuda.synchronize()
+    out = {"counts": _tp_counts(), "logits": li.cpu().numpy(),
+           "transposed": bool(torch.equal(lt, li.T)),
+           "ms": _time_ms(lambda: model.get_similarity(images, ids), 3)}
+    del model
+    # both ranks, so that they reach the train step's collectives together
+    ref = load(1)
+    out["logits_tp1"] = ref.get_similarity(images, ids)[0].cpu().numpy()
+    out["ms_tp1"] = _time_ms(lambda: ref.get_similarity(images, ids), 3)
+    del ref
+    del images, ids, li, lt
+    torch.cuda.empty_cache()
+
+    cfg = nct.load_config(f"{VISION}@{TEXT}")
+    tcfg = TrainConfig(lr=1e-3, warmup=2, max_steps=100)
+    opts = lambda tp: nct.ModelOptions(tp=tp, deterministic=True, compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(11)
+    images = torch.randn(TRAIN_BATCH, 224, 224, 3, generator=gen).to(dev)
+    ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}"
+                                         for i in range(TRAIN_BATCH)])).to(dev)
+    # the first step at tp 1 (the kernel route) from the same weights: the
+    # TP step's yardstick
+    ref = create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)), tcfg,
+                             device=dev)
+    ref, m1 = make_train_step(cfg, tcfg, opts(1))(ref, images, ids, None)
+    out["loss_tp1"] = float(m1["loss"])
+    ref_grads = {n: p.grad for n, p in ref.module.named_parameters()}
+    del ref, m1
+    torch.cuda.empty_cache()
+    state = create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)), tcfg,
+                               device=dev)
+    step = make_train_step(cfg, tcfg, opts(2))
+    losses, step_ms, prints = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TP_TRAIN_STEPS):
+        if i == 0:
+            _tp_reset()
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, metrics = step(state, images, ids, None)
+        ev[1].record()
+        ev[1].synchronize()
+        if i == 0:
+            out["step_counts"] = _tp_counts()
+            # the key projection's bias gradient is 0 in exact arithmetic
+            cos = {n: _cos(p.grad, ref_grads[n]) for n, p in state.module.named_parameters()
+                   if not n.endswith("key.bias")}
+            out["worst_cos"] = min(cos.items(), key=lambda kv: kv[1])
+            del ref_grads
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(metrics["loss"]))
+        # the bits of every parameter, summed as int64 a tensor: equal on
+        # both ranks when their parameters are
+        prints.append([int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+                       for p in state.module.parameters()])
+    out.update(losses=losses, step_ms=step_ms, fingerprints=prints,
+               peak=torch.cuda.max_memory_allocated())
+    return out
+
+
+def phase_tp(torch, dev):
+    """Phase 11: #11 / #12 against their twins at a rank's shapes, the tp
+    ranks' sum against #1 / #2, then ``get_similarity`` and train steps in 2
+    ranks on ``cuda:0`` (gloo)."""
+    import torch.nn.functional as F
+
+    import numpy as np
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.ops import fused_block as fb
+    from nans_clip_tpu_torch.parallel import mesh
+
+    t_phase = time.time()
+    g = torch.Generator(device=dev).manual_seed(30)
+    bf = torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std + mean).to(bf)
+
+    def check(name, got, want, n_ulps):
+        err, bound = float((got.float() - want.float()).abs().max()), _ulps(want, n_ulps)
+        if got.shape != want.shape or not torch.isfinite(got).all() or err > bound:
+            raise AssertionError(f"{name}: max abs err {err} exceeds bound {bound}")
+        return err, bound
+
+    results = {}
+    for label, tp, b, s, w, heads, inter, post_ln, act in TP_CASES:
+        eps = 1e-12 if post_ln else 1e-5
+        std = 0.02 if post_ln else w ** -0.5
+        x = rnd(b, s, w)
+        lw, lb = rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1)
+        wqkv, bqkv, wo, bo = rnd(3 * w, w, std=std), rnd(3 * w, std=0.1), rnd(w, w, std=std), \
+            rnd(w, std=0.1)
+        w1, b1, w2, b2 = rnd(inter, w, std=std), rnd(inter, std=0.1), \
+            rnd(w, inter, std=std / 2), rnd(w, std=0.1)
+        kb = None
+        if post_ln:
+            lengths = torch.randint(2, s + 1, (b,), generator=g, device=dev)
+            kb = ((torch.arange(s, device=dev)[None, :] >= lengths[:, None]).float()
+                  * -10000.0).contiguous()
+        hl, wl, il, m = heads // tp, w // tp, inter // tp, b * s
+        ranks = []
+        for r in range(tp):
+            wq, bq = mesh.qkv_slice(wqkv, bqkv, heads, r, tp)
+            ranks.append((wq, bq, mesh.column_slice(wo, r, tp), mesh.row_slice(w1, r, tp),
+                          mesh.row_slice(b1, r, tp), mesh.column_slice(w2, r, tp)))
+        wq, bq, wol, w1l, b1l, w2l = ranks[0]
+        ln_lib = (lambda t: t) if post_ln else (lambda t: F.layer_norm(t, (w,), lw, lb, eps))
+        mask = None if kb is None else kb.view(b, 1, 1, s).to(bf)
+
+        def attn_lib():
+            q, k, v = F.linear(ln_lib(x), wq, bq).view(b, s, 3, hl, w // heads).permute(
+                2, 0, 3, 1, 4).unbind(0)
+            ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            return F.linear(ctx.transpose(1, 2).reshape(b, s, wl), wol)
+
+        act_lib = F.gelu if act == "gelu" else (lambda t: t * torch.sigmoid(1.702 * t))
+        with torch.no_grad():
+            cases = (
+                ("fused_attention_block_partial", "F.linear + SDPA + F.linear",
+                 lambda: fb.fused_attention_block_partial(x, lw, lb, wq, bq, wol, kb, hl, eps,
+                                                          not post_ln),
+                 lambda: fb._reference_block_partial(x, lw, lb, wq, bq, wol, hl, eps, not post_ln,
+                                                     kb),
+                 attn_lib,
+                 (2 * m * w * 2 + 4 * wl * w * 2 + (3 * wl + 2 * w) * 2 + (b * s * 4 if post_ln
+                                                                          else 0),
+                  2 * m * w * 4 * wl + 4 * b * s * s * wl)),
+                ("fused_mlp_block_partial", "F.linear + act + F.linear",
+                 lambda: fb.fused_mlp_block_partial(x, lw, lb, w1l, b1l, w2l, act, eps,
+                                                    not post_ln),
+                 lambda: fb._reference_mlp_partial(x, lw, lb, w1l, b1l, w2l, act, eps, not post_ln),
+                 lambda: F.linear(act_lib(F.linear(ln_lib(x), w1l, b1l)), w2l),
+                 (2 * m * w * 2 + 2 * il * w * 2 + (il + 2 * w) * 2, 4 * m * w * il)))
+            for name, lib_name, kern, twin, lib, cost in cases:
+                got, want = kern(), twin()
+                torch.cuda.synchronize()
+                err, bound = check(f"{name} {label}", got, want, PARTIAL_ULPS)
+                del got, want
+                ms, plain_ms, lib_ms = _time_ms(kern, 10), _time_ms(twin, 2), _time_ms(lib, 10)
+                bound_ms, bound_by = _bound(*cost)
+                print(f"tp kernel {name} {label} ({b}, {s}, {w}; {hl} heads of {w // heads}, "
+                      f"QKV N {3 * wl}, I {il} a rank): max_abs_err {err:.6g} <= {bound:.6g} "
+                      f"({PARTIAL_ULPS} bf16 ulp); {ms:.4f} ms, twin {plain_ms:.4f} ms, library "
+                      f"{lib_ms:.4f} ms ({lib_name}{'' if post_ln else ', after F.layer_norm'}), "
+                      f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                results[(name, label)] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                              bound_ms=bound_ms, bound_by=bound_by)
+            if not post_ln and w == 768:
+                # the ranks' sum, as the TP path forms it, against the unsharded kernels
+                parts_a = [fb.fused_attention_block_partial(x, lw, lb, q_, b_, o_, None, hl, eps,
+                                                            True) for q_, b_, o_, *_ in ranks]
+                parts_m = [fb.fused_mlp_block_partial(x, lw, lb, a_, c_, d_, act, eps, True)
+                           for *_, a_, c_, d_ in ranks]
+                for name, parts, bias, full in (
+                        ("#11 sum vs #1", parts_a, bo,
+                         fb.fused_attention_block(x, lw, lb, wqkv, bqkv, wo, bo, heads)),
+                        ("#12 sum vs #2", parts_m, b2,
+                         fb.fused_mlp_block(x, lw, lb, w1, b1, w2, b2, act, eps))):
+                    red = parts[0]
+                    for part in parts[1:]:
+                        red = red + part
+                    err, bound = check(f"{name} {label}", x + red + bias, full, TP_SUM_ULPS)
+                    print(f"tp {name} ({label}): the {tp} ranks' partials + x + bias in bf16 vs "
+                          f"the unsharded kernel: max abs err {err:.6g} <= {bound:.6g} "
+                          f"({TP_SUM_ULPS} bf16 ulp)", flush=True)
+                del parts_a, parts_m
+        del x, ranks, wqkv, wo, w1, w2
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase11": "partial kernels", "results": [
+        dict(name=n, case=c, **r) for (n, c), r in results.items()]}), flush=True)
+    t_kernels = time.time() - t_phase
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "clip_cn_vit-b-16_random.pt")
+        cfg = nct.load_config(f"{VISION}@{TEXT}")
+        torch.save({"state_dict": build_clip(cfg, "cpu", torch.Generator().manual_seed(0))
+                    .state_dict()}, ckpt)
+        t0 = time.time()
+        ranks = mesh.run_ranks(_tp_rank, 2, "gloo", os.path.join(tmp, "rendezvous"), (ckpt,),
+                               timeout_s=480.0)
+        t_ranks = time.time() - t0
+    n_layers = cfg.vision.layers + cfg.text.num_hidden_layers
+    want = {"fused_attention_block_partial": n_layers, "fused_mlp_block_partial": n_layers,
+            "fused_attention_block": 0, "fused_bert_attention_block": 0, "fused_mlp_block": 0,
+            "fused_layer_block": 0, "fused_tower": 0, "fused_tower_int8": 0}
+    for r, out in enumerate(ranks):
+        print(f"tp rank {r}: get_similarity launches {json.dumps(out['counts'])}", flush=True)
+        got = {k: out["counts"][k] for k in want}
+        if got != want or not out["transposed"]:
+            raise AssertionError(f"tp rank {r}: launches {got} != {want}")
+    if not np.array_equal(ranks[0]["logits"], ranks[1]["logits"]):
+        raise AssertionError("tp: the ranks' logits differ")
+    li, li1 = ranks[0]["logits"], ranks[0]["logits_tp1"]
+    err = float(np.abs(li - li1).max())
+    if li.shape != (BATCH, BATCH) or not np.isfinite(li).all() or err > TP_LOGIT_BOUND:
+        raise AssertionError(f"tp get_similarity: shape {li.shape}, {err} from tp 1")
+    print(f"tp get_similarity ViT-B-16@RoBERTa-base batch {BATCH}, tp 2 in 2 ranks on one card "
+          f"(gloo): logits bit-equal on both ranks, {err:.6g} from tp 1 on the kernel route (<= "
+          f"{TP_LOGIT_BOUND}); {ranks[0]['ms']:.2f} / {ranks[1]['ms']:.2f} ms a call on rank 0 / 1 "
+          f"(tp 1: {ranks[0]['ms_tp1']:.2f} ms; two ranks share the card and gloo all-reduces "
+          "through the host: no measure of TP scaling)", flush=True)
+    losses = ranks[0]["losses"]
+    for i in range(TP_TRAIN_STEPS):
+        if ranks[0]["fingerprints"][i] != ranks[1]["fingerprints"][i]:
+            raise AssertionError(f"tp train: the ranks' parameters differ after step {i + 1}")
+    if ranks[1]["losses"] != losses or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"tp train: losses {losses} / {ranks[1]['losses']}")
+    step_counts = ranks[0]["step_counts"]
+    loss_diff = abs(losses[0] - ranks[0]["loss_tp1"])
+    worst, worst_cos = ranks[0]["worst_cos"]
+    print(f"tp train: the first step against the same step at tp 1 (kernel route): loss "
+          f"{losses[0]:.6f} vs {ranks[0]['loss_tp1']:.6f} (|diff| {loss_diff:.3g} <= "
+          f"{STEP_LOSS_BOUND}); gradient cosine >= {worst_cos:.6f} ({worst}), bound "
+          f"{GRAD_COS_BOUND}", flush=True)
+    if loss_diff > STEP_LOSS_BOUND or worst_cos < GRAD_COS_BOUND:
+        raise AssertionError("tp train: the TP step differs from the tp 1 step")
+    if (step_counts["fused_attention_block_partial"] != n_layers
+            or step_counts["fused_mlp_block_partial"] != n_layers):
+        raise AssertionError(f"tp train: launches a step {step_counts}")
+    print(f"tp train ViT-B-16@RoBERTa-base batch {TRAIN_BATCH}, tp 2, deterministic: loss "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; parameters equal on both ranks after every "
+          f"step; step ms rank 0 {' '.join(f'{x:.1f}' for x in ranks[0]['step_ms'])}, rank 1 "
+          f"{' '.join(f'{x:.1f}' for x in ranks[1]['step_ms'])} (gloo on one card); peak "
+          f"{ranks[0]['peak'] / 2 ** 30:.3f} GiB a rank; launches a step "
+          f"{json.dumps(step_counts)}", flush=True)
+    print(json.dumps({"phase11": "real path", "logits_vs_tp1": err, "ms": ranks[0]["ms"],
+                      "loss_diff_vs_tp1": loss_diff, "min_grad_cos_vs_tp1": worst_cos,
+                      "ms_tp1": ranks[0]["ms_tp1"], "losses": losses,
+                      "step_ms": [r["step_ms"] for r in ranks], "peak_bytes": ranks[0]["peak"],
+                      "launches": ranks[0]["counts"], "step_launches": step_counts}), flush=True)
+    print(f"tp: phase 11 took {time.time() - t_phase:.1f} s (kernels {t_kernels:.1f} s, the "
+          f"2 ranks {t_ranks:.1f} s)", flush=True)
+    return results, ranks[0]["counts"]
+
+
 def main() -> int:
     if not (ROOT / "nans_clip_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -2181,6 +2496,7 @@ def main() -> int:
         lora_results, lora_step, layer_launches, _ = phase_lora(torch, dev, tmp)
     wide_results, wide_steps, wide_forward, wide_direct = phase_wide(torch, dev)
     pallas_results, pallas_direct, pallas_forward, pallas_step = phase_pallas(torch, dev)
+    tp_results, tp_launches = phase_tp(torch, dev)
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")
@@ -2270,14 +2586,29 @@ def main() -> int:
                         "launches": launches, "path": path, "max_abs_err": r["err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # #11 and #12 at the image tower's rank shape (ViT-B-16, tp 2); launches of
+    # one rank's get_similarity at tp 2
+    for name, replaces in (
+            ("fused_attention_block_partial", "nans_clip_tpu/ops/fused_block.py:1244"),
+            ("fused_mlp_block_partial", "nans_clip_tpu/ops/fused_block.py:1346")):
+        r = tp_results[(name, "ViT-B-16 tp 2")]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "nans_clip_tpu_torch/ops/fused_block.py", "replaces": replaces,
+                        "launches": tp_launches[name],
+                        "path": "get_similarity ViT-B-16@RoBERTa-base, batch 256, tp 2, rank 0",
+                        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     ported = {"fused_attention_block", "fused_mlp_block", "fused_layer_block", "fused_tower",
               "fused_tower_int8", "fused_attention_block_bwd", "fused_bert_attention_block_bwd",
               "fused_mlp_block_bwd", "fused_attention_block_bwd_fullgrad",
               "fused_bert_attention_block_bwd_fullgrad", "fused_mlp_block_bwd_fullgrad",
               "fused_layer_block_bwd_fullgrad", *wide_launches,
-              *(name for name, *_ in pallas_entries)}
+              *(name for name, *_ in pallas_entries), "fused_attention_block_partial",
+              "fused_mlp_block_partial"}
     if not ported <= {k["name"] for k in kernels} or any(k["launches"] < 1 for k in kernels):
-        raise AssertionError(f"the twenty-one ported TPU kernels, each launched on its main path: "
+        raise AssertionError(f"the twenty-three ported TPU kernels, each launched on its main "
+                             f"path: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

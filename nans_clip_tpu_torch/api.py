@@ -20,6 +20,7 @@ from nans_clip_tpu_torch.configs import (CLIPConfig, MODEL_CKPT_FILES, MODEL_INF
                                          available_models, load_config, with_resolution)
 from nans_clip_tpu_torch.models.clip import CLIP, build_clip
 from nans_clip_tpu_torch.models.common import ModelOptions, cast_module
+from nans_clip_tpu_torch.parallel.mesh import model_group
 from nans_clip_tpu_torch.tokenizer import tokenize
 from nans_clip_tpu_torch.utils.torch_interop import load_torch_state_dict
 from nans_clip_tpu_torch.utils.transform import image_transform
@@ -30,9 +31,14 @@ __all__ = ["load_from_name", "load", "tokenize", "image_transform",
 
 class CLIPModel:
     """Bundles (config, module, options); inference only. Inputs may be
-    numpy arrays or tensors and are moved to the module's device."""
+    numpy arrays or tensors and are moved to the module's device. With
+    ``options.tp`` > 1 every rank of the caller's model group builds the
+    same model (``parallel/mesh.py::init_model_group`` first) and gets the
+    same results; a group of another size raises here."""
 
     def __init__(self, cfg: CLIPConfig, module: CLIP, options: ModelOptions = ModelOptions()):
+        if options.tp > 1:
+            model_group(options.tp)
         self.cfg = cfg
         self.options = options
         self.module = cast_module(module, options).eval()

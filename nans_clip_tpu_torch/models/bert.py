@@ -15,6 +15,14 @@ dequantized on entry everywhere else. The q/k/v weights are packed into
 the ``[3H, H]`` layout the kernels read once, and packed again only when
 the weights change.
 
+Under tensor parallelism (``options.tp`` > 1), before any other route,
+every layer is the two post-LN TP sub-blocks of ``parallel/tp.py`` (the
+JAX deterministic branch, bert.py:135-163: #11/#12 where
+``gates.tp_impls`` says "fused", their twins otherwise), in inference and
+in a training forward without dropout. JAX sends a text tower with dropout
+under tp > 1 through its unfused GSPMD path (bert.py:100-105); the port has
+no counterpart and raises (ROADMAP queue 3).
+
 Under ``attn_impl="pallas"`` each layer is the JAX tower's unfused post-LN
 branch (bert.py:246-262), in inference and training: LayerNorm, the
 projections, the MLP and dropout in plain torch around the flash attention
@@ -50,6 +58,8 @@ from nans_clip_tpu_torch.ops.fused_block import attention_block_train, mlp_block
 from nans_clip_tpu_torch.ops.layer_kernel import encoder_layer_math, fused_layer_block
 from nans_clip_tpu_torch.ops.layernorm import layer_norm
 from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
+from nans_clip_tpu_torch.parallel.mesh import model_group
+from nans_clip_tpu_torch.parallel.tp import tp_attention_block, tp_mlp_block
 from nans_clip_tpu_torch.utils.quantize import Int8Weight, dequantize_weight, is_quantized
 
 
@@ -170,6 +180,16 @@ class BertLayer(nn.Module):
                 cast(self.intermediate.dense.bias), cast(out.dense.weight),
                 cast(out.dense.bias))
 
+    def tp_partial_parameters(self) -> tuple:
+        """The parameters that the partial sub-blocks consume under tensor
+        parallelism: the sliced weights and the q|k|v and fc1 biases (the
+        post-LN LayerNorms run on the reduced value)."""
+        sa = self.attention.self
+        return (sa.query.weight, sa.query.bias, sa.key.weight, sa.key.bias, sa.value.weight,
+                sa.value.bias, self.attention.output.dense.weight,
+                self.intermediate.dense.weight, self.intermediate.dense.bias,
+                self.output.dense.weight)
+
 
 class BertEncoder(nn.Module):
     def __init__(self, cfg: TextConfig):
@@ -217,6 +237,12 @@ class BertModel(nn.Module):
         cfg, enc = self.cfg, self.encoder
         heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
         layers = [layer.weights(options) for layer in enc.layer]
+        if options.tp > 1:
+            if not options.deterministic and generator is not None:
+                raise NotImplementedError(
+                    "a text tower with dropout under tp > 1 is not ported (ROADMAP queue 3): "
+                    "train with ModelOptions(deterministic=True) or without a generator")
+            return self._tp_layers(x, key_bias, layers, options)
         if not options.deterministic:
             return self._train_layers(x, key_bias, layers, options, generator)
         if gates.pallas_route(options.attn_impl):
@@ -225,12 +251,26 @@ class BertModel(nn.Module):
                 x = _pallas_layer(x, p, key_bias, heads, eps, act)
             return x
         if gates.tower_route(x, options.attn_impl, "text", heads, cfg.intermediate_size,
-                             is_quantized(layers[0][2])):
+                             is_quantized(layers[0][2]), options.tp):
             return fused_tower(x, key_bias, layers, heads, eps, act, True, enc.tower_table)
         layer_fn = fused_layer_block if gates.use_kernel(x, options.attn_impl) else encoder_layer_math
         for p in layers:
             p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
             x = layer_fn(x, *p, heads, eps, act, True, key_bias)
+        return x
+
+    def _tp_layers(self, x, key_bias, layers, options: ModelOptions) -> torch.Tensor:
+        """Every layer through the post-LN TP sub-blocks (JAX bert.py:135-163),
+        each rank on its heads and MLP columns."""
+        cfg = self.cfg
+        heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
+        group = model_group(options.tp)
+        a_impl, m_impl = gates.tp_impls(x, options.attn_impl, act)
+        for p in layers:
+            p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+            x = tp_attention_block(x, *p[:6], heads, options.tp, eps, True, key_bias, a_impl,
+                                   group)
+            x = tp_mlp_block(x, *p[6:], act, options.tp, eps, True, m_impl, group)
         return x
 
     def _train_layers(self, x, key_bias, layers, options: ModelOptions,

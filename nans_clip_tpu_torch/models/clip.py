@@ -7,7 +7,10 @@ runs BERT and projects the [CLS] state through ``text_projection``;
 ``get_similarity`` returns both-way scaled logits in fp32.
 ``logit_scale`` initialises to ``ln(1/0.07)``. A training forward passes
 ``ModelOptions(deterministic=False)`` and a ``torch.Generator`` for the text
-tower's dropout (the vision tower has none).
+tower's dropout (the vision tower has none). ``ModelOptions(tp=n)`` runs
+both towers tensor-parallel in the caller's process group of n ranks
+(``parallel/tp.py``); every rank holds the full weights and computes the
+same features.
 """
 
 from __future__ import annotations
@@ -43,6 +46,14 @@ class CLIP(nn.Module):
         self.bert.init_weights(generator)
         self.text_projection.normal_(0.0, self.cfg.text.hidden_size ** -0.5, generator=generator)
         self.logit_scale.fill_(math.log(1.0 / 0.07))
+
+    def tp_partial_parameters(self) -> list:
+        """The parameters whose gradients are per-rank shares under tensor
+        parallelism (``parallel/tp.py::reduce_partial_grads`` sums them),
+        in a fixed order: every layer of the image tower, then of the text
+        tower."""
+        return [t for layer in (*self.visual.transformer.resblocks, *self.bert.encoder.layer)
+                for t in layer.tp_partial_parameters()]
 
     def encode_image(self, images: torch.Tensor, options: ModelOptions = ModelOptions(),
                      mask_ratio: float = 0.0, generator: Optional[torch.Generator] = None,

@@ -56,12 +56,20 @@ class ModelOptions:
     layers, "fullgrad" elsewhere) or "auto", the routes measured on the
     card (``ops/gates.py``). A block with a frozen weight takes the
     emitting kernels whatever this says.
+    ``tp``: the number of tensor-parallel ranks. Above 1 every layer of both
+    towers runs the sub-blocks of ``parallel/tp.py`` (the partial kernels
+    #11/#12 on each rank's heads and MLP columns, one all-reduce a
+    sub-block) before any other route, in a process group of ``tp`` ranks
+    that the caller formed (``parallel/mesh.py::init_model_group``); the
+    rank is the group's. A text tower with dropout under ``tp`` > 1 raises
+    (not ported).
     """
 
     attn_impl: str = "auto"
     compute_dtype: Optional[str] = None
     deterministic: bool = True
     bwd_impl: str = "auto"
+    tp: int = 1
 
     def __post_init__(self):
         if self.attn_impl not in gates.IMPLS:
@@ -69,6 +77,8 @@ class ModelOptions:
         if self.bwd_impl not in gates.BWD_IMPLS:
             raise ValueError(f"bwd_impl must be one of {gates.BWD_IMPLS}, got "
                              f"{self.bwd_impl!r}")
+        if not isinstance(self.tp, int) or isinstance(self.tp, bool) or self.tp < 1:
+            raise ValueError(f"tp must be a positive int, got {self.tp!r}")
         if self.compute_dtype not in (None, "bfloat16"):
             raise ValueError(f"unsupported compute_dtype {self.compute_dtype!r}")
 

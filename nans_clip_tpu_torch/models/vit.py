@@ -11,7 +11,12 @@ computation follows the JAX tower:
 * CLS and positional embeddings, ``ln_pre``, the pre-LN layers with
   QuickGELU, ``ln_post`` on the CLS token and ``proj``.
 
-The layers run as ``ops/gates.py`` routes them. Under ``attn_impl="pallas"``
+The layers run as ``ops/gates.py`` routes them. Under tensor parallelism
+(``options.tp`` > 1), before any other route, every layer is the two TP
+sub-blocks of ``parallel/tp.py`` (the JAX branch, vit.py:145-169): the
+partial kernels #11/#12 where ``gates.tp_impls`` says "fused", their twins
+otherwise (``attn_impl="pallas"`` included, as in JAX), in inference and in
+training alike; int8 weights are dequantized on entry. Under ``attn_impl="pallas"``
 each layer is the JAX tower's unfused branch (vit.py:327-338), LayerNorm,
 projections and MLP in plain torch around the flash attention of
 ``ops/attention.py`` (#22, and #23 in training): :func:`_pallas_layer`.
@@ -58,6 +63,8 @@ from nans_clip_tpu_torch.ops.fused_block import (_mlp_dispatch, _reference_block
 from nans_clip_tpu_torch.ops.layer_bwd import fused_layer_train
 from nans_clip_tpu_torch.ops.layernorm import layer_norm
 from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
+from nans_clip_tpu_torch.parallel.mesh import model_group
+from nans_clip_tpu_torch.parallel.tp import tp_attention_block, tp_mlp_block
 from nans_clip_tpu_torch.utils.quantize import dequantize_weight, is_quantized
 
 
@@ -112,6 +119,15 @@ class ResidualAttentionBlock(nn.Module):
                 attn.out_proj.weight, attn.out_proj.bias, self.ln_2.weight, self.ln_2.bias,
                 mlp.c_fc.weight, mlp.c_fc.bias, mlp.c_proj.weight, mlp.c_proj.bias)
 
+    def tp_partial_parameters(self) -> tuple:
+        """The parameters that the partial sub-blocks consume under tensor
+        parallelism (their gradients are per-rank shares): both pre-LN
+        LayerNorms, the sliced weights and b_qkv / b1."""
+        attn, mlp = self.attn, self.mlp
+        return (self.ln_1.weight, self.ln_1.bias, attn.in_proj_weight, attn.in_proj_bias,
+                attn.out_proj.weight, self.ln_2.weight, self.ln_2.bias, mlp.c_fc.weight,
+                mlp.c_fc.bias, mlp.c_proj.weight)
+
 
 # Heads a chunk of #7 in the JAX tower (vit.py:313-317).
 WIDE_HEADS_PER_CHUNK = 4
@@ -143,6 +159,18 @@ def _layer(x: torch.Tensor, p: tuple, heads: int, use_kernel: bool) -> torch.Ten
     else:
         x = fused_attention_block(x, *p[:6], heads, 1e-5)
     return _mlp_dispatch(x, *p[6:], None, "quick_gelu", 1e-5, False, False, 0.0)
+
+
+def _tp_layers(x: torch.Tensor, layers, heads: int, options: ModelOptions) -> torch.Tensor:
+    """Every layer through the TP sub-blocks of ``parallel/tp.py`` (JAX
+    vit.py:145-169), each rank on its heads and MLP columns."""
+    group = model_group(options.tp)
+    a_impl, m_impl = gates.tp_impls(x, options.attn_impl)
+    for p in layers:
+        p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+        x = tp_attention_block(x, *p[:6], heads, options.tp, 1e-5, impl=a_impl, group=group)
+        x = tp_mlp_block(x, *p[6:], "quick_gelu", options.tp, 1e-5, impl=m_impl, group=group)
+    return x
 
 
 def draw_ids_keep(batch: int, seq_len: int, mask_ratio: float,
@@ -224,8 +252,11 @@ class VisualTransformer(nn.Module):
         x = layer_norm(x, cast(self.ln_pre.weight), cast(self.ln_pre.bias), 1e-5)
         heads = self.cfg.heads
         layers = [tuple(cast(t) for t in blk.weights()) for blk in self.transformer.resblocks]
-        if options.deterministic and gates.tower_route(x, options.attn_impl, "image", heads,
-                                                       4 * w, is_quantized(layers[0][2])):
+        if options.tp > 1:
+            x = _tp_layers(x, layers, heads, options)
+        elif options.deterministic and gates.tower_route(x, options.attn_impl, "image", heads,
+                                                         4 * w, is_quantized(layers[0][2]),
+                                                         options.tp):
             x = fused_tower(x, None, layers, heads, 1e-5, "quick_gelu", False, self.tower_table)
         else:
             use_kernel = gates.use_kernel(x, options.attn_impl)

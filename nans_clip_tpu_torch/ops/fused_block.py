@@ -11,7 +11,10 @@ Ports of ``nans_clip_tpu/ops/fused_block.py``:
   :func:`fused_attention_block_wide` (``batch_tile`` 1 and above);
 * ``_mlp_tiled_kernel`` (:899) and ``_mlp_batched_kernel`` (:1005), #9 and
   #10 -> :func:`_fused_mlp_tiled_call` and :func:`_fused_mlp_batched_call`,
-  reached through :func:`_mlp_dispatch` as in the JAX package (:1104).
+  reached through :func:`_mlp_dispatch` as in the JAX package (:1104);
+* ``_partial_kernel`` (:1244) and ``_mlp_partial_kernel`` (:1346), #11 and
+  #12, the sub-blocks of one tensor-parallel rank (``parallel/tp.py``) ->
+  :func:`fused_attention_block_partial` and :func:`fused_mlp_block_partial`.
 
 The wide forms are the same chains at W in (768, 2048] with heads of 64 or
 80: on the TPU they streamed weights in chunks of heads or of the MLP's
@@ -28,14 +31,19 @@ short chain that computes the same function with the same rounding points:
 * attention, post-LN: GEMM(Wqkv, +bqkv) -> attention[drop P] ->
   GEMM(Wo, +bo, drop, +x; fp32) -> LN
 * MLP: [LN] -> GEMM(w1, +b1, act) -> GEMM(w2, +b2, [drop], +x) [-> fp32 sum -> LN]
+* partial attention (#11): [LN] -> GEMM(Wqkv_local, +bqkv_local) -> attention
+  (the local heads, [key bias]) -> GEMM(Wo_local), no bias, residual or LN
+* partial MLP (#12): [LN] -> GEMM(w1_local, +b1_local, act) -> GEMM(w2_local),
+  no bias, residual or LN
 
 (``csrc/layernorm.cu``, ``csrc/gemm.cu``, ``csrc/attention.cu``). Weights are
 in the torch Linear layout ``[out, in]``. Dropout (``ops/dropout.py``) is on
 when a ``seed`` and a rate above 0 are given; the backward redraws its masks
 from the same seed.
 
-``_reference_block`` and ``_reference_mlp`` are the plain-torch twins: the
-same chains through the kernels' plain versions. The public wrappers run
+``_reference_block``, ``_reference_mlp``, ``_reference_block_partial`` and
+``_reference_mlp_partial`` are the plain-torch twins: the same chains
+through the kernels' plain versions. The public wrappers run
 the twins for CPU tensors and the kernels for CUDA tensors (or raise),
 and count their kernel launches in ``.launches``.
 
@@ -66,6 +74,7 @@ route is ``emit`` or a weight is frozen.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -174,6 +183,117 @@ def fused_mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, act: str = "quick_gelu",
                     hid_drop)
     fused_mlp_block.launches += 1
     return out
+
+
+def attention_partial_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, heads: int, eps: float,
+                            key_bias: Optional[torch.Tensor], pre_ln: bool, ops):
+    """One tensor-parallel rank's attention sub-block through ``ops``: [LN
+    ->] QKV of the rank's heads -> attention -> ctx . Wo_local, with no
+    residual, output bias or post-LN (the caller sums the ranks' outputs and
+    adds those once). x: [B, S, W] in the io dtype; ``w_qkv``: [3 Wl, W],
+    the q|k|v thirds of the local heads; ``w_o``: [W, Wl]; returns [B, S, W]
+    in the io dtype. The rounding points of ``_partial_kernel``
+    (fused_block.py:1244-1276): xn, q/k/v (fp32 product plus bias), P and
+    ctx in the io dtype, the out-projection summed in fp32 and stored in the
+    io dtype."""
+    ln, lin, attn = ops
+    b, s, w = x.shape
+    x2 = x.reshape(b * s, w)
+    xn = ln(x2, ln_w, ln_b, eps) if pre_ln else x2
+    ctx = attn(lin(xn, w_qkv, b_qkv), key_bias, b, heads)
+    return lin(ctx, w_o, None).reshape(b, s, w)
+
+
+def mlp_partial_chain(x, ln_w, ln_b, w1, b1, w2, act: str, eps: float, pre_ln: bool, ops):
+    """One rank's MLP sub-block through ``ops``: [LN ->] act(x . W1_local +
+    b1_local) . W2_local, with no residual, bias or post-LN; ``w1``: [Il,
+    W], ``w2``: [W, Il] (``_mlp_partial_kernel``, fused_block.py:1346-1361:
+    h in the io dtype, the down-projection summed in fp32)."""
+    ln, lin, _ = ops
+    b, s, w = x.shape
+    x2 = x.reshape(b * s, w)
+    xn = ln(x2, ln_w, ln_b, eps) if pre_ln else x2
+    return lin(lin(xn, w1, b1, act=act), w2, None).reshape(b, s, w)
+
+
+def _reference_block_partial(x, ln_w, ln_b, w_qkv, b_qkv, w_o, heads: int, eps: float,
+                             pre_ln: bool, key_bias=None):
+    """Plain-torch twin of #11 (JAX ``_reference_block_partial``,
+    fused_block.py:1228), the weights in the ``[out, in]`` layout."""
+    return attention_partial_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, heads, eps, key_bias,
+                                   pre_ln, PLAIN_OPS)
+
+
+def _reference_mlp_partial(x, ln_w, ln_b, w1, b1, w2, act: str, eps: float, pre_ln: bool):
+    """Plain-torch twin of #12 (JAX ``_reference_mlp_partial``,
+    fused_block.py:1337)."""
+    return mlp_partial_chain(x, ln_w, ln_b, w1, b1, w2, act, eps, pre_ln, PLAIN_OPS)
+
+
+class _Partial(torch.autograd.Function):
+    """A partial sub-block under autograd. ``run(kernel, *tensors)`` computes
+    it: the kernel chain where ``kernel`` is True and the tensors lie on the
+    card, the twin otherwise. The forward runs the kernels; the backward is
+    autograd through the twin, recomputed from the saved inputs: the JAX
+    backward is the vjp of the twin too (fused_block.py:1325-1334,
+    :1403-1410), and no backward kernel exists to port."""
+
+    @staticmethod
+    def forward(ctx, run, *tensors):
+        ctx.run = run
+        ctx.save_for_backward(*tensors)
+        return run(True, *tensors)
+
+    @staticmethod
+    def backward(ctx, g):
+        tensors, needs = ctx.saved_tensors, ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            leaves = [t if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(tensors, needs)]
+            out = ctx.run(False, *leaves)
+            wanted = [t for t, n in zip(leaves, needs) if n]
+            grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+        return (None, *(next(grads) if n else None for n in needs))
+
+
+def _attention_partial(kernel: bool, x, ln_w, ln_b, w_qkv, b_qkv, w_o, key_bias, *,
+                       heads: int, eps: float, pre_ln: bool):
+    if not (kernel and x.is_cuda):
+        return _reference_block_partial(x, ln_w, ln_b, w_qkv, b_qkv, w_o, heads, eps, pre_ln,
+                                        key_bias)
+    out = attention_partial_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, heads, eps, key_bias,
+                                  pre_ln, KERNEL_OPS)
+    fused_attention_block_partial.launches += 1
+    return out
+
+
+def _mlp_partial(kernel: bool, x, ln_w, ln_b, w1, b1, w2, *, act: str, eps: float,
+                 pre_ln: bool):
+    if not (kernel and x.is_cuda):
+        return _reference_mlp_partial(x, ln_w, ln_b, w1, b1, w2, act, eps, pre_ln)
+    out = mlp_partial_chain(x, ln_w, ln_b, w1, b1, w2, act, eps, pre_ln, KERNEL_OPS)
+    fused_mlp_block_partial.launches += 1
+    return out
+
+
+def fused_attention_block_partial(x, ln_w, ln_b, w_qkv, b_qkv, w_o, key_bias, heads: int,
+                                  eps: float, pre_ln: bool):
+    """#11, one tensor-parallel rank's attention sub-block (JAX
+    ``fused_attention_block_partial``, fused_block.py:1309): [LN ->] QKV of
+    the ``heads`` local heads -> MHA [+ key bias] -> ctx . Wo_local, with no
+    residual, output bias or post-LN. x: [B, S, W]; ``w_qkv``: [3 Wl, W];
+    ``b_qkv``: [3 Wl]; ``w_o``: [W, Wl]; ``key_bias``: [B, S] fp32 or None.
+    Under autograd; the kernels for CUDA tensors, the twin for CPU tensors."""
+    run = functools.partial(_attention_partial, heads=heads, eps=eps, pre_ln=pre_ln)
+    return _Partial.apply(run, x, ln_w, ln_b, w_qkv, b_qkv, w_o, key_bias)
+
+
+def fused_mlp_block_partial(x, ln_w, ln_b, w1, b1, w2, act: str, eps: float, pre_ln: bool):
+    """#12, one rank's MLP sub-block (JAX ``fused_mlp_block_partial``,
+    fused_block.py:1388): [LN ->] act(x . W1_local + b1_local) . W2_local;
+    ``w1``: [Il, W], ``w2``: [W, Il]. Under autograd, as #11."""
+    run = functools.partial(_mlp_partial, act=act, eps=eps, pre_ln=pre_ln)
+    return _Partial.apply(run, x, ln_w, ln_b, w1, b1, w2)
 
 
 def _wide_forward(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, eps: float,
@@ -485,3 +605,5 @@ fused_attention_block_wide.launches = 0
 fused_attention_block_wide.launches_batched = 0
 _fused_mlp_tiled_call.launches = 0
 _fused_mlp_batched_call.launches = 0
+fused_attention_block_partial.launches = 0
+fused_mlp_block_partial.launches = 0

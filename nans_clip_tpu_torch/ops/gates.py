@@ -32,6 +32,12 @@ Which backward a Function runs is decided by what needs a gradient and by
 block with a frozen weight always takes the emitting kernels (#13/#15/#17)
 and forms only the weight gradients that are needed.
 
+Tensor parallelism (``ModelOptions.tp`` > 1): every layer of both towers
+takes the sub-blocks of ``parallel/tp.py`` before any other route;
+:func:`tp_impls` picks the partial kernels (#11/#12) or their twins as the
+JAX towers pick them, :func:`fits_partial` names the local shapes the
+kernels admit, and the whole-tower kernel never runs (:func:`tower_route`).
+
 Admission (what a kernel takes) is checked by each wrapper before it
 launches; a CUDA tensor that the kernel does not admit raises. No path
 turns a failed build or launch into the plain path. The kernels' limits
@@ -93,8 +99,15 @@ LN_WIDTH_MULTIPLE = 32
 # (the forward's N) of GEMM_K_MULTIPLE; the weight gradient's [N, K] output
 # is cut into 128x128 tiles (both multiples of GEMM_N_MULTIPLE) and its
 # contraction over B*S rows has a masked tail. Kernel limits, not measured
-# routing gates.
+# routing gates. The forward form (``linear``) alone also takes a last N
+# tile that is half full: W's rows past N load as zeros and the warps whose
+# 32 columns lie past N store nothing, so its N need only be a multiple of
+# GEMM_FWD_N_MULTIPLE (tensor parallelism at tp 4: the local QKV width is 3 x
+# 192 = 576 at ViT-B and 3 x 320 = 960 at ViT-H). The backward forms keep
+# GEMM_N_MULTIPLE: their transposed loads and the weight gradient's
+# 128x128 output tiles have no N tail.
 GEMM_N_MULTIPLE = 128
+GEMM_FWD_N_MULTIPLE = 64
 GEMM_K_MULTIPLE = 32
 
 # tower.cu (the whole-tower kernel, batch 1-32): heads of 64 (attention.cuh's
@@ -272,14 +285,57 @@ def fits_tower(seq: int, width: int, heads: int, inter: int) -> bool:
 
 
 def tower_route(x: torch.Tensor, impl: str, tower: str, heads: int, inter: int,
-                quant: bool) -> bool:
+                quant: bool, tp: int = 1) -> bool:
     """THE whole-tower predicate of each tower (JAX ``_tower_route``): it
     decides both whether int8 weights stream as they are and whether the
     tower kernel runs. ``x``: the tower's input [B, S, W]; ``quant``: the
-    tower holds int8 weights."""
+    tower holds int8 weights. Never under tensor parallelism (``tp`` > 1),
+    as the JAX predicate requires ``options.tp == 1`` (vit.py:128,
+    bert.py:118)."""
     b, s, w = x.shape
-    return (use_kernel(x, impl) and fits_tower(s, w, heads, inter)
+    return (tp == 1 and use_kernel(x, impl) and fits_tower(s, w, heads, inter)
             and (b == 1 or b <= TOWER_MAX_BATCH[(tower, "int8" if quant else "bf16")]))
+
+
+def tp_impls(x: torch.Tensor, impl: str, hidden_act=None):
+    """(attention impl, MLP impl) of every layer of a tower under tensor
+    parallelism, for the tower's input ``x`` [B, S, W]: "fused" (the
+    partial kernels #11 / #12, which take their twins for CPU tensors) or
+    "xla" (the twins), as the JAX towers choose them. "fused" where the JAX
+    tower's ``use_fused`` holds (``attn_impl`` "fused", or the kernels'
+    route on the card: :func:`use_kernel`) and ``fits_fused`` /
+    ``fits_fused_mlp`` hold at the FULL width (``nans_clip_tpu/models/
+    vit.py:150-151``); for the text tower (``hidden_act`` given) the fused
+    MLP also needs ``hidden_act == "gelu"`` (``bert.py:142-144``). Under
+    ``pallas`` both are "xla", as in JAX. No kernel is admitted or refused
+    here: that is :func:`fits_partial`'s question."""
+    _, seq, width = x.shape
+    use_fused = impl == "fused" or use_kernel(x, impl)
+    a = "fused" if use_fused and fits_fused(seq, width) else "xla"
+    mlp_ok = use_fused and fits_fused_mlp(seq, width) and hidden_act in (None, "gelu")
+    return a, "fused" if mlp_ok else "xla"
+
+
+def fits_partial(width: int, tp: int, heads=None, inter=None) -> bool:
+    """Whether the partial kernels admit a rank's shapes at ``tp`` ranks:
+    #11 (``heads`` given) takes each rank's heads of a width in
+    ``HEAD_DIMS``, its QKV width 3 W / tp a multiple of
+    ``GEMM_FWD_N_MULTIPLE`` (the forward GEMM's N) and its out-projection's
+    contraction W / tp of ``GEMM_K_MULTIPLE``; #12 (``inter`` given) its
+    fc1 width I / tp of both; both the LayerNorm row as ``MAX_LN_WIDTH``
+    and the output width W as a GEMM N. ViT-B/L/H and RoBERTa-base/large
+    qualify at tp 2 and 4."""
+    ok = (width % GEMM_FWD_N_MULTIPLE == 0 and width % LN_WIDTH_MULTIPLE == 0
+          and width <= MAX_LN_WIDTH)
+    if heads is not None:
+        wl = width // tp
+        ok = ok and (heads % tp == 0 and width % heads == 0 and width // heads in HEAD_DIMS
+                     and (3 * wl) % GEMM_FWD_N_MULTIPLE == 0 and wl % GEMM_K_MULTIPLE == 0)
+    if inter is not None:
+        il = inter // tp
+        ok = ok and (inter % tp == 0 and il % GEMM_FWD_N_MULTIPLE == 0
+                     and il % GEMM_K_MULTIPLE == 0)
+    return ok
 
 
 def admit(ok: bool, what: str) -> None:

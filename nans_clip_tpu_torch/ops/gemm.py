@@ -32,14 +32,14 @@ from nans_clip_tpu_torch.ops.reduce import column_sum
 _ACT_CODES = {None: 0, "quick_gelu": 1, "gelu": 2}
 
 
-def linear_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+def linear_plain(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                  act: Optional[str] = None, residual: Optional[torch.Tensor] = None,
                  out_dtype: Optional[torch.dtype] = None,
                  dropout: Optional[drop.Dropout] = None, pre_out: bool = False):
     """Twin of the kernel: the product of the (possibly bf16) operands in
     fp32, the epilogue in fp32, one cast at the end. ``pre_out`` also
-    returns the fp32 value before the activation."""
-    y = F.linear(upcast(a), upcast(w), upcast(bias))
+    returns the fp32 value before the activation. ``bias`` may be None."""
+    y = F.linear(upcast(a), upcast(w), None if bias is None else upcast(bias))
     pre = y
     if act is not None:
         y = ACT2FN[act](y)
@@ -75,22 +75,23 @@ def _admit_epilogue(name, m, n, residual=None, aux=None):
                     and aux.numel() == m * n, f"{name}: aux must be contiguous fp32 [M, N]")
 
 
-def linear(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+def linear(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
            act: Optional[str] = None, residual: Optional[torch.Tensor] = None,
            out_dtype: Optional[torch.dtype] = None,
            dropout: Optional[drop.Dropout] = None, pre_out: bool = False):
-    """``a``: [..., K]; ``w``: [N, K]; ``bias``: [N]; ``residual``: [..., N]
-    (bf16 or fp32). CPU tensors take :func:`linear_plain`; CUDA tensors
-    launch the kernel (bf16 operands; output bf16 or fp32)."""
+    """``a``: [..., K]; ``w``: [N, K]; ``bias``: [N] or None; ``residual``:
+    [..., N] (bf16 or fp32). CPU tensors take :func:`linear_plain`; CUDA
+    tensors launch the kernel (bf16 operands; output bf16 or fp32; N a
+    multiple of ``gates.GEMM_FWD_N_MULTIPLE``)."""
     if not a.is_cuda:
         return linear_plain(a, w, bias, act, residual, out_dtype, dropout, pre_out)
     n, k = w.shape
     gates.admit(a.shape[-1] == k, f"gemm: a {tuple(a.shape)} vs w {tuple(w.shape)}")
-    gates.admit(n % gates.GEMM_N_MULTIPLE == 0 and k % gates.GEMM_K_MULTIPLE == 0,
+    gates.admit(n % gates.GEMM_FWD_N_MULTIPLE == 0 and k % gates.GEMM_K_MULTIPLE == 0,
                 f"gemm: N={n} K={k}")
     out_dtype = out_dtype or a.dtype
     gates.admit(out_dtype in (gates.KERNEL_DTYPE, torch.float32), f"gemm: output {out_dtype}")
-    gates.admit_cuda("gemm", a, w, bias)
+    gates.admit_cuda("gemm", a, w, *(() if bias is None else (bias,)))
     m = a.numel() // k
     _admit_epilogue("gemm", m, n, residual)
     if drop.active(dropout):

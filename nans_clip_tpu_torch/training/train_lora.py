@@ -105,8 +105,13 @@ def make_lora_step(cfg, options: ModelOptions, alpha: float, label_smoothing: fl
     in place; ``generator`` (a ``torch.Generator`` or an int seed) draws
     the text tower's dropout, None for none. ``eval_step(state, images,
     texts) -> loss`` is deterministic and takes no gradient. ``schedule``:
-    the learning rate of a step (counted from 0), else the optimizer's."""
+    the learning rate of a step (counted from 0), else the optimizer's.
+    Tensor parallelism (``options.tp`` > 1) raises: the JAX LoRA trainer has
+    none, and nothing here would sum the ranks' adapter gradients."""
     del cfg  # the module carries its configuration
+    if options.tp > 1:
+        raise NotImplementedError("LoRA finetuning under tensor parallelism (tp > 1) is not "
+                                  "supported")
     train_opts = dataclasses.replace(options, deterministic=False)
     eval_opts = dataclasses.replace(options, deterministic=True)
     accum = max(accum, 1)

@@ -34,7 +34,14 @@ What the JAX trainer does, on one card:
   ``kd_loss_weight * kd_cosine_loss`` joins the loss (:328-347);
 * ``adam_state_dtype``: both Adam moments stored in that dtype, their EMAs
   computed in fp32 (:class:`CompactAdamW`, ``_scale_by_adam_compact``
-  :134-168 in the chain order of :178-182).
+  :134-168 in the chain order of :178-182);
+* tensor parallelism (``ModelOptions.tp`` > 1, deterministic: the text
+  tower's dropout under tp > 1 is not ported): each rank of the caller's
+  model group holds the whole module and the same batch, runs its heads and
+  MLP columns (``parallel/tp.py``), and after the backward the gradients
+  that are per-rank shares are summed over the group
+  (``reduce_partial_grads`` of ``CLIP.tp_partial_parameters``); clipping
+  and AdamW then run as on one card, so every rank's parameters stay equal.
 
 ``torch.optim.AdamW`` computes optax's ``adamw``: decoupled decay
 (``p -= lr * wd * p``), bias-corrected moments and ``eps`` added outside
@@ -61,6 +68,8 @@ from nans_clip_tpu_torch.models.clip import normalize
 from nans_clip_tpu_torch.models.common import ModelOptions
 from nans_clip_tpu_torch.models.vit import draw_ids_keep
 from nans_clip_tpu_torch.parallel.loss import clip_loss, kd_cosine_loss
+from nans_clip_tpu_torch.parallel.mesh import model_group
+from nans_clip_tpu_torch.parallel.tp import reduce_partial_grads
 
 LOGIT_SCALE_MAX = math.log(100.0)
 # Substrings of a reference parameter name that exempt it from weight decay
@@ -305,6 +314,7 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
     (the JAX ``(teacher_cfg, teacher_params)``). The metrics are 0-d tensors
     on the device; ``logit_scale`` is its value before the update."""
     del cfg  # the module carries its configuration
+    tp_group = model_group(options.tp) if options.tp > 1 else None
     train_options = dataclasses.replace(options, deterministic=False)
     schedule = cosine_with_warmup(tcfg.lr, tcfg.warmup, tcfg.max_steps, tcfg.skip_scheduler)
     accum = max(tcfg.accum_freq, 1)
@@ -346,6 +356,8 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
             return loss, metrics
 
         loss, metrics = accumulate_backward(encode, images, texts, accum, loss_fn)
+        if tp_group is not None:
+            reduce_partial_grads(module.tp_partial_parameters(), tp_group)
         if tcfg.grad_norm_clip:
             _clip_by_global_norm(module.parameters(), tcfg.grad_norm_clip)
         opt.step()

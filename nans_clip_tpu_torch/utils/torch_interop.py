@@ -14,6 +14,12 @@ normalized reference state dict loads with ``load_state_dict`` as it is.
   identical weights into both packages.
 * :func:`lora_from_jax` turns the JAX package's LoRA adapter tree into the
   port's (``models/lora.py``).
+
+Tensor parallelism needs nothing more: every rank of a model group loads
+the same full state dict (from a ``.pt`` or ``state_dict_from_jax_params``)
+and the TP sub-blocks slice each rank's heads and columns from it on each
+forward (``parallel/mesh.py``), where the JAX package shards its tree over
+the mesh instead.
 """
 
 from __future__ import annotations

@@ -134,7 +134,9 @@ def test_import_leaves_jax_out():
             "nans_clip_tpu_torch.training.train_lora, nans_clip_tpu_torch.profile_slice, "
             "nans_clip_tpu_torch.ops.gates, nans_clip_tpu_torch.ops.fused_block, "
             "nans_clip_tpu_torch.ops.attention, nans_clip_tpu_torch.ops.layernorm, "
-            "nans_clip_tpu_torch.models.vit, nans_clip_tpu_torch.models.bert; "
+            "nans_clip_tpu_torch.models.vit, nans_clip_tpu_torch.models.bert, "
+            "nans_clip_tpu_torch.parallel.tp, nans_clip_tpu_torch.parallel.mesh, "
+            "tests.test_torch_tp_worker; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nans_clip_tpu.'))"
             " or m == 'nans_clip_tpu'); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
