@@ -70,7 +70,8 @@ Phases, each printing its lines before the last line:
    step on the plain and the kernel route compared, then 6 steps (loss,
    step ms, pairs/s, peak memory, launches a step); a ViT-H-width tower at
    336 px cut to 4 layers (#7 forward, #20 at heads of 80 backward);
-   ``get_similarity`` of ViT-H-14 at batch 1 and 64 against the plain path.
+   ``get_similarity`` of ViT-H-14 at batch 3 (the image tower's per-layer
+   route, #1 + #9) and 64 against the plain path.
 
 10. The ``attn_impl="pallas"`` route: the flash attention #22 and its
    backward #23 against their twins at (256, 12, 197, 64), (256, 12, 52, 64)
@@ -100,14 +101,32 @@ Phases, each printing its lines before the last line:
    #11 and of #12, none of #1/#2/#3), then 4 deterministic train steps at
    batch 128 (the first against one step at tp 1 from the same weights:
    loss and gradient cosines; the loss falls; every rank's parameters
-   equal after each step). Times through gloo on one card say nothing of
-   TP scaling.
+   equal after each step), then 2 steps with the text tower's dropout at
+   0.1 (the JAX unfused path under TP: the twins, with the masks one process
+   draws) against the same steps at tp 1 from the same weights and seeds
+   (loss and gradient cosines; the ranks' parameters bit-equal). Times
+   through gloo on one card say nothing of TP scaling.
+
+12. The dequant-ahead int8 tower (#6, ``fused_tower(quant_dma=True)``, a
+   direct call no model routes) at batch 1, full depth, at the ViT-B image
+   (12 layers, S 197), RoBERTa-base text (12 layers, S 52, masked; also
+   batch 8 and 32) and RoBERTa-large text (24 layers, W 1024) shapes:
+   against its twin, bit-equal to #5 at one grid, and timed against #5 in
+   turns; tower.cu at ViT-H-14's image shape (32 layers, S 257, W 1280,
+   heads of 80), bf16 and int8, against its twin and the per-layer route;
+   ``get_similarity`` of ViT-H-14@RoBERTa-wwm-ext-large-chinese at batch 1
+   from a ``.pt`` through ``load_from_name``, bf16 and int8: one tower
+   launch a tower, none of #1/#9, logits within 0.1 of the plain path, and
+   its time beside the per-layer image route's (the tower gate closed for
+   that arm).
 
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
 nothing branches on them.
 
-Then one JSON line of per-kernel results and, last, the device line
+Then one JSON line of per-kernel results (all 24 TPU kernels' ports, with
+the library yardstick of the sub-block and tower kernels) and, last, the
+device line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 not 0 and no result is printed. Needs CUDA; imports no JAX.
 """
@@ -198,6 +217,49 @@ def _layer_cost(b, s, w, inter, weight_bytes=2.0):
     nbytes = (4 * w * w + 2 * w * inter) * weight_bytes + (9 * w + inter) * 2
     flops = 2 * b * s * (4 * w * w + 2 * w * inter) + 4 * b * s * s * w
     return nbytes, flops
+
+
+def _yard_attention(x, p, heads, eps, post_ln, kb):
+    """An attention sub-block in library calls (``F.layer_norm``,
+    ``F.linear``, SDPA): a yardstick of time the port never calls."""
+    import torch.nn.functional as F
+
+    b, s, w = x.shape
+    ln_w, ln_b, wqkv, bqkv, wo, bo = p
+    h = x if post_ln else F.layer_norm(x, (w,), ln_w, ln_b, eps)
+    q, k, v = F.linear(h, wqkv, bqkv).view(b, s, 3, heads, w // heads).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    mask = None if kb is None else kb.view(b, 1, 1, s).to(x.dtype)
+    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    out = x + F.linear(ctx.transpose(1, 2).reshape(b, s, w), wo, bo)
+    return F.layer_norm(out, (w,), ln_w, ln_b, eps) if post_ln else out
+
+
+def _yard_mlp(x, p, eps, post_ln):
+    """An MLP sub-block in library calls (``F.layer_norm``, ``F.linear``,
+    the activation): erf-GELU post-LN, quick-GELU pre-LN."""
+    import torch
+    import torch.nn.functional as F
+
+    ln_w, ln_b, w1, b1, w2, b2 = p
+    w = x.shape[-1]
+    h = F.linear(x if post_ln else F.layer_norm(x, (w,), ln_w, ln_b, eps), w1, b1)
+    h = F.gelu(h) if post_ln else h * torch.sigmoid(1.702 * h)
+    out = x + F.linear(h, w2, b2)
+    return F.layer_norm(out, (w,), ln_w, ln_b, eps) if post_ln else out
+
+
+def _yard_tower(x, kb, layers, heads, eps, post_ln):
+    """All layers of a tower in library calls, int8 weights dequantized each
+    call (as the kernel reads them each call)."""
+    import torch
+
+    from nans_clip_tpu_torch.utils.quantize import dequantize_weight
+
+    for p in layers:
+        p = tuple(t if torch.is_tensor(t) else dequantize_weight(t, x.dtype) for t in p)
+        x = _yard_mlp(_yard_attention(x, p[:6], heads, eps, post_ln, kb), p[6:], eps, post_ln)
+    return x
 
 
 def phase_kernels(torch, dev):
@@ -294,6 +356,13 @@ def phase_kernels(torch, dev):
          lambda: attention_plain(qkv_t, kb, BATCH, heads), 1, None,
          lambda: sdpa(qkv_t, kb, 52), (mt * 4 * w * 2 + mt * 4, 4 * BATCH * 52 * 52 * w)),
     ]
+    # the sub-blocks in library calls (no one call computes them): yardsticks
+    yards = {"fused_attention_block": lambda: _yard_attention(xi, attn_args(pi), heads, 1e-5,
+                                                              False, None),
+             "fused_mlp_block": lambda: _yard_mlp(xi, mlp_args(pi), 1e-5, False),
+             "fused_layer_block": lambda: _yard_mlp(
+                 _yard_attention(xt, attn_args(pt), heads, 1e-12, True, kb), mlp_args(pt),
+                 1e-12, True)}
     results = {}
     for name, kern, twin, n_ulps, meta, library, cost in cases:
         got, want = kern(), twin()
@@ -304,13 +373,16 @@ def phase_kernels(torch, dev):
             raise AssertionError(f"{name}: max abs err {err} exceeds bound {bound}")
         ms, plain_ms = _time_ms(kern, 10), _time_ms(twin, 3)
         library_ms = None if library is None else _time_ms(library, 10)
+        yard_ms = _time_ms(yards[name], 10) if name in yards else None
         bound_ms, bound_by = _bound(*cost)
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        if yard_ms is not None:
+            lib += f", yardstick {yard_ms:.4f} ms (F.layer_norm/F.linear/SDPA/act)"
         print(f"kernel {name}: max_abs_err {err:.6g} <= bound {bound:.6g} ({n_ulps} bf16 ulp "
               f"of max|twin| {float(want.float().abs().max()):.4g}); {ms:.4f} ms, "
               f"twin {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, meta=meta, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+                             yard_ms=yard_ms, bound_ms=bound_ms, bound_by=bound_by)
     return results
 
 
@@ -393,6 +465,7 @@ def phase_towers(torch, dev):
                 ms = _time_ms(lambda: tk.fused_tower(*args, table=table), 20)
                 plain_ms = _time_ms(lambda: tk.tower_math(*args), 2)
                 layer_ms = _time_ms(per_layer, 10)
+                yard_ms = _time_ms(lambda: _yard_tower(x, kb, ls, heads, eps, post_ln), 10)
                 nbytes, flops = _layer_cost(b, s, w, inter, 1.0 if quant else 2.0)
                 if quant:
                     nbytes += (4 * w + 2 * inter) * 4       # the fp32 scales
@@ -401,11 +474,12 @@ def phase_towers(torch, dev):
                 print(f"tower {name}: max_abs_err {err:.6g} <= bound {bound:.6g} ({TOWER_ULPS} "
                       f"bf16 ulp of max|twin| {float(want.float().abs().max()):.4g}; twin vs "
                       f"fp32 {err32:.4g}); {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
-                      f"{bound_ms:.4f} ms ({bound_by}), per-layer route {layer_ms:.4f} ms; "
+                      f"{bound_ms:.4f} ms ({bound_by}), per-layer route {layer_ms:.4f} ms, "
+                      f"yardstick {yard_ms:.4f} ms (the layers in F.layer_norm/F.linear/SDPA); "
                       f"grid {tk.max_grid(dev.index, quant, s)} blocks", flush=True)
                 results[(form, quant, b)] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                                  bound_ms=bound_ms, bound_by=bound_by,
-                                                 layer_ms=layer_ms)
+                                                 layer_ms=layer_ms, yard_ms=yard_ms)
     # the gate's evidence: the largest measured batch with the tower no slower
     for form in forms:
         for quant in (False, True):
@@ -432,7 +506,8 @@ def _counted():
 def _tower_counts():
     from nans_clip_tpu_torch.ops.tower_kernel import fused_tower
 
-    return {"fused_tower": fused_tower.launches, "fused_tower_int8": fused_tower.launches_int8}
+    return {"fused_tower": fused_tower.launches, "fused_tower_int8": fused_tower.launches_int8,
+            "fused_tower_int8_qdma": fused_tower.launches_qdma}
 
 
 def _reset_counts():
@@ -440,7 +515,7 @@ def _reset_counts():
 
     for fn in _counted().values():
         fn.launches = 0
-    fused_tower.launches = fused_tower.launches_int8 = 0
+    fused_tower.launches = fused_tower.launches_int8 = fused_tower.launches_qdma = 0
 
 
 def phase_slice(torch, dev, ckpt):
@@ -468,7 +543,7 @@ def phase_slice(torch, dev, ckpt):
     expected = {"fused_attention_block": layers, "fused_bert_attention_block": 0,
                 "fused_mlp_block": layers, "fused_layer_block": layers,
                 "layernorm": 4 * layers, "gemm": 8 * layers, "attention": 2 * layers,
-                "fused_tower": 0, "fused_tower_int8": 0}
+                "fused_tower": 0, "fused_tower_int8": 0, "fused_tower_int8_qdma": 0}
     print(f"slice: launches {json.dumps(launches)}", flush=True)
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != expected {expected}")
@@ -532,7 +607,8 @@ def phase_serving(torch, ckpt):
     towers = _tower_counts()
     print(f"serving: batch-1 launches {json.dumps(towers)}, per-layer {json.dumps(per_layer)}",
           flush=True)
-    if towers != {"fused_tower": 3, "fused_tower_int8": 1} or any(per_layer.values()):
+    if towers != {"fused_tower": 3, "fused_tower_int8": 1, "fused_tower_int8_qdma": 0} \
+            or any(per_layer.values()):
         raise AssertionError("each batch-1 encode must be one tower launch (int8 for the "
                              f"quantized text tower) and no per-layer launch: {towers}, "
                              f"{per_layer}")
@@ -1424,12 +1500,14 @@ def _check_launches(what, got, want):
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
-def phase_wide(torch, dev):
+def phase_wide(torch, dev, ckpt_out=None):
     """Phase 9: the wide towers. The kernels of #7-#10, #19, #20 and #1, #13,
     #14 at heads of 80 against their twins at full width; one train step on
     the plain and the kernel route; 6 steps of ViT-H-14 and of ViT-L-14-336
     at batch 32, full depth; a ViT-H-width tower at 336 px; get_similarity
-    of ViT-H-14 at batch 1 and 64; tower.cu at RoBERTa-large's width."""
+    of ViT-H-14 at batch 3 (the image tower's per-layer route: #1 + #9) and
+    64; tower.cu at RoBERTa-large's width. ``ckpt_out``: where to save the
+    untrained ViT-H-14 model as a reference-layout ``.pt`` for phase 12."""
     import copy
 
     import torch.nn.functional as F
@@ -1793,12 +1871,17 @@ def phase_wide(torch, dev):
     del module_t
     torch.cuda.empty_cache()
 
-    # get_similarity of ViT-H-14 at batch 1 and 64 against the plain path
+    # get_similarity of ViT-H-14 at batch 3 and 64 against the plain path (at
+    # batch 1 the image tower takes tower.cu: phase 12)
+    if ckpt_out is not None:
+        t0 = time.time()
+        torch.save({"state_dict": eval_h.state_dict()}, ckpt_out)
+        print(f"wide: {WIDE_H} random (seed 0) saved in {time.time() - t0:.1f} s", flush=True)
     model = nct.CLIPModel(cfg_h, eval_h.to(dev), nct.ModelOptions(compute_dtype="bfloat16"))
     plain = nct.CLIPModel(cfg_h, model.module, nct.ModelOptions(compute_dtype="bfloat16",
                                                                 attn_impl="plain"))
     forward = {}
-    for b in (1, 64):
+    for b in (3, 64):
         images, ids = batch_for(cfg_h, b)
         _wide_reset()
         li, lt = model.get_similarity(images, ids)
@@ -2167,6 +2250,10 @@ PARTIAL_ULPS, TP_SUM_ULPS = 4, 8
 # fused route keeps them in fp32) and the post-LN runs on the bf16 sum.
 TP_LOGIT_BOUND = 0.1
 TP_TRAIN_STEPS = 4
+# Steps with text dropout under tp 2 against tp 1: each step's loss and
+# gradient cosines against tp 1's from the same weights and seed, the bounds
+# of phase 7 (STEP_LOSS_BOUND, GRAD_COS_BOUND).
+TP_DROPOUT_STEPS = 2
 
 
 def _tp_counted():
@@ -2267,6 +2354,45 @@ def _tp_rank(rank: int, ckpt: str) -> dict:
                        for p in state.module.parameters()])
     out.update(losses=losses, step_ms=step_ms, fingerprints=prints,
                peak=torch.cuda.max_memory_allocated())
+    del state, step
+    torch.cuda.empty_cache()
+
+    # text dropout 0.1 under tp 2 (the JAX unfused path under TP: the twins,
+    # with the masks one process draws) against tp 1 (the kernel route, whose
+    # kernels draw the same masks), each step from the same weights (tp 1's
+    # copied from tp 2's) and the same seed
+    dopts = lambda tp: nct.ModelOptions(tp=tp, deterministic=False, compute_dtype="bfloat16")
+    fresh = lambda: create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)),
+                                       tcfg, device=dev)
+    ref, ref_step = fresh(), make_train_step(cfg, tcfg, dopts(1))
+    state, step = fresh(), make_train_step(cfg, tcfg, dopts(2))
+    drop_out = {"losses": [], "losses_tp1": [], "worst_cos": [], "fingerprints": [],
+                "step_ms": []}
+    for i in range(TP_DROPOUT_STEPS):
+        with torch.no_grad():
+            for p_ref, p_tp in zip(ref.module.parameters(), state.module.parameters()):
+                p_ref.copy_(p_tp)
+        ref, m1 = ref_step(ref, images, ids, 100 + i)
+        ref_grads = {n: p.grad for n, p in ref.module.named_parameters()}
+        if i == 0:
+            _tp_reset()
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, m2 = step(state, images, ids, 100 + i)
+        ev[1].record()
+        ev[1].synchronize()
+        if i == 0:
+            drop_out["counts"] = _tp_counts()
+        cos = {n: _cos(p.grad, ref_grads[n]) for n, p in state.module.named_parameters()
+               if not n.endswith("key.bias")}
+        drop_out["worst_cos"].append(min(cos.items(), key=lambda kv: kv[1]))
+        drop_out["losses"].append(float(m2["loss"]))
+        drop_out["losses_tp1"].append(float(m1["loss"]))
+        drop_out["step_ms"].append(ev[0].elapsed_time(ev[1]))
+        drop_out["fingerprints"].append([int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+                                         for p in state.module.parameters()])
+        del ref_grads
+    out["dropout"] = drop_out
     return out
 
 
@@ -2438,14 +2564,239 @@ def phase_tp(torch, dev):
           f"{' '.join(f'{x:.1f}' for x in ranks[1]['step_ms'])} (gloo on one card); peak "
           f"{ranks[0]['peak'] / 2 ** 30:.3f} GiB a rank; launches a step "
           f"{json.dumps(step_counts)}", flush=True)
+    d0 = ranks[0]["dropout"]
+    for i in range(TP_DROPOUT_STEPS):
+        if d0["fingerprints"][i] != ranks[1]["dropout"]["fingerprints"][i]:
+            raise AssertionError(f"tp dropout: the ranks' parameters differ after step {i + 1}")
+    d_diffs = [abs(a - b) for a, b in zip(d0["losses"], d0["losses_tp1"])]
+    d_worst = min(d0["worst_cos"], key=lambda kv: kv[1])
+    print(f"tp train with text dropout 0.1, tp 2 (the twins) vs tp 1 (kernel route), each "
+          f"step from the same weights and seed, {TP_DROPOUT_STEPS} steps: worst gradient "
+          f"cosine a step {[round(c, 6) for _, c in d0['worst_cos']]}; loss {d0['losses']} vs "
+          f"{d0['losses_tp1']} (|diff| <= {max(d_diffs):.3g}, bound {STEP_LOSS_BOUND}); "
+          f"gradient cosine >= {d_worst[1]:.6f} ({d_worst[0]}), bound {GRAD_COS_BOUND}; "
+          f"parameters equal on both ranks after every step; step ms rank 0 "
+          f"{' '.join(f'{x:.1f}' for x in d0['step_ms'])}; launches a step "
+          f"{json.dumps(d0['counts'])}", flush=True)
+    if ranks[1]["dropout"]["losses"] != d0["losses"] or max(d_diffs) > STEP_LOSS_BOUND \
+            or d_worst[1] < GRAD_COS_BOUND or not all(math.isfinite(x) for x in d0["losses"]):
+        raise AssertionError("tp dropout: the tp 2 steps differ from tp 1's")
+    if (d0["counts"]["fused_attention_block_partial"] != cfg.vision.layers
+            or d0["counts"]["fused_mlp_block_partial"] != cfg.vision.layers):
+        raise AssertionError(f"tp dropout: launches a step {d0['counts']} (the image tower's "
+                             "layers on #11/#12, the text tower's on the twins)")
     print(json.dumps({"phase11": "real path", "logits_vs_tp1": err, "ms": ranks[0]["ms"],
                       "loss_diff_vs_tp1": loss_diff, "min_grad_cos_vs_tp1": worst_cos,
                       "ms_tp1": ranks[0]["ms_tp1"], "losses": losses,
                       "step_ms": [r["step_ms"] for r in ranks], "peak_bytes": ranks[0]["peak"],
-                      "launches": ranks[0]["counts"], "step_launches": step_counts}), flush=True)
+                      "launches": ranks[0]["counts"], "step_launches": step_counts,
+                      "dropout": {k: d0[k] for k in ("losses", "losses_tp1", "worst_cos",
+                                                     "step_ms", "counts")}}), flush=True)
     print(f"tp: phase 11 took {time.time() - t_phase:.1f} s (kernels {t_kernels:.1f} s, the "
           f"2 ranks {t_ranks:.1f} s)", flush=True)
     return results, ranks[0]["counts"]
+
+
+# Phase 12, #6 and tower.cu at ViT-H's width. (label, layers, S, W, post-LN,
+# batches): #6 at the ViT-B image, RoBERTa-base text and RoBERTa-large text
+# shapes, full depth. Its bound against the twin is #5's: TOWER_ULPS at 12
+# layers, TOWER24_ULPS at 24; against #5 at the same grid it is bit-equal
+# (the same bf16 weights, the same K-splits and mma order).
+QDMA_CASES = [("ViT-B-16 image", 12, 197, 768, False, (1,)),
+              ("RoBERTa-base text", 12, 52, 768, True, (1, 8, 32)),
+              ("RoBERTa-large text", 24, 52, 1024, True, (1,))]
+# tower.cu over ViT-H-14's 32 image layers: the random walk of the 12-layer
+# bound, sqrt(32) ~ 5.7 ulps, twice that.
+TOWER32_ULPS = 12
+VIT_H = ("ViT-H-14", "RoBERTa-wwm-ext-large-chinese")
+
+
+def _random_layers(rnd, n_layers, w, inter, std):
+    """Seeded bf16 layers in ``encoder_layer_math``'s order, [out, in]."""
+    return [(rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(3 * w, w, std=std),
+             rnd(3 * w, std=0.1), rnd(w, w, std=std), rnd(w, std=0.1),
+             rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(inter, w, std=std),
+             rnd(inter, std=0.1), rnd(w, inter, std=std / 2), rnd(w, std=0.1))
+            for _ in range(n_layers)]
+
+
+def phase_qdma(torch, dev, ckpt_h):
+    """Phase 12: the dequant-ahead int8 tower (#6) against its twin and
+    against #5 (bit-equal at #5's grid, and its time) at batch 1 full depth
+    and at text batch 8 and 32; tower.cu at ViT-H-14's image shape (32
+    layers, 257 / 1280, heads of 80), bf16 and int8, against its twin and the
+    per-layer route; ``get_similarity`` of ViT-H-14@RoBERTa-large at batch 1
+    from ``ckpt_h`` through ``load_from_name``: one tower launch a tower."""
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.models import vit
+    from nans_clip_tpu_torch.ops import gates
+    from nans_clip_tpu_torch.ops import tower_kernel as tk
+    from nans_clip_tpu_torch.utils.quantize import dequantize_weight, quantize_weight
+
+    t_phase = time.time()
+    g = torch.Generator(device=dev).manual_seed(40)
+    bf = torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std + mean).to(bf)
+
+    def quantized(ls):
+        return [tuple(quantize_weight(t) if i in (2, 4, 8, 10) else t for i, t in enumerate(p))
+                for p in ls]
+
+    def key_bias(b, s):
+        lengths = torch.randint(2, s + 1, (b,), generator=g, device=dev)
+        return ((torch.arange(s, device=dev)[None, :] >= lengths[:, None]).float()
+                * -10000.0).contiguous()
+
+    def tower_bound(b, s, w, inter, n_layers, weight_bytes):
+        nbytes, flops = _layer_cost(b, s, w, inter, weight_bytes)
+        if weight_bytes == 1.0:
+            nbytes += (4 * w + 2 * inter) * 4       # the fp32 scales
+        return _bound(n_layers * nbytes + 2 * b * s * w * 2, n_layers * flops)
+
+    results = {}
+    tk.fused_tower.launches_qdma = 0   # #6's direct calls, counted from here
+    for label, n_layers, s, w, post_ln, batches in QDMA_CASES:
+        inter, heads = 4 * w, w // 64
+        eps, act = (1e-12, "gelu") if post_ln else (1e-5, "quick_gelu")
+        ls = quantized(_random_layers(rnd, n_layers, w, inter, 0.02 if post_ln else w ** -0.5))
+        n_ulps = TOWER_ULPS if n_layers <= 12 else TOWER24_ULPS
+        grid5 = tk.max_grid(dev.index, tk.MODE_INT8, s)
+        grid6 = tk.max_grid(dev.index, tk.MODE_QDMA, s)
+        for b in batches:
+            x = rnd(b, s, w)
+            kb = key_bias(b, s) if post_ln else None
+            args = (x, kb, ls, heads, eps, act, post_ln)
+            table = tk.TowerTable()
+            got = tk.fused_tower(*args, table=table, quant_dma=True)
+            same6 = tk.fused_tower(*args, table=table, grid=min(grid5, grid6), quant_dma=True)
+            same5 = tk.fused_tower(*args, table=table, grid=min(grid5, grid6))
+            want = tk.tower_math(*args)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            bound = _ulps(want, n_ulps)
+            name = f"fused_tower_int8_qdma[{label}, b={b}]"
+            if not (got.shape == x.shape and torch.isfinite(got).all() and err <= bound):
+                raise AssertionError(f"{name}: max abs err {err} exceeds bound {bound}")
+            if not torch.equal(same6, same5):
+                raise AssertionError(f"{name}: not bit-equal to #5 at grid {min(grid5, grid6)}")
+            del same6, same5
+            run6 = lambda: tk.fused_tower(*args, table=table, quant_dma=True)
+            run5 = lambda: tk.fused_tower(*args, table=table)
+            # in turns: #6, #5, #5, #6
+            t6a, t5a, t5b, t6b = (_time_ms(run6, 20), _time_ms(run5, 20), _time_ms(run5, 20),
+                                  _time_ms(run6, 20))
+            ms, ms5 = (t6a + t6b) / 2, (t5a + t5b) / 2
+            plain_ms = _time_ms(lambda: tk.tower_math(*args), 2)
+            yard_ms = _time_ms(lambda: _yard_tower(x, kb, ls, heads, eps, post_ln), 10)
+            bound_ms, bound_by = tower_bound(b, s, w, inter, n_layers, 1.0)
+            print(f"qdma {name}: max_abs_err {err:.6g} <= bound {bound:.6g} ({n_ulps} bf16 ulp "
+                  f"of max|twin| {float(want.float().abs().max()):.4g}); bit-equal to #5 at grid "
+                  f"{min(grid5, grid6)}; {ms:.4f} ms ({t6a:.4f}, {t6b:.4f}) vs #5 {ms5:.4f} ms "
+                  f"({t5a:.4f}, {t5b:.4f}); twin {plain_ms:.4f} ms, yardstick {yard_ms:.4f} ms "
+                  f"(dequantize + F.layer_norm/F.linear/SDPA), bound {bound_ms:.4f} ms "
+                  f"({bound_by}); grid #6 {grid6}, #5 {grid5}", flush=True)
+            results[("qdma", label, b)] = dict(err=err, ms=ms, ms_int8=ms5, plain_ms=plain_ms,
+                                               yard_ms=yard_ms, bound_ms=bound_ms,
+                                               bound_by=bound_by, grid=grid6, grid_int8=grid5)
+        del ls
+    qdma_launches = tk.fused_tower.launches_qdma
+    torch.cuda.empty_cache()
+
+    # tower.cu at ViT-H-14's image shape: 32 layers, S 257, W 1280, heads of 80
+    n_layers, s, w, inter, heads = 32, 257, 1280, 5120, 16
+    bf_layers = _random_layers(rnd, n_layers, w, inter, w ** -0.5)
+    for quant in (False, True):
+        ls = quantized(bf_layers) if quant else bf_layers
+        x = rnd(1, s, w)
+        args = (x, None, ls, heads, 1e-5, "quick_gelu", False)
+        table = tk.TowerTable()
+        got, want = tk.fused_tower(*args, table=table), tk.tower_math(*args)
+        torch.cuda.synchronize()
+        err, bound = float((got.float() - want.float()).abs().max()), _ulps(want, TOWER32_ULPS)
+        name = f"fused_tower{'_int8' if quant else ''}[ViT-H-14 image, b=1]"
+        if not (got.shape == x.shape and torch.isfinite(got).all() and err <= bound):
+            raise AssertionError(f"{name}: max abs err {err} exceeds bound {bound}")
+
+        def per_layer():
+            """The route before this tower: the per-layer kernels (#1 + #9),
+            int8 weights dequantized on entry."""
+            y = x
+            for p in ls:
+                p = tuple(t if torch.is_tensor(t) else dequantize_weight(t, bf) for t in p)
+                y = vit._layer(y, p, heads, True)
+            return y
+
+        ms = _time_ms(lambda: tk.fused_tower(*args, table=table), 10)
+        layer_ms = _time_ms(per_layer, 5)
+        plain_ms = _time_ms(lambda: tk.tower_math(*args), 2)
+        yard_ms = _time_ms(lambda: _yard_tower(x, None, ls, heads, 1e-5, False), 5)
+        bound_ms, bound_by = tower_bound(1, s, w, inter, n_layers, 1.0 if quant else 2.0)
+        mode = tk.MODE_INT8 if quant else tk.MODE_BF16
+        print(f"qdma wide tower {name}: max_abs_err {err:.6g} <= bound {bound:.6g} "
+              f"({TOWER32_ULPS} bf16 ulp of max|twin| {float(want.float().abs().max()):.4g}); "
+              f"{ms:.4f} ms, per-layer route {layer_ms:.4f} ms, twin {plain_ms:.4f} ms, "
+              f"yardstick {yard_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); grid "
+              f"{tk.max_grid(dev.index, mode, s, 80)} blocks", flush=True)
+        results[("vit-h", quant, 1)] = dict(err=err, ms=ms, layer_ms=layer_ms, plain_ms=plain_ms,
+                                            yard_ms=yard_ms, bound_ms=bound_ms,
+                                            bound_by=bound_by)
+    del bf_layers, ls, table, got, want
+    torch.cuda.empty_cache()
+
+    # get_similarity of ViT-H-14@RoBERTa-large at batch 1 through load_from_name
+    t0 = time.time()
+    model = nct.load_from_name(ckpt_h, vision_model_name=VIT_H[0], text_model_name=VIT_H[1],
+                               input_resolution=224, device=dev,
+                               options=nct.ModelOptions(compute_dtype="bfloat16"))[0]
+    print(f"qdma: {VIT_H[0]}@{VIT_H[1]} loaded through load_from_name in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    gen = torch.Generator().manual_seed(12)
+    images = torch.randn(1, 224, 224, 3, generator=gen).to(dev)
+    ids = torch.from_numpy(nct.tokenize(TEXTS[:1])).to(dev)
+    serving = {}
+    for mode, m in (("bf16", model), ("int8", model.quantize())):
+        plain = nct.CLIPModel(m.cfg, m.module, nct.ModelOptions(compute_dtype="bfloat16",
+                                                                attn_impl="plain"))
+        _wide_reset()
+        li, lt = m.get_similarity(images, ids)
+        torch.cuda.synchronize()
+        counts = _wide_counts()
+        tower = "fused_tower_int8" if mode == "int8" else "fused_tower"
+        others = {k: v for k, v in counts.items() if v and k != tower}
+        err = float((li - plain.get_similarity(images, ids)[0]).abs().max())
+        print(f"qdma get_similarity {VIT_H[0]} batch 1, {mode}: launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}; kernel vs plain max abs "
+              f"err {err:.6g} <= bound {WIDE_LOGIT_BOUND}", flush=True)
+        if counts[tower] != 2 or others:
+            raise AssertionError(f"{mode} get_similarity at batch 1: launches {counts}, "
+                                 f"expected 2 of {tower} and nothing else")
+        if li.shape != (1, 1) or not torch.isfinite(li).all() or not torch.equal(lt, li.T) \
+                or err > WIDE_LOGIT_BOUND:
+            raise AssertionError(f"{mode} get_similarity at batch 1: error {err}")
+        ms = _time_ms(lambda: m.get_similarity(images, ids), 10)
+        # the per-layer route's time: the image tower's gate closed for this arm
+        saved = gates.TOWER_MAX_WIDTH
+        gates.TOWER_MAX_WIDTH = 1024
+        try:
+            layer_ms = _time_ms(lambda: m.get_similarity(images, ids), 10)
+        finally:
+            gates.TOWER_MAX_WIDTH = saved
+        ms_again = _time_ms(lambda: m.get_similarity(images, ids), 10)
+        print(f"qdma get_similarity {VIT_H[0]} batch 1, {mode}: {ms:.3f} / {ms_again:.3f} ms "
+              f"(tower route, before / after), per-layer image route {layer_ms:.3f} ms",
+              flush=True)
+        serving[mode] = dict(err=err, ms=ms, ms_again=ms_again, layer_ms=layer_ms,
+                             launches={k: v for k, v in counts.items() if v})
+        del plain
+    del model
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase12": "qdma and the ViT-H tower", "results": [
+        dict(kind=k, case=c, batch=b, **r) for (k, c, b), r in results.items()],
+        "get_similarity": serving, "qdma_launches": qdma_launches}), flush=True)
+    print(f"qdma: phase 12 took {time.time() - t_phase:.1f} s", flush=True)
+    return results, qdma_launches
 
 
 def main() -> int:
@@ -2494,9 +2845,12 @@ def main() -> int:
         os.remove(ckpt)
         train_results, train_launches = phase_training(torch, dev, tmp)
         lora_results, lora_step, layer_launches, _ = phase_lora(torch, dev, tmp)
-    wide_results, wide_steps, wide_forward, wide_direct = phase_wide(torch, dev)
-    pallas_results, pallas_direct, pallas_forward, pallas_step = phase_pallas(torch, dev)
-    tp_results, tp_launches = phase_tp(torch, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_h = os.path.join(tmp, "clip_cn_vit-h-14_random.pt")
+        wide_results, wide_steps, wide_forward, wide_direct = phase_wide(torch, dev, ckpt_h)
+        pallas_results, pallas_direct, pallas_forward, pallas_step = phase_pallas(torch, dev)
+        tp_results, tp_launches = phase_tp(torch, dev)
+        qdma_results, qdma_launches = phase_qdma(torch, dev, ckpt_h)
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")
@@ -2508,7 +2862,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        **({} if r["yard_ms"] is None else {"yardstick_ms": r["yard_ms"]})})
     for name, quant, replaces in (
             ("fused_tower", False, "nans_clip_tpu/ops/tower_kernel.py:36"),
             ("fused_tower_int8", True, "nans_clip_tpu/ops/tower_kernel.py:67")):
@@ -2516,7 +2871,18 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": "nans_clip_tpu_torch/csrc/tower.cu",
                         "replaces": replaces, "launches": serving_launches[name],
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                        "yardstick_ms": r["yard_ms"]})
+    # #6 from its direct calls (no JAX entry point routes it), at the batch-1
+    # RoBERTa-base text shape as #5's row
+    r = qdma_results[("qdma", "RoBERTa-base text", 1)]
+    kernels.append({"name": "fused_tower_int8_qdma", "route": "cuda",
+                    "source": "nans_clip_tpu_torch/csrc/tower.cu",
+                    "replaces": "nans_clip_tpu/ops/tower_kernel.py:104",
+                    "launches": qdma_launches, "path": "direct", "max_abs_err": r["err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": None, "yardstick_ms": r["yard_ms"],
+                    "int8_inline_ms": r["ms_int8"]})
     for name, r in train_results.items():
         if r["replaces"] is None:
             continue
@@ -2549,8 +2915,8 @@ def main() -> int:
             "fused_attention_block_wide"], "train step, ViT-H width at 336 px"),
         "fused_attention_block_wide[batch_tile=2]": (
             wide_direct["fused_attention_block_wide[batch_tile>1]"], "direct"),
-        "_fused_mlp_tiled_call": (wide_forward[1]["_fused_mlp_tiled_call"],
-                                  "get_similarity ViT-H-14, batch 1"),
+        "_fused_mlp_tiled_call": (wide_forward[3]["_fused_mlp_tiled_call"],
+                                  "get_similarity ViT-H-14, batch 3"),
         "_fused_mlp_batched_call": (wide_steps["ViT-H-14"]["per_step"]["_fused_mlp_batched_call"],
                                     "train step, ViT-H-14"),
         "fused_mlp_block_bwd_chunked": (wide_steps["ViT-H-14"]["per_step"][
@@ -2600,14 +2966,15 @@ def main() -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
     ported = {"fused_attention_block", "fused_mlp_block", "fused_layer_block", "fused_tower",
-              "fused_tower_int8", "fused_attention_block_bwd", "fused_bert_attention_block_bwd",
-              "fused_mlp_block_bwd", "fused_attention_block_bwd_fullgrad",
+              "fused_tower_int8", "fused_tower_int8_qdma", "fused_attention_block_bwd",
+              "fused_bert_attention_block_bwd", "fused_mlp_block_bwd",
+              "fused_attention_block_bwd_fullgrad",
               "fused_bert_attention_block_bwd_fullgrad", "fused_mlp_block_bwd_fullgrad",
               "fused_layer_block_bwd_fullgrad", *wide_launches,
               *(name for name, *_ in pallas_entries), "fused_attention_block_partial",
               "fused_mlp_block_partial"}
     if not ported <= {k["name"] for k in kernels} or any(k["launches"] < 1 for k in kernels):
-        raise AssertionError(f"the twenty-three ported TPU kernels, each launched on its main "
+        raise AssertionError(f"the twenty-four ported TPU kernels, each launched on its main "
                              f"path: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,8 +4,8 @@
 //
 // The head dim is a template parameter through the number of 16-wide k-steps
 // KS that the fragment arrays carry (dh = 16 KS): KS = 4 is dh 64 (every
-// ViT-B/L and RoBERTa tower, and the only instance tower.cu compiles), KS = 5
-// is dh 80 (ViT-H: five k-steps of 16 and ten n-tiles of 8). Shared rows are
+// ViT-B/L and RoBERTa tower), KS = 5 is dh 80 (ViT-H: five k-steps of 16 and
+// ten n-tiles of 8); attention.cu, flash.cu and tower.cu instance both. Shared rows are
 // dh + 8 bf16 apart (attn::ldk): 144 bytes at dh 64, 176 at dh 80, both
 // 16-byte multiples that keep ldmatrix's eight row addresses on distinct
 // banks.
@@ -26,10 +26,6 @@
 #include "dropout.cuh"
 
 namespace attn {
-
-// tower.cu's head dim and row stride (its only instance).
-constexpr int DH = 64;
-constexpr int LDK = DH + 8;
 
 // Padded row stride (bf16) of a head's rows for KS k-steps.
 template <int KS>

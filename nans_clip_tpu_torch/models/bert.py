@@ -18,10 +18,11 @@ the weights change.
 Under tensor parallelism (``options.tp`` > 1), before any other route,
 every layer is the two post-LN TP sub-blocks of ``parallel/tp.py`` (the
 JAX deterministic branch, bert.py:135-163: #11/#12 where
-``gates.tp_impls`` says "fused", their twins otherwise), in inference and
-in a training forward without dropout. JAX sends a text tower with dropout
-under tp > 1 through its unfused GSPMD path (bert.py:100-105); the port has
-no counterpart and raises (ROADMAP queue 3).
+``gates.tp_impls`` says "fused", their twins otherwise). A training forward
+with dropout under tp > 1 is JAX's unfused GSPMD path (bert.py:100-105:
+``use_fused`` is False there): the same sub-blocks on their twins, with the
+embedding dropout and each layer's two seeds drawn from the generator as
+below, and the masks that one process draws (``parallel/tp.py``).
 
 Under ``attn_impl="pallas"`` each layer is the JAX tower's unfused post-LN
 branch (bert.py:246-262), in inference and training: LayerNorm, the
@@ -84,6 +85,14 @@ def _pallas_layer(x, p, key_bias, heads: int, eps: float, act: str, seed_a=None,
     if drop.active(m_drop):
         h = drop.apply(h, m_drop)
     return layer_norm(x + h, p[6], p[7], eps)
+
+
+def _layer_seeds(generator: Optional[torch.Generator]):
+    """A layer's two dropout seeds (attention sub-block, MLP) drawn from
+    ``generator``, or (None, None) without one."""
+    if generator is None:
+        return None, None
+    return tuple(torch.randint(0, 2 ** 31 - 1, (2,), generator=generator).tolist())
 
 
 class BertEmbeddings(nn.Module):
@@ -238,11 +247,7 @@ class BertModel(nn.Module):
         heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
         layers = [layer.weights(options) for layer in enc.layer]
         if options.tp > 1:
-            if not options.deterministic and generator is not None:
-                raise NotImplementedError(
-                    "a text tower with dropout under tp > 1 is not ported (ROADMAP queue 3): "
-                    "train with ModelOptions(deterministic=True) or without a generator")
-            return self._tp_layers(x, key_bias, layers, options)
+            return self._tp_layers(x, key_bias, layers, options, generator)
         if not options.deterministic:
             return self._train_layers(x, key_bias, layers, options, generator)
         if gates.pallas_route(options.attn_impl):
@@ -259,19 +264,34 @@ class BertModel(nn.Module):
             x = layer_fn(x, *p, heads, eps, act, True, key_bias)
         return x
 
-    def _tp_layers(self, x, key_bias, layers, options: ModelOptions) -> torch.Tensor:
+    def _tp_layers(self, x, key_bias, layers, options: ModelOptions,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
         """Every layer through the post-LN TP sub-blocks (JAX bert.py:135-163),
-        each rank on its heads and MLP columns."""
+        each rank on its heads and MLP columns; in a training forward with a
+        generator, with dropout on the twins (bert.py:100-105)."""
         cfg = self.cfg
         heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
         group = model_group(options.tp)
-        a_impl, m_impl = gates.tp_impls(x, options.attn_impl, act)
+        dropout = not options.deterministic and generator is not None
+        x, hd, ad = self._embedding_dropout(x, generator if dropout else None)
+        a_impl, m_impl = ("xla", "xla") if dropout else gates.tp_impls(x, options.attn_impl, act)
         for p in layers:
             p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+            seed_a, seed_m = _layer_seeds(generator if dropout else None)
             x = tp_attention_block(x, *p[:6], heads, options.tp, eps, True, key_bias, a_impl,
-                                   group)
-            x = tp_mlp_block(x, *p[6:], act, options.tp, eps, True, m_impl, group)
+                                   group, seed_a, ad, hd)
+            x = tp_mlp_block(x, *p[6:], act, options.tp, eps, True, m_impl, group, seed_m, hd)
         return x
+
+    def _embedding_dropout(self, x, generator: Optional[torch.Generator]):
+        """(x, hidden rate, attention rate): the embedding output's dropout
+        and the rates of the layers when a generator is given
+        (bert.py:77-80), else x and zero rates."""
+        if generator is None:
+            return x, 0.0, 0.0
+        hd, ad = self.cfg.hidden_dropout_prob, self.cfg.attention_probs_dropout_prob
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+        return drop.apply(x, drop.Dropout(seed, hd, drop.STREAM_EMBED, x.shape[1])), hd, ad
 
     def _train_layers(self, x, key_bias, layers, options: ModelOptions,
                       generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -279,20 +299,14 @@ class BertModel(nn.Module):
         is given (bert.py:77-80, :233-258)."""
         cfg = self.cfg
         heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
-        hd = ad = 0.0
-        if generator is not None:
-            hd, ad = cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob
-            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
-            x = drop.apply(x, drop.Dropout(seed, hd, drop.STREAM_EMBED, x.shape[1]))
+        x, hd, ad = self._embedding_dropout(x, generator)
         use_kernel = gates.use_kernel(x, options.attn_impl)
         pallas = gates.pallas_route(options.attn_impl)
         route_a = gates.bwd_route("attn_post", options.bwd_impl)
         route_m = gates.bwd_route("mlp_post", options.bwd_impl)
         for p in layers:
             p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-            seed_a = seed_m = None
-            if generator is not None:
-                seed_a, seed_m = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator).tolist()
+            seed_a, seed_m = _layer_seeds(generator)
             if pallas:
                 x = _pallas_layer(x, p, key_bias, heads, eps, act, seed_a, seed_m, ad, hd)
                 continue

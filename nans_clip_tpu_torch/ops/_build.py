@@ -58,12 +58,12 @@ _SIGNATURES = {
     # q, k, v, bias, o, dout, lse, delta, dq, dk, dv, strides (int64 [8][3]), B, H, S,
     # dh, scale, stream
     "nans_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
-    # quant, S, out: the largest co-resident grid
-    "nans_tower_grid": [_I, _I, ctypes.POINTER(_I)],
-    # x, key_bias, table, work, sum, part, sem, clock, B, S, W, I, L, eps,
-    # act, post_ln, quant, ks_qkv, ks_o, ks_1, ks_2, grid, stream
-    "nans_tower": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                   _I, _I, _I, _P],
+    # mode, S, dh, out: the largest co-resident grid
+    "nans_tower_grid": [_I, _I, _I, ctypes.POINTER(_I)],
+    # x, key_bias, table, work, sum, part, wbuf, sem, clock, B, S, W, I, L, dh,
+    # eps, scale, act, post_ln, mode, ks_qkv, ks_o, ks_1, ks_2, grid, stream
+    "nans_tower": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                   _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -15,6 +15,12 @@ not the TPU's.
 Streams: 0 attention probabilities (counter ``(sample, head, query, key)``),
 1 the hidden dropout of a sub-block's projection (``(sample, 0, row,
 col)``), 2 the text tower's embedding dropout.
+
+Under tensor parallelism (``parallel/tp.py``) a rank computes heads ``head0``
+to ``head0 + heads / tp`` of the layer: its attention spec carries that
+``head0``, so the rank counts by the global head index and tp ranks together
+draw the masks one process draws (the GSPMD semantics of the JAX package,
+where a mask is drawn on the global array).
 """
 
 from __future__ import annotations
@@ -34,12 +40,15 @@ _MASK32 = 0xFFFFFFFF
 class Dropout:
     """One dropout draw: ``seed`` (an int32 drawn from the caller's
     generator), ``rate``, ``stream``; ``seq`` is the sequence length that
-    splits a flat row index into (sample, row) for the hidden masks."""
+    splits a flat row index into (sample, row) for the hidden masks;
+    ``head0`` is the global index of the first head of an attention mask
+    (a tensor-parallel rank's offset; the kernels take 0 only)."""
 
     seed: int
     rate: float
     stream: int
     seq: int = 0
+    head0: int = 0
 
     def __post_init__(self):
         if not 0.0 <= self.rate < 1.0:
@@ -61,6 +70,8 @@ class Dropout:
         """(seed, stream, threshold, scale, on) as the kernels take them."""
         if not self.on:
             return 0, 0, 0, 1.0, 0
+        if self.head0:
+            raise ValueError("the kernels count heads from 0: a head offset runs the twins")
         return self.seed & _MASK32, self.stream, self.threshold, self.scale, 1
 
 
@@ -111,10 +122,12 @@ def hidden_multiplier(spec: Dropout, rows: int, width: int, device) -> torch.Ten
 
 def attention_multiplier(spec: Dropout, batch: int, heads: int, seq: int,
                          device) -> torch.Tensor:
-    """[B, H, S, S] multipliers of the attention-probability dropout."""
+    """[B, H, S, S] multipliers of the attention-probability dropout, for
+    the heads ``spec.head0`` to ``spec.head0 + heads``."""
     ar = lambda n: torch.arange(n, device=device, dtype=torch.int64)
-    return multiplier(spec, ar(batch).view(-1, 1, 1, 1), ar(heads).view(1, -1, 1, 1),
-                      ar(seq).view(1, 1, -1, 1), ar(seq).view(1, 1, 1, -1))
+    return multiplier(spec, ar(batch).view(-1, 1, 1, 1),
+                      ar(heads).view(1, -1, 1, 1) + spec.head0, ar(seq).view(1, 1, -1, 1),
+                      ar(seq).view(1, 1, 1, -1))
 
 
 def sub_block(seed, attn_rate: float, hid_rate: float, seq: int):

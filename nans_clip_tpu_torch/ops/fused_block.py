@@ -186,7 +186,8 @@ def fused_mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, act: str = "quick_gelu",
 
 
 def attention_partial_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, heads: int, eps: float,
-                            key_bias: Optional[torch.Tensor], pre_ln: bool, ops):
+                            key_bias: Optional[torch.Tensor], pre_ln: bool, ops,
+                            dropout: Optional[drop.Dropout] = None):
     """One tensor-parallel rank's attention sub-block through ``ops``: [LN
     ->] QKV of the rank's heads -> attention -> ctx . Wo_local, with no
     residual, output bias or post-LN (the caller sums the ranks' outputs and
@@ -195,12 +196,13 @@ def attention_partial_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, heads: int, eps: f
     in the io dtype. The rounding points of ``_partial_kernel``
     (fused_block.py:1244-1276): xn, q/k/v (fp32 product plus bias), P and
     ctx in the io dtype, the out-projection summed in fp32 and stored in the
-    io dtype."""
+    io dtype. ``dropout``: the attention-probability dropout of the rank's
+    heads (its ``head0`` their first global index), or None."""
     ln, lin, attn = ops
     b, s, w = x.shape
     x2 = x.reshape(b * s, w)
     xn = ln(x2, ln_w, ln_b, eps) if pre_ln else x2
-    ctx = attn(lin(xn, w_qkv, b_qkv), key_bias, b, heads)
+    ctx = attn(lin(xn, w_qkv, b_qkv), key_bias, b, heads, dropout)
     return lin(ctx, w_o, None).reshape(b, s, w)
 
 
@@ -217,11 +219,13 @@ def mlp_partial_chain(x, ln_w, ln_b, w1, b1, w2, act: str, eps: float, pre_ln: b
 
 
 def _reference_block_partial(x, ln_w, ln_b, w_qkv, b_qkv, w_o, heads: int, eps: float,
-                             pre_ln: bool, key_bias=None):
+                             pre_ln: bool, key_bias=None, dropout=None):
     """Plain-torch twin of #11 (JAX ``_reference_block_partial``,
-    fused_block.py:1228), the weights in the ``[out, in]`` layout."""
+    fused_block.py:1228), the weights in the ``[out, in]`` layout; with the
+    attention-probability ``dropout`` of a training forward under tensor
+    parallelism, which only the twin takes."""
     return attention_partial_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, heads, eps, key_bias,
-                                   pre_ln, PLAIN_OPS)
+                                   pre_ln, PLAIN_OPS, dropout)
 
 
 def _reference_mlp_partial(x, ln_w, ln_b, w1, b1, w2, act: str, eps: float, pre_ln: bool):

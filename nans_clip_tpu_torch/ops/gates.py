@@ -110,19 +110,34 @@ GEMM_N_MULTIPLE = 128
 GEMM_FWD_N_MULTIPLE = 64
 GEMM_K_MULTIPLE = 32
 
-# tower.cu (the whole-tower kernel, batch 1-32): heads of 64 (attention.cuh's
-# dh-64 instance),
-# S <= 640 (a head's K and V in shared memory, as attention.cu), W a
-# multiple of 64 and at most 1024 (its row stages hold a row in one block of
-# 128 threads, at most 8 values a thread), and I a multiple of its 64-wide K
-# step (N is cut in 32-wide tiles). Set by the kernel's design. Whether a
-# grid can be co-resident at all is asked of the card at launch
-# (``tower_kernel.max_grid``).
-TOWER_HEAD_DIM = 64
+# tower.cu (the whole-tower kernel, batch 1-32): heads of 64 or 80 (the
+# attention stage's instances over attention.cuh's k-steps), S <= 640 (a
+# head's K and V in shared memory, as attention.cu), W a multiple of 64 and
+# at most 256 x the row stages' column pairs a thread (each row stage holds a
+# row in one block of 128 threads, 2 values a pair): 4 pairs at heads of 64
+# (W <= 1024: ViT-B/L, RoBERTa), 5 at heads of 80 (W <= 1280: ViT-H-14's image
+# tower, the JAX package's TOWER_MAX_WIDTH, nans_clip_tpu/ops/gates.py:183),
+# and I a multiple of its 64-wide K step (N is cut in 32-wide tiles). Set by
+# the kernel's design. Whether a grid can be co-resident at all is asked of
+# the card at launch (``tower_kernel.max_grid``).
+TOWER_ROW_PAIRS = {64: 4, 80: 5}
 TOWER_WIDTH_MULTIPLE = 64
-TOWER_MAX_WIDTH = 1024
+TOWER_MAX_WIDTH = 1280
 TOWER_TILE = 32
 TOWER_KSTEP = 64
+
+# The dequant-ahead int8 instance (#6, ``fused_tower(quant_dma=True)``):
+# refused, on every device, where the JAX kernel refuses it by width: W a
+# multiple of 128 and at most 1024 (``tower_qdma_tile``,
+# nans_clip_tpu/ops/tower_kernel.py:229-230; the TPU's reason was VMEM, 3 int8
+# + 2 bf16 weight sets, ~138 MB at W 1280). On the card the two bf16 layer
+# buffers live in device memory (50.3 MB at W 1024) and the rest of the JAX
+# VMEM budget decides nothing (it also refused S 577 at W 1024, which the
+# card takes). The kernel itself is compiled for heads of 64 only
+# (``TOWER_QDMA_HEAD_DIM``), checked with tower.cu's other limits on CUDA
+# tensors.
+TOWER_QDMA_MAX_WIDTH = 1024
+TOWER_QDMA_HEAD_DIM = 64
 
 # Routing: the batches that take the tower kernel, per tower and weight
 # type (the JAX gate, fits_tower, also takes the weights' quantization).
@@ -279,9 +294,16 @@ def pallas_attention_route(q_or_x: torch.Tensor, impl: str, seq: int,
 
 def fits_tower(seq: int, width: int, heads: int, inter: int) -> bool:
     """The shapes tower.cu admits."""
-    return (width % TOWER_WIDTH_MULTIPLE == 0 and width <= TOWER_MAX_WIDTH
-            and width == heads * TOWER_HEAD_DIM and seq <= MAX_SEQ
+    dh = width // heads if heads and width % heads == 0 else 0
+    return (dh in TOWER_ROW_PAIRS and width % TOWER_WIDTH_MULTIPLE == 0
+            and width <= min(TOWER_MAX_WIDTH, 256 * TOWER_ROW_PAIRS[dh]) and seq <= MAX_SEQ
             and inter % TOWER_KSTEP == 0)
+
+
+def fits_tower_qdma(width: int) -> bool:
+    """The widths at which a dequant-ahead tower (#6) exists: the JAX
+    ``tower_qdma_tile`` width rule (W % 128 == 0, W <= 1024)."""
+    return width % 128 == 0 and width <= TOWER_QDMA_MAX_WIDTH
 
 
 def tower_route(x: torch.Tensor, impl: str, tower: str, heads: int, inter: int,

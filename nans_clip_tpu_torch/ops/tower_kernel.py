@@ -1,10 +1,12 @@
 """The whole encoder tower in one launch, and its kernel ``csrc/tower.cu``.
 
 Ports of ``nans_clip_tpu/ops/tower_kernel.py::_tower_kernel`` (:36, bf16
-weights) and ``::_tower_kernel_q`` (:67, int8 weights with fp32 scales per
-output channel): all L layers of ``encoder_layer_math`` for a serving batch
-(1-32), in the pre-LN quick-GELU form (ViT) or the post-LN erf-GELU form with
-an additive ``[B, S]`` key bias (BERT).
+weights), ``::_tower_kernel_q`` (:67, int8 weights with fp32 scales per
+output channel) and ``::_tower_kernel_q_dma`` (:104, the same function with
+each layer's int8 weights dequantized one layer ahead; ``quant_dma=True``):
+all L layers of ``encoder_layer_math`` for a serving batch (1-32), in the
+pre-LN quick-GELU form (ViT) or the post-LN erf-GELU form with an additive
+``[B, S]`` key bias (BERT), at heads of 64 or 80 (``gates.fits_tower``).
 
 ``layers`` is a sequence of per-layer tuples in ``encoder_layer_math``'s
 order, ``(ln1_w, ln1_b, w_qkv, b_qkv, w_o, b_o, ln2_w, ln2_b, w1, b1, w2,
@@ -20,10 +22,13 @@ keeps its sources alive meanwhile. No weight is copied or stacked.
 ``tower_math`` is the plain twin: ``encoder_layer_math`` looped over the
 layers, the output in the io dtype after each layer
 (``tower_kernel.py:57``); int8 weights are first dequantized to the io
-dtype as ``tower_kernel.py:89-90`` does. :func:`fused_tower` runs the twin
-for CPU tensors and launches the kernel for CUDA tensors (or raises). It
-counts bf16 launches in ``fused_tower.launches`` and int8 launches in
-``fused_tower.launches_int8``.
+dtype as ``tower_kernel.py:89-90`` does; it is the twin of the
+dequant-ahead instance too, which computes #5's function. :func:`fused_tower`
+runs the twin for CPU tensors and launches the kernel for CUDA tensors (or
+raises). It counts bf16 launches in ``fused_tower.launches``, int8 launches
+in ``fused_tower.launches_int8`` and dequant-ahead launches in
+``fused_tower.launches_qdma``. As in the JAX package, no model path asks for
+``quant_dma``: only direct calls launch #6.
 """
 
 from __future__ import annotations
@@ -84,13 +89,20 @@ class TowerTable:
         return self._table
 
 
+# tower.cu's instances: bf16 weights (#4), int8 (#5), int8 dequantized a
+# layer ahead (#6)
+MODE_BF16, MODE_INT8, MODE_QDMA = 0, 1, 2
+
+
 @functools.lru_cache(maxsize=None)
-def max_grid(device_index: int, quant: bool, seq: int) -> int:
-    """The largest co-resident grid of tower.cu on the device (blocks a
-    multiprocessor at its shared memory for ``seq``, times the SMs)."""
+def max_grid(device_index: int, mode: int, seq: int, dh: int = 64) -> int:
+    """The largest co-resident grid of tower.cu's instance ``mode`` (a
+    ``MODE_*``; False / True are bf16 / int8) at head dim ``dh`` on the
+    device (blocks a multiprocessor at its shared memory for ``seq`` and its
+    registers, times the SMs)."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _build.check(_build.library().nans_tower_grid(int(quant), seq, ctypes.byref(out)),
+        _build.check(_build.library().nans_tower_grid(int(mode), seq, dh, ctypes.byref(out)),
                      "nans_tower_grid")
     return out.value
 
@@ -105,11 +117,18 @@ def k_splits(m: int, n: int, k: int, grid: int) -> int:
     return max(1, min(cap, grid // units))
 
 
-def stage_names(n_layers: int, post_ln: bool) -> list:
-    """The kernel's stages in order, one clock entry after each."""
+def stage_names(n_layers: int, post_ln: bool, quant_dma: bool = False) -> list:
+    """The kernel's stages in order, one clock entry after each. The
+    dequant-ahead instance adds a prologue that converts layer 0 (with the
+    pre-LN form's first LayerNorm); each later layer's conversion runs in
+    the attention and row stages of the layer before it."""
     layer = ["qkv GEMM", "attention", "out GEMM", "out rows", "fc1 GEMM", "fc2 GEMM",
              "fc2 rows"]
-    return ([] if post_ln else ["LN1 rows"]) + layer * n_layers
+    if quant_dma:
+        first = ["dequant layer 0" if post_ln else "LN1 rows + dequant layer 0"]
+    else:
+        first = [] if post_ln else ["LN1 rows"]
+    return first + layer * n_layers
 
 
 def _admit_layers(layers: Sequence[tuple], w: int) -> None:
@@ -125,9 +144,11 @@ def _admit_layers(layers: Sequence[tuple], w: int) -> None:
             gates.admit(tuple(t.shape) == shape, f"tower: weight {i} {tuple(t.shape)} != {shape}")
             if quant:
                 gates.admit(t.int8.is_cuda and t.int8.is_contiguous()
+                            and t.int8.data_ptr() % 16 == 0
                             and t.scale.dtype == torch.float32 and t.scale.is_contiguous()
                             and t.scale.numel() == shape[0],
-                            "tower: int8 weights contiguous on CUDA, fp32 scales [out, 1]")
+                            "tower: int8 weights contiguous and 16-byte aligned on CUDA, fp32 "
+                            "scales [out, 1]")
         gates.admit_cuda("tower", *(t for i, t in enumerate(p) if i not in _WEIGHTS))
         if not quant:
             gates.admit_cuda("tower", *(p[i] for i in _WEIGHTS))
@@ -149,25 +170,48 @@ def _admit(x, key_bias, layers, heads, act) -> bool:
     return quant
 
 
+def _admit_qdma(x: torch.Tensor, layers: Sequence[tuple]) -> bool:
+    """True when ``quant_dma`` applies (int8 weights: bf16 weights run #4, as
+    JAX's ``if quant and quant_dma``, tower_kernel.py:298); raises, on every
+    device as the JAX assertion does (:304-306), at a width where the
+    dequant-ahead tower does not exist."""
+    if not is_quantized(layers[0][2]):
+        return False
+    b, s, w = x.shape
+    gates.admit(gates.fits_tower_qdma(w),
+                f"qdma cell does not exist at b={b} s={s} w={w} (the dequant-ahead tower takes "
+                f"W a multiple of 128 up to {gates.TOWER_QDMA_MAX_WIDTH}, as JAX "
+                "tower_qdma_tile)")
+    return True
+
+
 def fused_tower(x: torch.Tensor, key_bias: Optional[torch.Tensor], layers: Sequence[tuple],
                 heads: int, eps: float, act: str, post_ln: bool,
                 table: Optional[TowerTable] = None, grid: Optional[int] = None,
-                clock: Optional[torch.Tensor] = None) -> torch.Tensor:
+                clock: Optional[torch.Tensor] = None, quant_dma: bool = False) -> torch.Tensor:
     """All layers of the encoder on x [B, S, W]; returns a new tensor.
     ``table`` caches the pointer table between calls (a fresh one is built
     otherwise); ``grid`` overrides the co-resident grid (a larger one is
     refused by the cooperative launch and raises); ``clock``, an int64
-    tensor on the card of ``len(stage_names(L, post_ln)) + 1`` entries,
-    receives the device time (ns) at the start and after each stage."""
+    tensor on the card of ``len(stage_names(L, post_ln, quant_dma)) + 1``
+    entries, receives the device time (ns) at the start and after each
+    stage. ``quant_dma`` with int8 weights runs the dequant-ahead instance
+    (#6), with bf16 weights #4."""
+    ahead = quant_dma and _admit_qdma(x, layers)
     if not x.is_cuda:
         return tower_math(x, key_bias, layers, heads, eps, act, post_ln)
     quant = _admit(x, key_bias, layers, heads, act)
+    if ahead:
+        gates.admit(x.shape[2] == heads * gates.TOWER_QDMA_HEAD_DIM,
+                    f"tower quant_dma: heads of {gates.TOWER_QDMA_HEAD_DIM} only")
+    mode = MODE_QDMA if ahead else MODE_INT8 if quant else MODE_BF16
     b, s, w = x.shape
     m, inter, n_layers = b * s, layers[0][8].shape[0], len(layers)
+    dh = w // heads
     dev = x.device
     if grid is None:
         grid = max_grid(dev.index if dev.index is not None else torch.cuda.current_device(),
-                        quant, s)
+                        mode, s, dh)
         gates.admit(grid >= 1, f"tower: no block of the kernel fits a multiprocessor at S={s}")
     products = ((3 * w, w), (w, w), (inter, w), (w, inter))
     ks = [k_splits(m, n, k, grid) for n, k in products]
@@ -176,20 +220,26 @@ def fused_tower(x: torch.Tensor, key_bias: Optional[torch.Tensor], layers: Seque
     sums = torch.empty(m * w, dtype=torch.float32, device=dev)
     part = torch.empty(max([1] + [kk * m * n for kk, (n, _) in zip(ks, products) if kk > 1]),
                        dtype=torch.float32, device=dev)
+    wbuf = (torch.empty(2 * (4 * w * w + 2 * w * inter), dtype=x.dtype, device=dev)
+            if ahead else None)
     tiles = math.ceil(m / BM) * max(n for n, _ in products) // gates.TOWER_TILE
     sem = torch.zeros(1 + tiles, dtype=torch.int32, device=dev)
     if clock is not None:
         gates.admit(clock.is_cuda and clock.dtype == torch.int64
-                    and clock.numel() >= len(stage_names(n_layers, post_ln)) + 1,
+                    and clock.numel() >= len(stage_names(n_layers, post_ln, ahead)) + 1,
                     "tower: clock must be int64 on CUDA with room for every stage")
     ptrs = (table or TowerTable()).get(layers, w, dev)
     err = _build.library().nans_tower(
         out.data_ptr(), None if key_bias is None else key_bias.data_ptr(), ptrs.data_ptr(),
-        work.data_ptr(), sums.data_ptr(), part.data_ptr(), sem.data_ptr(),
-        None if clock is None else clock.data_ptr(), b, s, w, inter, n_layers, float(eps),
-        _ACT_CODES[act], int(post_ln), int(quant), *ks, grid, _build.stream_ptr(dev))
+        work.data_ptr(), sums.data_ptr(), part.data_ptr(),
+        None if wbuf is None else wbuf.data_ptr(), sem.data_ptr(),
+        None if clock is None else clock.data_ptr(), b, s, w, inter, n_layers, dh, float(eps),
+        1.0 / math.sqrt(dh), _ACT_CODES[act], int(post_ln), mode, *ks, grid,
+        _build.stream_ptr(dev))
     _build.check(err, "nans_tower")
-    if quant:
+    if ahead:
+        fused_tower.launches_qdma += 1
+    elif quant:
         fused_tower.launches_int8 += 1
     else:
         fused_tower.launches += 1
@@ -198,3 +248,4 @@ def fused_tower(x: torch.Tensor, key_bias: Optional[torch.Tensor], layers: Seque
 
 fused_tower.launches = 0
 fused_tower.launches_int8 = 0
+fused_tower.launches_qdma = 0

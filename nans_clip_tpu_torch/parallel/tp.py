@@ -30,6 +30,16 @@ tp_partial_parameters`` lists them). The output biases, the post-LN
 LayerNorms and everything outside the layers run on replicated values and
 keep their gradients.
 
+Dropout (a text tower's training forward, JAX bert.py:100-105: under tp > 1
+with dropout JAX takes its unfused GSPMD path, so every sub-block here runs
+the twins, ``impl="xla"``, and autograd differentiates them). The masks are
+those one process draws (``ops/dropout.py``): the attention probabilities'
+counter is (sample, global head, query, key), each rank counting its heads
+from ``rank * heads / tp``; the hidden dropout after the out projection and
+after fc2 is drawn on the replicated value, after the all-reduce and the
+bias and before the residual and the post-LN, with the same counter on
+every rank. So tp ranks draw exactly the masks tp 1 draws.
+
 Every rank must run the same sub-blocks in the same order, or the
 collectives deadlock; the towers do (their layer loops do not branch on the
 rank).
@@ -37,11 +47,13 @@ rank).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterable, Optional
 
 import torch
 import torch.distributed as dist
 
+from nans_clip_tpu_torch.ops import dropout as drop
 from nans_clip_tpu_torch.ops import gates
 from nans_clip_tpu_torch.ops.fused_block import (_reference_block_partial,
                                                  _reference_mlp_partial,
@@ -102,9 +114,31 @@ def _setup(x, tp: int, impl: str, group, heads=None, inter=None):
     return group, dist.get_rank(group)
 
 
-def _finish(x, partial, bias, ln_w, ln_b, eps: float, post_ln: bool, group):
+def _dropouts(x, impl: str, seed, attn_drop: float, hid_drop: float):
+    """The sub-block's (attention, hidden) dropouts drawn with ``seed``, None
+    where a rate is 0; raises for the partial kernels, which take none."""
+    a_drop, h_drop = drop.sub_block(seed, attn_drop, hid_drop, x.shape[1])
+    if impl == "fused" and (a_drop or h_drop):
+        raise ValueError("the partial kernels take no dropout: under dropout the TP sub-blocks "
+                         "run impl='xla' (JAX's use_fused is False there)")
+    return a_drop, h_drop
+
+
+def rank_attention_dropout(spec: Optional[drop.Dropout], rank: int, local_heads: int):
+    """The attention-probability dropout of ``rank``'s heads: the same draw,
+    counted from the rank's first global head."""
+    return None if spec is None else dataclasses.replace(spec, head0=rank * local_heads)
+
+
+def _finish(x, partial, bias, ln_w, ln_b, eps: float, post_ln: bool, group, h_drop=None):
     out = _ReduceFromModel.apply(partial, group)
-    out = x + out + bias.to(out.dtype)
+    if drop.active(h_drop):
+        b, s, w = out.shape
+        out = out + bias.to(out.dtype)
+        out = x + out * drop.hidden_multiplier(h_drop, b * s, w, out.device).view(
+            b, s, w).to(out.dtype)
+    else:
+        out = x + out + bias.to(out.dtype)
     if post_ln:
         out = layer_norm(out, ln_w, ln_b, eps)
     return out.to(x.dtype)
@@ -113,13 +147,16 @@ def _finish(x, partial, bias, ln_w, ln_b, eps: float, post_ln: bool, group):
 def tp_attention_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, tp: int,
                        eps: float = 1e-5, post_ln: bool = False,
                        key_bias: Optional[torch.Tensor] = None, impl: str = "fused",
-                       group=None):
+                       group=None, seed=None, attn_drop: float = 0.0, hid_drop: float = 0.0):
     """TP attention sub-block (JAX ``tp_attention_block``, tp.py:73).
     pre-LN (ViT): ``x + proj(MHA(LN(x))) + b_o``; post-LN (BERT): ``LN(x +
-    proj(MHA(x)) + b_o)`` with the additive fp32 [B, S] ``key_bias``. The
-    weights are the full ones, ``[out, in]``; this rank computes its ``heads
-    / tp`` heads. ``group``: the model group (default
-    ``mesh.model_group(tp)``); the rank is the group's."""
+    drop(proj(MHA_drop(x)) + b_o))`` with the additive fp32 [B, S]
+    ``key_bias``. The weights are the full ones, ``[out, in]``; this rank
+    computes its ``heads / tp`` heads. ``group``: the model group (default
+    ``mesh.model_group(tp)``); the rank is the group's. ``seed`` with
+    ``attn_drop`` / ``hid_drop`` above 0: the sub-block's dropout (the
+    twins only, ``impl="xla"``)."""
+    a_drop, h_drop = _dropouts(x, impl, seed, attn_drop, hid_drop)
     group, rank = _setup(x, tp, impl, group, heads=heads)
     wq, bq = mesh.qkv_slice(w_qkv, b_qkv, heads, rank, tp)
     wo = mesh.column_slice(w_o, rank, tp)
@@ -129,15 +166,19 @@ def tp_attention_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, tp: in
                                                 heads // tp, eps, not post_ln)
     else:
         partial = _reference_block_partial(x_in, ln_w, ln_b, wq, bq, wo, heads // tp, eps,
-                                           not post_ln, key_bias)
-    return _finish(x, partial, b_o, ln_w, ln_b, eps, post_ln, group)
+                                           not post_ln, key_bias,
+                                           rank_attention_dropout(a_drop, rank, heads // tp))
+    return _finish(x, partial, b_o, ln_w, ln_b, eps, post_ln, group, h_drop)
 
 
 def tp_mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, act: str, tp: int, eps: float = 1e-5,
-                 post_ln: bool = False, impl: str = "fused", group=None):
+                 post_ln: bool = False, impl: str = "fused", group=None, seed=None,
+                 hid_drop: float = 0.0):
     """TP MLP sub-block (JAX ``tp_mlp_block``, tp.py:115): column-split fc1,
     row-split fc2, one all-reduce; ``x + fc2(act(fc1(LN(x)))) + b2`` or
-    ``LN(x + fc2(act(fc1(x))) + b2)``."""
+    ``LN(x + drop(fc2(act(fc1(x))) + b2))``, the hidden dropout drawn with
+    ``seed`` (the twins only)."""
+    _, h_drop = _dropouts(x, impl, seed, 0.0, hid_drop)
     group, rank = _setup(x, tp, impl, group, inter=w1.shape[0])
     w1l, b1l = mesh.row_slice(w1, rank, tp), mesh.row_slice(b1, rank, tp)
     w2l = mesh.column_slice(w2, rank, tp)
@@ -148,7 +189,7 @@ def tp_mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, act: str, tp: int, eps: float = 
     else:
         partial = _reference_mlp_partial(x_in, ln_w, ln_b, w1l, b1l, w2l, act, eps,
                                          not post_ln)
-    return _finish(x, partial, b2, ln_w, ln_b, eps, post_ln, group)
+    return _finish(x, partial, b2, ln_w, ln_b, eps, post_ln, group, h_drop)
 
 
 # Elements a bucket of :func:`reduce_partial_grads`: 2^25 fp32 values, 128 MiB.

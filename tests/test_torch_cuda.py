@@ -214,6 +214,51 @@ def test_tower_oversized_grid_raises(dev):
            tk.tower_math(x, None, layers, 2, 1e-5, "quick_gelu", False), 4)
 
 
+@pytest.mark.parametrize("post_ln", [False, True])
+@pytest.mark.parametrize("n_layers,b,s,w", [(1, 1, 52, 128), (2, 3, 37, 128), (3, 1, 197, 768),
+                                            (2, 2, 52, 768), (2, 1, 52, 1024), (2, 8, 52, 768)])
+def test_qdma_tower_matches_int8_and_twin(dev, n_layers, b, s, w, post_ln):
+    """The dequant-ahead instance (#6): bit-equal to #5 at the same grid (the
+    same bf16 weights, K-splits and mma order), within 4 bf16 ulps of the
+    twin at its own grid; one layer (the prologue alone) included, and batch
+    8, where the attention stage leaves no block idle."""
+    from nans_clip_tpu_torch.ops import tower_kernel as tk
+    layers = _tower_layers(dev, n_layers, w, 5, True)
+    x, kb = _tower_case(dev, b, s, w, post_ln)
+    args = (x, kb, layers, w // 64, 1e-12 if post_ln else 1e-5,
+            "gelu" if post_ln else "quick_gelu", post_ln)
+    idx = torch.cuda.current_device()
+    grid = min(tk.max_grid(idx, tk.MODE_INT8, s), tk.max_grid(idx, tk.MODE_QDMA, s))
+    before = (tk.fused_tower.launches_int8, tk.fused_tower.launches_qdma)
+    got = tk.fused_tower(*args, quant_dma=True)
+    same6 = tk.fused_tower(*args, grid=grid, quant_dma=True)
+    same5 = tk.fused_tower(*args, grid=grid)
+    torch.cuda.synchronize()
+    assert torch.equal(same6, same5)
+    _close(got, tk.tower_math(*args), 4)
+    assert (tk.fused_tower.launches_int8 - before[0], tk.fused_tower.launches_qdma - before[1]) \
+        == (1, 2)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("post_ln", [False, True])
+@pytest.mark.parametrize("b,s,w", [(2, 37, 640), (1, 257, 1280)])
+def test_tower_heads_of_80_matches_twin(dev, b, s, w, post_ln, quantize):
+    """tower.cu's dh-80 instance (ViT-H-14's image tower at W 1280; 5 column
+    pairs a thread in the row stages), bf16 and int8, 2 layers, against the
+    twin: 4 bf16 ulps, as the dh-64 instance."""
+    from nans_clip_tpu_torch.ops import tower_kernel as tk
+    layers = _tower_layers(dev, 2, w, 9, quantize)
+    x, kb = _tower_case(dev, b, s, w, post_ln)
+    args = (x, kb, layers, w // 80, 1e-12 if post_ln else 1e-5,
+            "gelu" if post_ln else "quick_gelu", post_ln)
+    _close(tk.fused_tower(*args), tk.tower_math(*args), 4)
+    if quantize:   # #6: W <= 1024 (the JAX rule) and heads of 64 (its only instance)
+        with pytest.raises(ValueError, match="qdma cell does not exist" if w > 1024
+                           else "heads of 64 only"):
+            tk.fused_tower(*args, quant_dma=True)
+
+
 def test_batch_1_encodes_route_one_tower_launch(dev):
     """A tiny-width model (heads of 64) at batch 1: each encode is one tower
     launch and no per-layer launch; its int8 copy makes int8 launches."""

@@ -121,7 +121,9 @@ def test_gate_predicate():
     assert gates.fits_tower(640, 1024, 16, 4096)
     assert not gates.fits_tower(641, 768, 12, 3072)     # S: a head's K and V in shared memory
     assert not gates.fits_tower(52, 800, 12, 3200)      # W % 64
-    assert not gates.fits_tower(197, 1280, 16, 5120)    # W > 1024 (ViT-H: heads of 80 too)
+    assert gates.fits_tower(257, 1280, 16, 5120)        # ViT-H-14: heads of 80, 5 pairs a thread
+    assert not gates.fits_tower(257, 1280, 20, 5120)    # W 1280 at heads of 64: 4 pairs a thread
+    assert not gates.fits_tower(257, 1536, 16, 6144)    # W > 1280 (heads of 96 too)
     assert not gates.fits_tower(52, 128, 4, 512)        # heads of 32
     assert not gates.fits_tower(52, 768, 12, 3040)      # I % 64
     assert set(gates.TOWER_MAX_BATCH) == {(t, q) for t in ("text", "image")

@@ -18,7 +18,13 @@ against the JAX package on the CPU, fp32.
   tests/test_tp.py's TINY towers at ``tp=2`` against the JAX unsharded
   towers; one deterministic TP train step against JAX's one-device step:
   the loss, every gradient before the optimizer, then the parameters, and
-  the parameters equal on both ranks; and the mismatched-tp errors.
+  the parameters equal on both ranks; the mismatched-tp errors; and a text
+  tower with dropout 0.1 under tp 2 (JAX's unfused path under TP, the twins
+  with one process's masks) at ``tiny_config()`` and at RoBERTa-base widths
+  cut to 2 layers, against tp 1 with the same generator seed: the text
+  tower's output, one train step's loss and every gradient, the ranks'
+  parameters bit-equal, and the ranks' attention masks concatenated over
+  heads equal to tp 1's.
 
 Tolerances: outputs 5e-5 (tests/test_tp.py's bound: fp32 sums in another
 order); gradients 5e-4 of max(|JAX gradient|, 1) for the sub-blocks; the
@@ -32,7 +38,10 @@ in magnitude: Adam's first step moves an element by lr * g / (|g| + eps),
 so two gradients of 1e-8 that the sum order gives opposite signs move it
 apart by up to 2 * lr (one element of a BERT LayerNorm scale does: 9.8e-9
 here against -2.5e-8 in JAX, 1.2e-3 apart after the step), as
-tests/test_torch_train.py allows.
+tests/test_torch_train.py allows. Dropout under tp 2 against tp 1: the text
+tower's output within 1e-5 and the loss within 1e-5 (fp32, the same masks:
+only sum orders differ), each gradient within 1e-4 of its largest magnitude
+(the key biases as above), the masks exactly.
 """
 
 import dataclasses
@@ -247,8 +256,8 @@ def test_linear_takes_no_bias():
 
 
 def test_fail_fast_without_a_group():
-    """tp > 1 without a process group, a bad tp value and a text tower with
-    dropout under tp > 1 raise with a message; nothing runs another route."""
+    """tp > 1 without a process group, a bad tp value and dropout asked of
+    the partial kernels raise with a message; nothing runs another route."""
     with pytest.raises(ValueError, match="tp must be"):
         ModelOptions(tp=0)
     with pytest.raises(RuntimeError, match="process group"):
@@ -258,10 +267,12 @@ def test_fail_fast_without_a_group():
     cfg = tconfigs.tiny_config()
     bert = BertModel(cfg.text)
     bert.init_weights(torch.Generator().manual_seed(0))
-    ids = torch.full((2, 8), 101, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="dropout under tp > 1"):
-        bert(ids, torch.ones(2, 8), ModelOptions(tp=2, deterministic=False),
-             torch.Generator().manual_seed(0))
+    from nans_clip_tpu_torch.parallel.tp import tp_attention_block
+    w = [torch.ones(64), torch.zeros(64), torch.zeros(192, 64), torch.zeros(192),
+         torch.zeros(64, 64), torch.zeros(64)]
+    with pytest.raises(ValueError, match="partial kernels take no dropout"):
+        tp_attention_block(torch.zeros(2, 8, 64), *w, 4, 2, post_ln=True, impl="fused", seed=1,
+                           hid_drop=0.1)
     with pytest.raises(ValueError, match="backend"):
         mesh.init_model_group("mpi", "file:///nonexistent", 0, 2)
     from nans_clip_tpu_torch.training import train_lora
@@ -298,6 +309,28 @@ def _as_port(tree, cfg):
 
 
 TCFG = dict(lr=1e-3, warmup=1, max_steps=10)
+DROPOUT_SEED = 5
+
+
+def _dropout_cases() -> dict:
+    """Text dropout under tp 2: ``tiny_config()`` and ViT-B-16@RoBERTa-base
+    cut to 2 layers a tower (images at 32 px: the text tower keeps its
+    widths, 12 heads of 64, I 3072), seeded weights, dropout 0.1."""
+    from nans_clip_tpu_torch.models.clip import build_clip
+
+    base = tconfigs.with_resolution(
+        tconfigs.load_config("ViT-B-16@RoBERTa-wwm-ext-base-chinese"), 32)
+    base = dataclasses.replace(base, vision=dataclasses.replace(base.vision, layers=2),
+                               text=dataclasses.replace(base.text, num_hidden_layers=2))
+    cases = {}
+    for name, cfg, b in (("tiny", tconfigs.tiny_config(), 16), ("roberta-base", base, 8)):
+        assert cfg.text.hidden_dropout_prob == cfg.text.attention_probs_dropout_prob == 0.1
+        images, texts = _tiny_batch(b, seed=3)
+        module = build_clip(cfg, "cpu", torch.Generator().manual_seed(1))
+        cases[name] = dict(cfg=cfg, state_dict={k: v.numpy() for k, v in
+                                                module.state_dict().items()},
+                           images=images, texts=texts, tcfg=TCFG, seed=DROPOUT_SEED)
+    return cases
 
 
 @pytest.fixture(scope="module")
@@ -357,10 +390,14 @@ def tp_run(tmp_path_factory):
 
     payload = {"blocks": blocks,
                "tiny": dict(cfg=cfg, state_dict=_as_port(params, cfg), images=images,
-                            texts=texts, tcfg=TCFG)}
+                            texts=texts, tcfg=TCFG),
+               "dropout": _dropout_cases()}
     ranks = mesh.run_ranks(worker.run_all, 2, "gloo",
                            str(tmp_path_factory.mktemp("rendezvous") / "init"), (payload,),
                            timeout_s=300.0)
+    jax_side["dropout_tp1"] = {name: worker.dropout_run(c["cfg"], c["state_dict"], c["images"],
+                                                        c["texts"], c["tcfg"], c["seed"], 1)
+                               for name, c in payload["dropout"].items()}
     return jax_side, ranks
 
 
@@ -426,3 +463,40 @@ def test_tp_mismatch_fails_fast(tp_run):
         assert "tp=4 but the model group has 2 ranks" in msgs["tp_mismatch"]
         assert "tp=4 but the model group has 2 ranks" in msgs["model_group"]
         assert "heads 3 not divisible by tp 2" in msgs["heads"]
+
+
+@pytest.mark.parametrize("case", ["tiny", "roberta-base"])
+def test_tp_text_dropout_matches_tp1(tp_run, case):
+    """A text tower with dropout 0.1 trains under tp 2 (JAX's unfused path,
+    bert.py:100-105) and draws tp 1's masks: the text tower's output and one
+    train step against tp 1 with the same generator seed; the ranks'
+    parameters bit-equal after the step."""
+    jax_side, ranks = tp_run
+    ref = jax_side["dropout_tp1"][case]
+    for r in ranks:
+        got = r["dropout"][case]
+        np.testing.assert_allclose(got["seq"], ref["seq"], atol=1e-5, rtol=0)
+        assert abs(got["loss"] - ref["loss"]) <= 1e-5
+        assert set(got["grads"]) == set(ref["grads"])
+        for name, g in got["grads"].items():
+            want = ref["grads"][name]
+            if name.endswith("self.key.bias"):
+                assert max(float(np.abs(g).max()), float(np.abs(want).max())) <= 1e-8, name
+            else:
+                assert float(np.abs(g - want).max()) <= 1e-4 * float(np.abs(want).max()), name
+    for name, p in ranks[0]["dropout"][case]["params"].items():
+        np.testing.assert_array_equal(p, ranks[1]["dropout"][case]["params"][name], err_msg=name)
+    # dropout is on: the output is not the same tower's without it
+    assert float(np.abs(ref["seq"] - ref["seq_det"]).max()) > 0.1
+
+
+def test_tp_attention_masks_are_tp1s(tp_run):
+    """The ranks' attention-probability masks of one draw, concatenated over
+    heads, are the mask one process draws for all heads."""
+    from nans_clip_tpu_torch.ops import dropout as drop
+
+    _, ranks = tp_run
+    got = np.concatenate([r["attention_masks"] for r in ranks], axis=1)
+    want = drop.attention_multiplier(drop.Dropout(1234, 0.1, drop.STREAM_ATTN), 2, 4, 12, "cpu")
+    np.testing.assert_array_equal(got, want.numpy())
+    assert 0 < float((want == 0).float().mean()) < 0.5

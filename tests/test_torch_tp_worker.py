@@ -14,9 +14,10 @@ import torch.distributed as dist
 
 from nans_clip_tpu_torch.models.clip import build_clip
 from nans_clip_tpu_torch.models.common import ModelOptions
+from nans_clip_tpu_torch.ops import dropout as drop
 from nans_clip_tpu_torch.parallel import mesh
-from nans_clip_tpu_torch.parallel.tp import (reduce_partial_grads, tp_attention_block,
-                                             tp_mlp_block)
+from nans_clip_tpu_torch.parallel.tp import (rank_attention_dropout, reduce_partial_grads,
+                                             tp_attention_block, tp_mlp_block)
 from nans_clip_tpu_torch.training import trainer
 
 
@@ -92,6 +93,35 @@ def _train_step(cfg, state_dict, images, texts, tcfg_kw) -> dict:
             "params": {n: _np(p) for n, p in named}}
 
 
+def dropout_run(cfg, state_dict, images, texts, tcfg_kw, seed: int, tp: int) -> dict:
+    """A text tower with dropout (``deterministic=False`` and a generator
+    seeded with ``seed``) at ``tp`` ranks: the text tower's sequence output
+    (and, for scale, its output without dropout), then one train step (loss, every gradient, the parameters). tp 1 runs
+    in one process without a group."""
+    module = build_clip(cfg)
+    module.load_state_dict({k: _t(v) for k, v in state_dict.items()})
+    opts = ModelOptions(attn_impl="fused", tp=tp, deterministic=False)
+    ids = _t(texts).long()
+    with torch.no_grad():
+        seq = module.bert(ids, (ids != 0).float(), opts, torch.Generator().manual_seed(seed))
+        seq_det = module.bert(ids, (ids != 0).float(), ModelOptions(attn_impl="fused", tp=tp))
+    tcfg = trainer.TrainConfig(**tcfg_kw)
+    state = trainer.create_train_state(module, tcfg, device="cpu")
+    step = trainer.make_train_step(cfg, tcfg, opts)
+    state, metrics = step(state, _t(images), ids, seed)
+    named = list(state.module.named_parameters())
+    return {"seq": _np(seq), "seq_det": _np(seq_det), "loss": float(metrics["loss"]),
+            "grads": {n: _np(p.grad) for n, p in named},
+            "params": {n: _np(p) for n, p in named}}
+
+
+def attention_masks(rank: int, seed: int, batch: int, heads: int, seq: int) -> np.ndarray:
+    """This rank's attention-probability keep multipliers for one draw, as
+    its TP sub-block counts them: [B, heads / 2, S, S]."""
+    spec = rank_attention_dropout(drop.Dropout(seed, 0.1, drop.STREAM_ATTN), rank, heads // 2)
+    return drop.attention_multiplier(spec, batch, heads // 2, seq, "cpu").numpy()
+
+
 def run_all(rank: int, payload: dict) -> dict:
     """Every multi-process case of tests/test_torch_tp.py in one rank."""
     torch.set_num_threads(1)
@@ -104,4 +134,8 @@ def run_all(rank: int, payload: dict) -> dict:
     t = payload["tiny"]
     out["towers"] = _towers(t["cfg"], t["state_dict"], t["images"], t["texts"])
     out["train"] = _train_step(t["cfg"], t["state_dict"], t["images"], t["texts"], t["tcfg"])
+    out["dropout"] = {name: dropout_run(c["cfg"], c["state_dict"], c["images"], c["texts"],
+                                        c["tcfg"], c["seed"], 2)
+                      for name, c in payload["dropout"].items()}
+    out["attention_masks"] = attention_masks(rank, 1234, 2, 4, 12)
     return out
