@@ -12,7 +12,13 @@ Phases, each printing its lines before the last line:
    S=52, W=768, 12 heads, batch 256): max abs error against its bound, and
    CUDA-event times of kernel, twin and, where one PyTorch call computes the
    same function, that call (a yardstick only: the port never calls it),
-   beside the least time the card could take (its bound).
+   beside the least time the card could take (its bound). The forward GEMM
+   (wgmma + TMA) also at ViT-B's other three products (QKV, out-projection
+   and fc2 with their residuals, M 50,432) and in one training form (fc1 at
+   M 25,216 with its fp32 pre-activation, hidden dropout 0.1, an fp32
+   residual and an fp32 output); the forward attention also at heads of 80
+   (32, 16, 257, 80), at S=577 (32, 16, 577, 64) and masked with dropout 0.1
+   (128, 12, 52, 64), each with SDPA beside it.
 4. Tower kernels: the whole-tower kernel, bf16 and int8, in the text form
    (S=52, masked, post-LN) and the image form (S=197, pre-LN), 12 layers,
    W=768, batch 1, 8 and 32, against its twin, with its time, the twin's, its
@@ -266,6 +272,7 @@ def phase_kernels(torch, dev):
     """Every kernel of the batch path against its twin, bf16, at its shapes."""
     import torch.nn.functional as F
 
+    from nans_clip_tpu_torch.ops import dropout as drop
     from nans_clip_tpu_torch.ops import fused_block as fb
     from nans_clip_tpu_torch.ops import layer_kernel as lk
     from nans_clip_tpu_torch.ops.attention import attention, attention_plain
@@ -303,17 +310,42 @@ def phase_kernels(torch, dev):
     xi2 = xi.reshape(-1, w)
     qkv = linear(row_layer_norm(xi2, pi["ln1_w"], pi["ln1_b"], 1e-5), pi["w_qkv"], pi["b_qkv"])
     qkv_t = linear(xt.reshape(-1, w), pt["w_qkv"], pt["b_qkv"])
+    h_fc1 = linear(xi2, pi["w1"], pi["b1"], "quick_gelu")
 
-    def sdpa(q3, bias, s):
+    def sdpa(q3, bias, s, batch=BATCH, nh=heads, dh=64, p=0.0):
         """F.scaled_dot_product_attention on the packed buffer's heads, with
-        the same additive key bias."""
-        q, k, v = q3.view(BATCH, s, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
-        mask = None if bias is None else bias.view(BATCH, 1, 1, s).to(bf)
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        the same additive key bias (and, with p, its own dropout)."""
+        q, k, v = q3.view(batch, s, 3, nh, dh).permute(2, 0, 3, 1, 4).unbind(0)
+        mask = None if bias is None else bias.view(batch, 1, 1, s).to(bf)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=p)
 
     mi, mt = BATCH * 197, BATCH * 52
     attn_cost = lambda m, s: (m * 4 * w * 2 + 4 * w * w * 2, 2 * m * 4 * w * w + 4 * m * s * w)
     mlp_cost = lambda m: (m * 2 * w * 2 + 2 * w * inter * 2, 4 * m * w * inter)
+
+    def gemm_cost(m, n, k, extra=0):
+        """Bytes (A, W, bias, a bf16 C, plus ``extra`` a row-column) and
+        operations of one forward product."""
+        return (2 * (m * k + n * k + n + m * n) + extra * m * n, 2 * m * n * k)
+
+    # the training forward's kExt form (ViT-B batch 128): fc1 with its fp32
+    # pre-activation, hidden dropout 0.1, an fp32 residual and an fp32 output
+    mtr = 128 * 197
+    a_tr = rnd(mtr, w)
+    res_tr = torch.randn(mtr, inter, generator=g, device=dev)
+    spec_tr = drop.Dropout(5, 0.1, drop.STREAM_HIDDEN, 197)
+    kext = dict(residual=res_tr, out_dtype=torch.float32, dropout=spec_tr, pre_out=True)
+    both = lambda pair: torch.cat((pair[0].flatten(), pair[1].flatten()))
+
+    # the wide and training attention shapes: heads of 80 at S 257 (ViT-H),
+    # S 577 (ViT-L-14-336), RoBERTa-base at batch 128, masked, dropout 0.1
+    g_attn = {}
+    for key, (b, s_, nh, dh) in {"h": (32, 257, 16, 80), "l": (32, 577, 16, 64),
+                                  "d": (128, 52, 12, 64)}.items():
+        g_attn[key] = rnd(b * s_, 3 * nh * dh)
+    kb_d = key_bias(52)[:128].contiguous()
+    drop_d = drop.Dropout(9, 0.1, drop.STREAM_ATTN, 52)
+    attn_bytes = lambda b, s_, nh, dh: b * s_ * 4 * nh * dh * 2
     # (entry name, kernel call, twin call, bf16-ulp bound, JSON fields or None,
     #  library call or None, (bytes, operations))
     cases = [
@@ -355,6 +387,33 @@ def phase_kernels(torch, dev):
         ("attention[masked, S=52]", lambda: attention(qkv_t, kb, BATCH, heads),
          lambda: attention_plain(qkv_t, kb, BATCH, heads), 1, None,
          lambda: sdpa(qkv_t, kb, 52), (mt * 4 * w * 2 + mt * 4, 4 * BATCH * 52 * 52 * w)),
+        # the other forward products of the batch path and one training form
+        ("gemm[qkv]", lambda: linear(xi2, pi["w_qkv"], pi["b_qkv"]),
+         lambda: linear_plain(xi2, pi["w_qkv"], pi["b_qkv"]), 1, None,
+         lambda: F.linear(xi2, pi["w_qkv"], pi["b_qkv"]), gemm_cost(mi, 3 * w, w)),
+        ("gemm[out_proj + residual]", lambda: linear(xi2, pi["w_o"], pi["b_o"], residual=xi2),
+         lambda: linear_plain(xi2, pi["w_o"], pi["b_o"], residual=xi2), 1, None,
+         lambda: F.linear(xi2, pi["w_o"], pi["b_o"]), gemm_cost(mi, w, w, 2)),
+        ("gemm[fc2 + residual]", lambda: linear(h_fc1, pi["w2"], pi["b2"], residual=xi2),
+         lambda: linear_plain(h_fc1, pi["w2"], pi["b2"], residual=xi2), 1, None,
+         lambda: F.linear(h_fc1, pi["w2"], pi["b2"]), gemm_cost(mi, w, inter, 2)),
+        ("gemm[train fc1: c_pre, dropout 0.1, fp32 residual, M 25,216]",
+         lambda: both(linear(a_tr, pi["w1"], pi["b1"], "quick_gelu", **kext)),
+         lambda: both(linear_plain(a_tr, pi["w1"], pi["b1"], "quick_gelu", **kext)), 1, None,
+         lambda: F.linear(a_tr, pi["w1"], pi["b1"]), gemm_cost(mtr, inter, w, 4 + 4 + 2)),
+        ("attention[heads of 80, S=257]", lambda: attention(g_attn["h"], None, 32, 16),
+         lambda: attention_plain(g_attn["h"], None, 32, 16), 1, None,
+         lambda: sdpa(g_attn["h"], None, 257, 32, 16, 80),
+         (attn_bytes(32, 257, 16, 80), 4 * 32 * 257 * 257 * 1280)),
+        ("attention[S=577]", lambda: attention(g_attn["l"], None, 32, 16),
+         lambda: attention_plain(g_attn["l"], None, 32, 16), 1, None,
+         lambda: sdpa(g_attn["l"], None, 577, 32, 16, 64),
+         (attn_bytes(32, 577, 16, 64), 4 * 32 * 577 * 577 * 1024)),
+        ("attention[masked, dropout 0.1, (128, 12, 52, 64)]",
+         lambda: attention(g_attn["d"], kb_d, 128, heads, drop_d),
+         lambda: attention_plain(g_attn["d"], kb_d, 128, heads, drop_d), 1, None,
+         lambda: sdpa(g_attn["d"], kb_d, 52, 128, heads, 64, 0.1),
+         (attn_bytes(128, 52, 12, 64) + 128 * 52 * 4, 4 * 128 * 52 * 52 * w)),
     ]
     # the sub-blocks in library calls (no one call computes them): yardsticks
     yards = {"fused_attention_block": lambda: _yard_attention(xi, attn_args(pi), heads, 1e-5,

@@ -1,0 +1,97 @@
+"""Time the forward attention (``ops/attention.py::attention``,
+``csrc/attention.cu``) on the card, beside SDPA on the same packed buffer and
+the bound.
+
+    python3 -m nans_clip_tpu_torch.bench_attention [--root DIR]
+
+Prints the card's name and power limit, one line a shape, then one JSON
+line. Shapes (batch, heads, S, head dim): ViT-B-16's image attention at
+batch 256 (256, 12, 197, 64); RoBERTa-base's text attention at batch 256
+with a key bias masking each sample's padding (256, 12, 52, 64); ViT-H-14's
+(32, 16, 257, 80); ViT-L-14-336's (32, 16, 577, 64); and the text tower's
+training forward at batch 128, masked, with probability dropout 0.1 (128,
+12, 52, 64). For each: the mean ms of 20 launches after a warm-up (CUDA
+events); ``F.scaled_dot_product_attention`` on the q, k, v views of the same
+``[B*S, 3W]`` buffer with the same additive key bias (with ``dropout_p`` 0.1
+where the kernel drops: a yardstick the port never calls); and the bound
+max(bytes / 3.35 TB/s, flops / 989 TFLOP/s), q, k, v and the key bias read
+once and ctx written once, 4 B S^2 H dh flops.
+
+``--root DIR`` imports ``nans_clip_tpu_torch`` from the checkout DIR (for
+example a ``git archive`` of the parent commit): run parent, change,
+change, parent in one chip call. Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+
+from nans_clip_tpu_torch.bench_gemm import BF16_FLOPS, HBM_BYTES_PER_S, time_ms, use_checkout
+
+# (name, batch, heads, S, head dim, masked, dropout rate)
+SHAPES = [("vit_b_16", 256, 12, 197, 64, False, 0.0),
+          ("roberta_base_masked", 256, 12, 52, 64, True, 0.0),
+          ("vit_h_14", 32, 16, 257, 80, False, 0.0),
+          ("vit_l_14_336", 32, 16, 577, 64, False, 0.0),
+          ("roberta_base_train_dropout", 128, 12, 52, 64, True, 0.1)]
+
+
+def bound_ms(b, h, s, dh, masked):
+    """(ms, what bounds it) of one forward attention over a packed buffer."""
+    nbytes = b * s * 4 * h * dh * 2 + (b * s * 4 if masked else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * b * h * s * s * dh / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=None, help="checkout to import the port from")
+    args = ap.parse_args()
+    if args.root:
+        use_checkout(args.root)
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_attention: needs a CUDA device")
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops.attention import attention
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    print(f"kernels from {attention.__module__}", flush=True)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, b, h, s, dh, masked, rate in SHAPES:
+        w = h * dh
+        qkv = torch.randn(b * s, 3 * w, generator=g, device=dev).to(torch.bfloat16)
+        kb = None
+        if masked:
+            lengths = torch.randint(2, s + 1, (b,), generator=g, device=dev)
+            keep = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+            kb = ((1.0 - keep.float()) * -10000.0).contiguous()
+        dp = drop.Dropout(3, rate, drop.STREAM_ATTN, s) if rate else None
+        ms = time_ms(torch, lambda: attention(qkv, kb, b, h, dp))
+        q, k, v = qkv.view(b, s, 3, h, dh).permute(2, 0, 3, 1, 4).unbind(0)
+        mask = None if kb is None else kb.view(b, 1, 1, s).to(torch.bfloat16)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=rate, scale=1.0 / math.sqrt(dh)))
+        b_ms, b_by = bound_ms(b, h, s, dh, masked)
+        print(f"{name}: ({b}, {h}, {s}, {dh}){' masked' if masked else ''}"
+              f"{f' dropout {rate}' if rate else ''}: {ms:.4f} ms; SDPA {lib_ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        out[name] = {"shape": [b, h, s, dh], "masked": masked, "dropout": rate, "ms": ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+        del qkv
+    print(json.dumps({"bench_attention": out, "device": torch.cuda.get_device_name(0),
+                      "power": smi}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

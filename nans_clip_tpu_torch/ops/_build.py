@@ -43,12 +43,16 @@ _SIGNATURES = {
     # C, c_f32, c_pre, c2, M, N, K, stream
     "nans_gemm": [_P, _P, _I, _P, _I, _I, _P, *_DROP, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                   _P],
+    # M, N, K, out int[10]: the forward form's launch plan
+    "nans_gemm_plan": [_I, _I, _I, ctypes.POINTER(_I)],
     # dY, X, partials, M, N, K, splits, ktiles_per_split, stream
     "nans_gemm_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, x_f32, rows, cols, rows_per_chunk, out, stream
     "nans_colsum": [_P, _I, _I, _I, _I, _P, _P],
     # qkv, key_bias, ctx, B, S, width, dh, scale, drop..., stream
     "nans_attention": [_P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
+    # S, dh, out int[4]: the forward's launch plan
+    "nans_attention_plan": [_I, _I, ctypes.POINTER(_I)],
     # qkv, dctx, key_bias, dqkv32, dqkv16, B, S, width, dh, scale, drop..., stream
     "nans_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
     # qkv, dctx, dqkv32, dqkv16, stats, B, S, width, dh, scale, stream

@@ -20,6 +20,10 @@ the card it launches the one-shot backward kernel up to
 Heads are 64 or 80 wide (``gates.HEAD_DIMS``): every ViT-B/L and RoBERTa
 tower, and ViT-H.
 
+On the card, ``attention`` launches one block a (head, sample) that holds
+the head's K and V and covers all its query rows, in one pass over the keys
+up to S = 256 and two above (:func:`attention_plan`).
+
 ``attention_plain`` and ``attention_bwd_plain`` are the twins; CPU tensors
 take them.
 
@@ -96,14 +100,47 @@ def _admit(name, qkv, key_bias, batch, heads, max_seq):
     return seq, w
 
 
+# attention.cu's forward: the one-pass instances' key tiles of 16 (a warp's
+# 16 x 16 KT scores in registers; 13 is ViT-B-16's 197 keys), and the most
+# warps a block of each form. Set by the kernel's design.
+ATTN_ONE_PASS_TILES = (4, 8, 13, 16)
+ATTN_MAX_WARPS = {True: 4, False: 8}
+
+
+def attention_plan(batch: int, seq: int, heads: int, dh: int) -> dict:
+    """The forward kernel's launch plan, as ``nans_attention_plan`` computes
+    it: a block a (head, sample) (``grid``) holds the head's K and V (``seq``
+    padded to ``strips`` x 16 rows) and covers its ``strips`` strips of 16
+    query rows with ``warps`` warps, warp ``i`` taking strips ``i``, ``i +
+    warps``, ...; one pass over the keys (the instance of ``key_tiles``) up
+    to 16 key tiles, two above (``key_tiles`` 0). Fewer warps than the most
+    where that leaves the rounds as many, or where shared memory runs
+    short."""
+    s_pad = -(-seq // 16) * 16
+    strips = s_pad // 16
+    one_pass = strips <= ATTN_ONE_PASS_TILES[-1]
+    key_tiles = next(t for t in ATTN_ONE_PASS_TILES if t >= strips) if one_pass else 0
+    fixed = 2 * s_pad * dh * 2 + s_pad * 4           # K, V, key bias
+    per_warp = 2 * 16 * dh * 2                       # two 16-row buffers
+    most = min(ATTN_MAX_WARPS[one_pass], (gates.SMEM_PER_BLOCK - fixed) // per_warp)
+    rounds = -(-strips // most)
+    warps = -(-strips // rounds)
+    return dict(key_tiles=key_tiles, warps=warps, threads=32 * warps,
+                smem=fixed + warps * per_warp, strips=strips, rounds=rounds,
+                grid=(heads, batch))
+
+
 def attention(qkv: torch.Tensor, key_bias: Optional[torch.Tensor],
               batch: int, heads: int, dropout: Optional[drop.Dropout] = None) -> torch.Tensor:
     """CPU tensors take :func:`attention_plain`; CUDA tensors launch the
-    kernel (bf16 qkv, head dim 64 or 80, S <= ``gates.MAX_SEQ``)."""
+    kernel (bf16 qkv, head dim 64 or 80, S <= ``gates.MAX_SEQ``; launched as
+    :func:`attention_plan` says)."""
     if not qkv.is_cuda:
         return attention_plain(qkv, key_bias, batch, heads, dropout)
     seq, w = _admit("attention", qkv, key_bias, batch, heads, gates.MAX_SEQ)
     dh = w // heads
+    plan = attention_plan(batch, seq, heads, dh)
+    gates.admit(plan["smem"] <= gates.SMEM_PER_BLOCK, f"attention: plan {plan}")
     ctx = torch.empty((qkv.shape[0], w), dtype=qkv.dtype, device=qkv.device)
     err = _build.library().nans_attention(
         qkv.data_ptr(), None if key_bias is None else key_bias.data_ptr(), ctx.data_ptr(),

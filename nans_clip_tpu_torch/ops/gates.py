@@ -62,13 +62,14 @@ KERNEL_DTYPE = torch.bfloat16
 
 # attention.cu and attention.cuh: the kernels are templates over the head
 # dim's 16-wide k-steps, instanced for heads of 64 (every ViT-B/L and
-# RoBERTa tower) and 80 (ViT-H: five k-steps, ten n-tiles of 8). A head's K
-# and V sit in shared memory, dh + 8 bf16 a row each (144 bytes at dh 64, 176
-# at dh 80), and each warp reads its query rows straight into registers:
-# S <= 640 keeps the forward's block at 186,880 bytes (dh 64) or 227,840
-# bytes (dh 80) of the card's 232,448. Set by the kernel's design.
+# RoBERTa tower) and 80 (ViT-H: five k-steps, ten n-tiles of 8). The
+# forward's block holds a head's K and V in shared memory, dh bf16 a row
+# (swizzled, unpadded), and two 16-row buffers a warp: S <= 640 keeps it at
+# 227,840 bytes at dh 80 with 4 warps (``ops/attention.py::attention_plan``)
+# of the card's 232,448 a block (SMEM_PER_BLOCK). Set by the kernel's design.
 HEAD_DIMS = (64, 80)
 MAX_SEQ = 640
+SMEM_PER_BLOCK = 232448
 
 # attention.cu's one-shot backward: Q, K, V and dctx of a head sit in shared
 # memory (4 rows of dh + 8 bf16) plus 16 bytes of row statistics a row: S <=
@@ -91,7 +92,8 @@ ATTN_BWD_LONG_MAX_SEQ = 640
 MAX_LN_WIDTH = 2048
 LN_WIDTH_MULTIPLE = 32
 
-# gemm.cu: 128x128x32 block tiles with no N or K tail. Set by the design;
+# gemm.cu's backward forms: 128x128x32 block tiles with no N or K tail
+# (the forward form's plan is ``ops/gemm.py::gemm_plan``). Set by the design;
 # the slice's N (768, 2304, 3072; 1024, 3072, 4096; 1280, 3840, 5120) and K
 # (768, 3072; 1024, 4096; 1280, 5120) all qualify. The
 # backward forms take the same tiles: the input gradient's output width
@@ -99,11 +101,12 @@ LN_WIDTH_MULTIPLE = 32
 # (the forward's N) of GEMM_K_MULTIPLE; the weight gradient's [N, K] output
 # is cut into 128x128 tiles (both multiples of GEMM_N_MULTIPLE) and its
 # contraction over B*S rows has a masked tail. Kernel limits, not measured
-# routing gates. The forward form (``linear``) alone also takes a last N
-# tile that is half full: W's rows past N load as zeros and the warps whose
-# 32 columns lie past N store nothing, so its N need only be a multiple of
+# routing gates. The forward form (``linear``, 128 x 256 x 64 tiles fed by
+# TMA) takes a last N tile of 64, 128 or 192 columns: W's rows past N load
+# as zeros and nothing is stored there, so its N need only be a multiple of
 # GEMM_FWD_N_MULTIPLE (tensor parallelism at tp 4: the local QKV width is 3 x
-# 192 = 576 at ViT-B and 3 x 320 = 960 at ViT-H). The backward forms keep
+# 192 = 576 at ViT-B and 3 x 320 = 960 at ViT-H), and its K of
+# GEMM_K_MULTIPLE (a half-filled last 64-deep stage). The backward forms keep
 # GEMM_N_MULTIPLE: their transposed loads and the weight gradient's
 # 128x128 output tiles have no N tail.
 GEMM_N_MULTIPLE = 128

@@ -15,6 +15,11 @@ The backward products of ``nans_clip_tpu/ops/fused_block_bwd.py``:
 X`` (the weight gradient, fp32, ``[out, in]``), K-split with its slices
 summed in a fixed order (``ops/reduce.py``).
 
+On the card, ``linear`` runs ``csrc/gemm.cu``'s forward form (wgmma over a
+TMA-fed ring of 4 stages, persistent 128 x 256 x 64 tiles in clusters of two
+that share W; its launch plan is :func:`gemm_plan`); the two backward
+products run its mma.sync forms.
+
 The ``*_plain`` functions are the twins; CPU tensors take them.
 """
 
@@ -30,6 +35,40 @@ from nans_clip_tpu_torch.ops.activations import ACT2FN, ACT_GRAD, plain_dtype, u
 from nans_clip_tpu_torch.ops.reduce import column_sum
 
 _ACT_CODES = {None: 0, "quick_gelu": 1, "gelu": 2}
+
+# csrc/gemm.cu's forward form (namespace fwd): the block tile (BM, BN, BK),
+# the ring's stages, the block's threads (two consumer warpgroups of 64 rows
+# and a producer warpgroup), and the CTAs of a cluster, which share each W
+# box by multicast. Set by the kernel's design.
+FWD_TILE = (128, 256, 64)
+FWD_STAGES = 4
+FWD_THREADS = 384
+FWD_CLUSTER = 2
+
+
+def gemm_plan(m: int, n: int, k: int, clusters: int = 66) -> dict:
+    """The forward form's launch plan for ``[m, k] . [n, k]^T`` when the card
+    holds ``clusters`` of its clusters at once, as ``nans_gemm_plan``
+    computes it. A work unit is ``FWD_CLUSTER`` M tiles of one N tile: unit
+    ``u`` is M tiles ``FWD_CLUSTER * (u // tiles_n) + r`` (CTA ``r`` of the
+    cluster; a tile past ``tiles_m`` stores nothing) and N tile ``u %
+    tiles_n``; cluster ``c`` of ``grid // FWD_CLUSTER`` persistent clusters
+    takes units ``c``, ``c + grid // FWD_CLUSTER``, .... A tile is rows
+    ``BM`` x columns ``BN``, clipped to ``m`` and ``n``, and runs ``k_steps``
+    stages of the ring; the TMA boxes (innermost first) are ``box_a`` of A
+    and ``box_w`` of W (each CTA loads its part of the W tile into both),
+    zero-filled past the edges."""
+    bm, bn, bk = FWD_TILE
+    tiles_m, tiles_n = -(-m // bm), -(-n // bn)
+    units = tiles_n * -(-tiles_m // FWD_CLUSTER)
+    smem = (FWD_STAGES * (bm + bn) * bk * 2 + 8 * bn * 2 + 2 * FWD_STAGES * 8
+            + 1024)   # ring, a bias copy a consumer warp, barriers, alignment
+    return dict(tile=FWD_TILE, stages=FWD_STAGES, threads=FWD_THREADS, cluster=FWD_CLUSTER,
+                smem=smem, tiles_m=tiles_m, tiles_n=tiles_n, units=units,
+                grid=FWD_CLUSTER * min(units, clusters), k_steps=-(-k // bk),
+                box_a=(bk, bm), box_w=(bk, bn // FWD_CLUSTER))
+
+
 
 
 def linear_plain(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
@@ -68,8 +107,9 @@ def _admit_epilogue(name, m, n, residual=None, aux=None):
     if residual is not None:
         gates.admit(residual.is_cuda and residual.is_contiguous()
                     and residual.dtype in (gates.KERNEL_DTYPE, torch.float32)
-                    and residual.numel() == m * n,
-                    f"{name}: residual must be contiguous bf16 or fp32 [M, N] on CUDA")
+                    and residual.numel() == m * n and residual.data_ptr() % 16 == 0,
+                    f"{name}: residual must be contiguous 16-byte aligned bf16 or fp32 [M, N] "
+                    "on CUDA")
     if aux is not None:
         gates.admit(aux.is_cuda and aux.is_contiguous() and aux.dtype == torch.float32
                     and aux.numel() == m * n, f"{name}: aux must be contiguous fp32 [M, N]")
@@ -82,7 +122,8 @@ def linear(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     """``a``: [..., K]; ``w``: [N, K]; ``bias``: [N] or None; ``residual``:
     [..., N] (bf16 or fp32). CPU tensors take :func:`linear_plain`; CUDA
     tensors launch the kernel (bf16 operands; output bf16 or fp32; N a
-    multiple of ``gates.GEMM_FWD_N_MULTIPLE``)."""
+    multiple of ``gates.GEMM_FWD_N_MULTIPLE``, K of
+    ``gates.GEMM_K_MULTIPLE``; launched as :func:`gemm_plan` says)."""
     if not a.is_cuda:
         return linear_plain(a, w, bias, act, residual, out_dtype, dropout, pre_out)
     n, k = w.shape
@@ -94,6 +135,8 @@ def linear(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     gates.admit_cuda("gemm", a, w, *(() if bias is None else (bias,)))
     m = a.numel() // k
     _admit_epilogue("gemm", m, n, residual)
+    plan = gemm_plan(m, n, k)
+    gates.admit(plan["smem"] <= gates.SMEM_PER_BLOCK, f"gemm: plan {plan}")
     if drop.active(dropout):
         gates.admit(dropout.seq > 0 and m % dropout.seq == 0, "gemm: dropout needs seq | M")
     out = torch.empty((*a.shape[:-1], n), dtype=out_dtype, device=a.device)

@@ -858,3 +858,83 @@ def test_partial_kernels_match_twins(dev, tp, post_ln):
     out = fb.fused_attention_block_partial(*leaves, key_bias, heads // tp, eps, not post_ln)
     out.float().square().sum().backward()
     assert all(t.grad is None or torch.isfinite(t.grad).all() for t in leaves)
+
+
+# -- the forward GEMM (wgmma + TMA) and the forward attention, redesigned ------
+
+@pytest.mark.parametrize("n", [64, 192, 576, 768, 3072])
+@pytest.mark.parametrize("m", [1, 7, 128, 1576, 50432])
+def test_gemm_forward_forms_match_twin(dev, m, n):
+    """The forward GEMM at K in {32, 96, 768, 3072}, each form against its
+    twin within 1 bf16 ulp of max|twin| (the phase-1 bound of chip_smoke.py):
+    the plain product with a bias, quick-GELU and erf-GELU, a bf16 residual
+    without a bias, an fp32 output; the training forms (fp32 pre-activation,
+    hidden dropout 0.1, fp32 residual, fp32 output) within 1e-5 of the
+    largest magnitude (fp32 sums in another order); and every form gives the
+    same bits on a second call."""
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops.gemm import linear_plain
+    r = _rnd(dev, m + n)
+    for k in (32, 96, 768, 3072):
+        a, w, bias = r(m, k), r(n, k, std=k ** -0.5), r(n)
+        res = r(m, n)
+        res32 = torch.randn(m, n, device=dev)
+        forms = [dict(bias=bias), dict(bias=bias, act="quick_gelu"), dict(bias=bias, act="gelu"),
+                 dict(bias=None, residual=res), dict(bias=bias, out_dtype=torch.float32)]
+        for kw in forms:
+            kw = dict(kw)
+            b_ = kw.pop("bias")
+            got = linear(a, w, b_, **kw)
+            _close(got, linear_plain(a, w, b_, **kw), 1)
+            assert torch.equal(got, linear(a, w, b_, **kw))
+        spec = drop.Dropout(3, 0.1, drop.STREAM_HIDDEN, 1 if m < 7 else m)
+        kw = dict(act="quick_gelu", residual=res32, out_dtype=torch.float32, dropout=spec,
+                  pre_out=True)
+        got, pre = linear(a, w, bias, **kw)
+        want, want_pre = linear_plain(a, w, bias, **kw)
+        assert _rel_err(got, want) <= 1e-5 and _rel_err(pre, want_pre) <= 1e-5
+        got2, pre2 = linear(a, w, bias, **kw)
+        assert torch.equal(got, got2) and torch.equal(pre, pre2)
+
+
+def test_gemm_plan_matches_the_kernel(dev):
+    """ops/gemm.py::gemm_plan computes the launch nans_gemm_plan reports."""
+    import ctypes
+    from nans_clip_tpu_torch.ops import _build
+    from nans_clip_tpu_torch.ops.gemm import gemm_plan
+    out = (ctypes.c_int * 10)()
+    for m, n, k in ((50432, 3072, 768), (1, 64, 32), (8224, 960, 1280), (25216, 768, 3072)):
+        assert _build.library().nans_gemm_plan(m, n, k, out) == 0
+        p = gemm_plan(m, n, k, out[7])
+        assert list(out) == [*p["tile"], p["stages"], p["threads"], p["smem"], p["cluster"],
+                             out[7], p["units"], p["grid"]]
+
+
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("s", [1, 15, 16, 52, 197, 257, 577, 640])
+def test_attention_forward_matches_twin(dev, s, dh):
+    """The forward attention at every S the one-pass and two-pass forms
+    take, heads of 64 and 80, against its twin within 1 bf16 ulp of
+    max|twin|: without a key bias, with padding masked (one sample's keys
+    all masked), and with probability dropout 0.1 and the mask; the same
+    bits on a second call; and the launch plan as nans_attention_plan
+    reports it."""
+    import ctypes
+    from nans_clip_tpu_torch.ops import _build
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops.attention import attention_plain, attention_plan
+    r = _rnd(dev, s * dh)
+    b, heads = 3, 4
+    qkv = r(b * s, 3 * heads * dh)
+    lengths = torch.tensor([s, max(1, s // 3), 0], device=dev)   # sample 2: all masked
+    kb = ((1.0 - (torch.arange(s, device=dev)[None] < lengths[:, None]).float())
+          * -10000.0).contiguous()
+    spec = drop.Dropout(8, 0.1, drop.STREAM_ATTN, s)
+    for key_bias, dp in ((None, None), (kb, None), (kb, spec)):
+        got = attention(qkv, key_bias, b, heads, dp)
+        _close(got, attention_plain(qkv, key_bias, b, heads, dp), 1)
+        assert torch.equal(got, attention(qkv, key_bias, b, heads, dp))
+    out = (ctypes.c_int * 4)()
+    assert _build.library().nans_attention_plan(s, dh, out) == 0
+    p = attention_plan(b, s, heads, dh)
+    assert list(out) == [p["key_tiles"], p["warps"], p["smem"], p["strips"]]

@@ -1,0 +1,143 @@
+"""The launch plans of the forward GEMM (``ops/gemm.py::gemm_plan``) and the
+forward attention (``ops/attention.py::attention_plan``), the plain Python
+functions their wrappers call, at every forward product and attention shape
+of the published towers: ViT-B-16, ViT-B-32, ViT-L-14, ViT-L-14-336 and
+ViT-H-14 images, RoBERTa-wwm-ext-base, -large and RBT3 texts at 52 tokens
+(RN50's text tower is RBT3; its ResNet image tower is not ported and runs no
+product here), at tp 1, 2 and 4 where tensor parallelism admits the tower,
+and batches 1 to 256. Each plan admits its shape, stays within the 232,448
+bytes of shared memory a block may have, and covers M and N (the query rows)
+exactly once. Runs on the CPU: the plans are arithmetic on shapes."""
+
+import pytest
+
+from nans_clip_tpu_torch.configs import load_config
+from nans_clip_tpu_torch.ops import gates
+from nans_clip_tpu_torch.ops.attention import ATTN_ONE_PASS_TILES, attention_plan
+from nans_clip_tpu_torch.ops.gemm import gemm_plan
+
+TEXT_SEQ = 52
+BATCHES = (1, 8, 32, 128, 256)
+VISION = ("ViT-B-16", "ViT-B-32", "ViT-L-14", "ViT-L-14-336", "ViT-H-14")
+TEXT = ("RoBERTa-wwm-ext-base-chinese", "RoBERTa-wwm-ext-large-chinese", "RBT3-chinese")
+
+
+def _tower(name):
+    """(seq, width, heads, intermediate) of a published tower."""
+    if name in VISION:
+        v = load_config(f"{name}@RBT3-chinese").vision
+        return v.seq_len, v.width, v.heads, 4 * v.width
+    t = load_config(f"ViT-B-16@{name}").text
+    return TEXT_SEQ, t.hidden_size, t.num_attention_heads, t.intermediate_size
+
+
+def _products(width, inter, tp):
+    """(N, K) of the four forward products of one rank: QKV, out-projection,
+    fc1, fc2 (tp 1: the whole layer; tp > 1: #11/#12's partial products)."""
+    return [(3 * width // tp, width), (width, width // tp), (inter // tp, width),
+            (width, inter // tp)]
+
+
+def _cases():
+    for name in VISION + TEXT:
+        seq, width, heads, inter = _tower(name)
+        for tp in (1, 2, 4):
+            if tp > 1 and not (gates.fits_partial(width, tp, heads=heads)
+                               and gates.fits_partial(width, tp, inter=inter)):
+                continue
+            yield pytest.param(name, tp, id=f"{name}-tp{tp}")
+
+
+def _intervals(n, block, count):
+    """The clipped [start, end) of ``count`` tiles of ``block`` over ``n``."""
+    return [(i * block, min((i + 1) * block, n)) for i in range(count)]
+
+
+def _covers_once(n, block, count):
+    spans = _intervals(n, block, count)
+    return (spans[0][0] == 0 and spans[-1][1] == n
+            and all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+            and all(lo < hi for lo, hi in spans))
+
+
+def test_every_published_tower_has_a_case():
+    ids = [c.id for c in _cases()]
+    for name in VISION + TEXT:
+        assert f"{name}-tp1" in ids
+    # the TP widths the partial kernels take (gates.fits_partial)
+    assert "ViT-B-16-tp4" in ids and "ViT-H-14-tp2" in ids and "RBT3-chinese-tp2" in ids
+
+
+@pytest.mark.parametrize("name,tp", list(_cases()))
+def test_gemm_plan_covers_every_product(name, tp):
+    seq, width, heads, inter = _tower(name)
+    bm, bn, bk = gemm_plan(1, 64, 32)["tile"]
+    for batch in BATCHES:
+        m = batch * seq
+        for n, k in _products(width, inter, tp):
+            # the wrapper's admission of the shape
+            assert n % gates.GEMM_FWD_N_MULTIPLE == 0 and k % gates.GEMM_K_MULTIPLE == 0
+            for clusters in (66, 57, 1):
+                p = gemm_plan(m, n, k, clusters)
+                assert p["smem"] <= gates.SMEM_PER_BLOCK
+                assert p["smem"] >= p["stages"] * (bm + bn) * bk * 2
+                assert p["stages"] >= 4 and p["box_a"] == (bk, bm)
+                assert p["box_w"][1] * p["cluster"] == bn   # the cluster's parts make W's box
+                # the persistent clusters visit every work unit once
+                n_cl = p["grid"] // p["cluster"]
+                assert p["grid"] % p["cluster"] == 0 and 1 <= n_cl <= clusters
+                walk = sorted(u for c in range(n_cl) for u in range(c, p["units"], n_cl))
+                assert walk == list(range(p["units"]))
+                # a unit's CTAs take M tiles cluster * (u // tiles_n) + r
+                tiles = sorted((p["cluster"] * (u // p["tiles_n"]) + r, u % p["tiles_n"])
+                               for u in walk for r in range(p["cluster"]))
+                real = [t for t in tiles if t[0] < p["tiles_m"]]
+                assert real == sorted((i, j) for i in range(p["tiles_m"])
+                                      for j in range(p["tiles_n"]))
+                assert len(tiles) - len(real) < p["tiles_n"] * p["cluster"]
+                # the tiles' rows and columns partition M and N
+                assert _covers_once(m, bm, p["tiles_m"]) and _covers_once(n, bn, p["tiles_n"])
+                # a last N tile holds whole 64-column groups, a last stage
+                # zero-fills at most half its 64-deep K
+                assert (n - (p["tiles_n"] - 1) * bn) % 64 == 0
+                assert 0 <= p["k_steps"] * bk - k <= bk - gates.GEMM_K_MULTIPLE
+
+
+@pytest.mark.parametrize("name,tp", list(_cases()))
+def test_attention_plan_covers_every_head(name, tp):
+    seq, width, heads, _ = _tower(name)
+    dh = width // heads
+    assert dh in gates.HEAD_DIMS and seq <= gates.MAX_SEQ
+    for batch in BATCHES:
+        p = attention_plan(batch, seq, heads // tp, dh)
+        assert p["grid"] == (heads // tp, batch)   # a block a (head, sample)
+        assert p["smem"] <= gates.SMEM_PER_BLOCK
+        assert p["strips"] * 16 >= seq > (p["strips"] - 1) * 16
+        # warp i takes strips i, i + warps, ...: each strip once, and every
+        # warp at least one (each passes the block barrier once)
+        taken = sorted(s for w in range(p["warps"]) for s in range(w, p["strips"], p["warps"]))
+        assert taken == list(range(p["strips"])) and 1 <= p["warps"] <= p["strips"]
+        assert p["rounds"] == -(-p["strips"] // p["warps"])
+        if p["key_tiles"]:
+            assert p["key_tiles"] in ATTN_ONE_PASS_TILES and p["key_tiles"] >= p["strips"]
+            assert p["warps"] <= 4
+        else:
+            assert p["strips"] > ATTN_ONE_PASS_TILES[-1] and p["warps"] <= 8
+
+
+@pytest.mark.parametrize("seq", [1, 15, 16, 17, 52, 197, 256, 257, 577, 640])
+@pytest.mark.parametrize("dh", gates.HEAD_DIMS)
+def test_attention_plan_fits_every_admitted_length(seq, dh):
+    """Every S the wrapper admits, at both head dims: the one-pass form up
+    to 256 keys, two passes above, shared memory within a block's (640 at
+    dh 80 is the tightest: 227,840 bytes with 4 warps)."""
+    p = attention_plan(2, seq, 4, dh)
+    s_pad = p["strips"] * 16
+    assert p["smem"] == 2 * s_pad * dh * 2 + s_pad * 4 + p["warps"] * 2 * 16 * dh * 2
+    assert p["smem"] <= gates.SMEM_PER_BLOCK
+    assert (p["key_tiles"] > 0) == (seq <= 256)
+    assert p["rounds"] * p["warps"] >= p["strips"] > (p["rounds"] - 1) * p["warps"]
+    if (seq, dh) == (640, 80):
+        assert p["smem"] == 227840 and p["warps"] == 4
+    if seq == 197:
+        assert p["key_tiles"] == 13 and p["warps"] == 4
