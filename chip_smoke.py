@@ -18,7 +18,12 @@ Phases, each printing its lines before the last line:
    M 25,216 with its fp32 pre-activation, hidden dropout 0.1, an fp32
    residual and an fp32 output); the forward attention also at heads of 80
    (32, 16, 257, 80), at S=577 (32, 16, 577, 64) and masked with dropout 0.1
-   (128, 12, 52, 64), each with SDPA beside it.
+   (128, 12, 52, 64), each with SDPA beside it; the backward forms at ViT-B's
+   train shapes (M 25,216): the input gradients dh = dproj . W2 x act'(h)
+   (fp32, with its bf16 copy), dctx = g . Wo, dxn = dqkv . Wqkv (fp32) and dx
+   = dh . W1 (fp32), and the four weight gradients with their K-split sum,
+   each beside one ``torch.mm`` (bound: 2 bf16 ulps for a bf16 output, 1e-5
+   of max|twin| for an fp32 one).
 4. Tower kernels: the whole-tower kernel, bf16 and int8, in the text form
    (S=52, masked, post-LN) and the image form (S=197, pre-LN), 12 layers,
    W=768, batch 1, 8 and 32, against its twin, with its time, the twin's, its
@@ -59,7 +64,8 @@ Phases, each printing its lines before the last line:
    library weight gradients against the full-gradient chain (the evidence of
    ``ops/gates.py::BWD_ROUTE``); the whole-layer backward #21 against #18
    then #14 (bit-equal); one full train step at batch 128 on each
-   ``bwd_impl`` route (fullgrad, emit, layer, auto), times and agreement; the LoRA
+   ``bwd_impl`` route (fullgrad, emit, layer, auto), times and agreement, and
+   the time of ``auto`` under the table the block times give; the LoRA
    step through ``make_lora_step`` (batch 32 x accum 4, rank 4, dropout on):
    merged-at-init features, kernel against plain route, the loss over 8
    steps, the base weights bit-equal, launch counts, ``save_lora`` ->
@@ -276,7 +282,8 @@ def phase_kernels(torch, dev):
     from nans_clip_tpu_torch.ops import fused_block as fb
     from nans_clip_tpu_torch.ops import layer_kernel as lk
     from nans_clip_tpu_torch.ops.attention import attention, attention_plain
-    from nans_clip_tpu_torch.ops.gemm import linear, linear_plain
+    from nans_clip_tpu_torch.ops.gemm import (linear, linear_dgrad, linear_dgrad_plain,
+                                              linear_plain, linear_wgrad, linear_wgrad_plain)
     from nans_clip_tpu_torch.ops.layernorm import layer_norm, row_layer_norm
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -346,8 +353,19 @@ def phase_kernels(torch, dev):
     kb_d = key_bias(52)[:128].contiguous()
     drop_d = drop.Dropout(9, 0.1, drop.STREAM_ATTN, 52)
     attn_bytes = lambda b, s_, nh, dh: b * s_ * 4 * nh * dh * 2
-    # (entry name, kernel call, twin call, bf16-ulp bound, JSON fields or None,
-    #  library call or None, (bytes, operations))
+
+    # the backward forms at ViT-B's train shapes (M 25,216): input gradients
+    # as ops/fused_block_bwd.py calls them, and the four weight gradients
+    f32 = torch.float32
+    g_tr, dqkv_tr, dh_tr = rnd(mtr, w), rnd(mtr, 3 * w), rnd(mtr, inter)
+    h_pre_tr = torch.randn(mtr, inter, generator=g, device=dev)
+    dgrad_kw = dict(act="quick_gelu", aux=h_pre_tr, out_dtype=f32, copy=True)
+    dgrad_cost = lambda n, k, out_b, extra=0: (2 * (mtr * n + n * k) + (out_b + extra) * mtr * k,
+                                               2 * mtr * n * k)
+    wgrad_cost = lambda n, k: (2 * mtr * (n + k) + 4 * n * k, 2 * mtr * n * k)
+    mm32 = lambda a, b_: torch.mm(a, b_, out_dtype=f32)
+    # (entry name, kernel call, twin call, bound: bf16 ulps or "fp32" (1e-5 of
+    #  max|twin|), JSON fields or None, library call or None, (bytes, operations))
     cases = [
         ("fused_attention_block", lambda: fb.fused_attention_block(xi, *attn_args(pi), heads),
          lambda: fb._reference_block(xi, *attn_args(pi), heads, 1e-5), 4,
@@ -414,6 +432,35 @@ def phase_kernels(torch, dev):
          lambda: attention_plain(g_attn["d"], kb_d, 128, heads, drop_d), 1, None,
          lambda: sdpa(g_attn["d"], kb_d, 52, 128, heads, 64, 0.1),
          (attn_bytes(128, 52, 12, 64) + 128 * 52 * 4, 4 * 128 * 52 * 52 * w)),
+        ("gemm_dgrad", lambda: linear_dgrad(a_tr, pi["w2"], **dgrad_kw)[0],
+         lambda: linear_dgrad_plain(a_tr, pi["w2"], **dgrad_kw)[0], "fp32",
+         ("nans_clip_tpu_torch/csrc/gemm.cu", "nans_clip_tpu/ops/fused_block_bwd.py:763"),
+         lambda: mm32(a_tr, pi["w2"]), dgrad_cost(w, inter, 4, 4 + 2)),
+        ("gemm_dgrad[dh copy, bf16]", lambda: linear_dgrad(a_tr, pi["w2"], **dgrad_kw)[1],
+         lambda: linear_dgrad_plain(a_tr, pi["w2"], **dgrad_kw)[1], 2, None,
+         lambda: torch.mm(a_tr, pi["w2"]), dgrad_cost(w, inter, 4, 4 + 2)),
+        ("gemm_dgrad[dctx = g . Wo]", lambda: linear_dgrad(g_tr, pi["w_o"]),
+         lambda: linear_dgrad_plain(g_tr, pi["w_o"]), 2, None,
+         lambda: torch.mm(g_tr, pi["w_o"]), dgrad_cost(w, w, 2)),
+        ("gemm_dgrad[dxn = dqkv . Wqkv, fp32]",
+         lambda: linear_dgrad(dqkv_tr, pi["w_qkv"], out_dtype=f32),
+         lambda: linear_dgrad_plain(dqkv_tr, pi["w_qkv"], out_dtype=f32), "fp32", None,
+         lambda: mm32(dqkv_tr, pi["w_qkv"]), dgrad_cost(3 * w, w, 4)),
+        ("gemm_dgrad[dx = dh . W1, fp32]", lambda: linear_dgrad(dh_tr, pi["w1"], out_dtype=f32),
+         lambda: linear_dgrad_plain(dh_tr, pi["w1"], out_dtype=f32), "fp32", None,
+         lambda: mm32(dh_tr, pi["w1"]), dgrad_cost(inter, w, 4)),
+        ("gemm_wgrad", lambda: linear_wgrad(dh_tr, a_tr), lambda: linear_wgrad_plain(dh_tr, a_tr),
+         "fp32", ("nans_clip_tpu_torch/csrc/gemm.cu", "nans_clip_tpu/ops/fused_block_bwd.py:909"),
+         lambda: mm32(dh_tr.T, a_tr), wgrad_cost(inter, w)),
+        ("gemm_wgrad[dWqkv]", lambda: linear_wgrad(dqkv_tr, a_tr),
+         lambda: linear_wgrad_plain(dqkv_tr, a_tr), "fp32", None,
+         lambda: mm32(dqkv_tr.T, a_tr), wgrad_cost(3 * w, w)),
+        ("gemm_wgrad[dWo]", lambda: linear_wgrad(g_tr, a_tr),
+         lambda: linear_wgrad_plain(g_tr, a_tr), "fp32", None, lambda: mm32(g_tr.T, a_tr),
+         wgrad_cost(w, w)),
+        ("gemm_wgrad[dW2]", lambda: linear_wgrad(g_tr, dh_tr),
+         lambda: linear_wgrad_plain(g_tr, dh_tr), "fp32", None,
+         lambda: mm32(g_tr.T, dh_tr), wgrad_cost(w, inter)),
     ]
     # the sub-blocks in library calls (no one call computes them): yardsticks
     yards = {"fused_attention_block": lambda: _yard_attention(xi, attn_args(pi), heads, 1e-5,
@@ -427,7 +474,8 @@ def phase_kernels(torch, dev):
         got, want = kern(), twin()
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        bound = _ulps(want, n_ulps)
+        top = float(want.float().abs().max())
+        bound = 1e-5 * top if n_ulps == "fp32" else _ulps(want, n_ulps)
         if not (torch.isfinite(got).all() and err <= bound):
             raise AssertionError(f"{name}: max abs err {err} exceeds bound {bound}")
         ms, plain_ms = _time_ms(kern, 10), _time_ms(twin, 3)
@@ -437,8 +485,9 @@ def phase_kernels(torch, dev):
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         if yard_ms is not None:
             lib += f", yardstick {yard_ms:.4f} ms (F.layer_norm/F.linear/SDPA/act)"
-        print(f"kernel {name}: max_abs_err {err:.6g} <= bound {bound:.6g} ({n_ulps} bf16 ulp "
-              f"of max|twin| {float(want.float().abs().max()):.4g}); {ms:.4f} ms, "
+        what = "1e-5" if n_ulps == "fp32" else f"{n_ulps} bf16 ulp"
+        print(f"kernel {name}: max_abs_err {err:.6g} <= bound {bound:.6g} ({what} "
+              f"of max|twin| {top:.4g}); {ms:.4f} ms, "
               f"twin {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, meta=meta, library_ms=library_ms,
                              yard_ms=yard_ms, bound_ms=bound_ms, bound_by=bound_by)
@@ -1326,19 +1375,39 @@ def phase_lora(torch, dev, tmp):
             raise AssertionError(f"route {route}: launches {c}, expected {want}")
     layer_launches = first["layer"][2]["fused_layer_block_bwd_fullgrad"]
     del first
-    times = {r: [] for r in routes}
-    for order in (routes, routes[::-1]):        # in turns, both orders
+    # a fifth arm, timed only: "auto" under the table that the block times at
+    # batch 128 above give (fullgrad where the full-gradient chain was no
+    # slower than emit + library products)
+    kinds = {"fused_attention_block_bwd": "attn_pre", "fused_bert_attention_block_bwd": "attn_post",
+             "fused_mlp_block_bwd": "mlp_pre", "fused_mlp_block_bwd[post-LN, S=52]": "mlp_post"}
+    from_blocks = {kinds[n]: "fullgrad" if r["full_ms"] <= r["emit_ms"] else "emit"
+                   for (n, bb), r in results.items() if bb == TRAIN_BATCH and n in kinds}
+    arms = routes + ("blocks",)
+    states["blocks"] = create_train_state(copy.deepcopy(base), tcfg, device=dev)
+    steps["blocks"] = make_train_step(cfg, tcfg, opts(bwd_impl="auto"))
+
+    def timed_arm(route):
+        table = dict(gates.BWD_ROUTE)
+        if route == "blocks":
+            gates.BWD_ROUTE.update(from_blocks)
+        try:
+            return timed_steps(steps[route], states[route], 3, images, ids, 100)[1]
+        finally:
+            gates.BWD_ROUTE.update(table)
+
+    times = {r: [] for r in arms}
+    for order in (arms, arms[::-1]):        # in turns, both orders
         for route in order:
-            _, ms = timed_steps(steps[route], states[route], 3, images, ids, 100)
-            times[route] += ms
+            times[route] += timed_arm(route)
     route_ms = {r: sorted(v)[len(v) // 2] for r, v in times.items()}
     print("route question, one train step at batch 128, ms (upper median of 6, in turns): "
           + "; ".join(f"{r} {route_ms[r]:.2f} [{' '.join(f'{x:.1f}' for x in times[r])}]"
-                      for r in routes), flush=True)
+                      for r in arms), flush=True)
     best = min(routes, key=route_ms.get)
     print(f"route gate evidence: the fastest full step is {best}; auto is gates.BWD_ROUTE = "
-          f"{json.dumps(gates.BWD_ROUTE)} with gates.LAYER_BWD_ROUTE = {gates.LAYER_BWD_ROUTE}",
-          flush=True)
+          f"{json.dumps(gates.BWD_ROUTE)} with gates.LAYER_BWD_ROUTE = {gates.LAYER_BWD_ROUTE}; "
+          f"the block times' table {json.dumps(from_blocks)} ('blocks') "
+          f"{route_ms['blocks']:.2f} ms", flush=True)
     del states, steps
     torch.cuda.empty_cache()
 
@@ -2914,6 +2983,9 @@ def main() -> int:
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")
     kernels = []
+    # the backward GEMM forms' launches: one train step (phase 7), their main path
+    launches.update(gemm_dgrad=train_launches["linear_dgrad"],
+                    gemm_wgrad=train_launches["linear_wgrad"])
     for name, r in results.items():
         if r["meta"] is None:
             continue
@@ -3029,7 +3101,7 @@ def main() -> int:
               "fused_bert_attention_block_bwd", "fused_mlp_block_bwd",
               "fused_attention_block_bwd_fullgrad",
               "fused_bert_attention_block_bwd_fullgrad", "fused_mlp_block_bwd_fullgrad",
-              "fused_layer_block_bwd_fullgrad", *wide_launches,
+              "fused_layer_block_bwd_fullgrad", "gemm_dgrad", "gemm_wgrad", *wide_launches,
               *(name for name, *_ in pallas_entries), "fused_attention_block_partial",
               "fused_mlp_block_partial"}
     if not ported <= {k["name"] for k in kernels} or any(k["launches"] < 1 for k in kernels):

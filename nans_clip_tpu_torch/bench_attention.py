@@ -2,7 +2,7 @@
 ``csrc/attention.cu``) on the card, beside SDPA on the same packed buffer and
 the bound.
 
-    python3 -m nans_clip_tpu_torch.bench_attention [--root DIR]
+    python3 -m nans_clip_tpu_torch.bench_attention [--bwd] [--root DIR]
 
 Prints the card's name and power limit, one line a shape, then one JSON
 line. Shapes (batch, heads, S, head dim): ViT-B-16's image attention at
@@ -16,6 +16,16 @@ events); ``F.scaled_dot_product_attention`` on the q, k, v views of the same
 where the kernel drops: a yardstick the port never calls); and the bound
 max(bytes / 3.35 TB/s, flops / 989 TFLOP/s), q, k, v and the key bias read
 once and ctx written once, 4 B S^2 H dh flops.
+
+``--bwd`` times the backward (``ops/attention.py::attention_bwd``, the
+one-shot kernel of ``csrc/attention.cu``, fp32 and bf16 dqkv as the
+full-gradient chains take them) at the train step's shapes, ViT-B-16's
+image attention (128, 12, 197, 64) and RoBERTa-base's masked text attention
+with probability dropout 0.1 (128, 12, 52, 64), beside SDPA's backward
+(``torch.autograd.grad`` through ``F.scaled_dot_product_attention`` with the
+same mask and rate) and the bound: q, k, v, dctx and the key bias read once,
+dqkv written in fp32 and bf16, 10 B S^2 H dh flops (the scores recomputed,
+dV, dP, dQ, dK).
 
 ``--root DIR`` imports ``nans_clip_tpu_torch`` from the checkout DIR (for
 example a ``git archive`` of the parent commit): run parent, change,
@@ -37,18 +47,23 @@ SHAPES = [("vit_b_16", 256, 12, 197, 64, False, 0.0),
           ("vit_h_14", 32, 16, 257, 80, False, 0.0),
           ("vit_l_14_336", 32, 16, 577, 64, False, 0.0),
           ("roberta_base_train_dropout", 128, 12, 52, 64, True, 0.1)]
+BWD_SHAPES = [("vit_b_16_train", 128, 12, 197, 64, False, 0.0),
+              ("roberta_base_train_dropout", 128, 12, 52, 64, True, 0.1)]
 
 
-def bound_ms(b, h, s, dh, masked):
-    """(ms, what bounds it) of one forward attention over a packed buffer."""
-    nbytes = b * s * 4 * h * dh * 2 + (b * s * 4 if masked else 0)
+def bound_ms(b, h, s, dh, masked, bwd=False):
+    """(ms, what bounds it) of one forward (or backward) attention over a
+    packed buffer."""
+    w = h * dh
+    nbytes = b * s * (4 * w * 2 + (3 * w * 6 if bwd else 0)) + (b * s * 4 if masked else 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * b * h * s * s * dh / BF16_FLOPS * 1e3
+    t_ops = (10 if bwd else 4) * b * h * s * s * dh / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--bwd", action="store_true", help="the backward instead")
     ap.add_argument("--root", default=None, help="checkout to import the port from")
     args = ap.parse_args()
     if args.root:
@@ -67,6 +82,11 @@ def main() -> None:
     print(f"kernels from {attention.__module__}", flush=True)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
+    if args.bwd:
+        out = bench_bwd(torch, F, dev, g)
+        print(json.dumps({"bench_attention_bwd": out, "device": torch.cuda.get_device_name(0),
+                          "power": smi}), flush=True)
+        return
     out = {}
     for name, b, h, s, dh, masked, rate in SHAPES:
         w = h * dh
@@ -91,6 +111,41 @@ def main() -> None:
         del qkv
     print(json.dumps({"bench_attention": out, "device": torch.cuda.get_device_name(0),
                       "power": smi}), flush=True)
+
+
+def bench_bwd(torch, F, dev, g) -> dict:
+    """``attention_bwd`` at BWD_SHAPES, SDPA's backward beside it."""
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops.attention import attention_bwd
+
+    out = {}
+    for name, b, h, s, dh, masked, rate in BWD_SHAPES:
+        w = h * dh
+        qkv = torch.randn(b * s, 3 * w, generator=g, device=dev).to(torch.bfloat16)
+        dctx = torch.randn(b * s, w, generator=g, device=dev).to(torch.bfloat16)
+        kb = None
+        if masked:
+            lengths = torch.randint(2, s + 1, (b,), generator=g, device=dev)
+            keep = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+            kb = ((1.0 - keep.float()) * -10000.0).contiguous()
+        dp = drop.Dropout(3, rate, drop.STREAM_ATTN, s) if rate else None
+        ms = time_ms(torch, lambda: attention_bwd(qkv, dctx, kb, b, h, dp))
+        q, k, v = (t.contiguous().requires_grad_() for t in
+                   qkv.view(b, s, 3, h, dh).permute(2, 0, 3, 1, 4).unbind(0))
+        mask = None if kb is None else kb.view(b, 1, 1, s).to(torch.bfloat16)
+        ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=rate,
+                                             scale=1.0 / math.sqrt(dh))
+        gout = dctx.view(b, s, h, dh).transpose(1, 2)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(ctx, (q, k, v), gout,
+                                                            retain_graph=True))
+        b_ms, b_by = bound_ms(b, h, s, dh, masked, bwd=True)
+        print(f"{name} backward: ({b}, {h}, {s}, {dh}){' masked' if masked else ''}"
+              f"{f' dropout {rate}' if rate else ''}: {ms:.4f} ms; SDPA backward "
+              f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})", flush=True)
+        out[name] = {"shape": [b, h, s, dh], "masked": masked, "dropout": rate, "ms": ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+        del qkv, dctx, q, k, v, ctx
+    return out
 
 
 if __name__ == "__main__":

@@ -45,6 +45,10 @@ _SIGNATURES = {
                   _P],
     # M, N, K, out int[10]: the forward form's launch plan
     "nans_gemm_plan": [_I, _I, _I, ctypes.POINTER(_I)],
+    # M, N, K, out int[10]: the input gradient's
+    "nans_gemm_dgrad_plan": [_I, _I, _I, ctypes.POINTER(_I)],
+    # M, N, K, splits, ktiles_per_split, out int[10]: the weight gradient's
+    "nans_gemm_wgrad_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     # dY, X, partials, M, N, K, splits, ktiles_per_split, stream
     "nans_gemm_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, x_f32, rows, cols, rows_per_chunk, out, stream

@@ -92,23 +92,21 @@ ATTN_BWD_LONG_MAX_SEQ = 640
 MAX_LN_WIDTH = 2048
 LN_WIDTH_MULTIPLE = 32
 
-# gemm.cu's backward forms: 128x128x32 block tiles with no N or K tail
-# (the forward form's plan is ``ops/gemm.py::gemm_plan``). Set by the design;
-# the slice's N (768, 2304, 3072; 1024, 3072, 4096; 1280, 3840, 5120) and K
-# (768, 3072; 1024, 4096; 1280, 5120) all qualify. The
-# backward forms take the same tiles: the input gradient's output width
-# (the forward's K) is a multiple of GEMM_N_MULTIPLE and its contraction
-# (the forward's N) of GEMM_K_MULTIPLE; the weight gradient's [N, K] output
-# is cut into 128x128 tiles (both multiples of GEMM_N_MULTIPLE) and its
-# contraction over B*S rows has a masked tail. Kernel limits, not measured
-# routing gates. The forward form (``linear``, 128 x 256 x 64 tiles fed by
-# TMA) takes a last N tile of 64, 128 or 192 columns: W's rows past N load
-# as zeros and nothing is stored there, so its N need only be a multiple of
-# GEMM_FWD_N_MULTIPLE (tensor parallelism at tp 4: the local QKV width is 3 x
-# 192 = 576 at ViT-B and 3 x 320 = 960 at ViT-H), and its K of
-# GEMM_K_MULTIPLE (a half-filled last 64-deep stage). The backward forms keep
-# GEMM_N_MULTIPLE: their transposed loads and the weight gradient's
-# 128x128 output tiles have no N tail.
+# gemm.cu: one design for its three forms, 128 x 256 x 64 tiles fed by TMA
+# (launch plans ``ops/gemm.py::gemm_plan``, ``dgrad_plan``, ``wgrad_plan``,
+# each within SMEM_PER_BLOCK). The forward form (``linear``) takes a last N
+# tile of 64, 128 or 192 columns: W's rows past N load as zeros and nothing
+# is stored there, so its N need only be a multiple of GEMM_FWD_N_MULTIPLE
+# (tensor parallelism at tp 4: the local QKV width is 3 x 192 = 576 at
+# ViT-B and 3 x 320 = 960 at ViT-H), and its K of GEMM_K_MULTIPLE (a
+# half-filled last 64-deep stage). The backward forms take the widths of
+# the first port: the input gradient's output width (the forward's K) a
+# multiple of GEMM_N_MULTIPLE and its contraction (the forward's N) of
+# GEMM_K_MULTIPLE; the weight gradient's [N, K] output both multiples of
+# GEMM_N_MULTIPLE, its contraction over B*S rows with a masked tail. Kernel
+# limits, not measured routing gates; the slice's N (768, 2304, 3072; 1024,
+# 3072, 4096; 1280, 3840, 5120) and K (768, 3072; 1024, 4096; 1280, 5120)
+# all qualify.
 GEMM_N_MULTIPLE = 128
 GEMM_FWD_N_MULTIPLE = 64
 GEMM_K_MULTIPLE = 32
@@ -187,26 +185,29 @@ FLASH_BLOCK_K = 64
 # (#13/#15/#17, then the weight gradients as library products of the emitted
 # activations, ops/fused_block.py). Provenance: chip_smoke.py phase 8 on an
 # NVIDIA H100 80GB HBM3 at a 700.00 W power limit, CUDA events,
-# ViT-B/16 + RoBERTa-base at full depth, bf16. One block's backward with
-# every weight gradient, ms, emit vs fullgrad at batch 128 / 32:
-#   attn_pre  (S=197)  4.4514 vs 4.2179 / 1.3442 vs 1.3438
-#   attn_post (S=52)   1.4182 vs 1.5123 / 0.7618 vs 0.6667
-#   mlp_pre   (S=197)  4.7205 vs 5.5542 / 1.4084 vs 1.6752
-#   mlp_post  (S=52)   1.7387 vs 1.9651 / 0.9081 vs 0.7893
-# (at batch 32 the S=52 blocks are host-bound and swap sides between runs;
-# the pre-LN attention block loses on "emit" because the recompute of dxn
-# for its LayerNorm gradients eats what the library products gain). One
-# train step at batch 128, 6 steps a route taken in turns, upper median:
-#   fullgrad 219.07 ms   emit 206.97 ms   layer 220.23 ms   this table 204.48 ms
+# ViT-B/16 + RoBERTa-base at full depth, bf16, with gemm.cu's backward forms
+# on wgmma. One block's backward with every weight gradient, ms, emit vs
+# fullgrad at batch 128 / 32:
+#   attn_pre  (S=197)  3.6012 vs 3.1168 / 1.0857 vs 1.0169
+#   attn_post (S=52)   1.0814 vs 1.0426 / 0.9369 vs 0.8856
+#   mlp_pre   (S=197)  2.3530 vs 2.3895 / 0.8244 vs 0.8441
+#   mlp_post  (S=52)   0.8929 vs 0.8895 / 0.9343 vs 0.6958
+# (the S=52 blocks differ by 0.4-4% at batch 128 and swap sides between
+# runs; the full step decides). One train step at batch 128, 6 steps a route
+# taken in turns, upper median:
+#   fullgrad 130.11 ms   emit 133.76 ms   layer 129.96 ms   this table 127.69 ms
+# The table stays: cheaper weight gradients brought fullgrad within 2% of it
+# but not past it.
 BWD_ROUTE = {"attn_pre": "fullgrad", "attn_post": "emit", "mlp_pre": "emit",
              "mlp_post": "emit"}
 
 # Whether ``bwd_impl="auto"`` sends a pre-LN layer whose weights all need
 # gradients through the whole-layer Function (#21, ops/layer_bwd.py). On the
 # card #21 is #18 then #14 in one call, the gradient between them passing
-# through L2/HBM as before: 9.8822 ms against 9.8788 ms for the two calls at
-# (128, 197), and the step above 220.23 ms against 219.07 ms (same run, same
-# card). No gain, and the table's route is faster than both: off.
+# through L2/HBM as before: 5.4427 ms against 5.4572 ms for the two calls at
+# (128, 197), and the step above 129.96 ms against 130.11 ms on fullgrad
+# (same run, same card). No gain beyond the spread, and the table's route is
+# faster than both: off.
 LAYER_BWD_ROUTE = False
 
 BWD_IMPLS = ("auto", "fullgrad", "emit", "layer")

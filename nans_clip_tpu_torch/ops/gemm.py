@@ -15,16 +15,17 @@ The backward products of ``nans_clip_tpu/ops/fused_block_bwd.py``:
 X`` (the weight gradient, fp32, ``[out, in]``), K-split with its slices
 summed in a fixed order (``ops/reduce.py``).
 
-On the card, ``linear`` runs ``csrc/gemm.cu``'s forward form (wgmma over a
+On the card all three run ``csrc/gemm.cu``'s one design: wgmma over a
 TMA-fed ring of 4 stages, persistent 128 x 256 x 64 tiles in clusters of two
-that share W; its launch plan is :func:`gemm_plan`); the two backward
-products run its mma.sync forms.
+that share one operand's boxes (W, or the weight gradient's X). Their launch
+plans are :func:`gemm_plan`, :func:`dgrad_plan` and :func:`wgrad_plan`.
 
 The ``*_plain`` functions are the twins; CPU tensors take them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -36,39 +37,135 @@ from nans_clip_tpu_torch.ops.reduce import column_sum
 
 _ACT_CODES = {None: 0, "quick_gelu": 1, "gelu": 2}
 
-# csrc/gemm.cu's forward form (namespace fwd): the block tile (BM, BN, BK),
-# the ring's stages, the block's threads (two consumer warpgroups of 64 rows
-# and a producer warpgroup), and the CTAs of a cluster, which share each W
-# box by multicast. Set by the kernel's design.
-FWD_TILE = (128, 256, 64)
-FWD_STAGES = 4
-FWD_THREADS = 384
-FWD_CLUSTER = 2
+# csrc/gemm.cu's design, the same for its three forms: the block tile (BM,
+# BN, BK), the ring's stages, the block's threads (two consumer warpgroups of
+# 64 rows and a producer warpgroup), and the CTAs of a cluster, which share
+# each W (or X) box by multicast. The backward forms read an operand whose
+# contraction runs along its rows in boxes of BWD_BOX columns x BK rows.
+# Set by the kernel's design. The plans are cached: callers only read them.
+TILE = (128, 256, 64)
+STAGES = 4
+THREADS = 384
+CLUSTER = 2
+BWD_BOX = 64
+# How many clusters of two the card holds at once (132 SMs, one block an
+# SM): the default of the plans, and the count wgrad_splits fills.
+CO_RESIDENT_CLUSTERS = 66
+# The weight gradient's K-split is taken in slices of whole 32-row k-tiles.
+WGRAD_KTILE = 32
+# H100 SXM data sheet: dense bf16 tensor-core peak and HBM bandwidth, the
+# rates of wgrad_splits' model
+BF16_FLOPS = 989e12
+HBM_BYTES_PER_S = 3.35e12
 
 
-def gemm_plan(m: int, n: int, k: int, clusters: int = 66) -> dict:
+def _ring_smem(bias_copies: bool) -> int:
+    """Bytes of shared memory a block: the ring, its full and empty barriers,
+    the slack that aligns it to 1024 bytes, and (the forward) a copy of the
+    tile's bias a consumer warp."""
+    bm, bn, bk = TILE
+    return (STAGES * (bm + bn) * bk * 2 + 2 * STAGES * 8 + 1024
+            + (8 * bn * 2 if bias_copies else 0))
+
+
+def _pairs_plan(m: int, n_out: int, k: int, clusters: int) -> dict:
+    """The walk of the forward form and the input gradient: a work unit is
+    ``CLUSTER`` M tiles of one N tile."""
+    bm, bn, bk = TILE
+    tiles_m, tiles_n = -(-m // bm), -(-n_out // bn)
+    units = tiles_n * -(-tiles_m // CLUSTER)
+    return dict(tile=TILE, stages=STAGES, threads=THREADS, cluster=CLUSTER,
+                tiles_m=tiles_m, tiles_n=tiles_n, units=units,
+                grid=CLUSTER * min(units, clusters), k_steps=-(-k // bk))
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(m: int, n: int, k: int, clusters: int = CO_RESIDENT_CLUSTERS) -> dict:
     """The forward form's launch plan for ``[m, k] . [n, k]^T`` when the card
     holds ``clusters`` of its clusters at once, as ``nans_gemm_plan``
-    computes it. A work unit is ``FWD_CLUSTER`` M tiles of one N tile: unit
-    ``u`` is M tiles ``FWD_CLUSTER * (u // tiles_n) + r`` (CTA ``r`` of the
+    computes it. A work unit is ``CLUSTER`` M tiles of one N tile: unit
+    ``u`` is M tiles ``CLUSTER * (u // tiles_n) + r`` (CTA ``r`` of the
     cluster; a tile past ``tiles_m`` stores nothing) and N tile ``u %
-    tiles_n``; cluster ``c`` of ``grid // FWD_CLUSTER`` persistent clusters
-    takes units ``c``, ``c + grid // FWD_CLUSTER``, .... A tile is rows
+    tiles_n``; cluster ``c`` of ``grid // CLUSTER`` persistent clusters
+    takes units ``c``, ``c + grid // CLUSTER``, .... A tile is rows
     ``BM`` x columns ``BN``, clipped to ``m`` and ``n``, and runs ``k_steps``
     stages of the ring; the TMA boxes (innermost first) are ``box_a`` of A
     and ``box_w`` of W (each CTA loads its part of the W tile into both),
     zero-filled past the edges."""
-    bm, bn, bk = FWD_TILE
-    tiles_m, tiles_n = -(-m // bm), -(-n // bn)
-    units = tiles_n * -(-tiles_m // FWD_CLUSTER)
-    smem = (FWD_STAGES * (bm + bn) * bk * 2 + 8 * bn * 2 + 2 * FWD_STAGES * 8
-            + 1024)   # ring, a bias copy a consumer warp, barriers, alignment
-    return dict(tile=FWD_TILE, stages=FWD_STAGES, threads=FWD_THREADS, cluster=FWD_CLUSTER,
-                smem=smem, tiles_m=tiles_m, tiles_n=tiles_n, units=units,
-                grid=FWD_CLUSTER * min(units, clusters), k_steps=-(-k // bk),
-                box_a=(bk, bm), box_w=(bk, bn // FWD_CLUSTER))
+    bm, bn, bk = TILE
+    return dict(_pairs_plan(m, n, k, clusters), smem=_ring_smem(True), box_a=(bk, bm),
+                box_w=(bk, bn // CLUSTER))
 
 
+@functools.lru_cache(maxsize=None)
+def dgrad_plan(m: int, n: int, k: int, clusters: int = CO_RESIDENT_CLUSTERS) -> dict:
+    """The input gradient's launch plan for ``dy [m, n] . w [n, k]`` (output
+    ``[m, k]``), as ``nans_gemm_dgrad_plan`` computes it: the forward's walk
+    over output tiles (``tiles_n`` over ``k``), ``k_steps`` stages over the
+    contraction ``n``. dY comes in ``box_a`` boxes (K-major, as the forward's
+    A); W as it lies, ``boxes_b`` boxes of ``box_b`` a stage side by side
+    along its columns (MN-major), each CTA loading ``boxes_b //
+    CLUSTER`` of them into both."""
+    bm, bn, bk = TILE
+    return dict(_pairs_plan(m, k, n, clusters), smem=_ring_smem(False), box_a=(bk, bm),
+                box_b=(BWD_BOX, bk), boxes_b=bn // BWD_BOX)
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_splits(m: int, n: int, k: int) -> int:
+    """K-split of the weight gradient ``[n, k]`` over ``m`` rows: the count
+    of slices (each at least 16 k-tiles, 512 rows, deep) that minimises a
+    model of the kernel and its sum: waves of ``CO_RESIDENT_CLUSTERS``
+    cluster units (two 128-row tiles of dW by one 256-column tile, over one
+    slice), each wave as long as a slice at the tensor-core peak, plus
+    ``column_sum``'s pass over the fp32 partials at the HBM rate. A function
+    of the shape alone, so the summation order is fixed."""
+    bm, bn, _ = TILE
+    units = -(-n // (CLUSTER * bm)) * -(-k // bn)
+    ktiles = -(-m // WGRAD_KTILE)
+    ktile_s = 2 * WGRAD_KTILE * bm * bn / (BF16_FLOPS / (CO_RESIDENT_CLUSTERS * CLUSTER))
+    best, best_s = None, 1
+    for want in range(1, max(1, ktiles // 16) + 1):
+        per = -(-ktiles // want)
+        splits = -(-ktiles // per)
+        t = -(-units * splits // CO_RESIDENT_CLUSTERS) * per * ktile_s
+        if splits > 1:
+            t += (splits + 1) * n * k * 4 / HBM_BYTES_PER_S
+        if best is None or t < best:
+            best, best_s = t, splits
+    return best_s
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(m: int, n: int, k: int, clusters: int = CO_RESIDENT_CLUSTERS) -> dict:
+    """The weight gradient's launch plan for ``dy [m, n]^T . x [m, k]``, as
+    ``nans_gemm_wgrad_plan`` computes it. The ``m`` rows are cut into
+    ``splits`` slices of ``per`` k-tiles of 32 rows (``slices``: each one's
+    [first, end) row); slice ``z`` runs ``slice_stages[z]`` stages of the ring from
+    its first row, and ``last_steps[z]`` k16 steps in its last one (2 where
+    the slice ends halfway through a 64-row stage). A work unit is
+    ``CLUSTER`` 128-row tiles of dW (CTA ``r`` takes N tile
+    ``CLUSTER * pair + r``; one past ``tiles_n`` stores nothing) by one
+    256-column tile over one slice: unit ``u`` is pair ``u % pairs``, column
+    tile ``u // pairs % tiles_k``, slice ``u // (pairs * tiles_k)``. Both
+    operands come as they lie (MN-major) in ``box`` boxes: two of dY a CTA,
+    four of X a stage, each CTA loading two into both."""
+    bm, bn, bk = TILE
+    ktiles = -(-m // WGRAD_KTILE)
+    per = -(-ktiles // wgrad_splits(m, n, k))
+    splits = -(-ktiles // per)
+    tiles_n, tiles_k = n // bm, -(-k // bn)
+    pairs = -(-tiles_n // CLUSTER)
+    units = pairs * tiles_k * splits
+    kts = [min(ktiles, (z + 1) * per) - z * per for z in range(splits)]
+    return dict(tile=TILE, stages=STAGES, threads=THREADS, cluster=CLUSTER,
+                smem=_ring_smem(False), splits=splits, per=per,
+                slices=[(z * per * WGRAD_KTILE, min(m, (z + 1) * per * WGRAD_KTILE))
+                        for z in range(splits)],
+                slice_stages=[-(-t // 2) for t in kts],
+                last_steps=[2 if t % 2 else 4 for t in kts],
+                tiles_n=tiles_n, tiles_k=tiles_k, pairs=pairs, units=units,
+                grid=CLUSTER * min(units, clusters), box=(BWD_BOX, bk))
 
 
 def linear_plain(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
@@ -170,7 +267,9 @@ def linear_dgrad(dy: torch.Tensor, w: torch.Tensor, act: Optional[str] = None,
                  out_dtype: Optional[torch.dtype] = None, copy: bool = False):
     """``dy``: [M, N]; ``w``: [N, K] (the forward's ``[out, in]`` weight);
     returns [M, K]. CPU tensors take :func:`linear_dgrad_plain`; CUDA
-    tensors launch the kernel with ``w`` read transposed in place."""
+    tensors launch the kernel with ``w`` read as it lies (K a multiple of
+    ``gates.GEMM_N_MULTIPLE``, N of ``gates.GEMM_K_MULTIPLE``; launched as
+    :func:`dgrad_plan` says)."""
     if not dy.is_cuda:
         return linear_dgrad_plain(dy, w, act, aux, residual, out_dtype, copy)
     n, k = w.shape
@@ -185,6 +284,8 @@ def linear_dgrad(dy: torch.Tensor, w: torch.Tensor, act: Optional[str] = None,
     m = dy.shape[0]
     _admit_epilogue("gemm dgrad", m, k, residual, aux)
     gates.admit((aux is None) == (act is None), "gemm dgrad: act and aux go together")
+    plan = dgrad_plan(m, n, k)
+    gates.admit(plan["smem"] <= gates.SMEM_PER_BLOCK, "gemm dgrad: shared memory")
     out = torch.empty((m, k), dtype=out_dtype, device=dy.device)
     c2 = torch.empty((m, k), dtype=gates.KERNEL_DTYPE, device=dy.device) if copy else None
     _launch(dy, w, True, None, None, act, aux, None, residual, out, None, c2, k, n)
@@ -197,20 +298,12 @@ def linear_wgrad_plain(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return upcast(dy).T @ upcast(x)
 
 
-def wgrad_splits(m: int, n: int, k: int) -> int:
-    """K-split of the weight gradient: about two waves of 128x128 tiles on
-    the card's 132 SMs, each slice at least 16 k-tiles (512 rows) deep. A
-    function of the shape alone, so the summation order is fixed."""
-    tiles = (n // 128) * (k // 128)
-    ktiles = -(-m // 32)
-    return max(1, min(-(-264 // tiles), ktiles // 16))
-
-
 def linear_wgrad(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``dy``: [M, N]; ``x``: [M, K]; returns fp32 [N, K] = dy^T . x (the
     ``[out, in]`` weight gradient). CPU tensors take
-    :func:`linear_wgrad_plain`; CUDA tensors launch the kernel, then sum its
-    K-split slices in order."""
+    :func:`linear_wgrad_plain`; CUDA tensors launch the kernel as
+    :func:`wgrad_plan` says (N and K multiples of ``gates.GEMM_N_MULTIPLE``),
+    then sum its K-split slices in order."""
     if not dy.is_cuda:
         return linear_wgrad_plain(dy, x)
     m, n = dy.shape
@@ -220,12 +313,13 @@ def linear_wgrad(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     gates.admit(n % gates.GEMM_N_MULTIPLE == 0 and k % gates.GEMM_N_MULTIPLE == 0,
                 f"gemm wgrad: N={n} K={k}")
     gates.admit_cuda("gemm wgrad", dy, x)
-    ktiles = -(-m // 32)
-    per = -(-ktiles // wgrad_splits(m, n, k))   # k-tiles a slice
-    splits = -(-ktiles // per)
+    plan = wgrad_plan(m, n, k)
+    gates.admit(plan["smem"] <= gates.SMEM_PER_BLOCK, "gemm wgrad: shared memory")
+    splits = plan["splits"]
     part = torch.empty((splits, n, k), dtype=torch.float32, device=dy.device)
     err = _build.library().nans_gemm_wgrad(dy.data_ptr(), x.data_ptr(), part.data_ptr(), m, n,
-                                           k, splits, per, _build.stream_ptr(dy.device))
+                                           k, splits, plan["per"],
+                                           _build.stream_ptr(dy.device))
     _build.check(err, "nans_gemm_wgrad")
     linear_wgrad.launches += 1
     return part[0] if splits == 1 else column_sum(part.view(splits, n * k)).view(n, k)

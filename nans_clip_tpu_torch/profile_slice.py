@@ -45,7 +45,7 @@ from nans_clip_tpu_torch.ops import gates
 
 TEXTS = ["杰尼龟", "妙蛙种子", "小火龙", "皮卡丘", "西湖美景，三月天", "一只可爱的小猫在草地上玩耍"]
 HAND_KERNEL = re.compile(
-    r"(gemm|wgrad|attention(_bwd(_dq|_dkv)?)?|layernorm(_bwd)?(_wide)?|colsum|tower"
+    r"(gemm(_fwd|_bwd)?|attention(_bwd(_dq|_dkv)?)?|layernorm(_bwd)?(_wide)?|colsum|tower"
     r"|flash_(fwd|bwd_dq|bwd_dkv))_kernel"
     r"(<[^>]*>)?")
 # The library's kernels (the plain-torch glue), by what they do; the first
@@ -61,9 +61,9 @@ LIBRARY_GROUPS = (
 
 def kernel_group(name: str) -> str:
     """The group a device kernel's time is reported under: a hand kernel
-    keeps its template arguments (gemm_kernel<true, ...> reads W transposed,
-    the input gradient; gemm_kernel<false, ...> is a forward product; the
-    second argument is the training epilogue); a library kernel falls in
+    keeps its template arguments (gemm_fwd_kernel<kExt, ...>: a forward
+    product, kExt the training epilogue; gemm_bwd_kernel<Dgrad<...>>: the
+    input gradient, <Wgrad>: the weight gradient); a library kernel falls in
     the first of ``LIBRARY_GROUPS`` that matches, else "plain torch, other"."""
     hand = HAND_KERNEL.search(name)
     if hand:

@@ -910,6 +910,115 @@ def test_gemm_plan_matches_the_kernel(dev):
                              out[7], p["units"], p["grid"]]
 
 
+# -- the backward GEMM forms (wgmma + TMA, MN-major operands) ------------------
+
+def _dgrad_forms(every):
+    """(output dtype, act', residual dtype, copy) of the input gradient:
+    every combination, or the backward chains' forms
+    (ops/fused_block_bwd.py)."""
+    if not every:
+        return [(torch.bfloat16, None, None, False), (torch.float32, None, None, False),
+                (torch.float32, "quick_gelu", None, True), (torch.bfloat16, "quick_gelu", None,
+                                                            False),
+                (torch.float32, "gelu", None, True), (torch.bfloat16, None, torch.float32, True)]
+    return [(out, act, res, copy) for out in (torch.bfloat16, torch.float32)
+            for act in (None, "quick_gelu", "gelu")
+            for res in (None, torch.bfloat16, torch.float32) for copy in (False, True)]
+
+
+@pytest.mark.parametrize("k", [128, 768, 1280, 5120])
+@pytest.mark.parametrize("m", [1, 31, 300, 8224, 25253])
+def test_gemm_dgrad_matches_twin(dev, m, k):
+    """The input gradient dY [m, n] . W [n, k] at contractions n in {32, 96,
+    768, 3072} (a half-filled last stage at 32 and 96) and output widths k
+    from one 128-column tile to 5120, ragged m: every epilogue (bf16 or fp32
+    output, act' of quick-GELU or erf-GELU, a bf16 or fp32 residual, the
+    bf16 copy) where the product is small, the chains' forms elsewhere;
+    against its twin within 2 bf16 ulps of max|twin| (bf16) or 1e-5 of the
+    largest magnitude (fp32: sums in another order), the same bits on a
+    second call."""
+    from nans_clip_tpu_torch.ops.gemm import linear_dgrad, linear_dgrad_plain
+    r = _rnd(dev, m * 7 + k)
+    for n in (32, 96, 768, 3072):
+        dy, w = r(m, n), r(n, k, std=n ** -0.5)
+        aux = torch.randn(m, k, device=dev) * 2
+        res = {torch.bfloat16: r(m, k), torch.float32: torch.randn(m, k, device=dev)}
+        for out, act, rdt, copy in _dgrad_forms(m * n * k <= 2 ** 27):
+            kw = dict(act=act, aux=aux if act else None, residual=res.get(rdt),
+                      out_dtype=out, copy=copy)
+            got, want = linear_dgrad(dy, w, **kw), linear_dgrad_plain(dy, w, **kw)
+            again = linear_dgrad(dy, w, **kw)
+            if not copy:
+                got, want, again = (got, None), (want, None), (again, None)
+            if out == torch.float32:
+                assert _rel_err(got[0], want[0]) <= 1e-5, (n, out, act, rdt, copy)
+            else:
+                _close(got[0], want[0], 2)
+            if copy:
+                assert got[1].dtype == torch.bfloat16
+                _close(got[1], want[1], 2)
+            assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+
+
+@pytest.mark.parametrize("n,k", [(128, 128), (768, 768), (2304, 768), (768, 3072),
+                                 (1280, 5120), (384, 640)])
+@pytest.mark.parametrize("m", [1, 33, 1000, 6656, 25216])
+def test_gemm_wgrad_matches_twin(dev, m, n, k):
+    """The weight gradient dY^T . X with its K-split sum at ragged M (1 to
+    25,216 rows), N and K from one 128 x 128 output tile to 1280 x 5120 (384
+    x 640: an odd count of 128-row tiles, a half 256-column tile), against
+    its twin within 1e-5 of the largest magnitude; the same bits on a second
+    call (the slices are a function of the shape, summed in order)."""
+    from nans_clip_tpu_torch.ops.gemm import linear_wgrad, linear_wgrad_plain
+    r = _rnd(dev, m + n + k)
+    dy, x = r(m, n), r(m, k)
+    got = linear_wgrad(dy, x)
+    assert got.shape == (n, k) and got.dtype == torch.float32
+    assert _rel_err(got, linear_wgrad_plain(dy, x)) <= 1e-5
+    assert torch.equal(got, linear_wgrad(dy, x))
+
+
+@pytest.mark.parametrize("m,per", [(1000, 3), (4000, 5), (777, 1), (64, 1), (6656, 7)])
+def test_gemm_wgrad_slices_end_on_odd_ktiles(dev, m, per):
+    """The kernel's partials with slices of an odd count of 32-row k-tiles,
+    so that each slice ends (and the next begins) halfway through a 64-row
+    stage: each partial against the twin over its own rows, 1e-5 of its
+    largest magnitude."""
+    from nans_clip_tpu_torch.ops import _build
+    n, k = 256, 384
+    r = _rnd(dev, m + per)
+    dy, x = r(m, n), r(m, k)
+    splits = -(-(-(-m // 32)) // per)
+    part = torch.empty((splits, n, k), dtype=torch.float32, device=dev)
+    err = _build.library().nans_gemm_wgrad(dy.data_ptr(), x.data_ptr(), part.data_ptr(), m, n, k,
+                                           splits, per, _build.stream_ptr(dev))
+    _build.check(err, "nans_gemm_wgrad")
+    for z in range(splits):
+        lo, hi = z * per * 32, min(m, (z + 1) * per * 32)
+        assert _rel_err(part[z], dy[lo:hi].float().T @ x[lo:hi].float()) <= 1e-5, z
+
+
+def test_gemm_bwd_plans_match_the_kernel(dev):
+    """ops/gemm.py::dgrad_plan and ::wgrad_plan compute the launches
+    nans_gemm_dgrad_plan and nans_gemm_wgrad_plan report."""
+    import ctypes
+    from nans_clip_tpu_torch.ops import _build
+    from nans_clip_tpu_torch.ops.gemm import dgrad_plan, wgrad_plan
+    out = (ctypes.c_int * 10)()
+    lib = _build.library()
+    for m, n, k in ((25216, 768, 3072), (1, 128, 128), (8224, 5120, 1280), (6656, 2304, 768),
+                    (300, 384, 640)):
+        assert lib.nans_gemm_dgrad_plan(m, k, n, out) == 0   # dA [m, k] = dY [m, n] . W
+        p = dgrad_plan(m, n, k, out[7])
+        assert list(out) == [*p["tile"], p["stages"], p["threads"], p["smem"], p["cluster"],
+                             out[7], p["units"], p["grid"]]
+        p = wgrad_plan(m, n, k)
+        assert lib.nans_gemm_wgrad_plan(m, n, k, p["splits"], p["per"], out) == 0
+        p = wgrad_plan(m, n, k, out[7])
+        assert list(out) == [*p["tile"], p["stages"], p["threads"], p["smem"], p["cluster"],
+                             out[7], p["units"], p["grid"]]
+
+
 @pytest.mark.parametrize("dh", [64, 80])
 @pytest.mark.parametrize("s", [1, 15, 16, 52, 197, 257, 577, 640])
 def test_attention_forward_matches_twin(dev, s, dh):

@@ -1,20 +1,23 @@
-"""The launch plans of the forward GEMM (``ops/gemm.py::gemm_plan``) and the
-forward attention (``ops/attention.py::attention_plan``), the plain Python
-functions their wrappers call, at every forward product and attention shape
-of the published towers: ViT-B-16, ViT-B-32, ViT-L-14, ViT-L-14-336 and
-ViT-H-14 images, RoBERTa-wwm-ext-base, -large and RBT3 texts at 52 tokens
-(RN50's text tower is RBT3; its ResNet image tower is not ported and runs no
-product here), at tp 1, 2 and 4 where tensor parallelism admits the tower,
-and batches 1 to 256. Each plan admits its shape, stays within the 232,448
-bytes of shared memory a block may have, and covers M and N (the query rows)
-exactly once. Runs on the CPU: the plans are arithmetic on shapes."""
+"""The launch plans of the GEMM's three forms (``ops/gemm.py::gemm_plan``,
+``dgrad_plan``, ``wgrad_plan``) and the forward attention
+(``ops/attention.py::attention_plan``), the plain Python functions their
+wrappers call, at every product and attention shape of the published
+towers: ViT-B-16, ViT-B-32, ViT-L-14, ViT-L-14-336 and ViT-H-14 images,
+RoBERTa-wwm-ext-base, -large and RBT3 texts at 52 tokens (RN50's text tower
+is RBT3; its ResNet image tower is not ported and runs no product here), the
+forward at tp 1, 2 and 4 where tensor parallelism admits the tower, the
+backward products at tp 1, batches 1 to 256. Each plan admits its shape,
+stays within the 232,448 bytes of shared memory a block may have, and
+covers its output exactly once; the weight gradient's slices fall where
+``wgrad_splits`` puts them. Runs on the CPU: the plans are arithmetic on
+shapes."""
 
 import pytest
 
 from nans_clip_tpu_torch.configs import load_config
 from nans_clip_tpu_torch.ops import gates
 from nans_clip_tpu_torch.ops.attention import ATTN_ONE_PASS_TILES, attention_plan
-from nans_clip_tpu_torch.ops.gemm import gemm_plan
+from nans_clip_tpu_torch.ops.gemm import dgrad_plan, gemm_plan, wgrad_plan, wgrad_splits
 
 TEXT_SEQ = 52
 BATCHES = (1, 8, 32, 128, 256)
@@ -101,6 +104,112 @@ def test_gemm_plan_covers_every_product(name, tp):
                 # zero-fills at most half its 64-deep K
                 assert (n - (p["tiles_n"] - 1) * bn) % 64 == 0
                 assert 0 <= p["k_steps"] * bk - k <= bk - gates.GEMM_K_MULTIPLE
+
+
+def _bwd_products(width, inter):
+    """(dY's width N, the weight's other width K) of the four backward
+    products of a layer: the input gradient dY [M, N] . W [N, K] and the
+    weight gradient dW [N, K] = dY^T . X, for the QKV projection, the
+    out-projection, fc1 and fc2."""
+    return [(3 * width, width), (width, width), (inter, width), (width, inter)]
+
+
+def _walk(units, n_cl):
+    return sorted(u for c in range(n_cl) for u in range(c, units, n_cl))
+
+
+@pytest.mark.parametrize("name", VISION + TEXT)
+def test_dgrad_plan_covers_every_product(name):
+    seq, width, _, inter = _tower(name)
+    bm, bn, bk = dgrad_plan(1, 32, 128)["tile"]
+    for batch in BATCHES:
+        m = batch * seq
+        for n, k in _bwd_products(width, inter):
+            # the wrapper's admission: output width k, contraction n
+            assert k % gates.GEMM_N_MULTIPLE == 0 and n % gates.GEMM_K_MULTIPLE == 0
+            for clusters in (66, 57, 1):
+                p = dgrad_plan(m, n, k, clusters)
+                assert p["smem"] <= gates.SMEM_PER_BLOCK
+                assert p["smem"] >= p["stages"] * (bm + bn) * bk * 2 and p["stages"] >= 4
+                assert p["box_a"] == (bk, bm)
+                # W's stage: boxes side by side along its columns, each CTA
+                # loading its share into both
+                assert p["box_b"][0] * p["boxes_b"] == bn and p["box_b"][1] == bk
+                assert p["boxes_b"] % p["cluster"] == 0
+                n_cl = p["grid"] // p["cluster"]
+                assert p["grid"] % p["cluster"] == 0 and 1 <= n_cl <= clusters
+                walk = _walk(p["units"], n_cl)
+                assert walk == list(range(p["units"]))
+                tiles = sorted((p["cluster"] * (u // p["tiles_n"]) + r, u % p["tiles_n"])
+                               for u in walk for r in range(p["cluster"]))
+                real = [t for t in tiles if t[0] < p["tiles_m"]]
+                assert real == sorted((i, j) for i in range(p["tiles_m"])
+                                      for j in range(p["tiles_n"]))
+                assert len(tiles) - len(real) < p["tiles_n"] * p["cluster"]
+                assert _covers_once(m, bm, p["tiles_m"]) and _covers_once(k, bn, p["tiles_n"])
+                # a last output tile holds whole 64-column boxes; a last
+                # stage zero-fills at most half its 64-deep contraction
+                assert (k - (p["tiles_n"] - 1) * bn) % p["box_b"][0] == 0
+                assert 0 <= p["k_steps"] * bk - n <= bk - gates.GEMM_K_MULTIPLE
+
+
+@pytest.mark.parametrize("name", VISION + TEXT)
+def test_wgrad_plan_covers_every_product(name):
+    seq, width, _, inter = _tower(name)
+    for batch in BATCHES:
+        m = batch * seq
+        for n, k in _bwd_products(width, inter):
+            assert n % gates.GEMM_N_MULTIPLE == 0 and k % gates.GEMM_N_MULTIPLE == 0
+            for clusters in (66, 57, 1):
+                p = wgrad_plan(m, n, k, clusters)
+                bm, bn, bk = p["tile"]
+                assert p["smem"] <= gates.SMEM_PER_BLOCK
+                # the slices: per 32-row k-tiles each, where wgrad_splits
+                # puts them, partitioning the M rows in order
+                ktiles = -(-m // 32)
+                per = -(-ktiles // wgrad_splits(m, n, k))
+                assert p["per"] == per and p["splits"] == -(-ktiles // per)
+                assert p["slices"] == [(z * per * 32, min(m, (z + 1) * per * 32))
+                                       for z in range(p["splits"])]
+                assert _covers_once(m, per * 32, p["splits"])
+                # a slice runs its 64-row stages from its first row; where it
+                # ends halfway through one, its last stage takes 2 k16 steps
+                for (lo, hi), st, steps in zip(p["slices"], p["slice_stages"],
+                                               p["last_steps"]):
+                    kts = -(-(hi - lo) // 32)
+                    assert st == -(-kts // 2) and steps == (2 if kts % 2 else 4)
+                    assert (st - 1) * bk + steps * 16 >= hi - lo > (st - 1) * bk
+                assert p["splits"] == 1 or per >= 16
+                # every (dW row tile, column tile, slice) exactly once
+                n_cl = p["grid"] // p["cluster"]
+                assert p["grid"] % p["cluster"] == 0 and 1 <= n_cl <= clusters
+                walk = _walk(p["units"], n_cl)
+                assert walk == list(range(p["units"]))
+                assert p["pairs"] * p["cluster"] >= p["tiles_n"] == n // bm
+                tiles = sorted((p["cluster"] * (u % p["pairs"]) + r,
+                                u // p["pairs"] % p["tiles_k"],
+                                u // (p["pairs"] * p["tiles_k"]))
+                               for u in walk for r in range(p["cluster"]))
+                real = [t for t in tiles if t[0] < p["tiles_n"]]
+                assert real == sorted((i, j, z) for i in range(p["tiles_n"])
+                                      for j in range(p["tiles_k"])
+                                      for z in range(p["splits"]))
+                assert _covers_once(n, bm, p["tiles_n"]) and _covers_once(k, bn, p["tiles_k"])
+                assert (k - (p["tiles_k"] - 1) * bn) % p["box"][0] == 0
+                assert p["box"] == (64, bk)
+
+
+@pytest.mark.parametrize("m,n,k", [(25216, 2304, 768), (25216, 768, 768), (6656, 3072, 768),
+                                   (8224, 1280, 5120), (18464, 1024, 4096), (1, 128, 128),
+                                   (100000, 128, 128)])
+def test_wgrad_splits_is_a_function_of_the_shape(m, n, k):
+    """The slice count depends on the shape alone (so the fixed-order sum of
+    the partials gives the same bits on every call) and keeps each slice at
+    least 16 k-tiles deep."""
+    s = wgrad_splits(m, n, k)
+    assert s == wgrad_splits(m, n, k) and 1 <= s <= max(1, -(-m // 32) // 16)
+    p = wgrad_plan(m, n, k)
+    assert p["splits"] == s
 
 
 @pytest.mark.parametrize("name,tp", list(_cases()))
