@@ -23,7 +23,16 @@ Phases, each printing its lines before the last line:
    (fp32, with its bf16 copy), dctx = g . Wo, dxn = dqkv . Wqkv (fp32) and dx
    = dh . W1 (fp32), and the four weight gradients with their K-split sum,
    each beside one ``torch.mm`` (bound: 2 bf16 ulps for a bf16 output, 1e-5
-   of max|twin| for an fp32 one).
+   of max|twin| for an fp32 one); the attention backward from the
+   forward's row statistics at ViT-B's (128, 12, 197, 64), the masked text
+   shape with dropout 0.1 (128, 12, 52, 64) and ViT-H-14's (32, 16, 257,
+   80), and the long-sequence pair at (32, 16, 577, 64), each beside SDPA's
+   backward (dqkv within 1e-2 of max|twin|); the LayerNorm backward in the
+   chains' forms (pre-LN image with its sums at [25,216, 768], post-LN text
+   with dropout 0.1 at [6,656, 768], pre-LN at ViT-H's [8,224, 1280]) beside
+   ``native_layer_norm_backward`` on fp32 copies; and ``column_sum`` at the
+   QKV bias gradient [25,216, 2304] and at the LayerNorm partials [263,
+   1536] beside ``torch.sum``.
 4. Tower kernels: the whole-tower kernel, bf16 and int8, in the text form
    (S=52, masked, post-LN) and the image form (S=197, pre-LN), 12 layers,
    W=768, batch 1, 8 and 32, against its twin, with its time, the twin's, its
@@ -364,8 +373,80 @@ def phase_kernels(torch, dev):
                                                2 * mtr * n * k)
     wgrad_cost = lambda n, k: (2 * mtr * (n + k) + 4 * n * k, 2 * mtr * n * k)
     mm32 = lambda a, b_: torch.mm(a, b_, out_dtype=f32)
-    # (entry name, kernel call, twin call, bound: bf16 ulps or "fp32" (1e-5 of
-    #  max|twin|), JSON fields or None, library call or None, (bytes, operations))
+
+    # the attention backward at the train steps' shapes (ViT-B image batch
+    # 128; RoBERTa-base text, masked, dropout 0.1; ViT-H-14 heads of 80; the
+    # long pair at ViT-L-14-336's S 577), from the forward's row statistics
+    # as the chains call it; SDPA's backward beside it
+    from nans_clip_tpu_torch.ops.attention import attention_bwd, attention_bwd_plain
+    from nans_clip_tpu_torch.ops.layernorm import layer_norm_bwd, layer_norm_bwd_plain
+    from nans_clip_tpu_torch.ops.reduce import column_sum, column_sum_plain
+    bwd_in = {"b": (128, 197, 12, 64, rnd(mtr, 3 * w), None, None)}
+    for key, (b, s_, nh, dh) in {"h": (32, 257, 16, 80), "l": (32, 577, 16, 64),
+                                  "d": (128, 52, 12, 64)}.items():
+        bwd_in[key] = (b, s_, nh, dh, g_attn[key], kb_d if key == "d" else None,
+                       drop_d if key == "d" else None)
+    bwd_calls = {}
+    for key, (b, s_, nh, dh, q3, bias, dp) in bwd_in.items():
+        d_ctx = rnd(b * s_, nh * dh)
+        st = attention(q3, bias, b, nh, dp, stats=True)[1] if s_ <= 320 else None
+        q, k, v = (t.contiguous().requires_grad_() for t in
+                   q3.view(b, s_, 3, nh, dh).permute(2, 0, 3, 1, 4).unbind(0))
+        mask = None if bias is None else bias.view(b, 1, 1, s_).to(bf)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                           dropout_p=0.1 if dp is not None else 0.0)
+        go = d_ctx.view(b, s_, nh, dh).transpose(1, 2)
+        cost = (b * s_ * (4 * nh * dh * 2 + 3 * nh * dh * 6) + (b * s_ * 4 if bias is not None
+                                                                else 0)
+                + (2 * b * nh * s_ * 4 if st is not None else 0), 10 * b * nh * s_ * s_ * dh)
+        bwd_calls[key] = (
+            lambda q3=q3, d_ctx=d_ctx, bias=bias, b=b, nh=nh, dp=dp, st=st:
+                attention_bwd(q3, d_ctx, bias, b, nh, dp, stats=st)[0],
+            lambda q3=q3, d_ctx=d_ctx, bias=bias, b=b, nh=nh, dp=dp:
+                attention_bwd_plain(q3, d_ctx, bias, b, nh, dp)[0],
+            lambda o=o, q=q, k=k, v=v, go=go: torch.autograd.grad(o, (q, k, v), go,
+                                                                   retain_graph=True),
+            cost)
+
+    # the LayerNorm backward as the chains call it: ViT-B's image pre-LN with
+    # its sums (M 25,216), RoBERTa-base's post-LN with dropout 0.1 (M 6,656),
+    # ViT-H-14's pre-LN at W 1280 (M 8,224); native_layer_norm_backward on
+    # fp32 copies (plus the residual add) beside it
+    def ln_case(rows, width, post):
+        gm = rnd(width, std=0.1, mean=1.0)
+        if post:
+            gin, x_ = rnd(rows, width), torch.randn(rows, width, generator=g, device=dev)
+            kw = dict(out_dtype=f32, emit_dproj=True,
+                      dropout=drop.Dropout(5, 0.1, drop.STREAM_HIDDEN, 52))
+            eps, res, nbytes = 1e-12, None, rows * width * 12 + 3 * width * 4
+        else:
+            gin, x_ = torch.randn(rows, width, generator=g, device=dev), rnd(rows, width)
+            res = rnd(rows, width)
+            kw = dict(residual=res, out_dtype=bf)
+            eps, nbytes = 1e-5, rows * width * 10 + 2 * width * 4
+        g32, x32, gm32 = gin.float(), x_.float(), gm.float()
+        bt32 = torch.zeros_like(gm32)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x32, [width], gm32, bt32, eps)
+        r32 = None if res is None else res.float()
+
+        def library():
+            dx_ = torch.ops.aten.native_layer_norm_backward(g32, x32, [width], mean, rstd, gm32,
+                                                            bt32, [True, True, True])[0]
+            return dx_ if r32 is None else dx_.add_(r32)
+
+        kern = lambda: layer_norm_bwd(gin, x_, gm, eps, **kw)
+        twin = lambda: layer_norm_bwd_plain(gin, x_, gm, eps, **kw)
+        return kern, twin, library, (nbytes + width * 2, 12 * rows * width)
+
+    ln_img, ln_txt, ln_h = ln_case(mtr, w, False), ln_case(128 * 52, w, True), \
+        ln_case(32 * 257, 1280, False)
+    sums_of = lambda out: torch.cat([t.flatten() for t in out[1:3]])
+    post_all = lambda out: torch.cat([out[0].flatten(), out[1], out[2], out[4]])
+    bias_grad = torch.randn(mtr, 3 * w, generator=g, device=dev)
+    ln_parts = torch.randn(263, 2 * w, generator=g, device=dev)
+    # (entry name, kernel call, twin call, bound: bf16 ulps, "fp32" (1e-5 of
+    #  max|twin|) or a float (that fraction of max|twin|), JSON fields or None,
+    #  library call or None, (bytes, operations))
     cases = [
         ("fused_attention_block", lambda: fb.fused_attention_block(xi, *attn_args(pi), heads),
          lambda: fb._reference_block(xi, *attn_args(pi), heads, 1e-5), 4,
@@ -461,6 +542,35 @@ def phase_kernels(torch, dev):
         ("gemm_wgrad[dW2]", lambda: linear_wgrad(g_tr, dh_tr),
          lambda: linear_wgrad_plain(g_tr, dh_tr), "fp32", None,
          lambda: mm32(g_tr.T, dh_tr), wgrad_cost(w, inter)),
+        # the backward's attention, LayerNorm and column sums (dqkv within
+        # 1e-2 of its largest magnitude: a bf16 flip of dS or P_d moves a sum
+        # by an ulp of a term)
+        ("attention_bwd", *bwd_calls["b"][:2], 1e-2,
+         ("nans_clip_tpu_torch/csrc/attention.cu", "nans_clip_tpu/ops/fused_block_bwd.py:165"),
+         *bwd_calls["b"][2:]),
+        ("attention_bwd[masked, dropout 0.1, (128, 12, 52, 64)]", *bwd_calls["d"][:2], 1e-2,
+         None, *bwd_calls["d"][2:]),
+        ("attention_bwd[heads of 80, (32, 16, 257, 80)]", *bwd_calls["h"][:2], 1e-2, None,
+         *bwd_calls["h"][2:]),
+        ("attention_bwd[long pair, (32, 16, 577, 64)]", *bwd_calls["l"][:2], 1e-2, None,
+         *bwd_calls["l"][2:]),
+        ("layernorm_bwd", lambda: ln_img[0]()[0], lambda: ln_img[1]()[0], 2,
+         ("nans_clip_tpu_torch/csrc/layernorm.cu", "nans_clip_tpu/ops/fused_block_bwd.py:101"),
+         ln_img[2], ln_img[3]),
+        ("layernorm_bwd[dgamma, dbeta]", lambda: sums_of(ln_img[0]()),
+         lambda: sums_of(ln_img[1]()), "fp32", None, ln_img[2], ln_img[3]),
+        ("layernorm_bwd[post-LN, dropout 0.1, [6656, 768]: dx, sums]",
+         lambda: post_all(ln_txt[0]()), lambda: post_all(ln_txt[1]()), "fp32", None, ln_txt[2],
+         ln_txt[3]),
+        ("layernorm_bwd[W 1280, [8224, 1280]]", lambda: ln_h[0]()[0], lambda: ln_h[1]()[0], 2,
+         None, ln_h[2], ln_h[3]),
+        ("column_sum", lambda: column_sum(bias_grad), lambda: column_sum_plain(bias_grad),
+         "fp32", ("nans_clip_tpu_torch/csrc/reduce.cu",
+                  "nans_clip_tpu/ops/fused_block_bwd.py:263"),
+         lambda: torch.sum(bias_grad, 0), ((mtr + 1) * 3 * w * 4, mtr * 3 * w)),
+        ("column_sum[LayerNorm partials, [263, 1536]]", lambda: column_sum(ln_parts),
+         lambda: column_sum_plain(ln_parts), "fp32", None, lambda: torch.sum(ln_parts, 0),
+         (264 * 2 * w * 4, 263 * 2 * w)),
     ]
     # the sub-blocks in library calls (no one call computes them): yardsticks
     yards = {"fused_attention_block": lambda: _yard_attention(xi, attn_args(pi), heads, 1e-5,
@@ -475,7 +585,8 @@ def phase_kernels(torch, dev):
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         top = float(want.float().abs().max())
-        bound = 1e-5 * top if n_ulps == "fp32" else _ulps(want, n_ulps)
+        bound = (1e-5 * top if n_ulps == "fp32" else n_ulps * top if isinstance(n_ulps, float)
+                 else _ulps(want, n_ulps))
         if not (torch.isfinite(got).all() and err <= bound):
             raise AssertionError(f"{name}: max abs err {err} exceeds bound {bound}")
         ms, plain_ms = _time_ms(kern, 10), _time_ms(twin, 3)
@@ -485,7 +596,8 @@ def phase_kernels(torch, dev):
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         if yard_ms is not None:
             lib += f", yardstick {yard_ms:.4f} ms (F.layer_norm/F.linear/SDPA/act)"
-        what = "1e-5" if n_ulps == "fp32" else f"{n_ulps} bf16 ulp"
+        what = ("1e-5" if n_ulps == "fp32" else f"{n_ulps:g}" if isinstance(n_ulps, float)
+                else f"{n_ulps} bf16 ulp")
         print(f"kernel {name}: max_abs_err {err:.6g} <= bound {bound:.6g} ({what} "
               f"of max|twin| {top:.4g}); {ms:.4f} ms, "
               f"twin {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
@@ -2985,7 +3097,10 @@ def main() -> int:
     kernels = []
     # the backward GEMM forms' launches: one train step (phase 7), their main path
     launches.update(gemm_dgrad=train_launches["linear_dgrad"],
-                    gemm_wgrad=train_launches["linear_wgrad"])
+                    gemm_wgrad=train_launches["linear_wgrad"],
+                    attention_bwd=train_launches["attention_bwd"],
+                    layernorm_bwd=train_launches["layer_norm_bwd"],
+                    column_sum=train_launches["column_sum"])
     for name, r in results.items():
         if r["meta"] is None:
             continue
@@ -3101,12 +3216,13 @@ def main() -> int:
               "fused_bert_attention_block_bwd", "fused_mlp_block_bwd",
               "fused_attention_block_bwd_fullgrad",
               "fused_bert_attention_block_bwd_fullgrad", "fused_mlp_block_bwd_fullgrad",
-              "fused_layer_block_bwd_fullgrad", "gemm_dgrad", "gemm_wgrad", *wide_launches,
+              "fused_layer_block_bwd_fullgrad", "gemm_dgrad", "gemm_wgrad", "attention_bwd",
+              "layernorm_bwd", "column_sum", *wide_launches,
               *(name for name, *_ in pallas_entries), "fused_attention_block_partial",
               "fused_mlp_block_partial"}
     if not ported <= {k["name"] for k in kernels} or any(k["launches"] < 1 for k in kernels):
-        raise AssertionError(f"the twenty-four ported TPU kernels, each launched on its main "
-                             f"path: "
+        raise AssertionError(f"the twenty-four ported TPU kernels and the backward's hand "
+                             f"kernels, each launched on its main path: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,8 +20,12 @@ once and ctx written once, 4 B S^2 H dh flops.
 ``--bwd`` times the backward (``ops/attention.py::attention_bwd``, the
 one-shot kernel of ``csrc/attention.cu``, fp32 and bf16 dqkv as the
 full-gradient chains take them) at the train step's shapes, ViT-B-16's
-image attention (128, 12, 197, 64) and RoBERTa-base's masked text attention
-with probability dropout 0.1 (128, 12, 52, 64), beside SDPA's backward
+image attention (128, 12, 197, 64), RoBERTa-base's masked text attention
+with probability dropout 0.1 (128, 12, 52, 64), ViT-H-14's (32, 16, 257,
+80) and ViT-L-14-336's (32, 16, 577, 64), which takes the long-sequence
+pair of kernels; where the wrapper takes the forward's row statistics
+(``stats``), they are formed by one forward call outside the timed
+window, as the chains form them in their forward recompute; beside SDPA's backward
 (``torch.autograd.grad`` through ``F.scaled_dot_product_attention`` with the
 same mask and rate) and the bound: q, k, v, dctx and the key bias read once,
 dqkv written in fp32 and bf16, 10 B S^2 H dh flops (the scores recomputed,
@@ -48,7 +52,9 @@ SHAPES = [("vit_b_16", 256, 12, 197, 64, False, 0.0),
           ("vit_l_14_336", 32, 16, 577, 64, False, 0.0),
           ("roberta_base_train_dropout", 128, 12, 52, 64, True, 0.1)]
 BWD_SHAPES = [("vit_b_16_train", 128, 12, 197, 64, False, 0.0),
-              ("roberta_base_train_dropout", 128, 12, 52, 64, True, 0.1)]
+              ("roberta_base_train_dropout", 128, 12, 52, 64, True, 0.1),
+              ("vit_h_14_train", 32, 16, 257, 80, False, 0.0),
+              ("vit_l_14_336_train", 32, 16, 577, 64, False, 0.0)]
 
 
 def bound_ms(b, h, s, dh, masked, bwd=False):
@@ -115,9 +121,12 @@ def main() -> None:
 
 def bench_bwd(torch, F, dev, g) -> dict:
     """``attention_bwd`` at BWD_SHAPES, SDPA's backward beside it."""
-    from nans_clip_tpu_torch.ops import dropout as drop
-    from nans_clip_tpu_torch.ops.attention import attention_bwd
+    import inspect
 
+    from nans_clip_tpu_torch.ops import dropout as drop, gates
+    from nans_clip_tpu_torch.ops.attention import attention, attention_bwd
+
+    takes_stats = "stats" in inspect.signature(attention_bwd).parameters
     out = {}
     for name, b, h, s, dh, masked, rate in BWD_SHAPES:
         w = h * dh
@@ -129,7 +138,10 @@ def bench_bwd(torch, F, dev, g) -> dict:
             keep = torch.arange(s, device=dev)[None, :] < lengths[:, None]
             kb = ((1.0 - keep.float()) * -10000.0).contiguous()
         dp = drop.Dropout(3, rate, drop.STREAM_ATTN, s) if rate else None
-        ms = time_ms(torch, lambda: attention_bwd(qkv, dctx, kb, b, h, dp))
+        kw = {}
+        if takes_stats and s <= gates.ATTN_BWD_MAX_SEQ:
+            kw["stats"] = attention(qkv, kb, b, h, dp, stats=True)[1]
+        ms = time_ms(torch, lambda: attention_bwd(qkv, dctx, kb, b, h, dp, **kw))
         q, k, v = (t.contiguous().requires_grad_() for t in
                    qkv.view(b, s, 3, h, dh).permute(2, 0, 3, 1, 4).unbind(0))
         mask = None if kb is None else kb.view(b, 1, 1, s).to(torch.bfloat16)

@@ -44,15 +44,20 @@ static __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1
   return c0;
 }
 
+// Whether one element is kept (the spec on).
+static __device__ __forceinline__ bool kept(const Spec& d, int sample, int head, int row,
+                                            int col) {
+  return philox_word0(static_cast<uint32_t>(sample), static_cast<uint32_t>(head),
+                      static_cast<uint32_t>(row), static_cast<uint32_t>(col), d.seed,
+                      d.stream) >= d.threshold;
+}
+
 // The keep multiplier of one element: scale where kept, 0 where dropped,
 // 1 when the spec is off.
 static __device__ __forceinline__ float mult(const Spec& d, int sample, int head, int row,
                                              int col) {
   if (!d.on) return 1.f;
-  const uint32_t bits = philox_word0(static_cast<uint32_t>(sample), static_cast<uint32_t>(head),
-                                     static_cast<uint32_t>(row), static_cast<uint32_t>(col),
-                                     d.seed, d.stream);
-  return bits >= d.threshold ? d.scale : 0.f;
+  return kept(d, sample, head, row, col) ? d.scale : 0.f;
 }
 
 }  // namespace drop

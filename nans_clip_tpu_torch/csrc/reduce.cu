@@ -14,7 +14,10 @@
 //
 // Bound: memory, one read of x. Design: one thread a column (neighbouring
 // threads on neighbouring columns, so every row read is coalesced), one
-// block row a chunk of rows.
+// block row a chunk of rows. A sum over a few hundred fp32 rows (the
+// LayerNorm backward's partials, a first pass's chunk sums) takes one
+// launch of colsum_split_kernel instead: a block over 32 columns, its 8
+// warps each over every 8th row, their sums added in warp order.
 #include "common.cuh"
 
 namespace {
@@ -39,6 +42,33 @@ __global__ void __launch_bounds__(kThreads)
   out[static_cast<size_t>(blockIdx.y) * cols + col] = s;
 }
 
+// One pass over a few hundred rows: a block of kThreads takes 32 columns,
+// warp w the rows w, w + 8, ... of them (lane l column l), and the 8 warps'
+// sums are added in warp order. out: [cols] fp32.
+constexpr int kSplitWarps = kThreads / 32;
+
+__global__ void __launch_bounds__(kThreads)
+    colsum_split_kernel(const float* __restrict__ x, int rows, int cols,
+                        float* __restrict__ out) {
+  __shared__ float part[kSplitWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (col < cols) {
+    const float* p = x + col;
+#pragma unroll 4
+    for (int r = warp; r < rows; r += kSplitWarps) s += p[static_cast<size_t>(r) * cols];
+  }
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && col < cols) {
+    float t = part[0][lane];
+#pragma unroll
+    for (int w = 1; w < kSplitWarps; ++w) t += part[w][lane];
+    out[col] = t;
+  }
+}
+
 }  // namespace
 
 // x: [rows, cols] fp32 (x_f32 != 0) or bf16; out: [ceil(rows /
@@ -48,5 +78,14 @@ extern "C" int nans_colsum(const void* x, int x_f32, int rows, int cols, int row
   const dim3 grid((cols + kThreads - 1) / kThreads, (rows + rows_per_chunk - 1) / rows_per_chunk);
   colsum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, x_f32, rows, cols, rows_per_chunk, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: [rows, cols] fp32; out: [cols] fp32, the column sums in one pass with
+// the rows split over a block's warps (colsum_split_kernel). Returns
+// cudaGetLastError().
+extern "C" int nans_colsum_split(const void* x, int rows, int cols, void* out, void* stream) {
+  colsum_split_kernel<<<(cols + 31) / 32, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), rows, cols, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

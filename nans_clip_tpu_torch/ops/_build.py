@@ -35,10 +35,11 @@ _DROP = [_U, _U, _U, _F, _I]   # seed, stream, threshold, scale, on (ops/dropout
 _SIGNATURES = {
     # x, x_is_fp32, gamma, beta, y, rows, width, eps, stream
     "nans_layernorm": [_P, _I, _P, _P, _P, _I, _I, _F, _P],
-    # gin, g_f32, x, x_f32, gamma, res, res_f32, dx, dx_f32, dmul, xhat, drop...,
-    # seq, part, rows, width, eps, stream
-    "nans_layernorm_bwd": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, *_DROP, _I, _P, _I, _I,
-                           _F, _P],
+    # form, gin, x, gamma, res, dx, dproj, xhat, drop..., seq, part, rows, width, sms,
+    # eps, stream
+    "nans_layernorm_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, *_DROP, _I, _P, _I, _I, _I, _F, _P],
+    # rows, width, sms, out int[4]: the backward's launch plan
+    "nans_layernorm_bwd_plan": [_I, _I, _I, ctypes.POINTER(_I)],
     # A, W, w_trans, bias, act, dact, aux, drop..., drop_seq, residual, res_f32,
     # C, c_f32, c_pre, c2, M, N, K, stream
     "nans_gemm": [_P, _P, _I, _P, _I, _I, _P, *_DROP, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
@@ -53,12 +54,16 @@ _SIGNATURES = {
     "nans_gemm_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, x_f32, rows, cols, rows_per_chunk, out, stream
     "nans_colsum": [_P, _I, _I, _I, _I, _P, _P],
-    # qkv, key_bias, ctx, B, S, width, dh, scale, drop..., stream
-    "nans_attention": [_P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
+    # x (fp32), rows, cols, out, stream
+    "nans_colsum_split": [_P, _I, _I, _P, _P],
+    # qkv, key_bias, ctx, stats, B, S, width, dh, scale, drop..., stream
+    "nans_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
     # S, dh, out int[4]: the forward's launch plan
     "nans_attention_plan": [_I, _I, ctypes.POINTER(_I)],
-    # qkv, dctx, key_bias, dqkv32, dqkv16, B, S, width, dh, scale, drop..., stream
-    "nans_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
+    # qkv, dctx, key_bias, stats, dqkv32, dqkv16, B, S, width, dh, scale, drop..., stream
+    "nans_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
+    # S, dh, drop_on, out int[4]: the one-shot backward's launch plan
+    "nans_attention_bwd_plan": [_I, _I, _I, ctypes.POINTER(_I)],
     # qkv, dctx, dqkv32, dqkv16, stats, B, S, width, dh, scale, stream
     "nans_attention_bwd_long": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, bias, o, lse, strides (int64 [4][3]), B, H, S, dh, scale, stream

@@ -13,8 +13,10 @@ dtype, the rounding points of the attention loop in
 and in the io dtype, as the backward kernels of
 ``nans_clip_tpu/ops/fused_block_bwd.py`` form it (:165-202, :348-378). On
 the card it launches the one-shot backward kernel up to
-``gates.ATTN_BWD_MAX_SEQ`` and the long-sequence pair of kernels above it
-(no key bias and no dropout there: the pre-LN blocks of
+``gates.ATTN_BWD_MAX_SEQ`` (:func:`attention_bwd_plan`), which takes each
+query row's softmax max and sum from the forward (``attention(...,
+stats=True)``: ``[2, B, H, S]`` fp32), and the long-sequence pair of
+kernels above it (no key bias and no dropout there: the pre-LN blocks of
 ``_attn_bwd_chunked_kernel``, :1163-1192).
 
 Heads are 64 or 80 wide (``gates.HEAD_DIMS``): every ViT-B/L and RoBERTa
@@ -61,13 +63,25 @@ def _heads(qkv: torch.Tensor, batch: int, heads: int):
     return [upcast(t) for t in qkv.view(batch, seq, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)]
 
 
-def _probs(q, k, key_bias, batch, seq):
+def _scores(q, k, key_bias, batch, seq):
     s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
     if key_bias is not None:
         s = s + key_bias.float().view(batch, 1, 1, seq).to(s.dtype)
+    return s
+
+
+def _row_stats(s):
+    """Each row's max and sum of exp(s - max): [2, B, H, S]."""
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    return p / p.sum(dim=-1, keepdim=True)
+    return torch.stack([m, torch.exp(s - m).sum(dim=-1, keepdim=True)]).squeeze(-1)
+
+
+def _probs(q, k, key_bias, batch, seq, stats=None):
+    """P = exp(s - m) / l, from the rows' statistics ``stats`` where given
+    (else formed here, as :func:`_row_stats`)."""
+    s = _scores(q, k, key_bias, batch, seq)
+    m, l = (_row_stats(s) if stats is None else stats.to(s.dtype)).unsqueeze(-1).unbind(0)
+    return torch.exp(s - m) / l
 
 
 def _keep(dropout, batch, heads, seq, like):
@@ -77,12 +91,17 @@ def _keep(dropout, batch, heads, seq, like):
 
 
 def attention_plain(qkv: torch.Tensor, key_bias: Optional[torch.Tensor],
-                    batch: int, heads: int,
-                    dropout: Optional[drop.Dropout] = None) -> torch.Tensor:
+                    batch: int, heads: int, dropout: Optional[drop.Dropout] = None,
+                    stats: bool = False):
+    """Twin of :func:`attention`: ctx, and with ``stats`` also each query
+    row's max and sum of exp(s - max), fp32 ``[2, B, H, S]``."""
     rows, w3 = qkv.shape
     q, k, v = qkv.view(batch, rows // batch, 3, heads, w3 // 3 // heads).permute(
         2, 0, 3, 1, 4).unbind(0)
-    return merge_heads(attention_xla(q, k, v, key_bias, dropout)).reshape(rows, w3 // 3)
+    ctx = merge_heads(attention_xla(q, k, v, key_bias, dropout)).reshape(rows, w3 // 3)
+    if not stats:
+        return ctx
+    return ctx, _row_stats(_scores(upcast(q), upcast(k), key_bias, batch, rows // batch)).float()
 
 
 def _admit(name, qkv, key_bias, batch, heads, max_seq):
@@ -131,38 +150,46 @@ def attention_plan(batch: int, seq: int, heads: int, dh: int) -> dict:
 
 
 def attention(qkv: torch.Tensor, key_bias: Optional[torch.Tensor],
-              batch: int, heads: int, dropout: Optional[drop.Dropout] = None) -> torch.Tensor:
+              batch: int, heads: int, dropout: Optional[drop.Dropout] = None,
+              stats: bool = False):
     """CPU tensors take :func:`attention_plain`; CUDA tensors launch the
     kernel (bf16 qkv, head dim 64 or 80, S <= ``gates.MAX_SEQ``; launched as
-    :func:`attention_plan` says)."""
+    :func:`attention_plan` says). With ``stats``, returns (ctx, stats): each
+    query row's softmax max and sum, fp32 ``[2, B, H, S]``, which
+    :func:`attention_bwd` takes (the kernel's instance without them, which
+    inference runs, stores nothing)."""
     if not qkv.is_cuda:
-        return attention_plain(qkv, key_bias, batch, heads, dropout)
+        return attention_plain(qkv, key_bias, batch, heads, dropout, stats)
     seq, w = _admit("attention", qkv, key_bias, batch, heads, gates.MAX_SEQ)
     dh = w // heads
     plan = attention_plan(batch, seq, heads, dh)
     gates.admit(plan["smem"] <= gates.SMEM_PER_BLOCK, f"attention: plan {plan}")
     ctx = torch.empty((qkv.shape[0], w), dtype=qkv.dtype, device=qkv.device)
+    st = torch.empty((2, batch, heads, seq), dtype=torch.float32, device=qkv.device) \
+        if stats else None
     err = _build.library().nans_attention(
         qkv.data_ptr(), None if key_bias is None else key_bias.data_ptr(), ctx.data_ptr(),
-        batch, seq, w, dh, 1.0 / math.sqrt(dh), *drop.kernel_args(dropout),
-        _build.stream_ptr(qkv.device))
+        None if st is None else st.data_ptr(), batch, seq, w, dh, 1.0 / math.sqrt(dh),
+        *drop.kernel_args(dropout), _build.stream_ptr(qkv.device))
     _build.check(err, "nans_attention")
     attention.launches += 1
-    return ctx
+    return (ctx, st) if stats else ctx
 
 
 def attention_bwd_plain(qkv: torch.Tensor, dctx: torch.Tensor,
                         key_bias: Optional[torch.Tensor], batch: int, heads: int,
-                        dropout: Optional[drop.Dropout] = None, need32: bool = True):
+                        dropout: Optional[drop.Dropout] = None, need32: bool = True,
+                        stats: Optional[torch.Tensor] = None):
     """Twin of the backward, step by step as ``_bert_bwd_math``
     (fused_block_bwd.py:356-373): returns (dqkv in fp32, dqkv in the io
-    dtype); the first is None where ``need32`` is False."""
+    dtype); the first is None where ``need32`` is False. P from the rows'
+    ``stats`` where given (the forward's), else recomputed."""
     rows, w3 = qkv.shape
     seq, w = rows // batch, w3 // 3
     dh = w // heads
     scale = 1.0 / math.sqrt(dh)
     q, k, v = _heads(qkv, batch, heads)
-    p = _probs(q, k, key_bias, batch, seq)                      # [B, H, S, S]
+    p = _probs(q, k, key_bias, batch, seq, stats)               # [B, H, S, S]
     keep = _keep(dropout, batch, heads, seq, p)
     do = upcast(dctx).view(batch, seq, heads, dh).permute(0, 2, 1, 3)
     rnd = lambda t: upcast(t.to(qkv.dtype))                     # a bf16 rounding point
@@ -179,18 +206,55 @@ def attention_bwd_plain(qkv: torch.Tensor, dctx: torch.Tensor,
     return (dqkv if need32 else None), dqkv.to(qkv.dtype)
 
 
+# attention.cu's one-shot backward: the most warps a block by head dim
+# (bwd::max_warps).
+ATTN_BWD_MAX_WARPS = {64: 7, 80: 12}
+
+
+def attention_bwd_plan(batch: int, seq: int, heads: int, dh: int, dropout: bool = False) -> dict:
+    """The one-shot backward's launch plan, as ``nans_attention_bwd_plan``
+    computes it: a block a (head, sample) (``grid``) holds the head's Q, K,
+    V and dctx (``seq`` padded to ``strips`` x 16 rows, unpadded swizzled
+    rows), the rows' max, sum and delta and the key bias, and under
+    ``dropout`` the keep bits (16 a row and key tile); ``warps`` warps take
+    the strips of 16 query rows (phase A), then of 16 key rows (phase B),
+    warp ``i`` taking strips ``i``, ``i + warps``, ..., in ``rounds``
+    rounds: the fewest warps that keep the rounds as few as
+    ``ATTN_BWD_MAX_WARPS[dh]`` would."""
+    s_pad = -(-seq // 16) * 16
+    strips = s_pad // 16
+    rounds = -(-strips // ATTN_BWD_MAX_WARPS[dh])
+    warps = -(-strips // rounds)
+    smem = 4 * s_pad * dh * 2 + 4 * s_pad * 4 + (s_pad * strips * 2 if dropout else 0)
+    return dict(warps=warps, threads=32 * warps, smem=smem, strips=strips, rounds=rounds,
+                grid=(heads, batch),
+                blocks_per_sm=min(gates.SMEM_PER_SM // (smem + 1024),
+                                  gates.REGS_PER_SM // (32 * warps * _BWD_REGS[dh]), 32,
+                                  64 // warps))
+
+
+# registers a thread of the one-shot backward's instances may take (its
+# __launch_bounds__: two blocks of 7 warps an SM at dh 64, the 14 warps 4
+# to an SM quarter of 16,384 registers; one block of up to 12 warps at dh
+# 80, 3 to a quarter)
+_BWD_REGS = {64: 128, 80: 168}
+
+
 def attention_bwd(qkv: torch.Tensor, dctx: torch.Tensor, key_bias: Optional[torch.Tensor],
                   batch: int, heads: int, dropout: Optional[drop.Dropout] = None,
-                  need32: bool = True):
+                  need32: bool = True, stats: Optional[torch.Tensor] = None):
     """``dctx``: [B*S, W] in the io dtype. CPU tensors take
     :func:`attention_bwd_plain`; CUDA tensors launch the one-shot kernel
-    (bf16, head dim 64 or 80, S <= ``gates.ATTN_BWD_MAX_SEQ``) or, for a
-    longer sequence without key bias or dropout (S <=
-    ``gates.ATTN_BWD_LONG_MAX_SEQ``), the long-sequence pair. ``dropout``
-    must be the forward's. ``need32`` False leaves the fp32 form unwritten
-    (None)."""
+    (bf16, head dim 64 or 80, S <= ``gates.ATTN_BWD_MAX_SEQ``; launched as
+    :func:`attention_bwd_plan` says) or, for a longer sequence without key
+    bias or dropout (S <= ``gates.ATTN_BWD_LONG_MAX_SEQ``), the
+    long-sequence pair. ``dropout`` must be the forward's. ``need32`` False
+    leaves the fp32 form unwritten (None). ``stats``: the forward's row
+    statistics (``attention(..., stats=True)``), which the one-shot kernel
+    takes; where they are not given, one forward launch forms them first.
+    The long pair forms its own."""
     if not qkv.is_cuda:
-        return attention_bwd_plain(qkv, dctx, key_bias, batch, heads, dropout, need32)
+        return attention_bwd_plain(qkv, dctx, key_bias, batch, heads, dropout, need32, stats)
     seq = qkv.shape[0] // batch
     long_seq = seq > gates.ATTN_BWD_MAX_SEQ
     seq, w = _admit("attention bwd", qkv, key_bias, batch, heads,
@@ -211,9 +275,16 @@ def attention_bwd(qkv: torch.Tensor, dctx: torch.Tensor, key_bias: Optional[torc
             seq, w, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(qkv.device))
         _build.check(err, "nans_attention_bwd_long")
     else:
+        if stats is None:
+            stats = attention(qkv, key_bias, batch, heads, dropout, stats=True)[1]
+        gates.admit(stats.is_cuda and stats.dtype == torch.float32 and stats.is_contiguous()
+                    and tuple(stats.shape) == (2, batch, heads, seq),
+                    "attention bwd: stats must be contiguous fp32 [2, B, H, S] on CUDA")
+        plan = attention_bwd_plan(batch, seq, heads, dh, drop.active(dropout))
+        gates.admit(plan["smem"] <= gates.SMEM_PER_BLOCK, f"attention bwd: plan {plan}")
         err = lib.nans_attention_bwd(
-            qkv.data_ptr(), dctx.data_ptr(), ptr(key_bias), ptr(d32), d16.data_ptr(), batch,
-            seq, w, dh, 1.0 / math.sqrt(dh), *drop.kernel_args(dropout),
+            qkv.data_ptr(), dctx.data_ptr(), ptr(key_bias), stats.data_ptr(), ptr(d32),
+            d16.data_ptr(), batch, seq, w, dh, 1.0 / math.sqrt(dh), *drop.kernel_args(dropout),
             _build.stream_ptr(qkv.device))
         _build.check(err, "nans_attention_bwd")
     attention_bwd.launches += 1

@@ -32,7 +32,8 @@ Each TPU kernel recomputed its sub-block's forward in VMEM, formed dx and
 accumulated fp32 weight gradients across a batch grid run in order. On the
 card each is a chain of the kernels of ``csrc/``: the forward recompute
 (``layernorm.cu``, ``gemm.cu``, ``attention.cu``), the attention backward
-(``attention.cu``), the input-gradient and weight-gradient products
+(``attention.cu``, from the forward recompute's softmax row statistics),
+the input-gradient and weight-gradient products
 (``gemm.cu``), the LayerNorm backward (``layernorm.cu``) and fixed-order
 column sums (``reduce.cu``), with the TPU kernels' rounding points: dqkv,
 dS, P (after its dropout), dproj and dh_pre are rounded to the io dtype
@@ -103,11 +104,11 @@ def attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, heads: int, eps: fl
     # forward recompute
     xn = ops.ln(x2, ln_w, ln_b, eps)                         # io dtype (:155)
     qkv = ops.lin(xn, w_qkv, b_qkv)                          # q/k/v in the io dtype (:170)
-    ctx = ops.attn(qkv, None, b, heads)                      # io dtype (:246)
+    ctx, stats = ops.attn(qkv, None, b, heads, stats=True)   # io dtype (:246); P's row stats
     # backward
     dctx = ops.dgrad(g2, w_o)                                # g . Wo, io dtype (:161, :181)
-    dqkv32, dqkv = ops.attn_bwd(qkv, dctx, None, b, heads,
-                                need32=full)                 # fp32 and io dtype (:201, :205)
+    dqkv32, dqkv = ops.attn_bwd(qkv, dctx, None, b, heads, need32=full,
+                                stats=stats)                 # fp32 and io dtype (:201, :205)
     dxn = ops.dgrad(dqkv, w_qkv, out_dtype=torch.float32)    # (:205)
     dx, d_scale, d_bias = ops.ln_bwd(dxn, x2, ln_w, eps, residual=g2, out_dtype=x.dtype,
                                      sums=full)[:3]          # g + dx_ln (:209-213, :251-252)
@@ -129,7 +130,7 @@ def bert_attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, se
     a_drop, h_drop = drop.sub_block(seed, attn_drop, hid_drop, s)
     # forward recompute, as the forward chain formed it
     qkv = ops.lin(x2, w_qkv, b_qkv)                                     # (:293-294)
-    ctx = ops.attn(qkv, key_bias, b, heads, a_drop)                     # (:310-329)
+    ctx, stats = ops.attn(qkv, key_bias, b, heads, a_drop, stats=True)  # (:310-329)
     u = ops.lin(ctx, w_o, b_o, residual=x2, out_dtype=torch.float32,
                 dropout=h_drop)                                         # (:331-336)
     # backward
@@ -137,8 +138,8 @@ def bert_attention_bwd_chain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, key_bias, se
         g2, u, ln_w, eps, out_dtype=torch.float32, emit_dproj=True, dropout=h_drop,
         emit_xhat=not full, sums=full)                                  # (:340-343)
     dctx = ops.dgrad(dproj, w_o)                                        # (:344-346)
-    dqkv32, dqkv = ops.attn_bwd(qkv, dctx, key_bias, b, heads, a_drop,
-                                need32=full)                            # (:348-378)
+    dqkv32, dqkv = ops.attn_bwd(qkv, dctx, key_bias, b, heads, a_drop, need32=full,
+                                stats=stats)                            # (:348-378)
     dx = ops.dgrad(dqkv, w_qkv, residual=du, out_dtype=x.dtype)         # du + dx_qkv (:380-383)
     dx = dx.reshape(b, s, w)
     if not full:

@@ -70,12 +70,18 @@ KERNEL_DTYPE = torch.bfloat16
 HEAD_DIMS = (64, 80)
 MAX_SEQ = 640
 SMEM_PER_BLOCK = 232448
+# An H100 SM: 233,472 bytes of shared memory (1 KB of it reserved a block),
+# 65,536 registers, 132 SMs on the SXM part (a plan takes the card's count).
+SMEM_PER_SM = 233472
+REGS_PER_SM = 65536
+H100_SMS = 132
 
 # attention.cu's one-shot backward: Q, K, V and dctx of a head sit in shared
-# memory (4 rows of dh + 8 bf16) plus 16 bytes of row statistics a row: S <=
-# 320 keeps the block at 189 KB (dh 64) or 230,400 bytes (dh 80). A kernel
-# limit, not a measured routing gate; the training shapes S = 52, 197, 257
-# qualify.
+# memory (4 unpadded swizzled rows of dh bf16) plus 16 bytes of row
+# statistics and key bias a row, and under dropout 2 bytes a row and key
+# tile of keep bits: S <= 320 keeps the block at 168,960 bytes (dh 64) or
+# 222,720 (dh 80, with dropout). A kernel limit, not a measured routing
+# gate; the training shapes S = 52, 197, 257 qualify.
 ATTN_BWD_MAX_SEQ = 320
 # attention.cu's long-sequence backward (the core of #20): a block holds
 # either K and V or Q and dctx of a head, so S <= 640 as the forward. Pre-LN
@@ -83,12 +89,12 @@ ATTN_BWD_MAX_SEQ = 320
 # ATTN_BWD_MAX_SEQ every backward chain takes it (ViT-L-14-336, S = 577).
 ATTN_BWD_LONG_MAX_SEQ = 640
 
-# layernorm.cu: one warp a row, 32 values a lane at most, forward and
-# backward, up to W = 1024 (ViT-B/L, RoBERTa: these keep the kernels of the
-# first port); wider rows up to MAX_LN_WIDTH take one block of 256 threads a
-# row, at most 8 values a thread (ViT-H's 1280). 2048 is the JAX package's
-# widest kernel width (MAX_WIDE_WIDTH, MAX_TILED_MLP_WIDTH). Set by the
-# design.
+# layernorm.cu: the forward takes one warp a row, 32 values a lane at most,
+# up to W = 1024 (ViT-B/L, RoBERTa), and wider rows up to MAX_LN_WIDTH one
+# block of 256 threads a row, at most 8 values a thread (ViT-H's 1280); the
+# backward one warp a row up to 1024 and a pair of warps above, runs of 8
+# columns a lane (at most 4 runs). 2048 is the JAX package's widest kernel
+# width (MAX_WIDE_WIDTH, MAX_TILED_MLP_WIDTH). Set by the design.
 MAX_LN_WIDTH = 2048
 LN_WIDTH_MULTIPLE = 32
 

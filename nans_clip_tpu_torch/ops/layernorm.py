@@ -21,13 +21,15 @@ forward on CUDA tensors, ``layer_norm`` on CPU tensors.
 ``layer_norm_bwd`` (twin ``layer_norm_bwd_plain``) is the LayerNorm
 backward of ``nans_clip_tpu/ops/fused_block_bwd.py`` (``_ln_bwd`` :101 and
 the pre-LN dx of :208-212, :773-777) with its dgamma/dbeta sums, launching
-the backward kernel of ``layernorm.cu`` for CUDA tensors. For the backward
-kernels that emit their activations it can also return x-hat in the io
-dtype (``emit_xhat``) and leave the sums out (``sums=False``).
+the backward kernel of ``layernorm.cu`` for CUDA tensors (a persistent
+grid, :func:`layernorm_bwd_plan`). For the backward kernels that emit their
+activations it can also return x-hat in the io dtype (``emit_xhat``) and
+leave the sums out (``sums=False``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -147,64 +149,98 @@ def _io_dtype(*tensors):
     return torch.float32
 
 
+# layernorm.cu's backward: warps a block, blocks an SM of its persistent
+# grid (kBwdWarps, kBwdBlocksPerSm), and the widest row one warp takes.
+LN_BWD_WARPS = 8
+LN_BWD_BLOCKS_PER_SM = 2
+LN_BWD_WARP_WIDTH = 1024
+
+
+def layernorm_bwd_plan(rows: int, width: int, sms: int = gates.H100_SMS,
+                       planes: int = 2) -> dict:
+    """The backward kernel's launch plan, as ``nans_layernorm_bwd_plan``
+    computes it: a persistent grid of at most ``LN_BWD_BLOCKS_PER_SM``
+    blocks an SM (``grid``), block ``i`` over rows ``[i *
+    rows_per_block, (i + 1) * rows_per_block)``; ``warps_per_row`` warps a
+    row (two above ``LN_BWD_WARP_WIDTH``), each lane over
+    ``chunks_per_lane`` runs of 8 columns; the block's ``8 /
+    warps_per_row`` row slots take its rows in turn. ``partials``: the
+    shape of the fp32 column partials of ``planes`` sums (2 pre-LN, 3
+    post-LN)."""
+    g = 2 if width > LN_BWD_WARP_WIDTH else 1
+    slots = LN_BWD_WARPS // g
+    grid = min(LN_BWD_BLOCKS_PER_SM * sms, -(-rows // slots))
+    rpb = -(-rows // grid)
+    grid = -(-rows // rpb)
+    return dict(grid=grid, rows_per_block=rpb, warps_per_row=g,
+                chunks_per_lane=-(-(width // 8 // g) // 32), row_slots=slots,
+                threads=32 * LN_BWD_WARPS, partials=(grid, planes, width))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def layer_norm_bwd(gin: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: float,
                    residual: Optional[torch.Tensor] = None,
                    out_dtype: Optional[torch.dtype] = None, emit_dproj: bool = False,
                    dropout: Optional[drop.Dropout] = None, emit_xhat: bool = False,
                    sums: bool = True):
     """As :func:`layer_norm_bwd_plain`. CPU tensors take the twin; CUDA
-    tensors launch the kernel (``gin``, ``x``, ``residual`` and ``dx`` bf16
-    or fp32, ``weight``, ``dproj`` and x-hat bf16), then sum its per-block
-    column partials in order (unless ``sums`` is False: then the kernel
-    takes no partials either)."""
+    tensors launch the kernel in one of the two forms the chains call: the
+    pre-LN form (``gin`` fp32, ``x`` bf16, ``residual`` bf16, dx bf16) or
+    the post-LN form (``gin`` bf16, ``x`` fp32, no residual, dx fp32,
+    ``emit_dproj``), with the sums or with x-hat (bf16) or, pre-LN, with
+    neither; anything else raises. Launched as :func:`layernorm_bwd_plan`
+    says; one ``column_sum`` launch then sums the per-block column partials
+    of all the sums in block order."""
     if not gin.is_cuda:
         return layer_norm_bwd_plain(gin, x, weight, eps, residual, out_dtype, emit_dproj,
                                     dropout, emit_xhat, sums)
     w = x.shape[-1]
     rows = x.numel() // w
-    ok_type = (torch.float32, gates.KERNEL_DTYPE)
+    bf16, f32 = gates.KERNEL_DTYPE, torch.float32
     for name, t in (("gin", gin), ("x", x), ("residual", residual)):
-        gates.admit(t is None or (t.is_cuda and t.is_contiguous() and t.dtype in ok_type
-                                  and t.numel() == rows * w),
-                    f"layernorm bwd: {name} must be contiguous bf16 or fp32 [rows, {w}] on CUDA")
-    gates.admit(w % gates.LN_WIDTH_MULTIPLE == 0 and w <= gates.MAX_LN_WIDTH,
+        gates.admit(t is None or (t.is_cuda and t.is_contiguous() and t.numel() == rows * w),
+                    f"layernorm bwd: {name} must be contiguous [rows, {w}] on CUDA")
+    gates.admit(rows > 0 and w % gates.LN_WIDTH_MULTIPLE == 0 and w <= gates.MAX_LN_WIDTH,
                 f"layernorm bwd: width {w}")
     out_dtype = out_dtype or gin.dtype
-    gates.admit(out_dtype in ok_type, f"layernorm bwd: output {out_dtype}")
-    gates.admit(not emit_dproj or gin.dtype == gates.KERNEL_DTYPE,
-                "layernorm bwd: dproj is written in the kernel dtype")
+    pre = (gin.dtype, x.dtype, None if residual is None else residual.dtype, out_dtype,
+           emit_dproj) == (f32, bf16, bf16, bf16, False)
+    post = residual is None and (gin.dtype, x.dtype, out_dtype, emit_dproj) == (bf16, f32, f32,
+                                                                                True)
+    gates.admit(pre or post, "layernorm bwd: the pre-LN form (gin fp32, x bf16, residual bf16, "
+                "dx bf16) or the post-LN form (gin bf16, x fp32, no residual, dx fp32, dproj)")
+    gates.admit(not (sums and emit_xhat) and (pre or sums or emit_xhat),
+                "layernorm bwd: the sums or x-hat (pre-LN: or neither)")
     gates.admit_cuda("layernorm bwd", weight)
     if drop.active(dropout):
         gates.admit(dropout.seq > 0 and rows % dropout.seq == 0,
                     "layernorm bwd: dropout needs seq | rows")
     dx = torch.empty(gin.shape, dtype=out_dtype, device=gin.device)
-    dproj = torch.empty(gin.shape, dtype=gates.KERNEL_DTYPE, device=gin.device) \
-        if emit_dproj else None
-    xhat = torch.empty(gin.shape, dtype=gates.KERNEL_DTYPE, device=gin.device) \
-        if emit_xhat else None
-    blocks = -(-rows // LN_BWD_ROWS)
-    part = torch.empty((3, blocks, w), dtype=torch.float32, device=gin.device) \
-        if sums else None
+    dproj = torch.empty(gin.shape, dtype=bf16, device=gin.device) if emit_dproj else None
+    xhat = torch.empty(gin.shape, dtype=bf16, device=gin.device) if emit_xhat else None
+    sms = _sms(gin.device.index if gin.device.index is not None else torch.cuda.current_device())
+    plan = layernorm_bwd_plan(rows, w, sms, 2 if pre else 3)
+    part = torch.empty(plan["partials"], dtype=f32, device=gin.device) if sums else None
     seed, stream, thresh, scale, on = drop.kernel_args(dropout)
     ptr = lambda t: None if t is None else t.data_ptr()
-    f32 = lambda t: int(t is not None and t.dtype == torch.float32)
     err = _build.library().nans_layernorm_bwd(
-        gin.data_ptr(), f32(gin), x.data_ptr(), f32(x), weight.data_ptr(), ptr(residual),
-        f32(residual), dx.data_ptr(), f32(dx), ptr(dproj), ptr(xhat), seed, stream, thresh,
-        scale, on, dropout.seq if on else 0, ptr(part), rows, w, float(eps),
+        0 if pre else 1, gin.data_ptr(), x.data_ptr(), weight.data_ptr(), ptr(residual),
+        dx.data_ptr(), ptr(dproj), ptr(xhat), seed, stream, thresh, scale, on,
+        dropout.seq if on else 0, ptr(part), rows, w, sms, float(eps),
         _build.stream_ptr(gin.device))
     _build.check(err, "nans_layernorm_bwd")
     layer_norm_bwd.launches += 1
     if sums:
-        out = (dx, column_sum(part[0]), column_sum(part[1]), dproj,
-               column_sum(part[2]) if emit_dproj else None)
+        total = column_sum(part.view(plan["grid"], -1)).view(-1, w)
+        out = (dx, total[0], total[1], dproj, total[2] if emit_dproj else None)
     else:
         out = (dx, None, None, dproj, None)
     return out + (xhat,) if emit_xhat else out
 
-
-# Rows a block of the backward kernel sums (layernorm.cu kBwdRows).
-LN_BWD_ROWS = 32
 
 row_layer_norm.launches = 0
 pallas_layer_norm.launches = 0

@@ -1047,3 +1047,126 @@ def test_attention_forward_matches_twin(dev, s, dh):
     assert _build.library().nans_attention_plan(s, dh, out) == 0
     p = attention_plan(b, s, heads, dh)
     assert list(out) == [p["key_tiles"], p["warps"], p["smem"], p["strips"]]
+
+
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("s", [7, 52, 197, 257, 320])
+def test_attention_stats_and_one_shot_bwd_match_twins(dev, s, dh):
+    """The forward's row statistics (``stats=True``) against the twin's: m
+    and l within 1e-6 of their magnitude (the scores' fp32 sums run in
+    another order than torch's, so m, a selected score, may move by an ulp);
+    ctx the same bits as without them. The one-shot backward from those
+    statistics against its twin, without a key bias, masked, and masked
+    with probability dropout 0.1: dqkv within 1e-2 of its largest
+    magnitude, the bf16 form the fp32 form rounded, the same bits on a
+    second call and without the statistics given (one forward forms
+    them)."""
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops.attention import attention_bwd, attention_bwd_plain, \
+        attention_plain
+    r = _rnd(dev, 100 + s * dh)
+    b, heads = 3, 4
+    qkv, dctx = r(b * s, 3 * heads * dh), r(b * s, heads * dh)
+    lengths = torch.tensor([s, max(1, s // 3), max(1, s - 2)], device=dev)
+    kb = ((1.0 - (torch.arange(s, device=dev)[None] < lengths[:, None]).float())
+          * -10000.0).contiguous()
+    spec = drop.Dropout(8, 0.1, drop.STREAM_ATTN, s)
+    for key_bias, dp in ((None, None), (kb, None), (kb, spec)):
+        ctx, st = attention(qkv, key_bias, b, heads, dp, stats=True)
+        assert st.shape == (2, b, heads, s) and st.dtype == torch.float32
+        assert torch.equal(ctx, attention(qkv, key_bias, b, heads, dp))
+        _, want_st = attention_plain(qkv, key_bias, b, heads, dp, stats=True)
+        for i in (0, 1):
+            assert _rel_err(st[i], want_st[i]) <= 1e-6
+        got, got16 = attention_bwd(qkv, dctx, key_bias, b, heads, dp, stats=st)
+        want, _ = attention_bwd_plain(qkv, dctx, key_bias, b, heads, dp)
+        assert _rel_err(got, want) <= 1e-2
+        assert torch.equal(got16, got.to(torch.bfloat16))
+        assert torch.equal(attention_bwd(qkv, dctx, key_bias, b, heads, dp, stats=st)[0], got)
+        assert torch.equal(attention_bwd(qkv, dctx, key_bias, b, heads, dp)[0], got)
+
+
+def test_attention_bwd_plan_matches_the_kernel(dev):
+    """ops/attention.py::attention_bwd_plan computes the launch
+    nans_attention_bwd_plan reports."""
+    import ctypes
+    from nans_clip_tpu_torch.ops import _build
+    from nans_clip_tpu_torch.ops.attention import attention_bwd_plan
+    out = (ctypes.c_int * 4)()
+    for s in (1, 7, 16, 17, 52, 77, 128, 197, 257, 320):
+        for dh in (64, 80):
+            for dp in (False, True):
+                assert _build.library().nans_attention_bwd_plan(s, dh, int(dp), out) == 0
+                p = attention_bwd_plan(2, s, 12, dh, dp)
+                assert list(out) == [p["warps"], p["smem"], p["strips"], p["rounds"]]
+
+
+def _ln_bwd_cases(dev, rows, w, seed):
+    """The forms the chains call, as layer_norm_bwd keyword sets: (gin, x,
+    keyword arguments, fp32 output) for pre-LN with sums, emitting x-hat,
+    and neither; post-LN with dropout 0.1, with sums and emitting x-hat."""
+    from nans_clip_tpu_torch.ops import dropout as drop
+    r = _rnd(dev, seed)
+    dxn, x, g = torch.randn(rows, w, device=dev), r(rows, w), r(rows, w)
+    u = torch.randn(rows, w, device=dev) * 3 + 1
+    spec = drop.Dropout(3, 0.1, drop.STREAM_HIDDEN, rows // 2)
+    pre = dict(residual=g, out_dtype=torch.bfloat16)
+    post = dict(out_dtype=torch.float32, emit_dproj=True, dropout=spec)
+    return [(dxn, x, 1e-5, dict(pre)), (dxn, x, 1e-5, dict(pre, emit_xhat=True, sums=False)),
+            (dxn, x, 1e-5, dict(pre, sums=False)), (g, u, 1e-12, dict(post)),
+            (g, u, 1e-12, dict(post, emit_xhat=True, sums=False))]
+
+
+@pytest.mark.parametrize("rows,w", [(2 * 197, 768), (2 * 52, 1024), (2 * 257, 1280),
+                                    (2 * 37, 2048), (2 * 19, 128)])
+def test_layernorm_bwd_every_form_matches_twin(dev, rows, w):
+    """The LayerNorm backward in every form the chains call, at one warp a
+    row (W <= 1024) and a pair of warps (1280, 2048), against the twin: a
+    bf16 dx within 2 bf16 ulps, fp32 outputs (dx, the sums) within 1e-5 of
+    their largest magnitude, dproj and x-hat within 2 ulps; dx and dproj of
+    the emitting and the summing instances equal bit for bit; two calls
+    equal; and the launch plan as nans_layernorm_bwd_plan reports it."""
+    import ctypes
+    from nans_clip_tpu_torch.ops import _build
+    from nans_clip_tpu_torch.ops.layernorm import (_sms, layer_norm_bwd, layer_norm_bwd_plain,
+                                                   layernorm_bwd_plan)
+    gamma = _rnd(dev, 5)(w, std=0.1) + 1
+    outs = []
+    for gin, x, eps, kw in _ln_bwd_cases(dev, rows, w, w + rows):
+        got = layer_norm_bwd(gin, x, gamma, eps, **kw)
+        want = layer_norm_bwd_plain(gin, x, gamma, eps, **kw)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is None:
+                continue
+            if a.dtype == torch.float32:
+                assert _rel_err(a, b) <= 1e-5
+            else:
+                _close(a, b, 2)
+        again = layer_norm_bwd(gin, x, gamma, eps, **kw)
+        assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+        outs.append(got)
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][0], outs[2][0])
+    assert torch.equal(outs[3][0], outs[4][0]) and torch.equal(outs[3][3], outs[4][3])
+    out = (ctypes.c_int * 4)()
+    for n in (1, 7, rows, 6656, 25216):
+        assert _build.library().nans_layernorm_bwd_plan(n, w, _sms(0), out) == 0
+        p = layernorm_bwd_plan(n, w, _sms(0))
+        assert list(out) == [p["grid"], p["rows_per_block"], p["warps_per_row"],
+                             p["chunks_per_lane"]]
+
+
+def test_column_sum_forms_match_twin(dev):
+    """column_sum's three launches (a thread a column up to 64 rows; the
+    warps over every 8th row of fp32 up to 512; a first pass over chunks
+    above) against the twin within 1e-5 of the largest magnitude, the same
+    bits on a second call."""
+    from nans_clip_tpu_torch.ops.reduce import column_sum, column_sum_plain
+    for rows, cols, dt in ((5, 768, torch.bfloat16), (64, 2304, torch.float32),
+                           (263, 2304, torch.float32), (300, 768, torch.bfloat16),
+                           (512, 100, torch.float32), (6656, 768, torch.bfloat16)):
+        x = torch.randn(rows, cols, device=dev).to(dt)
+        got = column_sum(x)
+        assert got.shape == (cols,) and _rel_err(got, column_sum_plain(x)) <= 1e-5
+        assert torch.equal(got, column_sum(x))
