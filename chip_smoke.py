@@ -27,9 +27,11 @@ Phases, each printing its lines before the last line:
    forward's row statistics at ViT-B's (128, 12, 197, 64), the masked text
    shape with dropout 0.1 (128, 12, 52, 64) and ViT-H-14's (32, 16, 257,
    80), and the long-sequence pair at (32, 16, 577, 64), each beside SDPA's
-   backward (dqkv within 1e-2 of max|twin|); the LayerNorm backward in the
-   chains' forms (pre-LN image with its sums at [25,216, 768], post-LN text
-   with dropout 0.1 at [6,656, 768], pre-LN at ViT-H's [8,224, 1280]) beside
+   backward (dqkv within 1e-2 of max|twin|, the same bits on a second call;
+   the pair's launches are counted in a ViT-L-14-336 step, phase 9); the
+   LayerNorm backward in the chains' forms (pre-LN image with its sums at
+   [25,216, 768], post-LN text with dropout 0.1 at [6,656, 768], pre-LN at
+   ViT-H's [8,224, 1280]) beside
    ``native_layer_norm_backward`` on fp32 copies; and ``column_sum`` at the
    QKV bias gradient [25,216, 2304] and at the LayerNorm partials [263,
    1536] beside ``torch.sum``.
@@ -389,7 +391,7 @@ def phase_kernels(torch, dev):
     bwd_calls = {}
     for key, (b, s_, nh, dh, q3, bias, dp) in bwd_in.items():
         d_ctx = rnd(b * s_, nh * dh)
-        st = attention(q3, bias, b, nh, dp, stats=True)[1] if s_ <= 320 else None
+        st = attention(q3, bias, b, nh, dp, stats=True)[1]
         q, k, v = (t.contiguous().requires_grad_() for t in
                    q3.view(b, s_, 3, nh, dh).permute(2, 0, 3, 1, 4).unbind(0))
         mask = None if bias is None else bias.view(b, 1, 1, s_).to(bf)
@@ -398,7 +400,7 @@ def phase_kernels(torch, dev):
         go = d_ctx.view(b, s_, nh, dh).transpose(1, 2)
         cost = (b * s_ * (4 * nh * dh * 2 + 3 * nh * dh * 6) + (b * s_ * 4 if bias is not None
                                                                 else 0)
-                + (2 * b * nh * s_ * 4 if st is not None else 0), 10 * b * nh * s_ * s_ * dh)
+                + 2 * b * nh * s_ * 4, 10 * b * nh * s_ * s_ * dh)
         bwd_calls[key] = (
             lambda q3=q3, d_ctx=d_ctx, bias=bias, b=b, nh=nh, dp=dp, st=st:
                 attention_bwd(q3, d_ctx, bias, b, nh, dp, stats=st)[0],
@@ -544,7 +546,7 @@ def phase_kernels(torch, dev):
          lambda: mm32(g_tr.T, dh_tr), wgrad_cost(w, inter)),
         # the backward's attention, LayerNorm and column sums (dqkv within
         # 1e-2 of its largest magnitude: a bf16 flip of dS or P_d moves a sum
-        # by an ulp of a term)
+        # by an ulp of a term; the attention's the same bits on a second call)
         ("attention_bwd", *bwd_calls["b"][:2], 1e-2,
          ("nans_clip_tpu_torch/csrc/attention.cu", "nans_clip_tpu/ops/fused_block_bwd.py:165"),
          *bwd_calls["b"][2:]),
@@ -552,7 +554,8 @@ def phase_kernels(torch, dev):
          None, *bwd_calls["d"][2:]),
         ("attention_bwd[heads of 80, (32, 16, 257, 80)]", *bwd_calls["h"][:2], 1e-2, None,
          *bwd_calls["h"][2:]),
-        ("attention_bwd[long pair, (32, 16, 577, 64)]", *bwd_calls["l"][:2], 1e-2, None,
+        ("attention_bwd_long", *bwd_calls["l"][:2], 1e-2,
+         ("nans_clip_tpu_torch/csrc/attention.cu", "nans_clip_tpu/ops/fused_block_bwd.py:1163"),
          *bwd_calls["l"][2:]),
         ("layernorm_bwd", lambda: ln_img[0]()[0], lambda: ln_img[1]()[0], 2,
          ("nans_clip_tpu_torch/csrc/layernorm.cu", "nans_clip_tpu/ops/fused_block_bwd.py:101"),
@@ -589,6 +592,8 @@ def phase_kernels(torch, dev):
                  else _ulps(want, n_ulps))
         if not (torch.isfinite(got).all() and err <= bound):
             raise AssertionError(f"{name}: max abs err {err} exceeds bound {bound}")
+        if name.startswith("attention_bwd") and not torch.equal(got, kern()):
+            raise AssertionError(f"{name}: two calls gave different bits")
         ms, plain_ms = _time_ms(kern, 10), _time_ms(twin, 3)
         library_ms = None if library is None else _time_ms(library, 10)
         yard_ms = _time_ms(yards[name], 10) if name in yards else None
@@ -1719,20 +1724,25 @@ def _wide_counted():
 def _wide_counts():
     from nans_clip_tpu_torch.ops import fused_block as fb
 
+    from nans_clip_tpu_torch.ops.attention import attention_bwd
+
     out = {name: fn.launches for name, fn in _wide_counted().items()}
     out["fused_attention_block_wide[batch_tile>1]"] = \
         fb.fused_attention_block_wide.launches_batched
+    out["attention_bwd_long"] = attention_bwd.launches_long
     out.update(_tower_counts())
     return out
 
 
 def _wide_reset():
     from nans_clip_tpu_torch.ops import fused_block as fb
+    from nans_clip_tpu_torch.ops.attention import attention_bwd
 
     _reset_counts()
     for fn in _wide_counted().values():
         fn.launches = 0
     fb.fused_attention_block_wide.launches_batched = 0
+    attention_bwd.launches_long = 0
 
 
 def _check_launches(what, got, want):
@@ -3101,6 +3111,8 @@ def main() -> int:
                     attention_bwd=train_launches["attention_bwd"],
                     layernorm_bwd=train_launches["layer_norm_bwd"],
                     column_sum=train_launches["column_sum"])
+    # the long-sequence pair's: a ViT-L-14-336 step (phase 9), its main path
+    launches["attention_bwd_long"] = wide_steps["ViT-L-14-336"]["per_step"]["attention_bwd_long"]
     for name, r in results.items():
         if r["meta"] is None:
             continue
@@ -3217,7 +3229,7 @@ def main() -> int:
               "fused_attention_block_bwd_fullgrad",
               "fused_bert_attention_block_bwd_fullgrad", "fused_mlp_block_bwd_fullgrad",
               "fused_layer_block_bwd_fullgrad", "gemm_dgrad", "gemm_wgrad", "attention_bwd",
-              "layernorm_bwd", "column_sum", *wide_launches,
+              "attention_bwd_long", "layernorm_bwd", "column_sum", *wide_launches,
               *(name for name, *_ in pallas_entries), "fused_attention_block_partial",
               "fused_mlp_block_partial"}
     if not ported <= {k["name"] for k in kernels} or any(k["launches"] < 1 for k in kernels):

@@ -2,7 +2,7 @@
 ``csrc/attention.cu``) on the card, beside SDPA on the same packed buffer and
 the bound.
 
-    python3 -m nans_clip_tpu_torch.bench_attention [--bwd] [--root DIR]
+    python3 -m nans_clip_tpu_torch.bench_attention [--bwd | --flash] [--root DIR]
 
 Prints the card's name and power limit, one line a shape, then one JSON
 line. Shapes (batch, heads, S, head dim): ViT-B-16's image attention at
@@ -22,14 +22,25 @@ one-shot kernel of ``csrc/attention.cu``, fp32 and bf16 dqkv as the
 full-gradient chains take them) at the train step's shapes, ViT-B-16's
 image attention (128, 12, 197, 64), RoBERTa-base's masked text attention
 with probability dropout 0.1 (128, 12, 52, 64), ViT-H-14's (32, 16, 257,
-80) and ViT-L-14-336's (32, 16, 577, 64), which takes the long-sequence
-pair of kernels; where the wrapper takes the forward's row statistics
-(``stats``), they are formed by one forward call outside the timed
-window, as the chains form them in their forward recompute; beside SDPA's backward
+80), ViT-L-14-336's (32, 16, 577, 64) and #20's at ViT-H width and 336
+pixels (16, 16, 577, 80), the last two on the long-sequence pair of
+kernels; where the wrapper takes the forward's row statistics (``stats``),
+they are formed by one forward call outside the timed window, as the
+chains form them in their forward recompute (a wrapper whose long pair
+forms its own ignores them there); beside SDPA's backward
 (``torch.autograd.grad`` through ``F.scaled_dot_product_attention`` with the
 same mask and rate) and the bound: q, k, v, dctx and the key bias read once,
 dqkv written in fp32 and bf16, 10 B S^2 H dh flops (the scores recomputed,
 dV, dP, dQ, dK).
+
+``--flash`` times #22, the flash forward of the ``pallas`` route
+(``ops/attention.py::flash_fwd``, ``csrc/flash.cu``: o and the row
+logsumexp), at chip_smoke.py phase 10's shapes (ViT-B-16 at batch 256,
+RoBERTa-base masked, ViT-H-14, ViT-L-14-336, S 1024), q, k and v views of
+one packed projection, beside SDPA on the same views and the bound: q, k,
+v and the key bias read once, o and lse written once, 4 B S^2 H dh flops;
+each also replayed from a CUDA graph (``graph_ms``: device time, the
+wrapper's host work left out).
 
 ``--root DIR`` imports ``nans_clip_tpu_torch`` from the checkout DIR (for
 example a ``git archive`` of the parent commit): run parent, change,
@@ -43,7 +54,8 @@ import json
 import math
 import subprocess
 
-from nans_clip_tpu_torch.bench_gemm import BF16_FLOPS, HBM_BYTES_PER_S, time_ms, use_checkout
+from nans_clip_tpu_torch.bench_gemm import (BF16_FLOPS, HBM_BYTES_PER_S, time_graph_ms, time_ms,
+                                             use_checkout)
 
 # (name, batch, heads, S, head dim, masked, dropout rate)
 SHAPES = [("vit_b_16", 256, 12, 197, 64, False, 0.0),
@@ -54,7 +66,14 @@ SHAPES = [("vit_b_16", 256, 12, 197, 64, False, 0.0),
 BWD_SHAPES = [("vit_b_16_train", 128, 12, 197, 64, False, 0.0),
               ("roberta_base_train_dropout", 128, 12, 52, 64, True, 0.1),
               ("vit_h_14_train", 32, 16, 257, 80, False, 0.0),
-              ("vit_l_14_336_train", 32, 16, 577, 64, False, 0.0)]
+              ("vit_l_14_336_train", 32, 16, 577, 64, False, 0.0),
+              ("vit_h_width_336_train", 16, 16, 577, 80, False, 0.0)]
+# chip_smoke.py phase 10's FLASH_SHAPES: (name, batch, heads, S, head dim, masked)
+FLASH_SHAPES = [("vit_b_16", 256, 12, 197, 64, False),
+                ("roberta_base_masked", 256, 12, 52, 64, True),
+                ("vit_h_14", 32, 16, 257, 80, False),
+                ("vit_l_14_336", 32, 16, 577, 64, False),
+                ("max_pallas_seq", 4, 16, 1024, 64, False)]
 
 
 def bound_ms(b, h, s, dh, masked, bwd=False):
@@ -69,7 +88,9 @@ def bound_ms(b, h, s, dh, masked, bwd=False):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--bwd", action="store_true", help="the backward instead")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--bwd", action="store_true", help="the backward instead")
+    mode.add_argument("--flash", action="store_true", help="#22, the flash forward, instead")
     ap.add_argument("--root", default=None, help="checkout to import the port from")
     args = ap.parse_args()
     if args.root:
@@ -88,10 +109,11 @@ def main() -> None:
     print(f"kernels from {attention.__module__}", flush=True)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
-    if args.bwd:
-        out = bench_bwd(torch, F, dev, g)
-        print(json.dumps({"bench_attention_bwd": out, "device": torch.cuda.get_device_name(0),
-                          "power": smi}), flush=True)
+    if args.bwd or args.flash:
+        key, out = (("bench_attention_bwd", bench_bwd(torch, F, dev, g)) if args.bwd else
+                    ("bench_flash_fwd", bench_flash(torch, F, dev, g)))
+        print(json.dumps({key: out, "device": torch.cuda.get_device_name(0), "power": smi}),
+              flush=True)
         return
     out = {}
     for name, b, h, s, dh, masked, rate in SHAPES:
@@ -123,7 +145,7 @@ def bench_bwd(torch, F, dev, g) -> dict:
     """``attention_bwd`` at BWD_SHAPES, SDPA's backward beside it."""
     import inspect
 
-    from nans_clip_tpu_torch.ops import dropout as drop, gates
+    from nans_clip_tpu_torch.ops import dropout as drop
     from nans_clip_tpu_torch.ops.attention import attention, attention_bwd
 
     takes_stats = "stats" in inspect.signature(attention_bwd).parameters
@@ -139,7 +161,7 @@ def bench_bwd(torch, F, dev, g) -> dict:
             kb = ((1.0 - keep.float()) * -10000.0).contiguous()
         dp = drop.Dropout(3, rate, drop.STREAM_ATTN, s) if rate else None
         kw = {}
-        if takes_stats and s <= gates.ATTN_BWD_MAX_SEQ:
+        if takes_stats:
             kw["stats"] = attention(qkv, kb, b, h, dp, stats=True)[1]
         ms = time_ms(torch, lambda: attention_bwd(qkv, dctx, kb, b, h, dp, **kw))
         q, k, v = (t.contiguous().requires_grad_() for t in
@@ -157,6 +179,38 @@ def bench_bwd(torch, F, dev, g) -> dict:
         out[name] = {"shape": [b, h, s, dh], "masked": masked, "dropout": rate, "ms": ms,
                      "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
         del qkv, dctx, q, k, v, ctx
+    return out
+
+
+def bench_flash(torch, F, dev, g) -> dict:
+    """``flash_fwd`` (#22) at FLASH_SHAPES, SDPA beside it."""
+    from nans_clip_tpu_torch.ops.attention import flash_fwd
+
+    out = {}
+    for name, b, h, s, dh, masked in FLASH_SHAPES:
+        q, k, v = torch.randn(b, s, 3, h, dh, generator=g, device=dev).to(
+            torch.bfloat16).permute(2, 0, 3, 1, 4).unbind(0)
+        kb = None
+        if masked:
+            lengths = torch.randint(2, s + 1, (b,), generator=g, device=dev)
+            kb = ((torch.arange(s, device=dev)[None, :] >= lengths[:, None]).float()
+                  * -10000.0).contiguous()
+        kern = lambda: flash_fwd(q, k, v, kb)
+        mask = None if kb is None else kb.view(b, 1, 1, s).to(torch.bfloat16)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        ms, lib_ms = time_ms(torch, kern), time_ms(torch, lib)
+        graph_ms, lib_graph_ms = time_graph_ms(torch, kern), time_graph_ms(torch, lib)
+        nbytes = 4 * b * h * s * dh * 2 + b * h * s * 4 + (b * s * 4 if masked else 0)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * b * h * s * s * dh / BF16_FLOPS * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        print(f"{name} flash forward: ({b}, {h}, {s}, {dh}){' masked' if masked else ''}: "
+              f"{ms:.4f} ms (graph {graph_ms:.4f}); SDPA {lib_ms:.4f} ms (graph "
+              f"{lib_graph_ms:.4f}); bound {b_ms:.4f} ms ({b_by})", flush=True)
+        out[name] = {"shape": [b, h, s, dh], "masked": masked, "ms": ms, "graph_ms": graph_ms,
+                     "library_ms": lib_ms, "library_graph_ms": lib_graph_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
+        del q, k, v
     return out
 
 

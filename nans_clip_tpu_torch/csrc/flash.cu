@@ -11,43 +11,68 @@
 // The TPU kernels held a whole head's K and V (and, backward, the whole
 // [S, S] score tile) in VMEM, with S padded to the 128-row query block. A
 // Hopper SM has 227 KB of shared memory, so here K and V stream through
-// shared memory in tiles of 64 keys, two tiles in flight (cp.async), with an
-// online softmax: a running row max m and sum l in fp32, the output
-// accumulator rescaled by exp(m_old - m_new) when the max grows. Shared
-// memory does not grow with S (45,056 bytes of tiles a block at dh 80), so
-// the kernels run to S = 1024, the JAX route's MAX_PALLAS_SEQ, and beyond.
-// The tail keys are masked in the kernel (zero-filled rows, bias -inf): no
-// tensor is padded. Every tensor is read and written through its strides
-// (the last dim contiguous), so the q/k/v views of a packed QKV projection
-// and an output laid out as [B, S, H, dh] need no copy.
+// shared memory in tiles of 64 keys with an online softmax: a running row
+// max m and sum l in fp32, the output accumulator rescaled by the exponent
+// of m_old - m_new when the max grows. Shared memory does not grow with S,
+// so the kernels run to S = 1024, the JAX route's MAX_PALLAS_SEQ, and
+// beyond. The tail keys are masked in the kernel (zero-filled rows, bias
+// -inf): no tensor is padded. Every tensor is read and written through its
+// strides (the last dim contiguous), so the q/k/v views of a packed QKV
+// projection and an output laid out as [B, S, H, dh] need no copy.
 //
-// Products run on mma.sync m16n8k16 with bf16 inputs and fp32 accumulation,
-// through attention.cuh's fragment code (score_tile, dot_tile,
-// accumulate_rows) and its dh-64 and dh-80 instances (KS = 4, 5). Rounding
-// points: the JAX kernel forms P V in fp32; mma.sync needs bf16 P, so the
-// unnormalised P is rounded to bf16 before P V (as attention.cu does) while
-// l sums the unrounded fp32 P. In the backward, P and dS are rounded to bf16
-// as mma inputs; delta, lse and every sum stay fp32.
+// Products run on mma.sync m16n8k16 with bf16 inputs and fp32 accumulation
+// (attention.cuh's fragment code, its dh-64 and dh-80 instances KS = 4, 5).
+// Rounding points: the JAX kernel forms P V in fp32; mma.sync needs bf16 P,
+// so the unnormalised P is rounded to bf16 before P V (as attention.cu
+// does) while l sums the unrounded fp32 P. In the backward, P and dS are
+// rounded to bf16 as mma inputs; delta, lse and every sum stay fp32.
 //
-// Design: one block of 4 warps per (64-row tile, head, sample), each warp
-// owning 16 rows as mma A fragments read straight from global memory.
-// Forward: a warp's query rows against the streamed key tiles. Backward, two
-// kernels and no atomics, so two calls give the same bits: (a) dQ, a warp's
-// query rows against the streamed key tiles, after forming its rows' delta
-// from do and o and storing it fp32 [B, H, S]; (b) dK and dV, a warp's key
-// rows against the streamed query tiles (Q, dO and their rows' lse and
-// delta). Bound: the bytes of q/k/v/o (and do, dq/dk/dv) at CLIP's
-// sequences, the exp work and the products at S = 577-1024 (the four
-// products of the backward plus the recomputed Q K^T).
+// Forward (#22). Bound: the bytes of q, k, v and o, 0.093 ms at (256, 12,
+// 197, 64), against 0.031 ms of products; after the bytes come the exp a
+// score and the ldmatrix traffic of the products. Design:
+// * A block takes up to 8 strips of 16 query rows of one (head, sample), a
+//   warp a strip, the strips of a head spread evenly over the fewest blocks
+//   (fwd_plan: 13 strips at S 197 take two blocks of 7 warps, 37 at S 577
+//   five of 8), so a head's K and V stream from device memory once for
+//   each 128 query rows or fewer (four and ten times before).
+// * The block's Q rows come by cp.async into swizzled rows (attn::swz),
+//   read once into fragments by ldmatrix; that buffer then stages the
+//   warp's o rows for 16-byte stores.
+// * K and V tiles of 64 keys in swizzled unpadded rows, three in flight
+//   (cp.async, one block barrier a tile; a ring of one or two where S has
+//   no more tiles); the last tile is scored in steps of 16 keys up to S
+//   only (208 keys scored for 197, not 256).
+// * The exponent is exp2 of s c - m c, c = log2(e) / sqrt(dh): without a
+//   key bias the max is taken over the raw products and P is one FFMA and
+//   one ex2 a score, with no bias read; with one, the scores are s c + b
+//   log2(e), the bias staged times log2(e). The accumulator and l are
+//   rescaled only when a row of the warp raises its max (a warp-uniform
+//   test; where the max holds the factor is exp2(0) = 1, so skipping it
+//   changes no bit).
+// Two blocks of 8 warps share an SM (at most 128 registers a thread).
+//
+// Backward (#23): one block of 4 warps per (64-row tile, head, sample), each
+// warp owning 16 rows as mma A fragments read straight from global memory,
+// K/V (or Q/dO) streamed in padded 64-row tiles, two in flight. Two kernels
+// and no atomics, so two calls give the same bits: (a) dQ, a warp's query
+// rows against the streamed key tiles, after forming its rows' delta from
+// do and o and storing it fp32 [B, H, S]; (b) dK and dV, a warp's key rows
+// against the streamed query tiles (Q, dO and their rows' lse and delta).
+// Bound: the bytes of q/k/v/o/do/dq/dk/dv at CLIP's sequences, the exp work
+// and the products at S = 577-1024 (the four products plus the recomputed
+// Q K^T).
 #include "attention.cuh"
 
 namespace {
 
 using attn::ldk;
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;           // the backward's blocks
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // rows a block owns (gates.FLASH_BLOCK_Q)
+constexpr int kRows = 16 * kWarps;  // rows a backward block owns (gates.FLASH_BLOCK_Q)
 constexpr int kTile = 64;           // rows a streamed tile (gates.FLASH_BLOCK_K)
+constexpr int kFwdMaxWarps = 8;     // forward strips a block (gates.FLASH_FWD_MAX_WARPS)
+constexpr int kFwdStages = 3;       // forward key tiles in flight (gates.FLASH_FWD_STAGES)
+constexpr float kLog2e = 1.4426950408889634f;
 
 // A [B, H, S, dh] bf16 tensor through its strides, in elements.
 struct View {
@@ -147,97 +172,206 @@ NANS_DEVICE void wait_tile(bool next_in_flight) {
   __syncthreads();
 }
 
-template <int KS>
-__global__ void __launch_bounds__(kThreads)
+// 2^x by the SFU (ex2.approx.ftz: relative error ~2^-22, results below
+// 2^-126 flushed to zero).
+NANS_DEVICE float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The forward's launch plan at (S, dh); ops/attention.py::flash_fwd_plan
+// computes the same: the S / 16 strips of a head over the fewest blocks of
+// at most kFwdMaxWarps warps, evened; shared memory for the blocks' Q rows
+// and a ring of kFwdStages tiles of K, V and the key bias, or of as many as
+// S has (the text towers' one tile), so that short sequences keep more
+// blocks an SM.
+struct FwdPlan {
+  int warps, blocks, strips, smem;
+};
+
+FwdPlan fwd_plan(int S, int dh) {
+  const int strips = (S + 15) / 16;
+  const int blocks = (strips + kFwdMaxWarps - 1) / kFwdMaxWarps;
+  const int warps = (strips + blocks - 1) / blocks;
+  const int tiles = (S + kTile - 1) / kTile, stages = tiles < kFwdStages ? tiles : kFwdStages;
+  const int smem = warps * 16 * dh * 2 + stages * (2 * kTile * dh * 2 + kTile * 4);
+  return FwdPlan{warps, blocks, strips, smem};
+}
+
+// One key tile of a warp's strip. kTail: the last tile, whose 16-key steps
+// stop at S (`valid` keys, the rest masked); kBias: an additive key bias,
+// staged times log2(e) in cB (-inf past S), so the scores and m are in
+// log2 units; without it they stay raw products (m their max, scale2 > 0
+// keeps the order) and P = exp2(s * scale2 - m * scale2) is one FFMA and
+// one ex2. The rescale of acc and l runs only when a row of the warp raises
+// its max. P, summed into l in fp32 and rounded to bf16, times V into acc.
+template <int KS, bool kBias, bool kTail>
+NANS_DEVICE void fwd_tile(float (&acc)[2 * KS][4], float (&m)[2], float (&l)[2],
+                          const uint32_t (&qf)[KS][4], const __nv_bfloat16* cK,
+                          const __nv_bfloat16* cV, const float* cB,
+                          const attn::LaneOffsets<KS>& off, int valid, int lane, float scale2) {
+  const int nsub = kTail ? min(4, (valid + 15) >> 4) : 4;
+  const auto live = [nsub](int u) { return !kTail || u < nsub; };
+  float s[4][2][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (!live(u)) continue;
+    if (kBias) {
+      attn::score16<KS>(s[u], qf, cK, cB, 16 * u, off, lane, scale2);
+    } else {
+      attn::dot16<KS>(s[u], qf, cK, 16 * u, off);
+      if (kTail) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)   // key 16u + 8(e / 4) + 2(lane % 4) + e % 2
+          if (16 * u + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1) >= valid)
+            s[u][e >> 2][e & 3] = -INFINITY;
+      }
+    }
+  }
+  float m_new[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float mt = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (live(u))
+        mt = fmaxf(mt, fmaxf(fmaxf(s[u][0][2 * hr], s[u][0][2 * hr + 1]),
+                             fmaxf(s[u][1][2 * hr], s[u][1][2 * hr + 1])));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    m_new[hr] = fmaxf(m[hr], mt);
+  }
+  // the exponent's offset in log2 units: 0 while a row has seen no finite
+  // score (a key bias of -inf), so that exp2 gives 0 and no NaN
+  const float ms = kBias ? 1.f : scale2;
+  float base[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) base[hr] = m_new[hr] == -INFINITY ? 0.f : m_new[hr] * ms;
+  if (__any_sync(0xffffffffu, m_new[0] > m[0] || m_new[1] > m[1])) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float alpha = exp2_approx(m[hr] * ms - base[hr]);
+      l[hr] *= alpha;
+#pragma unroll
+      for (int d = 0; d < 2 * KS; ++d) {
+        acc[d][2 * hr] *= alpha;
+        acc[d][2 * hr + 1] *= alpha;
+      }
+    }
+  }
+  m[0] = m_new[0];
+  m[1] = m_new[1];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (!live(u)) continue;
+#pragma unroll
+    for (int t2 = 0; t2 < 2; ++t2)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = kBias ? s[u][t2][e] - base[e >> 1]
+                              : fmaf(s[u][t2][e], scale2, -base[e >> 1]);
+        s[u][t2][e] = exp2_approx(x);
+        l[e >> 1] += s[u][t2][e];
+      }
+    uint32_t pa[4];
+    pack_a(pa, s[u]);
+    attn::pv16<KS>(acc, pa, cV, 16 * u, off);
+  }
+}
+
+// #22: a block of `warps` strips of one (head, sample) (see the note at the
+// top). scale2 = log2(e) / sqrt(dh); kBias: bias is not null.
+template <int KS, bool kBias>
+__global__ void __launch_bounds__(32 * kFwdMaxWarps, 2)
     flash_fwd_kernel(View q, View k, View v, View o, const float* __restrict__ bias,
-                     float* __restrict__ lse, int S, float scale) {
+                     float* __restrict__ lse, int S, float scale2) {
+  constexpr int DH = 16 * KS;
   extern __shared__ __align__(16) unsigned char smem[];
-  KeyTiles<KS> tiles(smem);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
   const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const int row0 = blockIdx.x * kRows + warp * 16;
+  const int q0 = blockIdx.x * nw * 16, row0 = q0 + warp * 16;
   const bool active = row0 < S;  // warp-uniform; every warp joins the barriers
+  // the ring: ns buffers (fwd_plan); tile t takes buffer t % kFwdStages,
+  // which is t itself where there are fewer tiles than kFwdStages
+  const int n_tiles = (S + kTile - 1) / kTile, ns = min(kFwdStages, n_tiles);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);   // the block's Q rows
+  __nv_bfloat16* sK = sQ + nw * 16 * DH;                         // [ns][kTile] rows
+  __nv_bfloat16* sV = sK + ns * kTile * DH;
+  float* sB = reinterpret_cast<float*>(sV + ns * kTile * DH);    // [ns][kTile]
   const __nv_bfloat16 *kh = k.head(b, h), *vh = v.head(b, h);
   const float* bias_b = bias ? bias + static_cast<size_t>(b) * S : nullptr;
 
+  // K, V rows of tile t and its key bias times log2(e) (-inf past S) into
+  // buffer t % kFwdStages; the caller commits the group.
+  const auto stage = [&](int t) {
+    const int buf = t % kFwdStages, j0 = t * kTile;
+    attn::stage_async<KS>(sK + buf * kTile * DH, kh + j0 * k.ss, k.ss, kTile, S - j0, tid,
+                          blockDim.x);
+    attn::stage_async<KS>(sV + buf * kTile * DH, vh + j0 * v.ss, v.ss, kTile, S - j0, tid,
+                          blockDim.x);
+    if (kBias)
+      for (int r = tid; r < kTile; r += blockDim.x) {
+        const int j = j0 + r;
+        sB[buf * kTile + r] = j < S ? bias_b[j] * kLog2e : -INFINITY;
+      }
+  };
+  // groups: Q with tile 0, then tiles 1 .. kFwdStages - 2 (empty past the last)
+  attn::stage_async<KS>(sQ, q.head(b, h) + q0 * q.ss, q.ss, nw * 16, S - q0, tid, blockDim.x);
+  stage(0);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 1; t < kFwdStages - 1; ++t) {
+    if (t < n_tiles) stage(t);
+    cp_async_commit();
+  }
+
+  const attn::LaneOffsets<KS> off(lane);
+  __nv_bfloat16* buf = sQ + warp * 16 * DH;   // this warp's Q rows, then its o rows
   uint32_t qf[KS][4];
-  attn::global_frags(qf, q.head(b, h), static_cast<size_t>(q.ss), row0, S, lane);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[2 * KS][4];
   zero_acc(acc);
-
-  const int n_tiles = (S + kTile - 1) / kTile;
-  tiles.stage(0, kh, k.ss, vh, v.ss, bias_b, S, tid);
   for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) tiles.stage(t + 1, kh, k.ss, vh, v.ss, bias_b, S, tid);
-    wait_tile(t + 1 < n_tiles);
-    if (active) {
-      const int buf = t & 1;
-      const __nv_bfloat16* cK = tiles.sK + buf * kTile * ldk<KS>();
-      const __nv_bfloat16* cV = tiles.sV + buf * kTile * ldk<KS>();
-      const float* cB = tiles.sB + buf * kTile;
-      float s[4][2][4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) attn::score_tile(s[u], qf, cK, cB, 16 * u, lane, scale);
-      // The tile's row max, merged over the four lanes of a row; the running
-      // max, the sum and the accumulator move to the new max.
-      float base[2];
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float mt = -INFINITY;
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int t2 = 0; t2 < 2; ++t2)
-            mt = fmaxf(mt, fmaxf(s[u][t2][2 * hr], s[u][t2][2 * hr + 1]));
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-        const float m_new = fmaxf(m[hr], mt);
-        base[hr] = m_new == -INFINITY ? 0.f : m_new;  // no key seen yet: nothing to scale
-        const float alpha = expf(m[hr] - base[hr]);
-        l[hr] *= alpha;
-#pragma unroll
-        for (int d = 0; d < 2 * KS; ++d) {
-          acc[d][2 * hr] *= alpha;
-          acc[d][2 * hr + 1] *= alpha;
-        }
-        m[hr] = m_new;
-      }
-      // P = exp(s - m): l sums it in fp32, P V takes it rounded to bf16.
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int t2 = 0; t2 < 2; ++t2)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[u][t2][e] = expf(s[u][t2][e] - base[e >> 1]);
-            l[e >> 1] += s[u][t2][e];
-          }
-        uint32_t pa[4];
-        pack_a(pa, s[u]);
-        attn::accumulate_rows(acc, pa, cV, 16 * u, lane);
-      }
-    }
-    __syncthreads();  // the buffer of tile t is staged again at t + 2
+    cp_async_wait<kFwdStages - 2>();   // tile t (and Q) landed
+    __syncthreads();                   // ... for every warp; tile t - 1's buffer is free
+    if (t + kFwdStages - 1 < n_tiles) stage(t + kFwdStages - 1);
+    cp_async_commit();
+    if (!active) continue;
+    if (t == 0) attn::tile_frags<KS>(qf, buf, lane);
+    const int b_t = t % kFwdStages, valid = S - t * kTile;
+    const __nv_bfloat16* cK = sK + b_t * kTile * DH;
+    const __nv_bfloat16* cV = sV + b_t * kTile * DH;
+    const float* cB = sB + b_t * kTile;
+    const bool tail = valid < kTile;   // the last tile, where S is not a multiple of 64
+    if (kBias)
+      tail ? fwd_tile<KS, true, true>(acc, m, l, qf, cK, cV, cB, off, valid, lane, scale2)
+           : fwd_tile<KS, true, false>(acc, m, l, qf, cK, cV, cB, off, valid, lane, scale2);
+    else
+      tail ? fwd_tile<KS, false, true>(acc, m, l, qf, cK, cV, cB, off, valid, lane, scale2)
+           : fwd_tile<KS, false, false>(acc, m, l, qf, cK, cV, cB, off, valid, lane, scale2);
   }
-
+  cp_async_wait<0>();
   if (!active) return;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+#pragma unroll
+    for (int d = 0; d < 2 * KS; ++d) {
+      acc[d][2 * hr] /= l[hr];
+      acc[d][2 * hr + 1] /= l[hr];
+    }
   }
-  __nv_bfloat16* oh = o.head(b, h);
+  attn::store_ctx<KS>(acc, buf, o.head(b, h), static_cast<size_t>(o.ss), row0, S, lane);
+  if ((lane & 3) == 0) {
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = row0 + (lane >> 2) + 8 * hr;
-    if (r >= S) continue;
-    __nv_bfloat16* p = oh + r * o.ss + 2 * (lane & 3);
-#pragma unroll
-    for (int d = 0; d < 2 * KS; ++d)
-      *reinterpret_cast<uint32_t*>(p + d * 8) =
-          pack_bf16(acc[d][2 * hr] / l[hr], acc[d][2 * hr + 1] / l[hr]);
-    if ((lane & 3) == 0) lse[(static_cast<size_t>(b) * H + h) * S + r] = m[hr] + logf(l[hr]);
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = row0 + (lane >> 2) + 8 * hr;
+      if (r < S)
+        lse[(static_cast<size_t>(b) * H + h) * S + r] =
+            (m[hr] * (kBias ? 1.f : scale2) + log2f(l[hr])) / kLog2e;
+    }
   }
 }
 
@@ -434,12 +568,13 @@ View view(const void* p, const long long* st) {
 template <int KS>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
                const long long* st, int B, int H, int S, float scale, cudaStream_t stream) {
-  const size_t smem = KeyTiles<KS>::bytes();
-  if (const int err = set_smem(flash_fwd_kernel<KS>, smem)) return err;
-  const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<KS><<<grid, kThreads, smem, stream>>>(
+  const FwdPlan p = fwd_plan(S, 16 * KS);
+  const auto kernel = bias ? flash_fwd_kernel<KS, true> : flash_fwd_kernel<KS, false>;
+  if (const int err = set_smem(kernel, p.smem)) return err;
+  const dim3 grid(p.blocks, H, B);
+  kernel<<<grid, 32 * p.warps, p.smem, stream>>>(
       view(q, st), view(k, st + 3), view(v, st + 6), view(o, st + 9),
-      static_cast<const float*>(bias), static_cast<float*>(lse), S, scale);
+      static_cast<const float*>(bias), static_cast<float*>(lse), S, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -478,6 +613,18 @@ extern "C" int nans_flash_fwd(const void* q, const void* k, const void* v, const
   if (dh == 64) return launch_fwd<4>(q, k, v, bias, o, lse, strides, B, H, S, scale, s);
   if (dh == 80) return launch_fwd<5>(q, k, v, bias, o, lse, strides, B, H, S, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// #22's launch plan at (S, dh): out = {warps a block, blocks a (head,
+// sample), strips of 16 query rows, shared-memory bytes}; the grid is
+// (blocks, H, B). ops/attention.py::flash_fwd_plan computes the same.
+extern "C" int nans_flash_fwd_plan(int S, int dh, int* out) {
+  const FwdPlan p = fwd_plan(S, dh);
+  out[0] = p.warps;
+  out[1] = p.blocks;
+  out[2] = p.strips;
+  out[3] = p.smem;
+  return 0;
 }
 
 // #23. q, k, v, bias, lse as nans_flash_fwd; o: its output; dout: the

@@ -64,10 +64,14 @@ _SIGNATURES = {
     "nans_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
     # S, dh, drop_on, out int[4]: the one-shot backward's launch plan
     "nans_attention_bwd_plan": [_I, _I, _I, ctypes.POINTER(_I)],
-    # qkv, dctx, dqkv32, dqkv16, stats, B, S, width, dh, scale, stream
-    "nans_attention_bwd_long": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, dctx, stats, delta, dqkv32, dqkv16, B, S, width, dh, scale, stream
+    "nans_attention_bwd_long": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # S, dh, out int[5]: the long-sequence backward's launch plan
+    "nans_attention_bwd_long_plan": [_I, _I, ctypes.POINTER(_I)],
     # q, k, v, bias, o, lse, strides (int64 [4][3]), B, H, S, dh, scale, stream
     "nans_flash_fwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
+    # S, dh, out int[4]: #22's launch plan
+    "nans_flash_fwd_plan": [_I, _I, ctypes.POINTER(_I)],
     # q, k, v, bias, o, dout, lse, delta, dq, dk, dv, strides (int64 [8][3]), B, H, S,
     # dh, scale, stream
     "nans_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],

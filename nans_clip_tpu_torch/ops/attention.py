@@ -13,11 +13,12 @@ dtype, the rounding points of the attention loop in
 and in the io dtype, as the backward kernels of
 ``nans_clip_tpu/ops/fused_block_bwd.py`` form it (:165-202, :348-378). On
 the card it launches the one-shot backward kernel up to
-``gates.ATTN_BWD_MAX_SEQ`` (:func:`attention_bwd_plan`), which takes each
-query row's softmax max and sum from the forward (``attention(...,
-stats=True)``: ``[2, B, H, S]`` fp32), and the long-sequence pair of
-kernels above it (no key bias and no dropout there: the pre-LN blocks of
-``_attn_bwd_chunked_kernel``, :1163-1192).
+``gates.ATTN_BWD_MAX_SEQ`` (:func:`attention_bwd_plan`) and the
+long-sequence pair of kernels above it (:func:`attention_bwd_long_plan`; no
+key bias and no dropout there: the pre-LN blocks of
+``_attn_bwd_chunked_kernel``, :1163-1192); both take each query row's
+softmax max and sum from the forward (``attention(..., stats=True)``: ``[2,
+B, H, S]`` fp32).
 
 Heads are 64 or 80 wide (``gates.HEAD_DIMS``): every ViT-B/L and RoBERTa
 tower, and ViT-H.
@@ -233,6 +234,32 @@ def attention_bwd_plan(batch: int, seq: int, heads: int, dh: int, dropout: bool 
                                   64 // warps))
 
 
+# attention.cu's long-sequence pair: the most warps a block by head dim
+# (bwd_long::max_warps: 128 registers a thread at dh 64, 168 at dh 80, one
+# block an SM).
+ATTN_BWD_LONG_MAX_WARPS = {64: 16, 80: 12}
+
+
+def attention_bwd_long_plan(batch: int, seq: int, heads: int, dh: int) -> dict:
+    """The long-sequence pair's launch plan, as ``nans_attention_bwd_long_plan``
+    computes it: each of the two kernels runs a block a (head, sample)
+    (``grid``) whose ``warps`` warps walk the head's ``strips`` strips of 16
+    rows (query rows in the dQ kernel, key rows in the dK/dV kernel), warp
+    ``i`` taking strips ``i``, ``i + warps``, ..., in ``rounds`` rounds: the
+    fewest warps that keep the rounds as few as
+    ``ATTN_BWD_LONG_MAX_WARPS[dh]`` would. ``smem_dq``: K and V of the head
+    (``seq`` padded to ``strips`` x 16 unpadded swizzled rows) and the key
+    mask; ``smem_dkv``: Q and dctx, the key mask and each query row's max,
+    sum and delta."""
+    s_pad = -(-seq // 16) * 16
+    strips = s_pad // 16
+    rounds = -(-strips // ATTN_BWD_LONG_MAX_WARPS[dh])
+    warps = -(-strips // rounds)
+    rows = 2 * s_pad * dh * 2
+    return dict(warps=warps, threads=32 * warps, rounds=rounds, strips=strips,
+                smem_dq=rows + s_pad * 4, smem_dkv=rows + 4 * s_pad * 4, grid=(heads, batch))
+
+
 # registers a thread of the one-shot backward's instances may take (its
 # __launch_bounds__: two blocks of 7 warps an SM at dh 64, the 14 warps 4
 # to an SM quarter of 16,384 registers; one block of up to 12 warps at dh
@@ -248,11 +275,11 @@ def attention_bwd(qkv: torch.Tensor, dctx: torch.Tensor, key_bias: Optional[torc
     (bf16, head dim 64 or 80, S <= ``gates.ATTN_BWD_MAX_SEQ``; launched as
     :func:`attention_bwd_plan` says) or, for a longer sequence without key
     bias or dropout (S <= ``gates.ATTN_BWD_LONG_MAX_SEQ``), the
-    long-sequence pair. ``dropout`` must be the forward's. ``need32`` False
-    leaves the fp32 form unwritten (None). ``stats``: the forward's row
-    statistics (``attention(..., stats=True)``), which the one-shot kernel
-    takes; where they are not given, one forward launch forms them first.
-    The long pair forms its own."""
+    long-sequence pair (:func:`attention_bwd_long_plan`). ``dropout`` must
+    be the forward's. ``need32`` False leaves the fp32 form unwritten
+    (None). ``stats``: the forward's row statistics (``attention(...,
+    stats=True)``), which both take; where they are not given, one forward
+    launch forms them first."""
     if not qkv.is_cuda:
         return attention_bwd_plain(qkv, dctx, key_bias, batch, heads, dropout, need32, stats)
     seq = qkv.shape[0] // batch
@@ -268,18 +295,22 @@ def attention_bwd(qkv: torch.Tensor, dctx: torch.Tensor, key_bias: Optional[torc
     d16 = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _build.library()
+    if stats is None:
+        stats = attention(qkv, key_bias, batch, heads, dropout, stats=True)[1]
+    gates.admit(stats.is_cuda and stats.dtype == torch.float32 and stats.is_contiguous()
+                and tuple(stats.shape) == (2, batch, heads, seq),
+                "attention bwd: stats must be contiguous fp32 [2, B, H, S] on CUDA")
     if long_seq:
-        stats = torch.empty((3, batch, heads, seq), dtype=torch.float32, device=qkv.device)
+        plan = attention_bwd_long_plan(batch, seq, heads, dh)
+        gates.admit(max(plan["smem_dq"], plan["smem_dkv"]) <= gates.SMEM_PER_BLOCK,
+                    f"attention bwd: plan {plan}")
+        delta = torch.empty((batch, heads, seq), dtype=torch.float32, device=qkv.device)
         err = lib.nans_attention_bwd_long(
-            qkv.data_ptr(), dctx.data_ptr(), ptr(d32), d16.data_ptr(), stats.data_ptr(), batch,
-            seq, w, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(qkv.device))
+            qkv.data_ptr(), dctx.data_ptr(), stats.data_ptr(), delta.data_ptr(), ptr(d32),
+            d16.data_ptr(), batch, seq, w, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(qkv.device))
         _build.check(err, "nans_attention_bwd_long")
+        attention_bwd.launches_long += 1
     else:
-        if stats is None:
-            stats = attention(qkv, key_bias, batch, heads, dropout, stats=True)[1]
-        gates.admit(stats.is_cuda and stats.dtype == torch.float32 and stats.is_contiguous()
-                    and tuple(stats.shape) == (2, batch, heads, seq),
-                    "attention bwd: stats must be contiguous fp32 [2, B, H, S] on CUDA")
         plan = attention_bwd_plan(batch, seq, heads, dh, drop.active(dropout))
         gates.admit(plan["smem"] <= gates.SMEM_PER_BLOCK, f"attention bwd: plan {plan}")
         err = lib.nans_attention_bwd(
@@ -293,6 +324,7 @@ def attention_bwd(qkv: torch.Tensor, dctx: torch.Tensor, key_bias: Optional[torc
 
 attention.launches = 0
 attention_bwd.launches = 0
+attention_bwd.launches_long = 0   # of them, the long-sequence pair's
 
 
 # ---------------------------------------------------------------------------
@@ -375,17 +407,39 @@ def _strides(*tensors) -> ctypes.Array:
                                                       for st in t.stride()[:3]])
 
 
+def flash_fwd_plan(batch: int, heads: int, seq: int, dh: int) -> dict:
+    """#22's launch plan, as ``nans_flash_fwd_plan`` computes it: a head's
+    ``strips`` strips of 16 query rows over the fewest ``blocks`` of at most
+    ``gates.FLASH_FWD_MAX_WARPS`` warps, evened (``warps`` a block, warp
+    ``i`` of block ``x`` taking strip ``x * warps + i``; a warp past the last
+    strip only stages); ``smem``: the block's Q rows and a ring of
+    ``gates.FLASH_FWD_STAGES`` tiles of ``gates.FLASH_BLOCK_K`` keys (K, V,
+    the key bias), or of as many tiles as ``seq`` has. The grid is
+    (``blocks``, heads, batch)."""
+    strips = -(-seq // 16)
+    blocks = -(-strips // gates.FLASH_FWD_MAX_WARPS)
+    warps = -(-strips // blocks)
+    tile = gates.FLASH_BLOCK_K
+    stages = min(gates.FLASH_FWD_STAGES, -(-seq // tile))
+    smem = warps * 16 * dh * 2 + stages * (2 * tile * dh * 2 + tile * 4)
+    return dict(warps=warps, threads=32 * warps, blocks=blocks, strips=strips, smem=smem,
+                grid=(blocks, heads, batch))
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               key_bias: Optional[torch.Tensor] = None):
     """#22: (o, lse) for q/k/v ``[B, H, S, dh]`` and an additive fp32
     ``key_bias`` ``[B, S]`` or None. CPU tensors take
     :func:`attention_pallas_plain`; CUDA tensors launch ``nans_flash_fwd``
-    (bf16, head dim 64 or 80, any S; read through strides). o comes back
-    as a [B, H, S, dh] view of a [B, S, H, dh] buffer, lse fp32 [B, H, S]."""
+    (bf16, head dim 64 or 80, any S; read through strides; launched as
+    :func:`flash_fwd_plan` says). o comes back as a [B, H, S, dh] view of a
+    [B, S, H, dh] buffer, lse fp32 [B, H, S]."""
     if not q.is_cuda:
         return attention_pallas_plain(q, k, v, key_bias)
     _admit_flash("flash fwd", q, k, v, key_bias)
     b, h, s, dh = q.shape
+    plan = flash_fwd_plan(b, h, s, dh)
+    gates.admit(plan["smem"] <= gates.SMEM_PER_BLOCK, f"flash fwd: plan {plan}")
     (o,) = _heads_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = _build.library().nans_flash_fwd(

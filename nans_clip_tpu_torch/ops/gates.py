@@ -83,10 +83,14 @@ H100_SMS = 132
 # 222,720 (dh 80, with dropout). A kernel limit, not a measured routing
 # gate; the training shapes S = 52, 197, 257 qualify.
 ATTN_BWD_MAX_SEQ = 320
-# attention.cu's long-sequence backward (the core of #20): a block holds
-# either K and V or Q and dctx of a head, so S <= 640 as the forward. Pre-LN
-# only: no key bias and no dropout (as _attn_bwd_chunked_kernel). Above
-# ATTN_BWD_MAX_SEQ every backward chain takes it (ViT-L-14-336, S = 577).
+# attention.cu's long-sequence backward (the core of #20): two kernels, each
+# a block a (head, sample) walking all of its strips of 16 rows; the dQ
+# kernel holds K and V of the head (swizzled, unpadded rows) and the key
+# mask, the dK/dV kernel Q and dctx with each query row's max, sum and
+# delta: S <= 640 keeps the larger at 215,040 bytes at dh 80
+# (``ops/attention.py::attention_bwd_long_plan``). Pre-LN only: no key bias
+# and no dropout (as _attn_bwd_chunked_kernel). Above ATTN_BWD_MAX_SEQ every
+# backward chain takes it (ViT-L-14-336, S = 577).
 ATTN_BWD_LONG_MAX_SEQ = 640
 
 # layernorm.cu: the forward takes one warp a row, 32 values a lane at most,
@@ -176,14 +180,18 @@ _KERNEL_IMPLS = ("auto", "kernel", "fused")
 # the port routes as JAX does: above it the attention is the plain one.
 MAX_PALLAS_SEQ = 1024
 
-# flash.cu (#22, #23): 64 query rows a block of 4 warps (16 rows a warp, one
-# mma.sync m16 tile), keys (and, in the dK/dV kernel, queries) streamed
-# through shared memory in tiles of 64 rows, two tiles in flight: at dh 80
-# 2 x 2 x 64 x 88 bf16 = 45,056 bytes a block, whatever S is. Head dims as
-# HEAD_DIMS (attention.cuh's k-step instances). Set by the kernel's design;
-# S itself is not limited by it.
+# flash.cu (#22, #23): 16 query rows a warp (one mma.sync m16 tile); the
+# backward's blocks of 4 warps own 64 rows, the forward's up to 8 strips of
+# one head (``ops/attention.py::flash_fwd_plan``); keys (and, in the dK/dV
+# kernel, queries) stream through shared memory in tiles of 64 rows, two
+# tiles in flight in the backward, three in the forward: at most 82,688
+# bytes a forward block (dh 80) and 45,056 a backward one, whatever S is.
+# Head dims as HEAD_DIMS (attention.cuh's k-step instances). Set by the
+# kernels' design; S itself is not limited by it.
 FLASH_BLOCK_Q = 64
 FLASH_BLOCK_K = 64
+FLASH_FWD_MAX_WARPS = 8
+FLASH_FWD_STAGES = 3
 
 # Routing of the training backward when every weight of a block needs its
 # gradient, per block kind: "fullgrad" (#14/#16/#18: the chain forms the

@@ -1,15 +1,18 @@
 """The launch plans of the one-shot attention backward
-(``ops/attention.py::attention_bwd_plan``) and of the LayerNorm backward
-(``ops/layernorm.py::layernorm_bwd_plan``), the plain Python functions their
-wrappers call, at every shape of the published towers (ViT-B-16, ViT-B-32,
-ViT-L-14, ViT-L-14-336 and ViT-H-14 images, RoBERTa-wwm-ext-base, -large and
-RBT3 texts at 52 tokens; batches 1 to 256): each plan stays within the
+(``ops/attention.py::attention_bwd_plan``), of the long-sequence pair
+(``attention_bwd_long_plan``), of the flash forward #22 (``flash_fwd_plan``)
+and of the LayerNorm backward (``ops/layernorm.py::layernorm_bwd_plan``),
+the plain Python functions their wrappers call, at every shape of the
+published towers (ViT-B-16, ViT-B-32, ViT-L-14, ViT-L-14-336 and ViT-H-14
+images, RoBERTa-wwm-ext-base, -large and RBT3 texts at 52 tokens; batches 1
+to 256) and at the edges of each kernel's range: each plan stays within the
 232,448 bytes of shared memory a block may have and covers its strips or
 rows exactly once, in order. Then the row statistics that the attention
 backward takes from the forward: the twin's backward from given statistics
-equals its own recomputation bit for bit, and the chains that hand them over
-still match the JAX Pallas backward kernels in interpret mode, at
-tests/test_torch_fused_bwd.py's bounds. Runs on the CPU."""
+equals its own recomputation bit for bit (S 37, and S 577 for the long
+pair), and the chains that hand them over still match the JAX Pallas
+backward kernels in interpret mode, at tests/test_torch_fused_bwd.py's
+bounds. Runs on the CPU."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,8 +24,10 @@ from nans_clip_tpu_torch.configs import load_config
 from nans_clip_tpu_torch.ops import dropout as drop
 from nans_clip_tpu_torch.ops import fused_block_bwd as tbwd
 from nans_clip_tpu_torch.ops import gates
-from nans_clip_tpu_torch.ops.attention import (ATTN_BWD_MAX_WARPS, attention_bwd_plain,
-                                               attention_bwd_plan, attention_plain)
+from nans_clip_tpu_torch.ops.attention import (ATTN_BWD_LONG_MAX_WARPS, ATTN_BWD_MAX_WARPS,
+                                               attention_bwd_long_plan, attention_bwd_plain,
+                                               attention_bwd_plan, attention_plain,
+                                               flash_fwd_plan)
 from nans_clip_tpu_torch.ops.layernorm import layer_norm_bwd_plain, layernorm_bwd_plan
 
 torch.set_num_threads(2)
@@ -88,6 +93,60 @@ def test_attention_bwd_plan_heads_of_80_at_vit_h():
     178 KB, its 17 strips on 9 warps in 2 rounds."""
     p = attention_bwd_plan(32, 257, 16, 80)
     assert (p["strips"], p["warps"], p["rounds"], p["blocks_per_sm"]) == (17, 9, 2, 1)
+
+
+def _long_shapes():
+    """S above the one-shot backward's reach: the published towers' (ViT-L-14-336's
+    577 at heads of 64) and the pair's range at heads of 64 and 80."""
+    shapes = {(s, w // h) for s, w, h in map(_tower, VISION + TEXT)
+              if s > gates.ATTN_BWD_MAX_SEQ}
+    edges = (gates.ATTN_BWD_MAX_SEQ + 1, 577, gates.ATTN_BWD_LONG_MAX_SEQ)
+    return sorted(shapes | {(s, dh) for s in edges for dh in gates.HEAD_DIMS})
+
+
+@pytest.mark.parametrize("s,dh", _long_shapes())
+def test_attention_bwd_long_plan_fits_and_owns_each_strip_once(s, dh):
+    p = attention_bwd_long_plan(32, s, 16, dh)
+    assert p["strips"] * 16 >= s > (p["strips"] - 1) * 16
+    assert max(p["smem_dq"], p["smem_dkv"]) <= gates.SMEM_PER_BLOCK
+    most = ATTN_BWD_LONG_MAX_WARPS[dh]
+    assert 1 <= p["warps"] <= most and p["threads"] == 32 * p["warps"]
+    assert p["rounds"] == -(-p["strips"] // most)
+    assert p["warps"] * p["rounds"] >= p["strips"] > (p["warps"] - 1) * p["rounds"]
+    # query strips in the dQ kernel, key strips in the dK/dV kernel
+    assert _owned_once(p["strips"], p["warps"], p["rounds"])
+    assert p["grid"] == (16, 32)
+
+
+def test_attention_bwd_long_plan_at_vit_l_336():
+    """ViT-L-14-336's image attention (S 577, heads of 64): 37 strips on 13
+    warps in 3 rounds, the head's K and V in 153,920 bytes; at heads of 80
+    (#20 at ViT-H width) 10 warps in 4 rounds."""
+    p = attention_bwd_long_plan(32, 577, 16, 64)
+    assert (p["strips"], p["warps"], p["rounds"], p["smem_dq"]) == (37, 13, 3, 153920)
+    p = attention_bwd_long_plan(16, 577, 16, 80)
+    assert (p["strips"], p["warps"], p["rounds"]) == (37, 10, 4)
+
+
+def _flash_shapes():
+    seqs = {s for s, _, _ in map(_tower, VISION + TEXT)} | {1, 15, 16, 17, 1024, 1025, 4096}
+    return sorted((s, dh) for s in seqs for dh in gates.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("s,dh", _flash_shapes())
+def test_flash_fwd_plan_covers_each_strip_once(s, dh):
+    """#22: warp i of block x takes strip x * warps + i; every strip has
+    exactly one (block, warp), every block at least one strip, on the fewest
+    blocks; two blocks fit an SM's shared memory."""
+    p = flash_fwd_plan(4, 12, s, dh)
+    assert p["strips"] * 16 >= s > (p["strips"] - 1) * 16
+    assert 1 <= p["warps"] <= gates.FLASH_FWD_MAX_WARPS and p["threads"] == 32 * p["warps"]
+    assert p["blocks"] == -(-p["strips"] // gates.FLASH_FWD_MAX_WARPS)
+    taken = [x * p["warps"] + i for x in range(p["blocks"]) for i in range(p["warps"])]
+    assert [t for t in taken if t < p["strips"]] == list(range(p["strips"]))
+    assert (p["blocks"] - 1) * p["warps"] < p["strips"]
+    assert 2 * (p["smem"] + 1024) <= gates.SMEM_PER_SM
+    assert p["grid"] == (p["blocks"], 12, 4)
 
 
 def _ln_shapes():
@@ -166,6 +225,21 @@ def test_attention_bwd_twin_from_stats_equals_recomputation(masked, rate):
     assert torch.equal(ctx, attention_plain(qkv, kb, b, heads, dp))
     for got, want in zip(attention_bwd_plain(qkv, dctx, kb, b, heads, dp, stats=st),
                          attention_bwd_plain(qkv, dctx, kb, b, heads, dp)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dh", [64, 80])
+def test_attention_bwd_twin_from_stats_equals_recomputation_long(dh):
+    """The same at S 577, the long pair's sequence (ViT-L-14-336): the twin
+    that the pair is held against gives the same bits from the forward's
+    statistics as from its own."""
+    rs = np.random.RandomState(dh)
+    b, s, heads = 1, 577, 2
+    qkv = torch.from_numpy(rs.randn(b * s, 3 * heads * dh).astype(np.float32))
+    dctx = torch.from_numpy(rs.randn(b * s, heads * dh).astype(np.float32))
+    _, st = attention_plain(qkv, None, b, heads, stats=True)
+    for got, want in zip(attention_bwd_plain(qkv, dctx, None, b, heads, stats=st),
+                         attention_bwd_plain(qkv, dctx, None, b, heads)):
         assert torch.equal(got, want)
 
 

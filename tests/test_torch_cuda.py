@@ -628,19 +628,22 @@ def test_wide_layernorm_matches_twin(dev, w):
                                        (640, 1280, 16), (330, 128, 2)])
 def test_wide_attention_matches_twin(dev, s, w, heads):
     """Heads of 80 and sequences above the one-shot backward's 320: the
-    forward, and the backward (one-shot up to S = 320, the long-sequence
-    pair above) within 1e-2 of dqkv's largest magnitude, the same bits on a
-    second call."""
+    forward, and the backward from the forward's row statistics (one-shot
+    up to S = 320, the long-sequence pair above) within 1e-2 of dqkv's
+    largest magnitude, the same bits on a second call and without the
+    statistics given (one forward forms them)."""
     from nans_clip_tpu_torch.ops.attention import attention_bwd, attention_bwd_plain, \
         attention_plain
     r = _rnd(dev, 12)
     b = 2
     qkv, dctx = r(b * s, 3 * w), r(b * s, w)
-    _close(attention(qkv, None, b, heads), attention_plain(qkv, None, b, heads), 2)
-    got, got16 = attention_bwd(qkv, dctx, None, b, heads)
+    ctx, st = attention(qkv, None, b, heads, stats=True)
+    _close(ctx, attention_plain(qkv, None, b, heads), 2)
+    got, got16 = attention_bwd(qkv, dctx, None, b, heads, stats=st)
     want, _ = attention_bwd_plain(qkv, dctx, None, b, heads)
     assert _rel_err(got, want) <= 1e-2
     assert torch.equal(got16, got.to(torch.bfloat16))
+    assert torch.equal(attention_bwd(qkv, dctx, None, b, heads, stats=st)[0], got)
     assert torch.equal(attention_bwd(qkv, dctx, None, b, heads)[0], got)
     if s > gates.ATTN_BWD_MAX_SEQ:
         kb = torch.zeros(b, s, device=dev)
@@ -728,6 +731,28 @@ def test_flash_attention_matches_twins(dev, b, h, s, dh, masked):
     assert torch.equal(out, o)
     out.backward(do)
     assert all(torch.equal(t.grad, a) for t, a in zip(qs, got))
+
+
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("s", [1, 15, 17, 64, 129, 1025])
+def test_flash_fwd_edges_match_twin(dev, s, dh):
+    """#22 at the edges of its tiles (a strip shorter than 16 rows, a last
+    key tile of one 16-key step, S past MAX_PALLAS_SEQ), with one sample's
+    keys all masked and q, k, v strided views of one packed projection: o
+    within 2 bf16 ulps of max|twin|, lse within 1e-4 of max(1, max|lse|),
+    the same bits on a second call."""
+    from nans_clip_tpu_torch.ops import attention as A
+    r = _rnd(dev, 40 + s)
+    b, h = 2, 3
+    q, k, v = r(b, s, 3, h, dh, std=1.0).permute(2, 0, 3, 1, 4).unbind(0)
+    for kb in (None, torch.cat([torch.zeros(1, s, device=dev),
+                                torch.full((1, s), -10000.0, device=dev)]).contiguous()):
+        o, lse = A.flash_fwd(q, k, v, kb)
+        o_t, lse_t = A.attention_pallas_plain(q, k, v, kb)
+        _close(o, o_t, 2)
+        assert float((lse - lse_t).abs().max()) <= 1e-4 * max(1.0, float(lse_t.abs().max()))
+        o2, lse2 = A.flash_fwd(q, k, v, kb)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 def test_flash_attention_block_matches_twin(dev):
@@ -1099,6 +1124,35 @@ def test_attention_bwd_plan_matches_the_kernel(dev):
                 assert _build.library().nans_attention_bwd_plan(s, dh, int(dp), out) == 0
                 p = attention_bwd_plan(2, s, 12, dh, dp)
                 assert list(out) == [p["warps"], p["smem"], p["strips"], p["rounds"]]
+
+
+def test_attention_bwd_long_plan_matches_the_kernel(dev):
+    """ops/attention.py::attention_bwd_long_plan computes the launch
+    nans_attention_bwd_long_plan reports."""
+    import ctypes
+    from nans_clip_tpu_torch.ops import _build
+    from nans_clip_tpu_torch.ops.attention import attention_bwd_long_plan
+    out = (ctypes.c_int * 5)()
+    for s in (321, 330, 400, 513, 577, 592, 625, 640):
+        for dh in (64, 80):
+            assert _build.library().nans_attention_bwd_long_plan(s, dh, out) == 0
+            p = attention_bwd_long_plan(2, s, 16, dh)
+            assert list(out) == [p["warps"], p["rounds"], p["strips"], p["smem_dq"],
+                                 p["smem_dkv"]]
+
+
+def test_flash_fwd_plan_matches_the_kernel(dev):
+    """ops/attention.py::flash_fwd_plan computes the launch
+    nans_flash_fwd_plan reports."""
+    import ctypes
+    from nans_clip_tpu_torch.ops import _build
+    from nans_clip_tpu_torch.ops.attention import flash_fwd_plan
+    out = (ctypes.c_int * 4)()
+    for s in (1, 15, 16, 17, 52, 128, 129, 197, 257, 577, 1024, 1025, 4096):
+        for dh in (64, 80):
+            assert _build.library().nans_flash_fwd_plan(s, dh, out) == 0
+            p = flash_fwd_plan(2, 12, s, dh)
+            assert list(out) == [p["warps"], p["blocks"], p["strips"], p["smem"]]
 
 
 def _ln_bwd_cases(dev, rows, w, seed):
