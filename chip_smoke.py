@@ -219,6 +219,41 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _check_flash_bwd_plan(b, h, s, dh):
+    """nans_flash_bwd_plan reports the launch ops/attention.py::flash_bwd_plan
+    computes."""
+    import ctypes
+
+    from nans_clip_tpu_torch.ops import _build
+    from nans_clip_tpu_torch.ops.attention import flash_bwd_plan
+
+    out = (ctypes.c_int * 6)()
+    _build.check(_build.library().nans_flash_bwd_plan(s, dh, out), "nans_flash_bwd_plan")
+    p = flash_bwd_plan(b, h, s, dh)
+    want = [p["warps"], p["blocks"], p["strips"], p["smem_dq"], p["smem_dkv"], p["dkv_blocks"]]
+    if list(out) != want:
+        raise AssertionError(f"#23 plan at S={s}, dh={dh}: kernel {list(out)} != {want}")
+
+
+def _check_tower_plan(tk, mode, b, s, w, dh, grid=None):
+    """nans_tower_plan reports the plan ops/tower_kernel.py::tower_plan
+    computes (on the co-resident grid unless one is given)."""
+    import ctypes
+
+    from nans_clip_tpu_torch.ops import _build
+
+    if grid is None:
+        grid = tk.max_grid(0, mode, s, dh)
+    out = (ctypes.c_int * 10)()
+    _build.check(_build.library().nans_tower_plan(mode, b, s, w, 4 * w, dh, grid, out),
+                 "nans_tower_plan")
+    p = tk.tower_plan(mode, b, s, w, 4 * w, dh, grid)
+    want = [p["ranges"], p["chunks"], p["stages"], *p["ks"], p["part"], p["sem"], p["smem"]]
+    if list(out) != want:
+        raise AssertionError(f"tower plan (mode {mode}, b={b}, S={s}, W={w}, grid {grid}): "
+                             f"kernel {list(out)} != {want}")
+
+
 def _ulps(ref, n: int) -> float:
     """n bf16 ulps at the largest magnitude of ``ref``: bf16 keeps 8
     significant bits, so one rounding flip anywhere in a chain moves an
@@ -660,6 +695,7 @@ def phase_towers(torch, dev):
                     keep = torch.arange(s, device=dev)[None, :] < lengths[:, None]
                     kb = ((1.0 - keep.float()) * -10000.0).contiguous()
                 args = (x, kb, ls, heads, eps, act, post_ln)
+                _check_tower_plan(tk, tk.MODE_INT8 if quant else tk.MODE_BF16, b, s, w, 64)
                 table = tk.TowerTable()
                 got = tk.fused_tower(*args, table=table)
                 want = tk.tower_math(*args)
@@ -1966,6 +2002,7 @@ def phase_wide(torch, dev, ckpt_out=None):
         kb = ((1.0 - (torch.arange(s, device=dev)[None, :] < lengths[:, None]).float())
               * -10000.0).contiguous()
         args = (x, kb, layers, 16, 1e-12, "gelu", True)
+        _check_tower_plan(tk, tk.MODE_BF16, b, s, w, 64)
         table = tk.TowerTable()
         got, want = tk.fused_tower(*args, table=table), tk.tower_math(*args)
         torch.cuda.synchronize()
@@ -2233,6 +2270,7 @@ def phase_pallas(torch, dev):
             kb = ((torch.arange(s, device=dev)[None, :] >= lengths[:, None]).float()
                   * -10000.0).contiguous()
         do = rnd(b, h, s, dh)
+        _check_flash_bwd_plan(b, h, s, dh)
         o, lse = A.flash_fwd(q, k, v, kb)
         o_t, lse_t = A.attention_pallas_plain(q, k, v, kb)
         grads = A.flash_bwd(q, k, v, kb, o, do, lse)
@@ -2918,6 +2956,9 @@ def phase_qdma(torch, dev, ckpt_h):
             x = rnd(b, s, w)
             kb = key_bias(b, s) if post_ln else None
             args = (x, kb, ls, heads, eps, act, post_ln)
+            for mode, grid in ((tk.MODE_QDMA, None), (tk.MODE_INT8, None),
+                               (tk.MODE_INT8, min(grid5, grid6))):
+                _check_tower_plan(tk, mode, b, s, w, 64, grid)
             table = tk.TowerTable()
             got = tk.fused_tower(*args, table=table, quant_dma=True)
             same6 = tk.fused_tower(*args, table=table, grid=min(grid5, grid6), quant_dma=True)
@@ -2961,6 +3002,7 @@ def phase_qdma(torch, dev, ckpt_h):
         ls = quantized(bf_layers) if quant else bf_layers
         x = rnd(1, s, w)
         args = (x, None, ls, heads, 1e-5, "quick_gelu", False)
+        _check_tower_plan(tk, tk.MODE_INT8 if quant else tk.MODE_BF16, 1, s, w, 80)
         table = tk.TowerTable()
         got, want = tk.fused_tower(*args, table=table), tk.tower_math(*args)
         torch.cuda.synchronize()

@@ -2,7 +2,7 @@
 ``csrc/attention.cu``) on the card, beside SDPA on the same packed buffer and
 the bound.
 
-    python3 -m nans_clip_tpu_torch.bench_attention [--bwd | --flash] [--root DIR]
+    python3 -m nans_clip_tpu_torch.bench_attention [--bwd | --flash | --flash-bwd] [--root DIR]
 
 Prints the card's name and power limit, one line a shape, then one JSON
 line. Shapes (batch, heads, S, head dim): ViT-B-16's image attention at
@@ -41,6 +41,14 @@ one packed projection, beside SDPA on the same views and the bound: q, k,
 v and the key bias read once, o and lse written once, 4 B S^2 H dh flops;
 each also replayed from a CUDA graph (``graph_ms``: device time, the
 wrapper's host work left out).
+
+``--flash-bwd`` times #23, the flash backward of the ``pallas`` route
+(``ops/attention.py::flash_bwd``: the dQ kernel, then the dK/dV kernel),
+at the same shapes from the forward's o and lse, beside SDPA's backward
+(``torch.autograd.grad`` through ``F.scaled_dot_product_attention`` on the
+same q, k, v views and key bias) and the bound: q, k, v, o, do, the key
+bias and lse read once, dq, dk and dv written once, 10 B S^2 H dh flops;
+each also replayed from a CUDA graph (``graph_ms``).
 
 ``--root DIR`` imports ``nans_clip_tpu_torch`` from the checkout DIR (for
 example a ``git archive`` of the parent commit): run parent, change,
@@ -91,6 +99,8 @@ def main() -> None:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--bwd", action="store_true", help="the backward instead")
     mode.add_argument("--flash", action="store_true", help="#22, the flash forward, instead")
+    mode.add_argument("--flash-bwd", action="store_true",
+                      help="#23, the flash backward, instead")
     ap.add_argument("--root", default=None, help="checkout to import the port from")
     args = ap.parse_args()
     if args.root:
@@ -109,9 +119,10 @@ def main() -> None:
     print(f"kernels from {attention.__module__}", flush=True)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
-    if args.bwd or args.flash:
+    if args.bwd or args.flash or args.flash_bwd:
         key, out = (("bench_attention_bwd", bench_bwd(torch, F, dev, g)) if args.bwd else
-                    ("bench_flash_fwd", bench_flash(torch, F, dev, g)))
+                    ("bench_flash_bwd", bench_flash_bwd(torch, F, dev, g)) if args.flash_bwd
+                    else ("bench_flash_fwd", bench_flash(torch, F, dev, g)))
         print(json.dumps({key: out, "device": torch.cuda.get_device_name(0), "power": smi}),
               flush=True)
         return
@@ -211,6 +222,47 @@ def bench_flash(torch, F, dev, g) -> dict:
                      "library_ms": lib_ms, "library_graph_ms": lib_graph_ms, "bound_ms": b_ms,
                      "bound_by": b_by}
         del q, k, v
+    return out
+
+
+def bench_flash_bwd(torch, F, dev, g) -> dict:
+    """``flash_bwd`` (#23) at FLASH_SHAPES, SDPA's backward beside it."""
+    from nans_clip_tpu_torch.ops.attention import flash_bwd, flash_fwd
+
+    out = {}
+    for name, b, h, s, dh, masked in FLASH_SHAPES:
+        q, k, v = torch.randn(b, s, 3, h, dh, generator=g, device=dev).to(
+            torch.bfloat16).permute(2, 0, 3, 1, 4).unbind(0)
+        do = torch.randn(b, h, s, dh, generator=g, device=dev).to(torch.bfloat16)
+        kb = None
+        if masked:
+            lengths = torch.randint(2, s + 1, (b,), generator=g, device=dev)
+            kb = ((torch.arange(s, device=dev)[None, :] >= lengths[:, None]).float()
+                  * -10000.0).contiguous()
+        o, lse = flash_fwd(q, k, v, kb)
+        kern = lambda: flash_bwd(q, k, v, kb, o, do, lse)
+        mask = None if kb is None else kb.view(b, 1, 1, s).to(torch.bfloat16)
+        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+        lib = lambda: torch.autograd.grad(lout, (lq, lk, lv), do, retain_graph=True)
+        ms, lib_ms = time_ms(torch, kern), time_ms(torch, lib)
+        graph_ms = time_graph_ms(torch, kern)
+        try:   # autograd's backward under graph capture: not every build takes it
+            lib_graph_ms = time_graph_ms(torch, lib)
+        except RuntimeError as err:
+            print(f"{name}: SDPA backward not replayed from a graph ({err})", flush=True)
+            lib_graph_ms = None
+        nbytes = 8 * b * h * s * dh * 2 + b * h * s * 4 + (b * s * 4 if masked else 0)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 10 * b * h * s * s * dh / BF16_FLOPS * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        print(f"{name} flash backward: ({b}, {h}, {s}, {dh}){' masked' if masked else ''}: "
+              f"{ms:.4f} ms (graph {graph_ms:.4f}); SDPA backward {lib_ms:.4f} ms (graph "
+              f"{lib_graph_ms}); bound {b_ms:.4f} ms ({b_by})", flush=True)
+        out[name] = {"shape": [b, h, s, dh], "masked": masked, "ms": ms, "graph_ms": graph_ms,
+                     "library_ms": lib_ms, "library_graph_ms": lib_graph_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
+        del q, k, v, do, o, lse, lq, lk, lv, lout
     return out
 
 

@@ -23,8 +23,10 @@ bytes / 3.35 TB/s: every input read once and every output written once.
 
 It also times ``ops/reduce.py::column_sum`` beside ``torch.sum(x, 0)`` at
 the shapes the chains give it: three [788, 768] fp32 partial planes (the
-parent design's LayerNorm partials), and the bias gradient of the QKV
-product [25,216, 2304] fp32.
+parent design's LayerNorm partials), the bias gradient of the QKV product
+[25,216, 2304] fp32, and the LayerNorm backward's [263, 1536] fp32 partials
+of a ViT-B step, which take ``colsum_split_kernel`` (one launch, rows split
+across blocks).
 
 ``--root DIR`` imports ``nans_clip_tpu_torch`` from the checkout DIR (for
 example a ``git archive`` of the parent commit): run parent, change,
@@ -47,7 +49,8 @@ SHAPES = [("vit_b_image_pre_ln_sums", 25216, 768, "pre", False),
           ("vit_h_14_pre_ln_sums", 8224, 1280, "pre", False),
           ("vit_l_14_336_pre_ln_sums", 18464, 1024, "pre", False),
           ("roberta_large_text_post_ln_dropout", 1664, 1024, "post", False)]
-COLSUM_SHAPES = [("ln_partials_3x", 788, 768, 3), ("qkv_bias_grad", 25216, 2304, 1)]
+COLSUM_SHAPES = [("ln_partials_3x", 788, 768, 3), ("qkv_bias_grad", 25216, 2304, 1),
+                 ("ln_partials_split", 263, 1536, 1)]
 
 
 def ln_bytes(rows, width, form, emit):

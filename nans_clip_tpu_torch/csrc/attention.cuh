@@ -8,10 +8,10 @@
 // ten n-tiles of 8); attention.cu, flash.cu and tower.cu instance both. Two
 // layouts of a head's rows in shared memory: padded rows dh + 8 bf16 apart
 // (attn::ldk: 144 bytes at dh 64, 176 at dh 80, both 16-byte multiples that
-// keep ldmatrix's eight row addresses on distinct banks), which tower.cu and
-// flash.cu's backward read; and unpadded rows with XOR-swizzled 16-byte
-// chunks (attn::swz, staged by cp.async), which attention.cu's kernels and
-// flash.cu's forward read (the second half of this file).
+// keep ldmatrix's eight row addresses on distinct banks), which tower.cu's
+// attention stage reads; and unpadded rows with XOR-swizzled 16-byte chunks
+// (attn::swz, staged by cp.async), which attention.cu's and flash.cu's
+// kernels read (the second half of this file).
 //
 // fp32 scores, fp32 softmax statistics, a max-subtracted exp and a row-sum
 // divide; P is rounded to bf16 before the PV product and ctx is stored as

@@ -32,7 +32,7 @@
 // score and the ldmatrix traffic of the products. Design:
 // * A block takes up to 8 strips of 16 query rows of one (head, sample), a
 //   warp a strip, the strips of a head spread evenly over the fewest blocks
-//   (fwd_plan: 13 strips at S 197 take two blocks of 7 warps, 37 at S 577
+//   (plan: 13 strips at S 197 take two blocks of 7 warps, 37 at S 577
 //   five of 8), so a head's K and V stream from device memory once for
 //   each 128 query rows or fewer (four and ten times before).
 // * The block's Q rows come by cp.async into swizzled rows (attn::swz),
@@ -51,28 +51,47 @@
 //   changes no bit).
 // Two blocks of 8 warps share an SM (at most 128 registers a thread).
 //
-// Backward (#23): one block of 4 warps per (64-row tile, head, sample), each
-// warp owning 16 rows as mma A fragments read straight from global memory,
-// K/V (or Q/dO) streamed in padded 64-row tiles, two in flight. Two kernels
-// and no atomics, so two calls give the same bits: (a) dQ, a warp's query
-// rows against the streamed key tiles, after forming its rows' delta from
-// do and o and storing it fp32 [B, H, S]; (b) dK and dV, a warp's key rows
-// against the streamed query tiles (Q, dO and their rows' lse and delta).
-// Bound: the bytes of q/k/v/o/do/dq/dk/dv at CLIP's sequences, the exp work
-// and the products at S = 577-1024 (the four products plus the recomputed
-// Q K^T).
+// Backward (#23), two kernels and no atomics, so two calls give the same
+// bits: (a) dQ, a warp's query rows against the streamed key tiles, after
+// forming its rows' delta from do and o and storing it fp32 [B, H, S]; (b)
+// dK and dV, a warp's key rows against the streamed query tiles (Q, dO and
+// their rows' lse and delta). Every output is summed inside one warp in one
+// fixed order. Bound: the products at S = 577-1024 (Q K^T and dO V^T in each
+// kernel, dS K, P^T dO and dS^T Q: 10 B H S^2 dh flops counted once, 14 run),
+// the bytes at CLIP's short sequences. The forward's design carries over:
+// * A block takes up to 8 strips of 16 rows of one (head, sample), a warp a
+//   strip, spread evenly over the fewest blocks as the forward's (plan), so
+//   the streamed operand (K and V in (a), Q and dO in (b)) crosses device
+//   memory once for each 128 rows or fewer, not each 64.
+// * The block's own rows (Q and dO in (a), K and V in (b)) come by cp.async
+//   into swizzled rows, read once into fragments by ldmatrix; the same
+//   buffers stage the outputs for 16-byte stores.
+// * The streamed tiles of 64 rows in swizzled unpadded rows, three in
+//   flight (a ring only as deep as S has tiles); the last tile is scored in
+//   16-row steps up to S only.
+// * P = exp2(s c + b log2(e) - lse log2(e)), c = log2(e) / sqrt(dh): one
+//   FFMA and one ex2 a score; the key bias is staged (or held, in (b)) times
+//   log2(e), and (b) stages each query row's lse in log2 units once (+inf
+//   past S, so P is 0 there) beside its delta.
+// Kernel (a) holds 2 x KS fragments and 2 KS accumulator tiles a thread (two
+// blocks of 8 warps an SM); (b) 2 x KS fragments and 4 KS tiles: at dh 80
+// one block an SM, at dh 64 two capped at 128 registers for short sequences
+// and one uncapped from 8 tiles on (kDkvOneBlockTiles).
 #include "attention.cuh"
 
 namespace {
 
-using attn::ldk;
-constexpr int kWarps = 4;           // the backward's blocks
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // rows a backward block owns (gates.FLASH_BLOCK_Q)
-constexpr int kTile = 64;           // rows a streamed tile (gates.FLASH_BLOCK_K)
-constexpr int kFwdMaxWarps = 8;     // forward strips a block (gates.FLASH_FWD_MAX_WARPS)
-constexpr int kFwdStages = 3;       // forward key tiles in flight (gates.FLASH_FWD_STAGES)
+constexpr int kTile = 64;       // rows a streamed tile (gates.FLASH_BLOCK_K)
+constexpr int kMaxWarps = 8;    // strips a block (gates.FLASH_MAX_WARPS)
+constexpr int kStages = 3;      // streamed tiles in flight (gates.FLASH_STAGES)
 constexpr float kLog2e = 1.4426950408889634f;
+// From this many streamed tiles on (S > 448), the dK/dV kernel at dh 64
+// takes one block an SM with no register cap instead of two capped at 128
+// (which spill): with both instances timed in turns on the card, the one
+// block was the faster at S 577 (10 tiles) and the slower at S 197 (4),
+// where a block's ramp is a larger share and a second block hides it. At
+// dh 80 it always takes one block.
+constexpr int kDkvOneBlockTiles = 8;
 
 // A [B, H, S, dh] bf16 tensor through its strides, in elements.
 struct View {
@@ -83,44 +102,12 @@ struct View {
   }
 };
 
-// Rows j0..j0+kTile of a head (row stride ss) into shared rows of ldk, as
-// 16-byte cp.async chunks; rows at or past S are zero-filled.
-template <int KS>
-NANS_DEVICE void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, long long ss, int j0,
-                            int S, int tid) {
-  constexpr int kChunks = 2 * KS;
-  for (int c = tid; c < kTile * kChunks; c += kThreads) {
-    const int r = c / kChunks, k8 = (c % kChunks) * 8;
-    const int j = j0 + r;
-    const bool in = j < S;
-    cp_async16(dst + r * ldk<KS>() + k8, src + static_cast<long long>(in ? j : 0) * ss + k8,
-               in ? 16 : 0);
-  }
-}
-
 // Packs a 16x16 fp32 tile pair (v[t]: 8 columns each) into a bf16 A fragment.
 NANS_DEVICE void pack_a(uint32_t (&a)[4], const float (&v)[2][4]) {
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
     a[2 * t] = pack_bf16(v[t][0], v[t][1]);
     a[2 * t + 1] = pack_bf16(v[t][2], v[t][3]);
-  }
-}
-
-// Stores 16 rows (row0.., < S) x 16 KS columns of an accumulator times mul
-// as bf16 into the head at dst (row stride ss).
-template <int NT>
-NANS_DEVICE void store_head_rows(__nv_bfloat16* dst, long long ss, const float (&o)[NT][4],
-                                 float mul, int row0, int S, int lane) {
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = row0 + (lane >> 2) + 8 * hr;
-    if (r >= S) continue;
-    __nv_bfloat16* p = dst + r * ss + 2 * (lane & 3);
-#pragma unroll
-    for (int d = 0; d < NT; ++d)
-      *reinterpret_cast<uint32_t*>(p + d * 8) = pack_bf16(o[d][2 * hr] * mul,
-                                                          o[d][2 * hr + 1] * mul);
   }
 }
 
@@ -132,44 +119,12 @@ NANS_DEVICE void zero_acc(float (&o)[NT][4]) {
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
 }
 
-// The key tiles of one head, double-buffered: K and V rows and the key bias
-// (0 where bias is null, -inf past S).
-template <int KS>
-struct KeyTiles {
-  __nv_bfloat16* sK;  // [2][kTile][ldk]
-  __nv_bfloat16* sV;  // [2][kTile][ldk]
-  float* sB;          // [2][kTile]
-
-  __device__ __forceinline__ KeyTiles(unsigned char* smem) {
-    sK = reinterpret_cast<__nv_bfloat16*>(smem);
-    sV = sK + 2 * kTile * ldk<KS>();
-    sB = reinterpret_cast<float*>(sV + 2 * kTile * ldk<KS>());
-  }
-  static constexpr size_t bytes() {
-    return static_cast<size_t>(4 * kTile) * ldk<KS>() * sizeof(__nv_bfloat16) +
-           2 * kTile * sizeof(float);
-  }
-  __device__ __forceinline__ void stage(int t, const __nv_bfloat16* kh, long long kss,
-                                        const __nv_bfloat16* vh, long long vss,
-                                        const float* bias_b, int S, int tid) {
-    const int buf = t & 1, j0 = t * kTile;
-    stage_tile<KS>(sK + buf * kTile * ldk<KS>(), kh, kss, j0, S, tid);
-    stage_tile<KS>(sV + buf * kTile * ldk<KS>(), vh, vss, j0, S, tid);
-    cp_async_commit();
-    for (int r = tid; r < kTile; r += kThreads) {
-      const int j = j0 + r;
-      sB[buf * kTile + r] = j < S ? (bias_b ? bias_b[j] : 0.f) : -INFINITY;
-    }
-  }
-};
-
-// Waits for tile t (tile t + 1 may stay in flight) and makes it visible.
-NANS_DEVICE void wait_tile(bool next_in_flight) {
-  if (next_in_flight)
-    cp_async_wait<1>();
-  else
-    cp_async_wait<0>();
-  __syncthreads();
+template <int NT>
+NANS_DEVICE void scale_acc(float (&o)[NT][4], float mul) {
+#pragma unroll
+  for (int d = 0; d < NT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] *= mul;
 }
 
 // 2^x by the SFU (ex2.approx.ftz: relative error ~2^-22, results below
@@ -180,23 +135,26 @@ NANS_DEVICE float exp2_approx(float x) {
   return y;
 }
 
-// The forward's launch plan at (S, dh); ops/attention.py::flash_fwd_plan
-// computes the same: the S / 16 strips of a head over the fewest blocks of
-// at most kFwdMaxWarps warps, evened; shared memory for the blocks' Q rows
-// and a ring of kFwdStages tiles of K, V and the key bias, or of as many as
-// S has (the text towers' one tile), so that short sequences keep more
-// blocks an SM.
-struct FwdPlan {
-  int warps, blocks, strips, smem;
+// The launch plans at (S, dh); ops/attention.py::flash_fwd_plan and
+// ::flash_bwd_plan compute the same: the S / 16 strips of a head over the
+// fewest blocks of at most kMaxWarps warps, evened; shared memory for the
+// block's own rows (Q; Q and dO in the dQ kernel; K and V in the dK/dV
+// kernel) and a ring of kStages streamed tiles (K, V and the key bias; Q,
+// dO and their rows' lse and delta), or of as many as S has (the text
+// towers' one tile), so that short sequences keep more blocks an SM.
+struct Plan {
+  int warps, blocks, strips, smem, smem_dq, smem_dkv, dkv_blocks;
 };
 
-FwdPlan fwd_plan(int S, int dh) {
+Plan plan(int S, int dh) {
   const int strips = (S + 15) / 16;
-  const int blocks = (strips + kFwdMaxWarps - 1) / kFwdMaxWarps;
+  const int blocks = (strips + kMaxWarps - 1) / kMaxWarps;
   const int warps = (strips + blocks - 1) / blocks;
-  const int tiles = (S + kTile - 1) / kTile, stages = tiles < kFwdStages ? tiles : kFwdStages;
-  const int smem = warps * 16 * dh * 2 + stages * (2 * kTile * dh * 2 + kTile * 4);
-  return FwdPlan{warps, blocks, strips, smem};
+  const int tiles = (S + kTile - 1) / kTile, stages = tiles < kStages ? tiles : kStages;
+  const int own = warps * 16 * dh * 2, ring = stages * 2 * kTile * dh * 2;
+  return Plan{warps, blocks, strips, own + ring + stages * kTile * 4,
+              2 * own + ring + stages * kTile * 4, 2 * own + ring + stages * 2 * kTile * 4,
+              dh == 64 && tiles < kDkvOneBlockTiles ? 2 : 1};
 }
 
 // One key tile of a warp's strip. kTail: the last tile, whose 16-key steps
@@ -283,7 +241,7 @@ NANS_DEVICE void fwd_tile(float (&acc)[2 * KS][4], float (&m)[2], float (&l)[2],
 // #22: a block of `warps` strips of one (head, sample) (see the note at the
 // top). scale2 = log2(e) / sqrt(dh); kBias: bias is not null.
 template <int KS, bool kBias>
-__global__ void __launch_bounds__(32 * kFwdMaxWarps, 2)
+__global__ void __launch_bounds__(32 * kMaxWarps, 2)
     flash_fwd_kernel(View q, View k, View v, View o, const float* __restrict__ bias,
                      float* __restrict__ lse, int S, float scale2) {
   constexpr int DH = 16 * KS;
@@ -292,9 +250,9 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps, 2)
   const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int q0 = blockIdx.x * nw * 16, row0 = q0 + warp * 16;
   const bool active = row0 < S;  // warp-uniform; every warp joins the barriers
-  // the ring: ns buffers (fwd_plan); tile t takes buffer t % kFwdStages,
-  // which is t itself where there are fewer tiles than kFwdStages
-  const int n_tiles = (S + kTile - 1) / kTile, ns = min(kFwdStages, n_tiles);
+  // the ring: ns buffers (plan); tile t takes buffer t % kStages,
+  // which is t itself where there are fewer tiles than kStages
+  const int n_tiles = (S + kTile - 1) / kTile, ns = min(kStages, n_tiles);
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);   // the block's Q rows
   __nv_bfloat16* sK = sQ + nw * 16 * DH;                         // [ns][kTile] rows
   __nv_bfloat16* sV = sK + ns * kTile * DH;
@@ -303,9 +261,9 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps, 2)
   const float* bias_b = bias ? bias + static_cast<size_t>(b) * S : nullptr;
 
   // K, V rows of tile t and its key bias times log2(e) (-inf past S) into
-  // buffer t % kFwdStages; the caller commits the group.
+  // buffer t % kStages; the caller commits the group.
   const auto stage = [&](int t) {
-    const int buf = t % kFwdStages, j0 = t * kTile;
+    const int buf = t % kStages, j0 = t * kTile;
     attn::stage_async<KS>(sK + buf * kTile * DH, kh + j0 * k.ss, k.ss, kTile, S - j0, tid,
                           blockDim.x);
     attn::stage_async<KS>(sV + buf * kTile * DH, vh + j0 * v.ss, v.ss, kTile, S - j0, tid,
@@ -316,12 +274,12 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps, 2)
         sB[buf * kTile + r] = j < S ? bias_b[j] * kLog2e : -INFINITY;
       }
   };
-  // groups: Q with tile 0, then tiles 1 .. kFwdStages - 2 (empty past the last)
+  // groups: Q with tile 0, then tiles 1 .. kStages - 2 (empty past the last)
   attn::stage_async<KS>(sQ, q.head(b, h) + q0 * q.ss, q.ss, nw * 16, S - q0, tid, blockDim.x);
   stage(0);
   cp_async_commit();
 #pragma unroll
-  for (int t = 1; t < kFwdStages - 1; ++t) {
+  for (int t = 1; t < kStages - 1; ++t) {
     if (t < n_tiles) stage(t);
     cp_async_commit();
   }
@@ -333,13 +291,13 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps, 2)
   float acc[2 * KS][4];
   zero_acc(acc);
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<kFwdStages - 2>();   // tile t (and Q) landed
+    cp_async_wait<kStages - 2>();   // tile t (and Q) landed
     __syncthreads();                   // ... for every warp; tile t - 1's buffer is free
-    if (t + kFwdStages - 1 < n_tiles) stage(t + kFwdStages - 1);
+    if (t + kStages - 1 < n_tiles) stage(t + kStages - 1);
     cp_async_commit();
     if (!active) continue;
     if (t == 0) attn::tile_frags<KS>(qf, buf, lane);
-    const int b_t = t % kFwdStages, valid = S - t * kTile;
+    const int b_t = t % kStages, valid = S - t * kTile;
     const __nv_bfloat16* cK = sK + b_t * kTile * DH;
     const __nv_bfloat16* cV = sV + b_t * kTile * DH;
     const float* cB = sB + b_t * kTile;
@@ -375,28 +333,93 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps, 2)
   }
 }
 
-// #23 (a): dQ of a warp's 16 query rows, after their delta = rowsum(do * o).
-template <int KS>
-__global__ void __launch_bounds__(kThreads)
+// One key tile of a dQ warp's strip: s = q . k and dp = do . v over the
+// tile's keys in 16-key steps (kTail: up to `valid` only, the rest of the
+// last step masked), P = exp2(s c + b - lse2) with the key bias b staged
+// times log2(e) in cB (-inf past S) when kBias, dS = P (dP - delta), acc +=
+// dS K. lr: the rows' lse times log2(e); dl: their delta.
+template <int KS, bool kBias, bool kTail>
+NANS_DEVICE void dq_tile(float (&acc)[2 * KS][4], const uint32_t (&qf)[KS][4],
+                         const uint32_t (&gf)[KS][4], const __nv_bfloat16* cK,
+                         const __nv_bfloat16* cV, const float* cB, const float (&lr)[2],
+                         const float (&dl)[2], const attn::LaneOffsets<KS>& off, int valid,
+                         int lane, float scale2) {
+  const int nsub = kTail ? min(4, (valid + 15) >> 4) : 4;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (kTail && u >= nsub) break;
+    float s[2][4], dp[2][4];
+    attn::dot16<KS>(s, qf, cK, 16 * u, off);
+    attn::dot16<KS>(dp, gf, cV, 16 * u, off);   // do v^T
+#pragma unroll
+    for (int t2 = 0; t2 < 2; ++t2)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {   // key 16u + 8 t2 + 2(lane % 4) + e % 2
+        const int key = 16 * u + 8 * t2 + 2 * (lane & 3) + (e & 1);
+        float p = exp2_approx(fmaf(s[t2][e], scale2, kBias ? cB[key] - lr[e >> 1]
+                                                           : -lr[e >> 1]));
+        if (kTail && !kBias && key >= valid) p = 0.f;   // zero rows past S
+        s[t2][e] = p * (dp[t2][e] - dl[e >> 1]);       // dS
+      }
+    uint32_t da[4];
+    pack_a(da, s);
+    attn::pv16<KS>(acc, da, cK, 16 * u, off);   // dQ += dS K
+  }
+}
+
+// #23 (a): dQ of a block of `warps` query strips of one (head, sample),
+// after their rows' delta = rowsum(do * o). scale2 = log2(e) / sqrt(dh);
+// kBias: bias is not null.
+template <int KS, bool kBias>
+__global__ void __launch_bounds__(32 * kMaxWarps, 2)
     flash_bwd_dq_kernel(View q, View k, View v, View o, View dout, View dq,
                         const float* __restrict__ bias, const float* __restrict__ lse,
-                        float* __restrict__ delta, int S, float scale) {
+                        float* __restrict__ delta, int S, float scale, float scale2) {
   constexpr int DH = 16 * KS;
   extern __shared__ __align__(16) unsigned char smem[];
-  KeyTiles<KS> tiles(smem);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
   const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const int row0 = blockIdx.x * kRows + warp * 16;
-  const bool active = row0 < S;
+  const int q0 = blockIdx.x * nw * 16, row0 = q0 + warp * 16;
+  const bool active = row0 < S;  // warp-uniform; every warp joins the barriers
+  const int n_tiles = (S + kTile - 1) / kTile, ns = min(kStages, n_tiles);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);   // the block's Q rows
+  __nv_bfloat16* sG = sQ + nw * 16 * DH;                         // ... and dO rows
+  __nv_bfloat16* sK = sG + nw * 16 * DH;                         // [ns][kTile] rows
+  __nv_bfloat16* sV = sK + ns * kTile * DH;
+  float* sB = reinterpret_cast<float*>(sV + ns * kTile * DH);    // [ns][kTile]
   const __nv_bfloat16 *kh = k.head(b, h), *vh = v.head(b, h);
   const float* bias_b = bias ? bias + static_cast<size_t>(b) * S : nullptr;
   const size_t stat0 = (static_cast<size_t>(b) * H + h) * S;
 
-  uint32_t qf[KS][4], gf[KS][4];
-  attn::global_frags(qf, q.head(b, h), static_cast<size_t>(q.ss), row0, S, lane);
-  attn::global_frags(gf, dout.head(b, h), static_cast<size_t>(dout.ss), row0, S, lane);
-  // delta of rows lane/4 and lane/4 + 8: each of the row's four lanes sums a
-  // quarter of its dh columns of do * o in fp32, then the four merge.
+  // K, V rows of tile t and its key bias times log2(e) (-inf past S) into
+  // buffer t % kStages; the caller commits the group.
+  const auto stage = [&](int t) {
+    const int buf = t % kStages, j0 = t * kTile;
+    attn::stage_async<KS>(sK + buf * kTile * DH, kh + j0 * k.ss, k.ss, kTile, S - j0, tid,
+                          blockDim.x);
+    attn::stage_async<KS>(sV + buf * kTile * DH, vh + j0 * v.ss, v.ss, kTile, S - j0, tid,
+                          blockDim.x);
+    if (kBias)
+      for (int r = tid; r < kTile; r += blockDim.x) {
+        const int j = j0 + r;
+        sB[buf * kTile + r] = j < S ? bias_b[j] * kLog2e : -INFINITY;
+      }
+  };
+  // groups: Q and dO with tile 0, then tiles 1 .. kStages - 2 (empty past the last)
+  attn::stage_async<KS>(sQ, q.head(b, h) + q0 * q.ss, q.ss, nw * 16, S - q0, tid, blockDim.x);
+  attn::stage_async<KS>(sG, dout.head(b, h) + q0 * dout.ss, dout.ss, nw * 16, S - q0, tid,
+                        blockDim.x);
+  stage(0);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 1; t < kStages - 1; ++t) {
+    if (t < n_tiles) stage(t);
+    cp_async_commit();
+  }
+
+  // delta of rows lane/4 and lane/4 + 8 (each of the row's four lanes sums
+  // a quarter of its dh columns of do * o in fp32, then the four merge), and
+  // their lse in log2 units; 0 past S
   float lr[2], dl[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -416,143 +439,163 @@ __global__ void __launch_bounds__(kThreads)
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     dl[hr] = sum;
-    lr[hr] = r < S ? lse[stat0 + r] : 0.f;
+    lr[hr] = r < S ? lse[stat0 + r] * kLog2e : 0.f;
     if (r < S && (lane & 3) == 0) delta[stat0 + r] = sum;
   }
 
+  const attn::LaneOffsets<KS> off(lane);
+  uint32_t qf[KS][4], gf[KS][4];
   float acc[2 * KS][4];
   zero_acc(acc);
-  const int n_tiles = (S + kTile - 1) / kTile;
-  tiles.stage(0, kh, k.ss, vh, v.ss, bias_b, S, tid);
   for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) tiles.stage(t + 1, kh, k.ss, vh, v.ss, bias_b, S, tid);
-    wait_tile(t + 1 < n_tiles);
-    if (active) {
-      const int buf = t & 1;
-      const __nv_bfloat16* cK = tiles.sK + buf * kTile * ldk<KS>();
-      const __nv_bfloat16* cV = tiles.sV + buf * kTile * ldk<KS>();
-      const float* cB = tiles.sB + buf * kTile;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float s[2][4], dp[2][4];
-        attn::score_tile(s, qf, cK, cB, 16 * u, lane, scale);
-        attn::dot_tile(dp, gf, cV, 16 * u, lane);  // do v^T
-#pragma unroll
-        for (int t2 = 0; t2 < 2; ++t2)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[t2][e] = expf(s[t2][e] - lr[e >> 1]) * (dp[t2][e] - dl[e >> 1]);  // dS
-        uint32_t da[4];
-        pack_a(da, s);
-        attn::accumulate_rows(acc, da, cK, 16 * u, lane);
-      }
+    cp_async_wait<kStages - 2>();   // tile t (and the own rows) landed
+    __syncthreads();                // ... for every warp; tile t - 1's buffer is free
+    if (t + kStages - 1 < n_tiles) stage(t + kStages - 1);
+    cp_async_commit();
+    if (!active) continue;
+    if (t == 0) {
+      attn::tile_frags<KS>(qf, sQ + warp * 16 * DH, lane);
+      attn::tile_frags<KS>(gf, sG + warp * 16 * DH, lane);
     }
-    __syncthreads();
+    const int b_t = t % kStages, valid = S - t * kTile;
+    const __nv_bfloat16* cK = sK + b_t * kTile * DH;
+    const __nv_bfloat16* cV = sV + b_t * kTile * DH;
+    const float* cB = sB + b_t * kTile;
+    if (valid < kTile)   // the last tile, where S is not a multiple of 64
+      dq_tile<KS, kBias, true>(acc, qf, gf, cK, cV, cB, lr, dl, off, valid, lane, scale2);
+    else
+      dq_tile<KS, kBias, false>(acc, qf, gf, cK, cV, cB, lr, dl, off, valid, lane, scale2);
   }
-  if (active) store_head_rows(dq.head(b, h), dq.ss, acc, scale, row0, S, lane);
+  cp_async_wait<0>();
+  if (!active) return;
+  scale_acc(acc, scale);
+  attn::store_ctx<KS>(acc, sQ + warp * 16 * DH, dq.head(b, h), static_cast<size_t>(dq.ss), row0,
+                      S, lane);
 }
 
-// The query tiles of one head for the dK/dV kernel, double-buffered: Q and
-// dO rows and the rows' lse (+inf past S: p = 0 there) and delta.
-template <int KS>
-struct QueryTiles {
-  __nv_bfloat16* sQ;  // [2][kTile][ldk]
-  __nv_bfloat16* sG;  // [2][kTile][ldk]
-  float* sL;          // [2][kTile]
-  float* sD;          // [2][kTile]
-
-  __device__ __forceinline__ QueryTiles(unsigned char* smem) {
-    sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-    sG = sQ + 2 * kTile * ldk<KS>();
-    sL = reinterpret_cast<float*>(sG + 2 * kTile * ldk<KS>());
-    sD = sL + 2 * kTile;
-  }
-  static constexpr size_t bytes() {
-    return static_cast<size_t>(4 * kTile) * ldk<KS>() * sizeof(__nv_bfloat16) +
-           4 * kTile * sizeof(float);
-  }
-  __device__ __forceinline__ void stage(int t, const __nv_bfloat16* qh, long long qss,
-                                        const __nv_bfloat16* gh, long long gss,
-                                        const float* lse_h, const float* delta_h, int S,
-                                        int tid) {
-    const int buf = t & 1, j0 = t * kTile;
-    stage_tile<KS>(sQ + buf * kTile * ldk<KS>(), qh, qss, j0, S, tid);
-    stage_tile<KS>(sG + buf * kTile * ldk<KS>(), gh, gss, j0, S, tid);
-    cp_async_commit();
-    for (int r = tid; r < kTile; r += kThreads) {
-      const int j = j0 + r;
-      sL[buf * kTile + r] = j < S ? lse_h[j] : INFINITY;
-      sD[buf * kTile + r] = j < S ? delta_h[j] : 0.f;
+// One query tile of a dK/dV warp's strip: st = k . q and dpt = v . do over
+// the tile's queries in 16-query steps (kTail: up to `valid`), P^T =
+// exp2(st c + b - lse2) with this warp's key bias kb (times log2(e)) and the
+// queries' lse2 from cL (+inf past S: P = 0 there), dS^T = P^T (dP^T -
+// delta) with delta from cD; dv += P^T dO, dk += dS^T Q.
+template <int KS, bool kTail>
+NANS_DEVICE void dkv_tile(float (&dk)[2 * KS][4], float (&dv)[2 * KS][4],
+                          const uint32_t (&kf)[KS][4], const uint32_t (&vf)[KS][4],
+                          const __nv_bfloat16* cQ, const __nv_bfloat16* cG, const float* cL,
+                          const float* cD, const float (&kb)[2], const attn::LaneOffsets<KS>& off,
+                          int valid, int lane, float scale2) {
+  const int nsub = kTail ? min(4, (valid + 15) >> 4) : 4;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (kTail && u >= nsub) break;
+    float st[2][4], dpt[2][4], pt[2][4];
+    attn::dot16<KS>(st, kf, cQ, 16 * u, off);    // k q^T: [key][query]
+    attn::dot16<KS>(dpt, vf, cG, 16 * u, off);   // v do^T = dp^T
+#pragma unroll
+    for (int t2 = 0; t2 < 2; ++t2) {
+      const int qi = 16 * u + 8 * t2 + 2 * (lane & 3);   // + e % 2
+      const float2 l2 = *reinterpret_cast<const float2*>(cL + qi);
+      const float2 d2 = *reinterpret_cast<const float2*>(cD + qi);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_approx(fmaf(st[t2][e], scale2, kb[e >> 1] - (e & 1 ? l2.y : l2.x)));
+        pt[t2][e] = p;
+        st[t2][e] = p * (dpt[t2][e] - (e & 1 ? d2.y : d2.x));   // dS^T
+      }
     }
+    uint32_t pa[4], da[4];
+    pack_a(pa, pt);
+    pack_a(da, st);
+    attn::pv16<KS>(dv, pa, cG, 16 * u, off);   // dV += P^T dO
+    attn::pv16<KS>(dk, da, cQ, 16 * u, off);   // dK += dS^T Q
   }
-};
+}
 
-// #23 (b): dK and dV of a warp's 16 key rows over the streamed query tiles.
-template <int KS>
-__global__ void __launch_bounds__(kThreads)
+// #23 (b): dK and dV of a block of `warps` key strips of one (head, sample)
+// over the streamed query tiles; kMinBlocks: the blocks an SM it is compiled
+// for (the plan's dkv_blocks).
+template <int KS, int kMinBlocks>
+__global__ void __launch_bounds__(32 * kMaxWarps, kMinBlocks)
     flash_bwd_dkv_kernel(View q, View k, View v, View dout, View dk, View dv,
                          const float* __restrict__ bias, const float* __restrict__ lse,
-                         const float* __restrict__ delta, int S, float scale) {
+                         const float* __restrict__ delta, int S, float scale, float scale2) {
+  constexpr int DH = 16 * KS;
   extern __shared__ __align__(16) unsigned char smem[];
-  QueryTiles<KS> tiles(smem);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
   const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const int k0 = blockIdx.x * kRows + warp * 16;
-  const bool active = k0 < S;
+  const int k0 = blockIdx.x * nw * 16, row0 = k0 + warp * 16;
+  const bool active = row0 < S;
+  const int n_tiles = (S + kTile - 1) / kTile, ns = min(kStages, n_tiles);
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);   // the block's K rows
+  __nv_bfloat16* sV = sK + nw * 16 * DH;                         // ... and V rows
+  __nv_bfloat16* sQ = sV + nw * 16 * DH;                         // [ns][kTile] rows
+  __nv_bfloat16* sG = sQ + ns * kTile * DH;
+  float* sL = reinterpret_cast<float*>(sG + ns * kTile * DH);    // [ns][kTile] lse2
+  float* sD = sL + ns * kTile;                                    // [ns][kTile] delta
   const __nv_bfloat16 *qh = q.head(b, h), *gh = dout.head(b, h);
-  const size_t stat0 = (static_cast<size_t>(b) * H + h) * S;
+  const float* lse_h = lse + (static_cast<size_t>(b) * H + h) * S;
+  const float* delta_h = delta + (static_cast<size_t>(b) * H + h) * S;
 
-  uint32_t kf[KS][4], vf[KS][4];
-  attn::global_frags(kf, k.head(b, h), static_cast<size_t>(k.ss), k0, S, lane);
-  attn::global_frags(vf, v.head(b, h), static_cast<size_t>(v.ss), k0, S, lane);
-  float kb[2];  // the key bias of rows lane/4 and lane/4 + 8
+  const auto stage = [&](int t) {
+    const int buf = t % kStages, j0 = t * kTile;
+    attn::stage_async<KS>(sQ + buf * kTile * DH, qh + j0 * q.ss, q.ss, kTile, S - j0, tid,
+                          blockDim.x);
+    attn::stage_async<KS>(sG + buf * kTile * DH, gh + j0 * dout.ss, dout.ss, kTile, S - j0, tid,
+                          blockDim.x);
+    for (int r = tid; r < kTile; r += blockDim.x) {
+      const int j = j0 + r;
+      sL[buf * kTile + r] = j < S ? lse_h[j] * kLog2e : INFINITY;
+      sD[buf * kTile + r] = j < S ? delta_h[j] : 0.f;
+    }
+  };
+  attn::stage_async<KS>(sK, k.head(b, h) + k0 * k.ss, k.ss, nw * 16, S - k0, tid, blockDim.x);
+  attn::stage_async<KS>(sV, v.head(b, h) + k0 * v.ss, v.ss, nw * 16, S - k0, tid, blockDim.x);
+  stage(0);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 1; t < kStages - 1; ++t) {
+    if (t < n_tiles) stage(t);
+    cp_async_commit();
+  }
+  float kb[2];   // the key bias of rows lane/4 and lane/4 + 8, times log2(e)
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int key = k0 + (lane >> 2) + 8 * hr;
-    kb[hr] = bias && key < S ? bias[static_cast<size_t>(b) * S + key] : 0.f;
+    const int key = row0 + (lane >> 2) + 8 * hr;
+    kb[hr] = bias && key < S ? bias[static_cast<size_t>(b) * S + key] * kLog2e : 0.f;
   }
 
+  const attn::LaneOffsets<KS> off(lane);
+  uint32_t kf[KS][4], vf[KS][4];
   float dk_acc[2 * KS][4], dv_acc[2 * KS][4];
   zero_acc(dk_acc);
   zero_acc(dv_acc);
-  const int n_tiles = (S + kTile - 1) / kTile;
-  tiles.stage(0, qh, q.ss, gh, dout.ss, lse + stat0, delta + stat0, S, tid);
   for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles)
-      tiles.stage(t + 1, qh, q.ss, gh, dout.ss, lse + stat0, delta + stat0, S, tid);
-    wait_tile(t + 1 < n_tiles);
-    if (active) {
-      const int buf = t & 1;
-      const __nv_bfloat16* cQ = tiles.sQ + buf * kTile * ldk<KS>();
-      const __nv_bfloat16* cG = tiles.sG + buf * kTile * ldk<KS>();
-      const float* cL = tiles.sL + buf * kTile;
-      const float* cD = tiles.sD + buf * kTile;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float st[2][4], dpt[2][4], pt[2][4];
-        attn::dot_tile(st, kf, cQ, 16 * u, lane);   // k q^T: [key][query]
-        attn::dot_tile(dpt, vf, cG, 16 * u, lane);  // v do^T = dp^T
-#pragma unroll
-        for (int t2 = 0; t2 < 2; ++t2)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = 16 * u + 8 * t2 + 2 * (lane & 3) + (e & 1);
-            const float p = expf(st[t2][e] * scale + kb[e >> 1] - cL[qi]);
-            pt[t2][e] = p;
-            st[t2][e] = p * (dpt[t2][e] - cD[qi]);  // dS^T
-          }
-        uint32_t pa[4], da[4];
-        pack_a(pa, pt);
-        pack_a(da, st);
-        attn::accumulate_rows(dv_acc, pa, cG, 16 * u, lane);  // dV += P^T dO
-        attn::accumulate_rows(dk_acc, da, cQ, 16 * u, lane);  // dK += dS^T Q
-      }
-    }
+    cp_async_wait<kStages - 2>();
     __syncthreads();
+    if (t + kStages - 1 < n_tiles) stage(t + kStages - 1);
+    cp_async_commit();
+    if (!active) continue;
+    if (t == 0) {
+      attn::tile_frags<KS>(kf, sK + warp * 16 * DH, lane);
+      attn::tile_frags<KS>(vf, sV + warp * 16 * DH, lane);
+    }
+    const int b_t = t % kStages, valid = S - t * kTile;
+    const __nv_bfloat16* cQ = sQ + b_t * kTile * DH;
+    const __nv_bfloat16* cG = sG + b_t * kTile * DH;
+    const float* cL = sL + b_t * kTile;
+    const float* cD = sD + b_t * kTile;
+    if (valid < kTile)
+      dkv_tile<KS, true>(dk_acc, dv_acc, kf, vf, cQ, cG, cL, cD, kb, off, valid, lane, scale2);
+    else
+      dkv_tile<KS, false>(dk_acc, dv_acc, kf, vf, cQ, cG, cL, cD, kb, off, valid, lane, scale2);
   }
+  cp_async_wait<0>();
   if (!active) return;
-  store_head_rows(dk.head(b, h), dk.ss, dk_acc, scale, k0, S, lane);
-  store_head_rows(dv.head(b, h), dv.ss, dv_acc, 1.f, k0, S, lane);
+  scale_acc(dk_acc, scale);
+  attn::store_ctx<KS>(dk_acc, sK + warp * 16 * DH, dk.head(b, h), static_cast<size_t>(dk.ss),
+                      row0, S, lane);
+  attn::store_ctx<KS>(dv_acc, sV + warp * 16 * DH, dv.head(b, h), static_cast<size_t>(dv.ss),
+                      row0, S, lane);
 }
 
 template <typename Kernel>
@@ -568,7 +611,7 @@ View view(const void* p, const long long* st) {
 template <int KS>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
                const long long* st, int B, int H, int S, float scale, cudaStream_t stream) {
-  const FwdPlan p = fwd_plan(S, 16 * KS);
+  const Plan p = plan(S, 16 * KS);
   const auto kernel = bias ? flash_fwd_kernel<KS, true> : flash_fwd_kernel<KS, false>;
   if (const int err = set_smem(kernel, p.smem)) return err;
   const dim3 grid(p.blocks, H, B);
@@ -588,14 +631,19 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias, co
   const auto* b = static_cast<const float*>(bias);
   const auto* l = static_cast<const float*>(lse);
   auto* d = static_cast<float*>(delta);
-  const dim3 grid((S + kRows - 1) / kRows, H, B);
-  if (const int err = set_smem(flash_bwd_dq_kernel<KS>, KeyTiles<KS>::bytes())) return err;
-  if (const int err = set_smem(flash_bwd_dkv_kernel<KS>, QueryTiles<KS>::bytes())) return err;
-  flash_bwd_dq_kernel<KS><<<grid, kThreads, KeyTiles<KS>::bytes(), stream>>>(
-      vq, vk, vv, vo, vg, vdq, b, l, d, S, scale);
+  const Plan p = plan(S, 16 * KS);
+  const dim3 grid(p.blocks, H, B);
+  const auto dq_kernel = bias ? flash_bwd_dq_kernel<KS, true> : flash_bwd_dq_kernel<KS, false>;
+  auto dkv_kernel = flash_bwd_dkv_kernel<KS, 1>;
+  if constexpr (KS == 4)
+    if (p.dkv_blocks == 2) dkv_kernel = flash_bwd_dkv_kernel<KS, 2>;
+  if (const int err = set_smem(dq_kernel, p.smem_dq)) return err;
+  if (const int err = set_smem(dkv_kernel, p.smem_dkv)) return err;
+  dq_kernel<<<grid, 32 * p.warps, p.smem_dq, stream>>>(vq, vk, vv, vo, vg, vdq, b, l, d, S,
+                                                       scale, scale * kLog2e);
   if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<KS><<<grid, kThreads, QueryTiles<KS>::bytes(), stream>>>(
-      vq, vk, vv, vg, vdk, vdv, b, l, d, S, scale);
+  dkv_kernel<<<grid, 32 * p.warps, p.smem_dkv, stream>>>(
+      vq, vk, vv, vg, vdk, vdv, b, l, d, S, scale, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -619,11 +667,26 @@ extern "C" int nans_flash_fwd(const void* q, const void* k, const void* v, const
 // sample), strips of 16 query rows, shared-memory bytes}; the grid is
 // (blocks, H, B). ops/attention.py::flash_fwd_plan computes the same.
 extern "C" int nans_flash_fwd_plan(int S, int dh, int* out) {
-  const FwdPlan p = fwd_plan(S, dh);
+  const Plan p = plan(S, dh);
   out[0] = p.warps;
   out[1] = p.blocks;
   out[2] = p.strips;
   out[3] = p.smem;
+  return 0;
+}
+
+// #23's launch plan at (S, dh): out = {warps a block, blocks a (head,
+// sample), strips of 16 rows, the dQ kernel's shared-memory bytes, the dK/dV
+// kernel's, the dK/dV kernel's blocks an SM}; both grids are (blocks, H,
+// B). ops/attention.py::flash_bwd_plan computes the same.
+extern "C" int nans_flash_bwd_plan(int S, int dh, int* out) {
+  const Plan p = plan(S, dh);
+  out[0] = p.warps;
+  out[1] = p.blocks;
+  out[2] = p.strips;
+  out[3] = p.smem_dq;
+  out[4] = p.smem_dkv;
+  out[5] = p.dkv_blocks;
   return 0;
 }
 

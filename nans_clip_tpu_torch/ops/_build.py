@@ -75,12 +75,18 @@ _SIGNATURES = {
     # q, k, v, bias, o, dout, lse, delta, dq, dk, dv, strides (int64 [8][3]), B, H, S,
     # dh, scale, stream
     "nans_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
+    # S, dh, out int[6]: #23's launch plan
+    "nans_flash_bwd_plan": [_I, _I, ctypes.POINTER(_I)],
     # mode, S, dh, out: the largest co-resident grid
     "nans_tower_grid": [_I, _I, _I, ctypes.POINTER(_I)],
-    # x, key_bias, table, work, sum, part, wbuf, sem, clock, B, S, W, I, L, dh,
+    # mode, B, S, W, I, dh, grid, out int[10]: the tower's launch plan
+    "nans_tower_plan": [_I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
+    # table (host int64 [L][16]), L, W, I, quant, out (host, L * 4 tensor maps)
+    "nans_tower_maps": [_P, _I, _I, _I, _I, _P],
+    # x, key_bias, table, wmaps, work, sum, part, wbuf, sem, clock, B, S, W, I, L, dh,
     # eps, scale, act, post_ln, mode, ks_qkv, ks_o, ks_1, ks_2, grid, stream
-    "nans_tower": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
-                   _I, _I, _I, _I, _I, _I, _P],
+    "nans_tower": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                   _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -410,20 +410,41 @@ def _strides(*tensors) -> ctypes.Array:
 def flash_fwd_plan(batch: int, heads: int, seq: int, dh: int) -> dict:
     """#22's launch plan, as ``nans_flash_fwd_plan`` computes it: a head's
     ``strips`` strips of 16 query rows over the fewest ``blocks`` of at most
-    ``gates.FLASH_FWD_MAX_WARPS`` warps, evened (``warps`` a block, warp
-    ``i`` of block ``x`` taking strip ``x * warps + i``; a warp past the last
-    strip only stages); ``smem``: the block's Q rows and a ring of
-    ``gates.FLASH_FWD_STAGES`` tiles of ``gates.FLASH_BLOCK_K`` keys (K, V,
-    the key bias), or of as many tiles as ``seq`` has. The grid is
-    (``blocks``, heads, batch)."""
+    ``gates.FLASH_MAX_WARPS`` warps, evened (``warps`` a block, warp ``i``
+    of block ``x`` taking strip ``x * warps + i``; a warp past the last strip
+    only stages); ``smem``: the block's Q rows and a ring of
+    ``gates.FLASH_STAGES`` tiles of ``gates.FLASH_BLOCK_K`` keys (K, V, the
+    key bias), or of as many tiles as ``seq`` has. The grid is (``blocks``,
+    heads, batch)."""
     strips = -(-seq // 16)
-    blocks = -(-strips // gates.FLASH_FWD_MAX_WARPS)
+    blocks = -(-strips // gates.FLASH_MAX_WARPS)
     warps = -(-strips // blocks)
     tile = gates.FLASH_BLOCK_K
-    stages = min(gates.FLASH_FWD_STAGES, -(-seq // tile))
-    smem = warps * 16 * dh * 2 + stages * (2 * tile * dh * 2 + tile * 4)
-    return dict(warps=warps, threads=32 * warps, blocks=blocks, strips=strips, smem=smem,
-                grid=(blocks, heads, batch))
+    stages = min(gates.FLASH_STAGES, -(-seq // tile))
+    own, ring = warps * 16 * dh * 2, stages * 2 * tile * dh * 2
+    return dict(warps=warps, threads=32 * warps, blocks=blocks, strips=strips,
+                smem=own + ring + stages * tile * 4, grid=(blocks, heads, batch),
+                stages=stages, own=own, ring=ring)
+
+
+def flash_bwd_plan(batch: int, heads: int, seq: int, dh: int) -> dict:
+    """#23's launch plan, as ``nans_flash_bwd_plan`` computes it: both
+    kernels take #22's strips and blocks (warp ``i`` of block ``x`` owning
+    strip ``x * warps + i`` of the queries in the dQ kernel, of the keys in
+    the dK/dV kernel); ``smem_dq``: the block's Q and dO rows and a ring of
+    K, V and key-bias tiles; ``smem_dkv``: its K and V rows and a ring of Q,
+    dO, lse and delta tiles; ``dkv_blocks``: the blocks an SM the dK/dV
+    kernel's instance is compiled for (two, capped at 128 registers, at dh 64
+    below ``gates.FLASH_DKV_ONE_BLOCK_TILES`` key tiles; else one). Both
+    grids are (``blocks``, heads, batch)."""
+    p = flash_fwd_plan(batch, heads, seq, dh)
+    tile, stages = gates.FLASH_BLOCK_K, p["stages"]
+    one = dh != 64 or -(-seq // tile) >= gates.FLASH_DKV_ONE_BLOCK_TILES
+    return dict(warps=p["warps"], threads=p["threads"], blocks=p["blocks"],
+                strips=p["strips"], grid=p["grid"],
+                smem_dq=2 * p["own"] + p["ring"] + stages * tile * 4,
+                smem_dkv=2 * p["own"] + p["ring"] + stages * 2 * tile * 4,
+                dkv_blocks=1 if one else 2)
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -456,8 +477,8 @@ def flash_bwd(q, k, v, key_bias, o, do, lse):
     ``do``, the gradient of o. CPU tensors take
     :func:`attention_pallas_bwd_plain`; CUDA tensors launch
     ``nans_flash_bwd``: the dQ kernel (which stores delta = rowsum(do * o),
-    fp32) then the dK/dV kernel. dq, dk and dv come back as views of one
-    [B, S, 3, H, dh] buffer."""
+    fp32) then the dK/dV kernel, launched as :func:`flash_bwd_plan` says. dq,
+    dk and dv come back as views of one [B, S, 3, H, dh] buffer."""
     if not q.is_cuda:
         return attention_pallas_bwd_plain(q, k, v, key_bias, o, do, lse)
     _admit_flash("flash bwd", q, k, v, key_bias, o, do)
@@ -465,6 +486,9 @@ def flash_bwd(q, k, v, key_bias, o, do, lse):
     gates.admit(lse.is_cuda and lse.dtype == torch.float32 and lse.is_contiguous()
                 and tuple(lse.shape) == (b, h, s), "flash bwd: lse must be contiguous fp32 "
                 "[B, H, S] on CUDA")
+    plan = flash_bwd_plan(b, h, s, dh)
+    gates.admit(max(plan["smem_dq"], plan["smem_dkv"]) <= gates.SMEM_PER_BLOCK,
+                f"flash bwd: plan {plan}")
     dq, dk, dv = _heads_like(q, 3)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = _build.library().nans_flash_bwd(
@@ -511,8 +535,9 @@ def attention_pallas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The flash attention (JAX ``attention_pallas``, :197): q/k/v ``[B, H,
     S, dh]``, key_bias ``[B, S]`` additive or None. Differentiable through
     #23 where a gradient is needed. ``block_q`` is the JAX kernel's query
-    block; on the card, whose kernels tile by ``gates.FLASH_BLOCK_Q`` and
-    mask the tail instead of padding, it changes no arithmetic."""
+    block; on the card, whose kernels tile by 16-row strips and
+    ``gates.FLASH_BLOCK_K`` and mask the tail instead of padding, it changes
+    no arithmetic."""
     if block_q <= 0:
         raise ValueError(f"block_q must be positive, got {block_q}")
     if key_bias is not None:

@@ -128,14 +128,17 @@ GEMM_K_MULTIPLE = 32
 # row in one block of 128 threads, 2 values a pair): 4 pairs at heads of 64
 # (W <= 1024: ViT-B/L, RoBERTa), 5 at heads of 80 (W <= 1280: ViT-H-14's image
 # tower, the JAX package's TOWER_MAX_WIDTH, nans_clip_tpu/ops/gates.py:183),
-# and I a multiple of its 64-wide K step (N is cut in 32-wide tiles). Set by
-# the kernel's design. Whether a grid can be co-resident at all is asked of
-# the card at launch (``tower_kernel.max_grid``).
+# and I a multiple of its 64-wide K step. The GEMM stages cut N in tiles of
+# 64 output channels (wgmma's M) and M in ranges of at most 2 chunks of 64
+# tokens (``tower_kernel.tower_plan``). Set by the kernel's design. Whether a
+# grid can be co-resident at all is asked of the card at launch
+# (``tower_kernel.max_grid``).
 TOWER_ROW_PAIRS = {64: 4, 80: 5}
 TOWER_WIDTH_MULTIPLE = 64
 TOWER_MAX_WIDTH = 1280
-TOWER_TILE = 32
+TOWER_TILE = 64
 TOWER_KSTEP = 64
+TOWER_MAX_CHUNKS = 2
 
 # The dequant-ahead int8 instance (#6, ``fused_tower(quant_dma=True)``):
 # refused, on every device, where the JAX kernel refuses it by width: W a
@@ -166,7 +169,13 @@ TOWER_QDMA_HEAD_DIM = 64
 #   image int8  1.1118 vs 5.4307 / 4.0895 vs 4.2375 / 13.3744 vs 8.3606
 # The per-layer route at these batches waits on the host (84 launches a
 # text tower), so its times spread by ~20% between runs; image int8 at
-# batch 8 is within that spread.
+# batch 8 is within that spread. Re-read on the wgmma GEMM stages (two
+# chip_smoke runs of that tree, the same card): text bf16 at batch 32 2.4097
+# vs 2.6853 / 2.4506 vs 3.1514 (one run beyond the spread: unchanged);
+# image bf16 at batch 8 2.6491 vs 3.6160 / 2.6629 vs 3.9062, both beyond
+# it, but the gate is one a (tower, weight type) for every width, and at 8
+# it would move ViT-H-14's batch-3 image tower off #9, whose main path that
+# is: unchanged until a gate by width.
 TOWER_MAX_BATCH = {("text", "bf16"): 8, ("text", "int8"): 32,
                    ("image", "bf16"): 1, ("image", "int8"): 8}
 
@@ -180,18 +189,24 @@ _KERNEL_IMPLS = ("auto", "kernel", "fused")
 # the port routes as JAX does: above it the attention is the plain one.
 MAX_PALLAS_SEQ = 1024
 
-# flash.cu (#22, #23): 16 query rows a warp (one mma.sync m16 tile); the
-# backward's blocks of 4 warps own 64 rows, the forward's up to 8 strips of
-# one head (``ops/attention.py::flash_fwd_plan``); keys (and, in the dK/dV
-# kernel, queries) stream through shared memory in tiles of 64 rows, two
-# tiles in flight in the backward, three in the forward: at most 82,688
-# bytes a forward block (dh 80) and 45,056 a backward one, whatever S is.
-# Head dims as HEAD_DIMS (attention.cuh's k-step instances). Set by the
-# kernels' design; S itself is not limited by it.
-FLASH_BLOCK_Q = 64
+# flash.cu (#22, #23): 16 rows a warp (one mma.sync m16 tile); a block takes
+# up to 8 strips of one head, in the forward and in both backward kernels
+# (``ops/attention.py::flash_fwd_plan``, ``flash_bwd_plan``); keys (and, in
+# the dK/dV kernel, queries) stream through shared memory in tiles of 64
+# rows, three tiles in flight: at most 82,688 bytes a forward block (dh 80)
+# and 103,936 a backward one (the dK/dV kernel at dh 80: its K and V rows,
+# the ring of Q, dO, lse and delta), whatever S is. Head dims as HEAD_DIMS
+# (attention.cuh's k-step instances). Set by the kernels' design; S itself
+# is not limited by it.
 FLASH_BLOCK_K = 64
-FLASH_FWD_MAX_WARPS = 8
-FLASH_FWD_STAGES = 3
+FLASH_MAX_WARPS = 8
+FLASH_STAGES = 3
+# #23's dK/dV kernel at heads of 64: two blocks an SM (128 registers, which
+# spill) below this many key tiles, one (224 registers) from it on. Set by
+# timing both instances of the kernel in turns on an NVIDIA H100 80GB HBM3
+# at a 700.00 W power limit (CUDA events): one block was the faster at
+# (32, 16, 577, 64), 10 tiles, and the slower at (256, 12, 197, 64), 4.
+FLASH_DKV_ONE_BLOCK_TILES = 8
 
 # Routing of the training backward when every weight of a block needs its
 # gradient, per block kind: "fullgrad" (#14/#16/#18: the chain forms the

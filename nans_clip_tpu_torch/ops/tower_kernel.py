@@ -15,9 +15,11 @@ every layer are either all bf16 tensors or all :class:`Int8Weight`.
 
 The kernel reads each layer's tensors where the modules keep them, through
 a device table of pointers (:class:`TowerTable`, 16 pointers a layer: 1.5 KB
-for 12 layers). A model holds one table per tower; it is rebuilt, and the
-layers are checked again, when a source tensor's address changes, and it
-keeps its sources alive meanwhile. No weight is copied or stacked.
+for 12 layers) and, for its GEMM stages' TMA loads, a device array of the
+weights' tensor maps (4 a layer, 128 bytes each, encoded by
+``nans_tower_maps``). A model holds one table per tower; it is rebuilt, and
+the layers are checked again, when a source tensor's address changes, and
+it keeps its sources alive meanwhile. No weight is copied or stacked.
 
 ``tower_math`` is the plain twin: ``encoder_layer_math`` looped over the
 layers, the output in the io dtype after each layer
@@ -46,9 +48,13 @@ from nans_clip_tpu_torch.utils.quantize import dequantize_weight, is_quantized
 
 _ACT_CODES = {"quick_gelu": 1, "gelu": 2}
 _WEIGHTS = (2, 4, 8, 10)  # positions of w_qkv, w_o, w1, w2 in a layer tuple
-BM = 64                   # tower.cu's GEMM rows per tile
 MAX_SPLITS = 8            # tower.cu's kMaxSplits
 MIN_KSTEPS_PER_SPLIT = 2  # each K-split streams at least 2 x 64 of K
+CHUNK = 64                # tokens a wgmma (its N)
+MAX_STAGES = 6            # tower.cu's kMaxStages
+RING_BYTES = {False: 96 * 1024, True: 80 * 1024}   # bf16 / int8 W (kRingBf16, kRingInt8)
+BOX = CHUNK * gates.TOWER_KSTEP * 2                 # a bf16 box of 64 rows x 64
+HANDOVER = (0, 2)   # the products (qkv, fc1) whose K-splits split 0 adds in the stage
 
 
 def tower_math(x: torch.Tensor, key_bias: Optional[torch.Tensor], layers: Sequence[tuple],
@@ -69,13 +75,14 @@ class TowerTable:
         self._key = None
         self._sources = None
         self._table = None
+        self._maps = None
 
     def __deepcopy__(self, memo):
         return TowerTable()
 
-    def get(self, layers: Sequence[tuple], width: int, device) -> torch.Tensor:
-        """The table for ``layers``, checked by :func:`_admit_layers` when
-        it is (re)built."""
+    def get(self, layers: Sequence[tuple], width: int, device):
+        """(the pointer table, the weights' tensor maps) for ``layers``,
+        checked by :func:`_admit_layers` when they are (re)built."""
         flat = []
         for p in layers:
             ts = [t.int8 if is_quantized(t) else t for t in p]
@@ -84,9 +91,15 @@ class TowerTable:
         key = tuple(0 if t is None else t.data_ptr() for t in flat)
         if key != self._key:
             _admit_layers(layers, width)
-            self._table = torch.tensor(key, dtype=torch.int64).to(device)
+            table = torch.tensor(key, dtype=torch.int64)
+            maps = torch.empty(len(layers) * 4 * 128, dtype=torch.uint8)
+            with torch.cuda.device(device):
+                _build.check(_build.library().nans_tower_maps(
+                    table.data_ptr(), len(layers), width, layers[0][8].shape[0],
+                    int(is_quantized(layers[0][2])), maps.data_ptr()), "nans_tower_maps")
+            self._table, self._maps = table.to(device), maps.to(device)
             self._sources, self._key = flat, key
-        return self._table
+        return self._table, self._maps
 
 
 # tower.cu's instances: bf16 weights (#4), int8 (#5), int8 dequantized a
@@ -107,14 +120,52 @@ def max_grid(device_index: int, mode: int, seq: int, dh: int = 64) -> int:
     return out.value
 
 
-def k_splits(m: int, n: int, k: int, grid: int) -> int:
-    """K-splits of one product: as many (m-tile, n-tile, split) units as the
-    grid has blocks, never more (a second round of units would double the
-    stage), each split at least MIN_KSTEPS_PER_SPLIT steps of the kernel's
-    64-wide K."""
-    units = math.ceil(m / BM) * (n // gates.TOWER_TILE)
-    cap = max(1, min(MAX_SPLITS, k // gates.TOWER_KSTEP // MIN_KSTEPS_PER_SPLIT))
-    return max(1, min(cap, grid // units))
+def tower_plan(mode: int, b: int, s: int, w: int, inter: int, dh: int, grid: int) -> dict:
+    """tower.cu's launch plan, as ``nans_tower_plan`` computes it. M = B S
+    is cut into the fewest even token ``ranges`` of one chunk of 64 tokens
+    where the largest product's tiles then fit the grid in one round (the
+    most units, the fewest K-splits), else of at most
+    ``gates.TOWER_MAX_CHUNKS`` ``chunks`` (a unit's accumulators, one wgmma
+    m64n64 a chunk); the ring holds as many 64-deep ``stages`` of
+    a W box and ``chunks`` token boxes as its bytes allow; each product
+    (qkv, out, fc1, fc2: ``products`` of (N, K)) has ``N / 64 * ranges``
+    tiles, each in ``ks`` K-splits: as many as fill the grid once, or half
+    of it for the products in HANDOVER (qkv, fc1: split 0 of a tile waits
+    for the others' partial sums and adds them; out and fc2 leave that to
+    the row stage after them), never a second round of units, each at least
+    MIN_KSTEPS_PER_SPLIT stages, at most MAX_SPLITS;
+    ``part``: the fp32 partial sums of the split products; ``sem``: the
+    barrier and a counter for each tile of the largest;
+    ``smem``: the block's dynamic shared memory (:func:`tower_smem`)."""
+    m = b * s
+    tile_n, kstep = gates.TOWER_TILE, gates.TOWER_KSTEP
+    most = 1 if max(3 * w, inter) // tile_n * -(-m // CHUNK) <= grid else gates.TOWER_MAX_CHUNKS
+    ranges = -(-m // (most * CHUNK))
+    chunks = -(-(-(-m // ranges)) // CHUNK)
+    quant = mode == MODE_INT8
+    slot = (tile_n * kstep if quant else BOX) + chunks * BOX
+    products = ((3 * w, w), (w, w), (inter, w), (w, inter))
+    ks, tiles = [], []
+    for i, (n, k) in enumerate(products):
+        tiles.append(n // tile_n * ranges)
+        cap = max(1, min(MAX_SPLITS, k // kstep // MIN_KSTEPS_PER_SPLIT))
+        fill = (grid // 2 if i in HANDOVER else grid) // tiles[-1]
+        ks.append(max(1, min(cap, fill)))
+    part = max([1] + [kk * m * n for kk, (n, _) in zip(ks, products) if kk > 1])
+    return dict(ranges=ranges, chunks=chunks, stages=min(MAX_STAGES, RING_BYTES[quant] // slot),
+                ks=ks, tiles=tiles, products=products, part=part, sem=1 + max(tiles),
+                smem=tower_smem(mode, s, dh))
+
+
+def tower_smem(mode: int, s: int, dh: int) -> int:
+    """tower.cu's dynamic shared memory: the attention stage's padded rows
+    (a head's K and V of S rounded up to 16, a strip of Q, the key bias,
+    each warp's row statistics and two partial outputs), or the GEMM
+    stages' ring (with #5's two converted tiles) and 1 KB to align it."""
+    s_pad, ldk = -(-s // 16) * 16, dh + 8
+    attn = (16 + 2 * s_pad) * ldk * 2 + (s_pad + 4 * 16 * 2 + 2 * 16 * dh) * 4
+    gemm = 1024 + (RING_BYTES[True] + 2 * BOX if mode == MODE_INT8 else RING_BYTES[False])
+    return max(attn, gemm)
 
 
 def stage_names(n_layers: int, post_ln: bool, quant_dma: bool = False) -> list:
@@ -213,28 +264,25 @@ def fused_tower(x: torch.Tensor, key_bias: Optional[torch.Tensor], layers: Seque
         grid = max_grid(dev.index if dev.index is not None else torch.cuda.current_device(),
                         mode, s, dh)
         gates.admit(grid >= 1, f"tower: no block of the kernel fits a multiprocessor at S={s}")
-    products = ((3 * w, w), (w, w), (inter, w), (w, inter))
-    ks = [k_splits(m, n, k, grid) for n, k in products]
+    plan = tower_plan(mode, b, s, w, inter, dh, grid)
     out = x.contiguous().clone()
     work = torch.empty(m * (6 * w + inter), dtype=x.dtype, device=dev)
     sums = torch.empty(m * w, dtype=torch.float32, device=dev)
-    part = torch.empty(max([1] + [kk * m * n for kk, (n, _) in zip(ks, products) if kk > 1]),
-                       dtype=torch.float32, device=dev)
+    part = torch.empty(plan["part"], dtype=torch.float32, device=dev)
     wbuf = (torch.empty(2 * (4 * w * w + 2 * w * inter), dtype=x.dtype, device=dev)
             if ahead else None)
-    tiles = math.ceil(m / BM) * max(n for n, _ in products) // gates.TOWER_TILE
-    sem = torch.zeros(1 + tiles, dtype=torch.int32, device=dev)
+    sem = torch.zeros(plan["sem"], dtype=torch.int32, device=dev)
     if clock is not None:
         gates.admit(clock.is_cuda and clock.dtype == torch.int64
                     and clock.numel() >= len(stage_names(n_layers, post_ln, ahead)) + 1,
                     "tower: clock must be int64 on CUDA with room for every stage")
-    ptrs = (table or TowerTable()).get(layers, w, dev)
+    ptrs, maps = (table or TowerTable()).get(layers, w, dev)
     err = _build.library().nans_tower(
         out.data_ptr(), None if key_bias is None else key_bias.data_ptr(), ptrs.data_ptr(),
-        work.data_ptr(), sums.data_ptr(), part.data_ptr(),
+        None if ahead else maps.data_ptr(), work.data_ptr(), sums.data_ptr(), part.data_ptr(),
         None if wbuf is None else wbuf.data_ptr(), sem.data_ptr(),
         None if clock is None else clock.data_ptr(), b, s, w, inter, n_layers, dh, float(eps),
-        1.0 / math.sqrt(dh), _ACT_CODES[act], int(post_ln), mode, *ks, grid,
+        1.0 / math.sqrt(dh), _ACT_CODES[act], int(post_ln), mode, *plan["ks"], grid,
         _build.stream_ptr(dev))
     _build.check(err, "nans_tower")
     if ahead:

@@ -1,7 +1,8 @@
 """The launch plans of the one-shot attention backward
 (``ops/attention.py::attention_bwd_plan``), of the long-sequence pair
 (``attention_bwd_long_plan``), of the flash forward #22 (``flash_fwd_plan``)
-and of the LayerNorm backward (``ops/layernorm.py::layernorm_bwd_plan``),
+and backward #23 (``flash_bwd_plan``) and of the LayerNorm backward
+(``ops/layernorm.py::layernorm_bwd_plan``),
 the plain Python functions their wrappers call, at every shape of the
 published towers (ViT-B-16, ViT-B-32, ViT-L-14, ViT-L-14-336 and ViT-H-14
 images, RoBERTa-wwm-ext-base, -large and RBT3 texts at 52 tokens; batches 1
@@ -27,7 +28,7 @@ from nans_clip_tpu_torch.ops import gates
 from nans_clip_tpu_torch.ops.attention import (ATTN_BWD_LONG_MAX_WARPS, ATTN_BWD_MAX_WARPS,
                                                attention_bwd_long_plan, attention_bwd_plain,
                                                attention_bwd_plan, attention_plain,
-                                               flash_fwd_plan)
+                                               flash_bwd_plan, flash_fwd_plan)
 from nans_clip_tpu_torch.ops.layernorm import layer_norm_bwd_plain, layernorm_bwd_plan
 
 torch.set_num_threads(2)
@@ -140,12 +141,49 @@ def test_flash_fwd_plan_covers_each_strip_once(s, dh):
     blocks; two blocks fit an SM's shared memory."""
     p = flash_fwd_plan(4, 12, s, dh)
     assert p["strips"] * 16 >= s > (p["strips"] - 1) * 16
-    assert 1 <= p["warps"] <= gates.FLASH_FWD_MAX_WARPS and p["threads"] == 32 * p["warps"]
-    assert p["blocks"] == -(-p["strips"] // gates.FLASH_FWD_MAX_WARPS)
+    assert 1 <= p["warps"] <= gates.FLASH_MAX_WARPS and p["threads"] == 32 * p["warps"]
+    assert p["blocks"] == -(-p["strips"] // gates.FLASH_MAX_WARPS)
     taken = [x * p["warps"] + i for x in range(p["blocks"]) for i in range(p["warps"])]
     assert [t for t in taken if t < p["strips"]] == list(range(p["strips"]))
     assert (p["blocks"] - 1) * p["warps"] < p["strips"]
     assert 2 * (p["smem"] + 1024) <= gates.SMEM_PER_SM
+    assert p["grid"] == (p["blocks"], 12, 4)
+
+
+# chip_smoke.py phase 10's sequences (FLASH_SHAPES) and the edges of a tile
+FLASH_BWD_SEQS = (52, 197, 257, 577, 1024, 1, 16, 17, 64, 65, 1100)
+
+
+@pytest.mark.parametrize("dh", gates.HEAD_DIMS)
+@pytest.mark.parametrize("s", FLASH_BWD_SEQS)
+def test_flash_bwd_plan_covers_each_strip_once(s, dh):
+    """#23: in both kernels warp i of block x owns strip x * warps + i (of
+    the queries in the dQ kernel, of the keys in the dK/dV kernel): every
+    16-row strip has exactly one (block, warp), on the fewest blocks of at
+    most FLASH_MAX_WARPS warps; each kernel's shared memory (its own rows,
+    the ring of streamed tiles) fits a block, whatever S is."""
+    p = flash_bwd_plan(4, 12, s, dh)
+    assert p["strips"] * 16 >= s > (p["strips"] - 1) * 16
+    assert 1 <= p["warps"] <= gates.FLASH_MAX_WARPS and p["threads"] == 32 * p["warps"]
+    assert p["blocks"] == -(-p["strips"] // gates.FLASH_MAX_WARPS)
+    owner = {}
+    for x in range(p["blocks"]):
+        for i in range(p["warps"]):
+            strip = x * p["warps"] + i
+            if strip < p["strips"]:
+                assert strip not in owner
+                owner[strip] = (x, i)
+    assert sorted(owner) == list(range(p["strips"]))
+    assert (p["blocks"] - 1) * p["warps"] < p["strips"]   # no block without a strip
+    stages = min(gates.FLASH_STAGES, -(-s // gates.FLASH_BLOCK_K))
+    own = 2 * p["warps"] * 16 * dh * 2   # Q and dO rows (dQ), K and V rows (dK/dV)
+    ring = stages * 2 * gates.FLASH_BLOCK_K * dh * 2
+    assert p["smem_dq"] == own + ring + stages * gates.FLASH_BLOCK_K * 4
+    assert p["smem_dkv"] == own + ring + stages * 2 * gates.FLASH_BLOCK_K * 4
+    assert max(p["smem_dq"], p["smem_dkv"]) <= gates.SMEM_PER_BLOCK
+    assert p["dkv_blocks"] == (2 if dh == 64 and -(-s // gates.FLASH_BLOCK_K)
+                               < gates.FLASH_DKV_ONE_BLOCK_TILES else 1)
+    assert 2 * (p["smem_dkv"] + 1024) <= gates.SMEM_PER_SM or p["dkv_blocks"] == 1
     assert p["grid"] == (p["blocks"], 12, 4)
 
 

@@ -1155,6 +1155,42 @@ def test_flash_fwd_plan_matches_the_kernel(dev):
             assert list(out) == [p["warps"], p["blocks"], p["strips"], p["smem"]]
 
 
+def test_flash_bwd_plan_matches_the_kernel(dev):
+    """ops/attention.py::flash_bwd_plan computes the launch
+    nans_flash_bwd_plan reports."""
+    import ctypes
+    from nans_clip_tpu_torch.ops import _build
+    from nans_clip_tpu_torch.ops.attention import flash_bwd_plan
+    out = (ctypes.c_int * 6)()
+    for s in (1, 16, 17, 52, 64, 65, 197, 257, 449, 577, 1024, 1100):
+        for dh in (64, 80):
+            assert _build.library().nans_flash_bwd_plan(s, dh, out) == 0
+            p = flash_bwd_plan(2, 12, s, dh)
+            assert list(out) == [p["warps"], p["blocks"], p["strips"], p["smem_dq"],
+                                 p["smem_dkv"], p["dkv_blocks"]]
+
+
+def test_tower_plan_matches_the_kernel(dev):
+    """ops/tower_kernel.py::tower_plan computes the plan nans_tower_plan
+    reports, at the published towers' shapes, batch 1, 8 and 32, on the
+    card's co-resident grid and on 132 blocks."""
+    import ctypes
+    from nans_clip_tpu_torch.ops import _build
+    from nans_clip_tpu_torch.ops import tower_kernel as tk
+    out = (ctypes.c_int * 10)()
+    idx = torch.cuda.current_device()
+    for s, w, dh in ((197, 768, 64), (52, 768, 64), (257, 1024, 64), (52, 1024, 64),
+                     (257, 1280, 80), (50, 768, 64)):
+        for mode in (tk.MODE_BF16, tk.MODE_INT8):
+            for grid in (tk.max_grid(idx, mode, s, dh), 132):
+                for b in (1, 8, 32):
+                    assert _build.library().nans_tower_plan(mode, b, s, w, 4 * w, dh, grid,
+                                                            out) == 0
+                    p = tk.tower_plan(mode, b, s, w, 4 * w, dh, grid)
+                    assert list(out) == [p["ranges"], p["chunks"], p["stages"], *p["ks"],
+                                         p["part"], p["sem"], p["smem"]]
+
+
 def _ln_bwd_cases(dev, rows, w, seed):
     """The forms the chains call, as layer_norm_bwd keyword sets: (gin, x,
     keyword arguments, fp32 output) for pre-LN with sums, emitting x-hat,

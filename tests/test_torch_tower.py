@@ -138,17 +138,68 @@ def test_gate_predicate():
         gates.tower_route(x, "kernel", "text", 12, 3072, False)
 
 
-def test_tower_k_splits():
-    """Batch 1 splits K so every block streams weights; batch 32 needs no
-    split; never a second round of units, never more than 8 splits."""
-    assert tk.k_splits(52, 2304, 768, 396) == 5          # 72 tiles x 5 = 360 <= 396
-    assert tk.k_splits(52, 768, 3072, 396) == 8          # capped
-    assert tk.k_splits(52, 768, 768, 396) == 6           # 768 = 6 splits of 2 x 64
-    assert tk.k_splits(52 * 32, 2304, 768, 396) == 1
-    for m, n, k in ((197, 768, 768), (52, 3072, 768), (6304, 768, 3072)):
-        ks = tk.k_splits(m, n, k, 396)
-        assert 1 <= ks <= tk.MAX_SPLITS and k // 64 // ks >= tk.MIN_KSTEPS_PER_SPLIT
-        assert ks == 1 or -(-m // 64) * (n // 32) * ks <= 396
+def _tower_shapes():
+    """(S, W, heads, I) of every published tower the tower kernel takes."""
+    from nans_clip_tpu_torch.configs import load_config
+    shapes = set()
+    for name in ("ViT-B-16", "ViT-B-32", "ViT-L-14", "ViT-L-14-336", "ViT-H-14"):
+        v = load_config(f"{name}@RBT3-chinese").vision
+        shapes.add((v.seq_len, v.width, v.heads, 4 * v.width))
+    for name in ("RoBERTa-wwm-ext-base-chinese", "RoBERTa-wwm-ext-large-chinese", "RBT3-chinese"):
+        t = load_config(f"ViT-B-16@{name}").text
+        shapes.add((52, t.hidden_size, t.num_attention_heads, t.intermediate_size))
+    return sorted(sh for sh in shapes if gates.fits_tower(*sh))
+
+
+@pytest.mark.parametrize("grid", [132, 264])
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("s,w,heads,inter", _tower_shapes())
+def test_tower_k_splits(s, w, heads, inter, b, grid):
+    """tower.cu's plan for every product of every published tower: each
+    (channel tile, token range, split) unit is taken once, in the order the
+    kernel walks them, and the splits cut K into slices of at least
+    MIN_KSTEPS_PER_SPLIT stages, at most MAX_SPLITS; the token ranges cover
+    M once, each within the plan's chunks; a split product never takes a
+    second round of units (qkv and fc1 never more than half the grid); the
+    row stages that add out's and fc2's partial rows hold them in shared
+    memory; the partial sums and counters the wrapper
+    allocates hold every split plane and tile; the ring and the staged output
+    tile fit the shared memory."""
+    m, dh = b * s, w // heads
+    for mode in (tk.MODE_BF16, tk.MODE_INT8):
+        p = tk.tower_plan(mode, b, s, w, inter, dh, grid)
+        bounds = [r * m // p["ranges"] for r in range(p["ranges"] + 1)]
+        assert bounds[0] == 0 and bounds[-1] == m
+        lengths = [e - a for a, e in zip(bounds, bounds[1:])]
+        assert min(lengths) >= 1 and max(lengths) <= p["chunks"] * tk.CHUNK
+        assert p["chunks"] <= gates.TOWER_MAX_CHUNKS
+        one = max(n for n, _ in p["products"]) // gates.TOWER_TILE * -(-m // tk.CHUNK) <= grid
+        assert p["ranges"] == -(-m // ((1 if one else gates.TOWER_MAX_CHUNKS) * tk.CHUNK))
+        for i, ((n, k), ks, tiles) in enumerate(zip(p["products"], p["ks"], p["tiles"])):
+            assert tiles == n // gates.TOWER_TILE * p["ranges"] and n % gates.TOWER_TILE == 0
+            steps = k // gates.TOWER_KSTEP
+            assert 1 <= ks <= tk.MAX_SPLITS and (ks == 1 or steps // ks >= tk.MIN_KSTEPS_PER_SPLIT)
+            assert ks == 1 or tiles * ks <= (grid // 2 if i in tk.HANDOVER else grid)
+            seen = {}
+            for u in range(tiles * ks):
+                tile, split = u // ks, u % ks
+                seen.setdefault(tile, []).append(
+                    (split * steps // ks, (split + 1) * steps // ks))
+            assert sorted(seen) == list(range(tiles))
+            for slices in seen.values():   # the splits of a tile cut K once, in order
+                assert [a for a, _ in slices] == [0] + [e for _, e in slices[:-1]]
+                assert slices[-1][1] == steps
+            if ks > 1:
+                assert p["part"] >= ks * m * n
+            assert p["sem"] >= 1 + tiles
+        assert p["part"] == max([1] + [ks * m * n for ks, (n, _) in zip(p["ks"], p["products"])
+                                       if ks > 1])
+        ring = tk.RING_BYTES[mode == tk.MODE_INT8]
+        slot = (64 * 64 if mode == tk.MODE_INT8 else tk.BOX) + p["chunks"] * tk.BOX
+        assert 2 <= p["stages"] <= tk.MAX_STAGES and p["stages"] * slot <= ring
+        assert p["chunks"] * tk.CHUNK * (gates.TOWER_TILE + 4) * 4 <= ring
+        assert max(p["ks"][1], p["ks"][3]) * w * 4 <= p["smem"]   # the row stages' partial rows
+        assert p["smem"] <= gates.SMEM_PER_BLOCK
 
 
 def _tiny128():
