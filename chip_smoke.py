@@ -143,6 +143,25 @@ Phases, each printing its lines before the last line:
    its time beside the per-layer image route's (the tower gate closed for
    that arm).
 
+13. The data path and the training CLIs: a split of 1,024 pairs (512
+   seeded noise JPEGs of 256 px, two captions each) written with the port's
+   ``NPackWriter``; the loader's pairs/s at batch 128, 224 px, on both
+   decoders; ``preprocess_images`` at batch 128 with and without
+   augmentation; run A, ``training.main.main`` on
+   ViT-B-16@RoBERTa-wwm-ext-base-chinese at full width and depth (seed 0,
+   batch 128, 6 steps, ``--save-torch-format``, steps 3-5 under
+   ``--profile-steps``): each step's loss, data s and batch s, the launches
+   of a step (the forward chains, and the backward kernels the default
+   route ``gates.BWD_ROUTE`` names: #14, #15, #17), and from the trace the
+   device's idle share and the host's time in each span of the CLI's
+   loop; ``load_eval_model`` on run A's
+   checkpoint directory (features bit-equal to the trained module's); run
+   B, 3 steps with a ``step_3`` checkpoint and a resume from it to 6 (losses
+   and parameters bit-equal to run A's); ``train_lora.main`` from run A's
+   ``.pt``, one epoch at 32 x 4, rank 4 (its ``training_log.csv``, the
+   ``load_lora`` round trip, #13/#15/#17 launched); ``bench.py``'s JSON
+   line. Each checkpoint directory is deleted once used.
+
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
 nothing branches on them.
@@ -3091,6 +3110,307 @@ def phase_qdma(torch, dev, ckpt_h):
     return results, qdma_launches
 
 
+DATA_PAIRS, DATA_IMAGES, DATA_SIDE = 1024, 512, 256
+CLI_BATCH, CLI_STEPS, CLI_RESUME_AT = 128, 6, 3
+CLI_PROFILE = "2:5"   # run A's --profile-steps: the steps after the 2nd to the 5th
+
+
+def _write_split(root: str, seed: int = 0) -> None:
+    """A split of DATA_PAIRS pairs through the port's NPackWriter: DATA_IMAGES
+    seeded noise JPEGs of DATA_SIDE pixels (so the loader's 224 resize runs),
+    two captions each, built from TEXTS."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from nans_clip_tpu_torch.data.npack import NPackWriter, encode_pair
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    with NPackWriter(os.path.join(root, "imgs.npack")) as wi, \
+            NPackWriter(os.path.join(root, "pairs.npack")) as wp:
+        for i in range(DATA_IMAGES):
+            buf = io.BytesIO()
+            Image.fromarray(rs.randint(0, 256, (DATA_SIDE, DATA_SIDE, 3), dtype=np.uint8)).save(
+                buf, format="JPEG", quality=90)
+            wi.put(i, buf.getvalue())
+            for j in range(2):
+                k = 2 * i + j
+                wp.put(k, encode_pair(i, k, f"{TEXTS[k % len(TEXTS)]}，第{i}张"))
+
+
+def _cli_counted():
+    """The counters of the train step's kernels (phase 7's and phase 8's)."""
+    from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+
+    counted = {fn.__name__: fn for fn in (
+        fbb.fused_attention_block_bwd, fbb.fused_bert_attention_block_bwd, fbb.fused_mlp_block_bwd,
+        fbb.fused_attention_block_bwd_fullgrad, fbb.fused_bert_attention_block_bwd_fullgrad,
+        fbb.fused_mlp_block_bwd_fullgrad)}
+    counted.update(_counted())
+    return counted
+
+
+def _cli_reset():
+    _reset_counts()
+    for fn in _cli_counted().values():
+        fn.launches = 0
+
+
+def _cli_counts():
+    out = {name: fn.launches for name, fn in _cli_counted().items()}
+    out.update(_tower_counts())
+    return out
+
+
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _profile_summary(path: str) -> dict:
+    """From the CLI's ``--profile-steps`` chrome trace: the window (the
+    first host event to the last event), the device's busy time (the union
+    of its kernels, copies and sets) and idle share, the host's time in
+    each ``cli.*`` span of ``training/main.py``, the device's busy share
+    inside the ``cli.train_step`` spans, and the CUDA runtime calls that
+    take the host longest."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    span = lambda e: (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+    device = [span(e) for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    host = [span(e) for e in events if e.get("cat") in ("cpu_op", "user_annotation",
+                                                        "cuda_runtime", "cuda_driver")]
+    if not host:
+        return {"device_events": 0, "note": "no host events in the trace"}
+    lo = min(a for a, _ in host)
+    hi = max(b for _, b in host + device)
+    out = {"window_ms": (hi - lo) / 1e3, "device_events": len(device),
+           "device_busy_ms": _union_us(device) / 1e3}
+    out["device_idle_share"] = 1.0 - out["device_busy_ms"] / out["window_ms"]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("cli."):
+            spans.setdefault(e["name"], []).append(span(e))
+    out["host_ms"] = {k: sum(b - a for a, b in v) / 1e3 for k, v in sorted(spans.items())}
+    steps = spans.get("cli.train_step", [])
+    if steps and device:
+        inside = [(max(a, s0), min(b, s1)) for s0, s1 in steps for a, b in device
+                  if a < s1 and b > s0]
+        out["device_busy_share_in_train_step"] = (_union_us(inside)
+                                                  / sum(b - a for a, b in steps))
+    runtime = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime":
+            n, t = runtime.get(e["name"], (0, 0.0))
+            runtime[e["name"]] = (n + 1, t + float(e.get("dur", 0)))
+    out["cuda_runtime_top"] = [{"name": k, "calls": n, "ms": t / 1e3} for k, (n, t) in
+                               sorted(runtime.items(), key=lambda kv: -kv[1][1])[:5]]
+    return out
+
+
+def _train_records(logs: str, name: str) -> list:
+    with open(os.path.join(logs, name, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == "train"]
+
+
+def phase_data_cli(torch, dev, tmp):
+    """Phase 13: the data path and the two training CLIs at ViT-B-16 full
+    width and depth."""
+    import shutil
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch import bench
+    from nans_clip_tpu_torch.data.augment import preprocess_images
+    from nans_clip_tpu_torch.data.dataset import DataLoader, PairDataset
+    from nans_clip_tpu_torch.eval.model_io import load_eval_model
+    from nans_clip_tpu_torch.models import lora
+    from nans_clip_tpu_torch.ops import gates
+    from nans_clip_tpu_torch.training import main as train_main
+    from nans_clip_tpu_torch.training import train_lora
+
+    t_phase = time.time()
+    split = os.path.join(tmp, "split")
+    t0 = time.time()
+    _write_split(split)
+    print(f"data: {DATA_PAIRS} pairs, {DATA_IMAGES} noise JPEGs of {DATA_SIDE} px written with "
+          f"NPackWriter in {time.time() - t0:.2f} s "
+          f"({os.path.getsize(os.path.join(split, 'imgs.npack')) / 2 ** 20:.1f} MiB)", flush=True)
+
+    # the loader's pairs/s on both decoders, and preprocess_images on the card
+    for exact in (False, True):
+        loader = DataLoader(PairDataset(split), batch_size=CLI_BATCH, decode_size=224, seed=0,
+                            num_threads=8, exact_decode=exact)
+        t0 = time.time()
+        n = sum(b.images.shape[0] for b in loader)
+        dt = time.time() - t0
+        print(f"data: loader {'exact (bicubic)' if exact else 'default (bilinear)'} decode, "
+              f"batch {CLI_BATCH}, 224 px, 8 threads: {n / dt:.1f} pairs/s "
+              f"({n} pairs, {dt:.3f} s, {len(loader)} batches)", flush=True)
+    raw = torch.randint(0, 256, (CLI_BATCH, 224, 224, 3), dtype=torch.uint8,
+                        generator=torch.Generator(dev).manual_seed(1), device=dev)
+    for augment in (False, True):
+        gen = torch.Generator().manual_seed(2)
+        ms = _time_ms(lambda: preprocess_images(gen, raw, 224, augment=augment), 10)
+        out = preprocess_images(torch.Generator().manual_seed(2), raw, 224, augment=augment)
+        if out.shape != (CLI_BATCH, 224, 224, 3) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"preprocess_images(augment={augment}) gave {out.shape}")
+        print(f"data: preprocess_images batch {CLI_BATCH}, 224 px, augment {augment}: "
+              f"{ms:.3f} ms", flush=True)
+
+    cli = ["--train-data", split, "--vision-model", VISION, "--text-model", TEXT,
+           "--batch-size", str(CLI_BATCH), "--warmup", "2", "--log-interval", "1",
+           "--num-workers", "8", "--seed", "0"]
+
+    # run A: 6 steps straight on the CLI's default backward route
+    # (gates.BWD_ROUTE), steps 3-5 under the profiler
+    logs_a = os.path.join(tmp, "logs_a")
+    torch.cuda.synchronize()
+    _cli_reset()
+    t0 = time.time()
+    state_a = train_main.main(cli + ["--logs", logs_a, "--name", "A", "--max-steps",
+                                     str(CLI_STEPS), "--save-torch-format",
+                                     "--profile-steps", CLI_PROFILE])
+    torch.cuda.synchronize()
+    total = _cli_counts()
+    run_a_s = time.time() - t0
+    rec_a = _train_records(logs_a, "A")
+    losses_a = [r["loss"] for r in rec_a]
+    print(f"cli: run A, training.main {VISION}@{TEXT} full width and depth, seed 0, batch "
+          f"{CLI_BATCH}, {CLI_STEPS} steps in {run_a_s:.1f} s (build, data, steps, the epoch-end "
+          f"save):", flush=True)
+    for r in rec_a:
+        print(f"cli:   step {r['step']}: loss {r['loss']:.6f}, data {r['data_s']:.4f} s, "
+              f"batch {r['batch_s']:.4f} s", flush=True)
+    n_img, n_txt = 12, 12
+    per_step = {k: v // CLI_STEPS for k, v in total.items()}
+    # the CLI's default route, gates.BWD_ROUTE (the image attention on #14,
+    # the text attention on #15, every MLP on #17 as measured; phase 7 holds
+    # #16/#18 on the fullgrad route)
+    full = {k: gates.bwd_route(k, "auto") == "fullgrad" for k in gates.BWD_ROUTE}
+    expected = {"fused_attention_block": n_img, "fused_bert_attention_block": n_txt,
+                "fused_mlp_block": n_img + n_txt,
+                "fused_attention_block_bwd_fullgrad": n_img * full["attn_pre"],
+                "fused_attention_block_bwd": n_img * (not full["attn_pre"]),
+                "fused_bert_attention_block_bwd_fullgrad": n_txt * full["attn_post"],
+                "fused_bert_attention_block_bwd": n_txt * (not full["attn_post"]),
+                "fused_mlp_block_bwd_fullgrad": n_img * full["mlp_pre"]
+                + n_txt * full["mlp_post"],
+                "fused_mlp_block_bwd": n_img * (not full["mlp_pre"])
+                + n_txt * (not full["mlp_post"]),
+                "fused_layer_block": 0, "fused_tower": 0, "fused_tower_int8": 0}
+    print(f"cli: run A backward route (gates.BWD_ROUTE, layer {gates.LAYER_BWD_ROUTE}): "
+          f"{json.dumps(gates.BWD_ROUTE)}", flush=True)
+    print(f"cli: run A launches of one step {json.dumps(per_step)}", flush=True)
+    if (len(losses_a) != CLI_STEPS or not all(math.isfinite(x) for x in losses_a)
+            or any(total[k] != CLI_STEPS * v for k, v in expected.items())):
+        raise AssertionError(f"run A: losses {losses_a}, launches {total}, expected "
+                             f"{CLI_STEPS} x {expected}")
+    prof = _profile_summary(os.path.join(logs_a, "A", "profile", "trace.json"))
+    print(f"cli: run A profile of steps {CLI_PROFILE} {json.dumps(prof)}", flush=True)
+
+    # load_eval_model on run A's checkpoint directory: the trained module's features
+    ckpt_a = os.path.join(logs_a, "A", "checkpoints")
+    model = load_eval_model(VISION, TEXT, os.path.join(ckpt_a, "epoch1"), "bf16", device=dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    images = torch.randn(8, 224, 224, 3, generator=gen, device=dev)
+    ids = torch.from_numpy(nct.tokenize(TEXTS + TEXTS[:2])).to(dev)
+    opts = nct.ModelOptions(compute_dtype="bfloat16")
+    with torch.inference_mode():
+        mine = (state_a.module.encode_image(images, opts), state_a.module.encode_text(ids, opts))
+    theirs = (model.encode_image(images), model.encode_text(ids))
+    same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    print(f"cli: load_eval_model(run A's checkpoints/epoch1) features equal the trained "
+          f"module's in bf16 eval: {same}", flush=True)
+    if not same:
+        raise AssertionError("load_eval_model's features differ from the trained module's")
+    del model
+    shutil.rmtree(os.path.join(ckpt_a, "epoch1"))
+
+    # run B: 3 steps with a step checkpoint, then a resume from step_3 to 6
+    logs_b = os.path.join(tmp, "logs_b")
+    t0 = time.time()
+    train_main.main(cli + ["--logs", logs_b, "--name", "B", "--max-steps", str(CLI_RESUME_AT),
+                           "--save-step-frequency", str(CLI_RESUME_AT)])
+    ckpt_b = os.path.join(logs_b, "B", "checkpoints")
+    shutil.rmtree(os.path.join(ckpt_b, "epoch1"))
+    state_b = train_main.main(cli + ["--logs", logs_b, "--name", "B", "--max-steps",
+                                     str(CLI_STEPS), "--resume", f"step_{CLI_RESUME_AT}"])
+    run_b_s = time.time() - t0
+    shutil.rmtree(ckpt_b)
+    rec_b = _train_records(logs_b, "B")
+    losses_b = [r["loss"] for r in rec_b]
+    for r in rec_b:   # no profiler: steps 4-5 beside run A's profiled ones
+        print(f"cli:   run B step {r['step']}: data {r['data_s']:.4f} s, "
+              f"batch {r['batch_s']:.4f} s", flush=True)
+    # The kernels give the same bits on a second call (PERF.md section 6), the
+    # data order is a function of (seed, epoch), the draws of (seed, step), and
+    # the optimizer's moments and count come back whole: nothing may differ.
+    diff = [n for (n, a), b in zip(state_a.module.named_parameters(),
+                                   state_b.module.parameters()) if not torch.equal(a, b)]
+    print(f"cli: run B, {CLI_RESUME_AT} steps + step_{CLI_RESUME_AT} checkpoint + resume to "
+          f"{CLI_STEPS} in {run_b_s:.1f} s: losses {' '.join(f'{x:.6f}' for x in losses_b)}; "
+          f"steps {CLI_RESUME_AT + 1}-{CLI_STEPS} equal run A's: "
+          f"{losses_b[CLI_RESUME_AT:] == losses_a[CLI_RESUME_AT:]}; parameters bit-equal to "
+          f"run A's: {not diff} ({len(diff)} tensors differ)", flush=True)
+    if losses_b != losses_a or diff:
+        raise AssertionError(f"the resumed run differs from run A: losses {losses_b} vs "
+                             f"{losses_a}; parameters {diff[:5]}")
+    del state_b
+
+    # the LoRA CLI from run A's .pt: one epoch at batch 32 x accum 4, rank 4
+    out = os.path.join(tmp, "lora")
+    torch.cuda.synchronize()
+    _cli_reset()
+    t0 = time.time()
+    adapters = train_lora.main(["--train-data", split, "--resume",
+                                os.path.join(ckpt_a, "epoch1.pt"), "--vision-model", VISION,
+                                "--text-model", TEXT, "--batch-size", str(LORA_MICRO),
+                                "--accum-freq", str(LORA_ACCUM), "--epochs", "1",
+                                "--lora-rank", "4", "--output-dir", out, "--num-threads", "8"])
+    torch.cuda.synchronize()
+    lora_s = time.time() - t0
+    total = _cli_counts()
+    n_lora_steps = DATA_PAIRS // (LORA_MICRO * LORA_ACCUM)
+    per_step = {k: v // n_lora_steps for k, v in total.items()}
+    with open(os.path.join(out, "training_log.csv")) as f:
+        rows = f.read().strip().splitlines()
+    template = lora.init_lora(torch.Generator().manual_seed(0), state_a.module, rank=4,
+                              device=dev)
+    back, meta = lora.load_lora(os.path.join(out, "last_lora.npz"), template)
+    same = all(torch.equal(a.detach(), b.detach())
+               for (_, a), (_, b) in zip(lora._leaves(back), lora._leaves(adapters)))
+    print(f"cli: train_lora.main from run A's .pt, {n_lora_steps} steps (batch {LORA_MICRO} x "
+          f"accum {LORA_ACCUM}, rank 4) in {lora_s:.1f} s; training_log.csv {rows}; "
+          f"load_lora(last_lora.npz) equals the trained adapters: {same} (meta {meta}); "
+          f"launches of one step {json.dumps(per_step)}", flush=True)
+    emit = {"fused_attention_block_bwd": n_img * LORA_ACCUM,
+            "fused_bert_attention_block_bwd": n_txt * LORA_ACCUM,
+            "fused_mlp_block_bwd": (n_img + n_txt) * LORA_ACCUM,
+            "fused_attention_block_bwd_fullgrad": 0,
+            "fused_bert_attention_block_bwd_fullgrad": 0, "fused_mlp_block_bwd_fullgrad": 0}
+    if (not same or len(rows) != 2 or rows[0] != "epoch,train_loss,val_loss,lr,is_best"
+            or any(total[k] != n_lora_steps * v for k, v in emit.items())):
+        raise AssertionError(f"LoRA CLI: round trip {same}, log {rows}, launches {total}, "
+                             f"expected {n_lora_steps} x {emit}")
+    shutil.rmtree(ckpt_a)
+    del state_a
+
+    # the bench's JSON line
+    result = bench.run(dev)
+    print(f"cli: bench {json.dumps(result)}", flush=True)
+    if not result["value"] > 0:
+        raise AssertionError(f"bench: {result}")
+    print(f"cli: phase 13 took {time.time() - t_phase:.1f} s", flush=True)
+    return {"losses": losses_a, "run_a_s": run_a_s, "bench": result, "profile": prof}
+
+
 def main() -> int:
     if not (ROOT / "nans_clip_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -3143,6 +3463,8 @@ def main() -> int:
         pallas_results, pallas_direct, pallas_forward, pallas_step = phase_pallas(torch, dev)
         tp_results, tp_launches = phase_tp(torch, dev)
         qdma_results, qdma_launches = phase_qdma(torch, dev, ckpt_h)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_data_cli(torch, dev, tmp)
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")

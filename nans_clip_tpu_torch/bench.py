@@ -1,0 +1,122 @@
+"""Feature-pair throughput of ViT-B/16 + RoBERTa-base in bf16 on the card
+(counterpart of the repository's root ``bench.py``, which measures the JAX
+package).
+
+    python -m nans_clip_tpu_torch.bench [--batch 4096] [--iters 8]
+    python -m nans_clip_tpu_torch.bench --device cpu --tiny-model --batch 8
+
+Prints one JSON line ``{"metric", "value", "unit", "vs_baseline", "detail"}``:
+the pairs/s of ``CLIPModel.get_similarity`` on ``--batch`` image/text pairs
+(random weights from seed 0; images drawn on the device from a generator
+seeded 0; texts of 29 random ids between [CLS] and [SEP], as the root
+bench's), timed with CUDA events over ``--iters`` calls after two warm-up
+calls. ``vs_baseline`` is against 195.3 pairs/s (BASELINE.md: image 3.58
+ms + text 1.54 ms a sample, T4 TensorRT fp16 at batch 1). ``detail`` gives
+the ms a pair and, on the card, the share of the H100's dense bf16
+tensor-core peak (989 TFLOP/s) that the forward's operations reach.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Optional
+
+import torch
+
+from nans_clip_tpu_torch import configs
+from nans_clip_tpu_torch.api import model_from_config
+from nans_clip_tpu_torch.models.common import ModelOptions
+
+BASELINE_PAIRS_PER_SEC = 1000.0 / (3.58 + 1.54)
+BF16_PEAK_TFLOPS = 989.0
+BATCH = 4096
+ITERS = 8
+WARMUP = 2
+TEXT_LEN = 52
+
+
+def _tower_flops(seq: int, width: int, layers: int) -> float:
+    """Forward operations of one transformer tower a sample: QKV (6SW^2),
+    attention (4S^2W), out-projection (2SW^2), 4x MLP (16SW^2) a layer."""
+    return layers * (24.0 * seq * width * width + 4.0 * seq * seq * width)
+
+
+def pair_flops(cfg: configs.CLIPConfig, text_seq: int = TEXT_LEN) -> float:
+    """Forward operations of one (image, text) pair of a ViT CLIP."""
+    v, t = cfg.vision, cfg.text
+    s_img = (v.image_resolution // v.patch_size) ** 2 + 1
+    img = _tower_flops(s_img, v.width, v.layers)
+    img += 2.0 * s_img * (3 * v.patch_size ** 2) * v.width + 2.0 * v.width * cfg.embed_dim
+    txt = _tower_flops(text_seq, t.hidden_size, t.num_hidden_layers)
+    return img + txt + 2.0 * t.hidden_size * cfg.embed_dim
+
+
+def inputs(cfg: configs.CLIPConfig, batch: int, device: torch.device):
+    """(bf16 images [batch, R, R, 3], int64 ids [batch, 52]), seeded."""
+    gen = torch.Generator(device).manual_seed(0)
+    r = cfg.vision.image_resolution
+    images = torch.randn(batch, r, r, 3, generator=gen, device=device).bfloat16()
+    texts = torch.zeros(batch, TEXT_LEN, dtype=torch.long, device=device)
+    texts[:, 0] = 101
+    texts[:, 1:30] = torch.randint(1000, 20000, (batch, 29), generator=gen, device=device)
+    texts[:, 30] = 102
+    return images, texts
+
+
+def run(device="cuda", cfg: Optional[configs.CLIPConfig] = None, batch: int = BATCH,
+        iters: int = ITERS) -> dict:
+    device = torch.device(device)
+    cfg = cfg or configs.load_config("ViT-B-16@RoBERTa-wwm-ext-base-chinese")
+    model = model_from_config(cfg, None, ModelOptions(compute_dtype="bfloat16"), seed=0,
+                              device=device)
+    images, texts = inputs(cfg, batch, device)
+    for _ in range(WARMUP):
+        model.get_similarity(images, texts)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            model.get_similarity(images, texts)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / iters
+    else:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model.get_similarity(images, texts)
+        ms = (time.perf_counter() - t0) * 1e3 / iters
+    pairs_per_sec = batch / ms * 1e3
+    detail = {"ms_per_call": ms, "ms_per_pair": ms / batch, "batch": batch, "iters": iters,
+              "device": "cpu"}
+    if device.type == "cuda":
+        tflops = pairs_per_sec * pair_flops(cfg) / 1e12
+        detail.update(device=torch.cuda.get_device_name(device), tflops_per_sec=tflops,
+                      pct_of_bf16_peak=100 * tflops / BF16_PEAK_TFLOPS,
+                      peak_ref_tflops=BF16_PEAK_TFLOPS)
+    return {
+        "metric": f"{cfg.name} image+text feature pairs/sec, get_similarity bf16",
+        "value": pairs_per_sec,
+        "unit": "pairs/sec",
+        "vs_baseline": pairs_per_sec / BASELINE_PAIRS_PER_SEC,
+        "detail": detail,
+    }
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
+    p.add_argument("--tiny-model", action="store_true", help="configs.tiny_config()")
+    p.add_argument("--batch", type=int, default=BATCH)
+    p.add_argument("--iters", type=int, default=ITERS)
+    args = p.parse_args(argv)
+    result = run(args.device, configs.tiny_config() if args.tiny_model else None, args.batch,
+                 args.iters)
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

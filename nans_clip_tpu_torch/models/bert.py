@@ -235,7 +235,10 @@ class BertModel(nn.Module):
         ``generator`` draws the dropout seeds of a training forward."""
         emb, cast = self.embeddings, options.cast
         b, s = input_ids.shape
-        x = cast(emb.word_embeddings.weight[input_ids])
+        # F.embedding, not weight[input_ids]: the indexing backward
+        # (index_put_ accumulating) adds repeated ids in a varying order on
+        # the CPU, and a resumed run must give an uninterrupted run's bits
+        x = cast(F.embedding(input_ids, emb.word_embeddings.weight))
         x = x + cast(emb.position_embeddings.weight[:s])[None, :, :]
         x = x + cast(emb.token_type_embeddings.weight[0])[None, None, :]
         x = layer_norm(x, cast(emb.LayerNorm.weight), cast(emb.LayerNorm.bias),

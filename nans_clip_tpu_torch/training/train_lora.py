@@ -16,29 +16,49 @@ sub-block Functions run the emitting backward kernels (#13, #15, #17) and
 form only the two weight gradients the adapters ask for (the image tower's
 ``dwo``, the text tower's ``dwqkv``).
 
-:func:`parse_args` takes the JAX CLI's flags. :func:`main`'s loop over the
-pair dataset waits for the port of the data path (``data/dataset.py``'s
-``PairDataset`` and ``DataLoader``, ``data/npack.py``) and raises until
-then.
+:func:`parse_args` takes the JAX CLI's flags, and ``--platform cpu|cuda``
+(default: the card). :func:`main` is the JAX CLI's loop
+(train_lora.py:126-233): the base model from ``--resume`` (a reference
+``.pt`` or a checkpoint directory of the port's trainer) in fp32, the
+adapters from a generator seeded by ``--seed``, ``PairDataset`` /
+``DataLoader`` batches of ``batch_size x accum_freq`` pairs, the warmup-ratio
+cosine schedule, ``training_log.csv`` (``epoch,train_loss,val_loss,lr,
+is_best``) and ``best_lora.npz`` / ``last_lora.npz`` in ``--output-dir``.
+Each step's text dropout is drawn from a generator seeded by ``(--seed,
+step)``, as in ``training/main.py``.
+
+Usage:
+  python -m nans_clip_tpu_torch.training.train_lora \
+      --train-data DIR/train --val-data DIR/valid --resume ckpt.pt \
+      --vision-model ViT-B-16 --text-model RoBERTa-wwm-ext-base-chinese \
+      --lora-rank 4 --lora-alpha 16 --epochs 30
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import logging
+import os
 from typing import Callable, Optional, Union
 
 import torch
 from torch import nn
 from torch.func import functional_call
 
+from nans_clip_tpu_torch import configs
 from nans_clip_tpu_torch.api import _device
+from nans_clip_tpu_torch.data.augment import preprocess_images
+from nans_clip_tpu_torch.data.dataset import DataLoader, PairDataset
+from nans_clip_tpu_torch.eval.model_io import load_eval_model
 from nans_clip_tpu_torch.models.clip import normalize
-from nans_clip_tpu_torch.models.common import ModelOptions
-from nans_clip_tpu_torch.models.lora import adapter_leaves, merge_lora
+from nans_clip_tpu_torch.models.common import ModelOptions, compute_dtype_for
+from nans_clip_tpu_torch.models.lora import (adapter_leaves, count_lora_params, init_lora,
+                                             merge_lora, save_lora)
 from nans_clip_tpu_torch.parallel.loss import clip_loss
-from nans_clip_tpu_torch.training.trainer import (accumulate_backward, draw_microbatches,
-                                                  seeded)
+from nans_clip_tpu_torch.training.trainer import (accumulate_backward, cosine_with_warmup,
+                                                  draw_microbatches, platform_device, seeded,
+                                                  step_seeds)
 
 
 def parse_args(argv=None):
@@ -66,6 +86,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--num-threads", type=int, default=8)
     p.add_argument("--precision", default="bf16")
+    p.add_argument("--platform", default="cuda", choices=["cpu", "cuda"],
+                   help="where to train: the card (default) or the CPU")
     return p.parse_args(argv)
 
 
@@ -87,8 +109,8 @@ def create_lora_state(module: nn.Module, adapters: dict, lr: float = 1e-4, wd: f
     included) on ``device`` (the card unless the caller names another) and
     build AdamW over the adapters, decay on all of them (optax.adamw's
     defaults: betas 0.9/0.999, eps 1e-8)."""
-    device = _device(device)
-    module = module.to(device).float().requires_grad_(False)
+    module = module.to(_device(device)).float().requires_grad_(False)
+    device = module.logit_scale.device     # "cuda" resolved to its index
     for t in adapter_leaves(adapters):
         if t.device != device:
             raise ValueError(f"adapters on {t.device}, the model on {device}: pass "
@@ -173,12 +195,89 @@ def make_lora_step(cfg, options: ModelOptions, alpha: float, label_smoothing: fl
 
 
 def main(argv=None):
-    parse_args(argv)
-    raise NotImplementedError(
-        "the LoRA CLI's loop reads pairs through PairDataset and DataLoader "
-        "(nans_clip_tpu/data/dataset.py, data/npack.py), which the port does not have yet "
-        "(ROADMAP.md queue 1, item 9: the data path). Drive create_lora_state and "
-        "make_lora_step with batches of your own meanwhile")
+    args = parse_args(argv)
+    if not (args.resume or args.tiny_model):
+        raise SystemExit("--resume is required unless --tiny-model")
+    device = platform_device(args.platform)
+    os.makedirs(args.output_dir, exist_ok=True)
+    logging.basicConfig(level=logging.INFO, force=True,
+                        format="%(asctime)s | %(levelname)s | %(message)s")
+
+    # the base weights in fp32, as the JAX CLI holds them; the forward casts
+    base = load_eval_model(args.vision_model, args.text_model, args.resume, "fp32",
+                           cfg=configs.tiny_config() if args.tiny_model else None,
+                           device=device)
+    cfg, module = base.cfg, base.module
+    options = ModelOptions(compute_dtype=compute_dtype_for(args.precision))
+    adapters = init_lora(torch.Generator().manual_seed(args.seed), module, rank=args.lora_rank,
+                         text_only=args.text_only, device=device)
+    n_lora = count_lora_params(adapters)
+    n_total = sum(p.numel() for p in module.parameters())
+    logging.info("LoRA params: %d (%.4f%% of %d)", n_lora, 100.0 * n_lora / n_total, n_total)
+
+    resolution = cfg.vision.image_resolution
+    loader = DataLoader(PairDataset(args.train_data), batch_size=args.batch_size * args.accum_freq,
+                        decode_size=resolution, context_length=args.context_length,
+                        shuffle=True, seed=args.seed, num_threads=args.num_threads)
+    val_loader = None
+    if args.val_data:
+        val_loader = DataLoader(PairDataset(args.val_data), batch_size=args.batch_size,
+                                decode_size=resolution, context_length=args.context_length,
+                                shuffle=True, seed=args.seed, num_threads=args.num_threads)
+    total_steps = loader.num_batches * args.epochs
+    warmup_steps = max(1, int(total_steps * args.warmup_ratio))
+    schedule = cosine_with_warmup(args.lr, warmup_steps, total_steps)
+    state = create_lora_state(module, adapters, lr=args.lr, wd=args.wd, device=device)
+    train_step, eval_step = make_lora_step(cfg, options, args.lora_alpha, args.label_smoothing,
+                                           args.accum_freq, schedule)
+
+    def on_device(batch):
+        images = torch.from_numpy(batch.images).to(device)
+        return (preprocess_images(None, images, resolution),
+                torch.from_numpy(batch.texts).to(device))
+
+    log_path = os.path.join(args.output_dir, "training_log.csv")
+    with open(log_path, "w") as f:
+        f.write("epoch,train_loss,val_loss,lr,is_best\n")
+    best_val = float("inf")
+    step = 0
+    for epoch in range(args.epochs):
+        loader.set_epoch(epoch)
+        # the losses add up on the device: one host read an epoch
+        loss_sum, nb = None, 0
+        for batch in loader:
+            im, tx = on_device(batch)
+            state, loss, _ = train_step(state, im, tx, step_seeds(args.seed, step)[0])
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            nb += 1
+            step += 1
+        train_loss = float(loss_sum) / nb if nb else float("nan")
+
+        val_loss = float("nan")
+        if val_loader is not None:
+            vsum, vn = None, 0
+            for batch in val_loader:
+                v = eval_step(state, *on_device(batch))
+                vsum = v if vsum is None else vsum + v
+                vn += 1
+            val_loss = float(vsum) / vn if vn else float("nan")
+
+        is_best = val_loss < best_val if val_loader is not None else True
+        if is_best:
+            best_val = val_loss if val_loader is not None else train_loss
+            save_lora(os.path.join(args.output_dir, "best_lora.npz"), state.adapters,
+                      {"epoch": epoch, "val_loss": val_loss, "rank": args.lora_rank,
+                       "alpha": args.lora_alpha})
+        lr_now = float(schedule(step))
+        with open(log_path, "a") as f:
+            f.write(f"{epoch},{train_loss:.6f},{val_loss:.6f},{lr_now:.8f},{int(is_best)}\n")
+        logging.info("epoch %d | train %.4f | val %.4f | lr %.2e | best=%s", epoch, train_loss,
+                     val_loss, lr_now, is_best)
+
+    save_lora(os.path.join(args.output_dir, "last_lora.npz"), state.adapters,
+              {"epoch": args.epochs - 1, "rank": args.lora_rank, "alpha": args.lora_alpha})
+    logging.info("done. best val loss %.4f; adapters in %s", best_val, args.output_dir)
+    return state.adapters
 
 
 if __name__ == "__main__":

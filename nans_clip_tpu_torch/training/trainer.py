@@ -43,10 +43,18 @@ What the JAX trainer does, on one card:
   (``reduce_partial_grads`` of ``CLIP.tp_partial_parameters``); clipping
   and AdamW then run as on one card, so every rank's parameters stay equal.
 
+Both CLIs (``training/main.py``, ``training/train_lora.py``) also take
+from here the device ``--platform`` names (:func:`platform_device`) and
+each step's seeds (:func:`step_seeds`).
+
 ``torch.optim.AdamW`` computes optax's ``adamw``: decoupled decay
 (``p -= lr * wd * p``), bias-corrected moments and ``eps`` added outside
 the square root (``mu_hat / (sqrt(nu_hat) + eps)``); the learning rate of
-step t (counted from 0) is ``schedule(t)``, as optax's count. The
+the optimizer's step t (counted from 0) is ``schedule(t)``, as optax's
+count: t is kept in the optimizer's first parameter group (``"count"``),
+so it is saved and restored with the optimizer, and a fresh optimizer
+starts it at 0 (a resume with ``--reset-optimizer`` re-warms, as in JAX).
+The
 parameters are fp32 masters; each forward casts them to the compute dtype
 (``ModelOptions.cast``). The state is updated in place (torch's optimizer
 owns its moments) and returned, so a caller writes
@@ -59,6 +67,7 @@ import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -144,6 +153,16 @@ class CompactAdamW(torch.optim.Optimizer):
                  weight_decay: float = 0.0, state_dtype: torch.dtype = torch.bfloat16):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
         self.state_dtype = state_dtype
+
+    def load_state_dict(self, state_dict):
+        """The base class casts floating state to the parameters' dtype:
+        put the moments back in ``state_dtype`` (exact, they were saved in
+        it)."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            for key in ("mu", "nu"):
+                if key in st:
+                    st[key] = st[key].to(self.state_dtype)
 
     def _chunks(self, params):
         chunk, size = [], 0
@@ -256,6 +275,23 @@ def seeded(seed: Optional[int]) -> Optional[torch.Generator]:
     return None if seed is None else torch.Generator().manual_seed(seed)
 
 
+def platform_device(platform: str) -> torch.device:
+    """The device ``--platform`` names; the default, the card, raises
+    without one."""
+    if platform == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the trainers run on the card by default; pass "
+                           "--platform cpu to train on the CPU")
+    return torch.device(platform)
+
+
+def step_seeds(seed: int, step: int) -> Tuple[int, int]:
+    """(text dropout seed, augmentation seed) of global step ``step``: a
+    function of ``(seed, step)`` alone, so a resumed run draws as an
+    uninterrupted one."""
+    a, b = np.random.SeedSequence([seed, step]).generate_state(2)
+    return int(a) & 0x7FFFFFFF, int(b) & 0x7FFFFFFF
+
+
 def accumulate_backward(encode: Callable, images: torch.Tensor, texts: torch.Tensor,
                         accum: int, loss_fn: Callable):
     """Backpropagate ``loss_fn(image features, text features) -> (loss,
@@ -334,8 +370,9 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
         draws = draw_microbatches(accum, b // accum, module.cfg.vision.seq_len, tcfg.mask_ratio,
                                   generator,
                                   generator is not None and not options.deterministic)
+        count = opt.param_groups[0].get("count", 0)
         for group in opt.param_groups:
-            group["lr"] = schedule(state.step)
+            group["lr"] = schedule(count)
         opt.zero_grad(set_to_none=True)
         logit_scale = module.logit_scale.detach().clone()
         t_feats = teacher_features(teacher, images, accum) \
@@ -361,6 +398,7 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
         if tcfg.grad_norm_clip:
             _clip_by_global_norm(module.parameters(), tcfg.grad_norm_clip)
         opt.step()
+        opt.param_groups[0]["count"] = count + 1
         with torch.no_grad():
             module.logit_scale.clamp_(0.0, LOGIT_SCALE_MAX)
         state.step += 1

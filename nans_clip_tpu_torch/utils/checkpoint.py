@@ -1,26 +1,133 @@
-"""Checkpoints in the reference ``.pt`` layout (the ``.pt`` side of
-``nans_clip_tpu/utils/checkpoint.py``, which also writes orbax state).
+"""Training checkpoints (counterpart of ``nans_clip_tpu/utils/checkpoint.py``)
+and the reference ``.pt`` export.
 
-:func:`save_torch_checkpoint` writes a trained module as ``{"state_dict":
-...}`` in fp32 with the reference key names, the file that the port's
-``load_from_name`` (and the reference) read back. The training state
-(optimizer moments, step) is not saved yet: that comes with the training
-CLI (ROADMAP queue 1).
+The JAX trainer's semantics (reference training/main.py:201-237,315-346):
+
+* ``save_checkpoint(ckpt_dir, tag, state, meta)`` writes ``ckpt_dir/<tag>/``
+  and ``ckpt_dir/<tag>.meta.json`` and points ``ckpt_dir/LATEST`` at the
+  tag, which the tag ``epoch_latest`` then follows (:func:`resolve_tag`);
+* ``restore_checkpoint`` raises on a missing tag unless ``missing_ok``;
+  ``reset_optimizer`` restores the parameters and the step and keeps the
+  caller's fresh optimizer, whatever optimizer the checkpoint holds;
+* ``torch_format`` also writes ``ckpt_dir/<tag>.pt`` in the reference
+  layout, ``{"state_dict": ..., "epoch", "step", "name"}``.
+
+The port's state format (the JAX package saves through Orbax, which needs
+JAX): ``<tag>/`` holds one file, :data:`STATE_FILE`, a ``torch.save`` of
+
+    {"format": "nans_clip_tpu_torch.train_state", "version": 1,
+     "state_dict": the module's fp32 state dict on the CPU (reference key
+                   names, so ``load_torch_state_dict`` reads it as a .pt),
+     "optimizer": the optimizer's ``state_dict()``,
+     "optimizer_type": the optimizer's class name,
+     "step": the optimizer step (int)}
+
+written to a temporary name and renamed, so a reader never sees half a
+file.
 """
 
 from __future__ import annotations
 
+import json
 import os
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+STATE_FILE = "state.pt"
+FORMAT = "nans_clip_tpu_torch.train_state"
 
-def save_torch_checkpoint(path: str, module: nn.Module) -> None:
-    """Write ``module``'s parameters as a reference-layout ``.pt`` (fp32 on
-    the CPU), atomically: a temporary file in the same directory, then a
-    rename."""
-    state = {k: v.detach().to("cpu", torch.float32) for k, v in module.state_dict().items()}
+
+def _cpu_state_dict(module: nn.Module) -> dict:
+    return {k: v.detach().to("cpu", torch.float32) for k, v in module.state_dict().items()}
+
+
+def _save_atomic(obj, path: str) -> None:
     tmp = f"{path}.tmp"
-    torch.save({"state_dict": state}, tmp)
+    torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def save_torch_checkpoint(path: str, module: nn.Module, meta: Optional[dict] = None) -> None:
+    """Write ``module``'s parameters as a reference-layout ``.pt`` (fp32 on
+    the CPU), ``{"state_dict": ..., **meta}``, atomically: a temporary file
+    in the same directory, then a rename."""
+    _save_atomic({"state_dict": _cpu_state_dict(module), **(meta or {})}, path)
+
+
+def save_checkpoint(ckpt_dir: str, tag: str, state, meta: dict,
+                    torch_format: bool = False, update_latest: bool = True) -> None:
+    """Save a ``TrainState`` (``training/trainer.py``) and ``meta`` under
+    ``ckpt_dir/tag``; point LATEST at it unless ``update_latest`` is
+    False."""
+    path = os.path.join(ckpt_dir, tag)
+    os.makedirs(path, exist_ok=True)
+    _save_atomic({"format": FORMAT, "version": 1, "state_dict": _cpu_state_dict(state.module),
+                  "optimizer": state.optimizer.state_dict(),
+                  "optimizer_type": type(state.optimizer).__name__, "step": int(state.step)},
+                 os.path.join(path, STATE_FILE))
+    with open(os.path.join(ckpt_dir, f"{tag}.meta.json"), "w") as f:
+        json.dump(meta, f)
+    if update_latest:
+        with open(os.path.join(ckpt_dir, "LATEST"), "w") as f:
+            f.write(tag)
+    if torch_format:
+        save_torch_checkpoint(os.path.join(ckpt_dir, f"{tag}.pt"), state.module,
+                              {"epoch": meta.get("epoch", 0), "step": meta.get("step", 0),
+                               "name": meta.get("name", "")})
+
+
+def resolve_tag(ckpt_dir: str, tag: str) -> str:
+    """Follow the LATEST pointer when asked for ``epoch_latest``."""
+    latest_file = os.path.join(ckpt_dir, "LATEST")
+    if tag == "epoch_latest" and os.path.exists(latest_file):
+        with open(latest_file) as f:
+            return f.read().strip()
+    return tag
+
+
+def is_checkpoint_dir(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, STATE_FILE))
+
+
+def read_state(path: str, map_location="cpu") -> dict:
+    """The saved dict of a checkpoint directory (:data:`STATE_FILE`)."""
+    obj = torch.load(os.path.join(path, STATE_FILE), map_location=map_location,
+                     weights_only=True)
+    if not isinstance(obj, dict) or obj.get("format") != FORMAT:
+        raise ValueError(f"{path}/{STATE_FILE} is not a train state of this package")
+    return obj
+
+
+def restore_checkpoint(ckpt_dir: str, tag: str, state, reset_optimizer: bool = False,
+                       missing_ok: bool = False) -> Tuple[object, Optional[dict]]:
+    """Restore into ``state`` (its module's parameters are overwritten in
+    place, on their device). Returns (state, meta or None). A missing
+    checkpoint raises unless ``missing_ok``: a mistyped --resume tag must
+    not train from random init and then overwrite epoch_latest."""
+    tag = resolve_tag(ckpt_dir, tag)
+    path = os.path.join(ckpt_dir, tag)
+    if not is_checkpoint_dir(path):
+        if missing_ok:
+            return state, None
+        raise FileNotFoundError(f"checkpoint '{tag}' not found in {ckpt_dir}")
+    saved = read_state(path)
+    state.module.load_state_dict(saved["state_dict"])
+    if not reset_optimizer:
+        kind = type(state.optimizer).__name__
+        if saved["optimizer_type"] != kind:
+            raise ValueError(f"checkpoint '{tag}' holds a {saved['optimizer_type']} state and "
+                             f"this run builds a {kind}: pass --reset-optimizer")
+        state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = int(saved["step"])
+    meta = None
+    meta_path = os.path.join(ckpt_dir, f"{tag}.meta.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return state, meta
+
+
+def latest_exists(ckpt_dir: str, tag: str = "epoch_latest") -> bool:
+    return is_checkpoint_dir(os.path.join(ckpt_dir, resolve_tag(ckpt_dir, tag)))

@@ -14,6 +14,9 @@ normalized reference state dict loads with ``load_state_dict`` as it is.
   identical weights into both packages.
 * :func:`lora_from_jax` turns the JAX package's LoRA adapter tree into the
   port's (``models/lora.py``).
+* :func:`merge_pretrained` loads the towers of separate CLIP and BERT state
+  dicts into a module, as the training CLI's ``--clip-weight-path`` and
+  ``--bert-weight-path`` ask.
 
 Tensor parallelism needs nothing more: every rank of a model group loads
 the same full state dict (from a ``.pt`` or ``state_dict_from_jax_params``)
@@ -24,7 +27,7 @@ the mesh instead.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -152,3 +155,28 @@ def lora_from_jax(adapters_np: dict, device="cpu") -> dict:
             return {k: conv(v) for k, v in node.items()}
         return torch.from_numpy(np.array(node, dtype=np.float32)).to(device).requires_grad_()
     return conv(adapters_np)
+
+
+def merge_pretrained(module: torch.nn.Module, clip_sd: Optional[dict] = None,
+                     bert_sd: Optional[dict] = None) -> int:
+    """Initialise the towers from separate CLIP and Chinese-BERT state dicts
+    (normalised, as :func:`load_torch_state_dict` returns them; reference
+    restore_model, clip/model.py:468-490; the JAX ``merge_pretrained``'s key
+    filters): ``visual.*`` and ``logit_scale`` from the first, ``bert.*``
+    but the pooler from the second; the rest (``text_projection``) keeps
+    its init. Returns the number of tensors loaded."""
+    merged: Dict[str, torch.Tensor] = {}
+    if clip_sd:
+        merged.update({k: v for k, v in clip_sd.items()
+                       if k.startswith("visual") or k == "logit_scale"})
+    if bert_sd:
+        merged.update({k: v for k, v in bert_sd.items()
+                       if k.startswith("bert") and "bert.pooler" not in k})
+    own = module.state_dict()
+    unknown = sorted(set(merged) - set(own))
+    if unknown:
+        raise KeyError(f"keys not in the model: {unknown[:5]}")
+    with torch.no_grad():
+        for k, v in merged.items():
+            own[k].copy_(v.reshape(own[k].shape))
+    return len(merged)

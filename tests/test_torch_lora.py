@@ -263,11 +263,15 @@ def test_lora_npz_interchanges_with_jax(tmp_path):
 
 
 def test_parse_args_takes_the_jax_flags_and_main_waits_for_the_data_path():
+    """The JAX flags, and --platform (the card by default). main() runs the
+    data path now (tests/test_torch_cli.py holds it against JAX); without a
+    base checkpoint or --tiny-model it stops, as the JAX CLI does."""
     argv = ["--train-data", "d", "--lora-rank", "8", "--text-only", "--accum-freq", "2"]
     ours, theirs = vars(train_lora.parse_args(argv)), vars(jtl.parse_args(argv))
+    assert ours.pop("platform") == "cuda"
     assert ours == theirs
     assert (ours["batch_size"], ours["accum_freq"], ours["lora_rank"]) == (32, 2, 8)
-    with pytest.raises(NotImplementedError, match="data path"):
+    with pytest.raises(SystemExit, match="--resume is required"):
         train_lora.main(argv)
 
 
