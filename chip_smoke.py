@@ -160,7 +160,28 @@ Phases, each printing its lines before the last line:
    and parameters bit-equal to run A's); ``train_lora.main`` from run A's
    ``.pt``, one epoch at 32 x 4, rank 4 (its ``training_log.csv``, the
    ``load_lora`` round trip, #13/#15/#17 launched); ``bench.py``'s JSON
-   line. Each checkpoint directory is deleted once used.
+   line. Each checkpoint directory is deleted once used (run A's, after
+   phase 14).
+
+14. The eval pipeline, in phase 13's temporary directory, from run A's
+   ``epoch1.pt`` and the LoRA CLI's ``last_lora.npz``, at
+   ViT-B-16@RoBERTa-wwm-ext-base-chinese full width and depth, bf16: a raw
+   split (1,024 seeded noise JPEGs of 256 px, 2,048 texts, some on two or
+   three images, some captions repeated) built by ``build_dataset``;
+   ``extract_features.main`` on both towers at batch 64 with
+   ``--image-transform pil`` and ``native`` (12 launches of #1 and #2 a
+   full image batch, of #3 a text batch; images/s end to end and on the
+   device, CUDA events around ``encode_image``; the device's idle share
+   over the image extraction from a CUDA-only ``torch.profiler``; texts/s);
+   the first image and text batch against the plain route on the card
+   (phase 5's bound on the logits); ``make_topk_predictions`` both ways
+   against a float64 ranking of the same files (ids may trade ranks only
+   where their exact scores differ by less than 1e-6), ``evaluation``,
+   ``transform_ir_annotation_to_tr`` and ``evaluation_tr``;
+   ``zeroshot_evaluation`` on 8 classes x 16 images with the 183 ``openai``
+   templates (the ELEVATER json's rows sum to 1); ``retrieval_suite`` with
+   64 distractors (and one file that is not an image) and the adapters,
+   both result blocks; one ``{"phase14": "eval", ...}`` line of the rates.
 
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
@@ -3399,8 +3420,7 @@ def phase_data_cli(torch, dev, tmp):
             or any(total[k] != n_lora_steps * v for k, v in emit.items())):
         raise AssertionError(f"LoRA CLI: round trip {same}, log {rows}, launches {total}, "
                              f"expected {n_lora_steps} x {emit}")
-    shutil.rmtree(ckpt_a)
-    del state_a
+    del state_a   # run A's .pt and the adapters stay for phase 14, which deletes them
 
     # the bench's JSON line
     result = bench.run(dev)
@@ -3408,7 +3428,384 @@ def phase_data_cli(torch, dev, tmp):
     if not result["value"] > 0:
         raise AssertionError(f"bench: {result}")
     print(f"cli: phase 13 took {time.time() - t_phase:.1f} s", flush=True)
-    return {"losses": losses_a, "run_a_s": run_a_s, "bench": result, "profile": prof}
+    return {"losses": losses_a, "run_a_s": run_a_s, "bench": result, "profile": prof,
+            "checkpoints": ckpt_a, "lora": os.path.join(out, "last_lora.npz")}
+
+
+EVAL_IMAGES, EVAL_TEXTS, EVAL_BATCH = 1024, 2048, 64
+ZS_CLASSES, ZS_PER_CLASS, N_DISTRACTORS = 8, 16, 64
+ZS_LABELS = ["猫", "狗", "鸟", "鱼", "马", "船", "花", "书"]
+TOPK_TIE = 1e-6   # two ids may trade ranks where their exact scores differ by less
+
+
+def _noise_jpeg(rs, side: int = DATA_SIDE) -> bytes:
+    """A seeded noise JPEG, as ``_write_split`` makes them."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rs.randint(0, 256, (side, side, 3), dtype=np.uint8)).save(
+        buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def _write_raw_eval_split(root: str, seed: int = 0) -> None:
+    """``valid_imgs.tsv`` (EVAL_IMAGES seeded noise JPEGs of DATA_SIDE px) and
+    ``valid_texts.jsonl`` (EVAL_TEXTS captions from TEXTS, text k on image k
+    mod EVAL_IMAGES; one in 16 on three images, one in 16 on two; one in 64
+    repeats the caption before it), the reference's raw layout."""
+    import base64
+
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    with open(os.path.join(root, "valid_imgs.tsv"), "w") as f:
+        for i in range(EVAL_IMAGES):
+            f.write(f"{i}\t{base64.urlsafe_b64encode(_noise_jpeg(rs)).decode()}\n")
+    with open(os.path.join(root, "valid_texts.jsonl"), "w", encoding="utf-8") as f:
+        text = ""
+        for k in range(EVAL_TEXTS):
+            ids = [k % EVAL_IMAGES]
+            if k % 16 == 5:
+                ids += [(k + 1) % EVAL_IMAGES, (k + 2) % EVAL_IMAGES]
+            elif k % 16 == 9:
+                ids.append((k + 3) % EVAL_IMAGES)
+            if k % 64 != 33:
+                text = f"{TEXTS[k % len(TEXTS)]}，第{k}张"
+            f.write(json.dumps({"text_id": 10000 + k, "text": text, "image_ids": ids},
+                               ensure_ascii=False) + "\n")
+
+
+def _device_busy_ms(prof, path: str) -> float:
+    """The union of the device's kernels, copies and sets in a profile."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    return _union_us([(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events
+                      if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                                 "gpu_memset")]) / 1e3
+
+
+class _Timed:
+    """Wraps ``module.name`` for a ``with`` block: the host seconds of each
+    call (the device synchronised at both ends) and, with ``profile``, the
+    device's busy ms under a CUDA-only ``torch.profiler``."""
+
+    def __init__(self, torch, module, name, profile_path=None):
+        self.torch, self.module, self.name, self.path = torch, module, name, profile_path
+        self.seconds, self.busy_ms = [], []
+
+    def __enter__(self):
+        torch, fn = self.torch, getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            prof = None
+            if self.path:
+                prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                self.busy_ms.append(_device_busy_ms(prof, self.path))
+            return out
+
+        self.fn = fn
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *a):
+        setattr(self.module, self.name, self.fn)
+
+
+class _EncodeEvents:
+    """CUDA events around every ``CLIPModel.encode_image`` call of a ``with``
+    block: the device's ms inside them."""
+
+    def __init__(self, torch):
+        from nans_clip_tpu_torch.api import CLIPModel
+
+        self.torch, self.cls, self.events = torch, CLIPModel, []
+
+    def __enter__(self):
+        fn, torch = self.cls.encode_image, self.torch
+
+        def encode_image(model, images):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            out = fn(model, images)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        self.fn = fn
+        self.cls.encode_image = encode_image
+        return self
+
+    def __exit__(self, *a):
+        self.cls.encode_image = self.fn
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def _check_eval_launches(what, got, image_batches, text_batches):
+    """12 launches of #1 and #2 a full image batch, 12 of #3 a text batch
+    (a full one, or the zero-shot classifier's 183 prompts of a class), and
+    nothing of the tower kernels or the BERT sub-block."""
+    want = {"fused_attention_block": 12 * image_batches, "fused_mlp_block": 12 * image_batches,
+            "fused_layer_block": 12 * text_batches, "fused_bert_attention_block": 0,
+            "fused_tower": 0, "fused_tower_int8": 0}
+    print(f"eval: {what} launches {json.dumps({k: got[k] for k in want})}", flush=True)
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def _check_topk(path, qkey, gkey, q_ids, q, g_ids, g) -> int:
+    """The card's lists against the float64 ranking of the same fp32
+    features: equal but for ids trading ranks whose exact scores differ by
+    less than TOPK_TIE. Returns the number of such positions."""
+    import numpy as np
+
+    scores = q.astype(np.float64) @ g.astype(np.float64).T
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :10]
+    pos = {int(x): j for j, x in enumerate(g_ids)}
+    with open(path) as f:
+        got = {r[qkey]: r[gkey] for r in map(json.loads, f)}
+    if sorted(got) != sorted(int(x) for x in q_ids):
+        raise AssertionError(f"top-k {path}: the queries differ from the feature file's")
+    swaps = 0
+    for i, qid in enumerate(q_ids.tolist()):
+        want = [int(g_ids[j]) for j in order[i]]
+        if len(set(got[qid])) != 10:
+            raise AssertionError(f"top-k {path}: query {qid} lists {got[qid]}")
+        for a, b in zip(got[qid], want):
+            if a != b:
+                swaps += 1
+                if abs(scores[i, pos[a]] - scores[i, pos[b]]) >= TOPK_TIE:
+                    raise AssertionError(f"top-k {path}: query {qid} lists {got[qid]}, the "
+                                         f"float64 ranking {want}")
+    return swaps
+
+
+def phase_eval(torch, dev, tmp, checkpoints, lora_npz):
+    """Phase 14: the eval pipeline at ViT-B-16@RoBERTa-base full width and
+    depth, bf16, from phase 13's run A checkpoint and LoRA adapters."""
+    import shutil
+
+    import numpy as np
+
+    from nans_clip_tpu_torch.data.npack import NPackReader
+    from nans_clip_tpu_torch.eval import (evaluation, evaluation_tr, extract_features,
+                                          retrieval_suite, transform_ir_annotation_to_tr,
+                                          zeroshot_evaluation)
+    from nans_clip_tpu_torch.eval import make_topk_predictions as mtp
+    from nans_clip_tpu_torch.eval.model_io import load_eval_model
+    from nans_clip_tpu_torch.preprocess import build_dataset
+
+    t_phase = time.time()
+    ckpt = os.path.join(checkpoints, "epoch1.pt")
+    root = os.path.join(tmp, "eval")
+    os.makedirs(root)
+    t0 = time.time()
+    _write_raw_eval_split(root)
+    meta = build_dataset.build_split(root, "valid")
+    split = os.path.join(root, "valid")
+    texts_jsonl = os.path.join(root, "valid_texts.jsonl")
+    print(f"eval: raw split of {EVAL_IMAGES} noise JPEGs of {DATA_SIDE} px and {EVAL_TEXTS} "
+          f"texts, built by build_dataset in {time.time() - t0:.2f} s: {json.dumps(meta)}",
+          flush=True)
+    if meta != {"num_samples": EVAL_TEXTS + 3 * (EVAL_TEXTS // 16), "num_images": EVAL_IMAGES,
+                "split": "valid"}:
+        raise AssertionError(f"build_dataset: {meta}")
+
+    # 1. extract_features, both towers, pil then native
+    n_img_batches, n_txt_batches = EVAL_IMAGES // EVAL_BATCH, EVAL_TEXTS // EVAL_BATCH
+    model_args = ["--resume", ckpt, "--vision-model", VISION, "--text-model", TEXT,
+                  "--img-batch-size", str(EVAL_BATCH), "--text-batch-size", str(EVAL_BATCH)]
+    feats, rates = {}, {}
+    for transform in ("pil", "native"):
+        img_out = os.path.join(root, f"imgs.{transform}.img_feat.jsonl")
+        txt_out = os.path.join(root, f"valid_texts.{transform}.txt_feat.jsonl")
+        _reset_counts()
+        with _Timed(torch, extract_features, "extract_image_features",
+                    os.path.join(root, "trace.json")) as img_t, \
+                _Timed(torch, extract_features, "extract_text_features") as txt_t, \
+                _EncodeEvents(torch) as enc:
+            extract_features.main(model_args + [
+                "--extract-image-feats", "--extract-text-feats", "--image-data", split,
+                "--text-data", texts_jsonl, "--image-feat-output-path", img_out,
+                "--text-feat-output-path", txt_out, "--image-transform", transform])
+        counts = {name: fn.launches for name, fn in _counted().items()}
+        counts.update(_tower_counts())
+        _check_eval_launches(f"extract_features --image-transform {transform}", counts,
+                             n_img_batches, n_txt_batches)
+        img_s, busy = img_t.seconds[0], img_t.busy_ms[0]
+        rates[transform] = {"images_per_s": EVAL_IMAGES / img_s,
+                            "device_images_per_s": EVAL_IMAGES / enc.ms() * 1e3,
+                            "encode_image_ms": enc.ms(), "image_s": img_s,
+                            "device_busy_ms": busy, "idle_share": 1.0 - busy / (img_s * 1e3),
+                            "texts_per_s": EVAL_TEXTS / txt_t.seconds[0]}
+        print(f"eval: extract_features --image-transform {transform}: {EVAL_IMAGES} images in "
+              f"{img_s:.3f} s ({rates[transform]['images_per_s']:.1f} images/s end to end, "
+              f"decode included; encode_image {enc.ms():.2f} ms on the device, "
+              f"{rates[transform]['device_images_per_s']:.1f} images/s; device busy "
+              f"{busy:.2f} ms, idle share {rates[transform]['idle_share']:.4f}); {EVAL_TEXTS} "
+              f"texts in {txt_t.seconds[0]:.3f} s ({rates[transform]['texts_per_s']:.1f} "
+              f"texts/s)", flush=True)
+        feats[transform] = (mtp.load_feats(img_out, "image_id"),
+                            mtp.load_feats(txt_out, "text_id"))
+    (img_ids, img), (txt_ids, txt) = feats["pil"]
+    for (a_ids, a), (b_ids, b) in zip(feats["pil"], feats["native"]):
+        if not np.array_equal(a_ids, b_ids) or a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError("extract_features: the pil and native files differ in rows")
+    native_err = float(np.abs(feats["pil"][0][1] - feats["native"][0][1]).max())
+    native_text_equal = bool(np.array_equal(feats["pil"][1][1], feats["native"][1][1]))
+    print(f"eval: pil against native image features max abs diff {native_err:.3g} (the same "
+          f"pixels); text features equal: {native_text_equal}", flush=True)
+    if img.shape[0] != EVAL_IMAGES or txt.shape != (EVAL_TEXTS, img.shape[1]) \
+            or np.abs(np.linalg.norm(img, axis=1) - 1).max() > 1e-5 or not native_text_equal:
+        raise AssertionError(f"features: {img.shape} {txt.shape}")
+
+    # the first image and text batch against the plain route on the card
+    from nans_clip_tpu_torch.data.dataset import preprocess_text
+    from nans_clip_tpu_torch.tokenizer import tokenize
+
+    plain = load_eval_model(VISION, TEXT, ckpt, "bf16", attn_impl="plain", device=dev)
+    reader = NPackReader(os.path.join(split, "imgs.npack"))
+    _, x = next(extract_features.image_batches(reader, plain.image_resolution, EVAL_BATCH, True,
+                                               8, dev))
+    reader.close()
+    with open(texts_jsonl, encoding="utf-8") as f:
+        first = [preprocess_text(json.loads(line)["text"]) for _, line in zip(range(EVAL_BATCH), f)]
+    p_img = extract_features._normalized(plain.encode_image(x))
+    p_txt = extract_features._normalized(plain.encode_text(tokenize(first)))
+    scale = float(plain.module.logit_scale.float().exp())
+    k_logits = scale * img[:EVAL_BATCH] @ txt[:EVAL_BATCH].T
+    p_logits = scale * p_img @ p_txt.T
+    err = float(np.abs(k_logits - p_logits).max())
+    err100 = err / scale * 100.0
+    bound = 0.05   # phase 5's: logits (14.29 x cosine at this scale) of kernel vs plain bf16
+    print(f"eval: first batch (64 images x 64 texts) kernel route vs plain route on the card: "
+          f"logits ({scale:.4f} x cosine) max abs err {err:.6g} <= bound {bound}; on 100 x "
+          f"cosine {err100:.6g}", flush=True)
+    if err > bound:
+        raise AssertionError(f"extracted features differ from the plain route by {err}")
+    del plain
+
+    # 2. top-k both ways, the scores, and the float64 ranking
+    feat_args = ["--image-feats", os.path.join(root, "imgs.pil.img_feat.jsonl"),
+                 "--text-feats", os.path.join(root, "valid_texts.pil.txt_feat.jsonl"),
+                 "--top-k", "10"]
+    preds, preds_tr = os.path.join(root, "topk.jsonl"), os.path.join(root, "topk_tr.jsonl")
+    t0 = time.time()
+    mtp.main(feat_args + ["--output", preds])
+    evaluation.main([texts_jsonl, preds, os.path.join(root, "score.json")])
+    annot = transform_ir_annotation_to_tr.transform(texts_jsonl)
+    mtp.main(feat_args + ["--tr", "--output", preds_tr])
+    evaluation_tr.main([annot, preds_tr, os.path.join(root, "score_tr.json")])
+    stages_s = time.time() - t0
+    scores = {}
+    for name in ("score", "score_tr"):
+        with open(os.path.join(root, f"{name}.json")) as f:
+            scores[name] = json.load(f)
+        if not scores[name]["success"]:
+            raise AssertionError(f"{name}: {scores[name]}")
+    swaps = _check_topk(preds, "text_id", "image_ids", txt_ids, txt, img_ids, img)
+    swaps_tr = _check_topk(preds_tr, "image_id", "text_ids", img_ids, img, txt_ids, txt)
+    q, g = torch.from_numpy(txt).to(dev), torch.from_numpy(img).to(dev)
+    topk_ms = _time_ms(lambda: mtp.topk_indices(q, g, 10), 20)
+    topk_tr_ms = _time_ms(lambda: mtp.topk_indices(g, q, 10), 20)
+    print(f"eval: make_topk_predictions both ways + evaluation + transpose + evaluation_tr in "
+          f"{stages_s:.2f} s; top-k on the card {EVAL_TEXTS} x {EVAL_IMAGES}: {topk_ms:.4f} ms "
+          f"({EVAL_IMAGES} x {EVAL_TEXTS}: {topk_tr_ms:.4f} ms); equal to the float64 ranking "
+          f"but for {swaps} / {swaps_tr} positions of ties within {TOPK_TIE}; t2i "
+          f"{json.dumps(scores['score']['scoreJson'])}; i2t "
+          f"{json.dumps(scores['score_tr']['scoreJson'])}", flush=True)
+
+    # 3. zero-shot on an ImageFolder with the 183 openai templates
+    folder = os.path.join(root, "folder")
+    rs = np.random.RandomState(5)
+    for c in range(ZS_CLASSES):
+        os.makedirs(os.path.join(folder, f"c{c}"))
+        for j in range(ZS_PER_CLASS):
+            with open(os.path.join(folder, f"c{c}", f"{j}.jpg"), "wb") as f:
+                f.write(_noise_jpeg(rs))
+    labels = os.path.join(root, "labels.txt")
+    with open(labels, "w", encoding="utf8") as f:
+        f.write("\n".join(ZS_LABELS[:ZS_CLASSES]) + "\n")
+    _reset_counts()
+    t0 = time.time()
+    with _Timed(torch, zeroshot_evaluation, "zero_shot_classifier") as cls_t, \
+            _Timed(torch, zeroshot_evaluation, "run") as run_t:
+        acc = zeroshot_evaluation.main(["--datapath", folder, "--dataset", "imagenet",
+                                        "--label-file", labels, "--resume", ckpt,
+                                        "--vision-model", VISION, "--text-model", TEXT,
+                                        "--save-dir", os.path.join(root, "zs")])
+    zs_s = time.time() - t0
+    with open(os.path.join(root, "zs", "imagenet.json")) as f:
+        elevater = json.load(f)
+    rows = np.asarray(elevater["predictions"][0])
+    zs_images = ZS_CLASSES * ZS_PER_CLASS
+    counts = {name: fn.launches for name, fn in _counted().items()}
+    counts.update(_tower_counts())
+    _check_eval_launches("zeroshot_evaluation", counts, zs_images // EVAL_BATCH, ZS_CLASSES)
+    print(f"eval: zeroshot_evaluation {ZS_CLASSES} classes x {ZS_PER_CLASS} images, 183 "
+          f"templates: top-1 {acc * 100:.2f}% in {zs_s:.2f} s (classifier {cls_t.seconds[0]:.3f} "
+          f"s, run {run_t.seconds[0]:.3f} s, {zs_images / run_t.seconds[0]:.1f} images/s); "
+          f"ELEVATER json keys {list(elevater)}, num_params {elevater['num_params']}, "
+          f"num_visual_params {elevater['num_visual_params']}; rows {rows.shape}, max |sum - 1| "
+          f"{float(np.abs(rows.sum(1) - 1).max()):.3g}", flush=True)
+    if rows.shape != (zs_images, ZS_CLASSES) or np.abs(rows.sum(1) - 1).max() > 1e-5:
+        raise AssertionError(f"zero-shot: rows {rows.shape}")
+
+    # 4. the retrieval suite with distractors and run A's LoRA adapters
+    dis = os.path.join(root, "distractors")
+    os.makedirs(dis)
+    for i in range(N_DISTRACTORS):
+        with open(os.path.join(dis, f"d{i:03d}.jpg"), "wb") as f:
+            f.write(_noise_jpeg(rs))
+    with open(os.path.join(dis, "notes.txt"), "w") as f:
+        f.write("not an image")
+    t0 = time.time()
+    results = retrieval_suite.main(["--data", split, "--resume", ckpt, "--vision-model", VISION,
+                                    "--text-model", TEXT, "--lora", lora_npz,
+                                    "--distractor-dir", dis, "--batch-size", str(EVAL_BATCH),
+                                    "--output", os.path.join(root, "suite.json")])
+    suite_s = time.time() - t0
+    with open(os.path.join(root, "suite.json")) as f:
+        suite = json.load(f)
+    for mode in ("zeroshot", "lora"):
+        for direction, m in results[mode].items():
+            print(f"eval: retrieval_suite {mode} {direction} {json.dumps(m)}", flush=True)
+    print(f"eval: retrieval_suite in {suite_s:.2f} s: {suite['num_domain_images']} images + "
+          f"{suite['num_distractors']} distractors, {suite['num_texts']} unique texts", flush=True)
+    if suite["num_distractors"] != N_DISTRACTORS or suite["num_domain_images"] != EVAL_IMAGES \
+            or not all(0.0 <= v <= 100.0 for mode in ("zeroshot", "lora")
+                       for m in results[mode].values() for v in m.values()):
+        raise AssertionError(f"retrieval suite: {suite}")
+    shutil.rmtree(checkpoints)
+
+    line = {"phase14": "eval", "card": _nvidia_smi(),
+            "extract_images_per_s": {t: r["images_per_s"] for t, r in rates.items()},
+            "device_images_per_s": {t: r["device_images_per_s"] for t, r in rates.items()},
+            "texts_per_s": {t: r["texts_per_s"] for t, r in rates.items()},
+            "idle_share": {t: r["idle_share"] for t, r in rates.items()},
+            "device_busy_ms": {t: r["device_busy_ms"] for t, r in rates.items()},
+            "topk_ms": topk_ms, "topk_tr_ms": topk_tr_ms, "topk_tie_swaps": [swaps, swaps_tr],
+            "logits_err": err, "zeroshot_classifier_s": cls_t.seconds[0],
+            "zeroshot_images_per_s": zs_images / run_t.seconds[0],
+            "retrieval_suite_s": suite_s, "phase_s": time.time() - t_phase}
+    print(json.dumps(line), flush=True)
+    return line
 
 
 def main() -> int:
@@ -3464,7 +3861,8 @@ def main() -> int:
         tp_results, tp_launches = phase_tp(torch, dev)
         qdma_results, qdma_launches = phase_qdma(torch, dev, ckpt_h)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_data_cli(torch, dev, tmp)
+        cli = phase_data_cli(torch, dev, tmp)
+        phase_eval(torch, dev, tmp, cli["checkpoints"], cli["lora"])
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")

@@ -33,7 +33,8 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
         if cfg.is_resnet:
-            raise NotImplementedError("the ResNet vision tower is not ported yet")
+            raise NotImplementedError("the ResNet vision tower (RN50) is not ported yet "
+                                      "(ROADMAP.md queue 1 item 5)")
         self.cfg = cfg
         self.visual = VisualTransformer(cfg.vision)
         self.bert = BertModel(cfg.text)

@@ -277,10 +277,10 @@ def seeded(seed: Optional[int]) -> Optional[torch.Generator]:
 
 def platform_device(platform: str) -> torch.device:
     """The device ``--platform`` names; the default, the card, raises
-    without one."""
+    without one. The training and eval CLIs take it."""
     if platform == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the trainers run on the card by default; pass "
-                           "--platform cpu to train on the CPU")
+        raise RuntimeError("no CUDA device: the CLIs run on the card by default; pass "
+                           "--platform cpu to run on the CPU")
     return torch.device(platform)
 
 
