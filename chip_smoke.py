@@ -183,6 +183,29 @@ Phases, each printing its lines before the last line:
    64 distractors (and one file that is not an image) and the adapters,
    both result blocks; one ``{"phase14": "eval", ...}`` line of the rates.
 
+15. The serving backends, from phase 14's checkpoint at ViT-B-16@RoBERTa-
+   wwm-ext-base-chinese full width and depth, bf16: ``deploy/aot.py::
+   compile_tower`` (a CUDA graph a tower and batch) for both towers at batch
+   1, 8, 32 and 64, and the int8 text tower at batch 1, each bit-equal to
+   the eager ``encode_*`` (or within the eager tower's own run-to-run
+   difference, printed beside it), with the launches of each warm-up and
+   capture; ``deploy.engine build`` of both towers at batch 1, 8, 32 and 64
+   in a subprocess (seconds, file bytes against the tower's weight bytes),
+   ``inspect``, and a cold load of four engines in a fresh process that
+   imports no model module and runs no nvcc (the kernel library's mtime
+   unchanged), their features against eager; a split of 65 images and 70
+   texts through ``extract_features --backend jit`` and ``--backend engine``
+   at batch 64 (queue 3 item E: the final partial chunks take tower.cu on
+   ``jit`` and a padded 64 on ``engine``; their rows against the same rows
+   in a full batch, within the daemon bound 0.01); the HTTP daemon, once
+   with per-bucket graphs and once with ``--engine-dir``, on the same texts
+   and images in 12 concurrent requests, against both extractions (0.01);
+   ``speed_benchmark``'s latency p50/p95/p99 of each tower at batch 1, 8 and
+   32 on ``jit``, ``aot`` and ``engine``, on the CUDA events' and the host's
+   clock, each block after the card's name and power limit, with the
+   device's idle share of each (CUDA-only profiler over 20 calls); one
+   ``{"phase15": "serving backends", ...}`` line.
+
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
 nothing branches on them.
@@ -200,6 +223,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3599,7 +3623,6 @@ def _check_topk(path, qkey, gkey, q_ids, q, g_ids, g) -> int:
 def phase_eval(torch, dev, tmp, checkpoints, lora_npz):
     """Phase 14: the eval pipeline at ViT-B-16@RoBERTa-base full width and
     depth, bf16, from phase 13's run A checkpoint and LoRA adapters."""
-    import shutil
 
     import numpy as np
 
@@ -3792,7 +3815,6 @@ def phase_eval(torch, dev, tmp, checkpoints, lora_npz):
             or not all(0.0 <= v <= 100.0 for mode in ("zeroshot", "lora")
                        for m in results[mode].values() for v in m.values()):
         raise AssertionError(f"retrieval suite: {suite}")
-    shutil.rmtree(checkpoints)
 
     line = {"phase14": "eval", "card": _nvidia_smi(),
             "extract_images_per_s": {t: r["images_per_s"] for t, r in rates.items()},
@@ -3804,6 +3826,342 @@ def phase_eval(torch, dev, tmp, checkpoints, lora_npz):
             "logits_err": err, "zeroshot_classifier_s": cls_t.seconds[0],
             "zeroshot_images_per_s": zs_images / run_t.seconds[0],
             "retrieval_suite_s": suite_s, "phase_s": time.time() - t_phase}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+# Phase 15: a split whose sizes are not multiples of the batch (queue 3 item
+# E): the last image chunk (1) and text chunk (6) take tower.cu on jit
+BACKEND_IMAGES, BACKEND_TEXTS, BACKEND_BATCH = 65, 70, 64
+LATENCY_BATCHES = (1, 8, 32)
+ENGINE_BATCHES = (1, 8, 32, 64)
+DAEMON_BOUND = 0.01   # phase 6's daemon bound: a quarter of a unit feature's component
+
+
+def _max_diff(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def _held_to_eager(what, got, eager1, eager2):
+    """Bit-equality with the eager tower, or the eager tower's own run-to-run
+    difference where a kernel has one."""
+    run = float((eager1 - eager2).abs().max())
+    diff = float((got - eager1).abs().max())
+    print(f"backends: {what}: max abs diff against eager {diff:.6g} (eager against eager "
+          f"{run:.6g}); bit-equal {bool(diff == 0.0)}", flush=True)
+    if diff > run:
+        raise AssertionError(f"{what}: {diff} from eager, beyond its run-to-run {run}")
+    return diff
+
+
+def _backend_inputs(torch, tower, batch, seed):
+    g = torch.Generator().manual_seed(seed)
+    if tower == "image":
+        return torch.randn(batch, 224, 224, 3, generator=g)
+    ids = torch.randint(103, 20000, (batch, 52), generator=g)
+    ids[:, 0], ids[:, 25:] = 101, 0
+    ids[:, 24] = 102
+    return ids
+
+
+def _write_backend_split(root: str) -> list:
+    """imgs.npack of BACKEND_IMAGES noise JPEGs and texts.jsonl of
+    BACKEND_TEXTS captions; returns the texts."""
+    import numpy as np
+
+    from nans_clip_tpu_torch.data.npack import NPackWriter
+
+    rs = np.random.RandomState(15)
+    with NPackWriter(os.path.join(root, "imgs.npack")) as w:
+        for i in range(BACKEND_IMAGES):
+            w.put(i, _noise_jpeg(rs))
+    texts = [f"{TEXTS[k % len(TEXTS)]}，第{k}条" for k in range(BACKEND_TEXTS)]
+    with open(os.path.join(root, "texts.jsonl"), "w", encoding="utf-8") as f:
+        for k, t in enumerate(texts):
+            f.write(json.dumps({"text_id": k, "text": t}, ensure_ascii=False) + "\n")
+    return texts
+
+
+def _serve_http(service, texts, images_b64):
+    """The daemon on 127.0.0.1: texts in 7 and images in 5 concurrent
+    requests; (text features, image features, /stats, /health)."""
+    import numpy as np
+
+    from nans_clip_tpu_torch.deploy.server import make_server
+
+    srv = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    jobs = [("/encode_text", "texts", i, texts[i::7]) for i in range(7)]
+    jobs += [("/encode_image", "images", i, images_b64[i::5]) for i in range(5)]
+    results, errors = {}, []
+
+    def post(path, key, i, items):
+        try:
+            req = urllib.request.Request(url + path, json.dumps({key: items}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                results[(key, i)] = np.asarray(json.loads(r.read())["features"], np.float32)
+        except Exception as e:  # collected and raised below
+            errors.append(e)
+
+    try:
+        posts = [threading.Thread(target=post, args=job) for job in jobs]
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join(600)
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(60)
+    if errors or len(results) != len(jobs):
+        raise AssertionError(f"HTTP requests failed: {errors}")
+
+    def gather(key, n, parts):
+        out = np.zeros((n, service.cfg.embed_dim), np.float32)
+        for i in range(parts):
+            out[i::parts] = results[(key, i)]
+        return out
+
+    return gather("texts", len(texts), 7), gather("images", len(images_b64), 5), stats, health
+
+
+def _idle_share(torch, fn, calls: int, tmp: str) -> float:
+    """1 - the device's busy time (CUDA-only profiler) over the host window
+    of ``calls`` calls, the device synchronised at both ends."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    return 1.0 - _device_busy_ms(prof, os.path.join(tmp, "idle.json")) / window_ms
+
+
+def _cold_worker(root: str, engines: str) -> str:
+    """A script that loads engines in a fresh process from the weights and
+    inputs saved in ``root/cold.pt`` and saves their features."""
+    path = os.path.join(root, "cold.py")
+    with open(path, "w") as f:
+        f.write(f"""import json, sys, time
+import torch
+from nans_clip_tpu_torch.deploy.engine import engine_path, load_engine
+data = torch.load({os.path.join(root, "cold.pt")!r}, map_location="cuda")
+out, secs = {{}}, {{}}
+for key, x in data["inputs"].items():
+    tower, bs = key.split("@")
+    t0 = time.time()
+    eng = load_engine(engine_path({engines!r}, tower, int(bs)), data["params"][tower])
+    secs[key] = time.time() - t0
+    out[key] = eng(x).cpu()
+torch.save(out, {os.path.join(root, "cold_out.pt")!r})
+bad = sorted(m for m in sys.modules if m.startswith(("nans_clip_tpu_torch.models",
+                                                      "nans_clip_tpu_torch.api", "jax")))
+print(json.dumps({{"load_s": secs, "model_modules": bad}}))
+""")
+    return path
+
+
+def phase_backends(torch, dev, tmp, ckpt):
+    """Phase 15: the serving backends (CUDA graphs, engine files, the daemon
+    and extract_features on them, latency by backend) at ViT-B-16@RoBERTa-base
+    full width and depth, bf16, from phase 14's checkpoint."""
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from nans_clip_tpu_torch.data.npack import NPackReader
+    from nans_clip_tpu_torch.deploy import aot, speed_benchmark
+    from nans_clip_tpu_torch.deploy.engine import engine_path
+    from nans_clip_tpu_torch.deploy.server import ClipService
+    from nans_clip_tpu_torch.eval import extract_features
+    from nans_clip_tpu_torch.eval import make_topk_predictions as mtp
+    from nans_clip_tpu_torch.eval.model_io import load_eval_model
+    from nans_clip_tpu_torch.ops import _build
+    from nans_clip_tpu_torch.tokenizer import tokenize
+    from nans_clip_tpu_torch.utils.transform import image_transform
+
+    t_phase = time.time()
+    root = os.path.join(tmp, "backends")
+    os.makedirs(root)
+    model = load_eval_model(VISION, TEXT, ckpt, "bf16", device=dev)
+    encode = {"image": model.encode_image, "text": model.encode_text}
+    line = {"phase15": "serving backends", "card": _nvidia_smi()}
+
+    # (a) CUDA graphs against eager, and the launches their capture made
+    diffs = {}
+    for tower in ("image", "text"):
+        for bs in LATENCY_BATCHES + (64,):
+            x = _backend_inputs(torch, tower, bs, seed=bs).to(dev)
+            e1, e2 = aot.normalized(encode[tower](x)), aot.normalized(encode[tower](x))
+            _reset_counts()
+            run = aot.compile_tower(model, tower, bs)
+            counts = {k: v for k, v in {**{n: f.launches for n, f in _counted().items()},
+                                        **_tower_counts()}.items() if v}
+            diffs[f"{tower}@{bs}"] = _held_to_eager(
+                f"compile_tower {tower} batch {bs} (warm-up and capture launched {counts})",
+                run(x), e1, e2)
+    # (b) the int8 text tower at batch 1 (#5)
+    q_model = model.quantize("int8", towers=("text",))
+    x = _backend_inputs(torch, "text", 1, seed=1).to(dev)
+    e1, e2 = aot.normalized(q_model.encode_text(x)), aot.normalized(q_model.encode_text(x))
+    _reset_counts()
+    run = aot.compile_tower(q_model, "text", 1)
+    if _tower_counts()["fused_tower_int8"] != 3:
+        raise AssertionError(f"int8 text graph: {_tower_counts()}")
+    diffs["text@1 int8"] = _held_to_eager("compile_tower int8 text batch 1 (#5)", run(x), e1, e2)
+    del q_model, run
+    line["graph_vs_eager"] = diffs
+
+    # (c) engines: build, inspect, a cold load in a fresh process
+    engines = os.path.join(root, "engines")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "nans_clip_tpu_torch.deploy.engine", "build",
+                           "--resume", ckpt, "--vision-model", VISION, "--text-model", TEXT,
+                           "--towers", "image,text",
+                           "--batch-sizes", ",".join(map(str, ENGINE_BATCHES)),
+                           "--out-dir", engines], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    build_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"engine build failed:\n{proc.stdout}\n{proc.stderr}")
+    params = {t: aot.tower_params(model, t) for t in ("image", "text")}
+    weight_bytes = {t: sum(v.numel() * v.element_size() for v in p.values())
+                    for t, p in params.items()}
+    sizes = {f"{t}@{bs}": os.path.getsize(engine_path(engines, t, bs))
+             for t in ("image", "text") for bs in ENGINE_BATCHES}
+    print(f"backends: deploy.engine build of {len(sizes)} engines in {build_s:.2f} s (process "
+          f"start and checkpoint load included): {'; '.join(proc.stdout.strip().splitlines())}; file "
+          f"bytes {json.dumps(sizes)} against weight bytes {json.dumps(weight_bytes)}",
+          flush=True)
+    if any(sizes[f"{t}@{bs}"] >= weight_bytes[t] / 100 for t in params for bs in ENGINE_BATCHES):
+        raise AssertionError("an engine file holds the weights")
+    proc = subprocess.run([sys.executable, "-m", "nans_clip_tpu_torch.deploy.engine", "inspect",
+                           engine_path(engines, "text", 1)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    print("backends: inspect text_bs1.engine: " + "; ".join(proc.stdout.strip().splitlines()),
+          flush=True)
+    if proc.returncode != 0 or "capability: 9.0" not in proc.stdout:
+        raise AssertionError(f"engine inspect: {proc.stdout} {proc.stderr}")
+    cold = [("text", 1), ("image", 1), ("text", 64), ("image", 64)]
+    inputs = {f"{t}@{bs}": _backend_inputs(torch, t, bs, seed=100 + bs) for t, bs in cold}
+    torch.save({"params": params, "inputs": inputs}, os.path.join(root, "cold.pt"))
+    lib_mtime = _build.LIB_PATH.stat().st_mtime_ns
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, _cold_worker(root, engines)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    cold_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cold engine load failed:\n{proc.stdout}\n{proc.stderr}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    rebuilt = _build.LIB_PATH.stat().st_mtime_ns != lib_mtime
+    print(f"backends: cold load in a fresh process ({cold_s:.2f} s in all, import and weights "
+          f"included): engine load s {json.dumps(report['load_s'])}; model modules imported "
+          f"{report['model_modules']}; kernel library rebuilt: {rebuilt}", flush=True)
+    if report["model_modules"] or rebuilt:
+        raise AssertionError("the cold load imported the model modules or ran nvcc")
+    cold_out = torch.load(os.path.join(root, "cold_out.pt"))
+    for key, x in inputs.items():
+        tower = key.split("@")[0]
+        xd = x.to(dev)
+        e1, e2 = aot.normalized(encode[tower](xd)), aot.normalized(encode[tower](xd))
+        diffs[f"engine {key}"] = _held_to_eager(f"cold-loaded engine {key}",
+                                                cold_out[key].to(dev), e1, e2)
+    os.remove(os.path.join(root, "cold.pt"))
+    line.update(engine_build_s=build_s, engine_bytes=sizes, weight_bytes=weight_bytes,
+                cold_load_s=report["load_s"], cold_process_s=cold_s)
+
+    # (d) item E through extract_features, and the daemon against it
+    texts = _write_backend_split(root)
+    args = ["--extract-image-feats", "--extract-text-feats", "--image-data", root,
+            "--text-data", os.path.join(root, "texts.jsonl"), "--resume", ckpt,
+            "--vision-model", VISION, "--text-model", TEXT, "--img-batch-size",
+            str(BACKEND_BATCH), "--text-batch-size", str(BACKEND_BATCH)]
+    offline = {}
+    for backend in ("jit", "engine"):
+        img_out = os.path.join(root, f"img.{backend}.jsonl")
+        txt_out = os.path.join(root, f"txt.{backend}.jsonl")
+        _reset_counts()
+        extract_features.main(args + [
+            "--backend", backend, "--image-feat-output-path", img_out,
+            "--text-feat-output-path", txt_out,
+            "--image-artifact", engine_path(engines, "image", BACKEND_BATCH),
+            "--text-artifact", engine_path(engines, "text", BACKEND_BATCH)])
+        counts = {**{n: f.launches for n, f in _counted().items()}, **_tower_counts()}
+        print(f"backends: extract_features --backend {backend}: launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+        if backend == "jit" and counts["fused_tower"] != 2:
+            raise AssertionError("the final partial chunks did not take tower.cu on jit")
+        offline[backend] = (mtp.load_feats(txt_out, "text_id")[1],
+                            mtp.load_feats(img_out, "image_id")[1])
+    reader = NPackReader(os.path.join(root, "imgs.npack"))
+    raws = [reader.get(k) for k in range(BACKEND_IMAGES)]
+    reader.close()
+    t = image_transform(224)
+    full_img = np.stack([t(Image.open(io.BytesIO(r))) for r in raws[-BACKEND_BATCH:]])
+    full = (extract_features._normalized(model.encode_text(tokenize(texts[-BACKEND_BATCH:]))),
+            extract_features._normalized(model.encode_image(full_img)))
+    tail = {"text": BACKEND_TEXTS % BACKEND_BATCH, "image": BACKEND_IMAGES % BACKEND_BATCH}
+    item_e = {b: {"text": _max_diff(txt_f[-tail["text"]:], full[0][-tail["text"]:]),
+                  "image": _max_diff(img_f[-tail["image"]:], full[1][-tail["image"]:])}
+              for b, (txt_f, img_f) in offline.items()}
+    print(f"backends: item E: the final partial chunk ({tail['text']} texts, {tail['image']} "
+          f"image) against the same rows in a full batch of {BACKEND_BATCH}: max abs diff "
+          f"{json.dumps(item_e)} <= bound {DAEMON_BOUND}", flush=True)
+    if max(v for d in item_e.values() for v in d.values()) > DAEMON_BOUND:
+        raise AssertionError(f"final partial batch rows: {item_e}")
+    images_b64 = [base64.b64encode(r).decode() for r in raws]
+    daemon = {}
+    for name, kw in (("jit", {}), ("engine", {"engine_dir": engines})):
+        service = ClipService(model, max_batch=32, **kw)
+        txt_f, img_f, stats, health = _serve_http(service, texts, images_b64)
+        daemon[name] = {f"vs extract_features {b}": max(_max_diff(txt_f, o[0]),
+                                                        _max_diff(img_f, o[1]))
+                        for b, o in offline.items()}
+        print(f"backends: daemon ({health['backend']} backend, /stats {json.dumps(stats)}) over "
+              f"HTTP, {BACKEND_TEXTS} texts and {BACKEND_IMAGES} images in 12 concurrent "
+              f"requests: max abs diff {json.dumps(daemon[name])} <= bound {DAEMON_BOUND}",
+              flush=True)
+        if health["backend"] != name or max(daemon[name].values()) > DAEMON_BOUND \
+                or stats["errors"]:
+            raise AssertionError(f"daemon {name}: {daemon[name]} {health} {stats}")
+        del service
+    line.update(item_e=item_e, daemon=daemon)
+
+    # (e) latency by backend, both clocks, and the device's idle share
+    latency, idle = {}, {}
+    for backend in ("jit", "aot", "engine"):
+        print(f"backends: latency, backend {backend}, {_nvidia_smi()}", flush=True)
+        latency[backend] = speed_benchmark.bench_model(
+            model, LATENCY_BATCHES, n=50, warmup=5, label=f"{VISION} bf16", backend=backend,
+            engine_dir=engines)
+        for tower in ("image", "text"):
+            for bs in LATENCY_BATCHES:
+                x = _backend_inputs(torch, tower, bs, seed=7).to(dev)
+                call = speed_benchmark.tower_call(model, tower, bs, backend, engines)
+                idle[f"{backend} {tower}@{bs}"] = _idle_share(torch, lambda: call(x), 20, root)
+        print(f"backends: device idle share, backend {backend}: "
+              f"{json.dumps({k: round(v, 4) for k, v in idle.items() if k.startswith(backend)})}",
+              flush=True)
+    line["latency"] = {b: {k: {"p50": s["median"], "p95": s["p95"], "p99": s["p99"],
+                               "host_p50": s["host"]["median"], "host_p95": s["host"]["p95"],
+                               "host_p99": s["host"]["p99"]} for k, s in r.items()}
+                       for b, r in latency.items()}
+    line["idle_share"] = idle
+    line["phase_s"] = time.time() - t_phase
+    print(f"backends: phase 15 in {line['phase_s']:.1f} s", flush=True)
     print(json.dumps(line), flush=True)
     return line
 
@@ -3863,6 +4221,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli = phase_data_cli(torch, dev, tmp)
         phase_eval(torch, dev, tmp, cli["checkpoints"], cli["lora"])
+        phase_backends(torch, dev, tmp, os.path.join(cli["checkpoints"], "epoch1.pt"))
+        shutil.rmtree(cli["checkpoints"])
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")

@@ -8,14 +8,28 @@ use). Imports torch and numpy, never jax.
 
 __version__ = "0.1.0"
 
-from nans_clip_tpu_torch.api import (CLIPModel, available_models, create_model,
-                                     image_transform, load, load_from_name)
-from nans_clip_tpu_torch.configs import CLIPConfig, config_for_name, load_config, tiny_config
-from nans_clip_tpu_torch.models import ModelOptions
-from nans_clip_tpu_torch.tokenizer import get_tokenizer, tokenize
+import importlib
 
-__all__ = [
-    "CLIPModel", "available_models", "create_model", "image_transform", "load",
-    "load_from_name", "CLIPConfig", "config_for_name", "load_config", "tiny_config",
-    "ModelOptions", "get_tokenizer", "tokenize", "__version__",
-]
+# the public names, imported on first use: a process that only loads an
+# engine (deploy/engine.py) does not import the model-building modules
+_EXPORTS = {
+    "CLIPModel": "api", "available_models": "api", "create_model": "api",
+    "image_transform": "api", "load": "api", "load_from_name": "api",
+    "CLIPConfig": "configs", "config_for_name": "configs", "load_config": "configs",
+    "tiny_config": "configs", "ModelOptions": "models", "get_tokenizer": "tokenizer",
+    "tokenize": "tokenizer",
+}
+
+__all__ = [*_EXPORTS, "__version__"]
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

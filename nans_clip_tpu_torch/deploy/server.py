@@ -1,10 +1,20 @@
-"""Serving daemon: a stdlib HTTP shim around a live model (counterpart of
-``nans_clip_tpu/deploy/server.py`` on its live backend).
+"""Serving daemon: a stdlib HTTP shim around the towers (counterpart of
+``nans_clip_tpu/deploy/server.py``).
 
-- Fixed-shape discipline: a request is padded to the next power-of-two
-  batch up to ``--max-batch`` and chunked beyond it, so the towers see only
-  a few batch sizes (at <= 32 they run the whole-tower kernel where
-  ``ops/gates.py`` routes it).
+- Backends, named as in the JAX daemon (``/health``'s ``backend``):
+  ``jit``, the live model: on the card each (tower, batch bucket) is a CUDA
+  graph of the tower (``deploy/aot.py::compile_tower``), captured on first
+  use; on the CPU (``--device cpu``) the towers run eagerly. ``engine``
+  (``--engine-dir``): the ``{image,text}_bsN.engine`` files of
+  ``deploy/engine.py``, loaded at startup with the model's weights bound
+  (no trace or compile; on the card each is a CUDA graph). An engine whose
+  header's model, quantize mode or (text) context length differs from the
+  service's is refused at startup.
+- Fixed-shape discipline: with ``jit`` a request is padded to the next
+  power-of-two batch up to ``--max-batch`` and chunked beyond it, so the
+  towers see only a few batch sizes (at <= 32 they run the whole-tower
+  kernel where ``ops/gates.py`` routes it); with ``engine`` it is padded to
+  the smallest engine that fits it and chunked at the largest.
 - Endpoints (JSON over POST; ``GET /health``, ``GET /stats``):
     /encode_text  {"texts": [str, ...]}            -> {"features": [[...]]}
     /encode_image {"images": [b64-jpeg, ...]}      -> {"features": [[...]]}
@@ -17,15 +27,16 @@
   are coalesced into one device dispatch by an opportunistic drain. While
   the device runs one batch, arriving requests queue; the dispatcher takes
   the whole same-tower run at the head of the queue (up to the serving
-  batch) when the device frees. A lone client waits for nothing.
+  batch: ``--max-batch``, or the largest engine) when the device frees. A
+  lone client waits for nothing.
 
 The HTTP layer is a ``ThreadingHTTPServer``. All device work runs under one
-lock, on the model's device. The saved-engine backend and the native JPEG
-decoder of the JAX daemon wait for the port's ``deploy/engine.py`` and
-``csrc/npack.cpp``.
+lock, on the model's device, so the graphs (which share one memory pool)
+run one at a time. The native JPEG decoder of the JAX daemon is not ported
+(the card's machine has no libjpeg).
 
     python -m nans_clip_tpu_torch.deploy.server [--resume ckpt.pt] \\
-        [--quantize int8-text] [--port 8000]
+        [--quantize int8-text] [--engine-dir engines] [--port 8000]
 """
 
 from __future__ import annotations
@@ -38,11 +49,12 @@ import json
 import logging
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from nans_clip_tpu_torch.deploy.aot import normalized
 from nans_clip_tpu_torch.models.common import PRECISIONS
 from nans_clip_tpu_torch.ops import gates
 
@@ -70,19 +82,25 @@ class _Pending:
 
 
 class ClipService:
-    """Pads and chunks requests to bucketed batches, runs them through a
-    :class:`CLIPModel` and returns L2-normalised fp32 features."""
+    """Pads and chunks requests to fixed batches, runs them through the
+    towers of a :class:`CLIPModel` (``jit``) or through engines
+    (``engine_dir``), and returns L2-normalised fp32 features. Engines
+    must have been built with the quantize mode of the model's weights."""
 
     def __init__(self, model, max_batch: int = 32, context_length: int = 52,
-                 dynamic_batching: bool = True):
+                 dynamic_batching: bool = True, engine_dir: Optional[str] = None):
+        from nans_clip_tpu_torch.utils.quantize import quantize_mode
         from nans_clip_tpu_torch.utils.transform import image_transform
 
         self.model = model
         self.cfg = model.cfg
         self.max_batch = max_batch
         self.context_length = context_length
+        self.quantize = quantize_mode(model.module)
         self._transform = image_transform(self.cfg.vision.image_resolution)
         self._lock = threading.Lock()
+        self._fns: Dict[tuple, object] = {}
+        self._engine_batch: Optional[Dict[str, int]] = None
         self.dynamic_batching = dynamic_batching
         self._queue: collections.deque = collections.deque()
         self._qcond = threading.Condition()
@@ -97,6 +115,86 @@ class ClipService:
             "coalesced_requests": 0,   # requests that rode a shared dispatch
             "errors": 0,
         }
+        if engine_dir is not None:
+            self._load_engines(engine_dir)
+
+    @property
+    def backend(self) -> str:
+        return "engine" if self._engine_batch else "jit"
+
+    def _load_engines(self, engine_dir: str):
+        import glob
+        import re
+
+        from nans_clip_tpu_torch.deploy.aot import tower_params
+        from nans_clip_tpu_torch.deploy.engine import (batch_stats_digest, load_engine,
+                                                       read_header)
+
+        params = {}
+        for path in sorted(glob.glob(f"{engine_dir.rstrip('/')}/*.engine")):
+            m = re.match(r"(image|text)_bs\d+\.engine$", path.rsplit("/", 1)[-1])
+            if not m:
+                continue
+            header = read_header(path)
+            meta = header.get("meta", {})
+            tower = m.group(1)
+            # fail fast at startup on every convention the header records: a
+            # mismatch would otherwise surface per request
+            mismatches = []
+            if meta.get("quantize") != self.quantize:
+                mismatches.append(f"quantize: built {meta.get('quantize')}, server has "
+                                  f"{self.quantize}")
+            if meta.get("model") is not None and meta["model"] != self.cfg.name:
+                mismatches.append(f"model: built {meta['model']!r}, server has "
+                                  f"{self.cfg.name!r}")
+            if tower == "text" and meta.get("context_length") is not None \
+                    and meta["context_length"] != self.context_length:
+                mismatches.append(f"context_length: built {meta['context_length']}, server "
+                                  f"has {self.context_length}")
+            if meta.get("batch_stats_digest") is not None \
+                    and meta["batch_stats_digest"] != batch_stats_digest(None):
+                mismatches.append("batch_stats_digest: the engine baked different BN running "
+                                  "stats than this checkpoint's (ResNet engines must be "
+                                  "rebuilt per checkpoint)")
+            if mismatches:
+                raise ValueError(f"{path} does not match this server's configuration: "
+                                 "rebuild the engine or fix the flags: " + "; ".join(mismatches))
+            if tower not in params:
+                params[tower] = tower_params(self.model, tower)
+            with self._device_scope():
+                eng = load_engine(path, params[tower], payload=header)
+            bs = header.get("batch_size")
+            if bs is None:
+                bs = int(re.search(r"_bs(\d+)\.engine$", path).group(1))
+            self._fns[(tower, int(bs))] = eng
+            logger.info("loaded engine %s (batch %s)", path, bs)
+        if not self._fns:
+            raise ValueError(f"no {{image,text}}_bsN.engine files in {engine_dir}")
+        # serve each tower at its largest engine batch (smaller requests pad
+        # up, larger ones chunk)
+        self._engine_batch = {tower: max(b for t, b in self._fns if t == tower)
+                              for tower in {t for t, _ in self._fns}}
+
+    def _tower_fn(self, tower: str, n: int):
+        """(callable returning normalised fp32 features, padded batch) for a
+        request of n samples."""
+        if self._engine_batch is not None:
+            avail = sorted(b for t, b in self._fns if t == tower)
+            if not avail:
+                raise ValueError(f"no engine for the {tower} tower in the engine dir")
+            fits = [b for b in avail if b >= n]
+            bs = fits[0] if fits else avail[-1]   # smallest fit, else chunk
+            return self._fns[(tower, bs)], bs
+        bs = _bucket(n, self.max_batch)
+        if self.model.device.type != "cuda":
+            encode = self.model.encode_text if tower == "text" else self.model.encode_image
+            return (lambda x: normalized(encode(x))), bs
+        key = (tower, bs)
+        if key not in self._fns:
+            from nans_clip_tpu_torch.deploy.aot import compile_tower
+            self._fns[key] = compile_tower(self.model, tower, bs, self.context_length)
+            logger.info("captured the %s tower at batch %d", tower, bs)
+        return self._fns[key], bs
 
     def _run(self, tower: str, x: np.ndarray) -> np.ndarray:
         with self._stats_lock:
@@ -127,7 +225,7 @@ class ClipService:
                 while not self._queue:
                     self._qcond.wait()
                 tower = self._queue[0].tower
-                cap = self.max_batch   # the largest batch one dispatch serves
+                cap = self._coalesce_cap(tower)
                 batch: List[_Pending] = [self._queue.popleft()]
                 total = batch[0].x.shape[0]
                 while self._queue and self._queue[0].tower == tower and total < cap:
@@ -150,6 +248,13 @@ class ClipService:
                 for it in batch:
                     it.done.set()
 
+    def _coalesce_cap(self, tower: str) -> int:
+        """Samples worth coalescing into one drain: the largest batch one
+        device program serves."""
+        if self._engine_batch is not None:
+            return self._engine_batch.get(tower, 1)
+        return self.max_batch
+
     def _device_scope(self):
         dev = self.model.device
         return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
@@ -158,8 +263,8 @@ class ClipService:
         n = x.shape[0]
         out: List[np.ndarray] = []
         with self._lock, self._device_scope():
-            fn = self.model.encode_text if tower == "text" else self.model.encode_image
-            bs = _bucket(n, self.max_batch)
+            fn, bs = self._tower_fn(tower, n)
+            # timed after the lock and the tower's first-use capture
             t0 = time.perf_counter()
             for i in range(0, n, bs):
                 chunk = x[i:i + bs]
@@ -167,8 +272,7 @@ class ClipService:
                 if pad:
                     chunk = np.concatenate([chunk, np.zeros((pad,) + chunk.shape[1:],
                                                             chunk.dtype)])
-                feats = fn(chunk).float()
-                feats = feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
+                feats = fn(torch.from_numpy(chunk))
                 out.append(feats.cpu().numpy()[:bs - pad])   # .cpu() waits for the device
                 with self._stats_lock:
                     self.stats["device_dispatches"] += 1
@@ -240,7 +344,8 @@ def make_handler(service: ClipService, max_body_bytes: int = 256 << 20):
 
         def do_GET(self):
             if self.path == "/health":
-                self._send(200, {"status": "ok", "model": service.cfg.name, "backend": "eager",
+                self._send(200, {"status": "ok", "model": service.cfg.name,
+                                 "backend": service.backend,
                                  "device": str(service.model.device),
                                  "dynamic_batching": service.dynamic_batching})
             elif self.path == "/stats":
@@ -311,6 +416,10 @@ def parse_args(argv=None):
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-body-mb", type=int, default=256,
                    help="reject request bodies larger than this (413)")
+    p.add_argument("--engine-dir", default=None,
+                   help="serve the {image,text}_bsN.engine files of `python -m "
+                        "nans_clip_tpu_torch.deploy.engine build` instead of per-bucket CUDA "
+                        "graphs of the live model")
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny-model", action="store_true",
                    help="2-layer debug config (configs.tiny_config)")
@@ -330,11 +439,12 @@ def main(argv=None):
         from nans_clip_tpu_torch.utils.quantize import towers_for_mode
         model = model.quantize("int8", towers_for_mode(args.quantize))
     service = ClipService(model, max_batch=args.max_batch, context_length=args.context_length,
-                          dynamic_batching=not args.no_dynamic_batching)
+                          dynamic_batching=not args.no_dynamic_batching,
+                          engine_dir=args.engine_dir)
     srv = make_server(service, args.host, args.port, max_body_bytes=args.max_body_mb << 20)
     logging.basicConfig(level=logging.INFO)
-    logger.info("serving %s on %s:%d (%s)", model.cfg.name, args.host, srv.server_address[1],
-                model.device)
+    logger.info("serving %s on %s:%d (%s, %s backend)", model.cfg.name, args.host,
+                srv.server_address[1], model.device, service.backend)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

@@ -17,10 +17,19 @@ the split's ``imgs.npack`` in key order:
   not decode raises. The JAX package's libjpeg decoder also refuses CMYK
   records; PIL reads them, so they get the ``pil`` path's pixels here.
 
-The final batch is not padded: a tower's rows do not depend on the batch
-around them (the JAX CLI pads only to keep one compiled shape).
-``--backend stablehlo|engine`` (serialized towers, ROADMAP item 4) is
-refused, and ``--vision-model RN50`` (item 5) where the model is built.
+``--backend`` (the JAX choices): ``jit`` runs the model's towers, and its
+final batch is not padded (a tower's rows do not depend on the batch around
+them; on the card a short final batch takes the whole-tower kernel where
+``ops/gates.py`` routes it). ``stablehlo`` runs exported programs
+(``deploy/aot.py::export_program``: in this package a ``torch.export``
+archive, not StableHLO; the JAX name is kept so that command lines carry
+over) and ``engine`` the engine files of ``deploy/engine.py``, given by
+``--image-artifact`` / ``--text-artifact``, with the checkpoint's weights
+bound; their final batch is padded to the artifact's batch and the padding
+rows are dropped, as the JAX CLI pads. An engine built with ``--quantize``
+or at another batch size than ``--img-batch-size`` / ``--text-batch-size``
+is refused. ``--vision-model RN50`` (ROADMAP item 5) is refused where the
+model is built.
 
 Usage:
   python -m nans_clip_tpu_torch.eval.extract_features \\
@@ -70,8 +79,9 @@ def parse_args(argv=None):
                         "bicubic resize, normalise); native = the same pixels from a "
                         "thread pool of PIL decoders, normalised on the device")
     p.add_argument("--backend", choices=["jit", "stablehlo", "engine"], default="jit",
-                   help="jit: the towers of this package; stablehlo and engine "
-                        "(serialized towers) are not ported yet (ROADMAP.md queue 1 item 4)")
+                   help="jit: the model's towers; stablehlo: exported programs "
+                        "(deploy.aot.export_program; in this package a torch.export archive, "
+                        "the JAX name kept); engine: engine files (deploy.engine build)")
     p.add_argument("--image-artifact", default=None)
     p.add_argument("--text-artifact", default=None)
     p.add_argument("--tiny-model", action="store_true",
@@ -81,13 +91,58 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """``--backend`` values the JAX CLI takes and the port does not run
-    yet: a ``ValueError`` that names the ROADMAP item, never another
-    backend. (RN50 is refused where the model is built, naming item 5.)"""
-    if args.backend != "jit":
-        raise ValueError(f"--backend {args.backend}: serialized towers (StableHLO exports, "
-                         "engine files) are not ported yet (ROADMAP.md queue 1 item 4)")
+def _load_engine_fn(path: str, params: dict, batch_size: int, tower: str):
+    """Bind an engine and check its conventions up front (the JAX
+    ``_load_engine_fn``): an engine built with ``--quantize`` or at another
+    batch size is refused before any extraction."""
+    from nans_clip_tpu_torch.deploy.engine import batch_stats_digest, load_engine, read_header
+
+    header = read_header(path)
+    meta = header.get("meta", {})
+    if meta.get("quantize"):
+        raise SystemExit(f"{path}: engine was built with --quantize {meta['quantize']}; "
+                         "extract_features loads unquantized checkpoints: rebuild the engine "
+                         "without --quantize")
+    if meta.get("batch_stats_digest") is not None \
+            and meta["batch_stats_digest"] != batch_stats_digest(None):
+        raise SystemExit(f"{path}: engine baked different BN running stats than this "
+                         "checkpoint's (ResNet engines must be rebuilt per checkpoint)")
+    if header.get("batch_size") is not None and header["batch_size"] != batch_size:
+        flag = "img" if tower == "image" else "text"
+        raise SystemExit(f"{path}: engine was built at batch_size={header['batch_size']} but "
+                         f"--{flag}-batch-size is {batch_size}; rebuild the engine or pass the "
+                         "matching batch size (engines are fixed-shape, like TensorRT engines)")
+    return load_engine(path, params, payload=header)
+
+
+def tower_fn(args, model, tower: str):
+    """``(fn(x) -> features, pad)`` of ``--backend`` for ``tower``: the model's
+    own call (pad False), or an exported program or engine at the artifact's
+    batch (pad True)."""
+    if args.backend == "jit":
+        return (model.encode_image if tower == "image" else model.encode_text), False
+    artifact = args.image_artifact if tower == "image" else args.text_artifact
+    if not artifact:
+        raise SystemExit(f"--backend {args.backend} needs --{tower}-artifact")
+    from nans_clip_tpu_torch.deploy.aot import load_program, tower_params
+
+    params = tower_params(model, tower)
+    bs = args.img_batch_size if tower == "image" else args.text_batch_size
+    if args.backend == "engine":
+        return _load_engine_fn(artifact, params, bs, tower), True
+    program = load_program(artifact)
+    dtype = torch.float32 if tower == "image" else torch.long
+    return (lambda x: program(params, torch.as_tensor(x, dtype=dtype, device=model.device))), True
+
+
+def _padded(x, batch_size: int):
+    """x with zero rows appended up to ``batch_size`` (numpy or a tensor)."""
+    pad = batch_size - len(x)
+    if not pad:
+        return x
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
 
 
 def _normalized(feats: torch.Tensor) -> np.ndarray:
@@ -108,13 +163,15 @@ def extract_text_features(args, model, out_path):
             ids.append(obj["text_id"])
             texts.append(obj["text"])
     bs = args.text_batch_size
+    fn, pad = tower_fn(args, model, "text")
     written = 0
     with open(out_path, "w") as fout:
         for i in range(0, len(ids), bs):
             # lowercase + CJK-quote normalisation before tokenizing, like the
             # reference eval dataset (eval/data.py:23-26,50)
             chunk = [preprocess_text(str(t)) for t in texts[i:i + bs]]
-            feats = _normalized(model.encode_text(tokenize(chunk, args.context_length)))
+            tok = tokenize(chunk, args.context_length)
+            feats = _normalized(fn(_padded(tok, bs) if pad else tok))[:len(chunk)]
             for tid, feat in zip(ids[i:i + bs], feats):
                 fout.write(json.dumps({"text_id": tid, "feature": feat.tolist()}) + "\n")
                 written += 1
@@ -158,13 +215,15 @@ def image_batches(reader: NPackReader, resolution: int, batch_size: int, pil: bo
 
 def extract_image_features(args, model, out_path):
     reader = NPackReader(os.path.join(args.image_data, "imgs.npack"))
+    fn, pad = tower_fn(args, model, "image")
     written = 0
     try:
         with open(out_path, "w") as fout:
             for chunk, x in image_batches(reader, model.image_resolution, args.img_batch_size,
                                           args.image_transform == "pil", args.num_threads,
                                           model.device):
-                feats = _normalized(model.encode_image(x))
+                x = _padded(x, args.img_batch_size) if pad else x
+                feats = _normalized(fn(x))[:len(chunk)]
                 for key, feat in zip(chunk.tolist(), feats):
                     fout.write(json.dumps({"image_id": int(key), "feature": feat.tolist()})
                                + "\n")
@@ -176,7 +235,6 @@ def extract_image_features(args, model, out_path):
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported(args)
     device = platform_device(args.platform)
     cfg = None
     if args.tiny_model:

@@ -50,10 +50,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from nans_clip_tpu_torch.configs import TextConfig
-from nans_clip_tpu_torch.models.common import ModelOptions
+from nans_clip_tpu_torch.models.common import ModelOptions, layer_entries, layers_from
 from nans_clip_tpu_torch.ops import dropout as drop
 from nans_clip_tpu_torch.ops import gates
-from nans_clip_tpu_torch.ops.activations import ACT2FN
+from nans_clip_tpu_torch.ops.activations import ACT2FN, upcast
 from nans_clip_tpu_torch.ops.attention import mha
 from nans_clip_tpu_torch.ops.fused_block import attention_block_train, mlp_block_train
 from nans_clip_tpu_torch.ops.layer_kernel import encoder_layer_math, fused_layer_block
@@ -87,6 +87,56 @@ def _pallas_layer(x, p, key_bias, heads: int, eps: float, act: str, seed_a=None,
     return layer_norm(x + h, p[6], p[7], eps)
 
 
+def embed(input_ids, word, pos, token_type, ln_w, ln_b, eps: float, cast=lambda t: t):
+    """Word + position + token-type-0 embeddings, then their LayerNorm:
+    [B, S, H]; ``cast`` takes each weight to the compute dtype."""
+    s = input_ids.shape[1]
+    # F.embedding, not weight[input_ids]: the indexing backward
+    # (index_put_ accumulating) adds repeated ids in a varying order on
+    # the CPU, and a resumed run must give an uninterrupted run's bits
+    x = cast(F.embedding(input_ids, word))
+    x = x + cast(pos.narrow(0, 0, s)).unsqueeze(0)
+    x = x + cast(token_type.select(0, 0)).view(1, 1, -1)
+    return layer_norm(x, cast(ln_w), cast(ln_b), eps)
+
+
+def key_bias_of(attention_mask: torch.Tensor) -> torch.Tensor:
+    """The additive fp32 key bias ``(1 - mask) * -10000``, [B, S]."""
+    return ((1.0 - attention_mask.float()) * -10000.0).contiguous()
+
+
+def run_layers(cfg: TextConfig, x, key_bias, layers, options: ModelOptions,
+               table: Optional[TowerTable] = None) -> torch.Tensor:
+    """The deterministic layers at tp 1 as ``ops/gates.py`` routes them (the
+    module docstring); ``table`` caches the tower kernel's pointer table."""
+    heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
+    if gates.pallas_route(options.attn_impl):
+        for p in layers:
+            p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+            x = _pallas_layer(x, p, key_bias, heads, eps, act)
+        return x
+    if gates.tower_route(x, options.attn_impl, "text", heads, cfg.intermediate_size,
+                         is_quantized(layers[0][2]), options.tp):
+        return fused_tower(x, key_bias, layers, heads, eps, act, True, table)
+    layer_fn = fused_layer_block if gates.use_kernel(x, options.attn_impl) else encoder_layer_math
+    for p in layers:
+        p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+        x = layer_fn(x, *p, heads, eps, act, True, key_bias)
+    return x
+
+
+def serve(cfg: TextConfig, w: dict, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+          options: ModelOptions) -> torch.Tensor:
+    """The inference forward of :meth:`BertModel.forward` from its
+    :meth:`~BertModel.serving_weights` ``w``: the same functions on the same
+    values, with no cast or concatenation of a weight. Sequence output
+    [B, S, H]."""
+    x = embed(input_ids, w["word_embeddings"], w["position_embeddings"],
+              w["token_type_embeddings"], w["ln.weight"], w["ln.bias"], cfg.layer_norm_eps)
+    return run_layers(cfg, x, key_bias_of(attention_mask),
+                      layers_from(w, cfg.num_hidden_layers), options)
+
+
 def _layer_seeds(generator: Optional[torch.Generator]):
     """A layer's two dropout seeds (attention sub-block, MLP) drawn from
     ``generator``, or (None, None) without one."""
@@ -116,11 +166,12 @@ class BertSelfAttention(nn.Module):
     def reset_caches(self) -> None:
         self._packed = None
 
-    def packed(self, dtype: Optional[torch.dtype] = None) -> Tuple[object, torch.Tensor]:
+    def packed(self, dtype: Optional[torch.dtype] = None,
+               fresh: bool = False) -> Tuple[object, torch.Tensor]:
         """q|k|v as the kernels read them: weight [3H, H] (an ``Int8Weight``
         when the three are quantized), bias [3H]; in ``dtype`` when given.
 
-        Without autograd the packed pair is cached and rebuilt only when a
+        Without autograd (and without ``fresh``) the packed pair is cached and rebuilt only when a
         source changes. The cache key is each source's address and version
         counter: a ``load_state_dict`` copies in place and bumps the version,
         a cast or a move gives a new address (the cache holds the old
@@ -128,7 +179,7 @@ class BertSelfAttention(nn.Module):
         ws = (self.query.weight, self.key.weight, self.value.weight)
         srcs = tuple(t for w in ws for t in ((w.int8, w.scale) if is_quantized(w) else (w,)))
         srcs += (self.query.bias, self.key.bias, self.value.bias)
-        if torch.is_grad_enabled():
+        if fresh or torch.is_grad_enabled():
             return _cast(_cat_weights(ws), dtype), _cast(torch.cat(srcs[-3:]), dtype)
         key = tuple((t.data_ptr(), t._version) for t in srcs) + (dtype,)
         if self._packed is None or self._packed[0] != key:
@@ -178,11 +229,12 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg)
         self.output = BertDenseLN(cfg.intermediate_size, cfg.hidden_size, cfg.layer_norm_eps)
 
-    def weights(self, options: ModelOptions = ModelOptions()) -> tuple:
+    def weights(self, options: ModelOptions = ModelOptions(), fresh: bool = False) -> tuple:
         """The layer in ``encoder_layer_math``'s order, in the compute dtype;
-        the four big weights are tensors or ``Int8Weight``s."""
+        the four big weights are tensors or ``Int8Weight``s. ``fresh``: q|k|v
+        packed anew, not from (or into) the packed cache (:meth:`packed`)."""
         ao, out, cast = self.attention.output, self.output, options.cast
-        w_qkv, b_qkv = self.attention.self.packed(options.dtype)
+        w_qkv, b_qkv = self.attention.self.packed(options.dtype, fresh)
         return (cast(ao.LayerNorm.weight), cast(ao.LayerNorm.bias), w_qkv, b_qkv,
                 cast(ao.dense.weight), cast(ao.dense.bias), cast(out.LayerNorm.weight),
                 cast(out.LayerNorm.bias), cast(self.intermediate.dense.weight),
@@ -233,39 +285,32 @@ class BertModel(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Sequence output [B, S, H]. ``attention_mask``: [B, S] 1=keep, 0=pad.
         ``generator`` draws the dropout seeds of a training forward."""
-        emb, cast = self.embeddings, options.cast
-        b, s = input_ids.shape
-        # F.embedding, not weight[input_ids]: the indexing backward
-        # (index_put_ accumulating) adds repeated ids in a varying order on
-        # the CPU, and a resumed run must give an uninterrupted run's bits
-        x = cast(F.embedding(input_ids, emb.word_embeddings.weight))
-        x = x + cast(emb.position_embeddings.weight[:s])[None, :, :]
-        x = x + cast(emb.token_type_embeddings.weight[0])[None, None, :]
-        x = layer_norm(x, cast(emb.LayerNorm.weight), cast(emb.LayerNorm.bias),
-                       self.cfg.layer_norm_eps)
-        key_bias = None
-        if attention_mask is not None:
-            key_bias = ((1.0 - attention_mask.float()) * -10000.0).contiguous()
-        cfg, enc = self.cfg, self.encoder
-        heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
-        layers = [layer.weights(options) for layer in enc.layer]
+        emb = self.embeddings
+        x = embed(input_ids, emb.word_embeddings.weight, emb.position_embeddings.weight,
+                  emb.token_type_embeddings.weight, emb.LayerNorm.weight, emb.LayerNorm.bias,
+                  self.cfg.layer_norm_eps, options.cast)
+        key_bias = None if attention_mask is None else key_bias_of(attention_mask)
+        layers = [layer.weights(options) for layer in self.encoder.layer]
         if options.tp > 1:
             return self._tp_layers(x, key_bias, layers, options, generator)
         if not options.deterministic:
             return self._train_layers(x, key_bias, layers, options, generator)
-        if gates.pallas_route(options.attn_impl):
-            for p in layers:
-                p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-                x = _pallas_layer(x, p, key_bias, heads, eps, act)
-            return x
-        if gates.tower_route(x, options.attn_impl, "text", heads, cfg.intermediate_size,
-                             is_quantized(layers[0][2]), options.tp):
-            return fused_tower(x, key_bias, layers, heads, eps, act, True, enc.tower_table)
-        layer_fn = fused_layer_block if gates.use_kernel(x, options.attn_impl) else encoder_layer_math
-        for p in layers:
-            p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-            x = layer_fn(x, *p, heads, eps, act, True, key_bias)
-        return x
+        return run_layers(self.cfg, x, key_bias, layers, options, self.encoder.tower_table)
+
+    def serving_weights(self, options: ModelOptions) -> dict:
+        """The tensors of an inference forward, by name, in the compute
+        dtype, q|k|v packed into ``[3H, H]`` (packed anew, not from the
+        packed cache), the embedding LayerNorm, which the plain ``layer_norm``
+        reads in fp32, in fp32: the inputs of :func:`serve`."""
+        emb, cast = self.embeddings, options.cast
+        w = {"word_embeddings": cast(emb.word_embeddings.weight),
+             "position_embeddings": cast(emb.position_embeddings.weight),
+             "token_type_embeddings": cast(emb.token_type_embeddings.weight),
+             "ln.weight": upcast(cast(emb.LayerNorm.weight)),
+             "ln.bias": upcast(cast(emb.LayerNorm.bias))}
+        w.update(layer_entries([layer.weights(options, fresh=True)
+                                for layer in self.encoder.layer]))
+        return w
 
     def _tp_layers(self, x, key_bias, layers, options: ModelOptions,
                    generator: Optional[torch.Generator]) -> torch.Tensor:

@@ -23,8 +23,10 @@ from torch import nn
 
 from nans_clip_tpu_torch.configs import CLIPConfig
 from nans_clip_tpu_torch.models.bert import BertModel
+from nans_clip_tpu_torch.models.bert import serve as bert_serve
 from nans_clip_tpu_torch.models.common import ModelOptions
 from nans_clip_tpu_torch.models.vit import VisualTransformer
+from nans_clip_tpu_torch.models.vit import serve as vit_serve
 
 PAD_ID = 0  # vocab.txt line 1 is [PAD]
 
@@ -90,6 +92,37 @@ class CLIP(nn.Module):
         txt = normalize(self.encode_text(texts, options))
         logits_per_image = self.logit_scale.float().exp() * img.float() @ txt.float().T
         return logits_per_image, logits_per_image.T
+
+
+TOWERS = ("image", "text")
+
+
+def serving_weights(module: CLIP, tower: str, options: ModelOptions) -> dict:
+    """The tensors of ``tower``'s inference forward, by name (the inputs of
+    :func:`serve`): ``VisualTransformer.serving_weights``, or
+    ``BertModel.serving_weights`` with ``text_projection``."""
+    if tower == "image":
+        return module.visual.serving_weights(options)
+    if tower != "text":
+        raise ValueError(f"tower must be one of {TOWERS}, got {tower!r}")
+    w = module.bert.serving_weights(options)
+    w["text_projection"] = options.cast(module.text_projection)
+    return w
+
+
+def serve(cfg: CLIPConfig, tower: str, w: dict, x: torch.Tensor,
+          options: ModelOptions) -> torch.Tensor:
+    """``encode_image`` / ``encode_text`` (deterministic, tp 1) from
+    :func:`serving_weights`: unnormalised features [B, E]. x: images [B, R,
+    R, 3] NHWC, or text ids [B, S]."""
+    if options.tp > 1 or not options.deterministic:
+        raise ValueError("serve runs the deterministic forward at tp 1")
+    if tower == "image":
+        return vit_serve(cfg.vision, w, x, options)
+    if tower != "text":
+        raise ValueError(f"tower must be one of {TOWERS}, got {tower!r}")
+    seq = bert_serve(cfg.text, w, x, (x != PAD_ID).float(), options)
+    return seq.select(1, 0) @ w["text_projection"]
 
 
 def normalize(x: torch.Tensor) -> torch.Tensor:

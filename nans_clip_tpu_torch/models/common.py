@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from nans_clip_tpu_torch.ops import gates
+from nans_clip_tpu_torch.utils.quantize import Int8Weight, is_quantized
 
 
 # The JAX CLIs' --precision values (training/params.py:79-80,
@@ -106,3 +107,31 @@ def cast_module(module: nn.Module, options: ModelOptions) -> nn.Module:
         if p.is_floating_point() and name != "logit_scale":
             p.data = p.data.to(dtype)
     return module
+
+
+# A layer's tensors by name, in ``encoder_layer_math``'s order (both towers).
+LAYER_KEYS = ("ln_1.weight", "ln_1.bias", "qkv.weight", "qkv.bias", "out.weight", "out.bias",
+              "ln_2.weight", "ln_2.bias", "fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias")
+
+
+def layer_entries(layers) -> dict:
+    """``{"layers.{i}.{key}": tensor}`` for a tower's layer tuples; an
+    ``Int8Weight`` is two entries, ``{key}.int8`` and ``{key}.scale``."""
+    out = {}
+    for i, p in enumerate(layers):
+        for key, t in zip(LAYER_KEYS, p):
+            if is_quantized(t):
+                out[f"layers.{i}.{key}.int8"], out[f"layers.{i}.{key}.scale"] = t.int8, t.scale
+            else:
+                out[f"layers.{i}.{key}"] = t
+    return out
+
+
+def layers_from(w: dict, n_layers: int) -> list:
+    """The layer tuples of :func:`layer_entries`' dict ``w``."""
+    def leaf(name):
+        if name in w:
+            return w[name]
+        return Int8Weight(w[f"{name}.int8"], w[f"{name}.scale"])
+
+    return [tuple(leaf(f"layers.{i}.{key}") for key in LAYER_KEYS) for i in range(n_layers)]

@@ -52,9 +52,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from nans_clip_tpu_torch.configs import VisionConfig
-from nans_clip_tpu_torch.models.common import ModelOptions
+from nans_clip_tpu_torch.models.common import ModelOptions, layer_entries, layers_from
 from nans_clip_tpu_torch.ops import gates
-from nans_clip_tpu_torch.ops.activations import quick_gelu
+from nans_clip_tpu_torch.ops.activations import quick_gelu, upcast
 from nans_clip_tpu_torch.ops.attention import mha
 from nans_clip_tpu_torch.ops.fused_block import (_mlp_dispatch, _reference_block,
                                                  _reference_mlp, attention_block_train,
@@ -68,21 +68,29 @@ from nans_clip_tpu_torch.parallel.tp import tp_attention_block, tp_mlp_block
 from nans_clip_tpu_torch.utils.quantize import dequantize_weight, is_quantized
 
 
+def patch_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The OIHW conv kernel ``[W, 3, p, p]`` as the patch projection's
+    ``[p*p*3, W]`` matrix (HWIO, flattened)."""
+    w, _, p, _ = weight.shape
+    return weight.permute(2, 3, 1, 0).reshape(p * p * 3, w)
+
+
+def embed_patches(images: torch.Tensor, w_flat: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, R, R, 3] NHWC -> [B, g*g, W] through the ``patch_weight`` matrix."""
+    b, r = images.shape[0], images.shape[1]
+    g = r // patch
+    x = images.reshape(b, g, patch, g, patch, 3).permute(0, 1, 3, 2, 4, 5).reshape(
+        b, g * g, patch * patch * 3)
+    return x @ w_flat
+
+
 class PatchEmbed(nn.Module):
-    """Holds the reference conv kernel ``[W, 3, p, p]`` (OIHW)."""
+    """Holds the reference conv kernel ``[W, 3, p, p]`` (OIHW); the forward
+    is :func:`embed_patches` on its :func:`patch_weight`."""
 
     def __init__(self, width: int, patch: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(width, 3, patch, patch))
-
-    def forward(self, images: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-        """[B, R, R, 3] NHWC -> [B, g*g, W]; ``weight`` is ``self.weight`` in
-        the compute dtype."""
-        w, _, p, _ = weight.shape
-        b, r = images.shape[0], images.shape[1]
-        g = r // p
-        x = images.reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3)
-        return x @ weight.permute(2, 3, 1, 0).reshape(p * p * 3, w)
 
 
 class MultiheadAttentionParams(nn.Module):
@@ -173,6 +181,54 @@ def _tp_layers(x: torch.Tensor, layers, heads: int, options: ModelOptions) -> to
     return x
 
 
+def run_layers(x: torch.Tensor, layers, heads: int, options: ModelOptions,
+               table: Optional[TowerTable] = None) -> torch.Tensor:
+    """The tower's layers on x [B, S, W] as ``ops/gates.py`` routes them
+    (the module docstring); ``table`` caches the tower kernel's pointer
+    table."""
+    w = x.shape[2]
+    if options.tp > 1:
+        return _tp_layers(x, layers, heads, options)
+    if options.deterministic and gates.tower_route(x, options.attn_impl, "image", heads, 4 * w,
+                                                   is_quantized(layers[0][2]), options.tp):
+        return fused_tower(x, None, layers, heads, 1e-5, "quick_gelu", False, table)
+    use_kernel = gates.use_kernel(x, options.attn_impl)
+    pallas = gates.pallas_route(options.attn_impl)
+    route_a = gates.bwd_route("attn_pre", options.bwd_impl)
+    route_m = gates.bwd_route("mlp_pre", options.bwd_impl)
+    for p in layers:
+        p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+        if pallas:
+            x = _pallas_layer(x, p, heads)
+        elif options.deterministic:
+            x = _layer(x, p, heads, use_kernel)
+        elif gates.layer_bwd_route(options.bwd_impl, p, x.shape[1], w, heads, 4 * w):
+            x = fused_layer_train(x, *p, heads, "quick_gelu", 1e-5, use_kernel)
+        else:
+            x = attention_block_train(x, *p[:6], None, heads, 1e-5, False,
+                                      use_kernel=use_kernel, route=route_a,
+                                      wide_tile=wide_tile(x.shape[1], w))
+            x = mlp_block_train(x, *p[6:], "quick_gelu", 1e-5, False,
+                                use_kernel=use_kernel, route=route_m)
+    return x
+
+
+def embed(images: torch.Tensor, w_flat: torch.Tensor, cls: torch.Tensor, pos: torch.Tensor,
+          patch: int) -> torch.Tensor:
+    """Patch tokens after the CLS token, plus the positional embedding:
+    [B, 1 + g*g, W], the weights in the images' dtype."""
+    x = embed_patches(images, w_flat, patch)
+    b, w = x.shape[0], x.shape[2]
+    x = torch.cat([cls.expand(b, 1, w), x], dim=1)
+    return x + pos
+
+
+def head(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+         proj: torch.Tensor) -> torch.Tensor:
+    """``ln_post`` on the CLS token, then ``proj``: [B, embed_dim]."""
+    return layer_norm(x.select(1, 0), ln_w, ln_b, 1e-5) @ proj
+
+
 def draw_ids_keep(batch: int, seq_len: int, mask_ratio: float,
                   generator: torch.Generator) -> torch.Tensor:
     """The FLIP tokens to keep, [B, int((L - 1) (1 - mask_ratio))] int64
@@ -238,44 +294,47 @@ class VisualTransformer(nn.Module):
         ``generator`` when ``mask_ratio`` > 0."""
         cast = options.cast
         images = images.to(options.dtype or self.proj.dtype)
-        b, w = images.shape[0], self.cfg.width
-        x = self.conv1(images, cast(self.conv1.weight))
-        cls = cast(self.class_embedding).to(x.dtype).expand(b, 1, w)
-        x = torch.cat([cls, x], dim=1)
-        x = x + cast(self.positional_embedding).to(x.dtype)
+        x = embed(images, patch_weight(cast(self.conv1.weight)),
+                  cast(self.class_embedding).to(images.dtype),
+                  cast(self.positional_embedding).to(images.dtype), self.cfg.patch_size)
         if ids_keep is None and mask_ratio > 0:
             if generator is None:
                 raise ValueError("mask_ratio > 0 requires a generator")
-            ids_keep = draw_ids_keep(b, x.shape[1], mask_ratio, generator)
+            ids_keep = draw_ids_keep(x.shape[0], x.shape[1], mask_ratio, generator)
         if ids_keep is not None:
             x = gather_kept(x, ids_keep)
         x = layer_norm(x, cast(self.ln_pre.weight), cast(self.ln_pre.bias), 1e-5)
-        heads = self.cfg.heads
         layers = [tuple(cast(t) for t in blk.weights()) for blk in self.transformer.resblocks]
-        if options.tp > 1:
-            x = _tp_layers(x, layers, heads, options)
-        elif options.deterministic and gates.tower_route(x, options.attn_impl, "image", heads,
-                                                         4 * w, is_quantized(layers[0][2]),
-                                                         options.tp):
-            x = fused_tower(x, None, layers, heads, 1e-5, "quick_gelu", False, self.tower_table)
-        else:
-            use_kernel = gates.use_kernel(x, options.attn_impl)
-            pallas = gates.pallas_route(options.attn_impl)
-            route_a = gates.bwd_route("attn_pre", options.bwd_impl)
-            route_m = gates.bwd_route("mlp_pre", options.bwd_impl)
-            for p in layers:
-                p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-                if pallas:
-                    x = _pallas_layer(x, p, heads)
-                elif options.deterministic:
-                    x = _layer(x, p, heads, use_kernel)
-                elif gates.layer_bwd_route(options.bwd_impl, p, x.shape[1], w, heads, 4 * w):
-                    x = fused_layer_train(x, *p, heads, "quick_gelu", 1e-5, use_kernel)
-                else:
-                    x = attention_block_train(x, *p[:6], None, heads, 1e-5, False,
-                                              use_kernel=use_kernel, route=route_a,
-                                              wide_tile=wide_tile(x.shape[1], w))
-                    x = mlp_block_train(x, *p[6:], "quick_gelu", 1e-5, False,
-                                        use_kernel=use_kernel, route=route_m)
-        x = layer_norm(x[:, 0, :], cast(self.ln_post.weight), cast(self.ln_post.bias), 1e-5)
-        return x @ cast(self.proj)
+        x = run_layers(x, layers, self.cfg.heads, options, self.tower_table)
+        return head(x, cast(self.ln_post.weight), cast(self.ln_post.bias), cast(self.proj))
+
+    def serving_weights(self, options: ModelOptions) -> dict:
+        """The tensors of an inference forward, by name, in the compute
+        dtype and in the layout the forward reads (the patch projection
+        flattened; ``ln_pre`` and ``ln_post``, which the plain ``layer_norm``
+        reads in fp32, in fp32): the inputs of :func:`serve`."""
+        cast = options.cast
+        ln = lambda t: upcast(cast(t))
+        w = {"conv1": patch_weight(cast(self.conv1.weight)),
+             "class_embedding": cast(self.class_embedding),
+             "positional_embedding": cast(self.positional_embedding),
+             "ln_pre.weight": ln(self.ln_pre.weight), "ln_pre.bias": ln(self.ln_pre.bias)}
+        w.update(layer_entries([tuple(cast(t) for t in blk.weights())
+                                for blk in self.transformer.resblocks]))
+        w.update({"ln_post.weight": ln(self.ln_post.weight),
+                  "ln_post.bias": ln(self.ln_post.bias), "proj": cast(self.proj)})
+        return w
+
+
+def serve(cfg: VisionConfig, w: dict, images: torch.Tensor, options: ModelOptions,
+          table: Optional[TowerTable] = None) -> torch.Tensor:
+    """The inference forward of :meth:`VisualTransformer.forward` (no FLIP
+    masking) from its :meth:`~VisualTransformer.serving_weights` ``w``: the
+    same functions on the same values, with no cast or reshape of a weight.
+    images: [B, R, R, 3] NHWC; returns [B, embed_dim]."""
+    images = images.to(w["proj"].dtype)
+    x = embed(images, w["conv1"], w["class_embedding"], w["positional_embedding"],
+              cfg.patch_size)
+    x = layer_norm(x, w["ln_pre.weight"], w["ln_pre.bias"], 1e-5)
+    x = run_layers(x, layers_from(w, cfg.layers), cfg.heads, options, table)
+    return head(x, w["ln_post.weight"], w["ln_post.bias"], w["proj"])

@@ -8,6 +8,23 @@ from __future__ import annotations
 import torch
 
 
+def _first_vector_math_on_one_thread() -> None:
+    """torch's CPU ``exp`` and ``erf`` call MKL's vector math. In the first
+    such call of a process, run on several intra-op threads at once, one
+    thread's chunk sometimes comes out at a lower accuracy (an exp 1e-4 off
+    where the same call is within 3e-8 ever after): a race in the library's
+    first-use set-up, which turned two fp32 twins unequal to themselves
+    (about one process in a hundred, with or without JAX imported). One
+    call on one element, here at import on one thread, does that set-up
+    before any parallel call."""
+    x = torch.zeros(1)
+    torch.exp(x)
+    torch.erf(x)
+
+
+_first_vector_math_on_one_thread()
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(1.702 x), the OpenAI-CLIP GELU approximation."""
     return x * torch.sigmoid(1.702 * x)

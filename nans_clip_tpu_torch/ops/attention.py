@@ -158,7 +158,13 @@ def attention(qkv: torch.Tensor, key_bias: Optional[torch.Tensor],
     :func:`attention_plan` says). With ``stats``, returns (ctx, stats): each
     query row's softmax max and sum, fp32 ``[2, B, H, S]``, which
     :func:`attention_bwd` takes (the kernel's instance without them, which
-    inference runs, stores nothing)."""
+    inference runs, stores nothing). While a program is exported it is the
+    operator ``nans_clip::attention`` (``ops/library.py``)."""
+    if torch.compiler.is_exporting():
+        gates.admit(not drop.active(dropout) and not stats,
+                    "attention: an exported forward takes no dropout and no statistics")
+        from nans_clip_tpu_torch.ops import library
+        return library.attention_op(qkv, key_bias, batch, heads)
     if not qkv.is_cuda:
         return attention_plain(qkv, key_bias, batch, heads, dropout, stats)
     seq, w = _admit("attention", qkv, key_bias, batch, heads, gates.MAX_SEQ)

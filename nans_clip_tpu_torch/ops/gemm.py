@@ -220,7 +220,14 @@ def linear(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     [..., N] (bf16 or fp32). CPU tensors take :func:`linear_plain`; CUDA
     tensors launch the kernel (bf16 operands; output bf16 or fp32; N a
     multiple of ``gates.GEMM_FWD_N_MULTIPLE``, K of
-    ``gates.GEMM_K_MULTIPLE``; launched as :func:`gemm_plan` says)."""
+    ``gates.GEMM_K_MULTIPLE``; launched as :func:`gemm_plan` says). While a
+    program is exported it is the operator ``nans_clip::linear``
+    (``ops/library.py``)."""
+    if torch.compiler.is_exporting():
+        gates.admit(not drop.active(dropout) and not pre_out,
+                    "gemm: an exported forward takes no dropout and no pre-activation")
+        from nans_clip_tpu_torch.ops import library
+        return library.linear_op(a, w, bias, act, residual, out_dtype)
     if not a.is_cuda:
         return linear_plain(a, w, bias, act, residual, out_dtype, dropout, pre_out)
     n, k = w.shape

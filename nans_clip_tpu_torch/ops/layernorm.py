@@ -55,7 +55,11 @@ def row_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    eps: float, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """LayerNorm over the last axis. CPU tensors take :func:`layer_norm`;
     CUDA tensors launch the kernel: ``x`` bf16 or fp32, params and output
-    bf16."""
+    bf16. While a program is exported it is the operator
+    ``nans_clip::layer_norm`` (``ops/library.py``)."""
+    if torch.compiler.is_exporting():
+        from nans_clip_tpu_torch.ops import library
+        return library.layer_norm_op(x, weight, bias, eps, out_dtype)
     if not x.is_cuda:
         return layer_norm(x, weight, bias, eps, out_dtype)
     width = x.shape[-1]

@@ -247,7 +247,14 @@ def fused_tower(x: torch.Tensor, key_bias: Optional[torch.Tensor], layers: Seque
     tensor on the card of ``len(stage_names(L, post_ln, quant_dma)) + 1``
     entries, receives the device time (ns) at the start and after each
     stage. ``quant_dma`` with int8 weights runs the dequant-ahead instance
-    (#6), with bf16 weights #4."""
+    (#6), with bf16 weights #4. While a program is exported it is the
+    operator ``nans_clip::tower`` (``ops/library.py``), which builds the
+    table itself."""
+    if torch.compiler.is_exporting():
+        gates.admit(grid is None and clock is None and not quant_dma,
+                    "tower: an exported forward takes no grid, clock or quant_dma")
+        from nans_clip_tpu_torch.ops import library
+        return library.tower(x, key_bias, layers, heads, eps, act, post_ln)
     ahead = quant_dma and _admit_qdma(x, layers)
     if not x.is_cuda:
         return tower_math(x, key_bias, layers, heads, eps, act, post_ln)

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import copy
 import itertools
+from typing import Optional
 
 import torch
 from torch import nn
@@ -97,6 +98,18 @@ def tower_quantized(module: nn.Module, tower: str) -> bool:
     layers, leaves = _tower_layers(module, tower)
     path, name = leaves[0]
     return is_quantized(getattr(layers[0].get_submodule(path), name))
+
+
+def quantize_mode(module: nn.Module) -> Optional[str]:
+    """The ``--quantize`` mode of a ``CLIP`` module's weights, as engines
+    record it: None, ``int8`` (both towers) or ``int8-text``; a module with
+    only its image tower quantized has no such mode (``int8-image``)."""
+    text, image = tower_quantized(module, "text"), tower_quantized(module, "image")
+    if text and image:
+        return "int8"
+    if text:
+        return "int8-text"
+    return "int8-image" if image else None
 
 
 def _sharing_copy(module: nn.Module) -> nn.Module:

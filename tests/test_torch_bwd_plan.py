@@ -266,6 +266,100 @@ def test_attention_bwd_twin_from_stats_equals_recomputation(masked, rate):
         assert torch.equal(got, want)
 
 
+_FRESH = """
+import numpy as np, torch
+same = 1
+if {port}:   # importing the port makes the first exp / erf call on one thread
+    from nans_clip_tpu_torch.ops.attention import attention_bwd_plain, attention_plain
+    torch.set_num_threads(2)
+    rs = np.random.RandomState(7)
+    b, s, heads, dh = 3, 37, 2, 64
+    qkv = torch.from_numpy(rs.randn(b * s, 3 * heads * dh).astype(np.float32))
+    dctx = torch.from_numpy(rs.randn(b * s, heads * dh).astype(np.float32))
+    ctx, st = attention_plain(qkv, None, b, heads, stats=True)   # the failing test's check
+    same = int(torch.equal(ctx, attention_plain(qkv, None, b, heads)) and all(
+        torch.equal(g, w) for g, w in zip(attention_bwd_plain(qkv, dctx, None, b, heads, stats=st),
+                                          attention_bwd_plain(qkv, dctx, None, b, heads))))
+torch.set_num_threads({threads})                             # fresh intra-op threads
+x = torch.from_numpy((np.random.RandomState(7).randn(16 * 4096) * 3).astype(np.float32)) - 12
+y1, y2 = torch.exp(x), torch.exp(x)
+ex = x.double().exp()
+print(same, int((y1 != y2).sum()), float(((y1.double() - ex) / ex).abs().max()))
+"""
+
+
+def first_exp_runs(processes: int, port: bool = True, threads: int = 8, parallel: int = 4):
+    """(twin equal to itself, elements of the first parallel ``exp`` unequal
+    to the second, the first's largest error relative to float64) in each of
+    ``processes`` fresh processes, ``parallel`` at a time; ``port``: the
+    process imports the port first (else torch and numpy only). The counts
+    in ROADMAP queue 3 (closed items A and B) are
+    ``first_exp_runs(400, port=False, parallel=3)`` and ``port=True``."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = root
+    code = _FRESH.format(port=port, threads=threads)
+    runs = []
+    for start in range(0, processes, parallel):
+        procs = [subprocess.Popen([sys.executable, "-c", code], env=env, cwd=root,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for _ in range(min(parallel, processes - start))]
+        for proc in procs:
+            out, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err
+            same, differed, rel = out.split()
+            runs.append((same == "1", int(differed), float(rel)))
+    return runs
+
+
+def test_first_exp_of_a_fresh_process_equals_later_ones():
+    """The reproduction of ROADMAP queue 3 items A and B: in a fresh process,
+    the first parallel ``torch.exp`` could return one intra-op thread's
+    chunk at MKL's low accuracy (1e-4 off; 9 processes in 400 without the
+    port's import, with or without JAX), so the twin's statistics differed
+    from its own recomputation. Importing the port makes the library's first
+    call on one thread (``ops/activations.py``); 24 fresh processes each run
+    the failing test's check first, then exp at 8 threads, equal to a second
+    call and within 2 ulps (2.4e-7 relative) of float64."""
+    runs = first_exp_runs(24)
+    assert all(same and not differed and rel < 2.4e-7 for same, differed, rel in runs), runs
+
+
+def test_importing_the_ops_makes_the_first_exp_and_erf_on_one_element():
+    """The fix itself, deterministically: in a fresh process, the first
+    ``torch.exp`` and ``torch.erf`` calls are made while the failing test's
+    module (``ops/attention.py``, through ``ops/activations.py``, which every
+    module that computes them imports) is imported, on one element (below
+    the intra-op grain, so on one thread)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = """
+import json, torch
+first = {}
+for name in ("exp", "erf"):
+    def spy(x, *a, _f=getattr(torch, name), _n=name, **k):
+        first.setdefault(_n, x.numel())
+        return _f(x, *a, **k)
+    setattr(torch, name, spy)
+import nans_clip_tpu_torch.ops.attention
+print(json.dumps(first))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = root
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.splitlines()[-1]) == {"exp": 1, "erf": 1}
+
+
 @pytest.mark.parametrize("dh", [64, 80])
 def test_attention_bwd_twin_from_stats_equals_recomputation_long(dh):
     """The same at S 577, the long pair's sequence (ViT-L-14-336): the twin

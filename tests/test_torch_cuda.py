@@ -1260,3 +1260,136 @@ def test_column_sum_forms_match_twin(dev):
         got = column_sum(x)
         assert got.shape == (cols,) and _rel_err(got, column_sum_plain(x)) <= 1e-5
         assert torch.equal(got, column_sum(x))
+
+
+# -- serving backends: CUDA graphs and engines ---------------------------------
+
+
+def _serving_model(dev, cfg):
+    from nans_clip_tpu_torch.api import model_from_config
+    from nans_clip_tpu_torch.models.common import ModelOptions
+
+    return model_from_config(cfg, seed=0, device=dev, options=ModelOptions(
+        compute_dtype="bfloat16"))
+
+
+def _serving_cfgs():
+    import dataclasses
+
+    from nans_clip_tpu_torch import configs
+
+    base = configs.load_config("ViT-B-16@RoBERTa-wwm-ext-base-chinese")
+    base2 = dataclasses.replace(base, vision=dataclasses.replace(base.vision, layers=2),
+                                text=dataclasses.replace(base.text, num_hidden_layers=2))
+    # tiny_config at the kernels' head width (64), as the tests above take it
+    tiny = configs.tiny_config()
+    tiny = dataclasses.replace(
+        tiny, vision=dataclasses.replace(tiny.vision, width=128, head_width=64),
+        text=dataclasses.replace(tiny.text, hidden_size=128, num_attention_heads=2,
+                                 intermediate_size=512))
+    return {"tiny": tiny, "base2": base2}
+
+
+def _serving_input(cfg, tower, batch, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    if tower == "image":
+        r = cfg.vision.image_resolution
+        return torch.randn(batch, r, r, 3, generator=g).to(dev)
+    ids = torch.randint(103, 20000, (batch, 52), generator=g)
+    ids[:, 0], ids[:, 20:] = 101, 0
+    ids[:, 19] = 102
+    return ids.to(dev)
+
+
+@pytest.mark.parametrize("name", ["tiny", "base2"])
+@pytest.mark.parametrize("tower", ["image", "text"])
+@pytest.mark.parametrize("batch", [1, 64])
+def test_graph_replay_equals_eager(dev, name, tower, batch):
+    """``compile_tower``'s CUDA graph gives the eager tower's bits."""
+    from nans_clip_tpu_torch.deploy import aot
+
+    cfg = _serving_cfgs()[name]
+    model = _serving_model(dev, cfg)
+    x = _serving_input(cfg, tower, batch, dev)
+    run = aot.compile_tower(model, tower, batch)
+    assert run.graph is not None and run.batch_size == batch
+    eager = aot.normalized((model.encode_image if tower == "image" else model.encode_text)(x))
+    assert torch.equal(run(x), eager)
+    assert torch.equal(run(x.cpu()), eager)   # a host input is copied in
+
+
+def test_engine_roundtrip_on_the_card(dev, tmp_path):
+    from nans_clip_tpu_torch.deploy import aot, engine
+
+    cfg = _serving_cfgs()["base2"]
+    model = _serving_model(dev, cfg)
+    for tower in ("image", "text"):
+        for batch in (1, 64):
+            program = aot.export_tower(cfg, model.options, tower, aot.tower_params(model, tower),
+                                       aot.example_input(cfg, tower, batch, device=dev))
+            ops = {str(n.target) for n in program.graph.nodes if "nans_clip" in str(n.target)}
+            assert ops == ({"nans_clip.tower.default"} if batch == 1 else
+                           {"nans_clip.linear.default", "nans_clip.attention.default",
+                            "nans_clip.layer_norm.default"})
+            path = engine.save_engine(str(tmp_path / f"{tower}{batch}.engine"), program, batch)
+            header = engine.read_header(path)
+            assert header["device_type"] == "cuda" and header["capability"] == "9.0"
+            eng = engine.load_engine(path, aot.tower_params(model, tower))
+            assert eng.graph is not None
+            x = _serving_input(cfg, tower, batch, dev, seed=1)
+            assert torch.equal(eng(x), aot.compile_tower(model, tower, batch)(x))
+
+
+def test_engine_keeps_its_pointer_table_among_other_engines(dev, tmp_path):
+    """Nine text engines at batch 1 (the tower op), each bound to its own
+    ``tower_params`` (freshly packed q|k|v: new addresses, a new pointer
+    table): the first one's graph still replays the eager bits after the
+    others are loaded and the freed memory is written over."""
+    from nans_clip_tpu_torch.deploy import aot, engine
+
+    cfg = _serving_cfgs()["base2"]
+    model = _serving_model(dev, cfg)
+    program = aot.export_tower(cfg, model.options, "text", aot.tower_params(model, "text"),
+                               aot.example_input(cfg, "text", 1, device=dev))
+    path = engine.save_engine(str(tmp_path / "text_bs1.engine"), program, 1)
+    x = _serving_input(cfg, "text", 1, dev, seed=3)
+    want = aot.compile_tower(model, "text", 1)(x)
+    engines = [engine.load_engine(path, aot.tower_params(model, "text")) for _ in range(9)]
+    assert all(len(e.tables) == 1 for e in engines)
+    junk = [torch.full((1 << 16,), -1, dtype=torch.int64, device=dev) for _ in range(64)]
+    torch.cuda.synchronize()
+    assert torch.equal(engines[0](x), want) and torch.equal(engines[-1](x), want)
+    del junk
+
+
+def test_failed_capture_raises(dev):
+    """A capture that fails raises: nothing falls back to an eager run."""
+    from nans_clip_tpu_torch.deploy import aot
+
+    def syncs(x):
+        y = x * 2
+        y.sum().item()   # a host sync: illegal while a stream is capturing
+        return y
+
+    with pytest.raises(RuntimeError, match="capture .* failed"):
+        aot.graphed(syncs, torch.ones(4, device=dev))
+
+
+def test_graph_pool_is_renewed_after_its_graphs_are_gone(dev):
+    """A model's graphs share one memory pool; once they are all freed the
+    allocator releases it, and the next capture takes a new one."""
+    import gc
+
+    from nans_clip_tpu_torch.deploy import aot
+
+    cfg = _serving_cfgs()["tiny"]
+    model = _serving_model(dev, cfg)
+    x = _serving_input(cfg, "text", 2, dev)
+    first = aot.compile_tower(model, "text", 2)
+    want = first(x)
+    del first
+    gc.collect()
+    again = aot.compile_tower(model, "text", 2)       # the pool of `first` is released
+    both = aot.compile_tower(model, "text", 4)        # shares `again`'s pool
+    assert torch.equal(again(x), want)
+    assert both(torch.cat([x, x])).shape == (4, cfg.embed_dim)

@@ -370,10 +370,17 @@ def test_native_reads_cmyk_as_pil(tmp_path):
 
 
 def test_extract_refuses_unported(tmp_path):
+    """RN50 (ROADMAP item 5) and a missing card are refused; the serialized
+    backends run (tests/test_torch_engine.py) and refuse to start without
+    their artifact."""
     base = ["--extract-text-feats", "--text-data", "x.jsonl", "--resume", "x.pt"]
+    texts = tmp_path / "t.jsonl"
+    texts.write_text(json.dumps({"text_id": 0, "text": "西湖"}) + "\n")
     for backend in ("stablehlo", "engine"):
-        with pytest.raises(ValueError, match="item 4"):
-            extract_features.main(base + ["--backend", backend, "--platform", "cpu"])
+        with pytest.raises(SystemExit, match="needs --text-artifact"):
+            extract_features.main(["--extract-text-feats", "--text-data", str(texts),
+                                   "--resume", "", "--tiny-model", "--precision", "fp32",
+                                   "--backend", backend, "--platform", "cpu"])
     with pytest.raises(NotImplementedError, match="item 5"):
         extract_features.main(base[:-1] + ["", "--vision-model", "RN50", "--platform", "cpu"])
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -77,7 +77,7 @@ def test_bucket():
 def test_health(server):
     with urllib.request.urlopen(server + "/health") as r:
         obj = json.loads(r.read())
-    assert obj["status"] == "ok" and obj["backend"] == "eager" and obj["device"] == "cpu"
+    assert obj["status"] == "ok" and obj["backend"] == "jit" and obj["device"] == "cpu"
     assert obj["model"] == "tiny" and obj["dynamic_batching"] is True
 
 
@@ -382,3 +382,99 @@ def test_speed_benchmark_cli_on_cpu(tmp_path):
                               "--quantize", "int8-text", "--batch-sizes", "1", "--n", "2",
                               "--warmup", "0"])
     assert set(q) == {"image@bs1", "text@bs1"}
+
+
+# -- the engine backend ----------------------------------------------------------
+
+def _build_engines(d, towers="text,image", batch_sizes="2", extra=()):
+    from nans_clip_tpu_torch.deploy import engine
+
+    engine.main(["build", "--tiny-model", "--device", "cpu", "--towers", towers,
+                 "--batch-sizes", batch_sizes, "--precision", "fp32", "--out-dir", d, *extra])
+
+
+def test_engine_backend_matches_jit(tmp_path, service):
+    """Engines built by the CLI, served with no capture or export in the
+    service: 3 texts through batch-2 engines (padded and chunked) equal the
+    jit backend's features."""
+    d = str(tmp_path / "engines")
+    _build_engines(d)
+    eng_service = ClipService(_model(), max_batch=4, engine_dir=d)
+    assert eng_service._engine_batch == {"text": 2, "image": 2}
+    assert eng_service.backend == "engine" and eng_service._coalesce_cap("text") == 2
+    texts = ["西湖", "南宋", "古籍"]
+    np.testing.assert_allclose(eng_service.encode_texts(texts), service.encode_texts(texts),
+                               **TOL)
+    imgs = [_jpeg_b64(np.random.RandomState(1))]
+    np.testing.assert_allclose(eng_service.encode_images(imgs), service.encode_images(imgs),
+                               **TOL)
+    # no tower was added beside the engines
+    assert set(eng_service._fns) == {("text", 2), ("image", 2)}
+    srv = make_server(eng_service, "127.0.0.1", 0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        with urllib.request.urlopen(url + "/health") as r:
+            assert json.loads(r.read())["backend"] == "engine"
+        feats = np.asarray(_post(url, "/encode_text", {"texts": texts})["features"], np.float32)
+        np.testing.assert_allclose(feats, service.encode_texts(texts), **TOL)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    # the service reads its quantize mode from the model's weights: int8-text
+    # engines serve an int8-text model, and a mismatch either way fails at
+    # startup, not at request time
+    q_model = _model().quantize("int8", ("text",))
+    qd = str(tmp_path / "engines_q")
+    _build_engines(qd, towers="text", extra=("--quantize", "int8-text"))
+    q_service = ClipService(q_model, max_batch=4, engine_dir=qd)
+    np.testing.assert_allclose(q_service.encode_texts(texts),
+                               ClipService(q_model, max_batch=4).encode_texts(texts), **TOL)
+    with pytest.raises(ValueError, match="quantize: built None, server has int8-text"):
+        ClipService(q_model, engine_dir=d)
+    with pytest.raises(ValueError, match="quantize: built int8-text, server has None"):
+        ClipService(_model(), engine_dir=qd)
+
+
+def test_server_rejects_mismatched_engine_headers(tmp_path):
+    """Every convention the header records fails fast at startup: model
+    name, text context length, the BatchNorm-statistics digest; the batch
+    size comes from the header, not the file name."""
+    import os
+    import shutil
+
+    from nans_clip_tpu_torch.deploy import engine
+    from tests.test_torch_engine import rewrite_header
+
+    d = str(tmp_path / "engines")
+    _build_engines(d, towers="text")
+
+    def corrupt(key, value):
+        dd = str(tmp_path / f"bad_{key}")
+        os.makedirs(dd)
+        rewrite_header(engine.engine_path(d, "text", 2), engine.engine_path(dd, "text", 2),
+                       meta={key: value})
+        return dd
+
+    for key, value, frag in [("model", "ViT-H-14@RoBERTa-wwm-ext-large-chinese", "model"),
+                             ("context_length", 64, "context_length"),
+                             ("batch_stats_digest", "deadbeef", "BN running stats")]:
+        with pytest.raises(ValueError, match=frag):
+            ClipService(_model(), engine_dir=corrupt(key, value))
+    dd = str(tmp_path / "renamed")
+    shutil.copytree(d, dd)
+    os.rename(engine.engine_path(dd, "text", 2), engine.engine_path(dd, "text", 8))
+    svc = ClipService(_model(), engine_dir=dd)
+    assert set(svc._fns) == {("text", 2)}
+    with pytest.raises(ValueError, match="no engine for the image tower"):
+        svc.encode_images([_jpeg_b64(np.random.RandomState(2))])
+    with pytest.raises(ValueError, match="no .* files"):
+        ClipService(_model(), engine_dir=str(tmp_path))
+
+
+def test_jit_backend_on_cpu_runs_live(service):
+    """On the CPU the jit backend runs the towers eagerly: no graph, no
+    captured tower kept."""
+    service.encode_texts(["一"])
+    assert service.backend == "jit" and not service._fns

@@ -274,6 +274,16 @@ def test_clipmodel_quantize_matches_jax():
         tm.quantize("int4")
 
 
+def test_quantize_mode_reads_the_weights():
+    """The ``--quantize`` mode engines record, read off a module's weights
+    (what the daemon and ``speed_benchmark`` hold engines against)."""
+    _, tm = _models(seed=2)
+    assert tq.quantize_mode(tm.module) is None
+    assert tq.quantize_mode(tm.quantize("int8", towers=("text",)).module) == "int8-text"
+    assert tq.quantize_mode(tm.quantize().module) == "int8"
+    assert tq.quantize_mode(tm.quantize("int8", towers=("image",)).module) == "int8-image"
+
+
 def test_quantize_errors_modes_and_scales():
     _, tm = _models(seed=2)
     text_only = tm.quantize("int8", towers=("text",))
