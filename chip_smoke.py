@@ -206,6 +206,25 @@ Phases, each printing its lines before the last line:
    device's idle share of each (CUDA-only profiler over 20 calls); one
    ``{"phase15": "serving backends", ...}`` line.
 
+16. RN50@RBT3-chinese at full width (224 px, layers [3, 4, 6, 3], width 64,
+   2,048 features, 32 pool heads, embed 1024; RBT3 3 x 768), seeded weights
+   (bn3 scales 1, running statistics from 16 training-mode forwards), bf16,
+   saved as a .pt and loaded through ``load_from_name``: ``get_similarity``
+   at 256 against the fp32 plain route (0.05; pairs/s, #3's launches in the
+   text tower); CUDA graphs of the image tower at 1, 8, 32 and 64 against
+   eager; ``deploy.engine build`` at 1, 8, 32, 64 (the image engines'
+   ``batch_stats_digest``, engines against eager); ``extract_features`` on
+   phase 15's split, ``jit`` and ``engine`` (final chunks within 0.01 of a
+   full batch); a train step at 128 on the kernel and the plain route (loss
+   0.01, cosines 0.99), 8 steps (the loss falls; ms, pairs/s, peak memory),
+   one ``accum_freq=2`` step (the running statistics equal two
+   training-mode forwards of the microbatches in order), two
+   ``freeze_vision`` steps (the image tower bit-equal); the daemon and
+   ``extract_features`` refusing the engines after the statistics moved;
+   ``training.main`` on phase 13's split, 3 steps against 2 + a resume
+   (bit-equal, statistics included); latency p50/p95/p99 by backend at 1, 8
+   and 32 on both clocks with the idle share; one ``{"phase16": ...}`` line.
+
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
 nothing branches on them.
@@ -4166,6 +4185,388 @@ def phase_backends(torch, dev, tmp, ckpt):
     return line
 
 
+RN_VISION, RN_TEXT = "RN50", "RBT3-chinese"
+RN_BATCH, RN_TRAIN_BATCH, RN_STEPS, RN_CLI_STEPS = 256, 128, 8, 3
+# the steps' learning rate: at 1e-3 (phase 7's) the loss of RN50's 8 steps on
+# one batch spiked at step 5 and ended only 0.009 below step 1 (on an H100)
+RN_LR = 3e-4
+RN_LOGIT_BOUND = 0.05   # phase 5's bound, here against the fp32 plain route
+
+
+def phase_rn50(torch, dev, tmp, split=None, backend_split=None):
+    """Phase 16: RN50@RBT3-chinese at full width (224 px, layers [3, 4, 6, 3],
+    width 64, 2,048 features, 32 pool heads, embed 1024; RBT3 3 x 768), seeded
+    weights, bf16: get_similarity, training (steps, accumulation, freezing),
+    the training CLI with a resume, extract_features on jit and engine, CUDA
+    graphs, engines and their statistics digest, latency by backend. ``split``
+    and ``backend_split``: phase 13's and phase 15's splits, written into
+    ``tmp`` when not given (phase 16 alone)."""
+    import copy
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.deploy import aot, engine, speed_benchmark
+    from nans_clip_tpu_torch.deploy.server import ClipService
+    from nans_clip_tpu_torch.eval import extract_features
+    from nans_clip_tpu_torch.eval import make_topk_predictions as mtp
+    from nans_clip_tpu_torch.eval.model_io import load_eval_model
+    from nans_clip_tpu_torch.models.clip import batch_stats, build_clip
+    from nans_clip_tpu_torch.ops import gates
+    from nans_clip_tpu_torch.training import TrainConfig, create_train_state, make_train_step
+    from nans_clip_tpu_torch.training import main as train_main
+    from nans_clip_tpu_torch.utils.checkpoint import save_torch_checkpoint
+
+    t_phase = time.time()
+    if torch.backends.cudnn.benchmark:
+        raise AssertionError("cudnn.benchmark must stay off: graphs and eager take one algorithm")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    root = os.path.join(tmp, "rn50")
+    os.makedirs(root)
+    if split is None:
+        split = os.path.join(root, "split")
+        _write_split(split)
+    if backend_split is None:
+        backend_split = os.path.join(root, "backends")
+        os.makedirs(backend_split)
+        _write_backend_split(backend_split)
+    struct = f"{RN_VISION}@{RN_TEXT}"
+    cfg = nct.load_config(struct)
+    v, layers = cfg.vision, cfg.text.num_hidden_layers
+    assert (v.image_resolution, v.layers, v.width, v.feature_dim, v.heads, v.embed_dim) == \
+        (224, (3, 4, 6, 3), 64, 2048, 32, 1024) and (layers, cfg.text.hidden_size) == (3, 768)
+    line = {"phase16": struct, "card": _nvidia_smi()}
+    bf = nct.ModelOptions(compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(16)
+    images = torch.randn(RN_BATCH, 224, 224, 3, generator=gen).to(dev)
+    ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}"
+                                         for i in range(RN_BATCH)])).to(dev)
+
+    # (a) seeded weights as a reference-layout .pt: every block's bn3 scale 1
+    # (the init's 0 leaves each residual branch out), then running statistics
+    # from 16 training-mode forwards of seeded images (momentum 0.1)
+    t0 = time.time()
+    module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad():
+        for name, m in module.visual.named_modules():
+            if name.endswith(".bn3"):
+                m.weight.fill_(1.0)
+        for i in range(16):
+            module.encode_image(images[i % 4:128:4], bf, bn_train=True)
+    ckpt = os.path.join(root, "rn50.pt")
+    save_torch_checkpoint(ckpt, module)
+    del module
+    print(f"rn50: {struct} seeded (seed 0, bn3 scales 1, statistics from 16 training-mode "
+          f"forwards) saved in {time.time() - t0:.1f} s", flush=True)
+
+    # (b) get_similarity at batch 256 through load_from_name
+    load = lambda **kw: nct.load_from_name(ckpt, vision_model_name=RN_VISION,
+                                           text_model_name=RN_TEXT, input_resolution=224,
+                                           device=dev, options=nct.ModelOptions(**kw))[0]
+    model, ref32 = load(compute_dtype="bfloat16"), load(attn_impl="plain")
+    _reset_counts()
+    li, lt = model.get_similarity(images, ids)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in _counted().items()}
+    launches.update(_tower_counts())
+    # #3's chain in the text tower (post-LN: 2 LayerNorms, 4 products, 1
+    # attention a layer); nothing of the image tower's kernels
+    expected = {"fused_layer_block": layers, "layernorm": 2 * layers, "gemm": 4 * layers,
+                "attention": layers, "fused_attention_block": 0, "fused_mlp_block": 0,
+                "fused_bert_attention_block": 0, "fused_tower": 0, "fused_tower_int8": 0,
+                "fused_tower_int8_qdma": 0}
+    print(f"rn50: get_similarity launches {json.dumps(launches)}", flush=True)
+    if launches != expected:
+        raise AssertionError(f"launches {launches} != expected {expected}")
+    li32 = ref32.get_similarity(images, ids)[0]
+    err = float((li - li32).abs().max())
+    finite = bool(torch.isfinite(li).all()) and li.shape == (RN_BATCH, RN_BATCH)
+    spread = float(li32.std())
+    ms = _time_ms(lambda: model.get_similarity(images, ids), 5)
+    ms32 = _time_ms(lambda: ref32.get_similarity(images, ids), 2)
+    print(f"rn50: get_similarity batch {RN_BATCH}, bf16 kernel route vs fp32 plain route: max abs "
+          f"err {err:.6g} <= bound {RN_LOGIT_BOUND} (logit std {spread:.4f}); {ms:.2f} ms, "
+          f"{RN_BATCH / ms * 1e3:.1f} pairs/s (CUDA events); fp32 plain {ms32:.2f} ms",
+          flush=True)
+    if not finite or not torch.equal(lt, li.T) or err > RN_LOGIT_BOUND:
+        raise AssertionError(f"rn50 get_similarity: finite {finite}, err {err}")
+    del ref32
+    line.update(similarity={"err_vs_fp32": err, "ms": ms, "pairs_s": RN_BATCH / ms * 1e3,
+                            "fp32_plain_ms": ms32, "launches": launches})
+
+    # (c) CUDA graphs of the image tower against eager (cuDNN picks its
+    # algorithms by heuristics, cudnn.benchmark off: the same in both); engines
+    diffs = {}
+    for bs in LATENCY_BATCHES + (64,):
+        x = _backend_inputs(torch, "image", bs, seed=bs).to(dev)
+        e1, e2 = aot.normalized(model.encode_image(x)), aot.normalized(model.encode_image(x))
+        run = aot.compile_tower(model, "image", bs)
+        got = run(x)
+        diffs[f"image@{bs}"] = d = float((got - e1).abs().max())
+        print(f"rn50: compile_tower image batch {bs}: max abs diff against eager {d:.6g} (eager "
+              f"against eager {float((e1 - e2).abs().max()):.6g}); bit-equal "
+              f"{bool(torch.equal(got, e1))}", flush=True)
+        if d > DAEMON_BOUND:
+            raise AssertionError(f"rn50 graph image@{bs}: {d} from eager")
+        del run
+    engines = os.path.join(root, "engines")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "nans_clip_tpu_torch.deploy.engine", "build",
+                           "--resume", ckpt, "--vision-model", RN_VISION, "--text-model",
+                           RN_TEXT, "--towers", "image,text", "--batch-sizes",
+                           ",".join(map(str, ENGINE_BATCHES)), "--out-dir", engines], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=600)
+    build_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"rn50 engine build failed:\n{proc.stdout}\n{proc.stderr}")
+    want_digest = engine.batch_stats_digest(batch_stats(model.module))
+    digests = {bs: engine.read_header(engine.engine_path(engines, "image", bs))["meta"][
+        "batch_stats_digest"] for bs in ENGINE_BATCHES}
+    print(f"rn50: deploy.engine build of 8 engines in {build_s:.2f} s; image engines' "
+          f"batch_stats_digest {json.dumps(digests)}, the model's {want_digest}", flush=True)
+    if want_digest is None or any(d != want_digest for d in digests.values()):
+        raise AssertionError(f"rn50 engine digests {digests} != {want_digest}")
+    for bs in (1, 64):
+        x = _backend_inputs(torch, "image", bs, seed=100 + bs).to(dev)
+        eng = engine.load_engine(engine.engine_path(engines, "image", bs),
+                                 aot.tower_params(model, "image"))
+        e1, e2 = aot.normalized(model.encode_image(x)), aot.normalized(model.encode_image(x))
+        d = float((eng(x) - e1).abs().max())
+        diffs[f"engine image@{bs}"] = d
+        print(f"rn50: engine image batch {bs} against eager: max abs diff {d:.6g} (eager "
+              f"against eager {float((e1 - e2).abs().max()):.6g}) <= bound {DAEMON_BOUND}",
+              flush=True)
+        if d > DAEMON_BOUND:
+            raise AssertionError(f"rn50 engine image@{bs}: {d}")
+        del eng
+    line.update(graph_vs_eager=diffs, engine_build_s=build_s, digest=want_digest)
+
+    # (d) extract_features on phase 15's split, jit and engine
+    args = ["--extract-image-feats", "--extract-text-feats", "--image-data", backend_split,
+            "--text-data", os.path.join(backend_split, "texts.jsonl"), "--resume", ckpt,
+            "--vision-model", RN_VISION, "--text-model", RN_TEXT, "--img-batch-size",
+            str(BACKEND_BATCH), "--text-batch-size", str(BACKEND_BATCH)]
+    offline = {}
+    for backend in ("jit", "engine"):
+        outs = [os.path.join(root, f"{k}.{backend}.jsonl") for k in ("img", "txt")]
+        t0 = time.time()
+        extract_features.main(args + [
+            "--backend", backend, "--image-feat-output-path", outs[0],
+            "--text-feat-output-path", outs[1],
+            "--image-artifact", engine.engine_path(engines, "image", BACKEND_BATCH),
+            "--text-artifact", engine.engine_path(engines, "text", BACKEND_BATCH)])
+        offline[backend] = (mtp.load_feats(outs[1], "text_id")[1],
+                            mtp.load_feats(outs[0], "image_id")[1], time.time() - t0)
+    texts = [json.loads(x)["text"] for x in open(os.path.join(backend_split, "texts.jsonl"))]
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from nans_clip_tpu_torch.data.npack import NPackReader
+    from nans_clip_tpu_torch.utils.transform import image_transform
+    reader = NPackReader(os.path.join(backend_split, "imgs.npack"))
+    raws = [reader.get(k) for k in range(BACKEND_IMAGES)]
+    reader.close()
+    t = image_transform(224)
+    full = (extract_features._normalized(model.encode_text(nct.tokenize(texts[-BACKEND_BATCH:]))),
+            extract_features._normalized(model.encode_image(
+                np.stack([t(Image.open(io.BytesIO(r))) for r in raws[-BACKEND_BATCH:]]))))
+    tail = {"text": BACKEND_TEXTS % BACKEND_BATCH, "image": BACKEND_IMAGES % BACKEND_BATCH}
+    rows = {b: {"text": _max_diff(o[0][-tail["text"]:], full[0][-tail["text"]:]),
+                "image": _max_diff(o[1][-tail["image"]:], full[1][-tail["image"]:]),
+                "jit_vs_engine": max(_max_diff(o[0], offline["jit"][0]),
+                                     _max_diff(o[1], offline["jit"][1])), "s": o[2]}
+            for b, o in offline.items()}
+    print(f"rn50: extract_features, {BACKEND_IMAGES} images and {BACKEND_TEXTS} texts at batch "
+          f"{BACKEND_BATCH}: the final partial chunks against the same rows in a full batch, "
+          f"max abs diff {json.dumps(rows)} <= bound {DAEMON_BOUND}", flush=True)
+    if max(max(r["text"], r["image"], r["jit_vs_engine"]) for r in rows.values()) > DAEMON_BOUND:
+        raise AssertionError(f"rn50 extract_features rows: {rows}")
+    line["extract"] = rows
+
+    # (e) training at batch 128: kernel route against plain, 8 steps, accumulation, freezing
+    tr_images, tr_ids = images[:RN_TRAIN_BATCH], ids[:RN_TRAIN_BATCH]
+    tcfg = TrainConfig(lr=RN_LR, warmup=2, max_steps=100)
+    fresh = lambda: load_eval_model(RN_VISION, RN_TEXT, ckpt, "fp32", device=dev).module
+    state = create_train_state(fresh(), tcfg, device=dev)
+    plain_state = create_train_state(copy.deepcopy(state.module), tcfg, device=dev)
+    opts = dict(compute_dtype="bfloat16", deterministic=False)
+    kernel_step = make_train_step(cfg, tcfg, nct.ModelOptions(**opts))
+    plain_step = make_train_step(cfg, tcfg, nct.ModelOptions(attn_impl="plain", **opts))
+    plain_state, pm = plain_step(plain_state, tr_images, tr_ids, 7)
+    plain_loss = float(pm["loss"])
+    plain_grads = {n: p.grad for n, p in plain_state.module.named_parameters()}
+    del plain_state
+    counted = _cli_counted()
+    full_route = {k: gates.bwd_route(k, "auto") == "fullgrad" for k in gates.BWD_ROUTE}
+    step_expected = {"fused_bert_attention_block": layers, "fused_mlp_block": layers,
+                     "fused_attention_block": 0, "fused_layer_block": 0, "fused_tower": 0,
+                     "fused_bert_attention_block_bwd_fullgrad": layers * full_route["attn_post"],
+                     "fused_bert_attention_block_bwd": layers * (not full_route["attn_post"]),
+                     "fused_mlp_block_bwd_fullgrad": layers * full_route["mlp_post"],
+                     "fused_mlp_block_bwd": layers * (not full_route["mlp_post"]),
+                     "fused_attention_block_bwd_fullgrad": 0, "fused_attention_block_bwd": 0}
+    losses, events = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cli_reset()
+    for i in range(RN_STEPS):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, metrics = kernel_step(state, tr_images, tr_ids, 7 if i == 0 else 100 + i)
+        ev[1].record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+        if i == 0:
+            torch.cuda.synchronize()
+            per_step = _cli_counts()
+            loss0 = float(metrics["loss"])
+            cos = {n: _cos(p.grad, plain_grads[n]) for n, p in state.module.named_parameters()
+                   if not n.endswith(("key.bias", "k_proj.bias"))}
+            worst = min(cos, key=cos.get)
+            print(f"rn50: train step batch {RN_TRAIN_BATCH}, kernel vs plain route: loss "
+                  f"{loss0:.6f} vs {plain_loss:.6f} (|diff| {abs(loss0 - plain_loss):.3g} <= "
+                  f"{STEP_LOSS_BOUND}); gradient cosine >= {cos[worst]:.6f} ({worst}) over "
+                  f"{len(cos)} tensors, bound {GRAD_COS_BOUND}; launches of one step "
+                  f"{json.dumps({k: v for k, v in per_step.items() if v})}", flush=True)
+            if abs(loss0 - plain_loss) > STEP_LOSS_BOUND or cos[worst] < GRAD_COS_BOUND \
+                    or any(per_step[k] != n for k, n in step_expected.items()):
+                raise AssertionError(f"rn50 step: loss {loss0} vs {plain_loss}, {worst} "
+                                     f"{cos[worst]}, launches {per_step} vs {step_expected}")
+            del plain_grads
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(x) for x in losses]
+    train_ms = sum(step_ms[1:]) / (RN_STEPS - 1)
+    print(f"rn50: {RN_STEPS} steps at batch {RN_TRAIN_BATCH}: loss "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; steps 2-{RN_STEPS} {train_ms:.2f} ms a step, "
+          f"{RN_TRAIN_BATCH / train_ms * 1e3:.1f} pairs/s; peak memory {peak / 2 ** 30:.3f} GiB; "
+          f"{_nvidia_smi()}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"rn50: the loss did not fall: {losses}")
+    trained = os.path.join(root, "rn50_trained.pt")
+    save_torch_checkpoint(trained, state.module)
+    line["train"] = {"losses": losses, "step_ms": train_ms,
+                     "pairs_s": RN_TRAIN_BATCH / train_ms * 1e3, "peak_gib": peak / 2 ** 30,
+                     "launches": per_step}
+    del state
+
+    # accum_freq=2: the statistics fold in once a microbatch, in order
+    acc_cfg = dataclasses.replace(tcfg, accum_freq=2)
+    st = create_train_state(fresh(), acc_cfg, device=dev)
+    twin, twice = copy.deepcopy(st.module), copy.deepcopy(st.module)
+    st, _ = make_train_step(cfg, acc_cfg, nct.ModelOptions(**opts))(st, tr_images, tr_ids, 3)
+    half = RN_TRAIN_BATCH // 2
+    with torch.no_grad():
+        for j in range(2):
+            twin.encode_image(tr_images[j * half:(j + 1) * half], nct.ModelOptions(**opts),
+                              bn_train=True)
+            for _ in range(2):
+                twice.encode_image(tr_images[j * half:(j + 1) * half],
+                                   nct.ModelOptions(**opts), bn_train=True)
+    got, want, dbl = (batch_stats(m) for m in (st.module, twin, twice))
+    acc_err = max(float((got[k] - want[k]).abs().max()) for k in got)
+    dbl_err = max(float((got[k] - dbl[k]).abs().max()) for k in got)
+    scale = max(float(t.abs().max()) for t in want.values())
+    bit = all(torch.equal(got[k], want[k]) for k in got)
+    print(f"rn50: accum_freq 2 step: running statistics against two training-mode forwards of "
+          f"the microbatches in order: max abs diff {acc_err:.6g} (bit-equal {bit}; <= "
+          f"{1e-5 * scale:.3g}); against each microbatch counted twice {dbl_err:.6g}", flush=True)
+    if acc_err > 1e-5 * scale or dbl_err <= 1e-5 * scale:
+        raise AssertionError(f"rn50 accum statistics: {acc_err}, twice {dbl_err}")
+    del st, twin, twice
+
+    # freeze_vision: two steps leave the statistics and the visual parameters bit-equal
+    fz_cfg = dataclasses.replace(tcfg, freeze_vision=True)
+    st = create_train_state(fresh(), fz_cfg, device=dev)
+    before = {k: t.clone() for k, t in st.module.visual.state_dict().items()}
+    fz_step = make_train_step(cfg, fz_cfg, nct.ModelOptions(**opts))
+    for i in range(2):
+        st, _ = fz_step(st, tr_images, tr_ids, i)
+    frozen = all(torch.equal(before[k], t) for k, t in st.module.visual.state_dict().items())
+    print(f"rn50: freeze_vision, 2 steps: visual parameters and statistics bit-equal {frozen}",
+          flush=True)
+    if not frozen:
+        raise AssertionError("rn50 freeze_vision moved the image tower")
+    del st, before
+
+    # (f) the daemon and extract_features refuse the engines for the trained statistics
+    moved = load_eval_model(RN_VISION, RN_TEXT, trained, "bf16", device=dev)
+    refused = []
+    try:
+        ClipService(moved, engine_dir=engines)
+    except ValueError as e:
+        refused.append("batch_stats_digest" in str(e))
+    try:
+        extract_features.main(["--extract-image-feats", "--image-data", backend_split,
+                               "--resume", trained, "--vision-model", RN_VISION, "--text-model",
+                               RN_TEXT, "--img-batch-size", str(BACKEND_BATCH), "--backend",
+                               "engine", "--image-artifact",
+                               engine.engine_path(engines, "image", BACKEND_BATCH),
+                               "--image-feat-output-path", os.path.join(root, "x.jsonl")])
+    except SystemExit as e:
+        refused.append("BN running stats" in str(e))
+    accepted = ClipService(model, engine_dir=engines).backend == "engine"
+    print(f"rn50: after 8 train steps the daemon and extract_features refuse the old engines: "
+          f"{refused}; the daemon accepts them for their own checkpoint: {accepted}", flush=True)
+    if refused != [True, True] or not accepted:
+        raise AssertionError(f"rn50 engine refusals {refused}, accepted {accepted}")
+    del moved
+
+    # (g) the training CLI on phase 13's split, with a resume
+    cli = ["--train-data", split, "--vision-model", RN_VISION, "--text-model", RN_TEXT,
+           "--batch-size", str(RN_TRAIN_BATCH), "--warmup", "2", "--log-interval", "1",
+           "--num-workers", "8", "--seed", "0", "--logs", os.path.join(root, "logs")]
+    deterministic = torch.backends.cudnn.deterministic   # the CLI sets it for a ResNet
+    t0 = time.time()
+    straight = train_main.main(cli + ["--name", "S", "--max-steps", str(RN_CLI_STEPS)])
+    train_main.main(cli + ["--name", "R", "--max-steps", "2", "--save-step-frequency", "2"])
+    resumed = train_main.main(cli + ["--name", "R", "--max-steps", str(RN_CLI_STEPS),
+                                     "--resume", "step_2"])
+    cli_s = time.time() - t0
+    torch.backends.cudnn.deterministic = deterministic
+    a, b = straight.module.state_dict(), resumed.module.state_dict()
+    diff = [k for k in a if not torch.equal(a[k], b[k])]
+    cli_losses = {n: [r["loss"] for r in _train_records(os.path.join(root, "logs"), n)]
+                  for n in ("S", "R")}
+    print(f"rn50: training.main {struct} batch {RN_TRAIN_BATCH}: {RN_CLI_STEPS} steps straight "
+          f"and 2 + step_2 checkpoint + resume in {cli_s:.1f} s; losses {json.dumps(cli_losses)}; "
+          f"parameters and running statistics bit-equal: {not diff} ({len(diff)} of {len(a)} "
+          f"tensors differ)", flush=True)
+    if diff or cli_losses["S"] != cli_losses["R"] or len(cli_losses["S"]) != RN_CLI_STEPS:
+        raise AssertionError(f"rn50 CLI resume: {diff[:5]} {cli_losses}")
+    shutil.rmtree(os.path.join(root, "logs"))
+    del straight, resumed, a, b
+    line["cli"] = {"losses": cli_losses["S"], "s": cli_s}
+
+    # (h) latency by backend, both clocks, and the device's idle share
+    latency, idle = {}, {}
+    for backend in ("jit", "aot", "engine"):
+        print(f"rn50: latency, backend {backend}, {_nvidia_smi()}", flush=True)
+        latency[backend] = speed_benchmark.bench_model(
+            model, LATENCY_BATCHES, n=30, warmup=3, label=f"{RN_VISION} bf16", backend=backend,
+            engine_dir=engines)
+        for tower in ("image", "text"):
+            for bs in LATENCY_BATCHES:
+                x = _backend_inputs(torch, tower, bs, seed=7).to(dev)
+                call = speed_benchmark.tower_call(model, tower, bs, backend, engines)
+                idle[f"{backend} {tower}@{bs}"] = _idle_share(torch, lambda: call(x), 20, root)
+        print(f"rn50: device idle share, backend {backend}: "
+              f"{json.dumps({k: round(v, 4) for k, v in idle.items() if k.startswith(backend)})}",
+              flush=True)
+    line["latency"] = {b: {k: {"p50": s["median"], "p95": s["p95"], "p99": s["p99"],
+                               "host_p50": s["host"]["median"], "host_p95": s["host"]["p95"],
+                               "host_p99": s["host"]["p99"]} for k, s in r.items()}
+                       for b, r in latency.items()}
+    line["idle_share"] = idle
+    shutil.rmtree(root)
+    line["phase_s"] = time.time() - t_phase
+    print(f"rn50: phase 16 in {line['phase_s']:.1f} s", flush=True)
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def main() -> int:
     if not (ROOT / "nans_clip_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -4223,6 +4624,7 @@ def main() -> int:
         phase_eval(torch, dev, tmp, cli["checkpoints"], cli["lora"])
         phase_backends(torch, dev, tmp, os.path.join(cli["checkpoints"], "epoch1.pt"))
         shutil.rmtree(cli["checkpoints"])
+        phase_rn50(torch, dev, tmp, os.path.join(tmp, "split"), os.path.join(tmp, "backends"))
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")

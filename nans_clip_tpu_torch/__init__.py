@@ -1,9 +1,9 @@
 """nans_clip_tpu_torch: the PyTorch/CUDA port of ``nans_clip_tpu``.
 
-Chinese-CLIP feature extraction (ViT image tower, Chinese BERT text tower)
-on one NVIDIA H100, with the JAX package's TPU kernels replaced by kernels
-written by hand for Hopper (``csrc/``, built by ``ops/_build.py`` on first
-use). Imports torch and numpy, never jax.
+Chinese-CLIP feature extraction (ViT or ModifiedResNet image tower, Chinese
+BERT text tower) on one NVIDIA H100, with the JAX package's TPU kernels
+replaced by kernels written by hand for Hopper (``csrc/``, built by
+``ops/_build.py`` on first use). Imports torch and numpy, never jax.
 """
 
 __version__ = "0.1.0"

@@ -60,8 +60,10 @@ class CLIPModel:
     def quantize(self, mode: str = "int8", towers=("text", "image")) -> "CLIPModel":
         """Weight-only int8 serving copy (``utils/quantize.py``): the
         whole-tower kernel then streams half the weight bytes a call; routes
-        other than the tower kernel dequantize on entry. Returns a NEW model
-        that shares every tensor it did not quantize; ``self`` is unchanged."""
+        other than the tower kernel dequantize on entry. A ResNet image tower
+        (RN50) stays in the compute dtype, as the JAX package leaves it.
+        Returns a NEW model that shares every tensor it did not quantize;
+        ``self`` is unchanged."""
         if mode != "int8":
             raise ValueError(f"unsupported quantize mode: {mode!r}")
         from nans_clip_tpu_torch.utils.quantize import quantize_for_serving

@@ -1,8 +1,8 @@
-"""Feature-pair throughput of ViT-B/16 + RoBERTa-base in bf16 on the card
-(counterpart of the repository's root ``bench.py``, which measures the JAX
-package).
+"""Feature-pair throughput of a published model (ViT-B/16 + RoBERTa-base by
+default) in bf16 on the card (counterpart of the repository's root
+``bench.py``, which measures the JAX package).
 
-    python -m nans_clip_tpu_torch.bench [--batch 4096] [--iters 8]
+    python -m nans_clip_tpu_torch.bench [--model RN50] [--batch 4096] [--iters 8]
     python -m nans_clip_tpu_torch.bench --device cpu --tiny-model --batch 8
 
 Prints one JSON line ``{"metric", "value", "unit", "vs_baseline", "detail"}``:
@@ -43,12 +43,39 @@ def _tower_flops(seq: int, width: int, layers: int) -> float:
     return layers * (24.0 * seq * width * width + 4.0 * seq * seq * width)
 
 
+def resnet_flops(v: configs.ResNetConfig) -> float:
+    """Forward operations of one image through a ModifiedResNet: 2 k^2 Cin
+    Cout a convolution's output pixel (the stem, then each bottleneck's
+    three and its downsample, strided blocks pooling before conv3), and the
+    attention pool's four projections and its single-query attention."""
+    from nans_clip_tpu_torch.models.resnet import blocks
+
+    def conv(hw, k, cin, cout):
+        return 2.0 * hw * hw * k * k * cin * cout
+
+    w, r = v.width, v.image_resolution // 2
+    flops = conv(r, 3, 3, w // 2) + conv(r, 3, w // 2, w // 2) + conv(r, 3, w // 2, w)
+    r //= 2
+    for _, _, inplanes, planes, stride in blocks(v):
+        out = r // stride
+        flops += conv(r, 1, inplanes, planes) + conv(r, 3, planes, planes)
+        flops += conv(out, 1, planes, 4 * planes)
+        if stride > 1 or inplanes != 4 * planes:
+            flops += conv(out, 1, inplanes, 4 * planes)
+        r = out
+    c, tokens = v.feature_dim, r * r + 1
+    return flops + 2.0 * (1 + 2 * tokens) * c * c + 4.0 * tokens * c + 2.0 * c * v.embed_dim
+
+
 def pair_flops(cfg: configs.CLIPConfig, text_seq: int = TEXT_LEN) -> float:
-    """Forward operations of one (image, text) pair of a ViT CLIP."""
+    """Forward operations of one (image, text) pair of a CLIP."""
     v, t = cfg.vision, cfg.text
-    s_img = (v.image_resolution // v.patch_size) ** 2 + 1
-    img = _tower_flops(s_img, v.width, v.layers)
-    img += 2.0 * s_img * (3 * v.patch_size ** 2) * v.width + 2.0 * v.width * cfg.embed_dim
+    if cfg.is_resnet:
+        img = resnet_flops(v)
+    else:
+        s_img = (v.image_resolution // v.patch_size) ** 2 + 1
+        img = _tower_flops(s_img, v.width, v.layers)
+        img += 2.0 * s_img * (3 * v.patch_size ** 2) * v.width + 2.0 * v.width * cfg.embed_dim
     txt = _tower_flops(text_seq, t.hidden_size, t.num_hidden_layers)
     return img + txt + 2.0 * t.hidden_size * cfg.embed_dim
 
@@ -108,12 +135,14 @@ def run(device="cuda", cfg: Optional[configs.CLIPConfig] = None, batch: int = BA
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
+    p.add_argument("--model", default="ViT-B-16", choices=configs.available_models(),
+                   help="a published model name (its Vision@Text pair)")
     p.add_argument("--tiny-model", action="store_true", help="configs.tiny_config()")
     p.add_argument("--batch", type=int, default=BATCH)
     p.add_argument("--iters", type=int, default=ITERS)
     args = p.parse_args(argv)
-    result = run(args.device, configs.tiny_config() if args.tiny_model else None, args.batch,
-                 args.iters)
+    cfg = configs.tiny_config() if args.tiny_model else configs.config_for_name(args.model)[0]
+    result = run(args.device, cfg, args.batch, args.iters)
     print(json.dumps(result), flush=True)
     return result
 

@@ -41,9 +41,10 @@ class VisionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
-    """ModifiedResNet vision tower (reference clip/model.py:106-168).
-    Parsed so every published config loads; the tower itself is not
-    ported yet."""
+    """ModifiedResNet vision tower (reference clip/model.py:106-168;
+    ``models/resnet.py``): ``layers`` blocks a stage, stem width ``width``,
+    ``feature_dim`` (32 x width) channels into the attention pool of
+    ``heads`` heads of ``head_width``."""
 
     embed_dim: int
     image_resolution: int

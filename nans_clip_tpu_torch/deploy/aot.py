@@ -19,8 +19,9 @@ compiled, fixed-shape program is a captured CUDA graph:
   ``export_stablehlo`` counterpart); :func:`load_program` reads it back as
   ``fn(params, x)``. The program's weights are :func:`tower_params`: the
   compute dtype's tensors in the layout the kernels read (q|k|v packed, the
-  patch projection flattened), so no weight is cast or concatenated in a
-  call. On the card the program calls the kernels as the registered
+  patch projection flattened, a ResNet's convolution weights channels-last
+  and its BatchNorm running statistics among them), so no weight is cast or
+  concatenated in a call. On the card the program calls the kernels as the registered
   operators of ``ops/library.py``. The example inputs that
   ``torch.export.save`` would store (the weights among them) are dropped
   before saving. The ``--attn-impl pallas`` route (the flash kernels are
@@ -139,8 +140,16 @@ def tower_params(model, tower: str) -> dict:
     (``models/clip.py::serving_weights``), on the model's device."""
     from nans_clip_tpu_torch.models.clip import serving_weights
 
-    return {k: v.detach().contiguous() for k, v in
+    return {k: _dense(v.detach()) for k, v in
             serving_weights(model.module, tower, model.options).items()}
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, a channels-last convolution weight (``models/
+    resnet.py``) kept channels-last, so that cuDNN converts no weight a call."""
+    if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last):
+        return t
+    return t.contiguous()
 
 
 def tower_function(cfg, options, tower: str, normalize_out: bool = True):

@@ -80,8 +80,13 @@ def environment(device_type: str) -> dict:
 
 def batch_stats_digest(batch_stats) -> Optional[str]:
     """Fingerprint of a tower's BatchNorm running statistics (a dict or list
-    of tensors), which a ResNet engine would bake in; None for stat-less
-    (ViT) models, whose engines hold none."""
+    of tensors; ``models/clip.py::batch_stats``); None for stat-less (ViT)
+    models. A ResNet image engine records the statistics of the checkpoint
+    it was built from, and the daemon and ``extract_features`` refuse it for
+    a model whose statistics differ, as the JAX package refuses its engines,
+    which bake them in. (Here they are inputs of the program like the
+    weights, so the check holds an engine to the checkpoint it was built
+    for.)"""
     if not batch_stats:
         return None
     leaves = list(batch_stats.values()) if isinstance(batch_stats, dict) else list(batch_stats)
@@ -250,6 +255,8 @@ def main(argv=None):
         return
 
     from nans_clip_tpu_torch.eval.model_io import load_eval_model
+    from nans_clip_tpu_torch.models.clip import batch_stats
+    from nans_clip_tpu_torch.utils.quantize import quantize_mode
 
     cfg = None
     if args.tiny_model:
@@ -273,9 +280,11 @@ def main(argv=None):
                 meta={"tower": tower, "model": model.cfg.name,
                       "vision_model": args.vision_model, "text_model": args.text_model,
                       "precision": args.precision, "attn_impl": args.attn_impl,
-                      "quantize": args.quantize, "context_length": args.context_length,
-                      # ViT towers have no BatchNorm statistics to bake in
-                      "batch_stats_digest": None})
+                      "quantize": quantize_mode(model.module),
+                      "context_length": args.context_length,
+                      # the image tower's running statistics (None for a ViT)
+                      "batch_stats_digest": batch_stats_digest(batch_stats(model.module))
+                      if tower == "image" else None})
             print(f"built {path} in {time.time() - t0:.1f}s")
 
 

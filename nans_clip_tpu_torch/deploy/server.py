@@ -129,6 +129,7 @@ class ClipService:
         from nans_clip_tpu_torch.deploy.aot import tower_params
         from nans_clip_tpu_torch.deploy.engine import (batch_stats_digest, load_engine,
                                                        read_header)
+        from nans_clip_tpu_torch.models.clip import batch_stats
 
         params = {}
         for path in sorted(glob.glob(f"{engine_dir.rstrip('/')}/*.engine")):
@@ -152,8 +153,9 @@ class ClipService:
                 mismatches.append(f"context_length: built {meta['context_length']}, server "
                                   f"has {self.context_length}")
             if meta.get("batch_stats_digest") is not None \
-                    and meta["batch_stats_digest"] != batch_stats_digest(None):
-                mismatches.append("batch_stats_digest: the engine baked different BN running "
+                    and meta["batch_stats_digest"] != batch_stats_digest(
+                        batch_stats(self.model.module)):
+                mismatches.append("batch_stats_digest: the engine was built from other BN running "
                                   "stats than this checkpoint's (ResNet engines must be "
                                   "rebuilt per checkpoint)")
             if mismatches:

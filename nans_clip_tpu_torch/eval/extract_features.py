@@ -28,8 +28,8 @@ over) and ``engine`` the engine files of ``deploy/engine.py``, given by
 bound; their final batch is padded to the artifact's batch and the padding
 rows are dropped, as the JAX CLI pads. An engine built with ``--quantize``
 or at another batch size than ``--img-batch-size`` / ``--text-batch-size``
-is refused. ``--vision-model RN50`` (ROADMAP item 5) is refused where the
-model is built.
+is refused, and so is a ResNet image engine built from a checkpoint whose
+BatchNorm running statistics differ from the model's.
 
 Usage:
   python -m nans_clip_tpu_torch.eval.extract_features \\
@@ -91,10 +91,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _load_engine_fn(path: str, params: dict, batch_size: int, tower: str):
+def _load_engine_fn(path: str, params: dict, batch_size: int, tower: str, stats: dict):
     """Bind an engine and check its conventions up front (the JAX
     ``_load_engine_fn``): an engine built with ``--quantize`` or at another
-    batch size is refused before any extraction."""
+    batch size, or whose BatchNorm statistics (``stats``, the model's) differ,
+    is refused before any extraction."""
     from nans_clip_tpu_torch.deploy.engine import batch_stats_digest, load_engine, read_header
 
     header = read_header(path)
@@ -104,8 +105,8 @@ def _load_engine_fn(path: str, params: dict, batch_size: int, tower: str):
                          "extract_features loads unquantized checkpoints: rebuild the engine "
                          "without --quantize")
     if meta.get("batch_stats_digest") is not None \
-            and meta["batch_stats_digest"] != batch_stats_digest(None):
-        raise SystemExit(f"{path}: engine baked different BN running stats than this "
+            and meta["batch_stats_digest"] != batch_stats_digest(stats):
+        raise SystemExit(f"{path}: engine was built from other BN running stats than this "
                          "checkpoint's (ResNet engines must be rebuilt per checkpoint)")
     if header.get("batch_size") is not None and header["batch_size"] != batch_size:
         flag = "img" if tower == "image" else "text"
@@ -129,7 +130,8 @@ def tower_fn(args, model, tower: str):
     params = tower_params(model, tower)
     bs = args.img_batch_size if tower == "image" else args.text_batch_size
     if args.backend == "engine":
-        return _load_engine_fn(artifact, params, bs, tower), True
+        from nans_clip_tpu_torch.models.clip import batch_stats
+        return _load_engine_fn(artifact, params, bs, tower, batch_stats(model.module)), True
     program = load_program(artifact)
     dtype = torch.float32 if tower == "image" else torch.long
     return (lambda x: program(params, torch.as_tensor(x, dtype=dtype, device=model.device))), True

@@ -1,16 +1,20 @@
 """Dual-tower CLIP container (counterpart of ``nans_clip_tpu/models/clip.py``).
 
 Reference ``CLIP`` semantics (clip/model.py:290-431): ``encode_image`` runs
-the ViT tower; ``encode_text`` builds the padding mask from ``PAD_ID``,
-runs BERT and projects the [CLS] state through ``text_projection``;
-``forward`` returns L2-normalised features and ``exp(logit_scale)``;
-``get_similarity`` returns both-way scaled logits in fp32.
-``logit_scale`` initialises to ``ln(1/0.07)``. A training forward passes
-``ModelOptions(deterministic=False)`` and a ``torch.Generator`` for the text
-tower's dropout (the vision tower has none). ``ModelOptions(tp=n)`` runs
-both towers tensor-parallel in the caller's process group of n ranks
-(``parallel/tp.py``); every rank holds the full weights and computes the
-same features.
+the ViT tower, or the ModifiedResNet (``cfg.is_resnet``: RN50,
+``models/resnet.py``) on its running BatchNorm statistics unless
+``bn_train`` asks for a training forward's batch statistics;
+``encode_text`` builds the padding mask from ``PAD_ID``, runs BERT and
+projects the [CLS] state through ``text_projection``; ``forward`` returns
+L2-normalised features and ``exp(logit_scale)``; ``get_similarity`` returns
+both-way scaled logits in fp32. ``logit_scale`` initialises to
+``ln(1/0.07)``. A training forward passes ``ModelOptions(deterministic=
+False)`` and a ``torch.Generator`` for the text tower's dropout (the vision
+tower has none). ``ModelOptions(tp=n)`` runs both towers tensor-parallel in
+the caller's process group of n ranks (``parallel/tp.py``); every rank holds
+the full weights and computes the same features. A ResNet image tower takes
+no FLIP masking (``mask_ratio`` and ``ids_keep`` do nothing, as in JAX) and
+no tensor parallelism.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from nans_clip_tpu_torch.configs import CLIPConfig
 from nans_clip_tpu_torch.models.bert import BertModel
 from nans_clip_tpu_torch.models.bert import serve as bert_serve
 from nans_clip_tpu_torch.models.common import ModelOptions
+from nans_clip_tpu_torch.models.resnet import ModifiedResNet
+from nans_clip_tpu_torch.models.resnet import serve as resnet_serve
 from nans_clip_tpu_torch.models.vit import VisualTransformer
 from nans_clip_tpu_torch.models.vit import serve as vit_serve
 
@@ -34,11 +40,9 @@ PAD_ID = 0  # vocab.txt line 1 is [PAD]
 class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
-        if cfg.is_resnet:
-            raise NotImplementedError("the ResNet vision tower (RN50) is not ported yet "
-                                      "(ROADMAP.md queue 1 item 5)")
         self.cfg = cfg
-        self.visual = VisualTransformer(cfg.vision)
+        self.visual = ModifiedResNet(cfg.vision) if cfg.is_resnet else \
+            VisualTransformer(cfg.vision)
         self.bert = BertModel(cfg.text)
         self.text_projection = nn.Parameter(torch.empty(cfg.text.hidden_size, cfg.embed_dim))
         self.logit_scale = nn.Parameter(torch.empty(()))
@@ -55,14 +59,23 @@ class CLIP(nn.Module):
         parallelism (``parallel/tp.py::reduce_partial_grads`` sums them),
         in a fixed order: every layer of the image tower, then of the text
         tower."""
+        if self.cfg.is_resnet:
+            raise ValueError("tensor parallelism over a ResNet image tower is not ported "
+                             "(ROADMAP.md queue 1 item 6; the JAX package shards no ResNet "
+                             "over its model axis)")
         return [t for layer in (*self.visual.transformer.resblocks, *self.bert.encoder.layer)
                 for t in layer.tp_partial_parameters()]
 
     def encode_image(self, images: torch.Tensor, options: ModelOptions = ModelOptions(),
                      mask_ratio: float = 0.0, generator: Optional[torch.Generator] = None,
-                     ids_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     ids_keep: Optional[torch.Tensor] = None, bn_train: bool = False,
+                     bn_update: bool = True) -> torch.Tensor:
         """images: [B, R, R, 3] NHWC. Unnormalised features [B, E]. FLIP
-        masking as :meth:`VisualTransformer.forward`."""
+        masking as :meth:`VisualTransformer.forward` (a ViT tower); BatchNorm
+        mode ``bn_train`` / ``bn_update`` as :meth:`ModifiedResNet.forward`
+        (a ResNet tower)."""
+        if self.cfg.is_resnet:
+            return self.visual(images, options, bn_train, bn_update)
         return self.visual(images, options, mask_ratio, generator, ids_keep)
 
     def encode_text(self, text_ids: torch.Tensor, options: ModelOptions = ModelOptions(),
@@ -97,9 +110,15 @@ class CLIP(nn.Module):
 TOWERS = ("image", "text")
 
 
+def batch_stats(module: CLIP) -> dict:
+    """The image tower's BatchNorm running statistics by name (the live
+    buffers): empty for a ViT tower."""
+    return dict(module.visual.named_buffers()) if module.cfg.is_resnet else {}
+
+
 def serving_weights(module: CLIP, tower: str, options: ModelOptions) -> dict:
     """The tensors of ``tower``'s inference forward, by name (the inputs of
-    :func:`serve`): ``VisualTransformer.serving_weights``, or
+    :func:`serve`): the image tower's ``serving_weights``, or
     ``BertModel.serving_weights`` with ``text_projection``."""
     if tower == "image":
         return module.visual.serving_weights(options)
@@ -118,7 +137,8 @@ def serve(cfg: CLIPConfig, tower: str, w: dict, x: torch.Tensor,
     if options.tp > 1 or not options.deterministic:
         raise ValueError("serve runs the deterministic forward at tp 1")
     if tower == "image":
-        return vit_serve(cfg.vision, w, x, options)
+        serve_image = resnet_serve if cfg.is_resnet else vit_serve
+        return serve_image(cfg.vision, w, x, options)
     if tower != "text":
         raise ValueError(f"tower must be one of {TOWERS}, got {tower!r}")
     seq = bert_serve(cfg.text, w, x, (x != PAD_ID).float(), options)

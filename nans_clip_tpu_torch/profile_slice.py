@@ -5,6 +5,7 @@ on one GPU.
     python3 -m nans_clip_tpu_torch.profile_slice --train [--batch 128] [--iters 3]
     python3 -m nans_clip_tpu_torch.profile_slice --lora [--batch 128] [--accum 4] [--iters 3]
     python3 -m nans_clip_tpu_torch.profile_slice --model ViT-H-14 --train --batch 32 --iters 2
+    python3 -m nans_clip_tpu_torch.profile_slice --model RN50 [--train]
     python3 -m nans_clip_tpu_torch.profile_slice --model ViT-L-14-336 --train --batch 32 \
         --attn-impl pallas
 
@@ -51,6 +52,10 @@ HAND_KERNEL = re.compile(
 # The library's kernels (the plain-torch glue), by what they do; the first
 # pattern that matches names the group.
 LIBRARY_GROUPS = (
+    # a ResNet image tower's (--model RN50): cuDNN's kernels and the native ones
+    ("batch norms", re.compile(r"batch_norm|bn_fw|bn_bw", re.I)),
+    ("pools", re.compile(r"pool", re.I)),
+    ("cuDNN convolutions", re.compile(r"fprop|dgrad|wgrad|convolve|conv2d|cudnn|nhwc|nchw", re.I)),
     ("cuBLAS products", re.compile(r"nvjet|gemm|cutlass|xmma|cublas", re.I)),
     ("int64 elementwise", re.compile(r"\blong\b")),   # the twins' Philox masks
     ("reductions", re.compile(r"reduce_kernel")),

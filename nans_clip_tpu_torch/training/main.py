@@ -21,6 +21,11 @@ flags (``training/params.py``) and its loop:
   ``cli.data_wait`` (the loader), ``cli.to_device``, ``cli.preprocess``,
   ``cli.train_step`` (the step's launches) and ``cli.metrics`` (the wait
   for the step's metrics on the host);
+* ``--vision-model RN50`` trains the ModifiedResNet tower
+  (``models/resnet.py``): its BatchNorm running statistics update each
+  step and are saved and restored with the checkpoints; FLIP masking does
+  nothing there (the JAX CLI's note is logged); cuDNN runs deterministic
+  algorithms, so a resume stays bit-equal;
 * every logged step and validation is also a JSON line of
   ``<logs>/<name>/metrics.jsonl`` (loss, accuracies, logit scale, data s:
   the time the step waited for the loader, batch s: the step's time until
@@ -86,9 +91,6 @@ def refuse_unported(args) -> None:
     ``ValueError`` that names the ROADMAP item, never a silent ignore."""
     if args.tp > 1 and args.pp > 1:
         raise ValueError("--tp and --pp are exclusive")
-    if args.vision_model == "RN50":
-        raise ValueError("--vision-model RN50: the ResNet image tower is not ported yet "
-                         "(ROADMAP.md queue 1 item 5)")
     for flag, on in (("--pp > 1", args.pp > 1), ("--fsdp", args.fsdp),
                      ("--distributed", args.distributed), ("--tp > 1", args.tp > 1)):
         if on:
@@ -194,6 +196,12 @@ def main(argv=None):
     with open(os.path.join(run_dir, f"params_{time.strftime('%Y%m%d%H%M%S')}.txt"), "w") as f:
         for k in sorted(vars(args)):
             f.write(f"{k}: {getattr(args, k)}\n")
+    if args.mask_ratio > 0 and cfg.is_resnet:
+        logging.info("Note: mask_ratio > 0 (FLIP) only functions for ViT towers.")
+    if cfg.is_resnet:
+        # a resumed run equals an uninterrupted one bit for bit only if
+        # cuDNN's convolution backward adds in a fixed order
+        torch.backends.cudnn.deterministic = True
 
     # data ------------------------------------------------------------------
     if not args.train_data:

@@ -12,8 +12,7 @@ What differs:
   ``--gather-with-grad``, ``--skip-aggregate``) are accepted and ignored
   with a warning (``training/main.py``), as there;
 * parsed but refused by ``training/main.py`` (ROADMAP queue 1): ``--tp`` >
-  1, ``--pp`` > 1, ``--fsdp``, ``--distributed``, ``--grad-checkpointing``
-  and ``--vision-model RN50``.
+  1, ``--pp`` > 1, ``--fsdp``, ``--distributed`` and ``--grad-checkpointing``.
 """
 
 from __future__ import annotations

@@ -208,6 +208,9 @@ def main(argv=None):
                            cfg=configs.tiny_config() if args.tiny_model else None,
                            device=device)
     cfg, module = base.cfg, base.module
+    if cfg.is_resnet:
+        raise SystemExit("LoRA targets transformer towers (ViT models); a ResNet image tower "
+                         f"({args.vision_model}) has none")
     options = ModelOptions(compute_dtype=compute_dtype_for(args.precision))
     adapters = init_lora(torch.Generator().manual_seed(args.seed), module, rank=args.lora_rank,
                          text_only=args.text_only, device=device)

@@ -28,7 +28,15 @@ What the JAX trainer does, on one card:
   used in both passes, as ``fold_in(rng, j)`` gives the JAX scan one stream
   a microbatch;
 * FLIP masking (``mask_ratio > 0``; ``models/vit.py``), drawn from the
-  step's generator;
+  step's generator; a ResNet image tower takes none, as in JAX;
+* a ResNet image tower's BatchNorm (``models/resnet.py``): a train step
+  normalises with batch statistics and folds them into the running ones
+  once a microbatch, in microbatch order (the JAX scan's carry,
+  trainer.py:233-290): in the two-pass protocol pass 1 updates them and
+  pass 2 normalises with the same batch statistics and updates nothing.
+  ``freeze_vision`` runs it on the running statistics and leaves them
+  bit-equal (:229-233); the eval step and a teacher read the running
+  statistics;
 * distillation: a frozen teacher :class:`~nans_clip_tpu_torch.api.CLIPModel`
   encodes the images without a graph, microbatched like the student, and
   ``kd_loss_weight * kd_cosine_loss`` joins the loss (:328-347);
@@ -354,10 +362,13 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
     train_options = dataclasses.replace(options, deterministic=False)
     schedule = cosine_with_warmup(tcfg.lr, tcfg.warmup, tcfg.max_steps, tcfg.skip_scheduler)
     accum = max(tcfg.accum_freq, 1)
+    # a frozen vision tower keeps its running statistics (JAX trainer.py:229-233)
+    bn_train = not tcfg.freeze_vision
 
     def step(state: TrainState, images, texts,
              generator: Union[torch.Generator, int, None] = None):
         module, opt = state.module, state.optimizer
+        resnet = module.cfg.is_resnet
         dev = module.logit_scale.device
         if isinstance(generator, int):
             generator = torch.Generator().manual_seed(generator)
@@ -367,8 +378,9 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
         if b % accum:
             raise ValueError(f"batch {b} not divisible by accum_freq {accum}")
         # no dropout from a deterministic forward, as in JAX; FLIP still draws
-        draws = draw_microbatches(accum, b // accum, module.cfg.vision.seq_len, tcfg.mask_ratio,
-                                  generator,
+        # (a ViT tower only)
+        draws = draw_microbatches(accum, b // accum, 0 if resnet else module.cfg.vision.seq_len,
+                                  0.0 if resnet else tcfg.mask_ratio, generator,
                                   generator is not None and not options.deterministic)
         count = opt.param_groups[0].get("count", 0)
         for group in opt.param_groups:
@@ -378,9 +390,14 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
         t_feats = teacher_features(teacher, images, accum) \
             if tcfg.distillation and teacher is not None else None
 
+        updated = set()   # the microbatches whose BatchNorm statistics are folded in
+
         def encode(j, im, tx):
             seed, ids_keep = draws[j]
-            return (module.encode_image(im, train_options, ids_keep=ids_keep),
+            bn_update = j not in updated
+            updated.add(j)
+            return (module.encode_image(im, train_options, ids_keep=ids_keep, bn_train=bn_train,
+                                        bn_update=bn_update),
                     module.encode_text(tx, train_options, seeded(seed)))
 
         def loss_fn(img_f, txt_f):

@@ -18,7 +18,10 @@ buffers, so ``cast_module`` (which casts parameters) leaves the scales in
 fp32, as ``cast_tree`` does in the JAX package.
 
 ``quantize_for_serving`` returns a new ``CLIP`` module; the original is
-unchanged, and the two share every tensor that was not quantized.
+unchanged, and the two share every tensor that was not quantized. A ResNet
+image tower (RN50) has no transformer layers and is left as it is, as the
+JAX ``quantize_for_serving`` leaves it: its convolutions stay in the compute
+dtype, so ``int8`` quantizes only the text tower of such a model.
 """
 
 from __future__ import annotations
@@ -80,7 +83,11 @@ def towers_for_mode(mode: str):
 
 
 def _tower_layers(module: nn.Module, tower: str):
+    """(the tower's transformer layers, their streamed leaves): no layer for
+    a ResNet image tower."""
     if tower == "image":
+        if module.cfg.is_resnet:
+            return [], _VIT_LEAVES
         return list(module.visual.transformer.resblocks), _VIT_LEAVES
     return list(module.bert.encoder.layer), _BERT_LEAVES
 
@@ -96,6 +103,8 @@ def _swap(layer: nn.Module, leaves, fn) -> None:
 
 def tower_quantized(module: nn.Module, tower: str) -> bool:
     layers, leaves = _tower_layers(module, tower)
+    if not layers:
+        return False
     path, name = leaves[0]
     return is_quantized(getattr(layers[0].get_submodule(path), name))
 
@@ -126,7 +135,8 @@ def _sharing_copy(module: nn.Module) -> nn.Module:
 @torch.no_grad()
 def quantize_for_serving(module: nn.Module, towers=("text", "image")) -> nn.Module:
     """A copy of the ``CLIP`` module whose chosen towers hold int8 weights
-    (``"text"`` = the BERT encoder, ``"image"`` = the ViT transformer)."""
+    (``"text"`` = the BERT encoder, ``"image"`` = the ViT transformer; a
+    ResNet image tower stays as it is)."""
     unknown = set(towers) - {"text", "image"}
     if unknown:
         raise ValueError(f"unknown towers: {sorted(unknown)}")

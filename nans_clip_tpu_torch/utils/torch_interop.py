@@ -6,11 +6,15 @@ state-dict layout (``visual.transformer.resblocks.{i}.attn.in_proj_weight``,
 normalized reference state dict loads with ``load_state_dict`` as it is.
 
 * :func:`load_torch_state_dict` reads a reference ``.pt``: strips
-  ``module.``, drops ``bert.pooler`` and splits the flash-attn ``Wqkv`` keys
-  (counterpart of ``nans_clip_tpu/utils/torch_interop.py:37-97``).
+  ``module.``, drops ``bert.pooler`` and the BatchNorms' ``num_batches_tracked``
+  (the port's BatchNorms count nothing, as the JAX package reads none) and
+  splits the flash-attn ``Wqkv`` keys (counterpart of
+  ``nans_clip_tpu/utils/torch_interop.py:37-97``), so a reference ``.pt`` and
+  a JAX export both load strictly.
 * :func:`state_dict_from_jax_params` turns the JAX package's parameter tree,
-  given as nested dicts of numpy arrays, into the same layout (counterpart
-  of ``nans_clip_tpu/utils/torch_interop.py:333-411``), so tests can load
+  given as nested dicts of numpy arrays, and a ResNet tower's
+  ``batch_stats`` into the same layout (counterpart of
+  ``nans_clip_tpu/utils/torch_interop.py:333-445``), so tests can load
   identical weights into both packages.
 * :func:`lora_from_jax` turns the JAX package's LoRA adapter tree into the
   port's (``models/lora.py``).
@@ -44,13 +48,14 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def normalize_state_dict(sd: dict) -> Dict[str, torch.Tensor]:
-    """Strip ``module.``, drop ``bert.pooler``, de-fuse flash-attn ``Wqkv``
-    keys, and convert every value to a float32 tensor."""
+    """Strip ``module.``, drop ``bert.pooler`` and ``num_batches_tracked``,
+    de-fuse flash-attn ``Wqkv`` keys, and convert every value to a float32
+    tensor."""
     out: Dict[str, torch.Tensor] = {}
     for k, v in sd.items():
         if k.startswith("module."):
             k = k[len("module."):]
-        if "bert.pooler" in k:
+        if "bert.pooler" in k or k.endswith("num_batches_tracked"):
             continue
         out[k] = torch.as_tensor(v).detach().to("cpu", torch.float32)
 
@@ -76,13 +81,14 @@ def normalize_state_dict(sd: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
-def state_dict_from_jax_params(params_np: dict, cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax_params(params_np: dict, cfg: CLIPConfig,
+                               batch_stats_np: Optional[dict] = None) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (nested dicts of numpy arrays, as
     ``nans_clip_tpu.models.clip.init_clip`` lays it out) -> the port's
-    state dict. ViT vision towers only; the JAX kernels are ``[in, out]``,
-    torch Linear weights ``[out, in]``."""
-    if cfg.is_resnet:
-        raise NotImplementedError("the ResNet tower is not ported yet")
+    state dict; a ResNet tower's running statistics from ``batch_stats_np``
+    (mean 0 and variance 1 where it has none, as the JAX export writes
+    them). The JAX kernels are ``[in, out]`` (HWIO for a convolution), torch
+    weights ``[out, in]`` (OIHW)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, val, transpose=False):
@@ -90,29 +96,10 @@ def state_dict_from_jax_params(params_np: dict, cfg: CLIPConfig) -> Dict[str, to
         sd[key] = torch.from_numpy(np.array(a.T if transpose else a, order="C"))
 
     v = params_np["visual"]
-    put("visual.conv1.weight", np.transpose(v["conv1"]["kernel"], (3, 2, 0, 1)))
-    put("visual.class_embedding", v["class_embedding"])
-    put("visual.positional_embedding", v["positional_embedding"])
-    put("visual.ln_pre.weight", v["ln_pre"]["scale"])
-    put("visual.ln_pre.bias", v["ln_pre"]["bias"])
-    t = v["transformer"]
-    for i in range(t["ln_1"]["scale"].shape[0]):
-        r = f"visual.transformer.resblocks.{i}"
-        put(f"{r}.ln_1.weight", t["ln_1"]["scale"][i])
-        put(f"{r}.ln_1.bias", t["ln_1"]["bias"][i])
-        put(f"{r}.attn.in_proj_weight", t["attn"]["wqkv"][i], transpose=True)
-        put(f"{r}.attn.in_proj_bias", t["attn"]["bqkv"][i])
-        put(f"{r}.attn.out_proj.weight", t["attn"]["wo"][i], transpose=True)
-        put(f"{r}.attn.out_proj.bias", t["attn"]["bo"][i])
-        put(f"{r}.ln_2.weight", t["ln_2"]["scale"][i])
-        put(f"{r}.ln_2.bias", t["ln_2"]["bias"][i])
-        put(f"{r}.mlp.c_fc.weight", t["mlp"]["w1"][i], transpose=True)
-        put(f"{r}.mlp.c_fc.bias", t["mlp"]["b1"][i])
-        put(f"{r}.mlp.c_proj.weight", t["mlp"]["w2"][i], transpose=True)
-        put(f"{r}.mlp.c_proj.bias", t["mlp"]["b2"][i])
-    put("visual.ln_post.weight", v["ln_post"]["scale"])
-    put("visual.ln_post.bias", v["ln_post"]["bias"])
-    put("visual.proj", v["proj"])
+    if cfg.is_resnet:
+        _resnet_to_sd(v, batch_stats_np or {}, put)
+    else:
+        _vit_to_sd(v, put)
 
     e = params_np["bert"]["embeddings"]
     put("bert.embeddings.word_embeddings.weight", e["word"])
@@ -142,6 +129,66 @@ def state_dict_from_jax_params(params_np: dict, cfg: CLIPConfig) -> Dict[str, to
     put("text_projection", params_np["text_projection"])
     put("logit_scale", np.asarray(params_np["logit_scale"]).reshape(()))
     return sd
+
+
+def _vit_to_sd(v: dict, put) -> None:
+    put("visual.conv1.weight", np.transpose(v["conv1"]["kernel"], (3, 2, 0, 1)))
+    put("visual.class_embedding", v["class_embedding"])
+    put("visual.positional_embedding", v["positional_embedding"])
+    put("visual.ln_pre.weight", v["ln_pre"]["scale"])
+    put("visual.ln_pre.bias", v["ln_pre"]["bias"])
+    t = v["transformer"]
+    for i in range(t["ln_1"]["scale"].shape[0]):
+        r = f"visual.transformer.resblocks.{i}"
+        put(f"{r}.ln_1.weight", t["ln_1"]["scale"][i])
+        put(f"{r}.ln_1.bias", t["ln_1"]["bias"][i])
+        put(f"{r}.attn.in_proj_weight", t["attn"]["wqkv"][i], transpose=True)
+        put(f"{r}.attn.in_proj_bias", t["attn"]["bqkv"][i])
+        put(f"{r}.attn.out_proj.weight", t["attn"]["wo"][i], transpose=True)
+        put(f"{r}.attn.out_proj.bias", t["attn"]["bo"][i])
+        put(f"{r}.ln_2.weight", t["ln_2"]["scale"][i])
+        put(f"{r}.ln_2.bias", t["ln_2"]["bias"][i])
+        put(f"{r}.mlp.c_fc.weight", t["mlp"]["w1"][i], transpose=True)
+        put(f"{r}.mlp.c_fc.bias", t["mlp"]["b1"][i])
+        put(f"{r}.mlp.c_proj.weight", t["mlp"]["w2"][i], transpose=True)
+        put(f"{r}.mlp.c_proj.bias", t["mlp"]["b2"][i])
+    put("visual.ln_post.weight", v["ln_post"]["scale"])
+    put("visual.ln_post.bias", v["ln_post"]["bias"])
+    put("visual.proj", v["proj"])
+
+
+def _resnet_to_sd(v: dict, stats: dict, put) -> None:
+    """The JAX ResNet tree and its statistics (``_resnet_to_sd``,
+    nans_clip_tpu/utils/torch_interop.py:414-445)."""
+    def conv(key, p):
+        put(f"{key}.weight", np.transpose(p["kernel"], (3, 2, 0, 1)))
+
+    def bn(key, p, s):
+        if not s:
+            s = {"mean": np.zeros_like(p["bias"]), "var": np.ones_like(p["bias"])}
+        put(f"{key}.weight", p["scale"])
+        put(f"{key}.bias", p["bias"])
+        put(f"{key}.running_mean", s["mean"])
+        put(f"{key}.running_var", s["var"])
+
+    for i in (1, 2, 3):
+        conv(f"visual.conv{i}", v[f"conv{i}"])
+        bn(f"visual.bn{i}", v[f"bn{i}"], stats.get(f"bn{i}", {}))
+    for stage in range(1, 5):
+        blocks = v[f"layer{stage}"]
+        for i, (bp, bs) in enumerate(zip(blocks, stats.get(f"layer{stage}", [{}] * len(blocks)))):
+            base = f"visual.layer{stage}.{i}"
+            for j in (1, 2, 3):
+                conv(f"{base}.conv{j}", bp[f"conv{j}"])
+                bn(f"{base}.bn{j}", bp[f"bn{j}"], bs.get(f"bn{j}", {}))
+            if "downsample" in bp:
+                conv(f"{base}.downsample.0", bp["downsample"]["conv"])
+                bn(f"{base}.downsample.1", bp["downsample"]["bn"], bs.get("downsample_bn", {}))
+    ap = v["attnpool"]
+    put("visual.attnpool.positional_embedding", ap["positional_embedding"])
+    for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("c", "c_proj")):
+        put(f"visual.attnpool.{theirs}.weight", ap[ours]["kernel"], transpose=True)
+        put(f"visual.attnpool.{theirs}.bias", ap[ours]["bias"])
 
 
 def lora_from_jax(adapters_np: dict, device="cpu") -> dict:

@@ -321,7 +321,6 @@ def test_pretrained_towers_merge_with_the_jax_filters(tmp_path):
 
 
 REFUSED = {
-    "rn50": (["--vision-model", "RN50"], "queue 1 item 5"),
     "tp": (["--tp", "2"], "queue 1 item 6"),
     "pp": (["--pp", "2"], "queue 1 item 6"),
     "fsdp": (["--fsdp"], "queue 1 item 6"),
@@ -337,6 +336,62 @@ def test_unported_flags_are_refused(case, tmp_path):
     with pytest.raises(ValueError, match=match):
         tmain.main(["--train-data", str(tmp_path), "--platform", "cpu", "--logs",
                     str(tmp_path), *flags])
+
+
+def test_rn50_trains_and_resumes_bit_equal(split, tmp_path, monkeypatch):
+    """--vision-model RN50 --text-model RBT3-chinese, the tiny RN config
+    (tests/test_torch_resnet.py::tiny_rn_config) standing in for the
+    published widths, with --mask-ratio 0.5, which a ResNet ignores (the JAX
+    CLI's note is logged): two steps straight against one step, a step
+    checkpoint and a resume from it; the parameters, the BatchNorm running
+    statistics, the Adam moments and the losses bit-equal, and the
+    statistics moved."""
+    import glob
+
+    from test_torch_resnet import serve_tiny_rn, tiny_rn_config
+
+    serve_tiny_rn(monkeypatch, tmain.configs)
+    run = lambda name, *extra: tmain.main(
+        ["--train-data", split, "--vision-model", "RN50", "--text-model", "RBT3-chinese",
+         "--precision", "fp32", "--attn-impl", "xla", "--lr", str(LR), "--warmup", "2",
+         "--log-interval", "1", "--logs", str(tmp_path), "--name", name, "--num-workers", "2",
+         "--seed", str(SEED), "--platform", "cpu", "--batch-size", "8", "--mask-ratio", "0.5",
+         *extra])
+    straight = run("straight", "--max-steps", "2")
+    assert straight.module.cfg == tiny_rn_config()
+    log = open(glob.glob(str(tmp_path / "straight" / "out_*.log"))[0]).read()
+    assert "only functions for ViT towers" in log
+    run("resumed", "--max-steps", "1", "--save-step-frequency", "1")
+    resumed = run("resumed", "--max-steps", "2", "--resume", "step_1")
+    assert straight.step == resumed.step == 2
+    a, b = straight.module.state_dict(), resumed.module.state_dict()
+    assert set(a) == set(b) and any("running_var" in k for k in a)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    init = build_clip(tiny_rn_config(), "cpu", torch.Generator().manual_seed(SEED))
+    key = "visual.bn1.running_mean"
+    assert not torch.equal(a[key], init.state_dict()[key])
+    for x, y in zip(straight.optimizer.state.values(), resumed.optimizer.state.values()):
+        assert all(torch.equal(x[k], y[k]) for k in ("exp_avg", "exp_avg_sq"))
+    loss = lambda name: [r["loss"] for r in map(json.loads, open(tmp_path / name / "metrics.jsonl"))
+                         if r["kind"] == "train"]
+    assert loss("straight") == loss("resumed") and len(loss("straight")) == 2
+
+
+def test_lora_refuses_a_resnet(tmp_path, monkeypatch):
+    """LoRA targets transformer towers: train_lora refuses an RN50 model as
+    the JAX CLI does (nans_clip_tpu/training/train_lora.py:141)."""
+    from nans_clip_tpu_torch.eval import model_io
+    from test_torch_resnet import serve_tiny_rn, tiny_rn_config
+
+    serve_tiny_rn(monkeypatch, model_io)
+    ckpt = str(tmp_path / "rn.pt")
+    torch.save({"state_dict": build_clip(tiny_rn_config(), "cpu",
+                                         torch.Generator().manual_seed(0)).state_dict()}, ckpt)
+    with pytest.raises(SystemExit, match="LoRA targets transformer towers"):
+        ttl.main(["--train-data", str(tmp_path), "--resume", ckpt, "--vision-model", "RN50",
+                  "--text-model", "RBT3-chinese", "--platform", "cpu",
+                  "--output-dir", str(tmp_path / "out")])
 
 
 def test_params_take_the_jax_flags_and_the_card_is_the_default(tmp_path):

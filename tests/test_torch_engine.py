@@ -357,3 +357,62 @@ def test_tower_params_in_bf16():
     p = aot.tower_params(m, "text")
     assert p["layers.0.qkv.weight"].dtype == torch.bfloat16
     assert p["ln.weight"].dtype == torch.float32
+
+
+def test_resnet_engine_records_and_checks_its_statistics(tmp_path, monkeypatch):
+    """An RN50 image engine (the tiny RN config of tests/test_torch_resnet.py
+    in its place) records the digest of its checkpoint's BatchNorm running
+    statistics; ``extract_features --backend engine`` and the daemon accept
+    it for that checkpoint, with the eager tower's features, and refuse it
+    for a checkpoint whose statistics moved (one train step), as the JAX
+    engine consumers do."""
+    from nans_clip_tpu_torch.deploy.server import ClipService
+    from nans_clip_tpu_torch.eval import model_io
+    from nans_clip_tpu_torch.models.clip import batch_stats
+    from nans_clip_tpu_torch.training import trainer
+    from test_torch_resnet import serve_tiny_rn
+
+    serve_tiny_rn(monkeypatch, model_io)
+    rn = ["--vision-model", "RN50", "--text-model", "RBT3-chinese", "--precision", "fp32"]
+    d = str(tmp_path / "engines")
+    engine.main(["build", *rn, "--device", "cpu", "--towers", "image,text", "--batch-sizes", "2",
+                 "--out-dir", d])
+    model = model_io.load_eval_model("RN50", "RBT3-chinese", "", "fp32", device="cpu")
+    meta = engine.read_header(engine.engine_path(d, "image", 2))["meta"]
+    assert meta["batch_stats_digest"] == engine.batch_stats_digest(batch_stats(model.module))
+    assert meta["batch_stats_digest"] is not None
+    assert engine.read_header(engine.engine_path(d, "text", 2))["meta"]["batch_stats_digest"] \
+        is None
+    images = torch.from_numpy(np.random.RandomState(0).randn(2, 64, 64, 3).astype(np.float32))
+    eng = engine.load_engine(engine.engine_path(d, "image", 2),
+                             aot.tower_params(model, "image"))
+    assert torch.allclose(eng(images), aot.normalized(model.encode_image(images)), atol=1e-6)
+
+    img_dir = str(tmp_path / "imgs")
+    _write_split(img_dir)
+    argv = ["--extract-image-feats", "--image-data", img_dir, "--img-batch-size", "2", *rn,
+            "--platform", "cpu", "--backend", "engine",
+            "--image-artifact", engine.engine_path(d, "image", 2)]
+    out = {}
+    for backend in ("engine", "jit"):
+        path = str(tmp_path / f"{backend}.jsonl")
+        extract_features.main([*argv[:-4], "--backend", backend, *argv[-2:], "--resume", "",
+                               "--image-feat-output-path", path])
+        out[backend] = [json.loads(line)["feature"] for line in open(path)]
+    np.testing.assert_allclose(out["engine"], out["jit"], atol=1e-6, rtol=0)
+    assert ClipService(model, engine_dir=d).backend == "engine"
+
+    # one train step moves the statistics: the engine is refused for it
+    tcfg = trainer.TrainConfig(lr=1e-3, warmup=1)
+    state = trainer.create_train_state(model_io.load_eval_model(
+        "RN50", "RBT3-chinese", "", "fp32", device="cpu").module, tcfg, "cpu")
+    state, _ = trainer.make_train_step(state.module.cfg, tcfg, ModelOptions(deterministic=False))(
+        state, images.repeat(2, 1, 1, 1), _texts(4), 0)
+    ckpt = str(tmp_path / "moved.pt")
+    torch.save({"state_dict": state.module.state_dict()}, ckpt)
+    with pytest.raises(SystemExit, match="BN running stats"):
+        extract_features.main([*argv, "--resume", ckpt,
+                               "--image-feat-output-path", str(tmp_path / "x.jsonl")])
+    moved = model_io.load_eval_model("RN50", "RBT3-chinese", ckpt, "fp32", device="cpu")
+    with pytest.raises(ValueError, match="batch_stats_digest"):
+        ClipService(moved, engine_dir=d)

@@ -369,10 +369,12 @@ def test_native_reads_cmyk_as_pil(tmp_path):
     np.testing.assert_allclose(feats["native"][1], feats["pil"][1], atol=1e-6, rtol=0)
 
 
-def test_extract_refuses_unported(tmp_path):
-    """RN50 (ROADMAP item 5) and a missing card are refused; the serialized
-    backends run (tests/test_torch_engine.py) and refuse to start without
-    their artifact."""
+def test_extract_refuses_unported(tmp_path, monkeypatch):
+    """A missing card is refused; the serialized backends run
+    (tests/test_torch_engine.py) and refuse to start without their artifact;
+    ``--vision-model RN50`` runs both towers (the tiny RN config of
+    tests/test_torch_resnet.py in its place), its rows the model's own
+    normalised features."""
     base = ["--extract-text-feats", "--text-data", "x.jsonl", "--resume", "x.pt"]
     texts = tmp_path / "t.jsonl"
     texts.write_text(json.dumps({"text_id": 0, "text": "西湖"}) + "\n")
@@ -381,9 +383,46 @@ def test_extract_refuses_unported(tmp_path):
             extract_features.main(["--extract-text-feats", "--text-data", str(texts),
                                    "--resume", "", "--tiny-model", "--precision", "fp32",
                                    "--backend", backend, "--platform", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        extract_features.main(base[:-1] + ["", "--vision-model", "RN50", "--platform", "cpu"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         extract_features.main(base)
+    _extract_rn50(tmp_path, texts, monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         topk.main(["--image-feats", "a", "--text-feats", "b", "--output", "c"])
+
+
+def _extract_rn50(tmp_path, texts, monkeypatch):
+    from PIL import Image
+
+    from nans_clip_tpu_torch.data.npack import NPackWriter
+    from nans_clip_tpu_torch.eval import model_io
+    from nans_clip_tpu_torch.tokenizer import tokenize
+    from nans_clip_tpu_torch.utils.transform import image_transform
+    from test_torch_resnet import serve_tiny_rn
+
+    serve_tiny_rn(monkeypatch, model_io)
+    rs = np.random.RandomState(3)
+    jpegs = []
+    with NPackWriter(str(tmp_path / "imgs.npack")) as w:
+        for i in range(3):
+            buf = io.BytesIO()
+            Image.fromarray(rs.randint(0, 256, (50, 58, 3), dtype=np.uint8)).save(buf, "JPEG")
+            jpegs.append(buf.getvalue())
+            w.put(i, jpegs[-1])
+    img_out, txt_out = str(tmp_path / "rn_img.jsonl"), str(tmp_path / "rn_txt.jsonl")
+    extract_features.main(["--extract-image-feats", "--extract-text-feats", "--image-data",
+                           str(tmp_path), "--text-data", str(texts), "--resume", "",
+                           "--vision-model", "RN50", "--text-model", "RBT3-chinese",
+                           "--precision", "fp32", "--platform", "cpu", "--img-batch-size", "2",
+                           "--image-feat-output-path", img_out,
+                           "--text-feat-output-path", txt_out])
+    model = model_io.load_eval_model("RN50", "RBT3-chinese", "", "fp32", device="cpu")
+    assert model.cfg.is_resnet
+    t = image_transform(model.image_resolution)
+    images = np.stack([t(Image.open(io.BytesIO(b))) for b in jpegs])
+    want_img = model.encode_image(images).numpy()
+    want_txt = model.encode_text(tokenize(["西湖"])).numpy()
+    for path, key, want in ((img_out, "image_id", want_img), (txt_out, "text_id", want_txt)):
+        ids, feats = read_feats(path, key)
+        assert ids == list(range(len(want)))
+        want = want / np.linalg.norm(want, axis=1, keepdims=True)
+        np.testing.assert_allclose(feats, want, atol=1e-6, rtol=0)

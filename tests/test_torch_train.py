@@ -276,3 +276,125 @@ def test_trainer_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trainer.create_train_state(build_clip(cfg, "cpu", torch.Generator().manual_seed(0)),
                                    trainer.TrainConfig())
+
+
+# -- the ResNet image tower (tiny RN: ref_loader.TINY_RN_KWARGS) ---------------
+
+def _jax_rn_step(jcfg, tcfg_j):
+    """``fn(params, stats, images, texts, rng) -> (loss, gradients, new
+    running statistics)`` that make_train_step takes at (params, stats): its
+    _encode_all (the scan over microbatches, the statistics in its carry) and
+    the contrastive loss."""
+    options = JOptions(deterministic=False)
+
+    def step(params, stats, images, texts, rng):
+        def loss_fn(p):
+            img, txt, new_stats = jtrainer._encode_all(p, jcfg, options, images, texts, rng,
+                                                       tcfg_j, stats, constrain=False)
+            scale = jnp.exp(p["logit_scale"].astype(jnp.float32))
+            return jclip_loss(jclip.normalize(img), jclip.normalize(txt), scale,
+                              constrain=False)[0], new_stats
+        (loss, new_stats), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+        return loss, grads, new_stats
+    return jax.jit(step)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_rn_train_steps_match_jax(accum, monkeypatch):
+    """Two steps of the tiny RN CLIP against make_train_step (batch 8; with
+    accum_freq 2, two microbatches of 4): the loss within 1e-5, each gradient
+    within 1e-4 of its largest magnitude and the running statistics after the
+    step within 1e-5, the JAX side taken at the port's parameters and
+    statistics of that step (as above); the running statistics update once a
+    microbatch, in order, as the JAX scan's carry. The JAX stem pads as the
+    reference (tests/test_torch_resnet.py)."""
+    from test_torch_resnet import jax_tiny_rn, padded_stem, port_cfg
+
+    padded_stem(monkeypatch)
+    jcfg = _no_dropout(jax_tiny_rn())
+    cfg = port_cfg(jcfg)
+    tcfg_j = jtrainer.TrainConfig(lr=LR, warmup=2, max_steps=10, wd=0.1, accum_freq=accum)
+    tcfg = trainer.TrainConfig(lr=LR, warmup=2, max_steps=10, wd=0.1, accum_freq=accum)
+    params, stats = jax.jit(jclip.init_clip, static_argnums=1)(jax.random.PRNGKey(5), jcfg)
+    module = build_clip(cfg)
+    module.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params), cfg,
+                                                      jax.tree.map(np.asarray, stats)))
+    state_t = trainer.create_train_state(module, tcfg, device="cpu")
+    step_t = trainer.make_train_step(cfg, tcfg, ModelOptions(deterministic=False))
+    state_j = jtrainer.create_train_state(jax.tree.map(jnp.copy, params), stats, tcfg_j)
+    step_j = jtrainer.make_train_step(jcfg, tcfg_j, JOptions(deterministic=False),
+                                      constrain=False)
+    grad_fn = _jax_rn_step(jcfg, tcfg_j)
+    before = {n: b.clone() for n, b in module.visual.named_buffers()}
+    for i in range(2):
+        images, texts = _batch(jcfg, 8, 10 + i)
+        rng = jax.random.PRNGKey(200 + i)
+        at, at_stats = params_from_state_dict(
+            {k: v.detach().numpy() for k, v in state_t.module.state_dict().items()}, jcfg)
+        loss_j, grads_j, stats_j = grad_fn(at, at_stats, jnp.asarray(images),
+                                           jnp.asarray(texts), rng)
+        loss_j, grads_j = float(loss_j), _as_port(grads_j, cfg)
+        state_j, metrics_j = step_j(state_j, jnp.asarray(images), jnp.asarray(texts), rng)
+        state_t, metrics_t = step_t(state_t, torch.from_numpy(images), torch.from_numpy(texts),
+                                    torch.Generator().manual_seed(i))
+        assert abs(float(metrics_t["loss"]) - loss_j) <= 1e-5, i
+        assert abs(float(metrics_t["loss"]) - float(metrics_j["loss"])) <= 1e-5, i
+        for name, p in state_t.module.named_parameters():
+            g, gj = p.grad, grads_j[name]
+            # the attention pool's key bias, as BERT's: 0 in exact arithmetic
+            if name.endswith(("self.key.bias", "attnpool.k_proj.bias")):
+                assert max(float(g.abs().max()), float(gj.abs().max())) <= 1e-8, (i, name)
+            else:
+                assert float((g - gj).abs().max()) <= 1e-4 * float(gj.abs().max()), (i, name)
+        want = state_dict_from_jax_params(jax.tree.map(np.asarray, at), cfg,
+                                          jax.tree.map(np.asarray, stats_j))
+        got = dict(state_t.module.visual.named_buffers())
+        assert set(f"visual.{n}" for n in got) == {k for k in want if "running_" in k}
+        for name, buf in got.items():
+            assert float((buf - want[f"visual.{name}"]).abs().max()) <= 1e-5, (i, name)
+            assert not torch.equal(buf, before[name]), (i, name)   # every BatchNorm moved
+        before = {n: b.clone() for n, b in got.items()}
+    assert state_t.step == int(state_j.step) == 2
+
+
+def test_rn_freeze_vision_freezes_bn_stats():
+    """freeze_vision: the running statistics and the visual parameters stay
+    bit-equal over two steps with accum_freq 2 (JAX
+    tests/test_trainer.py::test_freeze_vision_freezes_bn_stats), while the
+    text tower trains."""
+    from test_torch_resnet import tiny_rn_config
+
+    cfg = tiny_rn_config()
+    module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, buf in module.visual.named_buffers():
+            buf.uniform_(0.5, 1.5) if name.endswith("var") else buf.uniform_(-0.5, 0.5)
+    tcfg = trainer.TrainConfig(lr=1e-3, warmup=1, max_steps=10, freeze_vision=True, accum_freq=2)
+    state = trainer.create_train_state(module, tcfg, "cpu")
+    before = {k: v.clone() for k, v in module.state_dict().items()}
+    step = trainer.make_train_step(cfg, tcfg, ModelOptions(deterministic=False))
+    for i in range(2):
+        _, texts = _batch(jconfigs.tiny_config(), 8, i)
+        images = np.random.RandomState(i).randn(8, 64, 64, 3).astype(np.float32)
+        state, _ = step(state, images, texts, i)
+    after = module.state_dict()
+    assert all(torch.equal(before[k], after[k]) for k in before if k.startswith("visual."))
+    assert not torch.equal(before["text_projection"], after["text_projection"])
+
+
+def test_rn_decay_mask_matches_jax():
+    """Leaf for leaf on the RN names, the reference quirk included: every
+    bn{j}.weight is exempt and downsample.1.weight is decayed
+    (tests/test_trainer.py::test_no_decay_mask_downsample_bn_decayed)."""
+    from test_torch_resnet import jax_tiny_rn, port_cfg
+
+    jcfg = jax_tiny_rn()
+    params = jax.eval_shape(lambda k: jclip.init_clip(k, jcfg)[0], jax.random.PRNGKey(0))
+    mask = jtrainer.no_decay_mask(params)
+    full = jax.tree.map(lambda m, p: np.full(np.shape(p), float(m), np.float32), mask, params)
+    want = {k: bool(v.flatten()[0]) for k, v in _as_port(full, port_cfg(jcfg)).items()}
+    got = trainer.no_decay_mask(build_clip(port_cfg(jcfg)))
+    assert got == {k: v for k, v in want.items() if "running_" not in k}
+    assert got["visual.layer1.0.bn1.weight"] and got["visual.bn2.weight"]
+    assert not got["visual.layer1.0.downsample.1.weight"]
+    assert got["visual.layer1.0.downsample.1.bias"]

@@ -127,7 +127,8 @@ def test_elevater_json_matches_jax(models, imagefolder, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("struct", ["tiny", "ViT-B-16@RoBERTa-wwm-ext-base-chinese",
-                                    "ViT-L-14-336@RoBERTa-wwm-ext-base-chinese"])
+                                    "ViT-L-14-336@RoBERTa-wwm-ext-base-chinese",
+                                    "RN50@RBT3-chinese"])
 def test_param_counts_equal_jax_leaves(struct):
     """num_params / num_visual_params: the port's parameters (not buffers)
     against the JAX tree's leaves (shapes only, on the meta device)."""
@@ -140,12 +141,33 @@ def test_param_counts_equal_jax_leaves(struct):
     assert zeroshot_evaluation.param_counts(module) == (size(shapes), size(shapes["visual"]))
 
 
-def test_zeroshot_refuses_without_card(imagefolder):
+def test_zeroshot_refuses_without_card(imagefolder, tmp_path, monkeypatch):
+    """The card is the default; ``--vision-model RN50`` runs (the tiny RN
+    config of tests/test_torch_resnet.py in its place) and writes the
+    ELEVATER json of a ResNet model."""
+    from nans_clip_tpu_torch.eval import model_io
+    from test_torch_resnet import serve_tiny_rn, tiny_rn_config
+
     with pytest.raises(RuntimeError, match="no CUDA device"):
         zeroshot_evaluation.main(["--datapath", imagefolder, "--resume", "x.pt"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        zeroshot_evaluation.main(["--datapath", imagefolder, "--resume", "",
-                                  "--vision-model", "RN50", "--platform", "cpu"])
+    serve_tiny_rn(monkeypatch, model_io)
+    labels = tmp_path / "labels.txt"
+    labels.write_text("\n".join(CLASSES) + "\n", encoding="utf8")
+    acc = zeroshot_evaluation.main(["--datapath", imagefolder, "--resume", "", "--vision-model",
+                                    "RN50", "--text-model", "RBT3-chinese", "--platform", "cpu",
+                                    "--precision", "fp32", "--dataset", "oxford-flower-102",
+                                    "--label-file", str(labels), "--img-batch-size", "4",
+                                    "--save-dir", str(tmp_path)])
+    with open(tmp_path / "oxford-flower-102.json") as f:
+        out = json.load(f)
+    with torch.device("meta"):
+        module = CLIP(tiny_rn_config())
+    assert 0.0 <= acc <= 1.0 and out["model_name"] == "CN-CLIP-RN50"
+    assert (out["num_params"], out["num_visual_params"]) == \
+        zeroshot_evaluation.param_counts(module)
+    rows = np.asarray(out["predictions"][0])
+    assert rows.shape == (9, 3)
+    np.testing.assert_allclose(rows.sum(1), 1.0, atol=1e-5)
 
 
 # -- the retrieval suite --------------------------------------------------------
