@@ -225,6 +225,30 @@ Phases, each printing its lines before the last line:
    (bit-equal, statistics included); latency p50/p95/p99 by backend at 1, 8
    and 32 on both clocks with the idle share; one ``{"phase16": ...}`` line.
 
+17. The data axis. The dropout kernels with a sample offset: #1 post-LN
+   and #2 post-LN with dropout, #15/#16 and #17/#18 with ``drop.Seed(seed,
+   sample0)`` at the text shape against their twins (their bounds of phases
+   7 and 8), and on the second half of a batch at ``sample0`` = its first
+   row against the whole batch at 0 (the rows a data rank holds draw one
+   process's masks). Then ViT-B-16@RoBERTa-wwm-ext-base-chinese at full
+   width, bf16 over fp32 masters, global batch 128, text dropout 0.1, FLIP
+   0.5, in two gloo ranks on ``cuda:0`` (``run_ranks``): data 2 at accum 1
+   and 2, and FSDP at data 2 and accum 2, 2 steps each, every step from the
+   weights of a one-rank step on the same global batch and seeds (rank 0
+   runs it): |loss diff| <= 1e-3, gradient cosines >= 0.999, parameters
+   bit-equal on both ranks; each rank's bytes of parameters and moments
+   under FSDP and DP; RN50@RBT3 at data 2, batch 32, one step on the bf16
+   kernel route and in fp32 (plain route) against one rank's: the losses
+   within 1e-3, the running statistics equal on both ranks and, in fp32,
+   within 1e-4 of one rank's (in bf16 the two paths round their BatchNorm
+   outputs apart: printed, no bound). Then
+   ``torch.distributed.run --nproc-per-node 1 -m
+   nans_clip_tpu_torch.training.main --distributed`` with NCCL on phase 13's
+   split, 3 steps: its losses bit-equal to run A's first 3. Step ms at one
+   rank and at two gloo ranks (gloo stages through the host and both ranks
+   share the card: no measure of data-parallel speed) and the collective
+   bytes of a step; one ``{"phase17": ...}`` line.
+
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
 nothing branches on them.
@@ -4567,6 +4591,373 @@ def phase_rn50(torch, dev, tmp, split=None, backend_split=None):
     return line
 
 
+# Phase 17, the data axis: the sample offset of the dropout kernels, the
+# data-parallel and FSDP steps at full width in 2 gloo ranks on one card,
+# RN50's synced BatchNorm, the NCCL CLI at world 1.
+DP_BATCH, DP_STEPS, DP_LR = 128, 2, 1e-4
+DP_LOSS_BOUND, DP_COS_BOUND = 1e-3, 0.999
+DP_RN_BATCH, DP_RN_STAT_REL = 32, 1e-4
+DP_SAMPLE0 = 64            # the second rank's first row of a microbatch of 128
+NCCL_STEPS = 3
+
+
+def _dp_grads(state) -> dict:
+    """Every parameter's reduced gradient, full size (a sharded state's
+    gathered from its shards: collective)."""
+    if state.fsdp is None:
+        return {n: p.grad for n, p in state.module.named_parameters() if p.grad is not None}
+    sh = state.fsdp
+    out = {n: sh.params[n].grad for leaf in sh.leaves if leaf.dim is None for n in leaf.names
+           if sh.params[n].grad is not None}
+    for leaf, full in zip(sh.sharded, sh.gather_leaves([sh.shards[leaf.path].grad
+                                                        for leaf in sh.sharded])):
+        out.update(zip(leaf.names, leaf.from_jax(full)))
+    return out
+
+
+def _dp_bytes(state) -> int:
+    """Bytes of parameters and optimizer moments this rank keeps between
+    steps."""
+    import torch
+
+    params = state.fsdp.stored_bytes() if state.fsdp is not None else sum(
+        p.numel() * p.element_size() for p in state.module.parameters())
+    moments = sum(v.numel() * v.element_size() for st in state.optimizer.state.values()
+                  for v in st.values() if torch.is_tensor(v) and v.dim() > 0)
+    return params + moments
+
+
+def _dp_rank(rank: int) -> dict:
+    """One of phase 17's two gloo ranks on ``cuda:0``: the ViT-B steps at
+    data 2 (DP at accum 1 and 2, FSDP at accum 2), each step from the
+    weights of a one-rank step that rank 0 runs on the global batch with the
+    same seeds; then RN50@RBT3's synced BatchNorm."""
+    import dataclasses as dc
+
+    import torch
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.parallel import distributed
+    from nans_clip_tpu_torch.training import (TrainConfig, create_train_state, full_weights,
+                                              make_train_step, shard_train_state)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    lead = rank == 0
+
+    def fresh(cfg, sd, tcfg):
+        module = build_clip(cfg)
+        module.load_state_dict(sd)
+        return create_train_state(module, tcfg, device=dev)
+
+    cfg = nct.load_config(f"{VISION}@{TEXT}")
+    sd = build_clip(cfg, "cpu", torch.Generator().manual_seed(0)).state_dict()
+    gen = torch.Generator(dev).manual_seed(17)
+    images = torch.randn(DP_BATCH, 224, 224, 3, generator=gen, device=dev)
+    ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}"
+                                         for i in range(DP_BATCH)])).to(dev)
+    opts = nct.ModelOptions(compute_dtype="bfloat16", deterministic=False, data=2)
+    out = {}
+    for label, accum, fsdp_on in (("dp accum 1", 1, False), ("dp accum 2", 2, False),
+                                  ("fsdp accum 2", 2, True)):
+        tcfg = TrainConfig(lr=DP_LR, warmup=1, max_steps=100, mask_ratio=0.5, accum_freq=accum)
+        state = fresh(cfg, sd, tcfg)
+        # a data-parallel rank's: fp32 parameters and AdamW's two fp32 moments
+        dp_bytes = 12 * sum(p.numel() for p in state.module.parameters())
+        state = shard_train_state(state, tcfg, opts, fsdp_on)
+        step = make_train_step(cfg, tcfg, opts)
+        ref = fresh(cfg, sd, tcfg) if lead else None
+        ref_step = make_train_step(cfg, tcfg, dc.replace(opts, data=1)) if lead else None
+        mine = (distributed.rank_rows(images, rank, 2, accum),
+                distributed.rank_rows(ids, rank, 2, accum))
+        rec = {"losses": [], "losses_1": [], "worst_cos": [], "fingerprints": [],
+               "step_ms": [], "step_ms_1": []}
+        for i in range(DP_STEPS):
+            with full_weights(state):
+                if lead:   # the one-rank step from this step's weights
+                    with torch.no_grad():
+                        for p_ref, p in zip(ref.module.parameters(), state.module.parameters()):
+                            p_ref.copy_(p)
+            if lead:
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                ref, m1 = ref_step(ref, images, ids, 100 + i)
+                ev[1].record()
+                ev[1].synchronize()
+                rec["losses_1"].append(float(m1["loss"]))
+                rec["step_ms_1"].append(ev[0].elapsed_time(ev[1]))
+            if i == 0:
+                _cli_reset()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, m2 = step(state, *mine, 100 + i)
+            loss = float(m2["loss"])   # waits for the step
+            torch.cuda.synchronize()
+            rec["step_ms"].append(1e3 * (time.time() - t0))
+            if i == 0:
+                rec["counts"] = _cli_counts()
+            rec["losses"].append(loss)
+            grads = _dp_grads(state)
+            if lead:
+                ref_grads = {n: p.grad for n, p in ref.module.named_parameters()}
+                cos = {n: _cos(g, ref_grads[n]) for n, g in grads.items()
+                       if not n.endswith("key.bias")}
+                rec["worst_cos"].append(min(cos.items(), key=lambda kv: kv[1]))
+            del grads
+            with full_weights(state):
+                rec["fingerprints"].append([int(p.detach().view(torch.int32).sum(
+                    dtype=torch.int64)) for p in state.module.parameters()])
+        rec["bytes"], rec["dp_bytes"] = _dp_bytes(state), dp_bytes
+        rec["n_params"] = sum(p.numel() for p in (ref.module.parameters() if lead else ()))
+        out[label] = rec
+        del state, step, ref, ref_step
+        torch.cuda.empty_cache()
+
+    # RN50@RBT3: one step at data 2 against one rank's, on the bf16 kernel
+    # route and in fp32 (the plain route: the statistics without the bf16
+    # rounding of 53 BatchNorm outputs, which the two paths round apart)
+    rcfg = nct.load_config(f"{RN_VISION}@{RN_TEXT}")
+    rsd = build_clip(rcfg, "cpu", torch.Generator().manual_seed(3)).state_dict()
+    rim = torch.randn(DP_RN_BATCH, 224, 224, 3, generator=gen, device=dev)
+    rids = ids[:DP_RN_BATCH]
+    tcfg = TrainConfig(lr=DP_LR, warmup=1, max_steps=100)
+    rn = {}
+    for label, ropts in (("bf16", nct.ModelOptions(compute_dtype="bfloat16",
+                                                   deterministic=False, data=2)),
+                         ("fp32", nct.ModelOptions(attn_impl="plain", deterministic=False,
+                                                   data=2))):
+        state = fresh(rcfg, rsd, tcfg)
+        state, m = make_train_step(rcfg, tcfg, ropts)(
+            state, distributed.rank_rows(rim, rank, 2), distributed.rank_rows(rids, rank, 2), 7)
+        stats = {n: b for n, b in state.module.named_buffers() if "running_" in n}
+        rec = {"loss": float(m["loss"]),
+               "fingerprint": [int(b.view(torch.int32).sum(dtype=torch.int64))
+                               for b in stats.values()]}
+        if lead:
+            ref = fresh(rcfg, rsd, tcfg)
+            ref, m1 = make_train_step(rcfg, tcfg, dc.replace(ropts, data=1))(ref, rim, rids, 7)
+            want = dict(ref.module.named_buffers())
+            rec["loss_1"] = float(m1["loss"])
+            rec["stat_rel"] = max((float((b - want[n]).abs().max()
+                                         / want[n].abs().max().clamp_min(1e-30)), n)
+                                  for n, b in stats.items())
+            del ref
+        rn[label] = rec
+        del state
+    out["rn50"] = rn
+    return out
+
+
+def _dropout_offset_kernels(torch, dev):
+    """#1 / #2 post-LN with dropout, #15 / #16 and #17 / #18 with a
+    ``drop.Seed(seed, DP_SAMPLE0)`` against their twins; and each on the
+    second half of a batch at that offset against the whole batch at 0."""
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops import fused_block as fb
+    from nans_clip_tpu_torch.ops import fused_block_bwd as fbb
+
+    g = torch.Generator(device=dev).manual_seed(170)
+    bf, w, inter, heads, s, b, rate = torch.bfloat16, 768, 3072, 12, 52, 2 * DP_SAMPLE0, 0.1
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std + mean).to(bf)
+
+    p = (rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(3 * w, w, std=0.02),
+         rnd(3 * w, std=0.1), rnd(w, w, std=0.02), rnd(w, std=0.1),
+         rnd(w, std=0.1, mean=1.0), rnd(w, std=0.1), rnd(inter, w, std=0.02),
+         rnd(inter, std=0.1), rnd(w, inter, std=0.01), rnd(w, std=0.1))
+    x, gout = rnd(b, s, w), rnd(b, s, w)
+    lengths = torch.randint(2, s + 1, (b,), generator=g, device=dev)
+    kb = ((1.0 - (torch.arange(s, device=dev)[None, :] < lengths[:, None]).float())
+          * -10000.0).contiguous()
+    half = slice(DP_SAMPLE0, b)
+
+    def cases(rows, seed_a, seed_m):
+        xs, gs, kbs = x[rows], gout[rows], kb[rows].contiguous()
+        return (
+            ("fused_bert_attention_block", False,
+             lambda: fb.fused_bert_attention_block(xs, *p[:6], kbs, heads, 1e-12, seed_a, rate,
+                                                   rate),
+             lambda: fb._reference_block(xs, *p[:6], heads, 1e-12, kbs, True, seed_a, rate,
+                                         rate)),
+            ("fused_mlp_block[post-LN]", False,
+             lambda: fb.fused_mlp_block(xs, *p[6:], "gelu", 1e-12, True, seed_m, rate),
+             lambda: fb._reference_mlp(xs, *p[6:], "gelu", 1e-12, True, seed_m, rate)),
+            ("fused_bert_attention_block_bwd_fullgrad", True,
+             lambda: fbb.fused_bert_attention_block_bwd_fullgrad(xs, *p[:6], kbs, seed_a, gs,
+                                                                 heads, 1e-12, rate, rate),
+             lambda: fbb._bert_bwd_math(xs, *p[:6], kbs, seed_a, gs, heads, 1e-12, rate, rate)),
+            ("fused_bert_attention_block_bwd", True,
+             lambda: fbb.fused_bert_attention_block_bwd(xs, *p[:6], kbs, seed_a, gs, heads,
+                                                        1e-12, rate, rate),
+             lambda: fbb._bert_bwd_math(xs, *p[:6], kbs, seed_a, gs, heads, 1e-12, rate, rate,
+                                        full=False)),
+            ("fused_mlp_block_bwd_fullgrad[post-LN]", True,
+             lambda: fbb.fused_mlp_block_bwd_fullgrad(xs, *p[6:], seed_m, gs, "gelu", 1e-12,
+                                                      True, rate),
+             lambda: fbb._mlp_bwd_math(xs, *p[6:], seed_m, gs, "gelu", 1e-12, True, rate)),
+            ("fused_mlp_block_bwd[post-LN]", True,
+             lambda: fbb.fused_mlp_block_bwd(xs, *p[6:], seed_m, gs, "gelu", 1e-12, True, rate),
+             lambda: fbb._mlp_bwd_math(xs, *p[6:], seed_m, gs, "gelu", 1e-12, True, rate,
+                                       full=False)))
+
+    offset = cases(half, drop.Seed(1234, DP_SAMPLE0), drop.Seed(99, DP_SAMPLE0))
+    whole = cases(slice(0, b), 1234, 99)
+    results = {}
+    with torch.no_grad():
+        for (name, bwd, kern, twin), (_, _, kern0, _) in zip(offset, whole):
+            got, want = kern(), twin()
+            got_t = got if bwd else (got,)
+            want_t = want if bwd else (want,)
+            torch.cuda.synchronize()
+            errs = []
+            for i, (a, r) in enumerate(zip(got_t, want_t)):
+                if (a is None) != (r is None):
+                    raise AssertionError(f"{name} output {i}: {a is None} / {r is None}")
+                if a is None:
+                    continue
+                err = float((a.float() - r.float()).abs().max())
+                bound = BWD_REL * float(r.float().abs().max()) if bwd else _ulps(r, 4)
+                if a.shape != r.shape or not torch.isfinite(a).all() or err > bound:
+                    raise AssertionError(f"{name} at sample0 {DP_SAMPLE0}, output {i}: max abs "
+                                         f"err {err} exceeds {bound}")
+                errs.append(err)
+            # the rows of the whole batch drawn at sample0 0: dx (or the output)
+            first, first0 = got_t[0], (kern0() if not bwd else kern0()[0])[half]
+            torch.cuda.synchronize()
+            same = torch.equal(first, first0)
+            split_err = float((first.float() - first0.float()).abs().max())
+            split_bound = BWD_REL * float(first0.float().abs().max()) if bwd else _ulps(first0, 4)
+            if split_err > split_bound:
+                raise AssertionError(f"{name}: rows {DP_SAMPLE0}.. at sample0 {DP_SAMPLE0} differ "
+                                     f"from the whole batch's by {split_err} > {split_bound}")
+            results[name] = dict(err=max(errs), rows_equal=same, rows_err=split_err)
+            print(f"data axis kernel {name} ({b // 2} of {b} samples at sample0 {DP_SAMPLE0}, "
+                  f"S {s}, W {w}, dropout {rate}): max_abs_err vs twin {max(errs):.6g}; the "
+                  f"{'dx' if bwd else 'output'} rows against the whole batch at sample0 0: "
+                  f"{'bit-equal' if same else f'max abs err {split_err:.6g}'}", flush=True)
+    return results
+
+
+def phase_data_axis(torch, dev, tmp, split, run_a_losses):
+    """Phase 17 (module docstring)."""
+    import socket
+    import subprocess
+
+    from nans_clip_tpu_torch.parallel import mesh
+
+    t_phase = time.time()
+    kernels = _dropout_offset_kernels(torch, dev)
+    t_kernels = time.time() - t_phase
+
+    t0 = time.time()
+    ranks = mesh.run_ranks(_dp_rank, 2, "gloo", os.path.join(tmp, "dp_rendezvous"), (),
+                           timeout_s=600.0)
+    t_ranks = time.time() - t0
+    summary = {}
+    for label in ("dp accum 1", "dp accum 2", "fsdp accum 2"):
+        r0, r1 = ranks[0][label], ranks[1][label]
+        accum = int(label[-1])
+        diffs = [abs(a - b) for a, b in zip(r0["losses"], r0["losses_1"])]
+        worst = min(r0["worst_cos"], key=lambda kv: kv[1])
+        equal = all(a == b for a, b in zip(r0["fingerprints"], r1["fingerprints"]))
+        n = r0["n_params"]
+        grad_bytes = 4 * n
+        # a step's collective payload a rank: DP all-reduces every gradient
+        # once; FSDP all-gathers the shards and reduces the gradients (gloo:
+        # an all-reduce of the whole buffer); the features' gathers are
+        # [128, 512] fp32 tensors
+        coll = grad_bytes if label.startswith("dp") else 2 * grad_bytes
+        print(f"data axis {label}: ViT-B-16@RoBERTa-base full width, bf16 over fp32 masters, "
+              f"global batch {DP_BATCH}, text dropout 0.1, FLIP 0.5, 2 gloo ranks on one card vs "
+              f"one rank from the same weights, {DP_STEPS} steps: losses {r0['losses']} (rank 1 "
+              f"{r1['losses']}) vs {r0['losses_1']} (|diff| <= {max(diffs):.3g}, bound "
+              f"{DP_LOSS_BOUND}); gradient cosine >= {worst[1]:.6f} ({worst[0]}), bound "
+              f"{DP_COS_BOUND}; parameters bit-equal on both ranks after every step: {equal}; "
+              f"rank 0 keeps {r0['bytes'] / 2 ** 30:.3f} GiB of parameters + moments "
+              f"(rank 1 {r1['bytes'] / 2 ** 30:.3f}), data-parallel {r0['dp_bytes'] / 2 ** 30:.3f} "
+              f"GiB; step ms at 2 ranks {' '.join(f'{x:.1f}' for x in r0['step_ms'])} "
+              f"(host-staged gloo on one shared card, not a data-parallel speed), at one rank "
+              f"{' '.join(f'{x:.1f}' for x in r0['step_ms_1'])}; collective payload a step "
+              f"{coll / 2 ** 20:.1f} MiB a rank ({n} parameters); launches of rank 0's first "
+              f"step {json.dumps(r0['counts'])}", flush=True)
+        if (max(diffs) > DP_LOSS_BOUND or worst[1] < DP_COS_BOUND or not equal
+                or r0["losses"] != r1["losses"]
+                or not all(math.isfinite(x) for x in r0["losses"])):
+            raise AssertionError(f"data axis {label}: the data-2 steps differ from one rank's")
+        if label.startswith("fsdp") and not r0["bytes"] < 0.6 * r0["dp_bytes"]:
+            raise AssertionError(f"fsdp: {r0['bytes']} bytes a rank against DP's "
+                                 f"{r0['dp_bytes']}")
+        # the forward chains and, on the default backward route, #14/#15/#17
+        # (or their full-gradient forms) in every layer
+        c = r0["counts"]
+        if (min(c[k] for k in ("fused_attention_block", "fused_bert_attention_block",
+                               "fused_mlp_block")) < 1
+                or c["fused_bert_attention_block_bwd"]
+                + c["fused_bert_attention_block_bwd_fullgrad"] < 12 * accum
+                or c["fused_mlp_block_bwd"] + c["fused_mlp_block_bwd_fullgrad"] < 24 * accum):
+            raise AssertionError(f"data axis {label}: launches {r0['counts']}")
+        summary[label] = {k: r0[k] for k in ("losses", "losses_1", "worst_cos", "step_ms",
+                                             "step_ms_1", "bytes", "dp_bytes", "counts")}
+        summary[label]["collective_bytes"] = coll
+    for label, rn in ranks[0]["rn50"].items():
+        rel, worst = rn["stat_rel"]
+        equal = rn["fingerprint"] == ranks[1]["rn50"][label]["fingerprint"]
+        print(f"data axis RN50@RBT3 at data 2, {label}, global batch {DP_RN_BATCH}, one step: "
+              f"loss {rn['loss']:.6f} vs one rank {rn['loss_1']:.6f} (bound {DP_LOSS_BOUND}); "
+              f"running statistics within {rel:.3g} of one rank's (relative to each buffer's "
+              f"largest; {worst})" + (f", bound {DP_RN_STAT_REL}" if label == "fp32" else
+                                      " (the two paths' bf16 roundings, no bound)")
+              + f"; equal on both ranks: {equal}", flush=True)
+        if (not equal or abs(rn["loss"] - rn["loss_1"]) > DP_LOSS_BOUND
+                or (label == "fp32" and rel > DP_RN_STAT_REL)):
+            raise AssertionError(f"data axis RN50 {label}: the synced statistics differ from "
+                                 "one rank's")
+    summary["rn50"] = ranks[0]["rn50"]
+
+    # NCCL at world 1 through the launcher, on phase 13's split
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    # the launcher's own parser would take the CLI's --logs for its --logs-specs,
+    # so the run keeps the default ./logs of a working directory of its own
+    work = os.path.join(tmp, "nccl")
+    os.makedirs(work)
+    logs = os.path.join(work, "logs")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+           "--master-addr", "localhost", "--master-port", str(port), "-m",
+           "nans_clip_tpu_torch.training.main", "--distributed", "--train-data", split,
+           "--vision-model", VISION, "--text-model", TEXT, "--batch-size", str(CLI_BATCH),
+           "--warmup", "2", "--log-interval", "1", "--num-workers", "8", "--seed", "0",
+           "--name", "N", "--max-steps", str(NCCL_STEPS)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True, timeout=400)
+    t_nccl = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the NCCL CLI run failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    backend = [ln for ln in (proc.stdout + proc.stderr).splitlines() if "backend nccl" in ln]
+    losses = [r["loss"] for r in _train_records(logs, "N")]
+    nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    print(f"data axis NCCL {nccl}: torch.distributed.run --nproc-per-node 1 training.main "
+          f"--distributed, {NCCL_STEPS} steps in {t_nccl:.1f} s: losses {losses} vs run A's "
+          f"{run_a_losses[:NCCL_STEPS]} (bit-equal: {losses == run_a_losses[:NCCL_STEPS]}); "
+          f"{backend[:1]}", flush=True)
+    if not backend or losses != run_a_losses[:NCCL_STEPS]:
+        raise AssertionError(f"the NCCL run: backend lines {backend}, losses {losses}")
+    shutil.rmtree(work)
+    summary["nccl"] = {"version": nccl, "losses": losses, "s": t_nccl}
+    print(json.dumps({"phase17": "data axis", "kernels": kernels, **summary}), flush=True)
+    print(f"data axis: phase 17 took {time.time() - t_phase:.1f} s (kernels {t_kernels:.1f} s, "
+          f"the 2 ranks {t_ranks:.1f} s, NCCL {t_nccl:.1f} s)", flush=True)
+    return summary
+
+
 def main() -> int:
     if not (ROOT / "nans_clip_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -4625,6 +5016,7 @@ def main() -> int:
         phase_backends(torch, dev, tmp, os.path.join(cli["checkpoints"], "epoch1.pt"))
         shutil.rmtree(cli["checkpoints"])
         phase_rn50(torch, dev, tmp, os.path.join(tmp, "split"), os.path.join(tmp, "backends"))
+        phase_data_axis(torch, dev, tmp, os.path.join(tmp, "split"), cli["losses"])
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")

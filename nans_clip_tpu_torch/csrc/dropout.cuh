@@ -4,8 +4,11 @@
 // nans_clip_tpu/ops/fused_block.py::_keep_mask, re-seeded per sample so that
 // the backward kernels redraw the forward's masks). Here each keep bit is a
 // pure function of its indices: Philox4x32-10 keyed by (seed, stream) with
-// the counter (sample, head, row, col); word 0 of the output is compared
-// with rate * 2^32 (kept where bits >= threshold, _keep_mask's rule). A
+// the counter (sample0 + sample, head, row, col); word 0 of the output is
+// compared with rate * 2^32 (kept where bits >= threshold, _keep_mask's
+// rule). sample0 is the global index of the launch's first sample: a
+// data-parallel rank that holds rows sample0.. of a microbatch draws the
+// masks one process draws over the whole microbatch. A
 // forward and a backward kernel that name the same element draw the same
 // bit, and nothing is stored between them. stream 0: attention
 // probabilities; stream 1: the hidden (projection) dropout; head is 0 for
@@ -21,6 +24,7 @@ struct Spec {
   uint32_t seed, stream, threshold;  // threshold = round(rate * 2^32), capped
   float scale;                       // 1 / (1 - rate)
   int on;                            // 0: no dropout (rate 0)
+  int sample0;                       // global index of the launch's sample 0
 };
 
 static __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1, uint32_t c2,
@@ -47,7 +51,7 @@ static __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1
 // Whether one element is kept (the spec on).
 static __device__ __forceinline__ bool kept(const Spec& d, int sample, int head, int row,
                                             int col) {
-  return philox_word0(static_cast<uint32_t>(sample), static_cast<uint32_t>(head),
+  return philox_word0(static_cast<uint32_t>(d.sample0 + sample), static_cast<uint32_t>(head),
                       static_cast<uint32_t>(row), static_cast<uint32_t>(col), d.seed,
                       d.stream) >= d.threshold;
 }

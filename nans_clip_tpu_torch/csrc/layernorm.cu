@@ -477,11 +477,13 @@ int launch_ln_bwd(const void* gin, const void* x, const void* gamma, const void*
 extern "C" int nans_layernorm_bwd(int form, const void* gin, const void* x, const void* gamma,
                                   const void* res, void* dx, void* dproj, void* xhat,
                                   unsigned drop_seed, unsigned drop_stream,
-                                  unsigned drop_threshold, float drop_scale, int drop_on, int seq,
+                                  unsigned drop_threshold, float drop_scale, int drop_on,
+                                  int drop_sample0, int seq,
                                   void* part, int rows, int width, int sms, float eps,
                                   void* stream) {
   const BwdPlan p = bwd_plan(rows, width, sms);
-  const drop::Spec drop{drop_seed, drop_stream, drop_threshold, drop_scale, drop_on};
+  const drop::Spec drop{drop_seed, drop_stream, drop_threshold, drop_scale, drop_on,
+                        drop_sample0};
   const auto s = static_cast<cudaStream_t>(stream);
   seq = seq > 0 ? seq : 1;
 #define NANS_LN_FORM(F, SUMS, XHAT)                                                         \

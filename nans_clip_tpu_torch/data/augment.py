@@ -128,15 +128,24 @@ def draw_augment(generator: Optional[torch.Generator], n: int, h: int, w: int):
 
 
 def preprocess_images(generator: Optional[torch.Generator], raw, out_size: int,
-                      augment: bool = False) -> torch.Tensor:
+                      augment: bool = False, rows=None) -> torch.Tensor:
     """uint8 [N, H, W, 3] (on the card, or any device) -> normalised float32
     [N, out, out, 3] on the same device. ``augment``: crop, flip and
-    AutoAugment, drawn from ``generator`` (a CPU ``torch.Generator``)."""
+    AutoAugment, drawn from ``generator`` (a CPU ``torch.Generator``).
+    ``rows``: ``(n, index)`` where ``raw`` holds the rows ``index`` (an
+    int64 tensor of N) of a global batch of n (a data-parallel rank's
+    rows): the draws are made for the n rows and each image takes its
+    row's, so that the ranks together draw what one process draws."""
     raw = torch.as_tensor(raw)
     x = raw.float()
     n, h, w, _ = x.shape
     if augment:
-        boxes, flip, policy = draw_augment(generator, n, h, w)
+        if rows is None:
+            boxes, flip, policy = draw_augment(generator, n, h, w)
+        else:
+            boxes, flip, policy = (t[rows[1]] if torch.is_tensor(t) else
+                                   tuple(u[rows[1]] for u in t)
+                                   for t in draw_augment(generator, rows[0], h, w))
         x = resized_crop(x, boxes, out_size).clamp(0.0, 255.0)
         x = torch.where(flip.to(x.device).view(-1, 1, 1, 1), x.flip(2), x)
         x = autoaugment.auto_augment(x, *policy)

@@ -5,7 +5,8 @@
   batch (reference pad_dataset, training/data.py:118-121);
 * each epoch's order is ``np.random.default_rng(seed + epoch)``'s
   permutation, for training and validation alike, and a process takes every
-  ``process_count``-th index of it from ``process_index``;
+  ``process_count``-th index of it from ``process_index`` (or, with
+  ``layout="blocks"``, its block of each global batch);
 * ``set_epoch(epoch, start_batch)`` skips the epoch's first batches without
   decoding them (mid-epoch resume);
 * a pair whose image does not decode is replaced, image and caption, by the
@@ -90,11 +91,19 @@ def pad_len(n: int, global_batch: int) -> int:
     return max(1, math.ceil(n / global_batch)) * global_batch
 
 
+LAYOUTS = ("strided", "blocks")
+
+
 class DataLoader:
     """Epoch iterator yielding fixed-size host batches for one process.
     ``exact_decode`` decodes with the eval transform's pixels (bicubic,
     ``NPackReader.decode_jpeg_batch_pil``) instead of the bilinear loader
-    decode."""
+    decode. ``layout``: which records of the epoch's order process p of P
+    takes: ``"strided"`` every P-th from p, as the JAX loader; ``"blocks"``
+    block p of each global batch of ``batch_size * P`` records, so that the
+    processes' batches i, concatenated, are the batch i that one process
+    loads at that global batch (the port's data-parallel CLI,
+    ``parallel/distributed.py``)."""
 
     MAX_DECODE_RETRIES = 2
 
@@ -104,7 +113,10 @@ class DataLoader:
                  process_index: int = 0, process_count: int = 1,
                  tokenizer: Optional[Tokenizer] = None,
                  num_threads: int = 8, prefetch: int = 2,
-                 exact_decode: bool = False):
+                 exact_decode: bool = False, layout: str = "strided"):
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+        self.layout = layout
         self.ds = dataset
         self.batch_size = batch_size
         self.global_batch_size = batch_size * process_count
@@ -137,6 +149,10 @@ class DataLoader:
         idx = np.arange(self.padded_len) % len(self.ds)
         if self.shuffle:
             idx = np.random.default_rng(self.seed + self.epoch).permutation(idx)
+        if self.layout == "blocks":
+            # block p of each global batch: the global batch is one process's
+            return idx.reshape(-1, self.process_count, self.batch_size)[
+                :, self.process_index].reshape(-1)
         return idx[self.process_index::self.process_count]
 
     def _make_batch(self, idx: np.ndarray) -> Batch:

@@ -37,7 +37,9 @@ the JAX tower does (bert.py:77-80, :226-258): the embedding output in plain
 torch, then per layer two int32 seeds drawn from the generator, one for the
 attention sub-block (probability and hidden dropout) and one for the MLP
 (hidden dropout); the kernels draw their masks from those seeds
-(``ops/dropout.py``). The parameters are cast to the compute dtype on each
+(``ops/dropout.py``). ``sample0`` (a data-parallel rank's first row of the
+global microbatch) offsets every mask's sample index, so that data ranks
+draw together what one process draws over the global microbatch. The parameters are cast to the compute dtype on each
 forward (``ModelOptions.cast``).
 """
 
@@ -137,12 +139,14 @@ def serve(cfg: TextConfig, w: dict, input_ids: torch.Tensor, attention_mask: tor
                       layers_from(w, cfg.num_hidden_layers), options)
 
 
-def _layer_seeds(generator: Optional[torch.Generator]):
+def _layer_seeds(generator: Optional[torch.Generator], sample0: int = 0):
     """A layer's two dropout seeds (attention sub-block, MLP) drawn from
-    ``generator``, or (None, None) without one."""
+    ``generator``, each a ``drop.Seed`` counting samples from ``sample0``,
+    or (None, None) without a generator."""
     if generator is None:
         return None, None
-    return tuple(torch.randint(0, 2 ** 31 - 1, (2,), generator=generator).tolist())
+    return tuple(drop.Seed(v, sample0)
+                 for v in torch.randint(0, 2 ** 31 - 1, (2,), generator=generator).tolist())
 
 
 class BertEmbeddings(nn.Module):
@@ -282,9 +286,12 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor],
                 options: ModelOptions = ModelOptions(),
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                sample0: int = 0) -> torch.Tensor:
         """Sequence output [B, S, H]. ``attention_mask``: [B, S] 1=keep, 0=pad.
-        ``generator`` draws the dropout seeds of a training forward."""
+        ``generator`` draws the dropout seeds of a training forward;
+        ``sample0`` is the global index of the batch's first sample in the
+        microbatch the masks are drawn for (module docstring)."""
         emb = self.embeddings
         x = embed(input_ids, emb.word_embeddings.weight, emb.position_embeddings.weight,
                   emb.token_type_embeddings.weight, emb.LayerNorm.weight, emb.LayerNorm.bias,
@@ -292,9 +299,9 @@ class BertModel(nn.Module):
         key_bias = None if attention_mask is None else key_bias_of(attention_mask)
         layers = [layer.weights(options) for layer in self.encoder.layer]
         if options.tp > 1:
-            return self._tp_layers(x, key_bias, layers, options, generator)
+            return self._tp_layers(x, key_bias, layers, options, generator, sample0)
         if not options.deterministic:
-            return self._train_layers(x, key_bias, layers, options, generator)
+            return self._train_layers(x, key_bias, layers, options, generator, sample0)
         return run_layers(self.cfg, x, key_bias, layers, options, self.encoder.tower_table)
 
     def serving_weights(self, options: ModelOptions) -> dict:
@@ -313,7 +320,7 @@ class BertModel(nn.Module):
         return w
 
     def _tp_layers(self, x, key_bias, layers, options: ModelOptions,
-                   generator: Optional[torch.Generator]) -> torch.Tensor:
+                   generator: Optional[torch.Generator], sample0: int = 0) -> torch.Tensor:
         """Every layer through the post-LN TP sub-blocks (JAX bert.py:135-163),
         each rank on its heads and MLP columns; in a training forward with a
         generator, with dropout on the twins (bert.py:100-105)."""
@@ -321,17 +328,17 @@ class BertModel(nn.Module):
         heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
         group = model_group(options.tp)
         dropout = not options.deterministic and generator is not None
-        x, hd, ad = self._embedding_dropout(x, generator if dropout else None)
+        x, hd, ad = self._embedding_dropout(x, generator if dropout else None, sample0)
         a_impl, m_impl = ("xla", "xla") if dropout else gates.tp_impls(x, options.attn_impl, act)
         for p in layers:
             p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-            seed_a, seed_m = _layer_seeds(generator if dropout else None)
+            seed_a, seed_m = _layer_seeds(generator if dropout else None, sample0)
             x = tp_attention_block(x, *p[:6], heads, options.tp, eps, True, key_bias, a_impl,
                                    group, seed_a, ad, hd)
             x = tp_mlp_block(x, *p[6:], act, options.tp, eps, True, m_impl, group, seed_m, hd)
         return x
 
-    def _embedding_dropout(self, x, generator: Optional[torch.Generator]):
+    def _embedding_dropout(self, x, generator: Optional[torch.Generator], sample0: int = 0):
         """(x, hidden rate, attention rate): the embedding output's dropout
         and the rates of the layers when a generator is given
         (bert.py:77-80), else x and zero rates."""
@@ -339,22 +346,23 @@ class BertModel(nn.Module):
             return x, 0.0, 0.0
         hd, ad = self.cfg.hidden_dropout_prob, self.cfg.attention_probs_dropout_prob
         seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
-        return drop.apply(x, drop.Dropout(seed, hd, drop.STREAM_EMBED, x.shape[1])), hd, ad
+        return (drop.apply(x, drop.Dropout(seed, hd, drop.STREAM_EMBED, x.shape[1],
+                                           sample0=sample0)), hd, ad)
 
     def _train_layers(self, x, key_bias, layers, options: ModelOptions,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
+                      generator: Optional[torch.Generator], sample0: int = 0) -> torch.Tensor:
         """The training forward of the layers, with dropout when a generator
         is given (bert.py:77-80, :233-258)."""
         cfg = self.cfg
         heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
-        x, hd, ad = self._embedding_dropout(x, generator)
+        x, hd, ad = self._embedding_dropout(x, generator, sample0)
         use_kernel = gates.use_kernel(x, options.attn_impl)
         pallas = gates.pallas_route(options.attn_impl)
         route_a = gates.bwd_route("attn_post", options.bwd_impl)
         route_m = gates.bwd_route("mlp_post", options.bwd_impl)
         for p in layers:
             p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-            seed_a, seed_m = _layer_seeds(generator)
+            seed_a, seed_m = _layer_seeds(generator, sample0)
             if pallas:
                 x = _pallas_layer(x, p, key_bias, heads, eps, act, seed_a, seed_m, ad, hd)
                 continue

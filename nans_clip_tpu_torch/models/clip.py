@@ -61,7 +61,7 @@ class CLIP(nn.Module):
         tower."""
         if self.cfg.is_resnet:
             raise ValueError("tensor parallelism over a ResNet image tower is not ported "
-                             "(ROADMAP.md queue 1 item 6; the JAX package shards no ResNet "
+                             "(ROADMAP.md queue 1 item 6b; the JAX package shards no ResNet "
                              "over its model axis)")
         return [t for layer in (*self.visual.transformer.resblocks, *self.bert.encoder.layer)
                 for t in layer.tp_partial_parameters()]
@@ -79,11 +79,14 @@ class CLIP(nn.Module):
         return self.visual(images, options, mask_ratio, generator, ids_keep)
 
     def encode_text(self, text_ids: torch.Tensor, options: ModelOptions = ModelOptions(),
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    sample0: int = 0) -> torch.Tensor:
         """text_ids: [B, S] int. Unnormalised features [B, E]. ``generator``
-        draws the dropout of a training forward."""
+        draws the dropout of a training forward, its masks counting samples
+        from ``sample0`` (a data-parallel rank's first row of the global
+        microbatch)."""
         attn_mask = (text_ids != PAD_ID).float()
-        seq = self.bert(text_ids, attn_mask, options, generator)
+        seq = self.bert(text_ids, attn_mask, options, generator, sample0)
         return seq[:, 0, :] @ self.text_projection.to(seq.dtype)
 
     def forward(self, images: Optional[torch.Tensor], texts: Optional[torch.Tensor],

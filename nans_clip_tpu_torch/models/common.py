@@ -62,8 +62,15 @@ class ModelOptions:
     #11/#12 on each rank's heads and MLP columns, one all-reduce a
     sub-block) before any other route, in a process group of ``tp`` ranks
     that the caller formed (``parallel/mesh.py::init_model_group``); the
-    rank is the group's. A text tower with dropout under ``tp`` > 1 raises
-    (not ported).
+    rank is the group's model group (``mesh.model_group``). A text tower
+    with dropout under ``tp`` > 1 runs the sub-blocks' twins with the masks
+    one process draws.
+    ``data``: the number of data-parallel ranks, the other axis of the
+    ``data x tp`` grid of the process group (``mesh.grid``). Above 1 the
+    train step splits each microbatch over the data group, gathers the
+    features for the global-batch loss and reduces the gradients
+    (``training/trainer.py``), and a ResNet tower's training BatchNorm
+    normalises with the statistics of the global microbatch.
     """
 
     attn_impl: str = "auto"
@@ -71,6 +78,7 @@ class ModelOptions:
     deterministic: bool = True
     bwd_impl: str = "auto"
     tp: int = 1
+    data: int = 1
 
     def __post_init__(self):
         if self.attn_impl not in gates.IMPLS:
@@ -78,8 +86,10 @@ class ModelOptions:
         if self.bwd_impl not in gates.BWD_IMPLS:
             raise ValueError(f"bwd_impl must be one of {gates.BWD_IMPLS}, got "
                              f"{self.bwd_impl!r}")
-        if not isinstance(self.tp, int) or isinstance(self.tp, bool) or self.tp < 1:
-            raise ValueError(f"tp must be a positive int, got {self.tp!r}")
+        for axis in ("tp", "data"):
+            n = getattr(self, axis)
+            if not isinstance(n, int) or isinstance(n, bool) or n < 1:
+                raise ValueError(f"{axis} must be a positive int, got {n!r}")
         if self.compute_dtype not in (None, "bfloat16"):
             raise ValueError(f"unsupported compute_dtype {self.compute_dtype!r}")
 

@@ -32,7 +32,13 @@ then its stride-1 convolution (``bottleneck``, resnet.py:108-123).
   an argument, never ``module.training``: ``bn_train`` normalises with the
   biased batch statistics and, with ``bn_update``, folds the batch mean and
   the unbiased variance into the running buffers in place (momentum 0.1, eps
-  1e-5); the default normalises with the running statistics.
+  1e-5); the default normalises with the running statistics. Under data
+  parallelism (``options.data`` > 1) a training BatchNorm normalises with
+  the global microbatch's statistics, as the JAX tower's ``pmean``
+  (resnet.py:56-71): each rank's fp32 E[x] and E[x^2] are averaged over the
+  data group by a differentiable all-reduce (:class:`_MeanOverRanks`), the
+  variance is E[x^2] - E[x]^2 and the running variance takes the unbiased
+  factor of the global count, so every rank folds in the same statistics.
 * The attention pool is the JAX tower's single-query attention
   (resnet.py:164-182): the query is the mean token plus its positional
   embedding, scores and softmax in fp32.
@@ -48,12 +54,14 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from nans_clip_tpu_torch.configs import ResNetConfig
 from nans_clip_tpu_torch.models.common import ModelOptions
 from nans_clip_tpu_torch.ops.activations import upcast
+from nans_clip_tpu_torch.parallel import mesh
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -114,9 +122,50 @@ def blocks(cfg: ResNetConfig):
             inplanes = planes * EXPANSION
 
 
+class _MeanOverRanks(torch.autograd.Function):
+    """The mean over ``group`` of each rank's tensor; the backward is the
+    mean of the ranks' gradients (each rank's loss term reaches every
+    rank's statistics)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g / dist.get_world_size(ctx.group), None
+
+
+def _synced_batch_norm(x, w, key: str, bn_update: bool, group) -> torch.Tensor:
+    """Training BatchNorm over the global microbatch (module docstring)."""
+    xf = x.float()
+    stats = _MeanOverRanks.apply(torch.stack([xf.mean((0, 2, 3)), xf.square().mean((0, 2, 3))]),
+                                 group)
+    mean, var = stats[0], stats[1] - stats[0].square()
+    if bn_update:
+        n = x.numel() // x.shape[1] * dist.get_world_size(group)
+        with torch.no_grad():
+            rm, rv = w[f"{key}.running_mean"], w[f"{key}.running_var"]
+            rm.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.detach())
+            rv.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var.detach() * n / max(n - 1, 1))
+    view = lambda t: t.view(1, -1, 1, 1)
+    y = (xf - view(mean)) * view(torch.rsqrt(var + BN_EPS)) * view(w[f"{key}.weight"]) \
+        + view(w[f"{key}.bias"])
+    return y.to(x.dtype)
+
+
 def batch_norm(x: torch.Tensor, w: dict, key: str, bn_train: bool,
-               bn_update: bool = True) -> torch.Tensor:
-    """BatchNorm ``key`` of the weights ``w`` on x (module docstring)."""
+               bn_update: bool = True, group=None) -> torch.Tensor:
+    """BatchNorm ``key`` of the weights ``w`` on x (module docstring);
+    ``group``: the data group whose global statistics a training
+    BatchNorm takes, or None for the local batch's."""
+    if bn_train and group is not None:
+        return _synced_batch_norm(x, w, key, bn_update, group)
     mean, var = w[f"{key}.running_mean"], w[f"{key}.running_var"]
     if bn_train and not bn_update:
         mean = var = None
@@ -130,23 +179,24 @@ def conv(x: torch.Tensor, weight: torch.Tensor, stride: int = 1) -> torch.Tensor
     return F.conv2d(x, weight, stride=stride, padding=weight.shape[-1] // 2)
 
 
-def conv_bn(x, w, key: str, bn: str, bn_train, bn_update, stride=1, relu=True):
-    x = batch_norm(conv(x, w[f"{key}.weight"], stride), w, bn, bn_train, bn_update)
+def conv_bn(x, w, key: str, bn: str, bn_train, bn_update, stride=1, relu=True, group=None):
+    x = batch_norm(conv(x, w[f"{key}.weight"], stride), w, bn, bn_train, bn_update, group)
     return F.relu(x) if relu else x
 
 
-def bottleneck(x, w, base: str, stride: int, bn_train: bool, bn_update: bool):
-    out = conv_bn(x, w, f"{base}.conv1", f"{base}.bn1", bn_train, bn_update)
-    out = conv_bn(out, w, f"{base}.conv2", f"{base}.bn2", bn_train, bn_update)
+def bottleneck(x, w, base: str, stride: int, bn_train: bool, bn_update: bool, group=None):
+    out = conv_bn(x, w, f"{base}.conv1", f"{base}.bn1", bn_train, bn_update, group=group)
+    out = conv_bn(out, w, f"{base}.conv2", f"{base}.bn2", bn_train, bn_update, group=group)
     if stride > 1:
         out = F.avg_pool2d(out, stride)
-    out = conv_bn(out, w, f"{base}.conv3", f"{base}.bn3", bn_train, bn_update, relu=False)
+    out = conv_bn(out, w, f"{base}.conv3", f"{base}.bn3", bn_train, bn_update, relu=False,
+                  group=group)
     idn = x
     if f"{base}.downsample.0.weight" in w:
         if stride > 1:
             idn = F.avg_pool2d(idn, stride)
         idn = conv_bn(idn, w, f"{base}.downsample.0", f"{base}.downsample.1", bn_train,
-                      bn_update, relu=False)
+                      bn_update, relu=False, group=group)
     return F.relu(out + idn)
 
 
@@ -167,15 +217,16 @@ def attention_pool(x: torch.Tensor, w: dict, heads: int) -> torch.Tensor:
 
 
 def forward(cfg: ResNetConfig, w: dict, images: torch.Tensor, bn_train: bool = False,
-            bn_update: bool = True) -> torch.Tensor:
+            bn_update: bool = True, group=None) -> torch.Tensor:
     """The tower on images [B, R, R, 3] NHWC (already in the compute dtype)
-    from the weights ``w`` (:meth:`ModifiedResNet.weights`): [B, embed_dim]."""
+    from the weights ``w`` (:meth:`ModifiedResNet.weights`): [B, embed_dim].
+    ``group``: the data group of a synced training BatchNorm, or None."""
     x = images.permute(0, 3, 1, 2)
     for i, stride in STEM:
-        x = conv_bn(x, w, f"conv{i}", f"bn{i}", bn_train, bn_update, stride=stride)
+        x = conv_bn(x, w, f"conv{i}", f"bn{i}", bn_train, bn_update, stride=stride, group=group)
     x = F.avg_pool2d(x, 2)
     for stage, i, _, _, stride in blocks(cfg):
-        x = bottleneck(x, w, f"layer{stage}.{i}", stride, bn_train, bn_update)
+        x = bottleneck(x, w, f"layer{stage}.{i}", stride, bn_train, bn_update, group)
     return attention_pool(x, w, cfg.heads)
 
 
@@ -236,14 +287,18 @@ class ModifiedResNet(nn.Module):
                 bn_train: bool = False, bn_update: bool = True) -> torch.Tensor:
         """images: [B, R, R, 3] NHWC. Returns [B, embed_dim]. ``bn_train``:
         batch statistics (and, with ``bn_update``, the running ones
-        updated); else the running statistics."""
+        updated), over the global microbatch where ``options.data`` > 1;
+        else the running statistics."""
         if options.tp > 1:
             raise ValueError("tensor parallelism over a ResNet image tower is not ported "
-                             "(ROADMAP.md queue 1 item 6; the JAX package shards no ResNet "
+                             "(ROADMAP.md queue 1 item 6b; the JAX package shards no ResNet "
                              "over its model axis)")
+        group = None
+        if bn_train and options.data > 1:
+            group = mesh.check_grid(options.tp, options.data).data_group
         w = self.weights(options)
         images = images.to(options.dtype or self.attnpool.c_proj.weight.dtype)
-        return forward(self.cfg, w, images, bn_train, bn_update)
+        return forward(self.cfg, w, images, bn_train, bn_update, group)
 
     def serving_weights(self, options: ModelOptions) -> dict:
         """The inputs of :func:`serve`: :meth:`weights`, the running

@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _LL = ctypes.POINTER(ctypes.c_longlong)
-_DROP = [_U, _U, _U, _F, _I]   # seed, stream, threshold, scale, on (ops/dropout.py)
+_DROP = [_U, _U, _U, _F, _I, _I]   # seed, stream, threshold, scale, on, sample0 (ops/dropout.py)
 _SIGNATURES = {
     # x, x_is_fp32, gamma, beta, y, rows, width, eps, stream
     "nans_layernorm": [_P, _I, _P, _P, _P, _I, _I, _F, _P],

@@ -20,7 +20,12 @@ Under tensor parallelism (``parallel/tp.py``) a rank computes heads ``head0``
 to ``head0 + heads / tp`` of the layer: its attention spec carries that
 ``head0``, so the rank counts by the global head index and tp ranks together
 draw the masks one process draws (the GSPMD semantics of the JAX package,
-where a mask is drawn on the global array).
+where a mask is drawn on the global array). Under data parallelism
+(``training/trainer.py``) a rank holds rows ``sample0`` to ``sample0 + B``
+of each global microbatch: every spec of its draw carries that ``sample0``
+(a :class:`Seed` carries it from the text tower to every sub-block), the
+kernels take it too, and data ranks together draw the masks one process
+draws over the global microbatch.
 """
 
 from __future__ import annotations
@@ -42,13 +47,16 @@ class Dropout:
     generator), ``rate``, ``stream``; ``seq`` is the sequence length that
     splits a flat row index into (sample, row) for the hidden masks;
     ``head0`` is the global index of the first head of an attention mask
-    (a tensor-parallel rank's offset; the kernels take 0 only)."""
+    (a tensor-parallel rank's offset; the kernels take 0 only);
+    ``sample0`` the global index of the first sample (a data-parallel
+    rank's offset in the microbatch; the kernels take it)."""
 
     seed: int
     rate: float
     stream: int
     seq: int = 0
     head0: int = 0
+    sample0: int = 0
 
     def __post_init__(self):
         if not 0.0 <= self.rate < 1.0:
@@ -67,17 +75,29 @@ class Dropout:
         return 1.0 / (1.0 - self.rate)
 
     def kernel_args(self) -> tuple:
-        """(seed, stream, threshold, scale, on) as the kernels take them."""
+        """(seed, stream, threshold, scale, on, sample0) as the kernels take
+        them."""
         if not self.on:
-            return 0, 0, 0, 1.0, 0
+            return 0, 0, 0, 1.0, 0, 0
         if self.head0:
             raise ValueError("the kernels count heads from 0: a head offset runs the twins")
-        return self.seed & _MASK32, self.stream, self.threshold, self.scale, 1
+        return self.seed & _MASK32, self.stream, self.threshold, self.scale, 1, self.sample0
+
+
+@dataclasses.dataclass(frozen=True)
+class Seed:
+    """A sub-block's dropout seed drawn for a global microbatch, and the
+    global index of the first sample of the rows this process holds (a
+    data-parallel rank's offset). :func:`sub_block` takes it or a bare int
+    (offset 0)."""
+
+    value: int
+    sample0: int = 0
 
 
 def kernel_args(spec) -> tuple:
     """The kernel arguments of ``spec``, or those of no dropout for None."""
-    return (0, 0, 0, 1.0, 0) if spec is None else spec.kernel_args()
+    return (0, 0, 0, 1.0, 0, 0) if spec is None else spec.kernel_args()
 
 
 def active(spec) -> bool:
@@ -117,28 +137,32 @@ def hidden_multiplier(spec: Dropout, rows: int, width: int, device) -> torch.Ten
     """[rows, width] multipliers of a hidden dropout over B*S flat rows."""
     r = torch.arange(rows, device=device, dtype=torch.int64)[:, None]
     col = torch.arange(width, device=device, dtype=torch.int64)[None, :]
-    return multiplier(spec, r // spec.seq, torch.zeros_like(r), r % spec.seq, col)
+    return multiplier(spec, r // spec.seq + spec.sample0, torch.zeros_like(r), r % spec.seq, col)
 
 
 def attention_multiplier(spec: Dropout, batch: int, heads: int, seq: int,
                          device) -> torch.Tensor:
     """[B, H, S, S] multipliers of the attention-probability dropout, for
-    the heads ``spec.head0`` to ``spec.head0 + heads``."""
+    the samples from ``spec.sample0`` and the heads ``spec.head0`` to
+    ``spec.head0 + heads``."""
     ar = lambda n: torch.arange(n, device=device, dtype=torch.int64)
-    return multiplier(spec, ar(batch).view(-1, 1, 1, 1),
+    return multiplier(spec, ar(batch).view(-1, 1, 1, 1) + spec.sample0,
                       ar(heads).view(1, -1, 1, 1) + spec.head0, ar(seq).view(1, 1, -1, 1),
                       ar(seq).view(1, 1, 1, -1))
 
 
 def sub_block(seed, attn_rate: float, hid_rate: float, seq: int):
     """The (attention-probability, hidden) dropouts of one sub-block drawn
-    with ``seed``; None where a rate is 0. A rate above 0 needs a seed."""
+    with ``seed`` (an int, or a :class:`Seed` with its sample offset); None
+    where a rate is 0. A rate above 0 needs a seed."""
     if seed is None:
         if attn_rate > 0.0 or hid_rate > 0.0:
             raise ValueError("dropout needs a seed")
         return None, None
-    attn = Dropout(int(seed), attn_rate, STREAM_ATTN) if attn_rate > 0.0 else None
-    hid = Dropout(int(seed), hid_rate, STREAM_HIDDEN, seq) if hid_rate > 0.0 else None
+    value, sample0 = (seed.value, seed.sample0) if isinstance(seed, Seed) else (int(seed), 0)
+    attn = Dropout(value, attn_rate, STREAM_ATTN, sample0=sample0) if attn_rate > 0.0 else None
+    hid = Dropout(value, hid_rate, STREAM_HIDDEN, seq, sample0=sample0) if hid_rate > 0.0 \
+        else None
     return attn, hid
 
 

@@ -189,11 +189,12 @@ def linear_plain(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
 
 
 def _launch(a, w, w_trans, bias, act, dact, aux, dropout, residual, out, c_pre, c2, n, k):
-    seed, stream, thresh, scale, on = drop.kernel_args(dropout)
+    seed, stream, thresh, scale, on, sample0 = drop.kernel_args(dropout)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _build.library().nans_gemm(
         a.data_ptr(), w.data_ptr(), int(w_trans), ptr(bias), _ACT_CODES[act], _ACT_CODES[dact],
-        ptr(aux), seed, stream, thresh, scale, on, dropout.seq if on else 0, ptr(residual),
+        ptr(aux), seed, stream, thresh, scale, on, sample0, dropout.seq if on else 0,
+        ptr(residual),
         int(residual is not None and residual.dtype == torch.float32), out.data_ptr(),
         int(out.dtype == torch.float32), ptr(c_pre), ptr(c2), a.numel() // k, n, k,
         _build.stream_ptr(a.device))

@@ -229,11 +229,11 @@ def layer_norm_bwd(gin: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps
     sms = _sms(gin.device.index if gin.device.index is not None else torch.cuda.current_device())
     plan = layernorm_bwd_plan(rows, w, sms, 2 if pre else 3)
     part = torch.empty(plan["partials"], dtype=f32, device=gin.device) if sums else None
-    seed, stream, thresh, scale, on = drop.kernel_args(dropout)
+    seed, stream, thresh, scale, on, sample0 = drop.kernel_args(dropout)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _build.library().nans_layernorm_bwd(
         0 if pre else 1, gin.data_ptr(), x.data_ptr(), weight.data_ptr(), ptr(residual),
-        dx.data_ptr(), ptr(dproj), ptr(xhat), seed, stream, thresh, scale, on,
+        dx.data_ptr(), ptr(dproj), ptr(xhat), seed, stream, thresh, scale, on, sample0,
         dropout.seq if on else 0, ptr(part), rows, w, sms, float(eps),
         _build.stream_ptr(gin.device))
     _build.check(err, "nans_layernorm_bwd")

@@ -1,22 +1,30 @@
-"""The model process group of tensor parallelism, the rank's weight slices,
-and a launcher that runs one function in each rank (counterpart of
-``nans_clip_tpu/parallel/mesh.py``'s ``model`` axis).
+"""The ``data x tp`` grid of ranks, the rank's weight slices, the FSDP
+storage specs, and a launcher that runs one function in each rank
+(counterpart of ``nans_clip_tpu/parallel/mesh.py``).
 
-The JAX package lays its devices out as a ``(data, model)`` mesh and lets
-``shard_map`` give each model shard its heads and MLP columns. The port runs
-one process a rank and joins them in a ``torch.distributed`` process group:
+The JAX package lays its devices out as a ``(data, model)`` mesh: the batch
+is sharded over ``data`` and ``shard_map`` gives each model shard its heads
+and MLP columns. The port runs one process a rank and joins them in
+``torch.distributed`` process groups:
 
 * :func:`init_model_group` forms the default group. The backend is the
   caller's explicit choice and nothing chooses it for them: ``gloo`` on the
-  CPU and where the ranks share one card (gloo all-reduces CUDA tensors
+  CPU and where the ranks share one card (gloo reduces CUDA tensors
   through the host; NCCL refuses two ranks on one device), ``nccl`` where
-  each rank has its own card (not yet run: the machine the port is measured
-  on has one card).
-* :func:`model_group` is the model group of ``ModelOptions.tp``: for now the
-  whole default group, world size = tp and data = 1 (data parallelism across
-  groups is not ported). It fails fast when ``tp`` differs from the group's
-  size, the counterpart of ``_check_tp`` (``nans_clip_tpu/parallel/tp.py:
-  43-54``): a rank that sliced for another tp would sum the wrong heads.
+  each rank has its own card. ``parallel/distributed.py`` forms it from a
+  launcher's environment.
+* :func:`grid` lays the ``world`` ranks out as JAX lays out its devices,
+  ``create_mesh``'s ``reshape(data, model)``: rank ``d * tp + m`` has data
+  index ``d`` and model index ``m``, ``data = world / tp``. Its model group
+  (:func:`model_group`) holds the ``tp`` ranks of one data index, the group
+  of ``ModelOptions.tp``; its data group (:func:`data_group`) the ``data``
+  ranks of one model index, over which the batch is split, features are
+  gathered and gradients reduced. Every rank forms every subgroup, in one
+  order, on its first call (``torch.distributed.new_group`` is collective).
+  A ``tp`` that does not divide the world, or an ``options.data`` other than
+  the grid's, raises (the counterpart of ``_check_tp``,
+  ``nans_clip_tpu/parallel/tp.py:43-54``): a rank that sliced for another tp
+  would sum the wrong heads.
 * :func:`qkv_slice`, :func:`row_slice` and :func:`column_slice` cut a rank's
   share from the full weights in the torch Linear layout ``[out, in]``:
   its heads of the q|k|v thirds (``_local_qkv``, tp.py:57-70, keeps the
@@ -25,30 +33,39 @@ one process a rank and joins them in a ``torch.distributed`` process group:
   contiguous. Every rank holds the full weights: the slices are taken on
   each forward (inside autograd in training, so that each rank's gradient
   lands in its slice of the full parameter).
-* :func:`run_ranks` spawns ``tp`` processes, forms their group through a
-  file rendezvous (no fixed port: two runs at once cannot collide), runs
-  ``fn(rank, *args)`` in each and returns their results, failing, never
-  hanging, when a rank fails or times out.
+* :func:`param_spec` is JAX's (mesh.py:80-124) on a leaf's path names and
+  shape: the tensor-parallel rules name the ``model`` dimension of ``wo``,
+  ``w1``, ``w2`` and ``b1``, and under FSDP the largest dimension that no
+  rule names and that ``data`` divides is sharded over ``data``, for every
+  leaf of at least ``_FSDP_MIN_SIZE`` elements. ``parallel/fsdp.py`` maps
+  the port's parameters to the JAX leaves and applies it.
+* :func:`run_ranks` spawns ``world_size`` processes, forms their group
+  through a file rendezvous (no fixed port: two runs at once cannot
+  collide), runs ``fn(rank, *args)`` in each and returns their results,
+  failing, never hanging, when a rank fails or times out.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import multiprocessing
 import queue
 import time
 import traceback
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 BACKENDS = ("gloo", "nccl")
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 def init_model_group(backend: str, init_method: str, rank: int, world_size: int,
                      timeout_s: float = 60.0) -> None:
-    """Form the default process group that :func:`model_group` reads.
+    """Form the default process group that :func:`grid` lays out.
     ``backend``: "gloo" or "nccl", as the module docstring says; no default.
     ``init_method``: a rendezvous URL (``file://<path>`` or
     ``tcp://localhost:<port>``)."""
@@ -59,16 +76,87 @@ def init_model_group(backend: str, init_method: str, rank: int, world_size: int,
                             timeout=datetime.timedelta(seconds=timeout_s))
 
 
-def model_group(tp: int):
-    """The process group of ``ModelOptions.tp`` = ``tp`` ranks. Raises when
-    no group is formed or when its size is not ``tp``."""
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This rank's place in the ``data x tp`` grid and its two groups; a
+    group is None where its axis is 1 (no collective runs over it)."""
+
+    data: int
+    tp: int
+    data_index: int
+    model_index: int
+    model_group: object
+    data_group: object
+
+
+# One grid a (tp, default group): forming a subgroup is collective, so each
+# is formed once and found again on every later call.
+_GRIDS: dict = {}
+
+
+def grid(tp: int) -> Grid:
+    """The grid of the default group's ranks at ``tp`` ranks a model
+    group (module docstring). Raises when no group is formed or when ``tp``
+    does not divide its size."""
     if not (dist.is_available() and dist.is_initialized()):
-        raise RuntimeError(f"ModelOptions(tp={tp}) needs a process group of {tp} ranks: call "
-                           "parallel.mesh.init_model_group first")
-    size = dist.get_world_size()
-    if size != tp:
-        raise ValueError(f"tp={tp} but the model group has {size} ranks")
-    return dist.group.WORLD
+        raise RuntimeError(f"tp={tp} needs a process group of {tp} ranks or a multiple: call "
+                           "parallel.mesh.init_model_group (or parallel.distributed."
+                           "init_distributed) first")
+    world = dist.group.WORLD
+    key = (tp, id(world))
+    if key in _GRIDS and _GRIDS[key][0] is world:
+        return _GRIDS[key][1]
+    size, rank = dist.get_world_size(), dist.get_rank()
+    if size % tp:
+        raise ValueError(f"tp={tp} but the model group has {size} ranks: a world of {size} "
+                         f"ranks is no grid of data x {tp}")
+    data = size // tp
+    d, m = divmod(rank, tp)
+    model = data_ = None
+    if tp > 1:
+        if data == 1:
+            model = world
+        else:
+            for i in range(data):
+                g = dist.new_group(list(range(i * tp, (i + 1) * tp)))
+                if i == d:
+                    model = g
+    if data > 1:
+        if tp == 1:
+            data_ = world
+        else:
+            for j in range(tp):
+                g = dist.new_group(list(range(j, size, tp)))
+                if j == m:
+                    data_ = g
+    out = Grid(data, tp, d, m, model, data_)
+    _GRIDS[key] = (world, out)
+    return out
+
+
+def check_grid(tp: int, data: int) -> Optional[Grid]:
+    """The grid for ``ModelOptions(tp=tp, data=data)``: None for one rank
+    (no group needed); raises where the process group is not that grid."""
+    if tp == 1 and data == 1:
+        return None
+    g = grid(tp)
+    if g.data != data:
+        raise ValueError(f"data={data} but the grid of {g.data * tp} ranks at tp={tp} has a "
+                         f"data axis of {g.data}")
+    return g
+
+
+def model_group(tp: int):
+    """The process group of ``ModelOptions.tp`` = ``tp`` ranks: this
+    rank's model group of the grid. Raises when no group is formed or when
+    ``tp`` does not divide its size."""
+    return grid(tp).model_group
+
+
+def data_group(tp: int = 1):
+    """This rank's data group of the grid at ``tp`` (None when the data
+    axis is 1)."""
+    return grid(tp).data_group
 
 
 def check_heads(heads: int, tp: int) -> None:
@@ -100,6 +188,45 @@ def column_slice(w: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
     contiguous."""
     n = w.shape[1] // tp
     return w[:, rank * n:(rank + 1) * n].contiguous()
+
+
+# Tensor-parallel rules of the JAX package (mesh.py:61-71), keyed on the last
+# name of a stacked transformer leaf ([L, in, out] and [L, out]): the entries
+# of the dimensions that the model axis splits.
+_TP_RULES_3D = {"wo": (None, MODEL_AXIS, None), "w1": (None, None, MODEL_AXIS),
+                "w2": (None, MODEL_AXIS, None)}
+_TP_RULES_2D = {"b1": (None, MODEL_AXIS)}
+# Leaves smaller than this stay replicated under FSDP (JAX mesh.py:77).
+_FSDP_MIN_SIZE = 65536
+
+
+def param_spec(names: Tuple[str, ...], shape: Tuple[int, ...], fsdp: int = 1,
+               fsdp_min_size: Optional[int] = None) -> tuple:
+    """The JAX ``PartitionSpec`` entries (``nans_clip_tpu/parallel/mesh.py:
+    80-124``, without the pipe axis) of a leaf with the JAX path ``names``
+    and ``shape``: ``"model"`` where a tensor-parallel rule splits, and
+    under ``fsdp`` > 1 ``"data"`` on the largest dimension that no rule
+    names and that ``fsdp`` divides, for a leaf of at least
+    ``fsdp_min_size`` (default ``_FSDP_MIN_SIZE``) elements; trailing None
+    entries dropped."""
+    name = names[-1]
+    spec: tuple = ()
+    if len(shape) == 3 and name in _TP_RULES_3D:
+        spec = _TP_RULES_3D[name]
+    elif len(shape) == 2 and name in _TP_RULES_2D:
+        spec = _TP_RULES_2D[name]
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    min_size = _FSDP_MIN_SIZE if fsdp_min_size is None else fsdp_min_size
+    size = 1
+    for n in shape:
+        size *= n
+    if fsdp > 1 and size >= min_size:
+        free = [d for d in range(len(shape)) if entries[d] is None and shape[d] % fsdp == 0]
+        if free:
+            entries[max(free, key=lambda i: shape[i])] = DATA_AXIS
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
 
 
 def _rank_main(fn, rank, world_size, backend, init_method, timeout_s, args, results):

@@ -1,18 +1,37 @@
 """Training entry point (counterpart of ``nans_clip_tpu/training/main.py``):
-one process, one card (or the CPU with ``--platform cpu``), the JAX CLI's
-flags (``training/params.py``) and its loop:
+one process a rank, each on its card (or the CPU with ``--platform cpu``),
+the JAX CLI's flags (``training/params.py``) and its loop:
 
+* ``--distributed``, or a launcher's rendezvous in the environment
+  (torchrun's names or the JAX CLI's, ``parallel/distributed.py``), forms
+  the process group of ``world`` ranks before anything else, with the
+  backend of ``distributed.backend_for`` (logged): ``nccl`` where each rank
+  has its own card, ``gloo`` on the CPU and where ranks share a card. The
+  ranks are a ``data x tp`` grid, ``data = world / --tp``
+  (``parallel/mesh.py``); ``--fsdp`` stores the parameters and the Adam
+  moments sharded over ``data`` (``--fsdp-min-size``); one process without
+  a launcher is the grid 1 x 1;
 * the pair dataset and loader (``data/``), images preprocessed and
   augmented on the device (``data/augment.py``), the train step of
   ``training/trainer.py``;
-* the global batch is ``--batch-size`` x the data axis, and the data axis
-  is 1 on one card;
+* the global batch is ``--batch-size`` x the data axis (the JAX rule,
+  main.py:200-216); the loader of data rank ``d`` takes block ``d`` of
+  each global batch (``layout="blocks"``; the ranks of a model group load
+  the same rows), so a step's global batch, and the draws made for it, are
+  those of one process at the same global batch, at any world size;
 * checkpoints (``utils/checkpoint.py``) every ``--save-step-frequency``
   steps and at each epoch's end, auto-resume from ``epoch_latest`` or
   ``--resume TAG``, ``--reset-optimizer``, ``--reset-data-offset``, and
   the elastic ``epoch_samples`` offset, as the JAX CLI computes them;
-* validation weighted by samples; SIGTERM/SIGINT finish the step, save
-  ``preempt_step_N`` and return;
+* validation weighted by samples, over the global batch; SIGTERM/SIGINT
+  finish the step, save ``preempt_step_N`` and return: after each step
+  group the ranks agree on whether any of them was signalled (an all-reduce
+  of a flag), so all stop at the same step and none waits in a collective
+  its peers left; ``--dist-timeout`` bounds every collective, so a rank
+  that raises fails the others within it;
+* the log file, ``metrics.jsonl``, the profile and the checkpoint files
+  come from rank 0 (every rank joins a checkpoint's gathers and its
+  barrier, ``utils/checkpoint.py``);
 * ``--steps-per-call K`` runs K single steps a group, the log, validation
   and save cadences rounded up to the group's end as in JAX (the
   trajectory equals K = 1);
@@ -42,10 +61,16 @@ Example (one card):
       --train-data DATADIR/train --val-data DATADIR/valid \\
       --vision-model ViT-B-16 --text-model RoBERTa-wwm-ext-base-chinese \\
       --batch-size 128 --max-epochs 3 --lr 5e-5 --warmup 100
+
+Example (8 cards of one host, global batch 8 x 128; ``--fsdp`` and ``--tp 2``
+optional):
+  torchrun --nproc-per-node 8 -m nans_clip_tpu_torch.training.main --distributed \\
+      --train-data DATADIR/train --batch-size 128 --fsdp
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import math
@@ -57,6 +82,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from nans_clip_tpu_torch import configs
@@ -65,10 +91,12 @@ from nans_clip_tpu_torch.data.augment import preprocess_images
 from nans_clip_tpu_torch.data.dataset import DataLoader, PairDataset
 from nans_clip_tpu_torch.models.clip import build_clip
 from nans_clip_tpu_torch.models.common import ModelOptions, compute_dtype_for
+from nans_clip_tpu_torch.parallel import distributed, mesh
 from nans_clip_tpu_torch.training.params import parse_args
 from nans_clip_tpu_torch.training.trainer import (TrainConfig, create_train_state,
-                                                  make_eval_step, make_train_step,
-                                                  platform_device, step_seeds)
+                                                  full_weights, make_eval_step,
+                                                  make_train_step, platform_device,
+                                                  shard_train_state, step_seeds)
 from nans_clip_tpu_torch.utils.checkpoint import (latest_exists, restore_checkpoint,
                                                   save_checkpoint)
 from nans_clip_tpu_torch.utils.torch_interop import load_torch_state_dict, merge_pretrained
@@ -76,10 +104,17 @@ from nans_clip_tpu_torch.utils.torch_interop import load_torch_state_dict, merge
 NO_OP_FLAGS = ("use_bn_sync", "use_flash_attention", "gather_with_grad", "skip_aggregate")
 
 
-def setup_logging(log_dir: str, name: str) -> str:
-    os.makedirs(os.path.join(log_dir, name), exist_ok=True)
+def setup_logging(log_dir: str, name: str, rank: int = 0) -> str:
+    """Rank 0 logs INFO to a file and the stream; another rank only its
+    warnings and errors, to the stream, marked with its rank."""
     ts = time.strftime("%Y-%m-%d-%H-%M-%S")
     log_path = os.path.join(log_dir, name, f"out_{ts}.log")
+    if rank:
+        logging.basicConfig(level=logging.WARNING, handlers=[logging.StreamHandler()],
+                            format=f"%(asctime)s | rank {rank} | %(levelname)s | %(message)s",
+                            force=True)
+        return log_path
+    os.makedirs(os.path.join(log_dir, name), exist_ok=True)
     logging.basicConfig(level=logging.INFO,
                         handlers=[logging.FileHandler(log_path), logging.StreamHandler()],
                         format="%(asctime)s | %(levelname)s | %(message)s", force=True)
@@ -91,11 +126,9 @@ def refuse_unported(args) -> None:
     ``ValueError`` that names the ROADMAP item, never a silent ignore."""
     if args.tp > 1 and args.pp > 1:
         raise ValueError("--tp and --pp are exclusive")
-    for flag, on in (("--pp > 1", args.pp > 1), ("--fsdp", args.fsdp),
-                     ("--distributed", args.distributed), ("--tp > 1", args.tp > 1)):
-        if on:
-            raise ValueError(f"{flag}: the data, pipeline and tensor-parallel axes of the "
-                             "training CLI are not ported yet (ROADMAP.md queue 1 item 6)")
+    if args.pp > 1:
+        raise ValueError("--pp > 1: the pipeline-parallel axis of the training CLI is not "
+                         "ported yet (ROADMAP.md queue 1 item 6b)")
     if args.grad_checkpointing:
         raise ValueError("--grad-checkpointing: the port has no activation "
                          "rematerialisation yet (ROADMAP.md queue 1 item 9)")
@@ -178,24 +211,57 @@ def _metrics_line(path: str, record: dict) -> None:
         f.write(json.dumps(record) + "\n")
 
 
+def start_ranks(args):
+    """(this process's ``distributed.Rank`` or None, its device): the
+    process group of a launch with ``--distributed`` or a launcher's
+    rendezvous, else one process on ``--platform``'s device."""
+    if args.distributed or distributed.launched():
+        rank = distributed.init_distributed(args.platform, args.dist_timeout)
+        return rank, rank.device
+    if args.tp > 1:
+        raise ValueError(f"--tp {args.tp} needs a grid of data x {args.tp} ranks: launch "
+                         f"a multiple of {args.tp} processes with --distributed")
+    return None, platform_device(args.platform)
+
+
 def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
-    device = platform_device(args.platform)
-    log_path = setup_logging(args.logs, args.name)
+    ranks, device = start_ranks(args)
+    try:
+        return _main(args, ranks, device)
+    finally:
+        if ranks is not None and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, ranks, device):
+    rank = ranks.rank if ranks is not None else 0
+    lead = rank == 0
+    log_path = setup_logging(args.logs, args.name, rank)
     for flag in NO_OP_FLAGS:
         if getattr(args, flag):
             logging.warning("--%s is a no-op here", flag.replace("_", "-"))
     logging.info("device: %s", torch.cuda.get_device_name(device) if device.type == "cuda"
                  else "cpu")
+    grid = mesh.check_grid(args.tp, ranks.world // args.tp if ranks is not None else 1) \
+        if ranks is not None else None
+    data = grid.data if grid is not None else 1
+    data_index = grid.data_index if grid is not None else 0
+    if ranks is not None:
+        logging.info("ranks: %d (data %d x tp %d), backend %s, fsdp %s", ranks.world, data,
+                     args.tp, ranks.backend, args.fsdp)
 
     cfg, module, options = build_model(args)
+    options = dataclasses.replace(options, tp=args.tp, data=data)
     resolution = cfg.vision.image_resolution
     run_dir = os.path.join(args.logs, args.name)
     metrics_path = os.path.join(run_dir, "metrics.jsonl")
-    with open(os.path.join(run_dir, f"params_{time.strftime('%Y%m%d%H%M%S')}.txt"), "w") as f:
-        for k in sorted(vars(args)):
-            f.write(f"{k}: {getattr(args, k)}\n")
+    if lead:
+        with open(os.path.join(run_dir, f"params_{time.strftime('%Y%m%d%H%M%S')}.txt"),
+                  "w") as f:
+            for k in sorted(vars(args)):
+                f.write(f"{k}: {getattr(args, k)}\n")
     if args.mask_ratio > 0 and cfg.is_resnet:
         logging.info("Note: mask_ratio > 0 (FLIP) only functions for ViT towers.")
     if cfg.is_resnet:
@@ -206,17 +272,23 @@ def main(argv=None):
     # data ------------------------------------------------------------------
     if not args.train_data:
         raise ValueError("--train-data is required")
-    global_micro = args.batch_size          # x the data axis, 1 on one card
+    global_micro = args.batch_size * data
+    shard = dict(process_index=data_index, process_count=data, layout="blocks")
     train_loader = DataLoader(
-        PairDataset(args.train_data), batch_size=global_micro, decode_size=resolution,
+        PairDataset(args.train_data), batch_size=args.batch_size, decode_size=resolution,
         context_length=args.context_length, shuffle=True, seed=args.seed,
-        num_threads=args.num_workers, exact_decode=args.exact_decode)
+        num_threads=args.num_workers, exact_decode=args.exact_decode, **shard)
     val_loader = None
     if args.val_data:
         val_loader = DataLoader(
             PairDataset(args.val_data), batch_size=args.valid_batch_size,
             decode_size=resolution, context_length=args.context_length, shuffle=True,
-            seed=args.seed, num_threads=args.valid_num_workers, exact_decode=args.exact_decode)
+            seed=args.seed, num_threads=args.valid_num_workers, exact_decode=args.exact_decode,
+            **shard)
+    # this rank's rows of a step's global batch, for the augmentation draws
+    rows = None if data == 1 else (
+        global_micro * args.accum_freq,
+        distributed.rank_row_index(data_index, data, args.accum_freq, args.batch_size))
 
     num_batches = train_loader.num_batches
     steps_per_epoch = num_batches // args.accum_freq
@@ -269,6 +341,7 @@ def main(argv=None):
             logging.info("resumed from %s (epoch %d, step %d)", resume_tag, start_epoch,
                          start_step)
 
+    state = shard_train_state(state, tcfg, options, args.fsdp, args.fsdp_min_size)
     train_step = make_train_step(cfg, tcfg, options, teacher=teacher)
     eval_step = make_eval_step(cfg, options)
     spc = max(1, args.steps_per_call)
@@ -281,20 +354,22 @@ def main(argv=None):
             return
         tot = {"loss": 0.0, "i2t_acc": 0.0, "t2i_acc": 0.0}
         n = 0
-        for batch in val_loader:
-            im, tx = to_device(batch.images, batch.texts)
-            m = eval_step(state.module, preprocess_images(None, im, resolution), tx)
-            gb = batch.images.shape[0]
-            for k in tot:
-                tot[k] += float(m[k]) * gb
-            n += gb
+        with full_weights(state):
+            for batch in val_loader:
+                im, tx = to_device(batch.images, batch.texts)
+                m = eval_step(state.module, preprocess_images(None, im, resolution), tx)
+                gb = batch.images.shape[0] * data   # the global batch's metrics
+                for k in tot:
+                    tot[k] += float(m[k]) * gb
+                n += gb
         if n != val_loader.num_samples:
             raise AssertionError((n, val_loader.num_samples))
         logging.info("VALID epoch %d | loss %.4f | i2t %.2f%% | t2i %.2f%% | %d samples",
                      epoch, tot["loss"] / n, 100 * tot["i2t_acc"] / n,
                      100 * tot["t2i_acc"] / n, n)
-        _metrics_line(metrics_path, {"kind": "valid", "epoch": epoch, "step": step,
-                                     "samples": n, **{k: v / n for k, v in tot.items()}})
+        if lead:
+            _metrics_line(metrics_path, {"kind": "valid", "epoch": epoch, "step": step,
+                                         "samples": n, **{k: v / n for k, v in tot.items()}})
 
     # Preemption: on SIGTERM/SIGINT finish the step, checkpoint, return.
     preempted = {"flag": False}
@@ -308,10 +383,18 @@ def main(argv=None):
         for sig in (signal.SIGTERM, signal.SIGINT):
             previous[sig] = signal.signal(sig, _handle)
 
+    def stop_agreed() -> bool:
+        """Whether any rank was signalled: the same answer on every rank."""
+        if ranks is None:
+            return preempted["flag"]
+        flag = torch.tensor([float(preempted["flag"])], device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
     profile_range = None
     profiler = None
     profile_dir = os.path.join(run_dir, "profile")
-    if args.profile_steps:
+    if args.profile_steps and lead:
         lo, hi = args.profile_steps.split(":")
         profile_range = (int(lo), int(hi))
 
@@ -364,14 +447,16 @@ def main(argv=None):
                 "batch %.3fs | logit_scale %.3f | gbs %d", epoch, i + 1, num_batches,
                 metrics["loss"], 100 * metrics["i2t_acc"], 100 * metrics["t2i_acc"],
                 data_time, batch_time, metrics["logit_scale"], global_micro * args.accum_freq)
-            _metrics_line(metrics_path, {"kind": "train", "epoch": epoch, "step": step,
-                                         **metrics, "data_s": data_time, "batch_s": batch_time})
+            if lead:
+                _metrics_line(metrics_path, {"kind": "train", "epoch": epoch, "step": step,
+                                             **metrics, "data_s": data_time,
+                                             "batch_s": batch_time})
         if crossed(args.valid_step_interval, n):
             run_validation(epoch)
         if crossed(args.save_step_frequency, n):
             save_checkpoint(ckpt_dir, f"step_{step}", state, step_meta(epoch, epoch_steps),
                             args.save_torch_format)
-        if preempted["flag"]:
+        if stop_agreed():
             stop_profiler()
             save_checkpoint(ckpt_dir, f"preempt_step_{step}", state,
                             step_meta(epoch, epoch_steps), args.save_torch_format)
@@ -410,7 +495,7 @@ def main(argv=None):
                 dropout_seed, aug_seed = step_seeds(args.seed, step + len(group_buf))
                 with record_function("cli.preprocess"):
                     im = preprocess_images(torch.Generator().manual_seed(aug_seed), im,
-                                           resolution, augment=args.use_augment)
+                                           resolution, augment=args.use_augment, rows=rows)
                 group_buf.append((im, tx, dropout_seed))
                 # a full group, or what remains of the step budget
                 if len(group_buf) < min(spc, args.max_steps - step):

@@ -11,8 +11,11 @@ What differs:
 * the JAX CLI's no-op flags (``--use-bn-sync``, ``--use-flash-attention``,
   ``--gather-with-grad``, ``--skip-aggregate``) are accepted and ignored
   with a warning (``training/main.py``), as there;
-* parsed but refused by ``training/main.py`` (ROADMAP queue 1): ``--tp`` >
-  1, ``--pp`` > 1, ``--fsdp``, ``--distributed`` and ``--grad-checkpointing``.
+* ``--distributed`` (or a launcher's rendezvous in the environment) runs
+  one process a rank (``parallel/distributed.py``); ``--dist-timeout``
+  bounds each collective, so that a rank whose peer failed fails too;
+* parsed but refused by ``training/main.py`` (ROADMAP queue 1): ``--pp`` >
+  1 and ``--grad-checkpointing``.
 """
 
 from __future__ import annotations
@@ -103,12 +106,15 @@ def parse_args(argv=None):
                    help="store Adam moments in this dtype; bfloat16 halves "
                         "the optimizer's memory")
     p.add_argument("--label-smoothing", type=float, default=0.0)
-    # parallelism
-    # parallelism: parsed as the JAX CLI parses them; main() refuses them
-    # (ROADMAP queue 1 item 6)
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel size (refused above 1)")
-    p.add_argument("--fsdp", action="store_true", help="refused")
-    p.add_argument("--fsdp-min-size", type=int, default=None)
+    # parallelism: the data x tp grid of the ranks; --pp is refused by main()
+    # (ROADMAP queue 1 item 6b)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size: the ranks of a model group; the data axis is "
+                        "the world size / tp")
+    p.add_argument("--fsdp", action="store_true",
+                   help="store the parameters and Adam moments sharded over the data axis")
+    p.add_argument("--fsdp-min-size", type=int, default=None,
+                   help="leaves smaller than this stay replicated under --fsdp (default 65536)")
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="optimizer steps per group: K single steps on K "
                         "preprocessed batches held on the device; the "
@@ -116,7 +122,12 @@ def parse_args(argv=None):
                         "cadences round up to the next group boundary")
     p.add_argument("--pp", type=int, default=1, help="pipeline-parallel size (refused above 1)")
     p.add_argument("--pp-microbatches", type=int, default=0)
-    p.add_argument("--distributed", action="store_true", help="refused")
+    p.add_argument("--distributed", action="store_true",
+                   help="one process a rank, the rendezvous from the launcher's environment "
+                        "(torchrun's MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE/LOCAL_RANK, or "
+                        "COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID)")
+    p.add_argument("--dist-timeout", type=float, default=600.0,
+                   help="seconds a collective may wait for the other ranks before it fails")
     # misc
     p.add_argument("--platform", default="cuda", choices=["cpu", "cuda"],
                    help="where to train: the card (default) or the CPU")

@@ -55,6 +55,7 @@ from nans_clip_tpu_torch.models.clip import normalize
 from nans_clip_tpu_torch.models.common import ModelOptions, compute_dtype_for
 from nans_clip_tpu_torch.models.lora import (adapter_leaves, count_lora_params, init_lora,
                                              merge_lora, save_lora)
+from nans_clip_tpu_torch.parallel import distributed
 from nans_clip_tpu_torch.parallel.loss import clip_loss
 from nans_clip_tpu_torch.training.trainer import (accumulate_backward, cosine_with_warmup,
                                                   draw_microbatches, platform_device, seeded,
@@ -88,6 +89,8 @@ def parse_args(argv=None):
     p.add_argument("--precision", default="bf16")
     p.add_argument("--platform", default="cuda", choices=["cpu", "cuda"],
                    help="where to train: the card (default) or the CPU")
+    p.add_argument("--distributed", action="store_true",
+                   help="refused: LoRA finetuning runs on one rank")
     return p.parse_args(argv)
 
 
@@ -128,12 +131,17 @@ def make_lora_step(cfg, options: ModelOptions, alpha: float, label_smoothing: fl
     the text tower's dropout, None for none. ``eval_step(state, images,
     texts) -> loss`` is deterministic and takes no gradient. ``schedule``:
     the learning rate of a step (counted from 0), else the optimizer's.
-    Tensor parallelism (``options.tp`` > 1) raises: the JAX LoRA trainer has
-    none, and nothing here would sum the ranks' adapter gradients."""
+    Tensor and data parallelism (``options.tp`` or ``options.data`` > 1)
+    raise: the JAX LoRA trainer has no mesh, and nothing here would gather
+    the ranks' features or reduce their adapter gradients."""
     del cfg  # the module carries its configuration
     if options.tp > 1:
         raise NotImplementedError("LoRA finetuning under tensor parallelism (tp > 1) is not "
                                   "supported")
+    if options.data > 1:
+        raise NotImplementedError("LoRA finetuning runs on one rank: data parallelism "
+                                  f"(data={options.data}) is not supported (the JAX LoRA "
+                                  "trainer has no mesh)")
     train_opts = dataclasses.replace(options, deterministic=False)
     eval_opts = dataclasses.replace(options, deterministic=True)
     accum = max(accum, 1)
@@ -196,6 +204,9 @@ def make_lora_step(cfg, options: ModelOptions, alpha: float, label_smoothing: fl
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.distributed or distributed.launched():
+        raise ValueError("LoRA finetuning runs on one rank (the JAX LoRA trainer has no mesh): "
+                         "launch one process without --distributed")
     if not (args.resume or args.tiny_model):
         raise SystemExit("--resume is required unless --tiny-model")
     device = platform_device(args.platform)

@@ -43,13 +43,35 @@ What the JAX trainer does, on one card:
 * ``adam_state_dtype``: both Adam moments stored in that dtype, their EMAs
   computed in fp32 (:class:`CompactAdamW`, ``_scale_by_adam_compact``
   :134-168 in the chain order of :178-182);
-* tensor parallelism (``ModelOptions.tp`` > 1, deterministic: the text
-  tower's dropout under tp > 1 is not ported): each rank of the caller's
-  model group holds the whole module and the same batch, runs its heads and
-  MLP columns (``parallel/tp.py``), and after the backward the gradients
-  that are per-rank shares are summed over the group
-  (``reduce_partial_grads`` of ``CLIP.tp_partial_parameters``); clipping
-  and AdamW then run as on one card, so every rank's parameters stay equal.
+* tensor parallelism (``ModelOptions.tp`` > 1): each rank of its model
+  group holds the whole module and the same rows, runs its heads and MLP
+  columns (``parallel/tp.py``), and after the backward the gradients that
+  are per-rank shares are summed over the group (``reduce_partial_grads``
+  of ``CLIP.tp_partial_parameters``);
+* data parallelism (``ModelOptions.data`` > 1, the other axis of the
+  ``data x tp`` grid, ``parallel/mesh.py``): a rank's ``images`` and
+  ``texts`` are its rows of the global batch (``parallel/distributed.py::
+  rank_rows``: block ``d`` of every global microbatch). Microbatch ``j`` is
+  JAX's, global rows ``[j * micro, (j + 1) * micro)`` split over ``data``
+  (trainer.py:250-265). Every rank draws what one process draws for the
+  global microbatch, from the same generator, and keeps its rows: the FLIP
+  tokens, and the text dropout's masks through the sample offset
+  ``sample0 = d * micro / data`` (``ops/dropout.py``, the kernels take it).
+  The features of every microbatch are gathered over the data group for
+  the global-batch loss (``parallel/loss.py::gather_features``; in the
+  two-pass accumulation pass 1's features, and pass 2 backpropagates the
+  rank's rows of their gradient), a ResNet tower's BatchNorm takes the
+  global microbatch's statistics (``models/resnet.py``), and after the
+  backward the gradients are averaged over the data group in flat buckets
+  (``parallel/fsdp.py::all_reduce_mean``; DDP's per-parameter hooks would
+  fire in both passes of an accumulated step). Clipping and AdamW then run
+  as on one card, so every rank's parameters stay equal;
+* FSDP (:func:`shard_train_state`, the JAX ``--fsdp``): the parameters
+  and the optimizer's moments are stored as the rank's shards of the JAX
+  leaves (``parallel/fsdp.py``); a step gathers the full weights before its
+  forwards, reduce-scatters the gradients into the shards, clips by the
+  norm over the shards and updates the shards. :func:`full_weights`
+  gathers them for a caller (validation, checkpoints).
 
 Both CLIs (``training/main.py``, ``training/train_lora.py``) also take
 from here the device ``--platform`` names (:func:`platform_device`) and
@@ -71,6 +93,7 @@ owns its moments) and returned, so a caller writes
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Tuple, Union
@@ -84,8 +107,9 @@ from nans_clip_tpu_torch.configs import CLIPConfig
 from nans_clip_tpu_torch.models.clip import normalize
 from nans_clip_tpu_torch.models.common import ModelOptions
 from nans_clip_tpu_torch.models.vit import draw_ids_keep
-from nans_clip_tpu_torch.parallel.loss import clip_loss, kd_cosine_loss
-from nans_clip_tpu_torch.parallel.mesh import model_group
+from nans_clip_tpu_torch.parallel import fsdp as fsdp_lib
+from nans_clip_tpu_torch.parallel.loss import clip_loss, gather_features, kd_cosine_loss
+from nans_clip_tpu_torch.parallel.mesh import check_grid
 from nans_clip_tpu_torch.parallel.tp import reduce_partial_grads
 
 LOGIT_SCALE_MAX = math.log(100.0)
@@ -116,9 +140,13 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
+    """``fsdp``: the rank's shards where the state is sharded
+    (:func:`shard_train_state`), else None."""
+
     step: int
     module: nn.Module
     optimizer: torch.optim.Optimizer
+    fsdp: Optional[fsdp_lib.Sharded] = None
 
 
 def no_decay_mask(module: nn.Module) -> Dict[str, bool]:
@@ -226,14 +254,27 @@ class CompactAdamW(torch.optim.Optimizer):
         torch._foreach_add_(params, mu, alpha=-group["lr"])
 
 
-def make_optimizer(tcfg: TrainConfig, module: nn.Module) -> torch.optim.Optimizer:
-    """AdamW over the parameters that take gradients, in two groups: decayed
-    and not (:func:`no_decay_mask`); :class:`CompactAdamW` where
-    ``adam_state_dtype`` is set."""
+def decay_groups(module: nn.Module) -> Tuple[List[str], List[str]]:
+    """The names of the parameters that take gradients: (decayed, not
+    decayed) by :func:`no_decay_mask`, in ``named_parameters()`` order, the
+    optimizer's two groups."""
     mask = no_decay_mask(module)
-    named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
-    groups = [{"params": [p for n, p in named if not mask[n]], "weight_decay": tcfg.wd},
-              {"params": [p for n, p in named if mask[n]], "weight_decay": 0.0}]
+    named = [n for n, p in module.named_parameters() if p.requires_grad]
+    return [n for n in named if not mask[n]], [n for n in named if mask[n]]
+
+
+def make_optimizer(tcfg: TrainConfig, module: nn.Module,
+                   sharded: Optional[fsdp_lib.Sharded] = None) -> torch.optim.Optimizer:
+    """AdamW over the parameters that take gradients, in two groups: decayed
+    and not (:func:`decay_groups`); :class:`CompactAdamW` where
+    ``adam_state_dtype`` is set. With ``sharded``, over its shards in place
+    of the sharded parameters."""
+    params = dict(module.named_parameters())
+    pick = (lambda names: [params[n] for n in names]) if sharded is None \
+        else sharded.optimizer_params
+    decayed, rest = decay_groups(module)
+    groups = [{"params": pick(decayed), "weight_decay": tcfg.wd},
+              {"params": pick(rest), "weight_decay": 0.0}]
     kw = dict(lr=tcfg.lr, betas=(tcfg.beta1, tcfg.beta2), eps=tcfg.eps)
     if tcfg.adam_state_dtype:
         return CompactAdamW(groups, state_dtype=getattr(torch, tcfg.adam_state_dtype), **kw)
@@ -251,11 +292,54 @@ def create_train_state(module: nn.Module, tcfg: TrainConfig, device="cuda") -> T
     return TrainState(step=0, module=module, optimizer=make_optimizer(tcfg, module))
 
 
-def _clip_by_global_norm(params, max_norm: float) -> None:
+def shard_train_state(state: TrainState, tcfg: TrainConfig, options: ModelOptions,
+                      fsdp: bool = False, fsdp_min_size: Optional[int] = None) -> TrainState:
+    """The state with its parameters and optimizer moments stored as this
+    rank's shards over the data group (``parallel/fsdp.py``; JAX
+    ``shard_train_state``), its optimizer's state (fresh, or restored from a
+    one-rank checkpoint) cut to them; ``state`` as it is without ``fsdp``
+    or at a data axis of 1. Every rank calls it with equal parameters."""
+    grid = check_grid(options.tp, options.data)
+    if not fsdp or grid is None or grid.data_group is None or state.fsdp is not None:
+        return state
+    full_sd = state.optimizer.state_dict()
+    sharded = fsdp_lib.Sharded(state.module, grid.data_group, fsdp_min_size)
+    opt = make_optimizer(tcfg, state.module, sharded)
+    fsdp_lib.shard_optimizer_state(sharded, opt, full_sd, decay_groups(state.module))
+    return TrainState(step=state.step, module=state.module, optimizer=opt, fsdp=sharded)
+
+
+def train_state_shardings(state: TrainState, options: ModelOptions,
+                          fsdp_min_size: Optional[int] = None) -> List[fsdp_lib.Leaf]:
+    """The JAX leaves of the state's parameters, each with the dimension
+    FSDP shards over the data axis of ``options`` (None: replicated); the
+    moments follow their parameters (JAX ``train_state_shardings``)."""
+    return fsdp_lib.jax_leaves(state.module, options.data, fsdp_min_size)
+
+
+@contextlib.contextmanager
+def full_weights(state: TrainState):
+    """The module's full weights for the duration where the state is
+    sharded (gathered on entry, released on exit; collective over the data
+    group), a no-op otherwise."""
+    if state.fsdp is None:
+        yield
+        return
+    state.fsdp.gather()
+    try:
+        yield
+    finally:
+        state.fsdp.release()
+
+
+def _clip_by_global_norm(params, max_norm: float, norm_sq=None) -> None:
     """optax.clip_by_global_norm: scale every gradient by max / norm when the
-    global norm reaches max."""
+    global norm reaches max. ``norm_sq``: the squared norm where the
+    gradients of ``params`` are shards (FSDP)."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    if norm_sq is None:
+        norm_sq = sum(g.float().square().sum() for g in grads)
+    norm = torch.sqrt(norm_sq)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale.to(g.dtype))
@@ -341,7 +425,8 @@ def accumulate_backward(encode: Callable, images: torch.Tensor, texts: torch.Ten
 
 def teacher_features(teacher, images: torch.Tensor, accum: int) -> torch.Tensor:
     """The frozen teacher's image features without a graph, microbatched
-    like the student (trainer.py:328-344). ``teacher``: a ``CLIPModel``."""
+    like the student (trainer.py:328-344): of this rank's rows, which the
+    loss gathers with the student's. ``teacher``: a ``CLIPModel``."""
     with torch.no_grad():
         chunks = images.chunk(max(accum, 1)) if accum > 1 else (images,)
         return torch.cat([teacher.module.encode_image(c, teacher.options) for c in chunks])
@@ -352,13 +437,19 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
     """Build the train step ``step(state, images, texts, generator=None) ->
     (state, {"loss", "i2t_acc", "t2i_acc", "logit_scale"[, "kd_loss"]})``.
     ``images``: [B, R, R, 3] NHWC, ``texts``: [B, S] ids (tensors or arrays,
-    moved to the module's device); ``generator``: a ``torch.Generator`` (or
-    an int seed) drawing the text tower's dropout and the FLIP tokens, None
-    for none. ``teacher``: a frozen ``CLIPModel`` for ``tcfg.distillation``
-    (the JAX ``(teacher_cfg, teacher_params)``). The metrics are 0-d tensors
-    on the device; ``logit_scale`` is its value before the update."""
+    moved to the module's device): the batch, or under ``options.data`` > 1
+    this rank's rows of the global batch (module docstring); ``generator``:
+    a ``torch.Generator`` (or an int seed, equal on every rank) drawing the
+    text tower's dropout and the FLIP tokens, None for none. ``teacher``: a
+    frozen ``CLIPModel`` for ``tcfg.distillation`` (the JAX
+    ``(teacher_cfg, teacher_params)``). The metrics are those of the global
+    batch, 0-d tensors on the device, equal on every rank; ``logit_scale``
+    is its value before the update."""
     del cfg  # the module carries its configuration
-    tp_group = model_group(options.tp) if options.tp > 1 else None
+    grid = check_grid(options.tp, options.data)
+    tp_group = grid.model_group if grid is not None else None
+    data_group = grid.data_group if grid is not None else None
+    data_index = grid.data_index if grid is not None else 0
     train_options = dataclasses.replace(options, deterministic=False)
     schedule = cosine_with_warmup(tcfg.lr, tcfg.warmup, tcfg.max_steps, tcfg.skip_scheduler)
     accum = max(tcfg.accum_freq, 1)
@@ -367,7 +458,7 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
 
     def step(state: TrainState, images, texts,
              generator: Union[torch.Generator, int, None] = None):
-        module, opt = state.module, state.optimizer
+        module, opt, sharded = state.module, state.optimizer, state.fsdp
         resnet = module.cfg.is_resnet
         dev = module.logit_scale.device
         if isinstance(generator, int):
@@ -377,18 +468,27 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
         b = images.shape[0]
         if b % accum:
             raise ValueError(f"batch {b} not divisible by accum_freq {accum}")
-        # no dropout from a deterministic forward, as in JAX; FLIP still draws
-        # (a ViT tower only)
-        draws = draw_microbatches(accum, b // accum, 0 if resnet else module.cfg.vision.seq_len,
-                                  0.0 if resnet else tcfg.mask_ratio, generator,
-                                  generator is not None and not options.deterministic)
+        micro = b // accum   # this rank's rows of a microbatch
+        rows = slice(data_index * micro, (data_index + 1) * micro)
+        # what one process draws for the global microbatch; this rank keeps
+        # its rows. No dropout from a deterministic forward, as in JAX; FLIP
+        # still draws (a ViT tower only)
+        draws = [(seed, None if keep is None else keep[rows]) for seed, keep in
+                 draw_microbatches(accum, micro * options.data,
+                                   0 if resnet else module.cfg.vision.seq_len,
+                                   0.0 if resnet else tcfg.mask_ratio, generator,
+                                   generator is not None and not options.deterministic)]
         count = opt.param_groups[0].get("count", 0)
         for group in opt.param_groups:
             group["lr"] = schedule(count)
         opt.zero_grad(set_to_none=True)
+        if sharded is not None:
+            sharded.gather()
         logit_scale = module.logit_scale.detach().clone()
         t_feats = teacher_features(teacher, images, accum) \
             if tcfg.distillation and teacher is not None else None
+        if t_feats is not None:
+            t_feats = gather_features(t_feats, data_group, accum)
 
         updated = set()   # the microbatches whose BatchNorm statistics are folded in
 
@@ -398,9 +498,11 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
             updated.add(j)
             return (module.encode_image(im, train_options, ids_keep=ids_keep, bn_train=bn_train,
                                         bn_update=bn_update),
-                    module.encode_text(tx, train_options, seeded(seed)))
+                    module.encode_text(tx, train_options, seeded(seed), rows.start))
 
         def loss_fn(img_f, txt_f):
+            img_f = gather_features(img_f, data_group, accum)
+            txt_f = gather_features(txt_f, data_group, accum)
             loss, metrics = clip_loss(normalize(img_f), normalize(txt_f),
                                       module.logit_scale.float().exp(), tcfg.label_smoothing)
             if t_feats is not None:
@@ -412,9 +514,19 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
         loss, metrics = accumulate_backward(encode, images, texts, accum, loss_fn)
         if tp_group is not None:
             reduce_partial_grads(module.tp_partial_parameters(), tp_group)
+        norm_sq = None
+        if sharded is not None:
+            sharded.reduce_grads()
+            if tcfg.grad_norm_clip:
+                norm_sq = sharded.grad_norm_sq()
+        elif data_group is not None:
+            fsdp_lib.all_reduce_mean(list(module.parameters()), data_group)
         if tcfg.grad_norm_clip:
-            _clip_by_global_norm(module.parameters(), tcfg.grad_norm_clip)
+            _clip_by_global_norm([p for g in opt.param_groups for p in g["params"]],
+                                 tcfg.grad_norm_clip, norm_sq)
         opt.step()
+        if sharded is not None:
+            sharded.release()
         opt.param_groups[0]["count"] = count + 1
         with torch.no_grad():
             module.logit_scale.clamp_(0.0, LOGIT_SCALE_MAX)
@@ -426,17 +538,22 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
 
 def make_eval_step(cfg: CLIPConfig, options: ModelOptions) -> Callable:
     """In-batch validation loss and accuracies: ``eval_step(module, images,
-    texts) -> {"loss", "i2t_acc", "t2i_acc"}``, deterministic, no gradient."""
+    texts) -> {"loss", "i2t_acc", "t2i_acc"}``, deterministic, no gradient;
+    under ``options.data`` > 1 over the global batch (each rank's rows
+    gathered, the metrics equal on every rank). A sharded state's module
+    needs :func:`full_weights` around it."""
     del cfg
     eval_options = dataclasses.replace(options, deterministic=True)
+    grid = check_grid(options.tp, options.data)
+    data_group = grid.data_group if grid is not None else None
 
     @torch.no_grad()
     def eval_step(module: nn.Module, images, texts):
         dev = module.logit_scale.device
-        img = normalize(module.encode_image(torch.as_tensor(images, device=dev), eval_options))
-        txt = normalize(module.encode_text(torch.as_tensor(texts, device=dev).long(),
-                                           eval_options))
-        loss, metrics = clip_loss(img, txt, module.logit_scale.float().exp())
+        img = module.encode_image(torch.as_tensor(images, device=dev), eval_options)
+        txt = module.encode_text(torch.as_tensor(texts, device=dev).long(), eval_options)
+        img, txt = gather_features(img, data_group), gather_features(txt, data_group)
+        loss, metrics = clip_loss(normalize(img), normalize(txt), module.logit_scale.float().exp())
         return {"loss": loss, **metrics}
 
     return eval_step

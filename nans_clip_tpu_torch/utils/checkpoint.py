@@ -24,6 +24,15 @@ JAX): ``<tag>/`` holds one file, :data:`STATE_FILE`, a ``torch.save`` of
 
 written to a temporary name and renamed, so a reader never sees half a
 file.
+
+Across ranks (``parallel/distributed.py``) every rank calls
+:func:`save_checkpoint`: a sharded state's parameters and moments are
+gathered first (``parallel/fsdp.py::full_state``, into the one-rank
+layout), global rank 0 alone writes the same files as one process writes,
+and every rank waits at a barrier until they are there. Every rank restores
+from the files (the checkpoint directory is one they all read) into its
+full state, before ``shard_train_state`` cuts it, so a checkpoint written
+at one world size resumes at any other.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import os
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 STATE_FILE = "state.pt"
@@ -49,33 +59,48 @@ def _save_atomic(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
-def save_torch_checkpoint(path: str, module: nn.Module, meta: Optional[dict] = None) -> None:
-    """Write ``module``'s parameters as a reference-layout ``.pt`` (fp32 on
-    the CPU), ``{"state_dict": ..., **meta}``, atomically: a temporary file
-    in the same directory, then a rename."""
-    _save_atomic({"state_dict": _cpu_state_dict(module), **(meta or {})}, path)
+def save_torch_checkpoint(path: str, module: nn.Module, meta: Optional[dict] = None,
+                          state_dict: Optional[dict] = None) -> None:
+    """Write ``module``'s parameters (or ``state_dict``, the CPU state dict
+    of a gathered module) as a reference-layout ``.pt`` (fp32 on the CPU),
+    ``{"state_dict": ..., **meta}``, atomically: a temporary file in the
+    same directory, then a rename."""
+    _save_atomic({"state_dict": _cpu_state_dict(module) if state_dict is None else state_dict,
+                  **(meta or {})}, path)
+
+
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
 
 
 def save_checkpoint(ckpt_dir: str, tag: str, state, meta: dict,
                     torch_format: bool = False, update_latest: bool = True) -> None:
     """Save a ``TrainState`` (``training/trainer.py``) and ``meta`` under
     ``ckpt_dir/tag``; point LATEST at it unless ``update_latest`` is
-    False."""
-    path = os.path.join(ckpt_dir, tag)
-    os.makedirs(path, exist_ok=True)
-    _save_atomic({"format": FORMAT, "version": 1, "state_dict": _cpu_state_dict(state.module),
-                  "optimizer": state.optimizer.state_dict(),
-                  "optimizer_type": type(state.optimizer).__name__, "step": int(state.step)},
-                 os.path.join(path, STATE_FILE))
-    with open(os.path.join(ckpt_dir, f"{tag}.meta.json"), "w") as f:
-        json.dump(meta, f)
-    if update_latest:
-        with open(os.path.join(ckpt_dir, "LATEST"), "w") as f:
-            f.write(tag)
-    if torch_format:
-        save_torch_checkpoint(os.path.join(ckpt_dir, f"{tag}.pt"), state.module,
-                              {"epoch": meta.get("epoch", 0), "step": meta.get("step", 0),
-                               "name": meta.get("name", "")})
+    False. Across ranks every rank calls it (module docstring)."""
+    if getattr(state, "fsdp", None) is not None:
+        from nans_clip_tpu_torch.parallel.fsdp import full_state
+        from nans_clip_tpu_torch.training.trainer import decay_groups
+        module_sd, opt_sd = full_state(state.fsdp, state.optimizer, decay_groups(state.module))
+    else:
+        module_sd, opt_sd = _cpu_state_dict(state.module), state.optimizer.state_dict()
+    if not _distributed() or dist.get_rank() == 0:
+        path = os.path.join(ckpt_dir, tag)
+        os.makedirs(path, exist_ok=True)
+        _save_atomic({"format": FORMAT, "version": 1, "state_dict": module_sd,
+                      "optimizer": opt_sd, "optimizer_type": type(state.optimizer).__name__,
+                      "step": int(state.step)}, os.path.join(path, STATE_FILE))
+        with open(os.path.join(ckpt_dir, f"{tag}.meta.json"), "w") as f:
+            json.dump(meta, f)
+        if update_latest:
+            with open(os.path.join(ckpt_dir, "LATEST"), "w") as f:
+                f.write(tag)
+        if torch_format:
+            save_torch_checkpoint(os.path.join(ckpt_dir, f"{tag}.pt"), state.module,
+                                  {"epoch": meta.get("epoch", 0), "step": meta.get("step", 0),
+                                   "name": meta.get("name", "")}, module_sd)
+    if _distributed():
+        dist.barrier()
 
 
 def resolve_tag(ckpt_dir: str, tag: str) -> str:
@@ -105,7 +130,11 @@ def restore_checkpoint(ckpt_dir: str, tag: str, state, reset_optimizer: bool = F
     """Restore into ``state`` (its module's parameters are overwritten in
     place, on their device). Returns (state, meta or None). A missing
     checkpoint raises unless ``missing_ok``: a mistyped --resume tag must
-    not train from random init and then overwrite epoch_latest."""
+    not train from random init and then overwrite epoch_latest. A sharded
+    state raises: restore the full state, then shard it."""
+    if getattr(state, "fsdp", None) is not None:
+        raise ValueError("restore_checkpoint takes the full state: restore, then "
+                         "shard_train_state")
     tag = resolve_tag(ckpt_dir, tag)
     path = os.path.join(ckpt_dir, tag)
     if not is_checkpoint_dir(path):

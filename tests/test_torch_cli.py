@@ -320,11 +320,15 @@ def test_pretrained_towers_merge_with_the_jax_filters(tmp_path):
         assert torch.equal(p, src.state_dict()[name]), name
 
 
+# The flags the CLI refuses with a message: --pp > 1 and --grad-checkpointing
+# (not ported), --tp 2 on one process (no grid of data x 2), --distributed
+# (also with --fsdp) without a launcher's rendezvous; tests/test_torch_dp_cli.py
+# runs --distributed, --tp and --fsdp across ranks.
 REFUSED = {
-    "tp": (["--tp", "2"], "queue 1 item 6"),
-    "pp": (["--pp", "2"], "queue 1 item 6"),
-    "fsdp": (["--fsdp"], "queue 1 item 6"),
-    "distributed": (["--distributed"], "queue 1 item 6"),
+    "tp": (["--tp", "2"], "grid of data x 2"),
+    "pp": (["--pp", "2"], "queue 1 item 6b"),
+    "fsdp": (["--fsdp", "--distributed"], "rendezvous"),
+    "distributed": (["--distributed"], "rendezvous"),
     "grad-checkpointing": (["--grad-checkpointing"], "queue 1 item 9"),
     "tp-x-pp": (["--tp", "2", "--pp", "2"], "exclusive"),
 }
@@ -400,6 +404,7 @@ def test_params_take_the_jax_flags_and_the_card_is_the_default(tmp_path):
     ours, theirs = vars(tparams.parse_args(argv)), vars(jparams.parse_args(argv))
     assert ours.pop("platform") == "cuda"
     theirs.pop("platform")
+    assert ours.pop("dist_timeout") == 600.0   # the port's, a collective's bound across ranks
     assert ours == theirs
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--platform cpu"):

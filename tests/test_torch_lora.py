@@ -269,6 +269,7 @@ def test_parse_args_takes_the_jax_flags_and_main_waits_for_the_data_path():
     argv = ["--train-data", "d", "--lora-rank", "8", "--text-only", "--accum-freq", "2"]
     ours, theirs = vars(train_lora.parse_args(argv)), vars(jtl.parse_args(argv))
     assert ours.pop("platform") == "cuda"
+    assert ours.pop("distributed") is False   # the port's, refused: LoRA runs on one rank
     assert ours == theirs
     assert (ours["batch_size"], ours["accum_freq"], ours["lora_rank"]) == (32, 2, 8)
     with pytest.raises(SystemExit, match="--resume is required"):
