@@ -249,6 +249,35 @@ Phases, each printing its lines before the last line:
    share the card: no measure of data-parallel speed) and the collective
    bytes of a step; one ``{"phase17": ...}`` line.
 
+18. Pipeline parallelism and remat. First whether gloo's send / recv take a
+   CUDA tensor on this torch (a report: the pipeline's hops stage through
+   host memory by the backend's name). Then, in gloo ranks on ``cuda:0``
+   (``run_ranks``), each against one rank's steps from the same weights and
+   seeds (the ranks take turns at those, each timed alone): ViT-B-16@
+   RoBERTa-wwm-ext-base-chinese at full width and depth, bf16 over fp32
+   masters, batch 128, text dropout 0.1, FLIP 0.5, at pp 2 (2 ranks, M
+   auto: 8 microbatches of 16), 2 steps, then RN50@RBT3 at tp 2, one step
+   at 32 without dropout (a text tower with dropout under tp runs the
+   twins, as JAX's unfused path); ViT-B at data 2 x pp 2 with FSDP (4
+   ranks), one step; RN50@RBT3 at pp 3 (3 ranks; RBT3's 3 layers do not
+   split in 2), one step without dropout. Bounds: |loss diff| <= 1e-3,
+   gradient cosines >= 0.999 over the parameters a rank stores (at tp 2,
+   whose text tower takes the partial kernels' route, phase 11's 1e-2 and
+   0.99), every parameter two ranks both store bit-equal (the
+   replicated ones on every stage, the ResNet on every rank); printed: the
+   bytes a rank keeps against one rank's, step ms, each rank's launches of
+   its first step (at pp 2 each stage's 6 layers a tower x 8 microbatches).
+   Then ``torch.distributed.run --nproc-per-node 2 ... --pp 2`` on phase
+   13's split with its flags, resumed from run B's ``step_3`` (one
+   process's) to step 6, saving ``step_4``, and one process resumed from
+   that ``step_4`` at ``--pp 1`` to step 6: every step within 1e-3 of
+   phase 13's uninterrupted run A (the GPipe bubble line printed). Then
+   ``--grad-checkpointing``: one step with and one
+   without from the same weights, ViT-B at 128 (``auto``) and
+   ViT-L-14-336@RoBERTa-base at 32 (``pallas``): losses, gradient cosines
+   and bit-equality, step ms, peak GiB, the launches that remat changes;
+   one ``{"phase18": ...}`` line.
+
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
 nothing branches on them.
@@ -3431,6 +3460,11 @@ def phase_data_cli(torch, dev, tmp):
     state_b = train_main.main(cli + ["--logs", logs_b, "--name", "B", "--max-steps",
                                      str(CLI_STEPS), "--resume", f"step_{CLI_RESUME_AT}"])
     run_b_s = time.time() - t0
+    # run B's step_3 (one process's checkpoint) is phase 18's start at --pp 2
+    step3 = os.path.join(tmp, "run_b_step_3")
+    os.makedirs(step3)
+    for name in (f"step_{CLI_RESUME_AT}", f"step_{CLI_RESUME_AT}.meta.json"):
+        os.rename(os.path.join(ckpt_b, name), os.path.join(step3, name))
     shutil.rmtree(ckpt_b)
     rec_b = _train_records(logs_b, "B")
     losses_b = [r["loss"] for r in rec_b]
@@ -3496,7 +3530,8 @@ def phase_data_cli(torch, dev, tmp):
         raise AssertionError(f"bench: {result}")
     print(f"cli: phase 13 took {time.time() - t_phase:.1f} s", flush=True)
     return {"losses": losses_a, "run_a_s": run_a_s, "bench": result, "profile": prof,
-            "checkpoints": ckpt_a, "lora": os.path.join(out, "last_lora.npz")}
+            "checkpoints": ckpt_a, "lora": os.path.join(out, "last_lora.npz"),
+            "step_3": step3}
 
 
 EVAL_IMAGES, EVAL_TEXTS, EVAL_BATCH = 1024, 2048, 64
@@ -4958,6 +4993,412 @@ def phase_data_axis(torch, dev, tmp, split, run_a_losses):
     return summary
 
 
+PP_BATCH, PP_STEPS, PP_RN_BATCH = 128, 2, 32
+REMAT_L = ("ViT-L-14-336", "RoBERTa-wwm-ext-base-chinese")
+REMAT_L_BATCH = 32
+
+
+def _gloo_hop_probe(rank: int) -> dict:
+    """Whether gloo's send / recv take a CUDA tensor on this torch: rank 0
+    sends ``arange(4096)`` from ``cuda:0``, rank 1 receives into a CUDA
+    buffer. The pipeline's hops stage through host memory whatever this
+    says (``parallel/pp.py``); this only reports it."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t = torch.arange(4096, dtype=torch.float32, device=dev)
+    try:
+        if rank == 0:
+            dist.send(t, 1)
+            return {"ok": True}
+        buf = torch.zeros_like(t)
+        dist.recv(buf, 0)
+        torch.cuda.synchronize()
+        return {"ok": bool(torch.equal(buf, t))}
+    except Exception as e:  # the probe's answer, printed by phase 18
+        return {"ok": False, "error": f"{type(e).__name__}: {e}"[:300]}
+
+
+def _pp_bytes(state) -> int:
+    """Bytes of parameters and optimizer moments this rank keeps between
+    steps (a pipeline stage's: none on the meta device)."""
+    import torch
+
+    params = state.fsdp.stored_bytes() if state.fsdp is not None else sum(
+        p.numel() * p.element_size() for p in state.module.parameters() if not p.is_meta)
+    moments = sum(v.numel() * v.element_size() for st in state.optimizer.state.values()
+                  for v in st.values() if torch.is_tensor(v) and v.dim() > 0)
+    return params + moments
+
+
+def _pp_run(torch, dev, struct, opts, tcfg, images, ids, steps, fsdp=False, dropout=True):
+    """``steps`` train steps of ``struct`` (seeded weights on the card) under
+    ``opts`` on this rank's rows against one rank's steps on the whole
+    batch, both from the same weights and generator seeds (text dropout 0.1,
+    or none without ``dropout``): losses, the
+    worst gradient cosine over the parameters this rank stores (step 1,
+    from equal weights; then along both trajectories), step ms, the
+    stored parameters' fingerprints, the bytes kept and the first step's
+    launches."""
+    import dataclasses as dc
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.parallel import distributed, mesh
+    from nans_clip_tpu_torch.training import (create_train_state, full_weights, make_train_step,
+                                              shard_train_state)
+
+    cfg = nct.load_config(struct)
+
+    def fresh():
+        module = build_clip(cfg, dev, torch.Generator(dev).manual_seed(0))
+        if cfg.is_resnet:   # bn3 scales 1 (phase 16): no bottleneck's gradient is 0
+            with torch.no_grad():
+                for n, m in module.visual.named_modules():
+                    if n.endswith(".bn3"):
+                        m.weight.fill_(1.0)
+        return create_train_state(module, tcfg, device=dev)
+
+    grid = mesh.check_grid(opts.tp, opts.data, opts.pp)
+    state = shard_train_state(fresh(), tcfg, opts, fsdp)
+    step = make_train_step(cfg, tcfg, opts)
+    ref = fresh()
+    ref_step = make_train_step(cfg, tcfg, dc.replace(opts, data=1, tp=1, pp=1))
+    mine = (distributed.rank_rows(images, grid.data_index, grid.data, tcfg.accum_freq),
+            distributed.rank_rows(ids, grid.data_index, grid.data, tcfg.accum_freq))
+    rec = {"losses": [], "losses_1": [], "worst_cos": [], "step_ms": [], "step_ms_1": []}
+    for i in range(steps):
+        if i == 0:
+            _cli_reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, m2 = step(state, *mine, 100 + i if dropout else None)
+        loss = float(m2["loss"])
+        torch.cuda.synchronize()
+        rec["step_ms"].append(1e3 * (time.time() - t0))
+        if i == 0:
+            rec["counts"] = _cli_counts()
+        rec["losses"].append(loss)
+        # then the one-rank steps, the ranks taking turns so that each is
+        # timed alone on the card (and warm: the rank's kernels ran above)
+        for turn in range(torch.distributed.get_world_size()):
+            if turn == torch.distributed.get_rank():
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                ref, m1 = ref_step(ref, images, ids, 100 + i if dropout else None)
+                ev[1].record()
+                ev[1].synchronize()
+            torch.distributed.barrier()
+        rec["losses_1"].append(float(m1["loss"]))
+        rec["step_ms_1"].append(ev[0].elapsed_time(ev[1]))
+        ref_grads = {n: p.grad for n, p in ref.module.named_parameters()}
+        # the key biases' gradients are 0 in exact arithmetic (a shift
+        # shared by all keys): no direction to compare
+        cos = {n: _cos(g, ref_grads[n]) for n, g in _dp_grads(state).items()
+               if not n.endswith(("key.bias", "k_proj.bias"))}
+        rec["worst_cos"].append(min(cos.items(), key=lambda kv: kv[1]))
+        rec["n_grads"] = len(cos)
+    with full_weights(state):
+        rec["fingerprints"] = {n: int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+                               for n, p in state.module.named_parameters() if not p.is_meta}
+    rec["bytes"] = _pp_bytes(state)
+    rec["one_rank_bytes"] = _pp_bytes(ref)
+    rec["stored"] = state.fsdp.stored_bytes() // 4 if state.fsdp is not None else sum(
+        p.numel() for p in state.module.parameters() if not p.is_meta)
+    rec["n_params"] = sum(p.numel() for p in ref.module.parameters())
+    rec["dropout"] = dropout
+    del state, ref, step, ref_step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _pp_rank(rank: int, case: str) -> dict:
+    """One rank of phase 18's gloo ranks on ``cuda:0``: ``case`` "pp2" (2
+    ranks: ViT-B at pp 2, then RN50@RBT3 at tp 2), "fsdp" (4 ranks: ViT-B at
+    data 2 x pp 2 with --fsdp) or "rn50 pp3" (3 ranks: RN50@RBT3 at pp 3)."""
+    import torch
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.training import TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ResNet runs whole on every rank: its replicas stay bit-equal only
+    # if cuDNN takes deterministic algorithms, as the training CLI sets
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gen = torch.Generator(dev).manual_seed(18)
+    images = torch.randn(PP_BATCH, 224, 224, 3, generator=gen, device=dev)
+    ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}"
+                                         for i in range(PP_BATCH)])).to(dev)
+    vit, rn = f"{VISION}@{TEXT}", f"{RN_VISION}@{RN_TEXT}"
+    bf = dict(compute_dtype="bfloat16", deterministic=False)
+    flip = TrainConfig(lr=DP_LR, warmup=1, max_steps=100, mask_ratio=0.5)
+    plain = TrainConfig(lr=DP_LR, warmup=1, max_steps=100)
+    rows = slice(0, PP_RN_BATCH)
+    if case == "pp2":
+        return {"vit pp 2": _pp_run(torch, dev, vit, nct.ModelOptions(**bf, pp=2), flip, images,
+                                    ids, PP_STEPS),
+                "rn50 tp 2": _pp_run(torch, dev, rn, nct.ModelOptions(**bf, tp=2), plain,
+                                     images[rows], ids[rows], 1, dropout=False)}
+    if case == "fsdp":
+        return {"vit data 2 x pp 2 fsdp": _pp_run(torch, dev, vit,
+                                                  nct.ModelOptions(**bf, pp=2, data=2), flip,
+                                                  images, ids, 1, fsdp=True)}
+    return {"rn50 pp 3": _pp_run(torch, dev, rn, nct.ModelOptions(**bf, pp=3), plain,
+                                 images[rows], ids[rows], 1, dropout=False)}
+
+
+def _pp_remat(torch, dev, struct, batch, attn_impl):
+    """One-step pairs of ``struct`` at ``batch`` with and without remat from
+    the same weights and seed (text dropout on): losses, gradient cosines,
+    bit-equality, step ms (steps 2-3), peak GiB of each and the launches of
+    step 1."""
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.training import TrainConfig, create_train_state, make_train_step
+
+    cfg = nct.load_config(struct)
+    res = cfg.vision.image_resolution
+    gen = torch.Generator(dev).manual_seed(19)
+    images = torch.randn(batch, res, res, 3, generator=gen, device=dev)
+    ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}"
+                                         for i in range(batch)])).to(dev)
+    tcfg = TrainConfig(lr=DP_LR, warmup=1, max_steps=100)
+    out, grads = {}, {}
+    for remat in (False, True):
+        opts = nct.ModelOptions(attn_impl=attn_impl, compute_dtype="bfloat16",
+                                deterministic=False, remat=remat)
+        state = create_train_state(build_clip(cfg, dev, torch.Generator(dev).manual_seed(0)),
+                                   tcfg, device=dev)
+        step = make_train_step(cfg, tcfg, opts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _cli_reset()
+        _flash_reset()
+        state, m = step(state, images, ids, 7)
+        loss = float(m["loss"])
+        counts = {**_cli_counts(), **_flash_counts()}
+        grads[remat] = {n: p.grad.detach().to("cpu", copy=True)
+                        for n, p in state.module.named_parameters()}
+        ms = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, m = step(state, images, ids, 8 + i)
+            float(m["loss"])
+            ms.append(1e3 * (time.time() - t0))
+        out[remat] = {"loss": loss, "step_ms": ms, "counts": counts,
+                      "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        del state, step
+        torch.cuda.empty_cache()
+    worst = min(((_cos(g, grads[False][n]), n) for n, g in grads[True].items()
+                 if not n.endswith("key.bias")))
+    equal = all(torch.equal(g, grads[False][n]) for n, g in grads[True].items())
+    return {"no remat": out[False], "remat": out[True], "worst_cos": worst,
+            "grads_bit_equal": equal}
+
+
+def _pp_cli(torch, tmp, split, run_a_losses=None, step3=None):
+    """The training CLI at --pp 2 through ``torch.distributed.run
+    --nproc-per-node 2`` on ``split`` with phase 13's flags: resumed from
+    run B's ``step_3`` (``step3``, a directory holding it, one process's)
+    to step CLI_STEPS, saving ``step_4``; then one process resumed from that
+    ``step_4`` at --pp 1. Each run's losses by step and seconds beside run
+    A's (``run_a_losses``, uninterrupted at one process). Phase 18 alone runs
+    its own run A, saving ``step_3``."""
+    import socket
+    import subprocess
+
+    from nans_clip_tpu_torch.training import main as train_main
+
+    root = os.path.join(tmp, "pp_cli")
+    os.makedirs(root)
+    base = ["--train-data", split, "--vision-model", VISION, "--text-model", TEXT,
+            "--batch-size", str(CLI_BATCH), "--warmup", "2", "--log-interval", "1",
+            "--num-workers", "8", "--seed", "0", "--max-steps", str(CLI_STEPS)]
+    step = f"step_{CLI_RESUME_AT}"
+    if step3 is None:
+        logs = os.path.join(root, "logs_a")
+        train_main.main(base + ["--logs", logs, "--name", "A", "--save-step-frequency",
+                                str(CLI_RESUME_AT)])
+        run_a_losses = [r["loss"] for r in _train_records(logs, "A")]
+        step3 = os.path.join(logs, "A", "checkpoints")
+
+    def link(src_dir, tag, dst_logs, name):
+        dst = os.path.join(dst_logs, name, "checkpoints")
+        shutil.copytree(os.path.join(src_dir, tag), os.path.join(dst, tag),
+                        copy_function=os.link)
+        shutil.copy(os.path.join(src_dir, f"{tag}.meta.json"), dst)
+
+    # --pp 2 from one process's step_3; the launcher's own parser would take
+    # the CLI's --logs, so the run keeps the default ./logs of its own
+    # working directory
+    work = os.path.join(root, "pp2")
+    link(step3, step, os.path.join(work, "logs"), "P")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+           "--master-addr", "localhost", "--master-port", str(port), "-m",
+           "nans_clip_tpu_torch.training.main", *base, "--distributed", "--pp", "2", "--name",
+           "P", "--resume", step, "--save-step-frequency", str(CLI_RESUME_AT + 1)]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True, timeout=400)
+    pp2_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the --pp 2 CLI run failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = (proc.stdout + proc.stderr).splitlines()
+    pp2 = {r["step"]: r["loss"] for r in _train_records(os.path.join(work, "logs"), "P")}
+    # --pp 1 (this process) from the --pp 2 run's step_4
+    logs = os.path.join(root, "logs_r1")
+    link(os.path.join(work, "logs", "P", "checkpoints"), f"step_{CLI_RESUME_AT + 1}", logs, "R")
+    t0 = time.time()
+    train_main.main(base + ["--logs", logs, "--name", "R", "--resume",
+                            f"step_{CLI_RESUME_AT + 1}"])
+    pp1 = {r["step"]: r["loss"] for r in _train_records(logs, "R")}
+    out = {"pp2": {"losses": pp2, "s": pp2_s,
+                   "bubble": [ln.split("| ")[-1] for ln in lines if "GPipe" in ln][:1],
+                   "backend": [ln.split("| ")[-1] for ln in lines if "backend gloo" in ln][:1]},
+           "pp1": {"losses": pp1, "s": time.time() - t0},
+           "run_a": dict(enumerate(run_a_losses, 1))}
+    shutil.rmtree(root)
+    return out
+
+
+def phase_pipeline(torch, dev, tmp, split=None, run_a_losses=None, step3=None):
+    """Phase 18 (module docstring). ``split``, ``run_a_losses`` and ``step3``:
+    phase 13's split, run A's losses and run B's step_3 directory, made here
+    when not given (phase 18 alone)."""
+    from nans_clip_tpu_torch.parallel import mesh
+
+    t_phase = time.time()
+    if split is None:
+        split = os.path.join(tmp, "split")
+        _write_split(split)
+    t0 = time.time()
+    try:
+        probe = mesh.run_ranks(_gloo_hop_probe, 2, "gloo", os.path.join(tmp, "pp_probe"), (),
+                               timeout_s=120.0)
+        probe = "works" if all(r["ok"] for r in probe) else f"fails: {probe}"
+    except RuntimeError as e:   # a rank that crashed is the probe's answer
+        probe = f"fails: {str(e).splitlines()[0]}"
+    print(f"pipeline: gloo send/recv of a CUDA tensor on torch {torch.__version__}: {probe} "
+          f"(the hops stage through host memory whatever it says; {time.time() - t0:.1f} s)",
+          flush=True)
+    summary = {"gloo_cuda_p2p": probe}
+    t_ranks = {}
+    sets = {}
+    for case, n in (("pp2", 2), ("fsdp", 4), ("rn50 pp3", 3)):
+        t0 = time.time()
+        ranks = mesh.run_ranks(_pp_rank, n, "gloo", os.path.join(tmp, f"pp_{n}"), (case,),
+                               timeout_s=600.0)
+        t_ranks[case] = time.time() - t0
+        for label in ranks[0]:
+            sets[label] = [r[label] for r in ranks]
+    gib = 2 ** 30
+    for label, recs in sets.items():
+        r0 = recs[0]
+        # under tp the text tower takes another route than one rank's (the
+        # partial kernels, the backward through their twins): phase 11's
+        # bounds for tp 2 against tp 1; a pipeline stage runs one rank's
+        # kernels on its microbatches: the data axis's
+        loss_bound, cos_bound = ((STEP_LOSS_BOUND, GRAD_COS_BOUND) if "tp" in label
+                                 else (DP_LOSS_BOUND, DP_COS_BOUND))
+        diffs = [abs(a - b) for r in recs for a, b in zip(r["losses"], r["losses_1"])]
+        worst = min((w for r in recs for w in r["worst_cos"]), key=lambda kv: kv[1])
+        by_step = [min(r["worst_cos"][i][1] for r in recs) for i in range(len(r0["losses"]))]
+        bit_equal = [a == b for a, b in zip(r0["losses"], r0["losses_1"])]
+        same_losses = all(r["losses"] == r0["losses"] for r in recs)
+        # every parameter two ranks both store is bit-equal: the replicated
+        # ones on every rank, a stage's layers on its data ranks
+        equal = all(a["fingerprints"][n] == b["fingerprints"][n] for a in recs for b in recs
+                    for n in a["fingerprints"] if n in b["fingerprints"])
+        counts = {i: {k: v for k, v in r["counts"].items() if v} for i, r in enumerate(recs)}
+        print(f"pipeline {label}: full width, bf16 over fp32 masters, batch "
+              f"{PP_BATCH if 'vit' in label else PP_RN_BATCH}, text dropout "
+              f"{'0.1' if r0['dropout'] else 'off'}"
+              f"{', FLIP 0.5' if 'vit' in label else ''}, {len(recs)} gloo ranks on one card "
+              f"vs one rank from the same weights: losses {r0['losses']} vs {r0['losses_1']} "
+              f"(|diff| <= {max(diffs):.3g}, bound {loss_bound}; bit-equal {bit_equal}); "
+              f"gradient cosine >= {worst[1]:.6f} ({worst[0]}; by step "
+              f"{' '.join(f'{x:.6f}' for x in by_step)}), bound {cos_bound}; "
+              f"parameters two ranks both store bit-equal: {equal}; a rank keeps "
+              f"{' / '.join(f'{r['bytes'] / gib:.3f}' for r in recs)} GiB of parameters + "
+              f"moments ({r0['stored']} of {r0['n_params']} parameters), one rank "
+              f"{r0['one_rank_bytes'] / gib:.3f}; step ms "
+              f"{' '.join(f'{x:.1f}' for x in r0['step_ms'])} (gloo through the host, ranks "
+              f"sharing one card: not pipeline speed), one rank "
+              f"{' '.join(f'{x:.1f}' for x in r0['step_ms_1'])}; launches of the first step "
+              f"by rank {json.dumps(counts)}", flush=True)
+        if (max(diffs) > loss_bound or worst[1] < cos_bound or not equal
+                or not same_losses or not all(math.isfinite(x) for x in r0["losses"])):
+            raise AssertionError(f"pipeline {label}: the steps differ from one rank's")
+        if "pp" in label and not r0["stored"] < r0["n_params"]:
+            raise AssertionError(f"pipeline {label}: a stage stores every parameter")
+        summary[label] = {k: r0[k] for k in ("losses", "losses_1", "worst_cos", "step_ms",
+                                             "step_ms_1", "stored", "n_params")}
+        summary[label].update(bytes=[r["bytes"] for r in recs], counts=counts)
+    c = sets["vit pp 2"]
+    for stage, r in enumerate(c):
+        k = r["counts"]
+        # each stage's 6 layers of each tower, 8 microbatches
+        if (k["fused_attention_block"] < 48 or k["fused_bert_attention_block"] < 48
+                or k["fused_mlp_block"] < 96):
+            raise AssertionError(f"pipeline vit pp 2: stage {stage} launches {k}")
+
+    t0 = time.time()
+    cli = _pp_cli(torch, tmp, split, run_a_losses, step3)
+    t_cli = time.time() - t0
+    pp2, pp1, run_a = cli["pp2"], cli["pp1"], cli["run_a"]
+    diffs = {k: abs(v - run_a[k]) for run in (pp2, pp1) for k, v in run["losses"].items()}
+    print(f"pipeline CLI: torch.distributed.run --nproc-per-node 2 training.main --distributed "
+          f"--pp 2 on phase 13's split, batch {CLI_BATCH}, resumed from run B's step_"
+          f"{CLI_RESUME_AT} (one process's): losses {pp2['losses']} in {pp2['s']:.1f} s "
+          f"({pp2['bubble']}; {pp2['backend']}); one process resumed from its step_"
+          f"{CLI_RESUME_AT + 1} at --pp 1: {pp1['losses']} in {pp1['s']:.1f} s; run A "
+          f"(uninterrupted, one process) {run_a}; |diff| to run A <= {max(diffs.values()):.3g} "
+          f"(bound {DP_LOSS_BOUND}), bit-equal {all(d == 0 for d in diffs.values())}",
+          flush=True)
+    if (sorted(pp2["losses"]) != list(range(CLI_RESUME_AT + 1, CLI_STEPS + 1))
+            or sorted(pp1["losses"]) != list(range(CLI_RESUME_AT + 2, CLI_STEPS + 1))
+            or not pp2["bubble"] or max(diffs.values()) > DP_LOSS_BOUND):
+        raise AssertionError(f"pipeline CLI: {cli}")
+    summary["cli"] = cli
+
+    t0 = time.time()
+    remat = {"ViT-B-16@RoBERTa-base, batch 128, auto": _pp_remat(torch, dev, f"{VISION}@{TEXT}",
+                                                                  TRAIN_BATCH, "auto"),
+             f"{REMAT_L[0]}@RoBERTa-base, batch {REMAT_L_BATCH}, pallas": _pp_remat(
+                 torch, dev, "@".join(REMAT_L), REMAT_L_BATCH, "pallas")}
+    t_remat = time.time() - t0
+    for label, r in remat.items():
+        a, b = r["no remat"], r["remat"]
+        more = {k: (a["counts"][k], v) for k, v in b["counts"].items() if v != a["counts"][k]}
+        print(f"remat {label}, text dropout 0.1, one step from the same weights: loss "
+              f"{a['loss']:.6f} / with --grad-checkpointing {b['loss']:.6f}; gradient cosine >= "
+              f"{r['worst_cos'][0]:.6f} ({r['worst_cos'][1]}), bit-equal {r['grads_bit_equal']}; "
+              f"step ms {' '.join(f'{x:.1f}' for x in a['step_ms'])} / "
+              f"{' '.join(f'{x:.1f}' for x in b['step_ms'])}; peak GiB {a['peak_gib']:.3f} / "
+              f"{b['peak_gib']:.3f}; launches that changed (without, with) {json.dumps(more)}",
+              flush=True)
+        if abs(a["loss"] - b["loss"]) > DP_LOSS_BOUND or r["worst_cos"][0] < DP_COS_BOUND:
+            raise AssertionError(f"remat {label}: {r}")
+    summary["remat"] = remat
+    print(json.dumps({"phase18": "pipeline and remat", **summary}, default=str), flush=True)
+    print(f"pipeline: phase 18 took {time.time() - t_phase:.1f} s (ranks "
+          f"{json.dumps({k: round(v, 1) for k, v in t_ranks.items()})}, CLI {t_cli:.1f} s, "
+          f"remat {t_remat:.1f} s)", flush=True)
+    return summary
+
+
 def main() -> int:
     if not (ROOT / "nans_clip_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -5017,6 +5458,8 @@ def main() -> int:
         shutil.rmtree(cli["checkpoints"])
         phase_rn50(torch, dev, tmp, os.path.join(tmp, "split"), os.path.join(tmp, "backends"))
         phase_data_axis(torch, dev, tmp, os.path.join(tmp, "split"), cli["losses"])
+        phase_pipeline(torch, dev, tmp, os.path.join(tmp, "split"), cli["losses"],
+                       cli["step_3"])
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")

@@ -41,6 +41,15 @@ attention sub-block (probability and hidden dropout) and one for the MLP
 global microbatch) offsets every mask's sample index, so that data ranks
 draw together what one process draws over the global microbatch. The parameters are cast to the compute dtype on each
 forward (``ModelOptions.cast``).
+
+``options.remat`` rematerialises each layer (``models/common.py::
+remat_layer``, JAX bert.py:284-297); a training forward draws every seed up
+front (:meth:`BertModel._dropouts`), so the recompute draws the forward's
+masks. Under ``options.pp`` > 1 the layers run as the GPipe loop of
+``parallel/pp.py`` (:meth:`BertModel._pp_layers`), the key bias travelling
+with each microbatch; microbatch ``i`` of ``mb`` rows draws its masks at the
+sample offset ``sample0 + i * mb``, as one process draws them (JAX folds
+the microbatch and data-shard indices into its key instead, bert.py:227-233).
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from nans_clip_tpu_torch.configs import TextConfig
-from nans_clip_tpu_torch.models.common import ModelOptions, layer_entries, layers_from
+from nans_clip_tpu_torch.models.common import (ModelOptions, layer_entries, layers_from,
+                                               remat_layer)
 from nans_clip_tpu_torch.ops import dropout as drop
 from nans_clip_tpu_torch.ops import gates
 from nans_clip_tpu_torch.ops.activations import ACT2FN, upcast
@@ -61,7 +71,8 @@ from nans_clip_tpu_torch.ops.fused_block import attention_block_train, mlp_block
 from nans_clip_tpu_torch.ops.layer_kernel import encoder_layer_math, fused_layer_block
 from nans_clip_tpu_torch.ops.layernorm import layer_norm
 from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
-from nans_clip_tpu_torch.parallel.mesh import model_group
+from nans_clip_tpu_torch.parallel import pp as pipe
+from nans_clip_tpu_torch.parallel.mesh import grid, model_group
 from nans_clip_tpu_torch.parallel.tp import tp_attention_block, tp_mlp_block
 from nans_clip_tpu_torch.utils.quantize import Int8Weight, dequantize_weight, is_quantized
 
@@ -110,20 +121,26 @@ def key_bias_of(attention_mask: torch.Tensor) -> torch.Tensor:
 def run_layers(cfg: TextConfig, x, key_bias, layers, options: ModelOptions,
                table: Optional[TowerTable] = None) -> torch.Tensor:
     """The deterministic layers at tp 1 as ``ops/gates.py`` routes them (the
-    module docstring); ``table`` caches the tower kernel's pointer table."""
+    module docstring); ``table`` caches the tower kernel's pointer table.
+    Under ``options.pp`` > 1 ``layers`` is a stage's and x a microbatch: the
+    whole-tower kernel is never routed (JAX ``_tower_route`` demands pp 1)."""
     heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
     if gates.pallas_route(options.attn_impl):
-        for p in layers:
-            p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-            x = _pallas_layer(x, p, key_bias, heads, eps, act)
-        return x
-    if gates.tower_route(x, options.attn_impl, "text", heads, cfg.intermediate_size,
-                         is_quantized(layers[0][2]), options.tp):
+        def layer(x, *p):
+            return _pallas_layer(x, p, key_bias, heads, eps, act)
+    elif options.pp == 1 and gates.tower_route(x, options.attn_impl, "text", heads,
+                                               cfg.intermediate_size,
+                                               is_quantized(layers[0][2]), options.tp):
         return fused_tower(x, key_bias, layers, heads, eps, act, True, table)
-    layer_fn = fused_layer_block if gates.use_kernel(x, options.attn_impl) else encoder_layer_math
+    else:
+        layer_fn = fused_layer_block if gates.use_kernel(x, options.attn_impl) \
+            else encoder_layer_math
+
+        def layer(x, *p):
+            return layer_fn(x, *p, heads, eps, act, True, key_bias)
     for p in layers:
         p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-        x = layer_fn(x, *p, heads, eps, act, True, key_bias)
+        x = remat_layer(layer, x, *p, options=options)
     return x
 
 
@@ -287,22 +304,61 @@ class BertModel(nn.Module):
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor],
                 options: ModelOptions = ModelOptions(),
                 generator: Optional[torch.Generator] = None,
-                sample0: int = 0) -> torch.Tensor:
+                sample0: int = 0, head_rows: Optional[int] = None) -> torch.Tensor:
         """Sequence output [B, S, H]. ``attention_mask``: [B, S] 1=keep, 0=pad.
         ``generator`` draws the dropout seeds of a training forward;
         ``sample0`` is the global index of the batch's first sample in the
-        microbatch the masks are drawn for (module docstring)."""
+        microbatch the masks are drawn for (module docstring). Under
+        ``options.pp`` > 1 the layers run as the pipeline of
+        :meth:`_pp_layers`, and ``head_rows`` keeps the output to the first
+        ``head_rows`` tokens, [B, head_rows, H] (what travels to every
+        stage)."""
         emb = self.embeddings
         x = embed(input_ids, emb.word_embeddings.weight, emb.position_embeddings.weight,
                   emb.token_type_embeddings.weight, emb.LayerNorm.weight, emb.LayerNorm.bias,
                   self.cfg.layer_norm_eps, options.cast)
         key_bias = None if attention_mask is None else key_bias_of(attention_mask)
+        if options.pp > 1:
+            return self._pp_layers(x, key_bias, options, generator, sample0, head_rows)
         layers = [layer.weights(options) for layer in self.encoder.layer]
         if options.tp > 1:
             return self._tp_layers(x, key_bias, layers, options, generator, sample0)
         if not options.deterministic:
-            return self._train_layers(x, key_bias, layers, options, generator, sample0)
+            x, seeds, hd, ad = self._dropouts(x, generator, sample0, len(layers))
+            return self._train_layers(x, key_bias, layers, options, seeds, hd, ad)
         return run_layers(self.cfg, x, key_bias, layers, options, self.encoder.tower_table)
+
+    def _pp_layers(self, x, key_bias, options: ModelOptions,
+                   generator: Optional[torch.Generator], sample0: int,
+                   head_rows: Optional[int]) -> torch.Tensor:
+        """The layers as the GPipe loop of ``parallel/pp.py`` over this
+        rank's pipe group (JAX bert.py:264-288), each stage on its own
+        layers, the key bias travelling with its microbatch. A training
+        forward draws the embedding dropout and every layer's seeds as one
+        process draws them; microbatch ``i`` of ``mb`` rows takes its
+        layers' seeds at the sample offset ``sample0 + i * mb``, its global
+        first row, so a pp run draws the masks of a pp 1 run."""
+        g = grid(1, options.pp)
+        keep = pipe.stage_layers(len(self.encoder.layer), options.pp, g.stage)
+        layers = [self.encoder.layer[i].weights(options) for i in keep]
+        train = not options.deterministic
+        seeds, hd, ad = [], 0.0, 0.0
+        if train:
+            x, seeds, hd, ad = self._dropouts(x, generator, sample0, len(self.encoder.layer))
+            seeds = [seeds[i] for i in keep]
+        mb = x.shape[0] // (options.pp_microbatches
+                            or pipe.pick_microbatches(x.shape[0], options.pp))
+
+        def stage_fn(h, local, mb_index, kb):
+            if not train:
+                return run_layers(self.cfg, h, kb, local, options)
+            off = mb_index * mb
+            at = [tuple(None if sd is None else drop.Seed(sd.value, sd.sample0 + off)
+                        for sd in pair) for pair in seeds]
+            return self._train_layers(h, kb, local, options, at, hd, ad)
+
+        return pipe.pp_transformer(x, layers, stage_fn, options.pp, options.pp_microbatches,
+                                   aux=key_bias, head_rows=head_rows, grid=g)
 
     def serving_weights(self, options: ModelOptions) -> dict:
         """The tensors of an inference forward, by name, in the compute
@@ -330,12 +386,15 @@ class BertModel(nn.Module):
         dropout = not options.deterministic and generator is not None
         x, hd, ad = self._embedding_dropout(x, generator if dropout else None, sample0)
         a_impl, m_impl = ("xla", "xla") if dropout else gates.tp_impls(x, options.attn_impl, act)
-        for p in layers:
-            p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-            seed_a, seed_m = _layer_seeds(generator if dropout else None, sample0)
+        def layer(x, seed_a, seed_m, *p):
             x = tp_attention_block(x, *p[:6], heads, options.tp, eps, True, key_bias, a_impl,
                                    group, seed_a, ad, hd)
-            x = tp_mlp_block(x, *p[6:], act, options.tp, eps, True, m_impl, group, seed_m, hd)
+            return tp_mlp_block(x, *p[6:], act, options.tp, eps, True, m_impl, group, seed_m, hd)
+
+        seeds = [_layer_seeds(generator if dropout else None, sample0) for _ in layers]
+        for p, (seed_a, seed_m) in zip(layers, seeds):
+            p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+            x = remat_layer(layer, x, seed_a, seed_m, *p, options=options)
         return x
 
     def _embedding_dropout(self, x, generator: Optional[torch.Generator], sample0: int = 0):
@@ -349,24 +408,35 @@ class BertModel(nn.Module):
         return (drop.apply(x, drop.Dropout(seed, hd, drop.STREAM_EMBED, x.shape[1],
                                            sample0=sample0)), hd, ad)
 
-    def _train_layers(self, x, key_bias, layers, options: ModelOptions,
-                      generator: Optional[torch.Generator], sample0: int = 0) -> torch.Tensor:
-        """The training forward of the layers, with dropout when a generator
-        is given (bert.py:77-80, :233-258)."""
+    def _dropouts(self, x, generator: Optional[torch.Generator], sample0: int, n_layers: int):
+        """(x after the embedding dropout, each layer's two seeds, hidden
+        rate, attention rate): everything a training forward draws, drawn
+        up front in one process's order (bert.py:77-80, :233-258), so that
+        a rematerialised layer or a pipeline stage takes its seeds as
+        values; no dropout and (None, None) seeds without a generator."""
+        x, hd, ad = self._embedding_dropout(x, generator, sample0)
+        return x, [_layer_seeds(generator, sample0) for _ in range(n_layers)], hd, ad
+
+    def _train_layers(self, x, key_bias, layers, options: ModelOptions, seeds, hd: float,
+                      ad: float) -> torch.Tensor:
+        """The training forward of the layers with each layer's two dropout
+        seeds ``seeds`` (:meth:`_dropouts`), each layer rematerialised
+        under ``options.remat``."""
         cfg = self.cfg
         heads, eps, act = cfg.num_attention_heads, cfg.layer_norm_eps, cfg.hidden_act
-        x, hd, ad = self._embedding_dropout(x, generator, sample0)
         use_kernel = gates.use_kernel(x, options.attn_impl)
         pallas = gates.pallas_route(options.attn_impl)
         route_a = gates.bwd_route("attn_post", options.bwd_impl)
         route_m = gates.bwd_route("mlp_post", options.bwd_impl)
-        for p in layers:
-            p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-            seed_a, seed_m = _layer_seeds(generator, sample0)
+
+        def layer(x, seed_a, seed_m, *p):
             if pallas:
-                x = _pallas_layer(x, p, key_bias, heads, eps, act, seed_a, seed_m, ad, hd)
-                continue
+                return _pallas_layer(x, p, key_bias, heads, eps, act, seed_a, seed_m, ad, hd)
             x = attention_block_train(x, *p[:6], key_bias, heads, eps, True, seed_a, ad, hd,
                                       use_kernel, route_a)
-            x = mlp_block_train(x, *p[6:], act, eps, True, seed_m, hd, use_kernel, route_m)
+            return mlp_block_train(x, *p[6:], act, eps, True, seed_m, hd, use_kernel, route_m)
+
+        for p, (seed_a, seed_m) in zip(layers, seeds):
+            p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+            x = remat_layer(layer, x, seed_a, seed_m, *p, options=options)
         return x

@@ -12,9 +12,13 @@ both-way scaled logits in fp32. ``logit_scale`` initialises to
 False)`` and a ``torch.Generator`` for the text tower's dropout (the vision
 tower has none). ``ModelOptions(tp=n)`` runs both towers tensor-parallel in
 the caller's process group of n ranks (``parallel/tp.py``); every rank holds
-the full weights and computes the same features. A ResNet image tower takes
-no FLIP masking (``mask_ratio`` and ``ids_keep`` do nothing, as in JAX) and
-no tensor parallelism.
+the full weights and computes the same features. ``ModelOptions(pp=n)``
+runs each transformer tower as a pipeline of n stages (``parallel/pp.py``);
+every stage computes the same features. A ResNet image tower takes no FLIP
+masking (``mask_ratio`` and ``ids_keep`` do nothing, as in JAX) and runs
+whole on every rank under ``tp`` or ``pp`` > 1, its parameters replicated,
+as the JAX package runs it (its ``param_spec`` names no ResNet leaf); only
+the text tower is split.
 """
 
 from __future__ import annotations
@@ -57,13 +61,11 @@ class CLIP(nn.Module):
     def tp_partial_parameters(self) -> list:
         """The parameters whose gradients are per-rank shares under tensor
         parallelism (``parallel/tp.py::reduce_partial_grads`` sums them),
-        in a fixed order: every layer of the image tower, then of the text
-        tower."""
-        if self.cfg.is_resnet:
-            raise ValueError("tensor parallelism over a ResNet image tower is not ported "
-                             "(ROADMAP.md queue 1 item 6b; the JAX package shards no ResNet "
-                             "over its model axis)")
-        return [t for layer in (*self.visual.transformer.resblocks, *self.bert.encoder.layer)
+        in a fixed order: every layer of a ViT image tower, then of the text
+        tower (a ResNet tower runs whole on every rank: its gradients are
+        the one-rank gradients already)."""
+        image = () if self.cfg.is_resnet else tuple(self.visual.transformer.resblocks)
+        return [t for layer in (*image, *self.bert.encoder.layer)
                 for t in layer.tp_partial_parameters()]
 
     def encode_image(self, images: torch.Tensor, options: ModelOptions = ModelOptions(),
@@ -86,7 +88,7 @@ class CLIP(nn.Module):
         from ``sample0`` (a data-parallel rank's first row of the global
         microbatch)."""
         attn_mask = (text_ids != PAD_ID).float()
-        seq = self.bert(text_ids, attn_mask, options, generator, sample0)
+        seq = self.bert(text_ids, attn_mask, options, generator, sample0, head_rows=1)
         return seq[:, 0, :] @ self.text_projection.to(seq.dtype)
 
     def forward(self, images: Optional[torch.Tensor], texts: Optional[torch.Tensor],
@@ -134,11 +136,11 @@ def serving_weights(module: CLIP, tower: str, options: ModelOptions) -> dict:
 
 def serve(cfg: CLIPConfig, tower: str, w: dict, x: torch.Tensor,
           options: ModelOptions) -> torch.Tensor:
-    """``encode_image`` / ``encode_text`` (deterministic, tp 1) from
+    """``encode_image`` / ``encode_text`` (deterministic, tp 1, pp 1) from
     :func:`serving_weights`: unnormalised features [B, E]. x: images [B, R,
     R, 3] NHWC, or text ids [B, S]."""
-    if options.tp > 1 or not options.deterministic:
-        raise ValueError("serve runs the deterministic forward at tp 1")
+    if options.tp > 1 or options.pp > 1 or not options.deterministic:
+        raise ValueError("serve runs the deterministic forward at tp 1 and pp 1")
     if tower == "image":
         serve_image = resnet_serve if cfg.is_resnet else vit_serve
         return serve_image(cfg.vision, w, x, options)

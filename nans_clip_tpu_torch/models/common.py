@@ -8,6 +8,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nans_clip_tpu_torch.ops import gates
 from nans_clip_tpu_torch.utils.quantize import Int8Weight, is_quantized
@@ -71,6 +72,17 @@ class ModelOptions:
     features for the global-batch loss and reduces the gradients
     (``training/trainer.py``), and a ResNet tower's training BatchNorm
     normalises with the statistics of the global microbatch.
+    ``remat``: each transformer layer of a forward with autograd is
+    rematerialised (``torch.utils.checkpoint``, the JAX ``jax.checkpoint``
+    around one layer): its activations are recomputed in the backward
+    instead of stored. A ResNet tower takes none, as in JAX.
+    ``pp``: the number of pipeline stages, the third axis of the ``data x
+    tp x pipe`` grid (``mesh.grid``; exclusive with ``tp`` > 1, as the JAX
+    towers assert). Above 1 each transformer tower runs its layers as the
+    GPipe loop of ``parallel/pp.py`` over this rank's pipe group, each
+    stage on its own ``L / pp`` layers, the local batch split into
+    ``pp_microbatches`` microbatches (0: ``pp.pick_microbatches``); the
+    tower's output reaches every stage.
     """
 
     attn_impl: str = "auto"
@@ -79,6 +91,9 @@ class ModelOptions:
     bwd_impl: str = "auto"
     tp: int = 1
     data: int = 1
+    remat: bool = False
+    pp: int = 1
+    pp_microbatches: int = 0
 
     def __post_init__(self):
         if self.attn_impl not in gates.IMPLS:
@@ -86,10 +101,15 @@ class ModelOptions:
         if self.bwd_impl not in gates.BWD_IMPLS:
             raise ValueError(f"bwd_impl must be one of {gates.BWD_IMPLS}, got "
                              f"{self.bwd_impl!r}")
-        for axis in ("tp", "data"):
+        for axis in ("tp", "data", "pp"):
             n = getattr(self, axis)
             if not isinstance(n, int) or isinstance(n, bool) or n < 1:
                 raise ValueError(f"{axis} must be a positive int, got {n!r}")
+        if self.tp > 1 and self.pp > 1:
+            raise ValueError("tp > 1 and pp > 1 are mutually exclusive")
+        if not isinstance(self.pp_microbatches, int) or self.pp_microbatches < 0:
+            raise ValueError(f"pp_microbatches must be an int >= 0, got "
+                             f"{self.pp_microbatches!r}")
         if self.compute_dtype not in (None, "bfloat16"):
             raise ValueError(f"unsupported compute_dtype {self.compute_dtype!r}")
 
@@ -104,6 +124,18 @@ class ModelOptions:
         if dtype is None or not torch.is_tensor(t) or not t.is_floating_point():
             return t
         return t.to(dtype)
+
+
+def remat_layer(fn, x, *args, options: ModelOptions):
+    """``fn(x, *args)``, one layer; under ``options.remat`` with autograd
+    on, rematerialised: ``torch.utils.checkpoint`` (non-reentrant) stores
+    the layer's inputs and recomputes its forward in the backward. No RNG
+    state is stashed: the layers draw from no global generator (the dropout
+    masks are a function of each layer's seeds, ``ops/dropout.py``), so the
+    recompute draws the forward's masks."""
+    if options.remat and torch.is_grad_enabled():
+        return checkpoint(fn, x, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(x, *args)
 
 
 def cast_module(module: nn.Module, options: ModelOptions) -> nn.Module:

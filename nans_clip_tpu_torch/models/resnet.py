@@ -289,13 +289,9 @@ class ModifiedResNet(nn.Module):
         batch statistics (and, with ``bn_update``, the running ones
         updated), over the global microbatch where ``options.data`` > 1;
         else the running statistics."""
-        if options.tp > 1:
-            raise ValueError("tensor parallelism over a ResNet image tower is not ported "
-                             "(ROADMAP.md queue 1 item 6b; the JAX package shards no ResNet "
-                             "over its model axis)")
         group = None
         if bn_train and options.data > 1:
-            group = mesh.check_grid(options.tp, options.data).data_group
+            group = mesh.check_grid(options.tp, options.data, options.pp).data_group
         w = self.weights(options)
         images = images.to(options.dtype or self.attnpool.c_proj.weight.dtype)
         return forward(self.cfg, w, images, bn_train, bn_update, group)

@@ -41,6 +41,12 @@ forward (``ModelOptions.cast``). Images are NHWC ``[B, R, R, 3]``. FLIP
 random masking (``vit.py:74-81``) is split in two so that a caller can feed
 the kept tokens: :func:`draw_ids_keep` draws them from a ``torch.Generator``,
 :func:`gather_kept` gathers them after the positional embedding.
+``options.remat`` rematerialises each layer (``models/common.py::
+remat_layer``, JAX ``jax.checkpoint`` a block, vit.py:340). Under
+``options.pp`` > 1 the layers run as the GPipe loop of ``parallel/pp.py``
+(:func:`pipelined_layers`, JAX vit.py:342-356): each stage routes its own
+layers on each microbatch as above (the gates see the microbatch; never the
+whole-tower kernel), and the CLS rows reach every stage for the head.
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from nans_clip_tpu_torch.configs import VisionConfig
-from nans_clip_tpu_torch.models.common import ModelOptions, layer_entries, layers_from
+from nans_clip_tpu_torch.models.common import (ModelOptions, layer_entries, layers_from,
+                                               remat_layer)
 from nans_clip_tpu_torch.ops import gates
 from nans_clip_tpu_torch.ops.activations import quick_gelu, upcast
 from nans_clip_tpu_torch.ops.attention import mha
@@ -63,7 +70,8 @@ from nans_clip_tpu_torch.ops.fused_block import (_mlp_dispatch, _reference_block
 from nans_clip_tpu_torch.ops.layer_bwd import fused_layer_train
 from nans_clip_tpu_torch.ops.layernorm import layer_norm
 from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
-from nans_clip_tpu_torch.parallel.mesh import model_group
+from nans_clip_tpu_torch.parallel import pp as pipe
+from nans_clip_tpu_torch.parallel.mesh import grid, model_group
 from nans_clip_tpu_torch.parallel.tp import tp_attention_block, tp_mlp_block
 from nans_clip_tpu_torch.utils.quantize import dequantize_weight, is_quantized
 
@@ -174,10 +182,14 @@ def _tp_layers(x: torch.Tensor, layers, heads: int, options: ModelOptions) -> to
     vit.py:145-169), each rank on its heads and MLP columns."""
     group = model_group(options.tp)
     a_impl, m_impl = gates.tp_impls(x, options.attn_impl)
+
+    def layer(x, *p):
+        x = tp_attention_block(x, *p[:6], heads, options.tp, 1e-5, impl=a_impl, group=group)
+        return tp_mlp_block(x, *p[6:], "quick_gelu", options.tp, 1e-5, impl=m_impl, group=group)
+
     for p in layers:
         p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-        x = tp_attention_block(x, *p[:6], heads, options.tp, 1e-5, impl=a_impl, group=group)
-        x = tp_mlp_block(x, *p[6:], "quick_gelu", options.tp, 1e-5, impl=m_impl, group=group)
+        x = remat_layer(layer, x, *p, options=options)
     return x
 
 
@@ -185,32 +197,53 @@ def run_layers(x: torch.Tensor, layers, heads: int, options: ModelOptions,
                table: Optional[TowerTable] = None) -> torch.Tensor:
     """The tower's layers on x [B, S, W] as ``ops/gates.py`` routes them
     (the module docstring); ``table`` caches the tower kernel's pointer
-    table."""
+    table. Each layer under ``options.remat`` is rematerialised
+    (``models/common.py::remat_layer``). Under ``options.pp`` > 1 ``layers``
+    is a stage's and x a microbatch: the whole-tower kernel, which needs the
+    whole stack, is never routed (JAX ``_tower_route`` demands pp 1)."""
     w = x.shape[2]
     if options.tp > 1:
         return _tp_layers(x, layers, heads, options)
-    if options.deterministic and gates.tower_route(x, options.attn_impl, "image", heads, 4 * w,
-                                                   is_quantized(layers[0][2]), options.tp):
+    if options.deterministic and options.pp == 1 and gates.tower_route(
+            x, options.attn_impl, "image", heads, 4 * w, is_quantized(layers[0][2]), options.tp):
         return fused_tower(x, None, layers, heads, 1e-5, "quick_gelu", False, table)
     use_kernel = gates.use_kernel(x, options.attn_impl)
     pallas = gates.pallas_route(options.attn_impl)
     route_a = gates.bwd_route("attn_pre", options.bwd_impl)
     route_m = gates.bwd_route("mlp_pre", options.bwd_impl)
+
+    def layer(x, *p):
+        if pallas:
+            return _pallas_layer(x, p, heads)
+        if options.deterministic:
+            return _layer(x, p, heads, use_kernel)
+        if gates.layer_bwd_route(options.bwd_impl, p, x.shape[1], w, heads, 4 * w):
+            return fused_layer_train(x, *p, heads, "quick_gelu", 1e-5, use_kernel)
+        x = attention_block_train(x, *p[:6], None, heads, 1e-5, False, use_kernel=use_kernel,
+                                  route=route_a, wide_tile=wide_tile(x.shape[1], w))
+        return mlp_block_train(x, *p[6:], "quick_gelu", 1e-5, False, use_kernel=use_kernel,
+                               route=route_m)
+
     for p in layers:
         p = tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
-        if pallas:
-            x = _pallas_layer(x, p, heads)
-        elif options.deterministic:
-            x = _layer(x, p, heads, use_kernel)
-        elif gates.layer_bwd_route(options.bwd_impl, p, x.shape[1], w, heads, 4 * w):
-            x = fused_layer_train(x, *p, heads, "quick_gelu", 1e-5, use_kernel)
-        else:
-            x = attention_block_train(x, *p[:6], None, heads, 1e-5, False,
-                                      use_kernel=use_kernel, route=route_a,
-                                      wide_tile=wide_tile(x.shape[1], w))
-            x = mlp_block_train(x, *p[6:], "quick_gelu", 1e-5, False,
-                                use_kernel=use_kernel, route=route_m)
+        x = remat_layer(layer, x, *p, options=options)
     return x
+
+
+def pipelined_layers(x: torch.Tensor, layers, heads: int, options: ModelOptions,
+                     table: Optional[TowerTable] = None) -> torch.Tensor:
+    """:func:`run_layers` under ``options.pp`` > 1: the stage's ``layers``
+    as the GPipe loop of ``parallel/pp.py`` over this rank's pipe group
+    (JAX vit.py:340-356); returns the CLS rows ``[B, 1, W]`` (what
+    :func:`head` reads), on every stage."""
+    layers = [tuple(dequantize_weight(t, x.dtype) if is_quantized(t) else t for t in p)
+              for p in layers]
+
+    def stage_fn(h, local, mb_index, aux):
+        return run_layers(h, local, heads, options, table)
+
+    return pipe.pp_transformer(x, layers, stage_fn, options.pp, options.pp_microbatches,
+                               head_rows=1, grid=grid(1, options.pp))
 
 
 def embed(images: torch.Tensor, w_flat: torch.Tensor, cls: torch.Tensor, pos: torch.Tensor,
@@ -304,8 +337,12 @@ class VisualTransformer(nn.Module):
         if ids_keep is not None:
             x = gather_kept(x, ids_keep)
         x = layer_norm(x, cast(self.ln_pre.weight), cast(self.ln_pre.bias), 1e-5)
-        layers = [tuple(cast(t) for t in blk.weights()) for blk in self.transformer.resblocks]
-        x = run_layers(x, layers, self.cfg.heads, options, self.tower_table)
+        blocks = self.transformer.resblocks
+        if options.pp > 1:
+            blocks = pipe.local_layers(blocks, options.pp, grid(1, options.pp).stage)
+        layers = [tuple(cast(t) for t in blk.weights()) for blk in blocks]
+        run = pipelined_layers if options.pp > 1 else run_layers
+        x = run(x, layers, self.cfg.heads, options, self.tower_table)
         return head(x, cast(self.ln_post.weight), cast(self.ln_post.bias), cast(self.proj))
 
     def serving_weights(self, options: ModelOptions) -> dict:

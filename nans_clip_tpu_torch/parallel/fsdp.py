@@ -14,7 +14,12 @@ reduce-scatters its gradient. The port keeps the same shards:
   kernels transposed, convolutions from OIHW to HWIO; each :class:`Leaf`
   converts between the torch tensors and the JAX layout. ``mesh.param_spec``
   picks each leaf's sharded dimension, so a rank stores exactly the shard
-  its JAX device stores.
+  its JAX device stores. Under pipeline parallelism (``pp`` > 1) the module
+  holds one stage's layers (``parallel/pp.py::localize``: the others on
+  the meta device, which no leaf takes): a stacked leaf is the stage's
+  ``[L / pp, ...]`` slice, JAX's shard over ``pipe``, and its ``data``
+  dimension is the one ``param_spec`` picks for the full ``[L, ...]``
+  leaf at that ``pp``.
 * :class:`Sharded` holds the rank's shard of every sharded leaf as an fp32
   ``nn.Parameter``, which the optimizer updates (its moments are shards
   too); the module keeps the replicated leaves' tensors and, between
@@ -126,14 +131,18 @@ class Leaf:
 
 
 def jax_leaves(module: nn.Module, data: int = 1,
-               fsdp_min_size: Optional[int] = None) -> List[Leaf]:
+               fsdp_min_size: Optional[int] = None, pp: int = 1) -> List[Leaf]:
     """The JAX leaves of ``module``'s parameters, in the order of their
     first member in ``named_parameters()``, each with the dimension
-    ``mesh.param_spec`` shards over ``data`` (None at ``data`` 1)."""
+    ``mesh.param_spec`` shards over ``data`` (None at ``data`` 1); at ``pp``
+    > 1 only the stored ones (not on the meta device), the stacks one
+    stage's layers (module docstring)."""
     stacks: Dict[Tuple[str, ...], dict] = {}
     order: List[Tuple[str, ...]] = []
     leaves: Dict[Tuple[str, ...], Leaf] = {}
     for name, p in module.named_parameters():
+        if p.is_meta and pp > 1:   # another stage's layer
+            continue
         for pattern, prefix, table in _STACKS:
             m = pattern.match(name)
             if m:
@@ -154,16 +163,18 @@ def jax_leaves(module: nn.Module, data: int = 1,
             order.append(path)
     for path, st in stacks.items():
         keys = sorted(st["members"])
-        n_layers = keys[-1][0] + 1
-        if len(keys) != n_layers * st["parts"]:
-            raise ValueError(f"{'/'.join(path)}: layers {keys} are not a full stack")
+        first, n_layers = keys[0][0], keys[-1][0] - keys[0][0] + 1
+        if len(keys) != n_layers * st["parts"] or (pp == 1 and first):
+            raise ValueError(f"{'/'.join(path)}: layers {keys} are not a "
+                             f"{'full stack' if pp == 1 else 'stage of consecutive layers'}")
         shape = st["shape"] if st["perm"] is None else tuple(st["shape"][i] for i in st["perm"])
         shape = (n_layers, *shape[:-1], shape[-1] * st["parts"])
         leaves[path] = Leaf(path, [st["members"][k] for k in keys], shape, st["perm"], True,
                             st["parts"])
     out = [leaves[p] for p in order]
     for leaf in out:
-        spec = mesh.param_spec(leaf.path, leaf.shape, data, fsdp_min_size)
+        full = (leaf.shape[0] * pp, *leaf.shape[1:]) if leaf.stacked else leaf.shape
+        spec = mesh.param_spec(leaf.path, full, data, fsdp_min_size, pp)
         leaf.dim = spec.index(mesh.DATA_AXIS) if mesh.DATA_AXIS in spec else None
         if leaf.dim is not None and leaf.parts > 1 and leaf.dim == len(leaf.shape) - 1 \
                 and (leaf.shape[-1] // leaf.parts) % data:
@@ -204,11 +215,12 @@ class Sharded:
     Built from a module that holds the full parameters (equal on every
     rank); the module's sharded parameters are released on return."""
 
-    def __init__(self, module: nn.Module, group, fsdp_min_size: Optional[int] = None):
+    def __init__(self, module: nn.Module, group, fsdp_min_size: Optional[int] = None,
+                 pp: int = 1):
         self.module, self.group = module, group
         self.data, self.rank = dist.get_world_size(group), dist.get_rank(group)
-        self.params = dict(module.named_parameters())
-        self.leaves = jax_leaves(module, self.data, fsdp_min_size)
+        self.params = {n: p for n, p in module.named_parameters() if not p.is_meta}
+        self.leaves = jax_leaves(module, self.data, fsdp_min_size, pp)
         self.sharded = [leaf for leaf in self.leaves if leaf.dim is not None]
         self.shards: Dict[Tuple[str, ...], nn.Parameter] = {}
         for leaf in self.sharded:
@@ -285,15 +297,25 @@ class Sharded:
         all_reduce_mean(replicated, self.group)
 
     def grad_norm_sq(self) -> torch.Tensor:
-        """The squared global norm of the reduced gradient: the shards'
-        squares summed over the data group, the replicated ones once."""
-        shards = [s.grad for s in self.shards.values() if s.grad is not None]
+        """The squared norm of the reduced gradient that this rank's stage
+        holds, split ``[layers, rest]``: the shards' squares summed over the
+        data group, the replicated ones once. Their sum is the global
+        squared norm at ``pp`` 1; under ``pp`` > 1 the layers' part is
+        summed over the pipe group by the caller."""
         dev = next(iter(self.params.values())).device
-        sq = sum((g.float().square().sum() for g in shards), torch.zeros((), device=dev))
+        sq = torch.zeros(2, device=dev)
+        for leaf in self.sharded:
+            g = self.shards[leaf.path].grad
+            if g is not None:
+                sq[0 if leaf.stacked else 1] += g.float().square().sum()
         dist.all_reduce(sq, group=self.group)
-        rep = [self.params[n].grad for leaf in self.leaves if leaf.dim is None
-               for n in leaf.names if self.params[n].grad is not None]
-        return sq + sum((g.float().square().sum() for g in rep), torch.zeros((), device=dev))
+        for leaf in self.leaves:
+            if leaf.dim is None:
+                for n in leaf.names:
+                    g = self.params[n].grad
+                    if g is not None:
+                        sq[0 if leaf.stacked else 1] += g.float().square().sum()
+        return sq
 
     def optimizer_params(self, names: Sequence[str]) -> List[torch.Tensor]:
         """The tensors the optimizer updates for the torch parameters
@@ -348,10 +370,12 @@ def full_state(sharded: Sharded, optimizer: torch.optim.Optimizer,
     """(the module's full state dict, the optimizer's state dict in the
     layout of one rank's optimizer over the parameter groups
     ``one_rank_names``), on the CPU. Collective over the data group; every
-    rank gets the same dicts."""
+    rank gets the same dicts. A pipeline stage's hold its stored
+    parameters' entries (``parallel/pp.py::full_state`` joins the
+    stages')."""
     sharded.gather()
     module_sd = {k: v.detach().to("cpu", torch.float32)
-                 for k, v in sharded.module.state_dict().items()}
+                 for k, v in sharded.module.state_dict().items() if not v.is_meta}
     sharded.release()
     sd = optimizer.state_dict()
     by_name = {}

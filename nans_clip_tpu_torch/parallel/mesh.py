@@ -1,6 +1,6 @@
-"""The ``data x tp`` grid of ranks, the rank's weight slices, the FSDP
-storage specs, and a launcher that runs one function in each rank
-(counterpart of ``nans_clip_tpu/parallel/mesh.py``).
+"""The ``data x tp x pipe`` grid of ranks, the rank's weight slices, the
+FSDP and pipeline storage specs, and a launcher that runs one function in
+each rank (counterpart of ``nans_clip_tpu/parallel/mesh.py``).
 
 The JAX package lays its devices out as a ``(data, model)`` mesh: the batch
 is sharded over ``data`` and ``shard_map`` gives each model shard its heads
@@ -14,17 +14,21 @@ and MLP columns. The port runs one process a rank and joins them in
   each rank has its own card. ``parallel/distributed.py`` forms it from a
   launcher's environment.
 * :func:`grid` lays the ``world`` ranks out as JAX lays out its devices,
-  ``create_mesh``'s ``reshape(data, model)``: rank ``d * tp + m`` has data
-  index ``d`` and model index ``m``, ``data = world / tp``. Its model group
-  (:func:`model_group`) holds the ``tp`` ranks of one data index, the group
-  of ``ModelOptions.tp``; its data group (:func:`data_group`) the ``data``
-  ranks of one model index, over which the batch is split, features are
-  gathered and gradients reduced. Every rank forms every subgroup, in one
-  order, on its first call (``torch.distributed.new_group`` is collective).
-  A ``tp`` that does not divide the world, or an ``options.data`` other than
-  the grid's, raises (the counterpart of ``_check_tp``,
+  ``create_mesh``'s ``reshape(data, model, pipe)``, pipe innermost: rank
+  ``(d * tp + m) * pp + s`` has data index ``d``, model index ``m`` and
+  stage ``s``, ``data = world / (tp * pp)``; ``tp`` and ``pp`` are
+  exclusive, as in JAX. Its model group (:func:`model_group`) holds the
+  ``tp`` ranks of one data index, the group of ``ModelOptions.tp``; its pipe
+  group (:func:`pipe_group`) the ``pp`` stages of one data index, the group
+  of ``ModelOptions.pp`` (``parallel/pp.py``); its data group
+  (:func:`data_group`) the ``data`` ranks of one model index and stage, over
+  which the batch is split, features are gathered and gradients reduced.
+  Every rank forms every subgroup, in one order, on its first call
+  (``torch.distributed.new_group`` is collective). A ``tp`` or ``pp`` that
+  does not divide the world, or an ``options.data`` other than the grid's,
+  raises (the counterpart of ``_check_tp``,
   ``nans_clip_tpu/parallel/tp.py:43-54``): a rank that sliced for another tp
-  would sum the wrong heads.
+  would sum the wrong heads, a stage for another pp run the wrong layers.
 * :func:`qkv_slice`, :func:`row_slice` and :func:`column_slice` cut a rank's
   share from the full weights in the torch Linear layout ``[out, in]``:
   its heads of the q|k|v thirds (``_local_qkv``, tp.py:57-70, keeps the
@@ -61,6 +65,7 @@ import torch.distributed as dist
 BACKENDS = ("gloo", "nccl")
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
 
 
 def init_model_group(backend: str, init_method: str, rank: int, world_size: int,
@@ -78,8 +83,9 @@ def init_model_group(backend: str, init_method: str, rank: int, world_size: int,
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """This rank's place in the ``data x tp`` grid and its two groups; a
-    group is None where its axis is 1 (no collective runs over it)."""
+    """This rank's place in the ``data x tp x pipe`` grid and its groups; a
+    group is None where its axis is 1 (no collective runs over it).
+    ``pipe_ranks``: the global ranks of the pipe group, stage by stage."""
 
     data: int
     tp: int
@@ -87,62 +93,82 @@ class Grid:
     model_index: int
     model_group: object
     data_group: object
+    pp: int = 1
+    stage: int = 0
+    pipe_group: object = None
+    pipe_ranks: Tuple[int, ...] = (0,)
 
 
-# One grid a (tp, default group): forming a subgroup is collective, so each
-# is formed once and found again on every later call.
+# One grid a (tp, pp, default group): forming a subgroup is collective, so
+# each is formed once and found again on every later call.
 _GRIDS: dict = {}
 
 
-def grid(tp: int) -> Grid:
-    """The grid of the default group's ranks at ``tp`` ranks a model
-    group (module docstring). Raises when no group is formed or when ``tp``
+def _axis_group(world, size: int, n: int, members, mine: int):
+    """This rank's group of the axis of ``n`` ranks: every group of the
+    axis formed in one order (``members(i)`` the ranks of group ``i`` of
+    ``size / n``), the world itself when the axis spans it, None at 1."""
+    if n == 1:
+        return None
+    if n == size:
+        return world
+    out = None
+    for i in range(size // n):
+        g = dist.new_group(members(i))
+        if i == mine:
+            out = g
+    return out
+
+
+def grid(tp: int, pp: int = 1) -> Grid:
+    """The grid of the default group's ranks at ``tp`` ranks a model group
+    and ``pp`` stages a pipe group (module docstring). Raises when no group
+    is formed, when ``tp`` and ``pp`` are both above 1, or when ``tp * pp``
     does not divide its size."""
     if not (dist.is_available() and dist.is_initialized()):
-        raise RuntimeError(f"tp={tp} needs a process group of {tp} ranks or a multiple: call "
-                           "parallel.mesh.init_model_group (or parallel.distributed."
-                           "init_distributed) first")
+        raise RuntimeError(f"tp={tp}, pp={pp} needs a process group of {tp * pp} ranks or a "
+                           "multiple: call parallel.mesh.init_model_group (or parallel."
+                           "distributed.init_distributed) first")
+    if tp > 1 and pp > 1:
+        raise ValueError("tp > 1 and pp > 1 are mutually exclusive")
     world = dist.group.WORLD
-    key = (tp, id(world))
+    key = (tp, pp, id(world))
     if key in _GRIDS and _GRIDS[key][0] is world:
         return _GRIDS[key][1]
     size, rank = dist.get_world_size(), dist.get_rank()
-    if size % tp:
-        raise ValueError(f"tp={tp} but the model group has {size} ranks: a world of {size} "
-                         f"ranks is no grid of data x {tp}")
-    data = size // tp
-    d, m = divmod(rank, tp)
-    model = data_ = None
-    if tp > 1:
-        if data == 1:
-            model = world
-        else:
-            for i in range(data):
-                g = dist.new_group(list(range(i * tp, (i + 1) * tp)))
-                if i == d:
-                    model = g
-    if data > 1:
-        if tp == 1:
-            data_ = world
-        else:
-            for j in range(tp):
-                g = dist.new_group(list(range(j, size, tp)))
-                if j == m:
-                    data_ = g
-    out = Grid(data, tp, d, m, model, data_)
+    if size % (tp * pp):
+        axis = f"tp={tp}" if tp > 1 else f"pp={pp}"
+        raise ValueError(f"{axis} but the model group has {size} ranks: a world of {size} "
+                         f"ranks is no grid of data x {tp} x {pp}")
+    data = size // (tp * pp)
+    dm, s = divmod(rank, pp)
+    d, m = divmod(dm, tp)
+    at = lambda d_, m_, s_: (d_ * tp + m_) * pp + s_
+    # the three axes' groups, always in this order on every rank
+    model = _axis_group(world, size, tp, lambda i: [at(i // pp, j, i % pp) for j in range(tp)],
+                        d * pp + s)
+    pipe = _axis_group(world, size, pp, lambda i: [at(i // tp, i % tp, j) for j in range(pp)],
+                       d * tp + m)
+    data_ = _axis_group(world, size, data,
+                        lambda i: [at(j, i // pp, i % pp) for j in range(data)], m * pp + s)
+    out = Grid(data, tp, d, m, model, data_, pp=pp, stage=s, pipe_group=pipe,
+               pipe_ranks=tuple(at(d, m, j) for j in range(pp)))
     _GRIDS[key] = (world, out)
     return out
 
 
-def check_grid(tp: int, data: int) -> Optional[Grid]:
-    """The grid for ``ModelOptions(tp=tp, data=data)``: None for one rank
-    (no group needed); raises where the process group is not that grid."""
-    if tp == 1 and data == 1:
+def check_grid(tp: int, data: int, pp: int = 1) -> Optional[Grid]:
+    """The grid for ``ModelOptions(tp=tp, data=data, pp=pp)``: None for one
+    rank (no group needed); raises where the process group is not that
+    grid."""
+    if tp == 1 and data == 1 and pp == 1:
         return None
-    g = grid(tp)
+    g = grid(tp, pp)
     if g.data != data:
-        raise ValueError(f"data={data} but the grid of {g.data * tp} ranks at tp={tp} has a "
-                         f"data axis of {g.data}")
+        raise ValueError(f"data={data} but the grid of {g.data * tp * pp} ranks at tp={tp} "
+                         f"has a data axis of {g.data}" if pp == 1 else
+                         f"data={data} but the grid of {g.data * tp * pp} ranks at tp={tp}, "
+                         f"pp={pp} has a data axis of {g.data}")
     return g
 
 
@@ -153,10 +179,15 @@ def model_group(tp: int):
     return grid(tp).model_group
 
 
-def data_group(tp: int = 1):
-    """This rank's data group of the grid at ``tp`` (None when the data
-    axis is 1)."""
-    return grid(tp).data_group
+def data_group(tp: int = 1, pp: int = 1):
+    """This rank's data group of the grid at ``tp`` and ``pp`` (None when
+    the data axis is 1)."""
+    return grid(tp, pp).data_group
+
+
+def pipe_group(pp: int):
+    """This rank's pipe group of the grid at ``pp`` stages (None at 1)."""
+    return grid(1, pp).pipe_group
 
 
 def check_heads(heads: int, tp: int) -> None:
@@ -201,14 +232,15 @@ _FSDP_MIN_SIZE = 65536
 
 
 def param_spec(names: Tuple[str, ...], shape: Tuple[int, ...], fsdp: int = 1,
-               fsdp_min_size: Optional[int] = None) -> tuple:
+               fsdp_min_size: Optional[int] = None, pp: int = 1) -> tuple:
     """The JAX ``PartitionSpec`` entries (``nans_clip_tpu/parallel/mesh.py:
-    80-124``, without the pipe axis) of a leaf with the JAX path ``names``
-    and ``shape``: ``"model"`` where a tensor-parallel rule splits, and
-    under ``fsdp`` > 1 ``"data"`` on the largest dimension that no rule
-    names and that ``fsdp`` divides, for a leaf of at least
-    ``fsdp_min_size`` (default ``_FSDP_MIN_SIZE``) elements; trailing None
-    entries dropped."""
+    80-124``) of a leaf with the JAX path ``names`` and (full) ``shape``:
+    ``"model"`` where a tensor-parallel rule splits; under ``pp`` > 1
+    ``"pipe"`` on the leading layer dimension of a stacked ``transformer`` /
+    ``encoder`` leaf that ``pp`` divides; under ``fsdp`` > 1 ``"data"`` on
+    the largest dimension that neither names and that ``fsdp`` divides, for
+    a leaf of at least ``fsdp_min_size`` (default ``_FSDP_MIN_SIZE``)
+    elements; trailing None entries dropped."""
     name = names[-1]
     spec: tuple = ()
     if len(shape) == 3 and name in _TP_RULES_3D:
@@ -216,6 +248,9 @@ def param_spec(names: Tuple[str, ...], shape: Tuple[int, ...], fsdp: int = 1,
     elif len(shape) == 2 and name in _TP_RULES_2D:
         spec = _TP_RULES_2D[name]
     entries = list(spec) + [None] * (len(shape) - len(spec))
+    if (pp > 1 and len(shape) >= 2 and entries[0] is None
+            and ("transformer" in names or "encoder" in names) and shape[0] % pp == 0):
+        entries[0] = PIPE_AXIS
     min_size = _FSDP_MIN_SIZE if fsdp_min_size is None else fsdp_min_size
     size = 1
     for n in shape:

@@ -7,10 +7,16 @@ the JAX CLI's flags (``training/params.py``) and its loop:
   the process group of ``world`` ranks before anything else, with the
   backend of ``distributed.backend_for`` (logged): ``nccl`` where each rank
   has its own card, ``gloo`` on the CPU and where ranks share a card. The
-  ranks are a ``data x tp`` grid, ``data = world / --tp``
-  (``parallel/mesh.py``); ``--fsdp`` stores the parameters and the Adam
-  moments sharded over ``data`` (``--fsdp-min-size``); one process without
-  a launcher is the grid 1 x 1;
+  ranks are a ``data x tp x pipe`` grid, ``data = world / (--tp x --pp)``
+  (``parallel/mesh.py``; ``--tp`` and ``--pp`` exclusive); ``--fsdp``
+  stores the parameters and the Adam moments sharded over ``data``
+  (``--fsdp-min-size``); ``--pp`` runs each transformer tower as a GPipe
+  pipeline of that many stages, each storing its own layers, the local
+  batch in ``--pp-microbatches`` microbatches (0: auto; the bubble is
+  logged, as the JAX CLI logs it); one process without a launcher is the
+  grid 1 x 1 x 1;
+* ``--grad-checkpointing`` rematerialises each transformer layer in the
+  backward (``ModelOptions.remat``);
 * the pair dataset and loader (``data/``), images preprocessed and
   augmented on the device (``data/augment.py``), the train step of
   ``training/trainer.py``;
@@ -63,7 +69,7 @@ Example (one card):
       --batch-size 128 --max-epochs 3 --lr 5e-5 --warmup 100
 
 Example (8 cards of one host, global batch 8 x 128; ``--fsdp`` and ``--tp 2``
-optional):
+or ``--pp 2`` optional):
   torchrun --nproc-per-node 8 -m nans_clip_tpu_torch.training.main --distributed \\
       --train-data DATADIR/train --batch-size 128 --fsdp
 """
@@ -92,6 +98,7 @@ from nans_clip_tpu_torch.data.dataset import DataLoader, PairDataset
 from nans_clip_tpu_torch.models.clip import build_clip
 from nans_clip_tpu_torch.models.common import ModelOptions, compute_dtype_for
 from nans_clip_tpu_torch.parallel import distributed, mesh
+from nans_clip_tpu_torch.parallel.pp import bubble_fraction, pick_microbatches
 from nans_clip_tpu_torch.training.params import parse_args
 from nans_clip_tpu_torch.training.trainer import (TrainConfig, create_train_state,
                                                   full_weights, make_eval_step,
@@ -122,16 +129,10 @@ def setup_logging(log_dir: str, name: str, rank: int = 0) -> str:
 
 
 def refuse_unported(args) -> None:
-    """Flags the JAX CLI takes and the port does not run yet: a
-    ``ValueError`` that names the ROADMAP item, never a silent ignore."""
+    """Flag pairs the JAX CLI refuses too: a ``ValueError``, never a silent
+    ignore."""
     if args.tp > 1 and args.pp > 1:
         raise ValueError("--tp and --pp are exclusive")
-    if args.pp > 1:
-        raise ValueError("--pp > 1: the pipeline-parallel axis of the training CLI is not "
-                         "ported yet (ROADMAP.md queue 1 item 6b)")
-    if args.grad_checkpointing:
-        raise ValueError("--grad-checkpointing: the port has no activation "
-                         "rematerialisation yet (ROADMAP.md queue 1 item 9)")
 
 
 def build_model(args) -> Tuple[configs.CLIPConfig, torch.nn.Module, ModelOptions]:
@@ -142,7 +143,7 @@ def build_model(args) -> Tuple[configs.CLIPConfig, torch.nn.Module, ModelOptions
            else configs.load_config(f"{args.vision_model}@{args.text_model}"))
     options = ModelOptions(attn_impl=args.attn_impl,
                            compute_dtype=compute_dtype_for(args.precision),
-                           deterministic=False)
+                           deterministic=False, remat=args.grad_checkpointing)
     module = build_clip(cfg, "cpu", torch.Generator().manual_seed(args.seed))
     if args.clip_weight_path or args.bert_weight_path:
         clip_sd = load_torch_state_dict(args.clip_weight_path) if args.clip_weight_path \
@@ -218,9 +219,10 @@ def start_ranks(args):
     if args.distributed or distributed.launched():
         rank = distributed.init_distributed(args.platform, args.dist_timeout)
         return rank, rank.device
-    if args.tp > 1:
-        raise ValueError(f"--tp {args.tp} needs a grid of data x {args.tp} ranks: launch "
-                         f"a multiple of {args.tp} processes with --distributed")
+    for flag, n in (("tp", args.tp), ("pp", args.pp)):
+        if n > 1:
+            raise ValueError(f"--{flag} {n} needs a grid of data x {n} ranks: launch a "
+                             f"multiple of {n} processes with --distributed")
     return None, platform_device(args.platform)
 
 
@@ -244,16 +246,25 @@ def _main(args, ranks, device):
             logging.warning("--%s is a no-op here", flag.replace("_", "-"))
     logging.info("device: %s", torch.cuda.get_device_name(device) if device.type == "cuda"
                  else "cpu")
-    grid = mesh.check_grid(args.tp, ranks.world // args.tp if ranks is not None else 1) \
+    grid = mesh.check_grid(args.tp, ranks.world // (args.tp * args.pp), args.pp) \
         if ranks is not None else None
     data = grid.data if grid is not None else 1
     data_index = grid.data_index if grid is not None else 0
     if ranks is not None:
-        logging.info("ranks: %d (data %d x tp %d), backend %s, fsdp %s", ranks.world, data,
-                     args.tp, ranks.backend, args.fsdp)
+        logging.info("ranks: %d (data %d x tp %d x pp %d), backend %s, fsdp %s", ranks.world,
+                     data, args.tp, args.pp, ranks.backend, args.fsdp)
+    if args.pp > 1:
+        # the JAX CLI's line (main.py:173-183); the local batch of a stage is
+        # --batch-size, a rank's rows of each microbatch of the step
+        m = args.pp_microbatches or pick_microbatches(args.batch_size, args.pp)
+        logging.info("pipeline: pp=%d microbatches=%d (%d samples each) GPipe bubble=%.1f%% "
+                     "- raise --pp-microbatches to shrink it if the per-microbatch kernels "
+                     "stay row-filled", args.pp, m, args.batch_size // m,
+                     100 * bubble_fraction(args.batch_size, args.pp, m))
 
     cfg, module, options = build_model(args)
-    options = dataclasses.replace(options, tp=args.tp, data=data)
+    options = dataclasses.replace(options, tp=args.tp, data=data, pp=args.pp,
+                                  pp_microbatches=args.pp_microbatches)
     resolution = cfg.vision.image_resolution
     run_dir = os.path.join(args.logs, args.name)
     metrics_path = os.path.join(run_dir, "metrics.jsonl")

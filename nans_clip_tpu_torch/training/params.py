@@ -14,8 +14,7 @@ What differs:
 * ``--distributed`` (or a launcher's rendezvous in the environment) runs
   one process a rank (``parallel/distributed.py``); ``--dist-timeout``
   bounds each collective, so that a rank whose peer failed fails too;
-* parsed but refused by ``training/main.py`` (ROADMAP queue 1): ``--pp`` >
-  1 and ``--grad-checkpointing``.
+  ``--tp`` and ``--pp`` take their own ranks of the grid.
 """
 
 from __future__ import annotations
@@ -85,7 +84,8 @@ def parse_args(argv=None):
                    default="bf16", help="amp/fp16 map to bf16")
     p.add_argument("--mask-ratio", type=float, default=0.0, help="FLIP masking")
     p.add_argument("--freeze-vision", action="store_true")
-    p.add_argument("--grad-checkpointing", action="store_true")
+    p.add_argument("--grad-checkpointing", action="store_true",
+                   help="recompute each transformer layer's activations in the backward")
     p.add_argument("--use-augment", action="store_true")
     p.add_argument("--exact-decode", action="store_true",
                    help="decode training images with the PIL-bit-exact "
@@ -106,8 +106,7 @@ def parse_args(argv=None):
                    help="store Adam moments in this dtype; bfloat16 halves "
                         "the optimizer's memory")
     p.add_argument("--label-smoothing", type=float, default=0.0)
-    # parallelism: the data x tp grid of the ranks; --pp is refused by main()
-    # (ROADMAP queue 1 item 6b)
+    # parallelism: the data x tp x pipe grid of the ranks (--tp and --pp exclusive)
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel size: the ranks of a model group; the data axis is "
                         "the world size / tp")
@@ -120,8 +119,11 @@ def parse_args(argv=None):
                         "preprocessed batches held on the device; the "
                         "trajectory is identical to 1. Log/valid/save "
                         "cadences round up to the next group boundary")
-    p.add_argument("--pp", type=int, default=1, help="pipeline-parallel size (refused above 1)")
-    p.add_argument("--pp-microbatches", type=int, default=0)
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline stages: the ranks of a pipe group, each storing its own "
+                        "layers of each transformer tower (exclusive with --tp)")
+    p.add_argument("--pp-microbatches", type=int, default=0,
+                   help="GPipe microbatches of a rank's batch (0: auto, <= 4 x pp)")
     p.add_argument("--distributed", action="store_true",
                    help="one process a rank, the rendezvous from the launcher's environment "
                         "(torchrun's MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE/LOCAL_RANK, or "

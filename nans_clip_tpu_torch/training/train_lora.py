@@ -131,17 +131,17 @@ def make_lora_step(cfg, options: ModelOptions, alpha: float, label_smoothing: fl
     the text tower's dropout, None for none. ``eval_step(state, images,
     texts) -> loss`` is deterministic and takes no gradient. ``schedule``:
     the learning rate of a step (counted from 0), else the optimizer's.
-    Tensor and data parallelism (``options.tp`` or ``options.data`` > 1)
-    raise: the JAX LoRA trainer has no mesh, and nothing here would gather
+    Tensor, data and pipeline parallelism (``options.tp``, ``data`` or
+    ``pp`` > 1) raise: the JAX LoRA trainer has no mesh, and nothing here would gather
     the ranks' features or reduce their adapter gradients."""
     del cfg  # the module carries its configuration
     if options.tp > 1:
         raise NotImplementedError("LoRA finetuning under tensor parallelism (tp > 1) is not "
                                   "supported")
-    if options.data > 1:
-        raise NotImplementedError("LoRA finetuning runs on one rank: data parallelism "
-                                  f"(data={options.data}) is not supported (the JAX LoRA "
-                                  "trainer has no mesh)")
+    for axis, n in (("data", options.data), ("pp", options.pp)):
+        if n > 1:
+            raise NotImplementedError(f"LoRA finetuning runs on one rank: {axis}={n} is not "
+                                      "supported (the JAX LoRA trainer has no mesh)")
     train_opts = dataclasses.replace(options, deterministic=False)
     eval_opts = dataclasses.replace(options, deterministic=True)
     accum = max(accum, 1)

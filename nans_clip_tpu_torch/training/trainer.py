@@ -71,7 +71,21 @@ What the JAX trainer does, on one card:
   leaves (``parallel/fsdp.py``); a step gathers the full weights before its
   forwards, reduce-scatters the gradients into the shards, clips by the
   norm over the shards and updates the shards. :func:`full_weights`
-  gathers them for a caller (validation, checkpoints).
+  gathers them for a caller (validation, checkpoints);
+* pipeline parallelism (``ModelOptions.pp`` > 1, the pipe axis of the
+  ``data x tp x pipe`` grid): :func:`shard_train_state` keeps a stage's
+  layers (``parallel/pp.py::localize``: the other stages' layers on the
+  meta device) and builds the optimizer over what the stage stores, its
+  state cut from one process's (``pp.stage_optimizer_state``; under
+  ``--fsdp`` the stage's leaves are then sharded over its data group). The
+  stages of a pipe group take the same rows and draws; each tower runs its
+  layers as the GPipe loop (``parallel/pp.py``), every stage computes the
+  same loss, and the stage's gradients are reduced over its data group as
+  above. Clipping takes the global norm: the layers' squares summed over
+  the pipe group, the replicated rest counted once;
+* rematerialisation (``ModelOptions.remat``): each transformer layer's
+  activations recomputed in the backward (``models/common.py::
+  remat_layer``).
 
 Both CLIs (``training/main.py``, ``training/train_lora.py``) also take
 from here the device ``--platform`` names (:func:`platform_device`) and
@@ -108,6 +122,7 @@ from nans_clip_tpu_torch.models.clip import normalize
 from nans_clip_tpu_torch.models.common import ModelOptions
 from nans_clip_tpu_torch.models.vit import draw_ids_keep
 from nans_clip_tpu_torch.parallel import fsdp as fsdp_lib
+from nans_clip_tpu_torch.parallel import pp as pp_lib
 from nans_clip_tpu_torch.parallel.loss import clip_loss, gather_features, kd_cosine_loss
 from nans_clip_tpu_torch.parallel.mesh import check_grid
 from nans_clip_tpu_torch.parallel.tp import reduce_partial_grads
@@ -141,12 +156,14 @@ class TrainConfig:
 @dataclasses.dataclass
 class TrainState:
     """``fsdp``: the rank's shards where the state is sharded
-    (:func:`shard_train_state`), else None."""
+    (:func:`shard_train_state`), else None; ``pipe``: the rank's grid where
+    it stores one pipeline stage, else None."""
 
     step: int
     module: nn.Module
     optimizer: torch.optim.Optimizer
     fsdp: Optional[fsdp_lib.Sharded] = None
+    pipe: Optional[object] = None
 
 
 def no_decay_mask(module: nn.Module) -> Dict[str, bool]:
@@ -263,16 +280,23 @@ def decay_groups(module: nn.Module) -> Tuple[List[str], List[str]]:
     return [n for n in named if not mask[n]], [n for n in named if mask[n]]
 
 
+def stored_groups(module: nn.Module) -> Tuple[List[str], List[str]]:
+    """:func:`decay_groups` of the parameters this rank stores (a pipeline
+    stage's: none on the meta device), the groups of its optimizer."""
+    stored = pp_lib.stored(module)
+    return tuple([n for n in names if n in stored] for names in decay_groups(module))
+
+
 def make_optimizer(tcfg: TrainConfig, module: nn.Module,
                    sharded: Optional[fsdp_lib.Sharded] = None) -> torch.optim.Optimizer:
-    """AdamW over the parameters that take gradients, in two groups: decayed
-    and not (:func:`decay_groups`); :class:`CompactAdamW` where
+    """AdamW over the stored parameters that take gradients, in two groups:
+    decayed and not (:func:`stored_groups`); :class:`CompactAdamW` where
     ``adam_state_dtype`` is set. With ``sharded``, over its shards in place
     of the sharded parameters."""
     params = dict(module.named_parameters())
     pick = (lambda names: [params[n] for n in names]) if sharded is None \
         else sharded.optimizer_params
-    decayed, rest = decay_groups(module)
+    decayed, rest = stored_groups(module)
     groups = [{"params": pick(decayed), "weight_decay": tcfg.wd},
               {"params": pick(rest), "weight_decay": 0.0}]
     kw = dict(lr=tcfg.lr, betas=(tcfg.beta1, tcfg.beta2), eps=tcfg.eps)
@@ -294,27 +318,42 @@ def create_train_state(module: nn.Module, tcfg: TrainConfig, device="cuda") -> T
 
 def shard_train_state(state: TrainState, tcfg: TrainConfig, options: ModelOptions,
                       fsdp: bool = False, fsdp_min_size: Optional[int] = None) -> TrainState:
-    """The state with its parameters and optimizer moments stored as this
-    rank's shards over the data group (``parallel/fsdp.py``; JAX
-    ``shard_train_state``), its optimizer's state (fresh, or restored from a
-    one-rank checkpoint) cut to them; ``state`` as it is without ``fsdp``
-    or at a data axis of 1. Every rank calls it with equal parameters."""
-    grid = check_grid(options.tp, options.data)
-    if not fsdp or grid is None or grid.data_group is None or state.fsdp is not None:
+    """The state as this rank stores it: under ``options.pp`` > 1 its
+    stage's layers and the replicated rest (module docstring); under
+    ``fsdp`` its parameters and optimizer moments as this rank's shards over
+    the data group (``parallel/fsdp.py``; JAX ``shard_train_state``). The
+    optimizer's state (fresh, or restored from a one-rank checkpoint) is
+    cut to them. ``state`` as it is at one rank, at ``pp`` 1 without
+    ``fsdp`` or a data axis of 1, and when it is stored so already. Every
+    rank calls it with equal parameters."""
+    grid = check_grid(options.tp, options.data, options.pp)
+    module = state.module
+    fsdp_on = fsdp and grid is not None and grid.data_group is not None
+    stored_so = state.fsdp is not None or state.pipe is not None
+    if stored_so or not (options.pp > 1 or fsdp_on):
         return state
-    full_sd = state.optimizer.state_dict()
-    sharded = fsdp_lib.Sharded(state.module, grid.data_group, fsdp_min_size)
-    opt = make_optimizer(tcfg, state.module, sharded)
-    fsdp_lib.shard_optimizer_state(sharded, opt, full_sd, decay_groups(state.module))
-    return TrainState(step=state.step, module=state.module, optimizer=opt, fsdp=sharded)
+    full_sd, names = state.optimizer.state_dict(), decay_groups(module)
+    if options.pp > 1:
+        pp_lib.localize(module, options.pp, grid.stage)
+    sharded = None
+    if fsdp_on:
+        sharded = fsdp_lib.Sharded(module, grid.data_group, fsdp_min_size, options.pp)
+        opt = make_optimizer(tcfg, module, sharded)
+        fsdp_lib.shard_optimizer_state(sharded, opt, full_sd, names)
+    else:
+        opt = make_optimizer(tcfg, module)
+        opt.load_state_dict(pp_lib.stage_optimizer_state(full_sd, names, stored_groups(module)))
+    return TrainState(step=state.step, module=module, optimizer=opt, fsdp=sharded,
+                      pipe=grid if options.pp > 1 else None)
 
 
 def train_state_shardings(state: TrainState, options: ModelOptions,
                           fsdp_min_size: Optional[int] = None) -> List[fsdp_lib.Leaf]:
-    """The JAX leaves of the state's parameters, each with the dimension
-    FSDP shards over the data axis of ``options`` (None: replicated); the
-    moments follow their parameters (JAX ``train_state_shardings``)."""
-    return fsdp_lib.jax_leaves(state.module, options.data, fsdp_min_size)
+    """The JAX leaves of the state's stored parameters, each with the
+    dimension FSDP shards over the data axis of ``options`` (None:
+    replicated); the moments follow their parameters (JAX
+    ``train_state_shardings``)."""
+    return fsdp_lib.jax_leaves(state.module, options.data, fsdp_min_size, options.pp)
 
 
 @contextlib.contextmanager
@@ -343,6 +382,16 @@ def _clip_by_global_norm(params, max_norm: float, norm_sq=None) -> None:
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale.to(g.dtype))
+
+
+def _stage_norm_sq(module: nn.Module) -> torch.Tensor:
+    """``[layers, rest]``: the squared norms of the gradients of this
+    stage's transformer layers and of the replicated rest."""
+    sq = torch.zeros(2, device=module.logit_scale.device)
+    for name, p in module.named_parameters():
+        if p.grad is not None:
+            sq[0 if pp_lib.is_layer(name) else 1] += p.grad.float().square().sum()
+    return sq
 
 
 def draw_microbatches(n_micro: int, micro: int, seq_len: int, mask_ratio: float,
@@ -446,9 +495,10 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
     batch, 0-d tensors on the device, equal on every rank; ``logit_scale``
     is its value before the update."""
     del cfg  # the module carries its configuration
-    grid = check_grid(options.tp, options.data)
+    grid = check_grid(options.tp, options.data, options.pp)
     tp_group = grid.model_group if grid is not None else None
     data_group = grid.data_group if grid is not None else None
+    pipe_group = grid.pipe_group if grid is not None else None
     data_index = grid.data_index if grid is not None else 0
     train_options = dataclasses.replace(options, deterministic=False)
     schedule = cosine_with_warmup(tcfg.lr, tcfg.warmup, tcfg.max_steps, tcfg.skip_scheduler)
@@ -521,6 +571,13 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
                 norm_sq = sharded.grad_norm_sq()
         elif data_group is not None:
             fsdp_lib.all_reduce_mean(list(module.parameters()), data_group)
+        if tcfg.grad_norm_clip and pipe_group is not None:
+            norm_sq = _stage_norm_sq(module) if norm_sq is None else norm_sq
+            layers = norm_sq[0].clone()
+            torch.distributed.all_reduce(layers, group=pipe_group)
+            norm_sq = layers + norm_sq[1]
+        elif norm_sq is not None:
+            norm_sq = norm_sq.sum()
         if tcfg.grad_norm_clip:
             _clip_by_global_norm([p for g in opt.param_groups for p in g["params"]],
                                  tcfg.grad_norm_clip, norm_sq)
@@ -544,7 +601,7 @@ def make_eval_step(cfg: CLIPConfig, options: ModelOptions) -> Callable:
     needs :func:`full_weights` around it."""
     del cfg
     eval_options = dataclasses.replace(options, deterministic=True)
-    grid = check_grid(options.tp, options.data)
+    grid = check_grid(options.tp, options.data, options.pp)
     data_group = grid.data_group if grid is not None else None
 
     @torch.no_grad()

@@ -28,7 +28,9 @@ file.
 Across ranks (``parallel/distributed.py``) every rank calls
 :func:`save_checkpoint`: a sharded state's parameters and moments are
 gathered first (``parallel/fsdp.py::full_state``, into the one-rank
-layout), global rank 0 alone writes the same files as one process writes,
+layout), a pipeline stage's then joined with the other stages' layers and
+moments (``parallel/pp.py::full_state``, over the pipe group of global
+rank 0), global rank 0 alone writes the same files as one process writes,
 and every rank waits at a barrier until they are there. Every rank restores
 from the files (the checkpoint directory is one they all read) into its
 full state, before ``shard_train_state`` cuts it, so a checkpoint written
@@ -50,7 +52,10 @@ FORMAT = "nans_clip_tpu_torch.train_state"
 
 
 def _cpu_state_dict(module: nn.Module) -> dict:
-    return {k: v.detach().to("cpu", torch.float32) for k, v in module.state_dict().items()}
+    """The stored tensors of the module's state dict (none on the meta
+    device), fp32 on the CPU."""
+    return {k: v.detach().to("cpu", torch.float32) for k, v in module.state_dict().items()
+            if not v.is_meta}
 
 
 def _save_atomic(obj, path: str) -> None:
@@ -73,17 +78,45 @@ def _distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def one_process_state(state) -> Tuple[Optional[dict], Optional[dict]]:
+    """(module state dict, optimizer state dict) of ``state`` in one
+    process's layout, on the CPU: a sharded state's gathered over its data
+    group, a pipeline stage's joined with the other stages' over its pipe
+    group. Collective across ranks; only the ranks of global rank 0's pipe
+    group get them where the state is a stage's, the others (None, None)."""
+    pipe = getattr(state, "pipe", None)
+    if getattr(state, "fsdp", None) is None and pipe is None:
+        return _cpu_state_dict(state.module), state.optimizer.state_dict()
+    from nans_clip_tpu_torch.parallel import pp
+    from nans_clip_tpu_torch.parallel.fsdp import full_state
+    from nans_clip_tpu_torch.training.trainer import decay_groups, stored_groups
+    names = decay_groups(state.module)
+    if state.fsdp is not None:
+        module_sd, opt_sd = full_state(state.fsdp, state.optimizer, names)
+    else:
+        module_sd = _cpu_state_dict(state.module)
+        opt_sd = pp.one_process_indices(_cpu_optimizer_state(state.optimizer),
+                                        stored_groups(state.module), names)
+    if pipe is None:
+        return module_sd, opt_sd
+    if pipe.data_index:
+        return None, None
+    return pp.full_state(module_sd, opt_sd, pipe)
+
+
+def _cpu_optimizer_state(optimizer) -> dict:
+    sd = optimizer.state_dict()
+    return {"state": {k: {key: v.cpu() if torch.is_tensor(v) else v for key, v in st.items()}
+                      for k, st in sd["state"].items()},
+            "param_groups": sd["param_groups"]}
+
+
 def save_checkpoint(ckpt_dir: str, tag: str, state, meta: dict,
                     torch_format: bool = False, update_latest: bool = True) -> None:
     """Save a ``TrainState`` (``training/trainer.py``) and ``meta`` under
     ``ckpt_dir/tag``; point LATEST at it unless ``update_latest`` is
     False. Across ranks every rank calls it (module docstring)."""
-    if getattr(state, "fsdp", None) is not None:
-        from nans_clip_tpu_torch.parallel.fsdp import full_state
-        from nans_clip_tpu_torch.training.trainer import decay_groups
-        module_sd, opt_sd = full_state(state.fsdp, state.optimizer, decay_groups(state.module))
-    else:
-        module_sd, opt_sd = _cpu_state_dict(state.module), state.optimizer.state_dict()
+    module_sd, opt_sd = one_process_state(state)
     if not _distributed() or dist.get_rank() == 0:
         path = os.path.join(ckpt_dir, tag)
         os.makedirs(path, exist_ok=True)
@@ -131,8 +164,10 @@ def restore_checkpoint(ckpt_dir: str, tag: str, state, reset_optimizer: bool = F
     place, on their device). Returns (state, meta or None). A missing
     checkpoint raises unless ``missing_ok``: a mistyped --resume tag must
     not train from random init and then overwrite epoch_latest. A sharded
-    state raises: restore the full state, then shard it."""
-    if getattr(state, "fsdp", None) is not None:
+    state, or a pipeline stage's, raises: restore the full state, then
+    shard it (``shard_train_state`` takes the stage's slice, at any
+    ``pp``)."""
+    if getattr(state, "fsdp", None) is not None or getattr(state, "pipe", None) is not None:
         raise ValueError("restore_checkpoint takes the full state: restore, then "
                          "shard_train_state")
     tag = resolve_tag(ckpt_dir, tag)

@@ -320,16 +320,15 @@ def test_pretrained_towers_merge_with_the_jax_filters(tmp_path):
         assert torch.equal(p, src.state_dict()[name]), name
 
 
-# The flags the CLI refuses with a message: --pp > 1 and --grad-checkpointing
-# (not ported), --tp 2 on one process (no grid of data x 2), --distributed
-# (also with --fsdp) without a launcher's rendezvous; tests/test_torch_dp_cli.py
-# runs --distributed, --tp and --fsdp across ranks.
+# The flags the CLI refuses with a message: --tp 2 or --pp 2 on one process
+# (no grid of data x 2), --distributed (also with --fsdp) without a launcher's
+# rendezvous, --tp with --pp; tests/test_torch_dp_cli.py runs --distributed,
+# --tp and --fsdp across ranks, tests/test_torch_pp_cli.py --pp.
 REFUSED = {
     "tp": (["--tp", "2"], "grid of data x 2"),
-    "pp": (["--pp", "2"], "queue 1 item 6b"),
+    "pp": (["--pp", "2"], "grid of data x 2"),
     "fsdp": (["--fsdp", "--distributed"], "rendezvous"),
     "distributed": (["--distributed"], "rendezvous"),
-    "grad-checkpointing": (["--grad-checkpointing"], "queue 1 item 9"),
     "tp-x-pp": (["--tp", "2", "--pp", "2"], "exclusive"),
 }
 
@@ -340,6 +339,17 @@ def test_unported_flags_are_refused(case, tmp_path):
     with pytest.raises(ValueError, match=match):
         tmain.main(["--train-data", str(tmp_path), "--platform", "cpu", "--logs",
                     str(tmp_path), *flags])
+
+
+def test_grad_checkpointing_reaches_the_options(tmp_path):
+    """--grad-checkpointing is ``ModelOptions.remat`` of the train step (off
+    without it); --pp and --pp-microbatches are parsed with the JAX CLI's
+    defaults."""
+    args = tparams.parse_args(["--tiny-model", "--grad-checkpointing"])
+    assert tmain.build_model(args)[2].remat
+    args = tparams.parse_args(["--tiny-model"])
+    assert not tmain.build_model(args)[2].remat
+    assert (args.pp, args.pp_microbatches) == (1, 0)
 
 
 def test_rn50_trains_and_resumes_bit_equal(split, tmp_path, monkeypatch):

@@ -127,15 +127,17 @@ def test_load_eval_model(tmp_path):
 
 def test_import_leaves_jax_out():
     """Every module of the package (walked, so that a new one cannot slip
-    past: ``parallel/distributed.py`` and ``parallel/fsdp.py`` among them)
-    and the TP and DP workers import neither jax nor the JAX package."""
+    past: ``parallel/distributed.py``, ``parallel/fsdp.py`` and
+    ``parallel/pp.py`` among them) and the TP, DP and PP workers import
+    neither jax nor the JAX package."""
     code = ("import importlib, pkgutil, sys, nans_clip_tpu_torch, tests.test_torch_tp_worker, "
-            "tests.test_torch_dp_worker; "
+            "tests.test_torch_dp_worker, tests.test_torch_pp_worker; "
             "names = [m.name for m in pkgutil.walk_packages(nans_clip_tpu_torch.__path__, "
             "'nans_clip_tpu_torch.')]; [importlib.import_module(n) for n in names]; "
             "assert len(names) > 50 and 'nans_clip_tpu_torch.training.main' in names, names; "
             "assert {'nans_clip_tpu_torch.parallel.distributed', "
-            "'nans_clip_tpu_torch.parallel.fsdp'} <= set(names), names; "
+            "'nans_clip_tpu_torch.parallel.fsdp', "
+            "'nans_clip_tpu_torch.parallel.pp'} <= set(names), names; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nans_clip_tpu.'))"
             " or m == 'nans_clip_tpu'); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

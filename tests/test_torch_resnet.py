@@ -320,8 +320,8 @@ def test_init_and_modes():
     """``init_weights`` resets the running statistics (the modules are built
     on the meta device, whose ``to_empty`` leaves garbage); the default mode
     reads them and leaves them, whatever ``module.training`` says; a training
-    forward updates them only with ``bn_update``; a ResNet refuses tensor
-    parallelism and ignores FLIP masking."""
+    forward updates them only with ``bn_update``; a ResNet runs whole under
+    tensor parallelism (no share of it per rank) and ignores FLIP masking."""
     cfg = tiny_rn_config()
     module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0)).train()
     bufs = dict(module.visual.named_buffers())
@@ -340,10 +340,14 @@ def test_init_and_modes():
         module.encode_image(x, bn_train=True)
     assert torch.equal(a, b)
     assert not all(torch.equal(before[n], bufs[n]) for n in bufs)
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        module.encode_image(x, ModelOptions(tp=2))
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        module.tp_partial_parameters()
+    # under tp (and pp) the ResNet runs whole on every rank, as in JAX: the
+    # same features, and no parameter of it is a per-rank share
+    with torch.no_grad():
+        assert torch.equal(module.encode_image(x, ModelOptions(tp=2)), module.encode_image(x))
+    shares = {id(t) for t in module.tp_partial_parameters()}
+    assert shares == {id(t) for layer in module.bert.encoder.layer
+                      for t in layer.tp_partial_parameters()}
+    assert not shares & {id(t) for t in module.visual.parameters()}
 
 
 def test_quantize_leaves_the_resnet_tower():
