@@ -231,7 +231,8 @@ Phases, each printing its lines before the last line:
    7 and 8), and on the second half of a batch at ``sample0`` = its first
    row against the whole batch at 0 (the rows a data rank holds draw one
    process's masks). Then ViT-B-16@RoBERTa-wwm-ext-base-chinese at full
-   width, bf16 over fp32 masters, global batch 128, text dropout 0.1, FLIP
+   width, ``RANK_LAYERS`` (4) layers a tower, bf16 over fp32 masters, global
+   batch 128, text dropout 0.1, FLIP
    0.5, in two gloo ranks on ``cuda:0`` (``run_ranks``): data 2 at accum 1
    and 2, and FSDP at data 2 and accum 2, 2 steps each, every step from the
    weights of a one-rank step on the same global batch and seeds (rank 0
@@ -254,7 +255,8 @@ Phases, each printing its lines before the last line:
    host memory by the backend's name). Then, in gloo ranks on ``cuda:0``
    (``run_ranks``), each against one rank's steps from the same weights and
    seeds (the ranks take turns at those, each timed alone): ViT-B-16@
-   RoBERTa-wwm-ext-base-chinese at full width and depth, bf16 over fp32
+   RoBERTa-wwm-ext-base-chinese at full width, ``RANK_LAYERS`` (4) layers a
+   tower, bf16 over fp32
    masters, batch 128, text dropout 0.1, FLIP 0.5, at pp 2 (2 ranks, M
    auto: 8 microbatches of 16), 2 steps, then RN50@RBT3 at tp 2, one step
    at 32 without dropout (a text tower with dropout under tp runs the
@@ -266,7 +268,7 @@ Phases, each printing its lines before the last line:
    0.99), every parameter two ranks both store bit-equal (the
    replicated ones on every stage, the ResNet on every rank); printed: the
    bytes a rank keeps against one rank's, step ms, each rank's launches of
-   its first step (at pp 2 each stage's 6 layers a tower x 8 microbatches).
+   its first step (at pp 2 each stage's 2 layers a tower x 8 microbatches).
    Then ``torch.distributed.run --nproc-per-node 2 ... --pp 2`` on phase
    13's split with its flags, resumed from run B's ``step_3`` (one
    process's) to step 6, saving ``step_4``, and one process resumed from
@@ -277,6 +279,22 @@ Phases, each printing its lines before the last line:
    ViT-L-14-336@RoBERTa-base at 32 (``pallas``): losses, gradient cosines
    and bit-equality, step ms, peak GiB, the launches that remat changes;
    one ``{"phase18": ...}`` line.
+19. Host modules and the composed drill (``drill.py`` at ``--scale chip``:
+   ViT-B-16@RoBERTa-base from scratch at full width and depth, 224 px,
+   bf16, batch 64, 200 steps through the training CLI, the 3-stage eval of
+   init and trained, engines at batch 8, the daemon on them): mean recall
+   must rise both ways and the served features stay within 2e-2 of the
+   offline ones; each stage's seconds and launches (the train stage 200 x
+   the CLI's step launches, each eval 12 of #1, #2 and #3). Then the
+   trained ``.pt`` as an HF snapshot (``save_hf_checkpoint``) through
+   ``load_from_name``: features at batch 32 bit-equal to the ``.pt``'s; the
+   ``.pt`` at 336 px (positional embedding resized, S = 442): normalised
+   image features within 5e-3 of the plain route, 12 of #1 and #2;
+   ``filter_annotations`` on the drill's 32 valid pairs within 2e-2 of
+   ``get_similarity``'s cosine diagonal; ``bench_loader`` (the native
+   tokenizer, built by g++ here, against Python); ``utils/profiling.trace``
+   around ``get_similarity`` at 256, whose Chrome trace must name the hand
+   kernels; one ``{"phase19": ...}`` line.
 
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
@@ -1102,6 +1120,21 @@ BWD_REL = 2e-2
 # gradient is 0 in exact arithmetic (softmax ignores a shift shared by all
 # keys) and so is rounding noise on both routes.
 STEP_LOSS_BOUND, GRAD_COS_BOUND = 1e-2, 0.99
+# The depth of ViT-B-16@RoBERTa-base in the rank worlds of phases 17 and 18:
+# their ranks compare with one rank of the same model, most of their time
+# goes to gloo's hops through the host, and 12 layers a tower kept the
+# script over its time limit on slower hosts. Phase 11 keeps the full
+# depth: its tp 2 gradient cosine is the check that a cut thins (0.997 at
+# 12 layers, 0.9916 at 4, bound 0.99).
+RANK_LAYERS = 4
+
+
+def _rank_cfg(nct, layers=RANK_LAYERS):
+    """ViT-B-16@RoBERTa-base at full width, ``layers`` layers a tower."""
+    cfg = nct.load_config(f"{VISION}@{TEXT}")
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, layers=layers),
+        text=dataclasses.replace(cfg.text, num_hidden_layers=layers))
 
 
 def _bwd_cost(b, s, mat: int, vec: int, flops: float, extra_bytes: float = 0.0):
@@ -3281,6 +3314,24 @@ def _cli_counts():
     return out
 
 
+def _cli_step_launches(n_img: int = 12, n_txt: int = 12) -> dict:
+    """One step's launches on the CLI's default route, gates.BWD_ROUTE (the
+    image attention on #14, the text attention on #15, every MLP on #17 as
+    measured; phase 7 holds #16/#18 on the fullgrad route)."""
+    from nans_clip_tpu_torch.ops import gates
+
+    full = {k: gates.bwd_route(k, "auto") == "fullgrad" for k in gates.BWD_ROUTE}
+    return {"fused_attention_block": n_img, "fused_bert_attention_block": n_txt,
+            "fused_mlp_block": n_img + n_txt,
+            "fused_attention_block_bwd_fullgrad": n_img * full["attn_pre"],
+            "fused_attention_block_bwd": n_img * (not full["attn_pre"]),
+            "fused_bert_attention_block_bwd_fullgrad": n_txt * full["attn_post"],
+            "fused_bert_attention_block_bwd": n_txt * (not full["attn_post"]),
+            "fused_mlp_block_bwd_fullgrad": n_img * full["mlp_pre"] + n_txt * full["mlp_post"],
+            "fused_mlp_block_bwd": n_img * (not full["mlp_pre"]) + n_txt * (not full["mlp_post"]),
+            "fused_layer_block": 0, "fused_tower": 0, "fused_tower_int8": 0}
+
+
 def _union_us(spans) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, -math.inf
@@ -3407,21 +3458,7 @@ def phase_data_cli(torch, dev, tmp):
               f"batch {r['batch_s']:.4f} s", flush=True)
     n_img, n_txt = 12, 12
     per_step = {k: v // CLI_STEPS for k, v in total.items()}
-    # the CLI's default route, gates.BWD_ROUTE (the image attention on #14,
-    # the text attention on #15, every MLP on #17 as measured; phase 7 holds
-    # #16/#18 on the fullgrad route)
-    full = {k: gates.bwd_route(k, "auto") == "fullgrad" for k in gates.BWD_ROUTE}
-    expected = {"fused_attention_block": n_img, "fused_bert_attention_block": n_txt,
-                "fused_mlp_block": n_img + n_txt,
-                "fused_attention_block_bwd_fullgrad": n_img * full["attn_pre"],
-                "fused_attention_block_bwd": n_img * (not full["attn_pre"]),
-                "fused_bert_attention_block_bwd_fullgrad": n_txt * full["attn_post"],
-                "fused_bert_attention_block_bwd": n_txt * (not full["attn_post"]),
-                "fused_mlp_block_bwd_fullgrad": n_img * full["mlp_pre"]
-                + n_txt * full["mlp_post"],
-                "fused_mlp_block_bwd": n_img * (not full["mlp_pre"])
-                + n_txt * (not full["mlp_post"]),
-                "fused_layer_block": 0, "fused_tower": 0, "fused_tower_int8": 0}
+    expected = _cli_step_launches(n_img, n_txt)
     print(f"cli: run A backward route (gates.BWD_ROUTE, layer {gates.LAYER_BWD_ROUTE}): "
           f"{json.dumps(gates.BWD_ROUTE)}", flush=True)
     print(f"cli: run A launches of one step {json.dumps(per_step)}", flush=True)
@@ -4688,7 +4725,7 @@ def _dp_rank(rank: int) -> dict:
         module.load_state_dict(sd)
         return create_train_state(module, tcfg, device=dev)
 
-    cfg = nct.load_config(f"{VISION}@{TEXT}")
+    cfg = _rank_cfg(nct)
     sd = build_clip(cfg, "cpu", torch.Generator().manual_seed(0)).state_dict()
     gen = torch.Generator(dev).manual_seed(17)
     images = torch.randn(DP_BATCH, 224, 224, 3, generator=gen, device=dev)
@@ -4906,7 +4943,8 @@ def phase_data_axis(torch, dev, tmp, split, run_a_losses):
         # an all-reduce of the whole buffer); the features' gathers are
         # [128, 512] fp32 tensors
         coll = grad_bytes if label.startswith("dp") else 2 * grad_bytes
-        print(f"data axis {label}: ViT-B-16@RoBERTa-base full width, bf16 over fp32 masters, "
+        print(f"data axis {label}: ViT-B-16@RoBERTa-base full width, {RANK_LAYERS} layers a "
+              f"tower, bf16 over fp32 masters, "
               f"global batch {DP_BATCH}, text dropout 0.1, FLIP 0.5, 2 gloo ranks on one card vs "
               f"one rank from the same weights, {DP_STEPS} steps: losses {r0['losses']} (rank 1 "
               f"{r1['losses']}) vs {r0['losses_1']} (|diff| <= {max(diffs):.3g}, bound "
@@ -4932,8 +4970,9 @@ def phase_data_axis(torch, dev, tmp, split, run_a_losses):
         if (min(c[k] for k in ("fused_attention_block", "fused_bert_attention_block",
                                "fused_mlp_block")) < 1
                 or c["fused_bert_attention_block_bwd"]
-                + c["fused_bert_attention_block_bwd_fullgrad"] < 12 * accum
-                or c["fused_mlp_block_bwd"] + c["fused_mlp_block_bwd_fullgrad"] < 24 * accum):
+                + c["fused_bert_attention_block_bwd_fullgrad"] < RANK_LAYERS * accum
+                or c["fused_mlp_block_bwd"] + c["fused_mlp_block_bwd_fullgrad"]
+                < 2 * RANK_LAYERS * accum):
             raise AssertionError(f"data axis {label}: launches {r0['counts']}")
         summary[label] = {k: r0[k] for k in ("losses", "losses_1", "worst_cos", "step_ms",
                                              "step_ms_1", "bytes", "dp_bytes", "counts")}
@@ -5033,8 +5072,8 @@ def _pp_bytes(state) -> int:
     return params + moments
 
 
-def _pp_run(torch, dev, struct, opts, tcfg, images, ids, steps, fsdp=False, dropout=True):
-    """``steps`` train steps of ``struct`` (seeded weights on the card) under
+def _pp_run(torch, dev, cfg, opts, tcfg, images, ids, steps, fsdp=False, dropout=True):
+    """``steps`` train steps of ``cfg`` (seeded weights on the card) under
     ``opts`` on this rank's rows against one rank's steps on the whole
     batch, both from the same weights and generator seeds (text dropout 0.1,
     or none without ``dropout``): losses, the
@@ -5049,8 +5088,6 @@ def _pp_run(torch, dev, struct, opts, tcfg, images, ids, steps, fsdp=False, drop
     from nans_clip_tpu_torch.parallel import distributed, mesh
     from nans_clip_tpu_torch.training import (create_train_state, full_weights, make_train_step,
                                               shard_train_state)
-
-    cfg = nct.load_config(struct)
 
     def fresh():
         module = build_clip(cfg, dev, torch.Generator(dev).manual_seed(0))
@@ -5135,7 +5172,7 @@ def _pp_rank(rank: int, case: str) -> dict:
     images = torch.randn(PP_BATCH, 224, 224, 3, generator=gen, device=dev)
     ids = torch.from_numpy(nct.tokenize([f"{TEXTS[i % len(TEXTS)]}{i}"
                                          for i in range(PP_BATCH)])).to(dev)
-    vit, rn = f"{VISION}@{TEXT}", f"{RN_VISION}@{RN_TEXT}"
+    vit, rn = _rank_cfg(nct), nct.load_config(f"{RN_VISION}@{RN_TEXT}")
     bf = dict(compute_dtype="bfloat16", deterministic=False)
     flip = TrainConfig(lr=DP_LR, warmup=1, max_steps=100, mask_ratio=0.5)
     plain = TrainConfig(lr=DP_LR, warmup=1, max_steps=100)
@@ -5322,7 +5359,9 @@ def phase_pipeline(torch, dev, tmp, split=None, run_a_losses=None, step3=None):
         equal = all(a["fingerprints"][n] == b["fingerprints"][n] for a in recs for b in recs
                     for n in a["fingerprints"] if n in b["fingerprints"])
         counts = {i: {k: v for k, v in r["counts"].items() if v} for i, r in enumerate(recs)}
-        print(f"pipeline {label}: full width, bf16 over fp32 masters, batch "
+        print(f"pipeline {label}: full width"
+              f"{f', {RANK_LAYERS} layers a tower' if 'vit' in label else ''}, bf16 over fp32 "
+              f"masters, batch "
               f"{PP_BATCH if 'vit' in label else PP_RN_BATCH}, text dropout "
               f"{'0.1' if r0['dropout'] else 'off'}"
               f"{', FLIP 0.5' if 'vit' in label else ''}, {len(recs)} gloo ranks on one card "
@@ -5347,11 +5386,11 @@ def phase_pipeline(torch, dev, tmp, split=None, run_a_losses=None, step3=None):
                                              "step_ms_1", "stored", "n_params")}
         summary[label].update(bytes=[r["bytes"] for r in recs], counts=counts)
     c = sets["vit pp 2"]
+    per_stage = RANK_LAYERS // 2 * 8   # each stage's layers of a tower, 8 microbatches
     for stage, r in enumerate(c):
         k = r["counts"]
-        # each stage's 6 layers of each tower, 8 microbatches
-        if (k["fused_attention_block"] < 48 or k["fused_bert_attention_block"] < 48
-                or k["fused_mlp_block"] < 96):
+        if (k["fused_attention_block"] < per_stage or k["fused_bert_attention_block"] < per_stage
+                or k["fused_mlp_block"] < 2 * per_stage):
             raise AssertionError(f"pipeline vit pp 2: stage {stage} launches {k}")
 
     t0 = time.time()
@@ -5396,6 +5435,228 @@ def phase_pipeline(torch, dev, tmp, split=None, run_a_losses=None, step3=None):
     print(f"pipeline: phase 18 took {time.time() - t_phase:.1f} s (ranks "
           f"{json.dumps({k: round(v, 1) for k, v in t_ranks.items()})}, CLI {t_cli:.1f} s, "
           f"remat {t_remat:.1f} s)", flush=True)
+    return summary
+
+
+# The resized 336 px model's normalised image features vs the plain route:
+# 8.5e-4 read on the H100 (two runs), against elements of ~1/sqrt(512). Both
+# models load through the same fit_pos_embed, so this holds the kernels at
+# S = 442; the resize itself is held against JAX by test_torch_hf_interop.
+HOST_BOUND = 5e-3
+FILTER_BOUND = 2e-2     # filter_annotations' sims vs get_similarity's cosine diagonal (bf16)
+HOST_KERNELS = ("gemm_fwd_kernel", "attention_fwd_kernel", "layernorm_kernel")
+
+
+def phase_host(torch, dev, tmp):
+    """Phase 19: the host modules and the composed drill at ViT-B-16@RoBERTa-
+    base full width and depth, bf16 (module docstring)."""
+    import numpy as np
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch import drill
+    from nans_clip_tpu_torch.data import bench_loader
+    from nans_clip_tpu_torch.data.augment import preprocess_images
+    from nans_clip_tpu_torch.data.npack import NPackReader
+    from nans_clip_tpu_torch.eval.model_io import load_eval_model
+    from nans_clip_tpu_torch.flywheel import filter_annotations as fa
+    from nans_clip_tpu_torch.utils.hf_interop import save_hf_checkpoint
+    from nans_clip_tpu_torch.utils.profiling import TRACE_FILE, trace
+    from nans_clip_tpu_torch.utils.torch_interop import load_torch_state_dict
+
+    t_phase = time.time()
+    summary = {}
+
+    # (a) the drill at --scale chip, each stage's launches read as it ends
+    def hook(name, entry):
+        torch.cuda.synchronize()
+        if entry is None:
+            _cli_reset()
+            return
+        entry["launches"] = {k: v for k, v in _cli_counts().items() if v}
+        print(f"host: drill stage {name} in {entry['seconds']} s, launches "
+              f"{json.dumps(entry['launches'])}", flush=True)
+
+    work = os.path.join(tmp, "drill")
+    record = drill.main(["--scale", "chip", "--workdir", work, "--platform", "cuda"],
+                        stage_hook=hook)
+    stages = record["stages"]
+    s_cfg = drill.SCALES["chip"]
+    steps, eval_batches = record["steps"], stages["build_dataset"]["valid_images"] // s_cfg[
+        "eval_batch"]
+    want_train = {k: v * steps for k, v in _cli_step_launches().items()}
+    if any(stages["train"]["launches"].get(k, 0) != v for k, v in want_train.items()):
+        raise AssertionError(f"drill train launches {stages['train']['launches']}, expected "
+                             f"{want_train}")
+    for tag in ("eval_init", "eval_trained"):
+        _check_eval_launches(f"drill {tag}", {**{k: 0 for k in _cli_counted()},
+                                              "fused_tower": 0, "fused_tower_int8": 0,
+                                              **stages[tag]["launches"]},
+                             eval_batches, eval_batches)
+    served = stages["serve"]
+    print(f"host: drill at --scale chip ({s_cfg['vision']}@{s_cfg['text']}, "
+          f"{s_cfg['resolution']} px, {s_cfg['precision']}, batch {s_cfg['batch_size']}, "
+          f"{steps} steps): mean recall init {json.dumps(record['mean_recall_init'])} -> "
+          f"trained {json.dumps(record['mean_recall_trained'])} (R@1/5/10 "
+          f"{json.dumps(record['recalls_trained'])}); served vs offline image "
+          f"{served['served_vs_offline_image_max_diff']:.3g}, text "
+          f"{served['served_vs_offline_text_max_diff']:.3g} (<= 2e-2); wall "
+          f"{record['wall_seconds']} s", flush=True)
+    summary["drill"] = {k: record[k] for k in ("mean_recall_init", "mean_recall_trained",
+                                                "recalls_trained", "wall_seconds")}
+    summary["drill"]["stages"] = {k: {"seconds": v["seconds"], "launches": v["launches"]}
+                                  for k, v in stages.items()}
+    summary["drill"]["served"] = {k: served[k] for k in ("served_vs_offline_image_max_diff",
+                                                         "served_vs_offline_text_max_diff")}
+    trained = stages["train"]["checkpoint"]
+    torch.cuda.empty_cache()
+
+    # (b) the trained .pt as an HF snapshot, back through load_from_name:
+    # features at batch 32 bit-equal to the .pt-loaded model's
+    t0 = time.time()
+    cfg = nct.load_config(f"{VISION}@{TEXT}")
+    hf_dir = os.path.join(tmp, "hf")
+    save_hf_checkpoint(hf_dir, load_torch_state_dict(trained), cfg)
+    save_s = time.time() - t0
+    opts = nct.ModelOptions(compute_dtype="bfloat16")
+    m_hf, _ = nct.load_from_name(hf_dir, options=opts, device=dev)
+    m_pt, _ = nct.load_from_name(trained, vision_model_name=VISION, text_model_name=TEXT,
+                                 input_resolution=224, options=opts, device=dev)
+    gen = torch.Generator(dev).manual_seed(19)
+    x = torch.randn(32, 224, 224, 3, generator=gen, device=dev)
+    ids = torch.from_numpy(nct.tokenize((TEXTS * 6)[:32])).to(dev)
+    same = {"image": torch.equal(m_hf.encode_image(x), m_pt.encode_image(x)),
+            "text": torch.equal(m_hf.encode_text(ids), m_pt.encode_text(ids))}
+    files = sorted(os.listdir(hf_dir))
+    print(f"host: HF snapshot of the trained model ({files}, "
+          f"{os.path.getsize(os.path.join(hf_dir, 'model.safetensors')) / 2**20:.1f} MiB, "
+          f"written in {save_s:.1f} s) through load_from_name: features at batch 32 bit-equal "
+          f"to the .pt's {json.dumps(same)}", flush=True)
+    if not all(same.values()) or "vocab.txt" not in files:
+        raise AssertionError(f"HF round trip: {same}, files {files}")
+    summary["hf_round_trip"] = {"bit_equal": same, "save_s": save_s}
+    del m_hf
+
+    # (c) the trained 224 px .pt at 336 px: the positional embedding resized
+    # on load, S = 442; the kernel route against the plain route
+    at336 = dict(vision_model_name=VISION, text_model_name=TEXT, input_resolution=336,
+                 device=dev)
+    m336, _ = nct.load_from_name(trained, options=opts, **at336)
+    plain336, _ = nct.load_from_name(trained, options=nct.ModelOptions(
+        attn_impl="plain", compute_dtype="bfloat16"), **at336)
+    x336 = torch.randn(16, 336, 336, 3, generator=gen, device=dev)
+    m336.encode_image(x336)
+    torch.cuda.synchronize()
+    _reset_counts()
+    f336 = m336.encode_image(x336).float()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in {**{n: fn.launches for n, fn in _counted().items()},
+                                **_tower_counts()}.items() if v}
+    p336 = plain336.encode_image(x336).float()
+    err = float((f336 / f336.norm(dim=-1, keepdim=True)
+                 - p336 / p336.norm(dim=-1, keepdim=True)).abs().max())
+    seq = m336.module.visual.positional_embedding.shape[0]
+    print(f"host: {VISION} .pt trained at 224 px loaded at 336 px (positional embedding "
+          f"197 -> {seq} rows): encode_image batch 16, normalised features vs the plain route "
+          f"max abs {err:.4g} (<= {HOST_BOUND}); launches at S = {seq} {json.dumps(counts)}",
+          flush=True)
+    layered = counts.get("fused_attention_block") == 12 and counts.get("fused_mlp_block") == 12
+    if seq != 442 or err > HOST_BOUND or not (layered or counts.get("fused_tower") == 1):
+        raise AssertionError(f"resize load: S {seq}, err {err}, launches {counts}")
+    summary["resize_336"] = {"seq": seq, "err": err, "launches": counts}
+    del m336, plain336
+    torch.cuda.empty_cache()
+
+    # (d) filter_annotations on the drill's valid images and captions (image k
+    # with text k: the same colour) against get_similarity's cosine diagonal
+    from PIL import Image
+
+    img_dir = os.path.join(tmp, "flywheel", "images")
+    os.makedirs(img_dir)
+    reader = NPackReader(os.path.join(work, "valid", "imgs.npack"))
+    with open(os.path.join(work, "valid_texts.jsonl"), encoding="utf-8") as f:
+        rows = [json.loads(line) for line in f]
+    anns, raws = [], []
+    for r in rows:
+        name = f"{r['text_id']}.jpg"
+        with open(os.path.join(img_dir, name), "wb") as f:
+            f.write(reader.get(r["text_id"]))
+        anns.append({"filename": name, "modern_chinese": r["text"]})
+        raws.append(np.asarray(Image.open(os.path.join(img_dir, name)).resize(
+            (224, 224), Image.BICUBIC).convert("RGB"), np.uint8))
+    reader.close()
+    ann_path = os.path.join(tmp, "flywheel", "annotations.json")
+    with open(ann_path, "w", encoding="utf-8") as f:
+        json.dump(anns, f, ensure_ascii=False)
+    sims, real_score = [], fa.score
+
+    def spy(*a):
+        out = real_score(*a)
+        sims.append(out)
+        return out
+
+    fa.score = spy
+    try:
+        t0 = time.time()
+        kept, removed = fa.main(["--annotations", ann_path, "--images-dir", img_dir,
+                                 "--resume", trained, "--dry-run"])
+        filter_s = time.time() - t0
+    finally:
+        fa.score = real_score
+    ours = np.concatenate(sims)[:len(anns)]
+    ref_model = load_eval_model(VISION, TEXT, trained, "bf16", device=dev)
+    xs = preprocess_images(None, torch.from_numpy(np.stack(raws)).to(dev), 224)
+    li, _ = ref_model.get_similarity(xs, torch.from_numpy(nct.tokenize([a["modern_chinese"]
+                                                                       for a in anns])).to(dev))
+    diag = (li.float().diagonal() / ref_model.module.logit_scale.detach().float().exp()).cpu().numpy()
+    ferr = float(np.abs(ours - diag).max())
+    print(f"host: filter_annotations on the drill's {len(anns)} valid pairs with the trained "
+          f"checkpoint (threshold 0.15, bf16, {filter_s:.1f} s with the model's load): kept "
+          f"{len(kept)}, removed {len(removed)}; sims {np.round(ours, 4).tolist()} vs the cosine "
+          f"diagonal of get_similarity: max abs {ferr:.4g} (<= {FILTER_BOUND})", flush=True)
+    if ferr > FILTER_BOUND or len(kept) + len(removed) != len(anns):
+        raise AssertionError(f"filter_annotations: err {ferr}, kept {len(kept)}, removed "
+                             f"{len(removed)} of {len(anns)}")
+    summary["filter"] = {"err": ferr, "kept": len(kept), "removed": len(removed),
+                         "seconds": filter_s}
+    del ref_model
+
+    # (e) bench_loader on this host: the native tokenizer against Python
+    t0 = time.time()
+    rates = bench_loader.main([])
+    print(f"host: bench_loader in {time.time() - t0:.1f} s: {json.dumps(rates)}", flush=True)
+    summary["bench_loader"] = rates
+
+    # (f) utils/profiling.trace around one get_similarity at 256
+    x256 = torch.randn(256, 224, 224, 3, generator=gen, device=dev)
+    ids256 = torch.from_numpy(nct.tokenize((TEXTS * 43)[:256])).to(dev)
+    m_pt.get_similarity(x256, ids256)
+    tdir = os.path.join(tmp, "trace")
+    with trace(tdir) as prof:
+        m_pt.get_similarity(x256, ids256)
+    with open(os.path.join(tdir, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    by_name = {}
+    for k in HOST_KERNELS:
+        hits = [e for e in kernels if k in e["name"]]
+        by_name[k] = {"launches": len(hits), "us": sum(float(e.get("dur", 0)) for e in hits)}
+    busy = _union_us([(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                      for e in kernels]) / 1e3
+    top = sorted(prof.key_averages(), key=lambda a: -getattr(a, "device_time_total", 0))[:5]
+    print(f"host: profiling.trace around get_similarity at 256: {len(kernels)} kernels, device "
+          f"busy {busy:.2f} ms; hand kernels {json.dumps(by_name)}; top by device time "
+          f"{[(a.key[:60], round(getattr(a, 'device_time_total', 0) / 1e3, 3)) for a in top]}",
+          flush=True)
+    if any(v["launches"] == 0 for v in by_name.values()):
+        raise AssertionError(f"the trace does not name the hand kernels: {by_name}")
+    summary["trace"] = {"kernels": len(kernels), "busy_ms": busy, "hand": by_name}
+    del m_pt
+    torch.cuda.empty_cache()
+
+    summary["seconds"] = time.time() - t_phase
+    print(json.dumps({"phase19": "host modules and drill", "card": _nvidia_smi(), **summary},
+                     default=str), flush=True)
+    print(f"host: phase 19 took {summary['seconds']:.1f} s", flush=True)
     return summary
 
 
@@ -5460,6 +5721,8 @@ def main() -> int:
         phase_data_axis(torch, dev, tmp, os.path.join(tmp, "split"), cli["losses"])
         phase_pipeline(torch, dev, tmp, os.path.join(tmp, "split"), cli["losses"],
                        cli["step_3"])
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_host(torch, dev, tmp)
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")

@@ -17,7 +17,8 @@ _EXPORTS = {
     "image_transform": "api", "load": "api", "load_from_name": "api",
     "CLIPConfig": "configs", "config_for_name": "configs", "load_config": "configs",
     "tiny_config": "configs", "ModelOptions": "models", "get_tokenizer": "tokenizer",
-    "tokenize": "tokenizer",
+    "tokenize": "tokenizer", "load_hf_checkpoint": "utils.hf_interop",
+    "save_hf_checkpoint": "utils.hf_interop",
 }
 
 __all__ = [*_EXPORTS, "__version__"]

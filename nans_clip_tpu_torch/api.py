@@ -4,7 +4,11 @@
 surface (clip/utils.py:14-216; clip/model.py:390-431).
 
 Published checkpoints are looked up under ``~/.cache/clip`` (or
-``download_root``); nothing is downloaded. Models are built on the card
+``download_root``); nothing is downloaded. ``load_from_name`` also takes an
+HF ``save_pretrained`` snapshot directory (``utils/hf_interop.py``), and
+every loader takes an HF-layout state dict. A checkpoint of another grid
+than the model's (a 224 px ``.pt`` at ``input_resolution=336``) loads with
+its positional embedding resized. Models are built on the card
 (``device="cuda"``) unless the caller names another device; without a card
 that default raises.
 """
@@ -22,7 +26,8 @@ from nans_clip_tpu_torch.models.clip import CLIP, build_clip
 from nans_clip_tpu_torch.models.common import ModelOptions, cast_module
 from nans_clip_tpu_torch.parallel.mesh import model_group
 from nans_clip_tpu_torch.tokenizer import tokenize
-from nans_clip_tpu_torch.utils.torch_interop import load_torch_state_dict
+from nans_clip_tpu_torch.utils.torch_interop import (fit_pos_embed, load_torch_state_dict,
+                                                     merge_pretrained)
 from nans_clip_tpu_torch.utils.transform import image_transform
 
 __all__ = ["load_from_name", "load", "tokenize", "image_transform",
@@ -90,9 +95,10 @@ class CLIPModel:
 
 
 def _load_weights(module: CLIP, state_dict: dict) -> None:
-    """Copy a normalised reference state dict in. Every parameter must be
-    present; extra keys (buffers of other reference versions) are ignored."""
-    result = module.load_state_dict(state_dict, strict=False)
+    """Copy a normalised reference state dict in, its positional embedding
+    resized to the module's grid. Every parameter must be present; extra
+    keys (buffers of other reference versions) are ignored."""
+    result = module.load_state_dict(fit_pos_embed(state_dict, module), strict=False)
     if result.missing_keys:
         raise KeyError(f"checkpoint lacks {len(result.missing_keys)} parameters, "
                        f"e.g. {result.missing_keys[:5]}")
@@ -138,8 +144,10 @@ def load_from_name(name: str, download_root: Optional[str] = None,
                    options: ModelOptions = ModelOptions(), device="cuda"):
     """Reference clip/utils.py:106-127. ``name`` is a published model name
     (its ``.pt`` must already be in ``download_root``, default
-    ``~/.cache/clip``) or a reference ``.pt`` path together with the tower
-    names and resolution. Returns (CLIPModel, preprocess_fn)."""
+    ``~/.cache/clip``), an HF ``save_pretrained`` snapshot directory (its
+    ``config.json`` gives the architecture; ``input_resolution`` resizes the
+    positional embedding), or a reference ``.pt`` path together with the
+    tower names and resolution. Returns (CLIPModel, preprocess_fn)."""
     if name in MODEL_INFO:
         root = download_root or os.path.expanduser("~/.cache/clip")
         model_path = os.path.join(root, MODEL_CKPT_FILES[name])
@@ -149,6 +157,23 @@ def load_from_name(name: str, download_root: Optional[str] = None,
                 f"place {MODEL_CKPT_FILES[name]} in {root} or pass download_root")
         vision, text, resolution = MODEL_INFO[name]
         struct = f"{vision}@{text}"
+    elif os.path.isdir(name) and os.path.isfile(os.path.join(name, "config.json")):
+        import json
+
+        from nans_clip_tpu_torch.utils.hf_interop import config_from_hf, load_hf_checkpoint
+        if vision_model_name or text_model_name:
+            raise ValueError(
+                "vision_model_name/text_model_name cannot override an HF snapshot "
+                f"directory — its architecture comes from {os.path.join(name, 'config.json')}. "
+                "Drop them, or pass a bare .pt file to pick the architecture explicitly.")
+        with open(os.path.join(name, "config.json")) as f:
+            cfg = config_from_hf(json.load(f))
+        if input_resolution:
+            cfg = with_resolution(cfg, input_resolution)
+        state_dict, cfg = load_hf_checkpoint(name, cfg)
+        module = build_clip(cfg, _device(device))
+        _load_weights(module, state_dict)
+        return CLIPModel(cfg, module, options), image_transform(cfg.vision.image_resolution)
     elif os.path.isfile(name):
         if not (vision_model_name and text_model_name and input_resolution):
             raise ValueError("Please specify 'vision_model_name', 'text_model_name' "
@@ -166,18 +191,9 @@ def load_from_name(name: str, download_root: Optional[str] = None,
 def load(model: CLIPModel, clip_path: Optional[str] = None,
          bert_path: Optional[str] = None) -> CLIPModel:
     """Initialise the towers from separate CLIP and BERT state dicts
-    (reference clip/utils.py:130-142): ``visual.*`` and ``logit_scale`` from
-    the first, ``bert.*`` from the second."""
-    merged = {}
-    if clip_path:
-        merged.update({k: v for k, v in load_torch_state_dict(clip_path).items()
-                       if k.startswith("visual") or k == "logit_scale"})
-    if bert_path:
-        merged.update({k: v for k, v in load_torch_state_dict(bert_path).items()
-                       if k.startswith("bert")})
-    own = model.module.state_dict()
-    unknown = sorted(set(merged) - set(own))
-    if unknown:
-        raise KeyError(f"keys not in the model: {unknown[:5]}")
-    model.module.load_state_dict(merged, strict=False)
+    (reference clip/utils.py:130-142; either may be in the HF layout):
+    ``visual.*`` and ``logit_scale`` from the first, ``bert.*`` from the
+    second (``utils/torch_interop.py::merge_pretrained``)."""
+    merge_pretrained(model.module, load_torch_state_dict(clip_path) if clip_path else None,
+                     load_torch_state_dict(bert_path) if bert_path else None)
     return model

@@ -18,8 +18,10 @@
   the consumer leaves the epoch.
 
 Batches are uint8 images on the host; :func:`~nans_clip_tpu_torch.data.augment.preprocess_images`
-normalises (and augments) them on the card. Tokens come from the port's
-Python tokenizer, whose ids equal the JAX package's native fast tokenizer's.
+normalises (and augments) them on the card. Tokens come from the native
+WordPiece tokenizer (``data/fast_tokenizer.py``) for the default vocab, as
+in the JAX package, and from the Python tokenizer for a tokenizer the
+caller passes; the two give the same ids.
 """
 
 from __future__ import annotations
@@ -128,6 +130,12 @@ class DataLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.tokenizer = tokenizer or get_tokenizer()
+        # the native WordPiece for the default vocab (the same ids, built on
+        # first use; a failed build raises); a caller's tokenizer runs in Python
+        self._fast_tok = None
+        if tokenizer is None:
+            from nans_clip_tpu_torch.data.fast_tokenizer import get_fast_tokenizer
+            self._fast_tok = get_fast_tokenizer()
         self.num_threads = num_threads
         self.prefetch = prefetch
         self.exact_decode = exact_decode
@@ -192,7 +200,8 @@ class DataLoader:
             logging.warning("decode still failing after %d retries for image_ids %s; "
                             "training on zero images", self.MAX_DECODE_RETRIES,
                             image_ids[~ok][:8].tolist())
-        texts = tokenize(raw_texts, self.context_length, self.tokenizer)
+        texts = (self._fast_tok.encode_batch(raw_texts, self.context_length) if self._fast_tok
+                 else tokenize(raw_texts, self.context_length, self.tokenizer))
         return Batch(images=images, texts=texts, image_ids=image_ids, text_ids=text_ids)
 
     def __len__(self) -> int:

@@ -90,8 +90,21 @@ _SIGNATURES = {
 }
 
 
+# Sources compiled as several objects, one nvcc each with -DNANS_PART=i:
+# the build waits for its longest compile, and attention.cu's forward
+# instances alone took most of it (csrc/attention.cu's note).
+PARTS = {"attention.cu": 3}
+
+
 def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
+
+
+def _units() -> list:
+    """(source, -D flags, object name) of each nvcc of the build."""
+    return [(src, [f"-DNANS_PART={i}"] if src.name in PARTS else [],
+             f"{src.stem}.{i}.o" if src.name in PARTS else f"{src.stem}.o")
+            for src in sources() for i in range(PARTS.get(src.name, 1))]
 
 
 def _nvcc() -> str:
@@ -113,29 +126,34 @@ def _stale() -> bool:
 
 
 def build() -> str:
-    """Compile the library if it is missing or stale: one nvcc a source, all
-    started together, then one link. Returns nvcc's report (registers,
-    shared memory, spills), or '' when up to date."""
+    """Compile the library if it is missing or stale: one nvcc a source (a
+    part of one, :data:`PARTS`), all started together, then one link.
+    Returns nvcc's report (registers, shared memory, spills), or '' when up
+    to date."""
     if not _stale():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", obj, str(src)],
+        units = _units()
+        objs = [os.path.join(tmp, obj) for _, _, obj in units]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *defs, "-c", "-I", str(CSRC), "-o", obj,
+                                   str(src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for src, obj in zip(sources(), objs)]
-        reports = [(src, proc, proc.communicate()[1]) for src, proc in zip(sources(), procs)]
-        for src, proc, err in reports:
+                 for (src, defs, _), obj in zip(units, objs)]
+        reports = [(src, defs, proc, proc.communicate()[1])
+                   for (src, defs, _), proc in zip(units, procs)]
+        for src, defs, proc, err in reports:
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+                raise RuntimeError(f"nvcc failed on {src.name} {' '.join(defs)} "
+                                   f"({proc.returncode}):\n{err}")
         lib = os.path.join(tmp, LIB_PATH.name)
         proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True,
                               text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
         os.replace(lib, LIB_PATH)
-    return "".join(err for _, _, err in reports)
+    return "".join(err for _, _, _, err in reports)
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,12 +5,17 @@ state-dict layout (``visual.transformer.resblocks.{i}.attn.in_proj_weight``,
 ``bert.encoder.layer.{i}.attention.self.query.weight``, ...), so a
 normalized reference state dict loads with ``load_state_dict`` as it is.
 
-* :func:`load_torch_state_dict` reads a reference ``.pt``: strips
+* :func:`load_torch_state_dict` reads a reference ``.pt``: translates an
+  HF ``ChineseCLIPModel`` dict (``utils/hf_interop.py``), strips
   ``module.``, drops ``bert.pooler`` and the BatchNorms' ``num_batches_tracked``
   (the port's BatchNorms count nothing, as the JAX package reads none) and
   splits the flash-attn ``Wqkv`` keys (counterpart of
-  ``nans_clip_tpu/utils/torch_interop.py:37-97``), so a reference ``.pt`` and
-  a JAX export both load strictly.
+  ``nans_clip_tpu/utils/torch_interop.py:37-97``), so a reference ``.pt``, an
+  HF state dict and a JAX export all load strictly.
+* :func:`resize_pos_embed` resizes a ViT's positional embedding to another
+  grid (bicubic, ``align_corners=True``, the class row kept; reference
+  clip/model.py:551-582), and :func:`fit_pos_embed` applies it wherever a
+  state dict enters a model of another resolution.
 * :func:`state_dict_from_jax_params` turns the JAX package's parameter tree,
   given as nested dicts of numpy arrays, and a ResNet tower's
   ``batch_stats`` into the same layout (counterpart of
@@ -20,7 +25,7 @@ normalized reference state dict loads with ``load_state_dict`` as it is.
   port's (``models/lora.py``).
 * :func:`merge_pretrained` loads the towers of separate CLIP and BERT state
   dicts into a module, as the training CLI's ``--clip-weight-path`` and
-  ``--bert-weight-path`` ask.
+  ``--bert-weight-path`` and ``api.load`` ask.
 
 Tensor parallelism needs nothing more: every rank of a model group loads
 the same full state dict (from a ``.pt`` or ``state_dict_from_jax_params``)
@@ -31,7 +36,8 @@ the mesh instead.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,9 +54,13 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def normalize_state_dict(sd: dict) -> Dict[str, torch.Tensor]:
-    """Strip ``module.``, drop ``bert.pooler`` and ``num_batches_tracked``,
-    de-fuse flash-attn ``Wqkv`` keys, and convert every value to a float32
-    tensor."""
+    """Translate an HF ``ChineseCLIPModel`` dict first, then strip
+    ``module.``, drop ``bert.pooler`` and ``num_batches_tracked``, de-fuse
+    flash-attn ``Wqkv`` keys, and convert every value to a float32 tensor."""
+    from nans_clip_tpu_torch.utils.hf_interop import hf_to_reference_state_dict, is_hf_layout
+
+    if is_hf_layout(sd):
+        sd = hf_to_reference_state_dict(sd)
     out: Dict[str, torch.Tensor] = {}
     for k, v in sd.items():
         if k.startswith("module."):
@@ -79,6 +89,40 @@ def normalize_state_dict(sd: dict) -> Dict[str, torch.Tensor]:
         out[f"{base}.output.dense.bias"] = out.pop(f"{base}.self.out_proj.bias")
         i += 1
     return out
+
+
+def resize_grid_bicubic(grid: np.ndarray, new_hw: Tuple[int, int]) -> np.ndarray:
+    """[H, W, C] -> [H', W', C], torch's bicubic ``align_corners=True`` in
+    float64 (counterpart of ``nans_clip_tpu/utils/torch_interop.py:104-133``)."""
+    x = torch.from_numpy(np.asarray(grid, np.float64)).permute(2, 0, 1)[None]
+    out = torch.nn.functional.interpolate(x, size=tuple(new_hw), mode="bicubic",
+                                          align_corners=True)
+    return out[0].permute(1, 2, 0).numpy().astype(grid.dtype)
+
+
+def resize_pos_embed(pos: np.ndarray, new_grid: int, extra_tokens: int = 1) -> np.ndarray:
+    """[g0 * g0 + extra, W] -> [new_grid ** 2 + extra, W], the class row(s)
+    kept (reference clip/model.py:551-582)."""
+    if pos.shape[0] == new_grid * new_grid + extra_tokens:
+        return pos
+    tok, img = pos[:extra_tokens], pos[extra_tokens:]
+    g0 = math.isqrt(img.shape[0])
+    grid = resize_grid_bicubic(img.reshape(g0, g0, -1), (new_grid, new_grid))
+    return np.concatenate([tok, grid.reshape(new_grid * new_grid, -1)], axis=0)
+
+
+def fit_pos_embed(sd: dict, module: torch.nn.Module) -> dict:
+    """``sd`` with its ViT positional embedding resized to ``module``'s grid
+    when the two differ (a 224 px checkpoint in a 336 px model), as the JAX
+    loader does (``nans_clip_tpu/utils/torch_interop.py:159-163``); ``sd``
+    itself otherwise. A ResNet's attention-pool embedding is left as it is,
+    as in JAX."""
+    key = "visual.positional_embedding"
+    own = getattr(getattr(module, "visual", None), "positional_embedding", None)
+    if key not in sd or own is None or sd[key].shape[0] == own.shape[0]:
+        return sd
+    grid = math.isqrt(own.shape[0] - 1)
+    return {**sd, key: torch.from_numpy(resize_pos_embed(sd[key].numpy(), grid))}
 
 
 def state_dict_from_jax_params(params_np: dict, cfg: CLIPConfig,
@@ -211,7 +255,8 @@ def merge_pretrained(module: torch.nn.Module, clip_sd: Optional[dict] = None,
     restore_model, clip/model.py:468-490; the JAX ``merge_pretrained``'s key
     filters): ``visual.*`` and ``logit_scale`` from the first, ``bert.*``
     but the pooler from the second; the rest (``text_projection``) keeps
-    its init. Returns the number of tensors loaded."""
+    its init. A positional embedding of another grid is resized to the
+    module's (:func:`fit_pos_embed`). Returns the number of tensors loaded."""
     merged: Dict[str, torch.Tensor] = {}
     if clip_sd:
         merged.update({k: v for k, v in clip_sd.items()
@@ -219,6 +264,7 @@ def merge_pretrained(module: torch.nn.Module, clip_sd: Optional[dict] = None,
     if bert_sd:
         merged.update({k: v for k, v in bert_sd.items()
                        if k.startswith("bert") and "bert.pooler" not in k})
+    merged = fit_pos_embed(merged, module)
     own = module.state_dict()
     unknown = sorted(set(merged) - set(own))
     if unknown:

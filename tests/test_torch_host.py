@@ -127,9 +127,9 @@ def test_load_eval_model(tmp_path):
 
 def test_import_leaves_jax_out():
     """Every module of the package (walked, so that a new one cannot slip
-    past: ``parallel/distributed.py``, ``parallel/fsdp.py`` and
-    ``parallel/pp.py`` among them) and the TP, DP and PP workers import
-    neither jax nor the JAX package."""
+    past: ``parallel/*``, ``drill.py``, ``flywheel/*``, the HF interop, the
+    profiling and the native tokenizer among them) and the TP, DP and PP
+    workers import neither jax nor the JAX package."""
     code = ("import importlib, pkgutil, sys, nans_clip_tpu_torch, tests.test_torch_tp_worker, "
             "tests.test_torch_dp_worker, tests.test_torch_pp_worker; "
             "names = [m.name for m in pkgutil.walk_packages(nans_clip_tpu_torch.__path__, "
@@ -137,10 +137,59 @@ def test_import_leaves_jax_out():
             "assert len(names) > 50 and 'nans_clip_tpu_torch.training.main' in names, names; "
             "assert {'nans_clip_tpu_torch.parallel.distributed', "
             "'nans_clip_tpu_torch.parallel.fsdp', "
-            "'nans_clip_tpu_torch.parallel.pp'} <= set(names), names; "
+            "'nans_clip_tpu_torch.parallel.pp', 'nans_clip_tpu_torch.drill', "
+            "'nans_clip_tpu_torch.utils.hf_interop', 'nans_clip_tpu_torch.utils.profiling', "
+            "'nans_clip_tpu_torch.flywheel.filter_annotations', "
+            "'nans_clip_tpu_torch.data.fast_tokenizer', "
+            "'nans_clip_tpu_torch.data.bench_loader'} <= set(names), names; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nans_clip_tpu.'))"
             " or m == 'nans_clip_tpu'); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_step_timer_equals_jax(monkeypatch):
+    """``utils/profiling.StepTimer`` against the JAX one on the same
+    patched clock: windows, means and rates equal."""
+    import itertools
+
+    from nans_clip_tpu.utils import profiling as jprof
+    from nans_clip_tpu_torch.utils import profiling as prof
+
+    for mod in (jprof, prof):
+        ticks = itertools.accumulate([0.0, 0.5, 0.25, 1.0, 0.125, 2.0, 0.375, 0.75])
+        monkeypatch.setattr(mod.time, "perf_counter", ticks.__next__)
+        t = mod.StepTimer(window=2)
+        for n in (8, 8, 16):
+            t.data_ready()
+            t.step_done(n)
+        got = (list(t.step_times), list(t.data_times), t.step_time, t.data_time,
+               t.samples_per_sec(16), mod.StepTimer().samples_per_sec(4))
+        if mod is jprof:
+            want = got
+    assert got == want
+    assert got[:2] == ([0.125, 0.375], [1.0, 2.0]) and got[4] == 64.0 and got[5] == 0.0
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    from nans_clip_tpu_torch.utils.profiling import TRACE_FILE, trace
+
+    with trace(str(tmp_path / "prof")) as prof:
+        torch.mm(torch.ones(8, 8), torch.ones(8, 8)).sum()
+    events = json.loads((tmp_path / "prof" / TRACE_FILE).read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::mm" for e in events)
+    assert any(k.key == "aten::mm" for k in prof.key_averages())
+
+
+def test_bench_loader_prints_and_returns_rates(capsys):
+    from nans_clip_tpu_torch.data.bench_loader import main
+
+    rates = main(["--images", "16", "--size", "32", "--batch-size", "8", "--threads", "2"])
+    out = capsys.readouterr().out
+    for line in ("host CPUs:", "decode+resize: pool", "tokenize: native", "loader end-to-end:"):
+        assert line in out, out
+    assert all(rates[k] > 0 for k in ("decode_pool_img_s", "decode_pil_img_s",
+                                      "tokenize_native_texts_s", "tokenize_python_texts_s",
+                                      "loader_pairs_s"))
