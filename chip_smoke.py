@@ -295,6 +295,25 @@ Phases, each printing its lines before the last line:
    tokenizer, built by g++ here, against Python); ``utils/profiling.trace``
    around ``get_similarity`` at 256, whose Chrome trace must name the hand
    kernels; one ``{"phase19": ...}`` line.
+20. The last entry points, at ViT-B-16@RoBERTa-base full width and depth,
+   bf16, seeded weights: ``deploy.engine build --attn-impl pallas`` of both
+   towers at batch 1 and 64, each engine (a CUDA graph) bit-equal to the
+   eager ``pallas`` tower and one call of it (no graph) launching #22 12
+   times through ``nans_clip::flash_attention`` and ``attention.cu`` never;
+   the daemon on those engines, 8 concurrent one-text requests within 2e-2
+   of eager; the daemon's decode of 64 JPEGs at 1024 x 768 and a PNG in one
+   request: the default (``decode_jpeg_pil_batch`` on 4 threads) bit-equal
+   to ``--pil-decode``, ``--fast-decode`` within JAX's 0.2 (its largest gap
+   and lowest cosine), a corrupt record answered 400 and counted once in
+   ``decode_fallbacks``, the decode rate at 1, 4 and 8 threads on this host;
+   ``python -m nans_clip_tpu_torch.demo --cli`` on a 256-image gallery, its
+   top-8 the ranking of eager ``get_similarity`` up to get_similarity's bf16
+   rounding, the query's latency in this process (bf16 and int8-text) and
+   the launches of the gallery, a query and ``rank_texts_for_image``;
+   CoreML stage 1 of the text tower on this host's CPU (no ``nans_clip::``
+   operator in the archive, within 2e-4 of the fp32 plain tower, stage 2's
+   skip line where ``coremltools`` does not import); one ``{"phase20":
+   ...}`` line with the phase's kernels (#1-#5, #22) and their launches.
 
 An early line says what the card's machine has for the data path (g++,
 jpeglib.h, a linkable libjpeg, PIL): facts for the port of the data loader,
@@ -4142,23 +4161,16 @@ def phase_backends(torch, dev, tmp, ckpt):
     # (c) engines: build, inspect, a cold load in a fresh process
     engines = os.path.join(root, "engines")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", "nans_clip_tpu_torch.deploy.engine", "build",
-                           "--resume", ckpt, "--vision-model", VISION, "--text-model", TEXT,
-                           "--towers", "image,text",
-                           "--batch-sizes", ",".join(map(str, ENGINE_BATCHES)),
-                           "--out-dir", engines], cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
-    build_s = time.time() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"engine build failed:\n{proc.stdout}\n{proc.stderr}")
+    built, build_s = _engine_results(_engine_builds(
+        ckpt, ["--vision-model", VISION, "--text-model", TEXT], ENGINE_BATCHES, engines, env),
+        "engine build")
     params = {t: aot.tower_params(model, t) for t in ("image", "text")}
     weight_bytes = {t: sum(v.numel() * v.element_size() for v in p.values())
                     for t, p in params.items()}
     sizes = {f"{t}@{bs}": os.path.getsize(engine_path(engines, t, bs))
              for t in ("image", "text") for bs in ENGINE_BATCHES}
-    print(f"backends: deploy.engine build of {len(sizes)} engines in {build_s:.2f} s (process "
-          f"start and checkpoint load included): {'; '.join(proc.stdout.strip().splitlines())}; file "
+    print(f"backends: deploy.engine build of {len(sizes)} engines in {build_s:.2f} s (a process "
+          f"a tower, side by side; process start and checkpoint load included): {built}; file "
           f"bytes {json.dumps(sizes)} against weight bytes {json.dumps(weight_bytes)}",
           flush=True)
     if any(sizes[f"{t}@{bs}"] >= weight_bytes[t] / 100 for t in params for bs in ENGINE_BATCHES):
@@ -4405,19 +4417,14 @@ def phase_rn50(torch, dev, tmp, split=None, backend_split=None):
         del run
     engines = os.path.join(root, "engines")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", "nans_clip_tpu_torch.deploy.engine", "build",
-                           "--resume", ckpt, "--vision-model", RN_VISION, "--text-model",
-                           RN_TEXT, "--towers", "image,text", "--batch-sizes",
-                           ",".join(map(str, ENGINE_BATCHES)), "--out-dir", engines], cwd=ROOT,
-                          env=env, capture_output=True, text=True, timeout=600)
-    build_s = time.time() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"rn50 engine build failed:\n{proc.stdout}\n{proc.stderr}")
+    _, build_s = _engine_results(_engine_builds(
+        ckpt, ["--vision-model", RN_VISION, "--text-model", RN_TEXT], ENGINE_BATCHES, engines,
+        env), "rn50 engine build")
     want_digest = engine.batch_stats_digest(batch_stats(model.module))
     digests = {bs: engine.read_header(engine.engine_path(engines, "image", bs))["meta"][
         "batch_stats_digest"] for bs in ENGINE_BATCHES}
-    print(f"rn50: deploy.engine build of 8 engines in {build_s:.2f} s; image engines' "
+    print(f"rn50: deploy.engine build of 8 engines in {build_s:.2f} s (a process a tower, side "
+          f"by side); image engines' "
           f"batch_stats_digest {json.dumps(digests)}, the model's {want_digest}", flush=True)
     if want_digest is None or any(d != want_digest for d in digests.values()):
         raise AssertionError(f"rn50 engine digests {digests} != {want_digest}")
@@ -5659,6 +5666,459 @@ def phase_host(torch, dev, tmp):
     print(f"host: phase 19 took {summary['seconds']:.1f} s", flush=True)
     return summary
 
+ENTRY_ENGINE_BATCHES = (1, 64)
+ENTRY_DAEMON_BOUND = 2e-2   # the pallas daemon's features against eager bf16 (padding to 64)
+ENTRY_DECODE_IMAGES = 64
+FAST_DECODE_BOUND = 0.2     # --fast-decode's features (JAX tests/test_native_decode.py:179)
+DEMO_GALLERY, DEMO_TOPK, DEMO_QUERY = 256, 8, "皮卡丘"
+# the demo ranks by fp32 cosines of fp32-normalised features; get_similarity
+# normalises in bf16, each unit vector's components rounded by up to 2^-9, so
+# each of its cosines is off by at most 2^-8 (Cauchy-Schwarz): ids may trade
+# ranks where its cosines differ by less than twice that
+DEMO_TIE = 2 * 2.0 ** -8
+COREML_BOUND = 2e-4         # stage 1's text features against the fp32 plain tower
+
+
+def _smooth_jpeg(rs, w: int, h: int, fmt: str = "JPEG") -> bytes:
+    """A seeded w x h image of smooth content (noise at 1/16 the size,
+    upsampled bicubically), as JPEG (quality 90) or PNG."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    small = rs.randint(0, 256, (max(h // 16, 1), max(w // 16, 1), 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(small).resize((w, h), Image.BICUBIC).save(
+        buf, format=fmt, **({"quality": 90} if fmt == "JPEG" else {}))
+    return buf.getvalue()
+
+
+def _with_server(service, fn):
+    """``fn(url)`` against the daemon of ``service`` on 127.0.0.1."""
+    from nans_clip_tpu_torch.deploy.server import make_server
+
+    srv = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        return fn(f"http://127.0.0.1:{srv.server_address[1]}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(60)
+
+
+def _post_json(url: str, path: str, obj) -> tuple:
+    """(HTTP status, reply) of one POST."""
+    import urllib.error
+
+    req = urllib.request.Request(url + path, json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _get_json(url: str, path: str) -> dict:
+    with urllib.request.urlopen(url + path, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _features(url: str, path: str, key: str, batches: list):
+    """Each of ``batches`` in its own concurrent request; their features in
+    order."""
+    import numpy as np
+
+    replies = [None] * len(batches)
+
+    def post(i):
+        replies[i] = _post_json(url, path, {key: batches[i]})
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(batches))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(r is None or r[0] != 200 for r in replies):
+        raise AssertionError(f"requests to {path} failed: {[r and r[0] for r in replies]} "
+                             f"{[r[1] for r in replies if r and r[0] != 200][:1]}")
+    return np.concatenate([np.asarray(r[1]["features"], np.float32) for r in replies])
+
+
+class _Beside:
+    """``python -m args`` in a fresh process that runs beside the caller;
+    :meth:`result` gives (exit code, stdout, stderr, seconds it ran)."""
+
+    def __init__(self, args, env):
+        self.args, self.t0, self.out = args, time.time(), None
+        self.proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.thread = threading.Thread(target=self._wait, daemon=True)
+        self.thread.start()
+
+    def _wait(self):
+        stdout, stderr = self.proc.communicate()
+        self.out = (self.proc.returncode, stdout, stderr, time.time() - self.t0)
+
+    def result(self, timeout: float):
+        self.thread.join(timeout)
+        if self.out is None:
+            self.stop()
+            raise AssertionError(f"{self.args[0]} did not end in {timeout} s")
+        return self.out
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _engine_builds(ckpt: str, model_flags, batches, out_dir: str, env, extra=()) -> list:
+    """``deploy.engine build`` of each tower in its own process, side by side
+    (each engine's ``torch.export`` takes seconds of the host's CPU):
+    [(tower, _Beside)]."""
+    return [(tower, _Beside(["nans_clip_tpu_torch.deploy.engine", "build", "--resume", ckpt,
+                             *model_flags, *extra, "--towers", tower, "--batch-sizes",
+                             ",".join(map(str, batches)), "--out-dir", out_dir], env))
+            for tower in ("image", "text")]
+
+
+def _engine_results(builds, what: str):
+    """Wait for :func:`_engine_builds`' processes: (their output lines
+    joined, the seconds of the longer); raises if one failed."""
+    lines, secs = [], []
+    try:
+        for tower, build in builds:
+            code, stdout, stderr, s = build.result(600)
+            if code != 0:
+                raise AssertionError(f"{what} --towers {tower} failed:\n{stdout}\n{stderr}")
+            lines += stdout.strip().splitlines()
+            secs.append(s)
+    finally:
+        for _, build in builds:
+            build.stop()
+    return "; ".join(lines), max(secs)
+
+
+def _entry_counts() -> dict:
+    from nans_clip_tpu_torch.ops import fused_block as fb
+    from nans_clip_tpu_torch.ops import layer_kernel as lk
+    from nans_clip_tpu_torch.ops.attention import attention, flash_fwd
+
+    return {"fused_attention_block": fb.fused_attention_block.launches,
+            "fused_mlp_block": fb.fused_mlp_block.launches,
+            "fused_layer_block": lk.fused_layer_block.launches, **_tower_counts(),
+            "attention_pallas": flash_fwd.launches, "attention": attention.launches}
+
+
+def _entry_reset():
+    _reset_counts()
+    _flash_reset()
+
+
+def _ranked_as(got_ids, scores, tie: float) -> float:
+    """The largest gap between the reference score of ``got_ids[i]`` and the
+    reference's i-th best score: 0 for the same ranking, below ``tie`` for
+    one up to ties; raises beyond it."""
+    import numpy as np
+
+    best = np.sort(scores)[::-1]
+    gaps = [abs(float(scores[g]) - float(best[i])) for i, g in enumerate(got_ids)]
+    if max(gaps) > tie:
+        raise AssertionError(f"ranking differs beyond ties ({tie}): ids {list(got_ids)}, gaps "
+                             f"{gaps}")
+    return max(gaps)
+
+
+def phase_entry_points(torch, dev, tmp):
+    """Phase 20: the last entry points at ViT-B-16@RoBERTa-base full width
+    and depth, bf16, seeded weights (module docstring). The engine build and
+    the demo's CLI are fresh processes: they start first and run beside the
+    CoreML export on the host's CPU; what is timed (the demo's query, the
+    decode rates) runs after them, alone."""
+    import base64
+
+    import numpy as np
+
+    import nans_clip_tpu_torch as nct
+    from nans_clip_tpu_torch import demo
+    from nans_clip_tpu_torch.api import CLIPModel
+    from nans_clip_tpu_torch.data.augment import preprocess_images
+    from nans_clip_tpu_torch.data.dataset import preprocess_text
+    from nans_clip_tpu_torch.data.npack import (NPackReader, NPackWriter,
+                                                decode_jpeg_pil_batch, encode_pair)
+    from nans_clip_tpu_torch.deploy import aot, coreml
+    from nans_clip_tpu_torch.deploy.engine import engine_path, load_engine, read_header
+    from nans_clip_tpu_torch.deploy.server import ClipService
+    from nans_clip_tpu_torch.eval.model_io import load_eval_model
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.models.common import ModelOptions
+
+    t_phase = time.time()
+    line = {"phase20": "entry points", "card": _nvidia_smi()}
+    root = os.path.join(tmp, "entry")
+    os.makedirs(root)
+    cfg = nct.load_config(f"{VISION}@{TEXT}")
+    ckpt = os.path.join(root, "clip_cn_vit-b-16_random.pt")
+    module = build_clip(cfg, "cpu", torch.Generator().manual_seed(0))   # fp32, kept for (d)
+    torch.save({"state_dict": module.state_dict()}, ckpt)
+    gallery = os.path.join(root, "gallery")
+    os.makedirs(gallery)
+    rs = np.random.RandomState(21)
+    with NPackWriter(os.path.join(gallery, "imgs.npack")) as w:
+        for k in range(DEMO_GALLERY):
+            w.put(k, _smooth_jpeg(rs, 224, 224))
+    with NPackWriter(os.path.join(gallery, "pairs.npack")) as w:
+        for k in range(DEMO_GALLERY):
+            w.put(k, encode_pair(k, k, f"{TEXTS[k % len(TEXTS)]}，图{k}"))
+    engines = os.path.join(root, "engines")
+    model_flags = ["--vision-model", VISION, "--text-model", TEXT]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    builds = _engine_builds(ckpt, model_flags, ENTRY_ENGINE_BATCHES, engines, env,
+                            ("--attn-impl", "pallas"))
+    cli = _Beside(["nans_clip_tpu_torch.demo", "--data", gallery, "--resume", ckpt, *model_flags,
+                   "--cli", DEMO_QUERY, "--topk", str(DEMO_TOPK)], env)
+    launches = {}
+    try:
+        # (d) CoreML stage 1 of the text tower on this host's CPU, fp32
+        t0 = time.time()
+        out = coreml.export_coreml(cfg, module, os.path.join(root, "coreml", "clip_cn"),
+                                   convert_text=True, convert_vision=False)
+        export_s = time.time() - t0
+        with open(out["text"]["program"], "rb") as f:
+            program = torch.export.load(f)
+        targets = sorted({str(n.target) for n in program.graph.nodes
+                          if n.op == "call_function"})
+        ids = torch.from_numpy(nct.tokenize(TEXTS)).int()
+        with torch.no_grad():
+            got = program.module()(ids[:1])
+            want = aot.normalized(CLIPModel(cfg, module, ModelOptions(attn_impl="plain"))
+                                  .encode_text(ids[:1].long()))
+        cerr = float((got - want).abs().max())
+        size = os.path.getsize(out["text"]["program"])
+        print(f"entry: coreml stage 1 of the text tower ({export_s:.1f} s on this host's CPU "
+              f"beside the three processes, {size} bytes, {len(targets)} operators, none of "
+              f"nans_clip::: {not any('nans_clip' in t for t in targets)}): max abs diff against "
+              f"the fp32 plain tower {cerr:.3g} (<= {COREML_BOUND}); stage 2: "
+              f"{out['text']['mlpackage'] or 'skipped (the line above)'}", flush=True)
+        if any("nans_clip" in t for t in targets) or cerr > COREML_BOUND:
+            raise AssertionError(f"coreml stage 1: {targets} {cerr}")
+        line["coreml"] = {"export_s": export_s, "bytes": size, "err": cerr,
+                          "mlpackage": out["text"]["mlpackage"]}
+        del module, program
+        os.remove(out["text"]["program"])
+
+        base = load_eval_model(VISION, TEXT, ckpt, "bf16", device=dev)
+        # (b) the daemon's decode: default (threaded batch decode), --pil-decode,
+        # --fast-decode on 64 JPEGs at 1024 x 768 and a PNG; a corrupt record
+        rs = np.random.RandomState(20)
+        jpegs = [_smooth_jpeg(rs, 1024, 768) for _ in range(ENTRY_DECODE_IMAGES)]
+        good = jpegs + [_smooth_jpeg(rs, 400, 300, "PNG")]
+        corrupt = base64.b64encode(b"\xff\xd8\xff\xe0 not a JPEG").decode()
+        b64 = [base64.b64encode(r).decode() for r in good]
+        decoded = {}
+        for mode, kw in (("default", {}), ("pil-decode", {"native_decode": False}),
+                         ("fast-decode", {"fast_decode": True})):
+            service = ClipService(base, max_batch=32, **kw)
+
+            def drive(url):
+                feats = _features(url, "/encode_image", "images", [b64])
+                bad = _post_json(url, "/encode_image", {"images": [b64[0], corrupt]}) \
+                    if mode == "default" else None
+                return feats, bad, _get_json(url, "/stats")
+
+            t0 = time.time()
+            feats, bad, stats = _with_server(service, drive)
+            decoded[mode] = {"feats": feats, "stats": stats, "s": time.time() - t0, "bad": bad}
+            del service
+        same = bool(np.array_equal(decoded["default"]["feats"], decoded["pil-decode"]["feats"]))
+        fast, exact = decoded["fast-decode"]["feats"], decoded["default"]["feats"]
+        gap = _max_diff(fast, exact)
+        cos = float((fast * exact).sum(-1).min())
+        status, reply = decoded["default"]["bad"]
+        fallbacks = decoded["default"]["stats"]["decode_fallbacks"]
+        print(f"entry: daemon decode of {len(good)} images ({ENTRY_DECODE_IMAGES} JPEGs at 1024 x "
+              f"768 and a PNG) in one request: default bit-equal to --pil-decode {same}; "
+              f"--fast-decode largest gap {gap:.6g} (<= {FAST_DECODE_BOUND}), lowest cosine "
+              f"{cos:.6f}; a request with a corrupt record answered {status} "
+              f"({reply.get('error')!r}), decode_fallbacks {fallbacks}; request s "
+              f"{json.dumps({m: round(d['s'], 3) for m, d in decoded.items()})}", flush=True)
+        if not same or gap > FAST_DECODE_BOUND or status != 400 or "images[1]" not in str(reply) \
+                or fallbacks != 1 or any(d["stats"]["decode_fallbacks"] for m, d in decoded.items()
+                                         if m != "default"):
+            raise AssertionError(f"daemon decode: same {same}, gap {gap}, {status} {reply}, "
+                                 f"fallbacks {[d['stats'] for d in decoded.values()]}")
+
+        # (a) pallas engines: the CLI, each engine against the eager pallas
+        # tower, #22's launches per call, then the daemon on them
+        built, line["engine_build_s"] = _engine_results(builds,
+                                                        "engine build --attn-impl pallas")
+        print(f"entry: deploy.engine build --attn-impl pallas in {line['engine_build_s']:.1f} s "
+              f"(a process a tower, beside the demo's and the export): {built}", flush=True)
+        pallas = load_eval_model(VISION, TEXT, ckpt, "bf16", attn_impl="pallas", device=dev)
+        encode = {"image": pallas.encode_image, "text": pallas.encode_text}
+        engine_line, flash_calls = {}, 0
+        for tower in ("image", "text"):
+            params = aot.tower_params(pallas, tower)
+            for bs in ENTRY_ENGINE_BATCHES:
+                key = f"{tower}@{bs}"
+                path = engine_path(engines, tower, bs)
+                header = read_header(path)
+                x = _backend_inputs(torch, tower, bs, seed=200 + bs).to(dev)
+                eager = aot.normalized(encode[tower](x))
+                graphed = load_engine(path, params, payload=header)(x)
+                raw = load_engine(path, payload=header)      # fn(params, x): no graph
+                raw(params, x)
+                torch.cuda.synchronize()
+                _entry_reset()
+                once = raw(params, x)
+                torch.cuda.synchronize()
+                counts = _entry_counts()
+                diff = float((graphed - eager).abs().max())
+                flash_calls += counts["attention_pallas"]
+                engine_line[key] = {"vs_eager": diff, "raw_bit_equal": bool(
+                    torch.equal(once, graphed)), "launches": {k: v for k, v in counts.items() if v}}
+                print(f"entry: pallas engine {key} (header attn_impl "
+                      f"{header['meta']['attn_impl']}): max abs diff against the eager pallas "
+                      f"tower {diff:.6g}, bit-equal {diff == 0.0}; one call launched "
+                      f"{json.dumps(engine_line[key]['launches'])}", flush=True)
+                if header["meta"]["attn_impl"] != "pallas" or diff != 0.0 \
+                        or not engine_line[key]["raw_bit_equal"] \
+                        or counts != {**{k: 0 for k in counts}, "attention_pallas": 12}:
+                    raise AssertionError(f"pallas engine {key}: {engine_line[key]}")
+        launches["attention_pallas"] = (flash_calls, "one call of each pallas engine (image and "
+                                                     "text at batch 1 and 64)")
+        texts8 = [f"{TEXTS[k % len(TEXTS)]}，第{k}条" for k in range(8)]
+        service = ClipService(pallas, max_batch=64, engine_dir=engines)
+
+        def pallas_daemon(url):
+            feats = _features(url, "/encode_text", "texts", [[t] for t in texts8])
+            return feats, _get_json(url, "/stats"), _get_json(url, "/health")
+
+        feats, stats, health = _with_server(service, pallas_daemon)
+        ids8 = torch.from_numpy(nct.tokenize([preprocess_text(t) for t in texts8])).to(dev)
+        ref = aot.normalized(pallas.encode_text(ids8)).cpu().numpy()
+        err = _max_diff(feats, ref)
+        print(f"entry: daemon --engine-dir (pallas engines, {health['backend']} backend), 8 "
+              f"concurrent one-text requests: max abs diff against eager pallas bf16 {err:.6g} "
+              f"(<= {ENTRY_DAEMON_BOUND}); /stats {json.dumps(stats)}", flush=True)
+        if health["backend"] != "engine" or err > ENTRY_DAEMON_BOUND or stats["errors"]:
+            raise AssertionError(f"pallas daemon: {err} {health} {stats}")
+        line["pallas_engines"] = engine_line
+        line["pallas_daemon"] = {"err": err, "stats": stats}
+        del service, pallas, encode
+        torch.cuda.empty_cache()
+
+        # (c) the demo: the CLI's top-8 against the ranking of eager
+        # get_similarity; in this process, the query's latency and each
+        # part's launches, and int8-text
+        code, stdout, stderr, cli_s = cli.result(600)
+        if code != 0:
+            raise AssertionError(f"demo --cli failed:\n{stdout}\n{stderr}")
+    finally:
+        for _, proc in builds:
+            proc.stop()
+        cli.stop()
+    hits = [ln.split() for ln in stdout.splitlines() if ln.startswith("image_id=")]
+    cli_ids = [int(h[0].split("=")[1]) for h in hits]
+    reader = NPackReader(os.path.join(gallery, "imgs.npack"))
+    raw, _ = reader.decode_jpeg_batch(reader.keys(), 224)
+    reader.close()
+    images = preprocess_images(None, torch.from_numpy(raw).to(dev), 224)
+    query = torch.from_numpy(nct.tokenize([preprocess_text(DEMO_QUERY)])).to(dev)
+    _, per_text = base.get_similarity(images, query)
+    scores = (per_text[0] / base.module.logit_scale.detach().float().exp()).cpu().numpy()
+    tie_gap = _ranked_as(cli_ids, scores, DEMO_TIE)
+    exact_order = cli_ids == [int(i) for i in np.argsort(-scores)[:DEMO_TOPK]]
+    del images
+    demo_runs = {}
+    for mode, extra in (("bf16", []), ("int8-text", ["--quantize", "int8-text"])):
+        args = demo.parse_args(["--data", gallery, "--resume", ckpt, *model_flags, "--topk",
+                                str(DEMO_TOPK), *extra])
+        _entry_reset()
+        engine = demo.RetrievalEngine(args)
+        torch.cuda.synchronize()
+        build = _entry_counts()
+        _entry_reset()
+        top = engine.search_by_text(DEMO_QUERY, DEMO_TOPK)
+        query_counts = _entry_counts()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            engine.search_by_text(DEMO_QUERY, DEMO_TOPK)
+            times.append((time.perf_counter() - t0) * 1e3)
+        _entry_reset()
+        engine.rank_texts_for_image(0, DEMO_TOPK)
+        rank_counts = _entry_counts()
+        demo_runs[mode] = {"top": [i for i, _ in top], "gallery_launches": build,
+                           "query_launches": query_counts, "rank_texts_launches": rank_counts,
+                           "query_ms_p50": float(np.median(times)), "query_ms_min": min(times)}
+        del engine
+    if demo_runs["bf16"]["top"] != cli_ids:
+        raise AssertionError(f"demo in-process {demo_runs['bf16']['top']} vs CLI {cli_ids}")
+    bf, q8 = demo_runs["bf16"], demo_runs["int8-text"]
+    launches.update(
+        fused_attention_block=(bf["gallery_launches"]["fused_attention_block"],
+                               "demo gallery, 256 images at batch 64"),
+        fused_mlp_block=(bf["gallery_launches"]["fused_mlp_block"],
+                         "demo gallery, 256 images at batch 64"),
+        fused_layer_block=(bf["rank_texts_launches"]["fused_layer_block"],
+                           "demo rank_texts_for_image, 256 candidate texts"),
+        fused_tower=(bf["query_launches"]["fused_tower"], "demo text query, batch 1"),
+        fused_tower_int8=(q8["query_launches"]["fused_tower_int8"],
+                          "demo text query, batch 1, --quantize int8-text"))
+    nonzero = lambda d: json.dumps({k: v for k, v in d.items() if v})
+    print(f"entry: demo --cli {DEMO_QUERY!r} on a {DEMO_GALLERY}-image gallery (a fresh process "
+          f"beside the builds and the export, {cli_s:.1f} s): top-{DEMO_TOPK} {cli_ids}, the "
+          f"ranking of "
+          f"get_similarity (exact order {exact_order}; largest gap {tie_gap:.3g} <= tie "
+          f"{DEMO_TIE}); query latency p50 {bf['query_ms_p50']:.3f} ms (min "
+          f"{bf['query_ms_min']:.3f}), int8-text {q8['query_ms_p50']:.3f} ms; launches: gallery "
+          f"{nonzero(bf['gallery_launches'])}, query {nonzero(bf['query_launches'])}, int8-text "
+          f"query {nonzero(q8['query_launches'])}, rank_texts "
+          f"{nonzero(bf['rank_texts_launches'])}", flush=True)
+    line["demo"] = {"cli_ids": cli_ids, "exact_order": exact_order, "tie_gap": tie_gap,
+                    "cli_s": cli_s, **{m: {k: v for k, v in r.items() if k != "top"}
+                                       for m, r in demo_runs.items()}}
+
+    del base
+    torch.cuda.empty_cache()
+    rates = {}
+    for threads in (1, 4, 8):
+        for name, dct in (("exact", False), ("fast", True)):
+            decode_jpeg_pil_batch(jpegs[:8], 224, threads, dct_scale=dct)   # warm
+            t0 = time.perf_counter()
+            _, ok = decode_jpeg_pil_batch(jpegs, 224, threads, dct_scale=dct)
+            rates[f"{name}@{threads}"] = len(jpegs) / (time.perf_counter() - t0)
+            if not ok.all():
+                raise AssertionError(f"decode_jpeg_pil_batch failed a JPEG ({name}, {threads})")
+    print(f"entry: decode_jpeg_pil_batch of {len(jpegs)} JPEGs at 1024 x 768 to 224 on this "
+          f"host ({os.cpu_count()} CPUs), img/s: "
+          f"{json.dumps({k: round(v, 1) for k, v in rates.items()})}", flush=True)
+    line["decode"] = {"bit_equal_to_pil": same, "fast_gap": gap, "fast_min_cos": cos,
+                      "corrupt_status": status, "decode_fallbacks": fallbacks,
+                      "img_per_s": rates}
+
+    kernels = []
+    for name, replaces in (("fused_attention_block", "nans_clip_tpu/ops/fused_block.py:103"),
+                           ("fused_mlp_block", "nans_clip_tpu/ops/fused_block.py:797"),
+                           ("fused_layer_block", "nans_clip_tpu/ops/layer_kernel.py:116"),
+                           ("fused_tower", "nans_clip_tpu/ops/tower_kernel.py:36"),
+                           ("fused_tower_int8", "nans_clip_tpu/ops/tower_kernel.py:67"),
+                           ("attention_pallas", "nans_clip_tpu/ops/attention.py:81")):
+        n, path = launches[name]
+        kernels.append({"name": name, "replaces": replaces, "launches": n, "path": path})
+    if any(k["launches"] < 1 for k in kernels):
+        raise AssertionError(f"phase 20 launched a kernel of its path no time: {kernels}")
+    line["kernels"] = kernels
+    line["phase_s"] = time.time() - t_phase
+    print(json.dumps(line, default=str), flush=True)
+    print(f"entry: phase 20 took {line['phase_s']:.1f} s", flush=True)
+    return line
+
 
 def main() -> int:
     if not (ROOT / "nans_clip_tpu_torch" / "csrc").is_dir():
@@ -5723,6 +6183,8 @@ def main() -> int:
                        cli["step_3"])
     with tempfile.TemporaryDirectory() as tmp:
         phase_host(torch, dev, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_entry_points(torch, dev, tmp)
 
     if any(m == "jax" or m.startswith(("jax.", "nans_clip_tpu.")) for m in sys.modules):
         raise AssertionError("chip_smoke imported JAX or the JAX package")

@@ -19,6 +19,9 @@ resizes), by one of two decoders, and neither falls back to the other:
   ``convert("RGB")``, the eval transform's exact pixels.
 
 A record that does not decode comes back as a zero image with ok = False.
+:func:`decode_jpeg_pil_batch` is the serving daemon's decode of raw image
+bytes (``nans_clip_tpu/data/npack.py:153-194``) on the same PIL pool: the
+eval transform's pixels, or with ``dct_scale`` PIL's draft mode first.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import io
 import mmap
 import struct
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -76,14 +79,18 @@ class NPackWriter:
         self.close()
 
 
-def _decode_one(raw: Optional[bytes], size: int, exact: bool):
-    """(pixels [size, size, 3] uint8, ok) of one record."""
+def _decode_one(raw: Optional[bytes], size: int, exact: bool, draft: bool = False):
+    """(pixels [size, size, 3] uint8, ok) of one record. ``draft``: PIL's
+    draft mode first (a JPEG decoded at the smallest DCT scale that keeps
+    ``size``), before the exact path's resize."""
     from PIL import Image
 
     if raw is None:
         return None, False
     try:
         img = Image.open(io.BytesIO(raw))
+        if draft:
+            img.draft("RGB", (size, size))
         if exact:
             img = img.resize((size, size), Image.BICUBIC).convert("RGB")
         else:
@@ -91,6 +98,31 @@ def _decode_one(raw: Optional[bytes], size: int, exact: bool):
         return np.asarray(img, np.uint8), True
     except Exception:
         return None, False
+
+
+def decode_jpeg_pil_batch(buffers: Sequence[bytes], size: int, num_threads: int = 4,
+                          dct_scale: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """Raw image bytes -> (out [N, size, size, 3] uint8, ok [N] uint8), on a
+    pool of ``num_threads`` PIL threads for the call. Each image's pixels
+    are the eval transform's before normalisation (``utils/transform.py``:
+    a bicubic square resize, then ``convert("RGB")``); ``dct_scale`` puts
+    ``img.draft("RGB", (size, size))`` first (JAX's PIL branch, :177-185),
+    a faster decode of large JPEGs that is not bit-exact. A record that does
+    not decode gets ok = 0 and a zero image: the caller decides what
+    follows."""
+    n = len(buffers)
+    out = np.zeros((n, size, size, 3), np.uint8)
+    ok = np.zeros((n,), np.uint8)
+    fn = lambda raw: _decode_one(bytes(raw), size, True, dct_scale)
+    if num_threads <= 1 or n <= 1:
+        results = [fn(b) for b in buffers]
+    else:
+        with ThreadPoolExecutor(min(num_threads, n), thread_name_prefix="npack-decode") as pool:
+            results = list(pool.map(fn, buffers))
+    for i, (pixels, good) in enumerate(results):
+        if good:
+            out[i], ok[i] = pixels, 1
+    return out, ok
 
 
 class NPackReader:

@@ -22,10 +22,11 @@ compiled, fixed-shape program is a captured CUDA graph:
   patch projection flattened, a ResNet's convolution weights channels-last
   and its BatchNorm running statistics among them), so no weight is cast or
   concatenated in a call. On the card the program calls the kernels as the registered
-  operators of ``ops/library.py``. The example inputs that
+  operators of ``ops/library.py``: under ``--attn-impl pallas``, #22 in
+  every layer as ``nans_clip::flash_attention``. The example inputs that
   ``torch.export.save`` would store (the weights among them) are dropped
-  before saving. The ``--attn-impl pallas`` route (the flash kernels are
-  not registered operators) and tensor parallelism are not exported.
+  before saving. Tensor parallelism is not exported (its ranks are
+  processes; the JAX engines have no tp either).
 """
 
 from __future__ import annotations
@@ -179,10 +180,9 @@ def export_tower(cfg, options, tower: str, params: dict, example: torch.Tensor,
     ``example``'s shape, ``params`` and ``example`` its inputs (real or fake
     tensors; the routes follow their device). Its example inputs are
     dropped, so that saving it stores no weight."""
-    if options.tp > 1 or options.attn_impl == "pallas":
-        raise ValueError(f"export: attn_impl={options.attn_impl!r}, tp={options.tp} is not "
-                         "exported (the flash kernels are not registered operators; tensor "
-                         "parallelism spans processes)")
+    if options.tp > 1:
+        raise ValueError(f"export: tp={options.tp} is not exported (tensor parallelism spans "
+                         "processes)")
     fn = tower_function(cfg, options, tower, normalize_out)
     with torch.no_grad():
         program = torch.export.export(_Program(fn), (params, example))

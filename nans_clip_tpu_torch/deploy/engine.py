@@ -233,7 +233,7 @@ def main(argv=None):
     b.add_argument("--resume", default=None)
     b.add_argument("--precision", default="bf16", choices=PRECISIONS)
     b.add_argument("--attn-impl", default="auto", choices=gates.IMPLS,
-                   help="the route the program is exported on (not pallas)")
+                   help="the route the program is exported on")
     b.add_argument("--towers", default="image,text")
     b.add_argument("--batch-sizes", default="1")
     b.add_argument("--context-length", type=int, default=52)

@@ -21,8 +21,13 @@
     /similarity   {"texts": [...], "images": [...]} ->
         {"logits_per_image": [[...]], "probs": [[...]]}
   Features are L2-normalised fp32. Images are standard or urlsafe base64
-  JPEG/PNG, decoded with PIL (imported at decode time) through the port's
-  ``image_transform``.
+  JPEG/PNG. A request's images decode together on a pool of
+  ``--decode-threads`` PIL threads (``data/npack.py::
+  decode_jpeg_pil_batch``: the pixels of the port's ``image_transform``, or
+  with ``--fast-decode`` PIL's draft mode first); a record that fails there
+  is decoded again alone through ``image_transform`` and counted in
+  ``/stats`` ``decode_fallbacks``, and one that fails again answers 400.
+  ``--pil-decode`` decodes each image alone through ``image_transform``.
 - Dynamic batching (on by default): concurrent requests for the same tower
   are coalesced into one device dispatch by an opportunistic drain. While
   the device runs one batch, arriving requests queue; the dispatcher takes
@@ -32,11 +37,13 @@
 
 The HTTP layer is a ``ThreadingHTTPServer``. All device work runs under one
 lock, on the model's device, so the graphs (which share one memory pool)
-run one at a time. The native JPEG decoder of the JAX daemon is not ported
-(the card's machine has no libjpeg).
+run one at a time. The JAX daemon's threaded decode runs libjpeg
+(``csrc/npack.cpp``); the card's machine has none, so the port's pool runs
+PIL, which gives the same pixels.
 
     python -m nans_clip_tpu_torch.deploy.server [--resume ckpt.pt] \\
-        [--quantize int8-text] [--engine-dir engines] [--port 8000]
+        [--quantize int8-text] [--engine-dir engines] [--port 8000] \\
+        [--decode-threads 4] [--fast-decode | --pil-decode]
 """
 
 from __future__ import annotations
@@ -85,10 +92,15 @@ class ClipService:
     """Pads and chunks requests to fixed batches, runs them through the
     towers of a :class:`CLIPModel` (``jit``) or through engines
     (``engine_dir``), and returns L2-normalised fp32 features. Engines
-    must have been built with the quantize mode of the model's weights."""
+    must have been built with the quantize mode of the model's weights.
+    ``native_decode``: a request's images through ``decode_jpeg_pil_batch``
+    on ``decode_threads`` threads (``fast_decode``: its ``dct_scale``), else
+    each through ``image_transform`` (the module docstring)."""
 
     def __init__(self, model, max_batch: int = 32, context_length: int = 52,
-                 dynamic_batching: bool = True, engine_dir: Optional[str] = None):
+                 dynamic_batching: bool = True, engine_dir: Optional[str] = None,
+                 native_decode: bool = True, decode_threads: int = 4,
+                 fast_decode: bool = False):
         from nans_clip_tpu_torch.utils.quantize import quantize_mode
         from nans_clip_tpu_torch.utils.transform import image_transform
 
@@ -98,6 +110,9 @@ class ClipService:
         self.context_length = context_length
         self.quantize = quantize_mode(model.module)
         self._transform = image_transform(self.cfg.vision.image_resolution)
+        self.native_decode = native_decode
+        self.decode_threads = decode_threads
+        self.fast_decode = fast_decode
         self._lock = threading.Lock()
         self._fns: Dict[tuple, object] = {}
         self._engine_batch: Optional[Dict[str, int]] = None
@@ -113,6 +128,7 @@ class ClipService:
             "device_dispatches": 0,
             "device_ms_total": 0.0,
             "coalesced_requests": 0,   # requests that rode a shared dispatch
+            "decode_fallbacks": 0,     # records the batch decode failed, decoded alone
             "errors": 0,
         }
         if engine_dir is not None:
@@ -303,16 +319,33 @@ class ClipService:
         return self._run("image", self._decode_batch(raws))
 
     def _decode_batch(self, raws: List[bytes]) -> np.ndarray:
-        """Image bytes -> normalised float32 [N, R, R, 3] (PIL)."""
-        from PIL import Image
+        """Image bytes -> normalised float32 [N, R, R, 3]: the batch decode
+        normalised in fp32 numpy (``image_transform``'s arithmetic), then
+        each record it failed alone through ``image_transform`` (JAX
+        ``server.py:323-349``)."""
+        from nans_clip_tpu_torch.utils.transform import OPENAI_MEAN, OPENAI_STD
 
         res = self.cfg.vision.image_resolution
-        x = np.zeros((len(raws), res, res, 3), np.float32)
-        for i, raw in enumerate(raws):
-            try:
-                x[i] = self._transform(Image.open(io.BytesIO(raw)))
-            except Exception as e:
-                raise ValueError(f"images[{i}]: cannot decode ({e})") from e
+        if self.native_decode:
+            from nans_clip_tpu_torch.data.npack import decode_jpeg_pil_batch
+            out, ok = decode_jpeg_pil_batch(raws, res, self.decode_threads,
+                                            dct_scale=self.fast_decode)
+            x = out.astype(np.float32) / 255.0
+            x = (x - np.asarray(OPENAI_MEAN, np.float32)) / np.asarray(OPENAI_STD, np.float32)
+            bad = np.nonzero(ok == 0)[0]
+            if len(bad):
+                with self._stats_lock:
+                    self.stats["decode_fallbacks"] += int(len(bad))
+        else:
+            x = np.zeros((len(raws), res, res, 3), np.float32)
+            bad = range(len(raws))
+        if len(bad):
+            from PIL import Image
+            for i in bad:
+                try:
+                    x[i] = self._transform(Image.open(io.BytesIO(raws[i])))
+                except Exception as e:
+                    raise ValueError(f"images[{i}]: cannot decode ({e})") from e
         return x
 
     def similarity(self, images_b64: List[str], texts: List[str]):
@@ -418,6 +451,14 @@ def parse_args(argv=None):
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-body-mb", type=int, default=256,
                    help="reject request bodies larger than this (413)")
+    p.add_argument("--pil-decode", action="store_true",
+                   help="decode request images with PIL one at a time instead of the threaded "
+                        "batch decoder (bit-identical output; the slow path kept for debugging)")
+    p.add_argument("--decode-threads", type=int, default=4)
+    p.add_argument("--fast-decode", action="store_true",
+                   help="DCT-scaled decode for large images (PIL draft mode): a much faster "
+                        "host path, a small documented feature drift from the bit-exact "
+                        "default")
     p.add_argument("--engine-dir", default=None,
                    help="serve the {image,text}_bsN.engine files of `python -m "
                         "nans_clip_tpu_torch.deploy.engine build` instead of per-bucket CUDA "
@@ -442,7 +483,8 @@ def main(argv=None):
         model = model.quantize("int8", towers_for_mode(args.quantize))
     service = ClipService(model, max_batch=args.max_batch, context_length=args.context_length,
                           dynamic_batching=not args.no_dynamic_batching,
-                          engine_dir=args.engine_dir)
+                          engine_dir=args.engine_dir, native_decode=not args.pil_decode,
+                          decode_threads=args.decode_threads, fast_decode=args.fast_decode)
     srv = make_server(service, args.host, args.port, max_body_bytes=args.max_body_mb << 20)
     logging.basicConfig(level=logging.INFO)
     logger.info("serving %s on %s:%d (%s, %s backend)", model.cfg.name, args.host,

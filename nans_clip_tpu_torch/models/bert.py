@@ -364,7 +364,8 @@ class BertModel(nn.Module):
         """The tensors of an inference forward, by name, in the compute
         dtype, q|k|v packed into ``[3H, H]`` (packed anew, not from the
         packed cache), the embedding LayerNorm, which the plain ``layer_norm``
-        reads in fp32, in fp32: the inputs of :func:`serve`."""
+        reads in fp32, in fp32, and so each layer's under ``pallas``: the
+        inputs of :func:`serve`."""
         emb, cast = self.embeddings, options.cast
         w = {"word_embeddings": cast(emb.word_embeddings.weight),
              "position_embeddings": cast(emb.position_embeddings.weight),
@@ -372,7 +373,8 @@ class BertModel(nn.Module):
              "ln.weight": upcast(cast(emb.LayerNorm.weight)),
              "ln.bias": upcast(cast(emb.LayerNorm.bias))}
         w.update(layer_entries([layer.weights(options, fresh=True)
-                                for layer in self.encoder.layer]))
+                                for layer in self.encoder.layer],
+                               gates.pallas_route(options.attn_impl)))
         return w
 
     def _tp_layers(self, x, key_bias, layers, options: ModelOptions,

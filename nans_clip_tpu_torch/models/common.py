@@ -156,12 +156,16 @@ LAYER_KEYS = ("ln_1.weight", "ln_1.bias", "qkv.weight", "qkv.bias", "out.weight"
               "ln_2.weight", "ln_2.bias", "fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias")
 
 
-def layer_entries(layers) -> dict:
+def layer_entries(layers, ln32: bool = False) -> dict:
     """``{"layers.{i}.{key}": tensor}`` for a tower's layer tuples; an
-    ``Int8Weight`` is two entries, ``{key}.int8`` and ``{key}.scale``."""
+    ``Int8Weight`` is two entries, ``{key}.int8`` and ``{key}.scale``.
+    ``ln32``: the LayerNorms in fp32, as the plain ``layer_norm`` of the
+    ``pallas`` layers reads them (so an exported forward casts none)."""
     out = {}
     for i, p in enumerate(layers):
         for key, t in zip(LAYER_KEYS, p):
+            if ln32 and key.startswith("ln_"):
+                t = t.float()
             if is_quantized(t):
                 out[f"layers.{i}.{key}.int8"], out[f"layers.{i}.{key}.scale"] = t.int8, t.scale
             else:

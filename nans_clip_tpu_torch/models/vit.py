@@ -349,7 +349,8 @@ class VisualTransformer(nn.Module):
         """The tensors of an inference forward, by name, in the compute
         dtype and in the layout the forward reads (the patch projection
         flattened; ``ln_pre`` and ``ln_post``, which the plain ``layer_norm``
-        reads in fp32, in fp32): the inputs of :func:`serve`."""
+        reads in fp32, in fp32, and so each layer's under ``pallas``): the
+        inputs of :func:`serve`."""
         cast = options.cast
         ln = lambda t: upcast(cast(t))
         w = {"conv1": patch_weight(cast(self.conv1.weight)),
@@ -357,7 +358,8 @@ class VisualTransformer(nn.Module):
              "positional_embedding": cast(self.positional_embedding),
              "ln_pre.weight": ln(self.ln_pre.weight), "ln_pre.bias": ln(self.ln_pre.bias)}
         w.update(layer_entries([tuple(cast(t) for t in blk.weights())
-                                for blk in self.transformer.resblocks]))
+                                for blk in self.transformer.resblocks],
+                               gates.pallas_route(options.attn_impl)))
         w.update({"ln_post.weight": ln(self.ln_post.weight),
                   "ln_post.bias": ln(self.ln_post.bias), "proj": cast(self.proj)})
         return w

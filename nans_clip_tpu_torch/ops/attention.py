@@ -34,7 +34,9 @@ The second half ports ``nans_clip_tpu/ops/attention.py`` itself: the flash
 attention on ``[B, H, S, dh]`` tensors with an additive fp32 ``[B, S]`` key
 bias, #22 (``_fwd_kernel``: o and the row logsumexp) and #23
 (``_bwd_kernel``: dq, dk, dv from the saved o and logsumexp), both in
-``csrc/flash.cu``, wrapped by :func:`flash_fwd` and :func:`flash_bwd`, with
+``csrc/flash.cu``, wrapped by :func:`flash_fwd` and :func:`flash_bwd` (and
+:func:`flash_context`, #22's o as the merged context: the CUDA
+implementation of the exported operator ``nans_clip::flash_attention``), with
 ``attention_pallas_plain`` and ``attention_pallas_bwd_plain`` as their
 twins; the autograd Function that joins them (the JAX ``custom_vjp``,
 :177-194), ``attention_pallas``, ``fused_attention``, ``split_heads``,
@@ -461,13 +463,21 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (bf16, head dim 64 or 80, any S; read through strides; launched as
     :func:`flash_fwd_plan` says). o comes back as a [B, H, S, dh] view of a
     [B, S, H, dh] buffer, lse fp32 [B, H, S]."""
+    gates.admit(not torch.compiler.is_exporting(),
+                "flash fwd: an exported forward reaches #22 through attention_pallas "
+                "(nans_clip::flash_attention, which returns no lse)")
     if not q.is_cuda:
         return attention_pallas_plain(q, k, v, key_bias)
-    _admit_flash("flash fwd", q, k, v, key_bias)
+    (o,) = _heads_like(q)
+    return o, _flash_fwd_into(q, k, v, key_bias, o)
+
+
+def _flash_fwd_into(q, k, v, key_bias, o: torch.Tensor) -> torch.Tensor:
+    """Launch #22 into ``o``, a [B, H, S, dh] view; returns lse."""
+    _admit_flash("flash fwd", q, k, v, key_bias, o)
     b, h, s, dh = q.shape
     plan = flash_fwd_plan(b, h, s, dh)
     gates.admit(plan["smem"] <= gates.SMEM_PER_BLOCK, f"flash fwd: plan {plan}")
-    (o,) = _heads_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = _build.library().nans_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -475,7 +485,22 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _strides(q, k, v, o), b, h, s, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(q.device))
     _build.check(err, "nans_flash_fwd")
     flash_fwd.launches += 1
-    return o, lse
+    return lse
+
+
+def flash_context(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """#22's o as the merged context ``[B, S, H*dh]``, the operator
+    ``nans_clip::flash_attention``'s CUDA implementation (``ops/
+    library.py``): the kernel stores into the context's [B, H, S, dh] view,
+    so the output is one contiguous tensor and no copy is made. CPU tensors
+    take the twin, merged."""
+    if not q.is_cuda:
+        return merge_heads(attention_pallas_plain(q, k, v, key_bias)[0])
+    b, h, s, dh = q.shape
+    ctx = torch.empty((b, s, h * dh), dtype=q.dtype, device=q.device)
+    _flash_fwd_into(q, k, v, key_bias, ctx.view(b, s, h, dh).permute(0, 2, 1, 3))
+    return ctx
 
 
 def flash_bwd(q, k, v, key_bias, o, do, lse):
@@ -543,11 +568,18 @@ def attention_pallas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     #23 where a gradient is needed. ``block_q`` is the JAX kernel's query
     block; on the card, whose kernels tile by 16-row strips and
     ``gates.FLASH_BLOCK_K`` and mask the tail instead of padding, it changes
-    no arithmetic."""
+    no arithmetic. While a program is exported it is the operator
+    ``nans_clip::flash_attention`` (``ops/library.py``; inference only), its
+    context viewed as [B, H, S, dh] as :func:`flash_fwd`'s o is."""
     if block_q <= 0:
         raise ValueError(f"block_q must be positive, got {block_q}")
     if key_bias is not None:
         key_bias = key_bias.float().contiguous()
+    if torch.compiler.is_exporting():
+        from nans_clip_tpu_torch.ops import library
+        b, h, s, dh = q.shape
+        return library.flash_attention_op(q, k, v, key_bias).view(b, s, h, dh).permute(
+            0, 2, 1, 3)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, key_bias)
     return flash_fwd(q, k, v, key_bias)[0]

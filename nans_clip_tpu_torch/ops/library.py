@@ -12,17 +12,21 @@ traced. So each forward launch on the serving path is also one
 * ``nans_clip::linear``: ``ops/gemm.py::linear`` (forward, no dropout);
 * ``nans_clip::attention``: ``ops/attention.py::attention`` (forward, no
   dropout, no statistics);
-* ``nans_clip::layer_norm``: ``ops/layernorm.py::row_layer_norm``.
+* ``nans_clip::layer_norm``: ``ops/layernorm.py::row_layer_norm``;
+* ``nans_clip::flash_attention``: ``ops/attention.py::flash_context``, the
+  forward of the flash attention (#22) under ``attn_impl="pallas"``,
+  returning only o, as the merged context ``[B, S, H*dh]``.
 
-These four carry #1-#3 at batch >= 64 (the chains of ``ops/fused_block.py``
-and ``ops/layer_kernel.py``) and #4/#5 at batch <= 32. Each op has three
+The first four carry #1-#3 at batch >= 64 (the chains of
+``ops/fused_block.py`` and ``ops/layer_kernel.py``) and #4/#5 at batch <=
+32; the fifth carries #22 in every layer of a ``pallas`` tower. Each op has three
 implementations: on CUDA tensors it launches the hand kernel through its
 wrapper, exactly as an eager call does (and counts the launch there); on
 CPU tensors it runs the wrapper's plain twin; its fake gives only the
 output's shape and dtype.
 
-The choice: the wrappers call these ops only while a program is exported
-(``torch.compiler.is_exporting()``) and launch directly otherwise, so the
+The choice: the wrappers (``attention_pallas`` for the fifth) call these
+ops only while a program is exported (``torch.compiler.is_exporting()``) and launch directly otherwise, so the
 eager paths (the host-bound training loop above all) do not pay for the
 dispatcher. An exported program calls the ops; the tower op builds its
 pointer table inside its CUDA implementation, cached on the addresses of
@@ -190,6 +194,21 @@ def _layer_norm_fake(x, weight, bias, eps, out_dtype):
     # the kernel stores bf16; the CPU twin the requested dtype, else x's
     dtype = out_dtype or (torch.bfloat16 if x.is_cuda else x.dtype)
     return torch.empty_like(x, dtype=dtype, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       key_bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """#22's o for q/k/v ``[B, H, S, dh]`` (read through their strides, as
+    the views of the QKV product arrive) and an fp32 ``key_bias`` ``[B, S]``
+    or None, as the merged context ``[B, S, H*dh]``, contiguous."""
+    return attn_mod.flash_context(q, k, v, key_bias)   # the twin, merged, on CPU tensors
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, key_bias):
+    b, h, s, dh = q.shape
+    return q.new_empty((b, s, h * dh))
 
 
 def tower(x, key_bias, layers, heads, eps, act, post_ln):

@@ -1,0 +1,31 @@
+#!/usr/bin/env bash
+# MUGE finetune preset on the port — twin of the reference launcher
+# (run_scripts/muge_finetune_vit-b-16_rbt-base.sh). One process on the
+# card; for several cards, launch the same flags under torchrun with
+# --distributed (training/main.py).
+set -e
+
+DATAPATH=${1:-"./datapath"}
+
+python -m nans_clip_tpu_torch.training.main \
+    --train-data "${DATAPATH}/datasets/MUGE/train" \
+    --val-data "${DATAPATH}/datasets/MUGE/valid" \
+    --name muge_finetune_vit-b-16_roberta-base \
+    --logs "${DATAPATH}/experiments/" \
+    --vision-model ViT-B-16 \
+    --text-model RoBERTa-wwm-ext-base-chinese \
+    --clip-weight-path "${DATAPATH}/pretrained_weights/clip_cn_vit-b-16.pt" \
+    --bert-weight-path "${DATAPATH}/pretrained_weights/clip_cn_vit-b-16.pt" \
+    --batch-size 128 \
+    --valid-batch-size 128 \
+    --accum-freq 1 \
+    --lr 5e-5 \
+    --wd 0.001 \
+    --warmup 100 \
+    --max-epochs 3 \
+    --valid-epoch-interval 1 \
+    --save-epoch-frequency 1 \
+    --log-interval 10 \
+    --context-length 52 \
+    --use-augment \
+    "${@:2}"

@@ -17,7 +17,11 @@ CPU.
   one ``nans_clip::tower`` (int8 for the quantized text tower), at batch 64
   the LayerNorm / linear / attention operators of #1-#3; and no weight is
   cast, concatenated or copied in a call (the weights reach the operators
-  and the few plain ops as they are, or through views)."""
+  and the few plain ops as they are, or through views). Under ``pallas``
+  one ``nans_clip::flash_attention`` a layer (#22) and no other operator.
+- The ``pallas`` engine on the CPU: bit-equal to the eager ``pallas``
+  towers, and within 2e-4 of JAX's ``pallas`` ``compile_tower`` (its
+  Pallas kernel in interpret mode); tp > 1 is still refused."""
 
 import dataclasses
 
@@ -146,7 +150,15 @@ def _op_cases():
         ("attention", (f(b * s, 3 * w), None, b, heads)),
         ("attention_masked", (f(b * s, 3 * w), kb, b, heads)),
         ("layer_norm", (f(b * s, w), 1 + f(w), f(w), 1e-5, None)),
+        # q/k/v as the views of one QKV product, as a pallas layer passes them
+        ("flash_attention", _flash_args(f, b, s, heads, w // heads, None)),
+        ("flash_attention_masked", _flash_args(f, b, s, heads, w // heads, kb)),
     ]
+
+
+def _flash_args(f, b, s, heads, dh, kb):
+    qkv = f(b, s, 3 * heads * dh)
+    return (*(t.view(b, s, heads, dh).permute(0, 2, 1, 3) for t in qkv.chunk(3, dim=-1)), kb)
 
 
 @pytest.mark.parametrize("name,args", _op_cases(), ids=[c[0] for c in _op_cases()])
@@ -154,7 +166,8 @@ def test_opcheck(name, args):
     op = {"tower": library.tower_op, "tower_int8": library.tower_op,
           "linear": library.linear_op, "linear_residual": library.linear_op,
           "attention": library.attention_op, "attention_masked": library.attention_op,
-          "layer_norm": library.layer_norm_op}[name]
+          "layer_norm": library.layer_norm_op, "flash_attention": library.flash_attention_op,
+          "flash_attention_masked": library.flash_attention_op}[name]
     torch.library.opcheck(op, args)
     assert torch.isfinite(op(*args)).all()
 
@@ -174,13 +187,18 @@ def test_ops_cpu_kernels_are_the_twins():
                        attention.attention_plain(*cases["attention_masked"]))
     assert torch.equal(library.layer_norm_op(*cases["layer_norm"]),
                        layernorm.layer_norm(*cases["layer_norm"]))
+    # the flash operator: the eager route's o, merged ([B, S, H*dh], contiguous)
+    q, k, v, kb = cases["flash_attention_masked"]
+    ctx = library.flash_attention_op(q, k, v, kb)
+    assert ctx.is_contiguous() and ctx.shape == (q.shape[0], q.shape[2], q.shape[1] * q.shape[3])
+    assert torch.equal(ctx, attention.merge_heads(attention.attention_pallas(q, k, v, kb)))
 
 
-def _fake_program(cfg, tower, batch, quantize=False):
+def _fake_program(cfg, tower, batch, quantize=False, attn_impl="auto"):
     """The card's program of ``tower`` at ``batch``, traced from fake CUDA
     tensors (no card needed), bf16 weights (int8 for the quantized text
     tower) from a module on the meta device."""
-    options = ModelOptions(compute_dtype="bfloat16")
+    options = ModelOptions(compute_dtype="bfloat16", attn_impl=attn_impl)
     with torch.device("meta"):
         module = CLIP(cfg)
     cast_module(module, options)
@@ -268,11 +286,60 @@ def test_card_program_int8_text_at_batch_1():
     assert not _transforms(program)
 
 
-def test_export_refuses_pallas_and_tp():
+@pytest.mark.parametrize("tower", ["image", "text"])
+@pytest.mark.parametrize("batch", [1, 64])
+def test_card_program_pallas_calls_flash_once_a_layer(tower, batch):
+    """Under ``pallas`` each layer reaches #22 as ``nans_clip::flash_attention``
+    (q/k/v the QKV product's views), no other operator runs, and no weight
+    is transformed in a call (the layers' LayerNorms are fp32 inputs)."""
+    cfg = _cut(tconfigs.load_config("ViT-B-16@RoBERTa-wwm-ext-base-chinese"), 2)
+    program = _fake_program(cfg, tower, batch, attn_impl="pallas")
+    ops = [str(n.target) for n in program.graph.nodes if "nans_clip" in str(n.target)]
+    assert ops == ["nans_clip.flash_attention.default"] * 2
+    assert not _transforms(program), "a weight is transformed in every call"
+    for node in program.graph.nodes:
+        if "flash_attention" in str(node.target):
+            assert all(not a.meta["val"].is_contiguous() for a in node.all_input_nodes[:3])
+        assert not any(c in str(node.target) for c in ("clone", "contiguous", "_to_copy"))
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """The JAX towers' ``attention_pallas`` in interpret mode, as
+    ``tests/test_torch_flash.py`` forces it."""
+    from nans_clip_tpu.ops import attention as jattn
+
+    orig = jattn.attention_pallas
+
+    def forced(q, k, v, key_bias=None, block_q=128, interpret=False):
+        return orig(q, k, v, key_bias, block_q, interpret=True)
+    monkeypatch.setattr(jattn, "attention_pallas", forced)
+
+
+def test_export_refuses_pallas_and_tp(pair, tmp_path, interpret):
+    """tp > 1 is refused. A ``pallas`` engine (export, save with its header,
+    load with the weights bound) equals the eager ``pallas`` tower bit for
+    bit on the CPU, and JAX's ``pallas`` engine within 2e-4 (fp32)."""
+    from nans_clip_tpu_torch.deploy.engine import load_engine, save_engine
+
+    jcfg, params, base = pair
     cfg = tconfigs.tiny_config()
-    for options in (ModelOptions(attn_impl="pallas"), ModelOptions(tp=2)):
-        with pytest.raises(ValueError, match="not exported"):
-            aot.export_tower(cfg, options, "text", {}, aot.example_input(cfg, "text", 1))
+    with pytest.raises(ValueError, match="not exported"):
+        aot.export_tower(cfg, ModelOptions(tp=2), "text", {}, aot.example_input(cfg, "text", 1))
+    model = CLIPModel(base.cfg, base.module, ModelOptions(attn_impl="pallas"))
+    for tower in ("image", "text"):
+        x = torch.from_numpy(_inputs(jcfg, tower, 2))
+        w = aot.tower_params(model, tower)
+        path = save_engine(str(tmp_path / f"{tower}_bs2.engine"),
+                           aot.export_tower(model.cfg, model.options, tower, w,
+                                            aot.example_input(model.cfg, tower, 2)), 2,
+                           meta={"attn_impl": "pallas"})
+        got = load_engine(path, w)(x)
+        assert torch.equal(got, aot.normalized(_eager(model, tower, x.numpy())))
+        want = jaot.compile_tower(jcfg, params, tower, 2,
+                                  options=JOptions(attn_impl="pallas", compute_dtype=None))(
+            x.numpy())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
 
 
 def test_tower_params_pack_and_flatten_without_touching_the_model(pair):

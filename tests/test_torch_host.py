@@ -128,8 +128,9 @@ def test_load_eval_model(tmp_path):
 def test_import_leaves_jax_out():
     """Every module of the package (walked, so that a new one cannot slip
     past: ``parallel/*``, ``drill.py``, ``flywheel/*``, the HF interop, the
-    profiling and the native tokenizer among them) and the TP, DP and PP
-    workers import neither jax nor the JAX package."""
+    profiling, the native tokenizer, the CoreML export, the demo and the
+    example among them) and the TP, DP and PP workers import neither jax nor
+    the JAX package."""
     code = ("import importlib, pkgutil, sys, nans_clip_tpu_torch, tests.test_torch_tp_worker, "
             "tests.test_torch_dp_worker, tests.test_torch_pp_worker; "
             "names = [m.name for m in pkgutil.walk_packages(nans_clip_tpu_torch.__path__, "
@@ -141,7 +142,9 @@ def test_import_leaves_jax_out():
             "'nans_clip_tpu_torch.utils.hf_interop', 'nans_clip_tpu_torch.utils.profiling', "
             "'nans_clip_tpu_torch.flywheel.filter_annotations', "
             "'nans_clip_tpu_torch.data.fast_tokenizer', "
-            "'nans_clip_tpu_torch.data.bench_loader'} <= set(names), names; "
+            "'nans_clip_tpu_torch.data.bench_loader', 'nans_clip_tpu_torch.deploy.coreml', "
+            "'nans_clip_tpu_torch.demo', "
+            "'nans_clip_tpu_torch.examples.similarity_demo'} <= set(names), names; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nans_clip_tpu.'))"
             " or m == 'nans_clip_tpu'); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -478,3 +478,176 @@ def test_jit_backend_on_cpu_runs_live(service):
     captured tower kept."""
     service.encode_texts(["一"])
     assert service.backend == "jit" and not service._fns
+
+
+# --- the threaded decode (decode_jpeg_pil_batch) and the daemon's decode flags
+
+
+def _image_bytes(kind: str, rs, shape=(150, 200)) -> bytes:
+    """One record of each format the daemon takes: an RGB, grayscale or CMYK
+    JPEG, or an RGBA PNG, of noise."""
+    from PIL import Image
+
+    h, w = shape
+    if kind == "corrupt":
+        return b"\xff\xd8\xff\xe0 not a JPEG"
+    mode, channels, fmt = {"rgb": ("RGB", 3, "JPEG"), "gray": ("L", 1, "JPEG"),
+                           "cmyk": ("CMYK", 4, "JPEG"), "rgba": ("RGBA", 4, "PNG")}[kind]
+    arr = rs.randint(0, 256, (h, w, channels), np.uint8)
+    img = Image.fromarray(arr[..., 0] if channels == 1 else arr, mode)
+    buf = io.BytesIO()
+    img.save(buf, format=fmt, **({"quality": 90} if fmt == "JPEG" else {}))
+    return buf.getvalue()
+
+
+KINDS = ("rgb", "gray", "cmyk", "rgba")
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_decode_jpeg_pil_batch_is_the_eval_transform(threads):
+    """Default: each record's pixels, normalised as the daemon does, are
+    ``image_transform``'s bit for bit (four formats); a corrupt record gets
+    ok = 0 and zeros."""
+    from PIL import Image
+
+    from nans_clip_tpu_torch.data.npack import decode_jpeg_pil_batch
+    from nans_clip_tpu_torch.utils.transform import OPENAI_MEAN, OPENAI_STD, image_transform
+
+    rs = np.random.RandomState(21)
+    raws = [_image_bytes(k, rs) for k in KINDS] + [_image_bytes("corrupt", rs)]
+    out, ok = decode_jpeg_pil_batch(raws, 64, threads)
+    assert out.dtype == np.uint8 and ok.dtype == np.uint8 and out.shape == (5, 64, 64, 3)
+    assert ok.tolist() == [1, 1, 1, 1, 0] and not out[4].any()
+    x = (out.astype(np.float32) / 255.0 - np.asarray(OPENAI_MEAN, np.float32)) \
+        / np.asarray(OPENAI_STD, np.float32)
+    t = image_transform(64)
+    for i, raw in enumerate(raws[:4]):
+        np.testing.assert_array_equal(x[i], t(Image.open(io.BytesIO(raw))))
+
+
+def test_decode_jpeg_pil_batch_dct_scale_is_jax_pil_branch(monkeypatch):
+    """``dct_scale=True`` byte for byte against JAX's PIL branch (its
+    native library patched away), large JPEGs that the draft scales
+    included; and against the port's default the draft does change the
+    pixels of a large JPEG."""
+    from nans_clip_tpu.data import npack as jnpack
+    from nans_clip_tpu_torch.data.npack import decode_jpeg_pil_batch
+
+    rs = np.random.RandomState(22)
+    raws = [_image_bytes(k, rs, (768, 1024)) for k in KINDS] \
+        + [_image_bytes("rgb", rs), _image_bytes("corrupt", rs)]
+    monkeypatch.setattr(jnpack, "get_native_lib", lambda: None)
+    want, want_ok = jnpack.decode_jpeg_pil_batch(raws, 64, 4, dct_scale=True)
+    got, ok = decode_jpeg_pil_batch(raws, 64, 4, dct_scale=True)
+    np.testing.assert_array_equal(ok, want_ok)
+    np.testing.assert_array_equal(got, want)
+    assert ok.tolist() == [1, 1, 1, 1, 1, 0]
+    exact, _ = decode_jpeg_pil_batch(raws, 64, 4)
+    assert not np.array_equal(exact[0], got[0])
+
+
+def _tiny_pair(**kw):
+    """(the JAX daemon, the port's daemon) on the same tiny weights, fp32,
+    with the same decode flags ``kw``."""
+    from nans_clip_tpu.configs import tiny_config as jtiny
+    from nans_clip_tpu.deploy.server import ClipService as JService
+    from nans_clip_tpu.models import ModelOptions as JOptions
+    from nans_clip_tpu.models.clip import init_clip
+    from nans_clip_tpu_torch.api import CLIPModel
+    from nans_clip_tpu_torch.models.clip import build_clip
+    from nans_clip_tpu_torch.utils.torch_interop import state_dict_from_jax_params
+
+    jcfg = jtiny()
+    params, stats = init_clip(jax.random.PRNGKey(0), jcfg)
+    jsvc = JService(jcfg, params, stats, JOptions(attn_impl="xla", compute_dtype=None),
+                    max_batch=8, dynamic_batching=False, **kw)
+    cfg = tconfigs.CLIPConfig(embed_dim=jcfg.embed_dim,
+                              vision=tconfigs.VisionConfig(**dataclasses.asdict(jcfg.vision)),
+                              text=tconfigs.TextConfig(**dataclasses.asdict(jcfg.text)),
+                              name=jcfg.name)
+    module = build_clip(cfg)
+    module.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params), cfg))
+    return jsvc, ClipService(CLIPModel(cfg, module), max_batch=8, dynamic_batching=False, **kw)
+
+
+@pytest.mark.parametrize("mode,atol", [("default", 2e-4), ("pil", 2e-4), ("fast", 0.2)])
+def test_decode_modes_match_jax_daemon(mode, atol):
+    """The daemon's three decode modes against the JAX daemon's (whose
+    default and fast modes run its libjpeg decoder where it builds) on the
+    same weights: 2e-4 (fp32), and JAX's 0.2 for ``--fast-decode``
+    (``tests/test_native_decode.py:179``); the port's default equals its
+    ``--pil-decode`` bit for bit."""
+    kw = {"default": {}, "pil": {"native_decode": False},
+          "fast": {"fast_decode": True, "decode_threads": 2}}[mode]
+    jsvc, svc = _tiny_pair(**kw)
+    rs = np.random.RandomState(23)
+    imgs = [base64.b64encode(_image_bytes(k, rs, (384, 512))).decode() for k in ("rgb", "rgb")]
+    imgs.append(base64.b64encode(_image_bytes("rgba", rs)).decode())
+    got = svc.encode_images(imgs)
+    np.testing.assert_allclose(got, jsvc.encode_images(imgs), atol=atol, rtol=0)
+    if mode == "default":
+        pil = ClipService(svc.model, max_batch=8, dynamic_batching=False, native_decode=False)
+        np.testing.assert_array_equal(got, pil.encode_images(imgs))
+        assert svc.stats["decode_fallbacks"] == 0
+
+
+def test_corrupt_record_falls_back_counts_and_answers_400():
+    """A record the batch decode fails is decoded alone, counted in
+    ``/stats`` ``decode_fallbacks`` and, failing again, answers 400 naming
+    its index; a good request after it is served."""
+    svc = ClipService(_model(), max_batch=4, decode_threads=2)
+    srv = make_server(svc, "127.0.0.1", 0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        rs = np.random.RandomState(24)
+        good = base64.b64encode(_image_bytes("rgb", rs)).decode()
+        bad = base64.b64encode(_image_bytes("corrupt", rs)).decode()
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(url, "/encode_image", {"images": [good, bad]})
+        assert e.value.code == 400 and "images[1]" in json.loads(e.value.read())["error"]
+        assert len(_post(url, "/encode_image", {"images": [good]})["features"]) == 1
+        with urllib.request.urlopen(url + "/stats") as r:
+            stats = json.loads(r.read())
+        assert stats["decode_fallbacks"] == 1 and stats["errors"] == 1
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def test_daemon_decode_flags_parse():
+    from nans_clip_tpu_torch.deploy.server import parse_args
+
+    a = parse_args([])
+    assert (a.pil_decode, a.decode_threads, a.fast_decode) == (False, 4, False)
+    a = parse_args(["--pil-decode", "--decode-threads", "8", "--fast-decode"])
+    assert (a.pil_decode, a.decode_threads, a.fast_decode) == (True, 8, True)
+
+
+def test_pallas_engines_serve_as_the_pallas_route(tmp_path):
+    """``deploy.engine build --attn-impl pallas`` (the header records the
+    route) and the daemon's ``--engine-dir`` on it: features equal to the
+    live ``pallas`` model's bit for bit on the CPU; ``aot.export_program``
+    under ``pallas`` round-trips through ``load_program`` the same way."""
+    from nans_clip_tpu_torch.deploy import aot
+    from nans_clip_tpu_torch.deploy.engine import engine_path, read_header
+    from nans_clip_tpu_torch.models.common import ModelOptions
+    from nans_clip_tpu_torch.tokenizer import tokenize
+
+    d = str(tmp_path / "engines")
+    _build_engines(d, extra=("--attn-impl", "pallas"))
+    assert read_header(engine_path(d, "text", 2))["meta"]["attn_impl"] == "pallas"
+    model = model_from_config(tconfigs.tiny_config(), options=ModelOptions(attn_impl="pallas"),
+                              seed=0, device="cpu")
+    live = ClipService(model, max_batch=2)
+    eng = ClipService(model, max_batch=2, engine_dir=d)
+    assert eng.backend == "engine"
+    texts = ["西湖", "南宋", "古籍"]
+    np.testing.assert_array_equal(eng.encode_texts(texts), live.encode_texts(texts))
+    imgs = [_jpeg_b64(np.random.RandomState(4)) for _ in range(2)]
+    np.testing.assert_array_equal(eng.encode_images(imgs), live.encode_images(imgs))
+    path = aot.export_program(model, "text", 2, str(tmp_path / "text.pt2"))
+    x = torch.from_numpy(np.asarray(tokenize(texts[:2])))
+    assert torch.equal(aot.load_program(path)(aot.tower_params(model, "text"), x.long()),
+                       aot.normalized(model.encode_text(x)))
