@@ -5,15 +5,14 @@ default) in bf16 on the card (counterpart of the repository's root
     python -m nans_clip_tpu_torch.bench [--model RN50] [--batch 4096] [--iters 8]
     python -m nans_clip_tpu_torch.bench --device cpu --tiny-model --batch 8
 
-Prints one JSON line ``{"metric", "value", "unit", "vs_baseline", "detail"}``:
+Prints one JSON line ``{"metric", "value", "unit", "detail"}``:
 the pairs/s of ``CLIPModel.get_similarity`` on ``--batch`` image/text pairs
 (random weights from seed 0; images drawn on the device from a generator
 seeded 0; texts of 29 random ids between [CLS] and [SEP], as the root
 bench's), timed with CUDA events over ``--iters`` calls after two warm-up
-calls. ``vs_baseline`` is against 195.3 pairs/s (BASELINE.md: image 3.58
-ms + text 1.54 ms a sample, T4 TensorRT fp16 at batch 1). ``detail`` gives
-the ms a pair and, on the card, the share of the H100's dense bf16
-tensor-core peak (989 TFLOP/s) that the forward's operations reach.
+calls. ``detail`` gives the ms a pair and, on the card, the share of the
+H100's dense bf16 tensor-core peak (989 TFLOP/s) that the forward's
+operations reach.
 """
 
 from __future__ import annotations
@@ -29,7 +28,6 @@ from nans_clip_tpu_torch import configs
 from nans_clip_tpu_torch.api import model_from_config
 from nans_clip_tpu_torch.models.common import ModelOptions
 
-BASELINE_PAIRS_PER_SEC = 1000.0 / (3.58 + 1.54)
 BF16_PEAK_TFLOPS = 989.0
 BATCH = 4096
 ITERS = 8
@@ -127,7 +125,6 @@ def run(device="cuda", cfg: Optional[configs.CLIPConfig] = None, batch: int = BA
         "metric": f"{cfg.name} image+text feature pairs/sec, get_similarity bf16",
         "value": pairs_per_sec,
         "unit": "pairs/sec",
-        "vs_baseline": pairs_per_sec / BASELINE_PAIRS_PER_SEC,
         "detail": detail,
     }
 

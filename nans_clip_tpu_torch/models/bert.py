@@ -40,7 +40,8 @@ attention sub-block (probability and hidden dropout) and one for the MLP
 (``ops/dropout.py``). ``sample0`` (a data-parallel rank's first row of the
 global microbatch) offsets every mask's sample index, so that data ranks
 draw together what one process draws over the global microbatch. The parameters are cast to the compute dtype on each
-forward (``ModelOptions.cast``).
+forward (``ModelOptions.cast``), each layer's inside a ``model.cast`` span
+(``utils/profiling.py``).
 
 ``options.remat`` rematerialises each layer (``models/common.py::
 remat_layer``, JAX bert.py:284-297); a training forward draws every seed up
@@ -74,6 +75,7 @@ from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
 from nans_clip_tpu_torch.parallel import pp as pipe
 from nans_clip_tpu_torch.parallel.mesh import grid, model_group
 from nans_clip_tpu_torch.parallel.tp import tp_attention_block, tp_mlp_block
+from nans_clip_tpu_torch.utils.profiling import span
 from nans_clip_tpu_torch.utils.quantize import Int8Weight, dequantize_weight, is_quantized
 
 
@@ -255,12 +257,13 @@ class BertLayer(nn.Module):
         the four big weights are tensors or ``Int8Weight``s. ``fresh``: q|k|v
         packed anew, not from (or into) the packed cache (:meth:`packed`)."""
         ao, out, cast = self.attention.output, self.output, options.cast
-        w_qkv, b_qkv = self.attention.self.packed(options.dtype, fresh)
-        return (cast(ao.LayerNorm.weight), cast(ao.LayerNorm.bias), w_qkv, b_qkv,
-                cast(ao.dense.weight), cast(ao.dense.bias), cast(out.LayerNorm.weight),
-                cast(out.LayerNorm.bias), cast(self.intermediate.dense.weight),
-                cast(self.intermediate.dense.bias), cast(out.dense.weight),
-                cast(out.dense.bias))
+        with span("model.cast"):
+            w_qkv, b_qkv = self.attention.self.packed(options.dtype, fresh)
+            return (cast(ao.LayerNorm.weight), cast(ao.LayerNorm.bias), w_qkv, b_qkv,
+                    cast(ao.dense.weight), cast(ao.dense.bias), cast(out.LayerNorm.weight),
+                    cast(out.LayerNorm.bias), cast(self.intermediate.dense.weight),
+                    cast(self.intermediate.dense.bias), cast(out.dense.weight),
+                    cast(out.dense.bias))
 
     def tp_partial_parameters(self) -> tuple:
         """The parameters that the partial sub-blocks consume under tensor

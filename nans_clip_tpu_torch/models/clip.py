@@ -18,7 +18,9 @@ every stage computes the same features. A ResNet image tower takes no FLIP
 masking (``mask_ratio`` and ``ids_keep`` do nothing, as in JAX) and runs
 whole on every rank under ``tp`` or ``pp`` > 1, its parameters replicated,
 as the JAX package runs it (its ``param_spec`` names no ResNet leaf); only
-the text tower is split.
+the text tower is split. Under a ``torch.profiler`` session the towers
+record the spans ``model.encode_image`` and ``model.encode_text``
+(``utils/profiling.py``), numbered by call.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from nans_clip_tpu_torch.models.resnet import ModifiedResNet
 from nans_clip_tpu_torch.models.resnet import serve as resnet_serve
 from nans_clip_tpu_torch.models.vit import VisualTransformer
 from nans_clip_tpu_torch.models.vit import serve as vit_serve
+from nans_clip_tpu_torch.utils import profiling
+from nans_clip_tpu_torch.utils.profiling import span
 
 PAD_ID = 0  # vocab.txt line 1 is [PAD]
 
@@ -76,9 +80,10 @@ class CLIP(nn.Module):
         masking as :meth:`VisualTransformer.forward` (a ViT tower); BatchNorm
         mode ``bn_train`` / ``bn_update`` as :meth:`ModifiedResNet.forward`
         (a ResNet tower)."""
-        if self.cfg.is_resnet:
-            return self.visual(images, options, bn_train, bn_update)
-        return self.visual(images, options, mask_ratio, generator, ids_keep)
+        with span("model.encode_image"):
+            if self.cfg.is_resnet:
+                return self.visual(images, options, bn_train, bn_update)
+            return self.visual(images, options, mask_ratio, generator, ids_keep)
 
     def encode_text(self, text_ids: torch.Tensor, options: ModelOptions = ModelOptions(),
                     generator: Optional[torch.Generator] = None,
@@ -87,9 +92,10 @@ class CLIP(nn.Module):
         draws the dropout of a training forward, its masks counting samples
         from ``sample0`` (a data-parallel rank's first row of the global
         microbatch)."""
-        attn_mask = (text_ids != PAD_ID).float()
-        seq = self.bert(text_ids, attn_mask, options, generator, sample0, head_rows=1)
-        return seq[:, 0, :] @ self.text_projection.to(seq.dtype)
+        with span("model.encode_text"):
+            attn_mask = (text_ids != PAD_ID).float()
+            seq = self.bert(text_ids, attn_mask, options, generator, sample0, head_rows=1)
+            return seq[:, 0, :] @ self.text_projection.to(seq.dtype)
 
     def forward(self, images: Optional[torch.Tensor], texts: Optional[torch.Tensor],
                 options: ModelOptions = ModelOptions(),
@@ -159,10 +165,14 @@ def build_clip(cfg: CLIPConfig, device="cpu",
     """An fp32 CLIP on ``device``: random init from ``generator`` when one
     is given, else uninitialised storage for a state dict to fill. The
     modules are built on the meta device first, so construction draws
-    nothing from the global RNG."""
+    nothing from the global RNG. On the card it also reserves the span
+    recorder's CUDA events (once a process), so that a profiled window
+    around the model makes none."""
     with torch.device("meta"):
         model = CLIP(cfg)
     model = model.to_empty(device=device)
+    if torch.device(device).type == "cuda":
+        profiling.reserve()
     if generator is not None:
         model.init_weights(generator)
     return model

@@ -37,7 +37,8 @@ Functions (kernels #1 / #7 and #2 / #10 / #9 forward; backward #14 and
 there, #20 above ``gates.ATTN_BWD_MAX_SEQ`` and #19 after #9 / #10, or the
 whole-layer #21 of ``ops/layer_bwd.py``), never the tower kernel
 (``vit.py:258-271``). The parameters are cast to the compute dtype on each
-forward (``ModelOptions.cast``). Images are NHWC ``[B, R, R, 3]``. FLIP
+forward (``ModelOptions.cast``), the layers' inside one ``model.cast`` span
+(``utils/profiling.py``). Images are NHWC ``[B, R, R, 3]``. FLIP
 random masking (``vit.py:74-81``) is split in two so that a caller can feed
 the kept tokens: :func:`draw_ids_keep` draws them from a ``torch.Generator``,
 :func:`gather_kept` gathers them after the positional embedding.
@@ -73,6 +74,7 @@ from nans_clip_tpu_torch.ops.tower_kernel import TowerTable, fused_tower
 from nans_clip_tpu_torch.parallel import pp as pipe
 from nans_clip_tpu_torch.parallel.mesh import grid, model_group
 from nans_clip_tpu_torch.parallel.tp import tp_attention_block, tp_mlp_block
+from nans_clip_tpu_torch.utils.profiling import span
 from nans_clip_tpu_torch.utils.quantize import dequantize_weight, is_quantized
 
 
@@ -340,7 +342,8 @@ class VisualTransformer(nn.Module):
         blocks = self.transformer.resblocks
         if options.pp > 1:
             blocks = pipe.local_layers(blocks, options.pp, grid(1, options.pp).stage)
-        layers = [tuple(cast(t) for t in blk.weights()) for blk in blocks]
+        with span("model.cast"):
+            layers = [tuple(cast(t) for t in blk.weights()) for blk in blocks]
         run = pipelined_layers if options.pp > 1 else run_layers
         x = run(x, layers, self.cfg.heads, options, self.tower_table)
         return head(x, cast(self.ln_post.weight), cast(self.ln_post.bias), cast(self.proj))

@@ -9,17 +9,26 @@ the sources in the package are compiled.
 Every C entry point takes pointers and the CUDA stream as ``c_void_p`` and
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises when
 that is not 0, so a refused launch is never silent.
+
+:data:`LOAD` counts, for this process, the ``nvcc`` processes the build
+ran (0 when the library was up to date) and the seconds :func:`library`
+took to build and load it; where nvcc ran, :func:`library` logs both as a
+warning, so that a rebuild from a missing or stale library shows.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import logging
 import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -96,6 +105,15 @@ _SIGNATURES = {
 PARTS = {"attention.cu": 3}
 
 
+@dataclasses.dataclass
+class LibraryLoad:
+    nvcc_runs: int = 0                 # compiles and the link, in this process
+    seconds: Optional[float] = None    # library()'s build and load; None before it
+
+
+LOAD = LibraryLoad()
+
+
 def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
@@ -141,6 +159,7 @@ def build() -> str:
                                    str(src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for (src, defs, _), obj in zip(units, objs)]
+        LOAD.nvcc_runs += len(procs)
         reports = [(src, defs, proc, proc.communicate()[1])
                    for (src, defs, _), proc in zip(units, procs)]
         for src, defs, proc, err in reports:
@@ -148,6 +167,7 @@ def build() -> str:
                 raise RuntimeError(f"nvcc failed on {src.name} {' '.join(defs)} "
                                    f"({proc.returncode}):\n{err}")
         lib = os.path.join(tmp, LIB_PATH.name)
+        LOAD.nvcc_runs += 1
         proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True,
                               text=True)
         if proc.returncode != 0:
@@ -159,12 +179,18 @@ def build() -> str:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
+    t0, runs = time.perf_counter(), LOAD.nvcc_runs
     build()
     lib = ctypes.CDLL(str(LIB_PATH))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    LOAD.seconds = time.perf_counter() - t0
+    if LOAD.nvcc_runs > runs:
+        logging.getLogger(__name__).warning(
+            "built the kernel library %s: %d nvcc runs, %.1f s", LIB_PATH,
+            LOAD.nvcc_runs - runs, LOAD.seconds)
     return lib
 
 

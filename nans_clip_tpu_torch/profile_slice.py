@@ -27,7 +27,20 @@ flash attention #22/#23 inside plain-torch layers). It reports, all from one run
 * one ``torch.profiler`` window of ``--iters`` iterations: the host-clock
   time of the window, the device kernels grouped by name (calls and ms per
   iteration, share of device time), the device busy time (the union of the
-  kernels' intervals) and the idle share of the window.
+  kernels' intervals) and the idle share of the window. Training windows
+  record the device and the runtime calls only, as the benchmark's train
+  cell does: recording a step's thousands of host operators slows the host
+  that paces it;
+* the port's spans in that window (``utils/profiling.py``: ``train.step``
+  and its phases, ``model.encode_*``, ``model.cast``), per iteration and
+  by name: host ms, self host ms (less the direct children's), device ms
+  (CUDA events at the ends: the device's wall time across the span, its
+  waits for a host that paces it included), kernel ms (the device time of
+  the kernels, copies and fills whose launching runtime call falls inside
+  the span, its children's too: the work the span puts on the device), and
+  idle ms: every idle gap of the device whose midpoint falls under a span
+  that is the innermost one open there, on the profiler's clock; the idle
+  under none is ``outside spans``.
 
 ``--out`` also writes the full per-kernel table to a file.
 """
@@ -35,14 +48,18 @@ flash attention #22/#23 inside plain-torch layers). It reports, all from one run
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import re
 import time
+from bisect import bisect_left, bisect_right
 from collections import defaultdict
+from typing import Optional
 
 import torch
 
 from nans_clip_tpu_torch.ops import gates
+from nans_clip_tpu_torch.utils import profiling
 
 TEXTS = ["杰尼龟", "妙蛙种子", "小火龙", "皮卡丘", "西湖美景，三月天", "一只可爱的小猫在草地上玩耍"]
 HAND_KERNEL = re.compile(
@@ -86,13 +103,87 @@ def _event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _union_us(intervals) -> float:
-    busy, last = 0.0, float("-inf")
-    for start, end in sorted(intervals):
-        if end > last:
-            busy += end - max(start, last)
-            last = end
-    return busy
+DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
+RUNTIME = re.compile(r"^cu(da)?[A-Z]")
+OUTSIDE = "outside spans"
+
+
+def device_ops(events) -> list:
+    """(name, start ns, end ns, correlation id) of every kernel, copy and
+    fill among the profiler's events (``kineto_results.events()``), on its
+    clock: a host span mirrored on the device's timeline is none."""
+    out = []
+    for e in events:
+        if e.device_type().name != "CUDA":
+            continue
+        if hasattr(e, "activity_type"):
+            if e.activity_type() not in DEVICE_KINDS:
+                continue
+        elif e.is_user_annotation():
+            continue
+        out.append((e.name(), e.start_ns(), e.start_ns() + e.duration_ns(), e.correlation_id()))
+    return out
+
+
+def launch_starts(events) -> dict:
+    """The host start (ns) of every CUDA runtime or driver call among the
+    profiler's events, by correlation id: a launch's id is its device
+    operation's."""
+    out = {}
+    for e in events:
+        if e.device_type().name == "CUDA":
+            continue
+        kind = e.activity_type() if hasattr(e, "activity_type") else None
+        if kind in ("cuda_runtime", "cuda_driver") or (kind is None and RUNTIME.match(e.name())):
+            out[e.correlation_id()] = e.start_ns()
+    return out
+
+
+def launched_by_span(device, starts, records) -> dict:
+    """The device time (ns) of the operations of ``device`` (as
+    :func:`device_ops` gives them) summed by the name of each closed span
+    whose host interval holds the call that launched them (``starts``, as
+    :func:`launch_starts` gives them): a span counts its children's
+    launches too, and none of the device's waits between them."""
+    launched = sorted((starts[c], b - a) for _, a, b, c in device if c in starts)
+    times = [t for t, _ in launched]
+    cum = list(itertools.accumulate((d for _, d in launched), initial=0))
+    out = defaultdict(int)
+    for r in records:
+        if r.end_ns is not None:
+            out[r.name] += cum[bisect_right(times, r.end_ns)] - cum[bisect_left(times, r.start_ns)]
+    return dict(out)
+
+
+def _union(intervals) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def idle_gaps(intervals, lo: int, hi: int) -> list:
+    """The stretches of [lo, hi] that no interval covers, as (start, end)."""
+    busy = _union((max(a, lo), min(b, hi)) for a, b in intervals if b > lo and a < hi)
+    edges = [lo] + [x for ab in busy for x in ab] + [hi]
+    return [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+
+
+def idle_by_span(gaps, records) -> dict:
+    """Each gap's length (ns) summed by the name of the innermost closed
+    span open at the gap's midpoint (the latest to start among those
+    holding it), or :data:`OUTSIDE`."""
+    closed = [(r.start_ns, i, r.end_ns, r.name) for i, r in enumerate(records)
+              if r.end_ns is not None]
+    out = defaultdict(int)
+    for a, b in gaps:
+        mid = (a + b) // 2
+        inner = max((c for c in closed if c[0] <= mid <= c[2]), default=None)
+        out[inner[3] if inner else OUTSIDE] += b - a
+    return dict(out)
 
 
 MODEL = "ViT-B-16@RoBERTa-wwm-ext-base-chinese"
@@ -154,6 +245,26 @@ def _lora_step(nct, dev, images, b: int, accum: int, model: str, attn_impl: str)
     return step
 
 
+def span_table(records, gaps, n: int, launched: Optional[dict] = None) -> dict:
+    """The spans' part of the result, per iteration of ``n``: ``spans`` by
+    name (calls, host, self, device, kernel and idle ms, then
+    :data:`OUTSIDE`'s idle), the idle ms in all, and the share of it under a
+    named span. ``launched``: :func:`launched_by_span`'s, None for no
+    kernel ms."""
+    idle = idle_by_span(gaps, records)
+    table = {name: {"calls": t["calls"] / n, "host_ms": t["host_ms"] / n,
+                    "self_ms": t["self_ms"] / n,
+                    "device_ms": None if t["device_ms"] is None else t["device_ms"] / n,
+                    "kernel_ms": None if launched is None else launched.get(name, 0) / 1e6 / n,
+                    "idle_ms": idle.get(name, 0) / 1e6 / n}
+             for name, t in profiling.span_totals(records).items()}
+    table[OUTSIDE] = {"calls": 0, "host_ms": 0.0, "self_ms": 0.0, "device_ms": None,
+                      "kernel_ms": None, "idle_ms": idle.get(OUTSIDE, 0) / 1e6 / n}
+    total = sum(idle.values())
+    return {"spans": table, "idle_ms": total / 1e6 / n,
+            "idle_named_share": 1.0 - idle.get(OUTSIDE, 0) / total if total else None}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=None,
@@ -170,7 +281,6 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import nans_clip_tpu_torch as nct
@@ -205,27 +315,32 @@ def main(argv=None) -> dict:
               "encode_text": _event_ms(lambda: model.encode_text(ids), n),
               "get_similarity": _event_ms(step, n)}
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    activities = [ProfilerActivity.CUDA] + ([] if training else [ProfilerActivity.CPU])
+    profiling.clear()
+    profiling.reserve()
+    with profile(activities=activities) as prof:
+        lo, t0 = time.time_ns(), time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / n
-    # user annotations (Optimizer.step, ...) span kernels already counted
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
+        hi = time.time_ns()
+    records = profiling.spans()
+    events = prof.profiler.kineto_results.events()
+    device = device_ops(events)
+    if not device:
         raise SystemExit("profile_slice: the profiler recorded no device activity")
-    by_name = defaultdict(lambda: [0, 0.0])
-    for e in kernels:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.elapsed_us()
-    sum_ms = sum(us for _, us in by_name.values()) / 1e3 / n
-    busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3 / n
+    intervals = [(start, end) for _, start, end, _ in device]
+    by_name = defaultdict(lambda: [0, 0])
+    for name, start, end, _ in device:
+        by_name[name][0] += 1
+        by_name[name][1] += end - start
+    sum_ms = sum(ns for _, ns in by_name.values()) / 1e6 / n
+    busy_ms = sum(end - start for start, end in _union(intervals)) / 1e6 / n
     groups = defaultdict(lambda: [0, 0.0])
     lines = []
-    for name, (calls, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
-        ms = us / 1e3 / n
+    for name, (calls, ns) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        ms = ns / 1e6 / n
         lines.append(f"{ms:10.4f} ms {100 * ms / sum_ms:6.2f}% {calls // n:5d} calls  {name}")
         group = kernel_group(name)
         groups[group][0] += calls // n
@@ -239,8 +354,16 @@ def main(argv=None) -> dict:
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / host_ms,
         "groups": {k: {"calls": c, "ms": ms, "share": ms / sum_ms}
                    for k, (c, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1])}}
+    launched = launched_by_span(device, launch_starts(events), records)
+    result.update(span_table(records, idle_gaps(intervals, lo, hi), n, launched))
     for line in lines[:25]:
         print(line)
+    print(f"{'span':22s} {'calls':>5s} {'host ms':>9s} {'self ms':>9s} {'device ms':>9s} "
+          f"{'kernel ms':>9s} {'idle ms':>9s}  (per iteration)")
+    for name, t in result["spans"].items():
+        dev_ms, k_ms = ("-" if v is None else f"{v:9.3f}" for v in (t["device_ms"], t["kernel_ms"]))
+        print(f"{name:22s} {t['calls']:5g} {t['host_ms']:9.3f} {t['self_ms']:9.3f} "
+              f"{dev_ms:>9s} {k_ms:>9s} {t['idle_ms']:9.3f}")
     print(json.dumps(result))
     if args.out:
         with open(args.out, "w") as f:

@@ -45,7 +45,10 @@ the JAX CLI's flags (``training/params.py``) and its loop:
   ``<logs>/<name>/profile``; the host's parts of a step are spans named
   ``cli.data_wait`` (the loader), ``cli.to_device``, ``cli.preprocess``,
   ``cli.train_step`` (the step's launches) and ``cli.metrics`` (the wait
-  for the step's metrics on the host);
+  for the step's metrics on the host), recorded by ``utils/profiling.py::
+  span`` with the step's own spans inside ``cli.train_step``
+  (``train.step`` and its phases, ``training/trainer.py``; the towers'
+  ``model.*``);
 * ``--vision-model RN50`` trains the ModifiedResNet tower
   (``models/resnet.py``): its BatchNorm running statistics update each
   step and are saved and restored with the checkpoints; FLIP masking does
@@ -89,7 +92,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from nans_clip_tpu_torch import configs
 from nans_clip_tpu_torch.api import CLIPModel, model_from_config
@@ -104,6 +106,7 @@ from nans_clip_tpu_torch.training.trainer import (TrainConfig, create_train_stat
                                                   full_weights, make_eval_step,
                                                   make_train_step, platform_device,
                                                   shard_train_state, step_seeds)
+from nans_clip_tpu_torch.utils import profiling
 from nans_clip_tpu_torch.utils.checkpoint import (latest_exists, restore_checkpoint,
                                                   save_checkpoint)
 from nans_clip_tpu_torch.utils.torch_interop import load_torch_state_dict, merge_pretrained
@@ -198,7 +201,7 @@ def _waited(loader):
     batches = iter(loader)
     try:
         while True:
-            with record_function("cli.data_wait"):
+            with profiling.span("cli.data_wait"):
                 batch = next(batches, None)
             if batch is None:
                 return
@@ -416,6 +419,7 @@ def _main(args, ranks, device):
             os.makedirs(profile_dir, exist_ok=True)
             profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
             logging.info("profiler trace written to %s", profile_dir)
+            profiling.clear()
             profiler = None
 
     step = start_step
@@ -438,10 +442,11 @@ def _main(args, ranks, device):
             activities = [torch.profiler.ProfilerActivity.CPU]
             if device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiling.reserve()
             profiler = torch.profiler.profile(activities=activities)
             profiler.start()
         for im, tx, dropout_seed in groups:
-            with record_function("cli.train_step"):
+            with profiling.span("cli.train_step"):
                 state, metrics = train_step(state, im, tx, dropout_seed)
         step += n
         epoch_steps += n
@@ -450,7 +455,7 @@ def _main(args, ranks, device):
             profile_range = None
 
         if crossed(args.log_interval, n):
-            with record_function("cli.metrics"):
+            with profiling.span("cli.metrics"):
                 metrics = {k: float(v) for k, v in metrics.items()}   # the last step's
             batch_time = (time.time() - t0) / n
             logging.info(
@@ -501,10 +506,10 @@ def _main(args, ranks, device):
                 images = np.concatenate([b.images for b in micro_buf])
                 texts = np.concatenate([b.texts for b in micro_buf])
                 micro_buf = []
-                with record_function("cli.to_device"):
+                with profiling.span("cli.to_device"):
                     im, tx = to_device(images, texts)
                 dropout_seed, aug_seed = step_seeds(args.seed, step + len(group_buf))
-                with record_function("cli.preprocess"):
+                with profiling.span("cli.preprocess"):
                     im = preprocess_images(torch.Generator().manual_seed(aug_seed), im,
                                            resolution, augment=args.use_augment, rows=rows)
                 group_buf.append((im, tx, dropout_seed))

@@ -103,6 +103,14 @@ parameters are fp32 masters; each forward casts them to the compute dtype
 (``ModelOptions.cast``). The state is updated in place (torch's optimizer
 owns its moments) and returned, so a caller writes
 ``state, metrics = step(state, images, texts, generator)`` as with JAX.
+
+Under a ``torch.profiler`` session a step records the spans of
+``utils/profiling.py``: ``train.step`` (its ``id`` the step number), and
+inside it ``train.prepare`` (device copies, draws, the schedule,
+``zero_grad``, FSDP's gather), ``train.forward`` (the towers and the loss;
+a teacher's features too), ``train.backward``, ``train.grad_sync`` (only
+with a TP, data or pipe group or FSDP) and ``train.optimizer`` (clipping,
+``opt.step``, the clamp); the towers add ``model.*`` spans.
 """
 
 from __future__ import annotations
@@ -126,6 +134,7 @@ from nans_clip_tpu_torch.parallel import pp as pp_lib
 from nans_clip_tpu_torch.parallel.loss import clip_loss, gather_features, kd_cosine_loss
 from nans_clip_tpu_torch.parallel.mesh import check_grid
 from nans_clip_tpu_torch.parallel.tp import reduce_partial_grads
+from nans_clip_tpu_torch.utils.profiling import span
 
 LOGIT_SCALE_MAX = math.log(100.0)
 # Substrings of a reference parameter name that exempt it from weight decay
@@ -445,10 +454,18 @@ def accumulate_backward(encode: Callable, images: torch.Tensor, texts: torch.Ten
     again with a graph and its slice of the feature gradients
     backpropagated; gradients add up in ``.grad``. ``encode`` must give
     microbatch j the same dropout and masking on both calls. Returns the
-    detached loss and the metrics."""
+    detached loss and the metrics.
+
+    The spans ``train.forward`` and ``train.backward`` split the work
+    (``utils/profiling.py``): at ``accum`` <= 1 the forward and the loss,
+    then ``loss.backward()``; otherwise the feature pass and the loss are
+    the forward, and the loss's backward with the re-encoded passes the
+    backward (those passes' forwards are counted there)."""
     if accum <= 1:
-        loss, metrics = loss_fn(*encode(0, images, texts))
-        loss.backward()
+        with span("train.forward"):
+            loss, metrics = loss_fn(*encode(0, images, texts))
+        with span("train.backward"):
+            loss.backward()
         return loss.detach(), metrics
     b = images.shape[0]
     micro = b // accum
@@ -456,19 +473,21 @@ def accumulate_backward(encode: Callable, images: torch.Tensor, texts: torch.Ten
         raise ValueError(f"batch {b} not divisible by accum_freq {accum}")
     chunks = [(images[j * micro:(j + 1) * micro], texts[j * micro:(j + 1) * micro])
               for j in range(accum)]
-    with torch.no_grad():
-        feats = [encode(j, *chunk) for j, chunk in enumerate(chunks)]
-    img_f = torch.cat([f[0] for f in feats]).requires_grad_()
-    txt_f = torch.cat([f[1] for f in feats]).requires_grad_()
-    del feats
-    loss, metrics = loss_fn(img_f, txt_f)
-    loss.backward()
-    for j, chunk in enumerate(chunks):
-        sl = slice(j * micro, (j + 1) * micro)
-        pairs = [(f, g[sl]) for f, g in zip(encode(j, *chunk), (img_f.grad, txt_f.grad))
-                 if f.requires_grad]
-        if pairs:
-            torch.autograd.backward([f for f, _ in pairs], [g for _, g in pairs])
+    with span("train.forward"):
+        with torch.no_grad():
+            feats = [encode(j, *chunk) for j, chunk in enumerate(chunks)]
+        img_f = torch.cat([f[0] for f in feats]).requires_grad_()
+        txt_f = torch.cat([f[1] for f in feats]).requires_grad_()
+        del feats
+        loss, metrics = loss_fn(img_f, txt_f)
+    with span("train.backward"):
+        loss.backward()
+        for j, chunk in enumerate(chunks):
+            sl = slice(j * micro, (j + 1) * micro)
+            pairs = [(f, g[sl]) for f, g in zip(encode(j, *chunk), (img_f.grad, txt_f.grad))
+                     if f.requires_grad]
+            if pairs:
+                torch.autograd.backward([f for f, _ in pairs], [g for _, g in pairs])
     return loss.detach(), metrics
 
 
@@ -508,37 +527,43 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
 
     def step(state: TrainState, images, texts,
              generator: Union[torch.Generator, int, None] = None):
+        with span("train.step", state.step):
+            return run(state, images, texts, generator)
+
+    def run(state: TrainState, images, texts, generator):
         module, opt, sharded = state.module, state.optimizer, state.fsdp
-        resnet = module.cfg.is_resnet
-        dev = module.logit_scale.device
-        if isinstance(generator, int):
-            generator = torch.Generator().manual_seed(generator)
-        images = torch.as_tensor(images, device=dev)
-        texts = torch.as_tensor(texts, device=dev).long()
-        b = images.shape[0]
-        if b % accum:
-            raise ValueError(f"batch {b} not divisible by accum_freq {accum}")
-        micro = b // accum   # this rank's rows of a microbatch
-        rows = slice(data_index * micro, (data_index + 1) * micro)
-        # what one process draws for the global microbatch; this rank keeps
-        # its rows. No dropout from a deterministic forward, as in JAX; FLIP
-        # still draws (a ViT tower only)
-        draws = [(seed, None if keep is None else keep[rows]) for seed, keep in
-                 draw_microbatches(accum, micro * options.data,
-                                   0 if resnet else module.cfg.vision.seq_len,
-                                   0.0 if resnet else tcfg.mask_ratio, generator,
-                                   generator is not None and not options.deterministic)]
-        count = opt.param_groups[0].get("count", 0)
-        for group in opt.param_groups:
-            group["lr"] = schedule(count)
-        opt.zero_grad(set_to_none=True)
-        if sharded is not None:
-            sharded.gather()
-        logit_scale = module.logit_scale.detach().clone()
-        t_feats = teacher_features(teacher, images, accum) \
-            if tcfg.distillation and teacher is not None else None
-        if t_feats is not None:
-            t_feats = gather_features(t_feats, data_group, accum)
+        with span("train.prepare"):
+            resnet = module.cfg.is_resnet
+            dev = module.logit_scale.device
+            if isinstance(generator, int):
+                generator = torch.Generator().manual_seed(generator)
+            images = torch.as_tensor(images, device=dev)
+            texts = torch.as_tensor(texts, device=dev).long()
+            b = images.shape[0]
+            if b % accum:
+                raise ValueError(f"batch {b} not divisible by accum_freq {accum}")
+            micro = b // accum   # this rank's rows of a microbatch
+            rows = slice(data_index * micro, (data_index + 1) * micro)
+            # what one process draws for the global microbatch; this rank
+            # keeps its rows. No dropout from a deterministic forward, as in
+            # JAX; FLIP still draws (a ViT tower only)
+            draws = [(seed, None if keep is None else keep[rows]) for seed, keep in
+                     draw_microbatches(accum, micro * options.data,
+                                       0 if resnet else module.cfg.vision.seq_len,
+                                       0.0 if resnet else tcfg.mask_ratio, generator,
+                                       generator is not None and not options.deterministic)]
+            count = opt.param_groups[0].get("count", 0)
+            for group in opt.param_groups:
+                group["lr"] = schedule(count)
+            opt.zero_grad(set_to_none=True)
+            if sharded is not None:
+                sharded.gather()
+            logit_scale = module.logit_scale.detach().clone()
+        t_feats = None
+        if tcfg.distillation and teacher is not None:
+            with span("train.forward"):
+                t_feats = gather_features(teacher_features(teacher, images, accum), data_group,
+                                          accum)
 
         updated = set()   # the microbatches whose BatchNorm statistics are folded in
 
@@ -562,6 +587,27 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
             return loss, metrics
 
         loss, metrics = accumulate_backward(encode, images, texts, accum, loss_fn)
+        norm_sq = None
+        if grid is not None or sharded is not None:
+            with span("train.grad_sync"):
+                norm_sq = sync_grads(module, sharded)
+        with span("train.optimizer"):
+            if tcfg.grad_norm_clip:
+                _clip_by_global_norm([p for g in opt.param_groups for p in g["params"]],
+                                     tcfg.grad_norm_clip, norm_sq)
+            opt.step()
+            if sharded is not None:
+                sharded.release()
+            opt.param_groups[0]["count"] = count + 1
+            with torch.no_grad():
+                module.logit_scale.clamp_(0.0, LOGIT_SCALE_MAX)
+        state.step += 1
+        return state, {"loss": loss, **metrics, "logit_scale": logit_scale}
+
+    def sync_grads(module, sharded):
+        """Sum the TP partials, then average (reduce-scatter under FSDP) over
+        the data group; returns the squared global gradient norm where
+        clipping needs the ranks' parts (FSDP, pipe), else None."""
         if tp_group is not None:
             reduce_partial_grads(module.tp_partial_parameters(), tp_group)
         norm_sq = None
@@ -578,17 +624,7 @@ def make_train_step(cfg: CLIPConfig, tcfg: TrainConfig, options: ModelOptions,
             norm_sq = layers + norm_sq[1]
         elif norm_sq is not None:
             norm_sq = norm_sq.sum()
-        if tcfg.grad_norm_clip:
-            _clip_by_global_norm([p for g in opt.param_groups for p in g["params"]],
-                                 tcfg.grad_norm_clip, norm_sq)
-        opt.step()
-        if sharded is not None:
-            sharded.release()
-        opt.param_groups[0]["count"] = count + 1
-        with torch.no_grad():
-            module.logit_scale.clamp_(0.0, LOGIT_SCALE_MAX)
-        state.step += 1
-        return state, {"loss": loss, **metrics, "logit_scale": logit_scale}
+        return norm_sq
 
     return step
 

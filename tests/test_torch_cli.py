@@ -258,7 +258,12 @@ def test_profile_steps_write_a_trace(split, tmp_path):
     tmain.main(_common(split, logs, "prof") + ["--platform", "cpu", "--batch-size", "16",
                                                "--max-steps", "2", "--profile-steps", "0:1"])
     with open(os.path.join(logs, "prof", "profile", "trace.json")) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    assert events
+    names = {e.get("name") for e in events}
+    assert {"cli.train_step", "train.step", "train.prepare", "train.forward", "train.backward",
+            "train.optimizer", "model.encode_image", "model.encode_text",
+            "model.cast"} <= names, sorted(n for n in names if n and "." in n)
 
 
 def test_epochs_checkpoints_and_auto_resume(split, tmp_path):
@@ -624,7 +629,6 @@ def test_bench_prints_its_json_line(capsys):
     result = bench.main(["--device", "cpu", "--tiny-model", "--batch", "4", "--iters", "1"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line == json.loads(json.dumps(result))
-    assert {"metric", "value", "unit", "vs_baseline", "detail"} <= set(line)
+    assert set(line) == {"metric", "value", "unit", "detail"}
     assert line["unit"] == "pairs/sec" and line["value"] > 0
-    assert line["vs_baseline"] == pytest.approx(line["value"] / (1000.0 / (3.58 + 1.54)))
     assert "pct_of_bf16_peak" not in line["detail"]      # no device number from a CPU run

@@ -1393,3 +1393,42 @@ def test_graph_pool_is_renewed_after_its_graphs_are_gone(dev):
     both = aot.compile_tower(model, "text", 4)        # shares `again`'s pool
     assert torch.equal(again(x), want)
     assert both(torch.cat([x, x])).shape == (4, cfg.embed_dim)
+
+
+@pytest.mark.parametrize("host_ops", [False, True])
+def test_span_holds_its_kernel_on_the_profiler_clock(dev, host_ops):
+    """A span around one product, synchronised inside it, holds the
+    product's kernel as CUPTI stamps it: the span's host clock is the
+    profiler's, for device events too. With the device activity alone (as
+    the benchmark's train cell traces) the recorder still turns on, its
+    pool, reserved before the session, makes no event inside it, the span's
+    CUDA events read the kernel's time, and the kernel goes under the span
+    whose runtime call launched it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nans_clip_tpu_torch.profile_slice import device_ops, launch_starts, launched_by_span
+    from nans_clip_tpu_torch.utils.profiling import SpanRecorder
+
+    a = torch.randn(4096, 4096, device=dev)
+    torch.mm(a, a)
+    torch.cuda.synchronize()
+    rec = SpanRecorder(pool_events=8)
+    rec.reserve()
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
+        for _ in range(3):
+            with rec.span("card.mm"):
+                torch.mm(a, a)
+                torch.cuda.synchronize()
+    assert rec._made == 8
+    events = prof.profiler.kineto_results.events()
+    kernels = device_ops(events)
+    spans = rec.spans()
+    assert len(kernels) == len(spans) == 3, (kernels, spans)
+    for (name, start, end, _), s in zip(kernels, spans):
+        inside_us = ((start - s.start_ns) * 1e-3, (s.end_ns - end) * 1e-3)
+        assert min(inside_us) >= 0, (name, inside_us, s)
+        # the end event is stamped by the device a few microseconds after its record call
+        assert 0.5 * (end - start) * 1e-6 <= s.device_ms <= s.host_ms + 0.05, (name, start, end, s)
+    launched = launched_by_span(kernels, launch_starts(events), spans)
+    assert launched == {"card.mm": sum(end - start for _, start, end, _ in kernels)}
