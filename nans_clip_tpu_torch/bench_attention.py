@@ -50,6 +50,13 @@ same q, k, v views and key bias) and the bound: q, k, v, o, do, the key
 bias and lse read once, dq, dk and dv written once, 10 B S^2 H dh flops;
 each also replayed from a CUDA graph (``graph_ms``).
 
+``--outputs FILE`` runs the forward instead at OUTPUT_SHAPES, each from
+inputs of its own fixed seed, twice (the second call must give the same
+bits), and saves ctx and the row statistics to FILE; where FILE exists it
+compares them with it bit for bit: with ``--root`` of the parent commit
+first, then without, a schedule's change is shown to keep the kernel's
+bits.
+
 ``--root DIR`` imports ``nans_clip_tpu_torch`` from the checkout DIR (for
 example a ``git archive`` of the parent commit): run parent, change,
 change, parent in one chip call. Needs CUDA.
@@ -60,7 +67,9 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
+import zlib
 
 from nans_clip_tpu_torch.bench_gemm import (BF16_FLOPS, HBM_BYTES_PER_S, time_graph_ms, time_ms,
                                              use_checkout)
@@ -76,6 +85,16 @@ BWD_SHAPES = [("vit_b_16_train", 128, 12, 197, 64, False, 0.0),
               ("vit_h_14_train", 32, 16, 257, 80, False, 0.0),
               ("vit_l_14_336_train", 32, 16, 577, 64, False, 0.0),
               ("vit_h_width_336_train", 16, 16, 577, 80, False, 0.0)]
+# --outputs: (name, batch, heads, S, head dim, masked, dropout rate, stats): the
+# image and text forwards of the embed and train cells, ViT-H-14's, and the
+# walk's instances of 16 key tiles and of heads of 80
+OUTPUT_SHAPES = [("vit_b_16", 256, 12, 197, 64, False, 0.0, False),
+                 ("roberta_base_masked", 256, 12, 52, 64, True, 0.0, False),
+                 ("roberta_base_train_dropout", 128, 12, 52, 64, True, 0.1, True),
+                 ("vit_b_16_train", 128, 12, 197, 64, False, 0.0, True),
+                 ("vit_h_14", 32, 16, 257, 80, False, 0.0, False),
+                 ("key_tiles_16_dropout", 48, 12, 256, 64, True, 0.1, True),
+                 ("heads_of_80_masked", 256, 12, 200, 80, True, 0.0, True)]
 # chip_smoke.py phase 10's FLASH_SHAPES: (name, batch, heads, S, head dim, masked)
 FLASH_SHAPES = [("vit_b_16", 256, 12, 197, 64, False),
                 ("roberta_base_masked", 256, 12, 52, 64, True),
@@ -101,6 +120,8 @@ def main() -> None:
     mode.add_argument("--flash", action="store_true", help="#22, the flash forward, instead")
     mode.add_argument("--flash-bwd", action="store_true",
                       help="#23, the flash backward, instead")
+    mode.add_argument("--outputs", default=None,
+                      help="save the forward's outputs to this file, or compare them with it")
     ap.add_argument("--root", default=None, help="checkout to import the port from")
     args = ap.parse_args()
     if args.root:
@@ -119,6 +140,10 @@ def main() -> None:
     print(f"kernels from {attention.__module__}", flush=True)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
+    if args.outputs:
+        print(json.dumps({"bench_attention_outputs": outputs(torch, dev, args.outputs),
+                          "device": torch.cuda.get_device_name(0), "power": smi}), flush=True)
+        return
     if args.bwd or args.flash or args.flash_bwd:
         key, out = (("bench_attention_bwd", bench_bwd(torch, F, dev, g)) if args.bwd else
                     ("bench_flash_bwd", bench_flash_bwd(torch, F, dev, g)) if args.flash_bwd
@@ -150,6 +175,43 @@ def main() -> None:
         del qkv
     print(json.dumps({"bench_attention": out, "device": torch.cuda.get_device_name(0),
                       "power": smi}), flush=True)
+
+
+def outputs(torch, dev, path) -> dict:
+    """The forward's ctx and statistics at OUTPUT_SHAPES: saved to ``path``,
+    or compared bit for bit with those it holds."""
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops.attention import attention
+
+    got, out = {}, {}
+    for name, b, h, s, dh, masked, rate, stats in OUTPUT_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()))
+        qkv = torch.randn(b * s, 3 * h * dh, generator=g, device=dev).to(torch.bfloat16)
+        kb = None
+        if masked:
+            lengths = torch.randint(1, s + 1, (b,), generator=g, device=dev)
+            kb = ((torch.arange(s, device=dev)[None, :] >= lengths[:, None]).float()
+                  * -10000.0).contiguous()
+        dp = drop.Dropout(1234567, rate, drop.STREAM_ATTN, s) if rate else None
+        calls = [attention(qkv, kb, b, h, dp, stats=stats) for _ in range(2)]
+        # the bits, NaN payloads and signed zeros included: ctx, then the statistics
+        first, second = ([None if t is None else
+                          t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32).cpu()
+                          for t in (r if stats else (r, None))] for r in calls)
+        got[name] = first
+        out[name] = {"second_call_equal": all(a is None or torch.equal(a, c)
+                                              for a, c in zip(first, second))}
+        del qkv, calls
+    if os.path.exists(path):
+        saved = torch.load(path)
+        for name, bits in got.items():
+            out[name].update({f"{key}_equal": None if a is None else torch.equal(a, c)
+                              for key, a, c in zip(("ctx", "stats"), bits, saved[name])})
+    else:
+        torch.save(got, path)
+    for name, res in out.items():
+        print(f"{name}: {res}", flush=True)
+    return out
 
 
 def bench_bwd(torch, F, dev, g) -> dict:

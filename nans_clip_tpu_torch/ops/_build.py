@@ -65,10 +65,10 @@ _SIGNATURES = {
     "nans_colsum": [_P, _I, _I, _I, _I, _P, _P],
     # x (fp32), rows, cols, out, stream
     "nans_colsum_split": [_P, _I, _I, _P, _P],
-    # qkv, key_bias, ctx, stats, B, S, width, dh, scale, drop..., stream
-    "nans_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
-    # S, dh, out int[4]: the forward's launch plan
-    "nans_attention_plan": [_I, _I, ctypes.POINTER(_I)],
+    # qkv, key_bias, ctx, stats, B, S, width, dh, scale, drop..., sms, stream
+    "nans_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _I, _P],
+    # B, H, S, dh, sms, out int[7]: the forward's launch plan
+    "nans_attention_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     # qkv, dctx, key_bias, stats, dqkv32, dqkv16, B, S, width, dh, scale, drop..., stream
     "nans_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, *_DROP, _P],
     # S, dh, drop_on, out int[4]: the one-shot backward's launch plan

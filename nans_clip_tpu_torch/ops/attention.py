@@ -23,9 +23,12 @@ B, H, S]`` fp32).
 Heads are 64 or 80 wide (``gates.HEAD_DIMS``): every ViT-B/L and RoBERTa
 tower, and ViT-H.
 
-On the card, ``attention`` launches one block a (head, sample) that holds
-the head's K and V and covers all its query rows, in one pass over the keys
-up to S = 256 and two above (:func:`attention_plan`).
+On the card, ``attention`` launches one kernel in one of three forms
+(:func:`attention_plan`): up to S = 64 one block a (head, sample) that
+holds the head's K and V and covers all its query rows in one pass over the
+keys; up to S = 256 one block an SM that walks the (head, sample) units,
+their K and V staged ahead; above 256 the block a (head, sample) in two
+passes.
 
 ``attention_plain`` and ``attention_bwd_plain`` are the twins; CPU tensors
 take them.
@@ -56,7 +59,7 @@ import torch.nn.functional as F
 
 from nans_clip_tpu_torch.ops import _build, dropout as drop, gates
 from nans_clip_tpu_torch.ops.activations import mm32, upcast
-from nans_clip_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd_plain
+from nans_clip_tpu_torch.ops.layernorm import _sms, layer_norm, layer_norm_bwd_plain
 
 
 def _heads(qkv: torch.Tensor, batch: int, heads: int):
@@ -122,34 +125,60 @@ def _admit(name, qkv, key_bias, batch, heads, max_seq):
     return seq, w
 
 
-# attention.cu's forward: the one-pass instances' key tiles of 16 (a warp's
-# 16 x 16 KT scores in registers; 13 is ViT-B-16's 197 keys), and the most
-# warps a block of each form. Set by the kernel's design.
+# attention.cu's forward (fwd::plan): the instances' key tiles of 16 (13 is
+# ViT-B-16's 197 keys); 4 is a block a (head, sample) of up to 4 warps, four
+# blocks an SM; 8, 13 and 16 the walk, one block an SM of up to 16 warps (12
+# at heads of 80) with up to 8 stages after a 256-byte header; above 16 key
+# tiles two passes, a block a (head, sample) of up to 8 warps. Set by the
+# kernel's design.
 ATTN_ONE_PASS_TILES = (4, 8, 13, 16)
-ATTN_MAX_WARPS = {True: 4, False: 8}
+ATTN_MAX_WARPS = {4: 4, 0: 8}
+ATTN_WALK_WARPS = {64: 16, 80: 12}
+ATTN_MAX_STAGES = 8
+ATTN_HEADER = 256
 
 
-def attention_plan(batch: int, seq: int, heads: int, dh: int) -> dict:
-    """The forward kernel's launch plan, as ``nans_attention_plan`` computes
-    it: a block a (head, sample) (``grid``) holds the head's K and V (``seq``
-    padded to ``strips`` x 16 rows) and covers its ``strips`` strips of 16
-    query rows with ``warps`` warps, warp ``i`` taking strips ``i``, ``i +
-    warps``, ...; one pass over the keys (the instance of ``key_tiles``) up
-    to 16 key tiles, two above (``key_tiles`` 0). Fewer warps than the most
-    where that leaves the rounds as many, or where shared memory runs
-    short."""
+def attention_plan(batch: int, seq: int, heads: int, dh: int, sms: int = gates.H100_SMS) -> dict:
+    """The forward kernel's launch plan on ``sms`` SMs, as
+    ``nans_attention_plan`` computes it. ``seq`` is padded to ``strips`` x
+    16 rows; ``key_tiles`` names the instance.
+
+    Up to 4 key tiles and above 16 (``key_tiles`` 0: two passes), a block a
+    (head, sample) (``grid`` (heads, batch)) holds the head's K and V and
+    covers its strips of 16 query rows with ``warps`` warps, warp ``i``
+    taking strips ``i``, ``i + warps``, ... in ``rounds`` rounds: fewer warps
+    than the most where that leaves the rounds as many, or where shared
+    memory runs short. Up to 16 key tiles otherwise, the walk: ``blocks`` =
+    min(batch x heads, sms) blocks (``grid``), one an SM, block ``j`` taking
+    the (head, sample) units ``j``, ``j + blocks``, ... (``units_per_block``
+    at most), unit ``u`` being head ``u % heads`` of sample ``u // heads``;
+    a unit's K, V and key bias are staged into one of ``stages`` stages,
+    as many as shared memory holds beside each warp's two 16-row Q buffers
+    (at most 8, at most the units a block takes), and the block's warps
+    draw its strips in order."""
     s_pad = -(-seq // 16) * 16
     strips = s_pad // 16
-    one_pass = strips <= ATTN_ONE_PASS_TILES[-1]
-    key_tiles = next(t for t in ATTN_ONE_PASS_TILES if t >= strips) if one_pass else 0
-    fixed = 2 * s_pad * dh * 2 + s_pad * 4           # K, V, key bias
-    per_warp = 2 * 16 * dh * 2                       # two 16-row buffers
-    most = min(ATTN_MAX_WARPS[one_pass], (gates.SMEM_PER_BLOCK - fixed) // per_warp)
+    key_tiles = next((t for t in ATTN_ONE_PASS_TILES if t >= strips), 0)
+    units = batch * heads
+    qbuf = 2 * 16 * dh * 2                            # a warp's two 16-row Q buffers
+    if key_tiles > 4:
+        blocks = min(units, sms)
+        per_block = -(-units // blocks)
+        warps = min(ATTN_WALK_WARPS[dh], per_block * strips)
+        stage = 2 * s_pad * dh * 2 + s_pad * 4        # K, V, key bias
+        stages = min(ATTN_MAX_STAGES, per_block,
+                     (gates.SMEM_PER_BLOCK - ATTN_HEADER - warps * qbuf) // stage)
+        return dict(key_tiles=key_tiles, warps=warps, threads=32 * warps,
+                    smem=ATTN_HEADER + stages * stage + warps * qbuf, strips=strips,
+                    grid=(blocks,), blocks=blocks, stages=stages, blocks_per_sm=1,
+                    units_per_block=per_block)
+    fixed = 2 * s_pad * dh * 2 + s_pad * 4            # K, V, key bias
+    most = min(ATTN_MAX_WARPS[key_tiles], (gates.SMEM_PER_BLOCK - fixed) // qbuf)
     rounds = -(-strips // most)
     warps = -(-strips // rounds)
     return dict(key_tiles=key_tiles, warps=warps, threads=32 * warps,
-                smem=fixed + warps * per_warp, strips=strips, rounds=rounds,
-                grid=(heads, batch))
+                smem=fixed + warps * qbuf, strips=strips, rounds=rounds, grid=(heads, batch),
+                blocks=units, stages=0, blocks_per_sm=4 if key_tiles == 4 else 1)
 
 
 def attention(qkv: torch.Tensor, key_bias: Optional[torch.Tensor],
@@ -157,11 +186,12 @@ def attention(qkv: torch.Tensor, key_bias: Optional[torch.Tensor],
               stats: bool = False):
     """CPU tensors take :func:`attention_plain`; CUDA tensors launch the
     kernel (bf16 qkv, head dim 64 or 80, S <= ``gates.MAX_SEQ``; launched as
-    :func:`attention_plan` says). With ``stats``, returns (ctx, stats): each
-    query row's softmax max and sum, fp32 ``[2, B, H, S]``, which
-    :func:`attention_bwd` takes (the kernel's instance without them, which
-    inference runs, stores nothing). While a program is exported it is the
-    operator ``nans_clip::attention`` (``ops/library.py``)."""
+    :func:`attention_plan` says on the device's SMs). With ``stats``,
+    returns (ctx, stats): each query row's softmax max and sum, fp32 ``[2,
+    B, H, S]``, which :func:`attention_bwd` takes (the kernel's instance
+    without them, which inference runs, stores nothing). While a program is
+    exported it is the operator ``nans_clip::attention``
+    (``ops/library.py``)."""
     if torch.compiler.is_exporting():
         gates.admit(not drop.active(dropout) and not stats,
                     "attention: an exported forward takes no dropout and no statistics")
@@ -171,7 +201,8 @@ def attention(qkv: torch.Tensor, key_bias: Optional[torch.Tensor],
         return attention_plain(qkv, key_bias, batch, heads, dropout, stats)
     seq, w = _admit("attention", qkv, key_bias, batch, heads, gates.MAX_SEQ)
     dh = w // heads
-    plan = attention_plan(batch, seq, heads, dh)
+    sms = _sms(qkv.device.index if qkv.device.index is not None else torch.cuda.current_device())
+    plan = attention_plan(batch, seq, heads, dh, sms)
     gates.admit(plan["smem"] <= gates.SMEM_PER_BLOCK, f"attention: plan {plan}")
     ctx = torch.empty((qkv.shape[0], w), dtype=qkv.dtype, device=qkv.device)
     st = torch.empty((2, batch, heads, seq), dtype=torch.float32, device=qkv.device) \
@@ -179,7 +210,7 @@ def attention(qkv: torch.Tensor, key_bias: Optional[torch.Tensor],
     err = _build.library().nans_attention(
         qkv.data_ptr(), None if key_bias is None else key_bias.data_ptr(), ctx.data_ptr(),
         None if st is None else st.data_ptr(), batch, seq, w, dh, 1.0 / math.sqrt(dh),
-        *drop.kernel_args(dropout), _build.stream_ptr(qkv.device))
+        *drop.kernel_args(dropout), sms, _build.stream_ptr(qkv.device))
     _build.check(err, "nans_attention")
     attention.launches += 1
     return (ctx, st) if stats else ctx

@@ -63,10 +63,13 @@ KERNEL_DTYPE = torch.bfloat16
 # attention.cu and attention.cuh: the kernels are templates over the head
 # dim's 16-wide k-steps, instanced for heads of 64 (every ViT-B/L and
 # RoBERTa tower) and 80 (ViT-H: five k-steps, ten n-tiles of 8). The
-# forward's block holds a head's K and V in shared memory, dh bf16 a row
-# (swizzled, unpadded), and two 16-row buffers a warp: S <= 640 keeps it at
-# 227,840 bytes at dh 80 with 4 warps (``ops/attention.py::attention_plan``)
-# of the card's 232,448 a block (SMEM_PER_BLOCK). Set by the kernel's design.
+# forward holds a head's K and V in shared memory, dh bf16 a row (swizzled,
+# unpadded), and two 16-row Q buffers a warp: above 256 keys a block a
+# (head, sample), where S <= 640 keeps it at 227,840 bytes at dh 80 with 4
+# warps; up to 256 the walking block's stages (K, V and key bias of a unit
+# each) take what the warps' buffers leave of the card's 232,448 a block
+# (SMEM_PER_BLOCK; ``ops/attention.py::attention_plan``). Set by the
+# kernel's design.
 HEAD_DIMS = (64, 80)
 MAX_SEQ = 640
 SMEM_PER_BLOCK = 232448

@@ -1052,7 +1052,7 @@ def test_attention_forward_matches_twin(dev, s, dh):
     max|twin|: without a key bias, with padding masked (one sample's keys
     all masked), and with probability dropout 0.1 and the mask; the same
     bits on a second call; and the launch plan as nans_attention_plan
-    reports it."""
+    reports it, every field, at these units and at ViT-B-16's batch 256."""
     import ctypes
     from nans_clip_tpu_torch.ops import _build
     from nans_clip_tpu_torch.ops import dropout as drop
@@ -1068,10 +1068,46 @@ def test_attention_forward_matches_twin(dev, s, dh):
         got = attention(qkv, key_bias, b, heads, dp)
         _close(got, attention_plain(qkv, key_bias, b, heads, dp), 1)
         assert torch.equal(got, attention(qkv, key_bias, b, heads, dp))
-    out = (ctypes.c_int * 4)()
-    assert _build.library().nans_attention_plan(s, dh, out) == 0
-    p = attention_plan(b, s, heads, dh)
-    assert list(out) == [p["key_tiles"], p["warps"], p["smem"], p["strips"]]
+    out = (ctypes.c_int * 7)()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for batch, h in ((b, heads), (256, 12)):
+        assert _build.library().nans_attention_plan(batch, h, s, dh, sms, out) == 0
+        p = attention_plan(batch, s, h, dh, sms)
+        assert list(out) == [p["key_tiles"], p["warps"], p["smem"], p["strips"], p["blocks"],
+                             p["stages"], p["blocks_per_sm"]]
+
+
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("s", [100, 197, 256])
+def test_attention_walk_over_many_units_matches_twin(dev, s, dh):
+    """The walk (8 to 16 key tiles) where each block takes many (head,
+    sample) units through several stages, refilled as units finish (more
+    units than the card has SMs, some blocks one unit more than others):
+    ctx against its twin within 1 bf16 ulp of max|twin|, masked, with
+    probability dropout 0.1 and the statistics; the same bits on a second
+    call and with a stream of other work before it."""
+    from nans_clip_tpu_torch.ops import dropout as drop
+    from nans_clip_tpu_torch.ops.attention import attention_plain, attention_plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b, heads = 2 * sms // 3 + 1, 6
+    p = attention_plan(b, s, heads, dh, sms)
+    assert p["key_tiles"] > 4 and p["units_per_block"] >= 4 and p["stages"] >= 2
+    r = _rnd(dev, 7 * s + dh)
+    qkv = r(b * s, 3 * heads * dh)
+    lengths = torch.randint(1, s + 1, (b,), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(s))
+    kb = ((1.0 - (torch.arange(s, device=dev)[None] < lengths[:, None]).float())
+          * -10000.0).contiguous()
+    spec = drop.Dropout(11, 0.1, drop.STREAM_ATTN, s)
+    ctx, st = attention(qkv, kb, b, heads, spec, stats=True)
+    _close(ctx, attention_plain(qkv, kb, b, heads, spec), 1)
+    _, want_st = attention_plain(qkv, kb, b, heads, spec, stats=True)
+    for i in (0, 1):
+        assert _rel_err(st[i], want_st[i]) <= 1e-6
+    r(4096, 4096).float().sum()   # other work ahead on the stream
+    again, st2 = attention(qkv, kb, b, heads, spec, stats=True)
+    assert torch.equal(again, ctx) and torch.equal(st2, st)
+    assert torch.equal(attention(qkv, kb, b, heads, spec), ctx)
 
 
 @pytest.mark.parametrize("dh", [64, 80])

@@ -212,41 +212,100 @@ def test_wgrad_splits_is_a_function_of_the_shape(m, n, k):
     assert p["splits"] == s
 
 
+def _attention_work(p, batch, heads):
+    """Each (unit, strip) the plan's blocks and warps take, in taking order:
+    a unit is head ``u % heads`` of sample ``u // heads``. The walk's block
+    ``j`` takes units ``j``, ``j + blocks``, ... and its warps draw the
+    block's strips in order (unit by unit); a block a (head, sample) gives
+    warp ``i`` strips ``i``, ``i + warps``, ..."""
+    units, strips = batch * heads, p["strips"]
+    if p["key_tiles"] > 4:
+        return [(u, g % strips) for j in range(p["blocks"])
+                for u_k, u in enumerate(range(j, units, p["blocks"]))
+                for g in range(u_k * strips, (u_k + 1) * strips)]
+    return [(h + heads * b, t) for b in range(batch) for h in range(heads)
+            for w in range(p["warps"]) for t in range(w, strips, p["warps"])]
+
+
+def _attention_fits_an_sm(p, dh):
+    """The plan's blocks an SM fit its shared memory (a block's 1 KB
+    reserve each) and registers (the walk at 128 a thread at dh 64 and 168
+    at dh 80, the block a (head, sample) of 4 key tiles at 128, four an
+    SM)."""
+    regs = 128 if p["key_tiles"] <= 4 or dh == 64 else 168
+    return (p["smem"] <= gates.SMEM_PER_BLOCK
+            and p["blocks_per_sm"] * (p["smem"] + 1024) <= gates.SMEM_PER_SM
+            and (p["key_tiles"] == 0 or p["blocks_per_sm"] * p["threads"] * regs
+                 <= gates.REGS_PER_SM))
+
+
 @pytest.mark.parametrize("name,tp", list(_cases()))
 def test_attention_plan_covers_every_head(name, tp):
     seq, width, heads, _ = _tower(name)
     dh = width // heads
     assert dh in gates.HEAD_DIMS and seq <= gates.MAX_SEQ
     for batch in BATCHES:
-        p = attention_plan(batch, seq, heads // tp, dh)
-        assert p["grid"] == (heads // tp, batch)   # a block a (head, sample)
-        assert p["smem"] <= gates.SMEM_PER_BLOCK
+        h = heads // tp
+        p = attention_plan(batch, seq, h, dh)
         assert p["strips"] * 16 >= seq > (p["strips"] - 1) * 16
-        # warp i takes strips i, i + warps, ...: each strip once, and every
-        # warp at least one (each passes the block barrier once)
-        taken = sorted(s for w in range(p["warps"]) for s in range(w, p["strips"], p["warps"]))
-        assert taken == list(range(p["strips"])) and 1 <= p["warps"] <= p["strips"]
-        assert p["rounds"] == -(-p["strips"] // p["warps"])
-        if p["key_tiles"]:
+        assert _attention_fits_an_sm(p, dh)
+        # every (head, sample) unit taken once, and every strip of it once
+        work = _attention_work(p, batch, h)
+        assert sorted(work) == [(u, t) for u in range(batch * h) for t in range(p["strips"])]
+        assert p["blocks"] == (min(batch * h, gates.H100_SMS) if p["key_tiles"] > 4
+                               else batch * h)
+        if p["key_tiles"] > 4:
+            # the walk: one block an SM; its warps and stages as many as its
+            # units use, the stages in what the warps' Q buffers leave
             assert p["key_tiles"] in ATTN_ONE_PASS_TILES and p["key_tiles"] >= p["strips"]
-            assert p["warps"] <= 4
+            assert p["grid"] == (p["blocks"],) and p["blocks_per_sm"] == 1
+            assert p["units_per_block"] == -(-batch * h // p["blocks"])
+            assert 1 <= p["warps"] <= min(16 if dh == 64 else 12,
+                                          p["units_per_block"] * p["strips"])
+            assert 1 <= p["stages"] <= min(8, p["units_per_block"])
         else:
-            assert p["strips"] > ATTN_ONE_PASS_TILES[-1] and p["warps"] <= 8
+            # a block a (head, sample); every warp at least one strip (each
+            # passes the block barrier once)
+            assert p["grid"] == (h, batch) and p["stages"] == 0
+            assert 1 <= p["warps"] <= p["strips"]
+            assert p["rounds"] == -(-p["strips"] // p["warps"])
+            if p["key_tiles"]:
+                assert p["key_tiles"] == 4 >= p["strips"] and p["warps"] <= 4
+                assert p["blocks_per_sm"] == 4
+            else:
+                assert p["strips"] > ATTN_ONE_PASS_TILES[-1] and p["warps"] <= 8
 
 
 @pytest.mark.parametrize("seq", [1, 15, 16, 17, 52, 197, 256, 257, 577, 640])
 @pytest.mark.parametrize("dh", gates.HEAD_DIMS)
 def test_attention_plan_fits_every_admitted_length(seq, dh):
-    """Every S the wrapper admits, at both head dims: the one-pass form up
-    to 256 keys, two passes above, shared memory within a block's (640 at
-    dh 80 is the tightest: 227,840 bytes with 4 warps)."""
-    p = attention_plan(2, seq, 4, dh)
-    s_pad = p["strips"] * 16
-    assert p["smem"] == 2 * s_pad * dh * 2 + s_pad * 4 + p["warps"] * 2 * 16 * dh * 2
-    assert p["smem"] <= gates.SMEM_PER_BLOCK
-    assert (p["key_tiles"] > 0) == (seq <= 256)
-    assert p["rounds"] * p["warps"] >= p["strips"] > (p["rounds"] - 1) * p["warps"]
-    if (seq, dh) == (640, 80):
-        assert p["smem"] == 227840 and p["warps"] == 4
-    if seq == 197:
-        assert p["key_tiles"] == 13 and p["warps"] == 4
+    """Every S the wrapper admits, at both head dims, at a few units (one a
+    block) and at many (24 a block): a block a (head, sample) in one pass up
+    to 64 keys and in two above 256 (640 at dh 80 is the tightest: 227,840
+    bytes with 4 warps), the walk between; shared memory within a block's
+    and the plan's blocks within an SM's."""
+    for batch, heads in ((2, 4), (256, 12)):
+        p = attention_plan(batch, seq, heads, dh)
+        s_pad = p["strips"] * 16
+        qbuf = p["warps"] * 2 * 16 * dh * 2
+        assert _attention_fits_an_sm(p, dh)
+        assert (p["key_tiles"] > 0) == (seq <= 256)
+        assert (p["key_tiles"] > 4) == (64 < seq <= 256)
+        assert sorted(_attention_work(p, batch, heads)) == [
+            (u, t) for u in range(batch * heads) for t in range(p["strips"])]
+        if p["key_tiles"] > 4:
+            stage = 2 * s_pad * dh * 2 + s_pad * 4
+            assert p["smem"] == 256 + p["stages"] * stage + qbuf
+            # as many stages as fit, up to 8 and the block's units
+            assert (p["stages"] == min(8, p["units_per_block"])
+                    or p["smem"] + stage > gates.SMEM_PER_BLOCK)
+        else:
+            assert p["smem"] == 2 * s_pad * dh * 2 + s_pad * 4 + qbuf
+            assert p["rounds"] * p["warps"] >= p["strips"] > (p["rounds"] - 1) * p["warps"]
+        if (seq, dh) == (640, 80):
+            assert p["smem"] == 227840 and p["warps"] == 4
+        if seq == 197:
+            assert p["key_tiles"] == 13
+            if (batch, dh) == (256, 64):
+                # ViT-B-16 at batch 256: 16 warps, three units staged
+                assert p["warps"] == 16 and p["stages"] == 3 and p["blocks"] == gates.H100_SMS
